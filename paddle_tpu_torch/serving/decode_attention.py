@@ -28,9 +28,11 @@ is no fallback that would hide the kernel on the card.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from paddle_tpu_torch.kernels import build
 from paddle_tpu_torch.ops.attention import DEFAULT_MASK_VALUE
@@ -49,6 +51,8 @@ QUANT_DRIFT_BOUND = 0.05
 # of its columns) and the query heads per KV head it packs per block
 KERNEL_HEAD_DIM = 128
 KERNEL_GROUPS = (1, 2, 4, 8)
+# tokens per online-softmax tile of the CUDA kernel (KT in the source)
+KERNEL_TILE_TOKENS = 32
 
 _PAGE_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -104,7 +108,8 @@ def attention_path(head_dim: int, page_size: int, *, num_heads: int,
 def ragged_paged_attention_reference(q, k_pages, v_pages, page_table,
                                      kv_lens, row_seq, qpos, *,
                                      k_scale=None, v_scale=None,
-                                     sm_scale: Optional[float] = None):
+                                     sm_scale: Optional[float] = None,
+                                     round_p_tile: Optional[int] = None):
     """Gather-then-mask version of the ragged kernel.
 
     q: [T, H, D]; k_pages/v_pages: [num_pages, page, H_kv, D] (one
@@ -112,7 +117,16 @@ def ragged_paged_attention_reference(q, k_pages, v_pages, page_table,
     page, H_kv]); page_table: [S, Pm]; kv_lens: [S] — valid cached tokens
     per sequence after this step's writes; row_seq: [T]; qpos: [T] (-1 =
     padded row).  Returns [T, H, D] in q's dtype.  Padded rows return an
-    arbitrary finite value; callers never read them."""
+    arbitrary finite value; callers never read them.
+
+    ``round_p_tile`` mirrors a kernel's rounding on bf16 pages, which
+    this version otherwise leaves out: the kernel takes the online
+    softmax over tiles of this many tokens, casts each tile's
+    unnormalised probabilities (against the running maximum) to bf16
+    before the PV product and keeps the normaliser in f32
+    (``p.astype(vb.dtype)`` of the TPU kernel, whose tile is the page;
+    :data:`KERNEL_TILE_TOKENS` for the CUDA kernel).  It changes nothing
+    for f32 or int8 pages."""
     t, h, d = q.shape
     _, page, kvh, _ = k_pages.shape
     pm = page_table.shape[1]
@@ -136,8 +150,21 @@ def ragged_paged_attention_reference(q, k_pages, v_pages, page_table,
     s = torch.einsum("thd,tkhd->thk", q.float(), k) * sm_scale
     s = torch.where(live[:, None, :], s,
                     torch.full_like(s, DEFAULT_MASK_VALUE))
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("thk,tkhd->thd", p, v)
+    if round_p_tile and v_pages.dtype == torch.bfloat16:
+        n, tile = s.shape[-1], int(round_p_tile)
+        nt = -(-n // tile)
+        tile_max = F.pad(s, (0, nt * tile - n), value=-math.inf).reshape(
+            t, h, nt, tile).amax(dim=-1)
+        run = torch.cummax(tile_max, dim=-1).values          # [T, H, nt]
+        m_tok = run.repeat_interleave(tile, dim=-1)[..., :n]
+        e = torch.exp(s - m_tok)             # P as each tile computes it
+        w = torch.exp(m_tok - run[..., -1:])  # the later tiles' rescaling
+        out = torch.einsum("thk,tkhd->thd",
+                           e.to(torch.bfloat16).float() * w, v)
+        out = out / (e * w).sum(dim=-1)[..., None]
+    else:
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("thk,tkhd->thd", p, v)
     return out.to(q.dtype)
 
 

@@ -23,13 +23,13 @@ Host logic is the JAX engine's: admission with prefix caching
 (refcount-shared full pages, copy-on-write fork on a full-cover hit),
 chunked prefill, youngest-first preemption, queue/total deadlines with
 unmeetable-deadline shedding, ``cancel``, a finite-logits guard that
-fails only the poisoned slot, transient-error retry, a progress
-watchdog, and free-list conservation after every drain.  Greedy choice
-runs on host numpy (``np.argmax``), so ties break as in the JAX package.
+fails only the poisoned slot, a progress watchdog, and free-list
+conservation after every drain.  Greedy choice runs on host numpy
+(``np.argmax``), so ties break as in the JAX package.
 
 Not ported yet (see ROADMAP.md): tensor parallelism, speculative
-decoding, the fault plan, the host-RAM tier, page migration, tracing and
-the compiled-path auditors.
+decoding, the fault plan and its step retry, the host-RAM tier, page
+migration, tracing and the compiled-path auditors.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ from paddle_tpu_torch.platform.flags import FLAGS
 from paddle_tpu_torch.serving.decode_attention import (
     BLOCK_ROWS, _ragged_reference_blocked, attention_path,
     expand_decode_rows, ragged_paged_attention)
-from paddle_tpu_torch.serving.faults import InjectedDeviceError, PageLeakError
+from paddle_tpu_torch.serving.faults import PageLeakError
 from paddle_tpu_torch.serving.kv_cache import (NULL_PAGE, KVPages,
                                                PagedKVConfig, PagePool,
                                                PrefixCache, append_token,
@@ -216,7 +216,6 @@ class ServingEngine:
                  kv_dtype=None,
                  use_kernel: Optional[bool] = None,
                  watchdog_ticks: Optional[int] = None,
-                 decode_retries: int = 2,
                  prefill_chunk: Optional[int] = None,
                  time_fn: Optional[Callable[[], float]] = None,
                  device: DeviceLike = None):
@@ -241,7 +240,6 @@ class ServingEngine:
         # 0 = disabled, for both
         self.queue_deadline_s = float(FLAGS.serving_queue_deadline_s) or None
         self.watchdog_ticks = int(watchdog_ticks)
-        self.decode_retries = max(0, int(decode_retries))
         self._time = time_fn or time.monotonic
         self.kv_cfg = PagedKVConfig(
             num_layers=model.num_layers, num_heads=model.num_heads,
@@ -482,7 +480,7 @@ class ServingEngine:
                    if r.status is RequestStatus.RUNNING
                    and not r.prefilling and r.generated]
         if running or chunks:
-            self._step_with_retry(running, chunks, total_rows)
+            self._do_step(running, chunks, total_rows)
         self._prev_tick_busy = (bool(running) or bool(admitted) or
                                 bool(prefilling))
         self._watchdog_sweep(tick)
@@ -599,22 +597,6 @@ class ServingEngine:
                     and now + req.tokens_remaining * self._tick_dur_ema
                     > req.deadline_at):
                 self._finish(req, RequestStatus.REJECTED, now, shed=True)
-
-    def _step_with_retry(self, running: List[Request], chunks,
-                         total_rows: int) -> None:
-        # only InjectedDeviceError is transient: it is raised before the
-        # step runs, while a failure mid-step may have updated the pool in
-        # place and cannot be replayed
-        attempt = 0
-        while True:
-            try:
-                self._do_step(running, chunks, total_rows)
-                return
-            except InjectedDeviceError:
-                attempt += 1
-                if attempt > self.decode_retries:
-                    return   # tick lost; the watchdog counts the stall
-                self.metrics.on_retry()
 
     def _watchdog_sweep(self, tick: int) -> None:
         if self.watchdog_ticks <= 0:

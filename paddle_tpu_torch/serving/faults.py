@@ -8,8 +8,9 @@ __all__ = ["InjectedDeviceError", "ManualClock", "PageLeakError"]
 
 
 class InjectedDeviceError(RuntimeError):
-    """A transient device failure the engine's tick retry absorbs (raised
-    by test harnesses standing in for a step that dies before it runs)."""
+    """A transient device failure, raised by the seeded fault plan before
+    a step runs.  The plan and the engine's step retry that absorbs it come
+    with a later slice; this slice's engine does not catch it."""
 
 
 class PageLeakError(AssertionError):

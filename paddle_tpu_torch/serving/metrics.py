@@ -34,7 +34,6 @@ class ServingMetrics:
         self.cancelled = 0
         self.failed = 0
         self.shed = 0                 # early-rejected: deadline unmeetable
-        self.retries = 0              # step retries (transient errors)
         self.preemptions = 0
         self.ticks = 0
         self.tokens_generated = 0
@@ -110,9 +109,6 @@ class ServingMetrics:
     def on_shed(self) -> None:
         self.shed += 1
 
-    def on_retry(self) -> None:
-        self.retries += 1
-
     def on_preempt(self, n: int) -> None:
         self.preemptions += n
 
@@ -184,7 +180,6 @@ class ServingMetrics:
             "requests_failed": self.failed,
             "requests_shed": self.shed,
             "deadline_miss_rate": round(self.deadline_miss_rate(), 4),
-            "retries": self.retries,
             "preemptions": self.preemptions,
             "ticks": self.ticks,
             "queue_depth": self.queue_depth,

@@ -1,16 +1,20 @@
 """Where the serving step's time goes on the card.
 
-Serves the full-width DecoderLM of ``chip_smoke.py`` (vocab 32768, d 2048,
-8 layers, 16 heads; random weights from seed 0; engine at the flag
-defaults with a 129-page f32 pool) on 8 requests of 96-896 prompt tokens
-and 32 new tokens each, in two windows: from submission until every
-prefill is done (steps that carry prefill chunks) and the decode-only
-rest.  The workload runs twice on fresh engines: unprofiled for the host
-wall time of each window (ending in a synchronize), then under
-``torch.profiler`` for the kernels.  For each window it prints one JSON
-line: wall time, device busy time (sum of CUDA kernel times), idle
-share, and device time grouped into the ragged attention kernel, matrix
-products and everything else, plus the top kernels.
+Serves the workload of ``chip_smoke.py`` (``serve_workload``: the
+full-width DecoderLM with random weights, the engine at the flag
+defaults with a 129-page f32 pool, eight requests of 96-896 prompt
+tokens, one of them sharing a 512-token prefix served from the prefix
+cache, 32 new tokens each) after the same warm-up, in two windows: from
+submission until every prefill is done (steps that carry prefill chunks)
+and the decode-only rest.  The workload runs twice on fresh engines:
+unprofiled for the host wall time of each window (ending in a
+synchronize), then under ``torch.profiler`` for the kernels (the
+profiler's own overhead would swamp the wall time).  Both passes run the
+same deterministic steps.  For each window it prints one JSON line: wall
+time, device busy time (sum of CUDA kernel times of the profiled pass),
+``idle_share`` = 1 - busy / wall of the unprofiled pass, and device time
+grouped into the ragged attention kernel, matrix products and everything
+else, plus the top kernels.
 
 Run from the repository root on a machine with one GPU::
 
@@ -21,15 +25,14 @@ from __future__ import annotations
 
 import contextlib
 import json
+import subprocess
 import sys
 import time
 
-import numpy as np
 import torch
 
-MODEL = dict(vocab_size=32768, num_layers=8, num_heads=16, head_dim=128,
-             ffn_mult=4, max_positions=1024)
-PROMPT_LENS = (96, 200, 350, 576, 640, 777, 896, 642)
+from paddle_tpu_torch.tools.serve_workload import (Workload, build_model,
+                                                   make_engine, warm_up)
 
 
 def _group(name: str) -> str:
@@ -51,21 +54,14 @@ def _kernels(prof):
             if e.device_type == DeviceType.CUDA]
 
 
-def _serve(eng, prompts, profile: bool):
+def _serve(eng, profile: bool):
     """The workload in two windows (until every prefill is done, then
     the decode-only rest).  Returns per window the host wall time (ending
     in a synchronize) and, when profiling, the kernels."""
-    sched = eng.scheduler
-    for p in prompts:
-        eng.submit(p, max_tokens=32)
-
-    def prefill_done():
-        return not sched.queue and not any(
-            r.prefilling for r in sched.running_requests())
-
+    wl = Workload(eng)
     out = []
-    for label, until in (("prefill_carrying", prefill_done),
-                         ("decode_only", lambda: not eng.has_work)):
+    for label, until in (("prefill_carrying", lambda: wl.prefill_done),
+                         ("decode_only", lambda: wl.done)):
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         steps = 0
@@ -74,7 +70,7 @@ def _serve(eng, prompts, profile: bool):
         with torch.profiler.profile(activities=acts, acc_events=True) \
                 if profile else contextlib.nullcontext() as prof:
             while not until():
-                eng.step()
+                wl.step()
                 steps += 1
             torch.cuda.synchronize()
         out.append({"window": label, "steps": steps,
@@ -88,32 +84,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_serve: needs a CUDA device", file=sys.stderr)
         return 2
-    from paddle_tpu_torch.convert import decoder_lm_from_numpy, \
-        init_numpy_params
-    from paddle_tpu_torch.serving import DecoderLM, ServingEngine
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    model = DecoderLM(**MODEL, device=dev)
-    decoder_lm_from_numpy(init_numpy_params(model, 0), model)
-
-    def engine():
-        return ServingEngine(model, eos_id=-1, num_pages=129,
-                             max_pages_per_seq=8, device=dev)
-
-    warm = engine()
-    for n in (300, 20):                      # warm-up: CUDA/cuBLAS init
-        warm.submit(list(range(2, 2 + n)), max_tokens=4)
-    warm.run()
-    rng = np.random.default_rng(1)
-    prompts = [rng.integers(2, MODEL["vocab_size"], n).tolist()
-               for n in PROMPT_LENS]
-    # wall time from an unprofiled pass (the profiler's own overhead
-    # would swamp it), kernel time from a profiled pass of the same
-    # deterministic workload on a fresh engine
-    timed = _serve(engine(), prompts, profile=False)
-    profiled = _serve(engine(), prompts, profile=True)
+    model = build_model(dev)
+    warm_up(model, dev)
+    timed = _serve(make_engine(model, dev), profile=False)
+    profiled = _serve(make_engine(model, dev), profile=True)
     for t, p in zip(timed, profiled):
         busy = sum(us for _, us, _ in p["kernels"]) / 1e3
         groups = {}
@@ -128,7 +105,12 @@ def main() -> int:
             "device_ms_by_group": groups,
             "top_kernels": [{"name": n[:90], "ms": us / 1e3, "count": c}
                             for n, us, c in top]}), flush=True)
-    print(json.dumps({"device": torch.cuda.get_device_name(0)}), flush=True)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "nvidia_smi": card}), flush=True)
     return 0
 
 

@@ -7,9 +7,11 @@ both packages; only real rows (qpos >= 0) are compared — padded rows are
 arbitrary by contract.
 
 Tolerances: 2e-5 abs+rel for f32 math on both sides (the two libraries
-sum in different orders); bf16 pages against the Pallas kernel at 2e-2,
-because the kernel rounds the softmax probabilities to bf16 before the PV
-product and the plain version does not.
+sum in different orders); bf16 pages against the Pallas kernel at 2e-2
+for the plain version, which does not round the softmax probabilities to
+bf16 before the PV product as the kernel does, and at 2e-5 for the plain
+version with ``round_p_tile`` set to the page, which rounds them as the
+kernel does.
 
 The CUDA kernel itself runs only on the card: its tests are in
 ``tests/test_torch_kernels_cuda.py``.
@@ -223,3 +225,20 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         tda.ragged_paged_attention_kernel(*_torch(c))
     assert tda.ragged_paged_attention_kernel.launches == before
 
+
+
+@pytest.mark.parametrize("case", range(len(MIXED_CASES)))
+def test_round_p_plain_pins_pallas_bf16_rounding(case):
+    rng = np.random.RandomState(20 + case)
+    c = _pages_as(_build_mixed(rng, MIXED_CASES[case], 2, 4), "bfloat16")
+    real = c["qpos"] >= 0
+    got = tda.ragged_paged_attention_reference(
+        *_torch(c), round_p_tile=PAGE).numpy()
+    ker = np.asarray(jda._ragged_pallas(
+        *_jax(c)[:3], None, None, *_jax(c)[3:], float(D) ** -0.5, True))
+    np.testing.assert_allclose(got[real], ker[real], **F32_TOL)
+    # f32 pages: the option changes nothing
+    f = _build_mixed(rng, MIXED_CASES[case], 2, 4)
+    np.testing.assert_array_equal(
+        tda.ragged_paged_attention_reference(*_torch(f), round_p_tile=PAGE),
+        tda.ragged_paged_attention_reference(*_torch(f)))
