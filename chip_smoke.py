@@ -18,12 +18,31 @@ checkout of the repository).  Phases, each fatal on failure:
    chunked prefill mixed with decode and a shared 512-token prefix; the
    run must drain with page conservation, launch the kernel once per
    layer per step, and match the port's own greedy reference;
-5. int8 serve: a short serve on an int8 pool plus the QUANT-DRIFT check.
+5. int8 serve: a short serve on an int8 pool plus the QUANT-DRIFT check;
+6. flash_kernels: the flash-attention forward, dK/dV and dQ kernels
+   against their plain PyTorch versions on the same inputs: the training
+   path's q/k/v [1, 8192, 16, 128] bf16 with 8 causal segments of 1024,
+   ragged segments with padding as the feeder packs them, f32 causal
+   segments at a smaller S (head dims 128 and 64), non-causal
+   cross-attention with Sq != Sk, causal with Sk > Sq; with error, kernel
+   time, plain time, the roofline bound and, on the training case,
+   ``scaled_dot_product_attention`` as the library yardstick;
+7. train: the full-width transformer LM (vocab 32768, d 2048, 8 layers,
+   16 heads) with random weights from a seed, trained through the port's
+   v2 surface (``Parameters.from_topology``, ``trainer.SGD.train``,
+   ``Momentum(0.9, 1e-3)``) on one batch of 8 x 1024 tokens repeated for
+   6 steps: finite costs, the last below the first, each flash kernel
+   launched 8 layers x 6 steps times;
+8. train_parity: a 2-layer model at the same width, batch 2 x 1024, 3
+   steps through the kernels against the same steps through the plain
+   flash versions on the card, with the same weights and feeds.
 
 Every line of output is one JSON object; the one before the last lists
 the kernels, the last is ``{"ok": true, "device": {...}}``.  The serve
 workload lives in ``paddle_tpu_torch/tools/serve_workload.py``, shared
-with the profiler ``python -m paddle_tpu_torch.tools.profile_serve``.
+with the profiler ``python -m paddle_tpu_torch.tools.profile_serve``; the
+training workload and the flash cases in
+``paddle_tpu_torch/tools/train_workload.py``.
 """
 
 from __future__ import annotations
@@ -37,6 +56,7 @@ import numpy as np
 import torch
 
 # the port must come from this checkout; outside it this import fails
+from paddle_tpu_torch.tools import train_workload as tw
 from paddle_tpu_torch.tools.serve_workload import (MODEL, NEW_TOKENS, NO_EOS,
                                                    PREFIX_LEN, Workload,
                                                    build_model, make_engine,
@@ -74,20 +94,22 @@ def card_line() -> str:
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median over ``reps`` CUDA-event-timed calls, after warm-up."""
+    """Mean card time of one call over ``reps`` calls run back to back
+    between two CUDA events, after warm-up.  The host enqueues ahead of
+    the card, so a wrapper's own host work (argument checks, launching its
+    small helper ops) shows only where it outlasts the card's work; a
+    synchronize after every call would add it to each reading."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
     for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
         fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 # ---------------------------------------------------------------------------
@@ -369,6 +391,253 @@ def serve_int8(model, dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# flash attention kernels
+# ---------------------------------------------------------------------------
+
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_kv", "flash_bwd_dq")
+
+
+def flash_bound(case, which: str) -> dict:
+    """Least time for one flash function on ``case``: each input read once
+    and each output written once (q, k, v, dO in their type; segment ids,
+    lse and delta in 4 bytes), and the products of the (query, key) pairs
+    the mask keeps, 2 flops a multiply-add — forward QK^T and PV (4 x
+    pairs x D), dK/dV the recomputed QK^T, dO V^T, P^T dO and dS^T Q (8 x),
+    dQ QK^T, dO V^T and dS K (6 x) — at the peak rate of the inputs' type
+    (bf16 tensor cores, or f32)."""
+    b, sq, h, d = case.q.shape
+    sk = case.k.shape[1]
+    es = case.q.element_size()
+    qb, kb = b * sq * h * d * es, b * sk * h * d * es
+    row = 4 * b * h * sq                       # lse or delta
+    seg = 4 * b * (sq + sk)
+    pairs = tw.live_pairs(case.q_seg.cpu().numpy(), case.kv_seg.cpu().numpy(),
+                          case.causal) * h
+    nbytes, mults = {
+        "flash_fwd": (qb + 2 * kb + seg + qb + row, 4),
+        "flash_bwd_kv": (2 * qb + 2 * kb + 2 * row + seg + 2 * kb, 8),
+        "flash_bwd_dq": (2 * qb + 2 * kb + 2 * row + seg + qb, 6),
+    }[which]
+    flops = mults * pairs * d
+    rate = BF16_FLOPS_PER_S if case.q.dtype == torch.bfloat16 \
+        else F32_FLOPS_PER_S
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / rate * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "flops": flops, "live_pairs": pairs}
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Card time of one call: the sum of the CUDA kernel times of
+    ``reps`` calls under ``torch.profiler``, over ``reps``, after one
+    warm-up call.  It leaves out the host's work between kernels, which
+    for a small kernel's wrapper or a call through autograd can be longer
+    than the kernels themselves."""
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+
+
+def sdpa_ms(case) -> dict:
+    """``scaled_dot_product_attention(is_causal=True)`` on the [B, H, S, D]
+    view of the equal-length batch (case a): card time of the forward, and
+    of forward plus backward (the yardstick of the three kernels
+    together).  Timed here only; the port never calls it."""
+    import torch.nn.functional as F
+
+    shape = (tw.BATCH, tw.SEQ) + tuple(case.q.shape[2:])
+    q, k, v, do = (x.reshape(shape).transpose(1, 2).contiguous()
+                   for x in (case.q, case.k, case.v, case.dout))
+    qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
+
+    def fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    def fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        torch.autograd.grad(o, (qg, kg, vg), do)
+
+    return {"library_fwd_ms": device_ms(fwd),
+            "library_fwd_bwd_ms": device_ms(fwd_bwd),
+            "library_out": fwd().transpose(1, 2).reshape(case.q.shape)}
+
+
+def run_flash_cases(dev) -> dict:
+    """Each flash kernel against its plain version on every case; raises
+    if any output is outside its tolerance.  Times are card time
+    (:func:`device_ms`): the wrapper's kernel with its small helper ops,
+    the plain version's kernels, the library call's kernels.  Returns
+    the results by case name."""
+    from paddle_tpu_torch.ops import attention as A
+
+    results = {}
+    for name in tw.FLASH_CASES:
+        case = tw.flash_case(name, dev)
+        cfg = dict(causal=case.causal, sm_scale=case.sm_scale)
+        fwd_args = (case.q, case.k, case.v, case.q_seg, case.kv_seg)
+        o_ref, lse_ref = A.flash_fwd_reference(*fwd_args, **cfg)
+        o, lse = A.flash_fwd_kernel(*fwd_args, **cfg)
+        bwd_args = fwd_args + (case.dout, lse_ref,
+                               A.attention_delta(o_ref, case.dout))
+        dk_ref, dv_ref = A.flash_bwd_kv_reference(*bwd_args, **cfg)
+        dk, dv = A.flash_bwd_kv_kernel(*bwd_args, **cfg)
+        dq_ref = A.flash_bwd_dq_reference(*bwd_args, **cfg)
+        dq = A.flash_bwd_dq_kernel(*bwd_args, **cfg)
+        torch.cuda.synchronize()
+        errs = {"o": tw.flash_error(o, o_ref),
+                "lse": tw.flash_error(lse, lse_ref),
+                "dk": tw.flash_error(dk, dk_ref),
+                "dv": tw.flash_error(dv, dv_ref),
+                "dq": tw.flash_error(dq, dq_ref)}
+        kernels = {
+            "flash_fwd": (A.flash_fwd_kernel, A.flash_fwd_reference,
+                          fwd_args, ("o", "lse")),
+            "flash_bwd_kv": (A.flash_bwd_kv_kernel, A.flash_bwd_kv_reference,
+                             bwd_args, ("dk", "dv")),
+            "flash_bwd_dq": (A.flash_bwd_dq_kernel, A.flash_bwd_dq_reference,
+                             bwd_args, ("dq",)),
+        }
+        res = {"phase": "flash_kernels", "case": case.name,
+               "dtype": str(case.q.dtype).replace("torch.", ""),
+               "q": list(case.q.shape), "k": list(case.k.shape),
+               "causal": case.causal, "errors": errs}
+        for kname, (kern, plain, args, outs) in kernels.items():
+            res[kname] = {
+                "max_abs_err": max(errs[o]["max_abs_err"] for o in outs),
+                "ms": device_ms(lambda: kern(*args, **cfg), reps=20),
+                "plain_ms": device_ms(lambda: plain(*args, **cfg), reps=3),
+                **flash_bound(case, kname)}
+        if case.name.startswith("a_"):
+            lib = sdpa_ms(case)
+            res["library_fwd_ms"] = lib["library_fwd_ms"]
+            res["library_fwd_bwd_ms"] = lib["library_fwd_bwd_ms"]
+            res["library_out_max_abs_diff"] = float(
+                (lib["library_out"].float() - o.float()).abs().max())
+        ok = all(e["within_tolerance"] for e in errs.values())
+        res["within_tolerance"] = ok
+        emit(res)
+        if not ok:
+            raise AssertionError(f"flash case {case.name} outside tolerance")
+        results[case.name] = res
+    return results
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 6          # the first is the untimed warm-up
+PARITY_LAYERS, PARITY_BATCH, PARITY_STEPS = 2, 2, 3
+# kernel path against the plain flash path, per-step cost, relative:
+# both run bf16 flash inputs with P and dS rounded at the same places; the
+# kernels sum in another order, so a few bf16 roundings flip (on an H100:
+# 1.7e-6 with the CUDA-core kernels, 2.2e-5 with the tensor-core ones)
+PARITY_RTOL = 2e-4
+
+
+def _flash_launches():
+    from paddle_tpu_torch.ops import attention as A
+
+    return {"flash_fwd": A.flash_fwd_kernel.launches,
+            "flash_bwd_kv": A.flash_bwd_kv_kernel.launches,
+            "flash_bwd_dq": A.flash_bwd_dq_kernel.launches}
+
+
+def _reset_flash_launches() -> None:
+    from paddle_tpu_torch.ops import attention as A
+
+    for kern in (A.flash_fwd_kernel, A.flash_bwd_kv_kernel,
+                 A.flash_bwd_dq_kernel):
+        kern.launches = 0
+
+
+def _train_costs(sgd, samples, steps):
+    """Train ``steps`` steps on one batch through ``SGD.train``; per step
+    the cost and the host time from BeginIteration to the cost on the
+    host (feeding, forward, backward, update)."""
+    from paddle_tpu_torch import event
+
+    costs, step_ms, t = [], [], [0.0]
+
+    def handler(ev):
+        if isinstance(ev, event.BeginIteration):
+            torch.cuda.synchronize()
+            t[0] = time.perf_counter()
+        elif isinstance(ev, event.EndIteration):
+            costs.append(ev.cost)              # waits for the card
+            step_ms.append(1e3 * (time.perf_counter() - t[0]))
+
+    sgd.train(tw.repeat_reader(samples, steps), num_passes=1,
+              event_handler=handler, feeding=tw.FEEDING)
+    return costs, step_ms
+
+
+def train(dev) -> dict:
+    t0 = time.perf_counter()
+    sgd = tw.build_trainer(dev)
+    samples = tw.lm_samples(tw.SEED + 1)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _reset_flash_launches()
+    costs, step_ms = _train_costs(sgd, samples, TRAIN_STEPS)
+    launches = _flash_launches()
+    timed = step_ms[1:]
+    res = {"phase": "train", "model": tw.MODEL, "batch": tw.BATCH,
+           "seq": tw.SEQ, "steps": TRAIN_STEPS, "costs": costs,
+           "step_ms": step_ms, "step_ms_median": float(np.median(timed)),
+           "tokens_per_s": tw.BATCH * tw.SEQ / (np.median(timed) / 1e3),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "parameters": sum(p.numel() for p in sgd.parameters.as_dict()
+                             .values()),
+           "setup_s": setup_s, "kernel_launches": launches,
+           "launches_expected": tw.MODEL["n_layers"] * TRAIN_STEPS}
+    emit(res)
+    if not all(np.isfinite(costs)) or not costs[-1] < costs[0]:
+        raise AssertionError(f"training did not learn: costs {costs}")
+    for name, n in launches.items():
+        if n != res["launches_expected"]:
+            raise AssertionError(f"{name} launched {n} times, expected "
+                                 f"{res['launches_expected']}")
+    return res
+
+
+def train_parity(dev) -> dict:
+    samples = tw.lm_samples(tw.SEED + 2, bs=PARITY_BATCH)
+    sgd = tw.build_trainer(dev, n_layers=PARITY_LAYERS)
+    before = _flash_launches()
+    kernel_costs, _ = _train_costs(sgd, samples, PARITY_STEPS)
+    used = {k: v - before[k] for k, v in _flash_launches().items()}
+    del sgd
+    sgd = tw.build_trainer(dev, n_layers=PARITY_LAYERS)
+    with tw.plain_flash_path():
+        plain_costs, _ = _train_costs(sgd, samples, PARITY_STEPS)
+    del sgd
+    rel = [abs(a - b) / abs(b) for a, b in zip(kernel_costs, plain_costs)]
+    res = {"phase": "train_parity", "layers": PARITY_LAYERS,
+           "batch": PARITY_BATCH, "steps": PARITY_STEPS,
+           "kernel_costs": kernel_costs, "plain_costs": plain_costs,
+           "max_rel_diff": max(rel), "rtol": PARITY_RTOL,
+           "kernel_launches": used}
+    emit(res)
+    if max(rel) > PARITY_RTOL or any(
+            n != PARITY_LAYERS * PARITY_STEPS for n in used.values()):
+        raise AssertionError("kernel path and plain path disagree")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script drives the port on "
@@ -399,9 +668,15 @@ def main() -> int:
     model = build_model(dev)
     served = serve(model, dev)
     serve_int8(model, dev)
+    del model
+    torch.cuda.empty_cache()
+
+    flash = run_flash_cases(dev)
+    trained = train(dev)
+    train_parity(dev)
 
     main_case = next(c for c in cases if c["case"] == "mixed_f32")
-    emit({"kernels": [{
+    kernels = [{
         "name": "ragged_paged_attention", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "paddle_tpu/serving/decode_attention.py:173",
@@ -411,8 +686,33 @@ def main() -> int:
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"], "library_ms": None,
-        "case": "mixed_f32", "seconds_total": time.perf_counter() - t_start,
-    }]})
+        "case": "mixed_f32"}]
+    flash_main = flash["a_bf16_8x1024_causal"]
+    replaces = {"flash_fwd": "paddle_tpu/ops/attention.py:142",
+                "flash_bwd_kv": "paddle_tpu/ops/attention.py:289",
+                "flash_bwd_dq": "paddle_tpu/ops/attention.py:353"}
+    for name in FLASH_KERNELS:
+        r = flash_main[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+            "replaces": replaces[name],
+            "launches": trained["kernel_launches"][name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            # the forward alone for the forward kernel; forward plus
+            # backward (all three kernels' work) for the backward ones
+            "library_ms": (flash_main["library_fwd_ms"]
+                           if name == "flash_fwd"
+                           else flash_main["library_fwd_bwd_ms"]),
+            "library": "scaled_dot_product_attention(is_causal=True) on "
+                       "[8, 16, 1024, 128], " + (
+                           "forward" if name == "flash_fwd"
+                           else "forward + backward"),
+            "case": "a_bf16_8x1024_causal"})
+    emit({"phase": "done", "seconds_total": time.perf_counter() - t_start})
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

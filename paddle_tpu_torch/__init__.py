@@ -11,4 +11,7 @@ first launch.  Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"`` (see :mod:`paddle_tpu_torch.platform.device`).
 """
 
-__all__ = ["convert", "kernels", "ops", "platform", "serving"]
+__all__ = ["activation", "attr", "convert", "data_feeder", "data_type",
+           "event", "initializer", "kernels", "layer", "minibatch", "models",
+           "ops", "optimizer", "parameters", "platform", "sequence",
+           "serving", "topology", "trainer"]

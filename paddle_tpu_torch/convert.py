@@ -1,9 +1,14 @@
 """Carry weights into the port as numpy arrays.
 
-The JAX package's ``DecoderLM.init_params`` returns a flat dict — ``emb``
-[V, E], ``pos`` [P, E], per layer ``l{i}.wq``/``wk``/``wv``/``wo``/
-``w1``/``w2`` in the x @ W layout, and ``out`` [E, V].  The port's
-``DecoderLM`` keeps the same layout, so conversion is a copy per tensor.
+Training weights: a JAX ``Parameters`` read as numpy (``as_dict()`` values,
+or its tar) becomes the port's with :func:`parameters_from_numpy`; the
+names are the same ``<layer>.<param>`` keys in both packages.
+
+Serving weights: the JAX package's ``DecoderLM.init_params`` returns a
+flat dict — ``emb`` [V, E], ``pos`` [P, E], per layer ``l{i}.wq``/``wk``/
+``wv``/``wo``/``w1``/``w2`` in the x @ W layout, and ``out`` [E, V].  The
+port's ``DecoderLM`` keeps the same layout, so conversion is a copy per
+tensor.
 Weights cross between the packages as numpy: torch cannot reproduce a JAX
 PRNG stream.
 """
@@ -15,9 +20,23 @@ from typing import Dict
 import numpy as np
 import torch
 
+from paddle_tpu_torch.parameters import Parameters
+from paddle_tpu_torch.platform.device import DeviceLike, resolve_device
 from paddle_tpu_torch.platform.enforce import enforce_that
 
 _LAYER_KEYS = ("wq", "wk", "wv", "wo", "w1", "w2")
+
+
+def parameters_from_numpy(arrays: Dict[str, np.ndarray],
+                          device: DeviceLike = None) -> Parameters:
+    """A port ``Parameters`` holding copies of ``arrays`` (name -> array)
+    on ``device`` (``cuda`` unless asked)."""
+    dev = resolve_device(device)
+    params = Parameters()
+    for name, arr in arrays.items():
+        # a copy: JAX arrays read as numpy are not writable
+        params[name] = torch.from_numpy(np.array(arr, copy=True)).to(dev)
+    return params
 
 
 def _targets(model) -> Dict[str, torch.Tensor]:

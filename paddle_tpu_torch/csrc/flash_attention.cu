@@ -1,0 +1,1251 @@
+// Flash attention for Hopper (sm_90a): forward, dK/dV and dQ, one kernel
+// each, over packed sequences with segment ids and causal masking.
+//
+// Replaces the three Pallas TPU kernels of paddle_tpu/ops/attention.py:
+//   flash_fwd    <- _flash_fwd_kernel    (:142, pallas_call :249)
+//   flash_bwd_kv <- _flash_bwd_kv_kernel (:289, pallas_call :448)
+//   flash_bwd_dq <- _flash_bwd_dq_kernel (:353, pallas_call :488)
+// and computes what they compute, read from the Pallas bodies:
+//   - q [B, Sq, H, D], k/v [B, Sk, H, D] in f32 or bf16 (one type for all);
+//     segment ids [B, S] int32; lse and delta [B, H, Sq] f32;
+//   - mask: q_seg == k_seg, and under causal q_index >= k_index on absolute
+//     positions in the packed buffer; inside a visited tile a masked score
+//     is DEFAULT_MASK_VALUE (finite), so a row that matches nothing in the
+//     tiles visited averages their V, as the TPU kernel does;
+//   - a tile pair is skipped when its segment-id ranges are disjoint (the
+//     `_seg_live` predicate, from per-tile min/max the wrapper computes) or
+//     when it lies wholly above the causal diagonal; all three kernels use
+//     the same predicate, so lse is never read for a pair the forward
+//     skipped;
+//   - forward: online softmax with (m, l, acc) in f32 registers, the scale
+//     applied to the f32 product, P rounded to the input type before the PV
+//     product unless pv_f32 (`_pv_operands`), l == 0 -> 1, O cast to q's
+//     type, lse = m + log l;
+//   - dK/dV: p = exp(s - lse) on the mask (else 0), dV += round(p)^T dO,
+//     dP = dO V^T, dS = p (dP - delta) scale with p unrounded,
+//     dK += round(dS)^T Q; dQ: dQ += round(dS) K. Results cast to the
+//     input type.
+//
+// What bounds it on the H100: at the training shapes (8 segments of 1024,
+// causal, H = 16, D = 128, bf16) the live work is ~34 GFLOP forward, ~69
+// dK/dV and ~52 dQ a layer against 134 MB of q/k/v/o: at the tensor cores'
+// 989 TFLOP/s the forward is bound by bytes (~0.04 ms), the backward
+// kernels by operations.  So the bf16 kernels (pv_f32 off, the training
+// path) do their products on the tensor cores with mma.sync m16n8k16 (bf16
+// in, f32 accumulate), which keeps the TPU kernels' numerics: bf16 operands,
+// f32 sums, P and dS rounded to bf16 as the products take them.  f32 inputs
+// (and bf16 with pv_f32) run on the CUDA cores in f32 FMA: TF32 would break
+// the f32 contract, so those are bound by the cores' 67 TFLOP/s.
+//
+// Design: the TPU streams the key (or query) axis through a sequential
+// grid dimension and carries state in VMEM scratch; Hopper's blocks run in
+// parallel and in no order, so one block owns one 64-row tile (queries for
+// forward and dQ, keys for dK/dV) and loops over the other axis itself,
+// carrying its sums in registers; every kernel skips the same tile pairs.
+// - Tensor-core kernels: 128 threads, each warp owns 16 rows of the tile;
+//   tiles live in shared memory in bf16 with rows padded by 8 elements
+//   (conflict-free fragment loads); the accumulator of one product is laid
+//   out as the A operand of the next, so P and dS never leave registers.
+//   The backward kernels take the other axis in halves of 32 to keep the
+//   scores and dP in registers beside the two (or one) output tiles.
+// - CUDA-core kernels: 256 threads form a 16 x 16 grid: thread (ty, tx)
+//   owns score rows ty + 16 i and columns tx + 16 j (i, j < 4), and output
+//   rows ty + 16 i by columns 4 tx + 64 g .. + 3, so the rows of the
+//   softmax state never leave their half-warp; P and dS go through shared
+//   memory; rows are padded by 4 elements.
+// Above 48 KB, dynamic shared memory is enabled with cudaFuncSetAttribute.
+// No pipelining of the tile loads yet (cp.async or TMA is later work).
+//
+// Plain C interface (built by paddle_tpu_torch/kernels/build.py with nvcc,
+// loaded with ctypes): each entry returns a cudaError_t.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <float.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int TILE = 64;          // rows of a query tile and of a key tile
+constexpr int NTHREADS = 256;     // 16 x 16: ty = tid / 16, tx = tid % 16
+constexpr int PAD = 4;            // shared-memory row padding, in elements
+constexpr int PS = TILE + 4;      // row stride of the f32 P / dS tiles
+constexpr float MASK_VALUE = -0.7f * FLT_MAX;   // DEFAULT_MASK_VALUE
+
+using bf16 = __nv_bfloat16;
+
+template <typename T> struct Raw4;   // 4 elements moved as one word
+template <> struct Raw4<float> { using type = float4; };
+template <> struct Raw4<bf16> { using type = uint2; };
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 ld4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+__device__ __forceinline__ void st4(bf16* p, float4 v) {
+  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<uint32_t*>(&a);
+  u.y = *reinterpret_cast<uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+}
+
+// P or dS as the products that take it see it: rounded to the input type
+// (bf16) unless pv_f32; f32 inputs leave it as it is
+template <typename T>
+__device__ __forceinline__ float round_to(float x, int pv_f32) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    return pv_f32 ? x : __bfloat162float(__float2bfloat16(x));
+  } else {
+    return x;
+  }
+}
+
+__device__ __forceinline__ float half_warp_max(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) {
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  }
+  return v;
+}
+
+__device__ __forceinline__ float half_warp_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) {
+    v += __shfl_xor_sync(0xffffffffu, v, o);
+  }
+  return v;
+}
+
+// one 64-row tile (row stride `rs` elements in global memory) into shared
+// memory rows of D + PAD elements
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, size_t rs,
+                                          int tid) {
+  using R = typename Raw4<T>::type;
+  constexpr int CH = D / 4;
+  for (int idx = tid; idx < TILE * CH; idx += NTHREADS) {
+    const int r = idx / CH;
+    const int c = (idx % CH) * 4;
+    *reinterpret_cast<R*>(dst + r * (D + PAD) + c) =
+        *reinterpret_cast<const R*>(src + r * rs + c);
+  }
+}
+
+// c[i][j] = sum_d A[ty + 16 i][d] * B[tx + 16 j][d] over shared tiles
+template <typename T, int D>
+__device__ __forceinline__ void tile_dot_nt(const T* A, const T* B, int ty,
+                                            int tx, float c[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) c[i][j] = 0.f;
+  }
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+    float4 a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = ld4(A + (ty + 16 * i) * (D + PAD) + d);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) b[j] = ld4(B + (tx + 16 * j) * (D + PAD) + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        c[i][j] = fmaf(a[i].x, b[j].x, c[i][j]);
+        c[i][j] = fmaf(a[i].y, b[j].y, c[i][j]);
+        c[i][j] = fmaf(a[i].z, b[j].z, c[i][j]);
+        c[i][j] = fmaf(a[i].w, b[j].w, c[i][j]);
+      }
+    }
+  }
+}
+
+// acc[i][4 g + e] += sum_k P[ty + 16 i][k] * X[k][64 g + 4 tx + e]:
+// P a f32 tile (row stride PS), X a shared tile of the input type
+template <typename T, int D>
+__device__ __forceinline__ void tile_acc_nn(const float* P, const T* X,
+                                            int ty, int tx,
+                                            float acc[4][D / 16]) {
+  constexpr int NG = D / 64;
+#pragma unroll 2
+  for (int k = 0; k < TILE; k += 4) {
+    float4 p[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      p[i] = *reinterpret_cast<const float4*>(P + (ty + 16 * i) * PS + k);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        const float4 x = ld4(X + (k + kk) * (D + PAD) + 64 * g + 4 * tx);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float pk = comp(p[i], kk);
+          acc[i][4 * g + 0] = fmaf(pk, x.x, acc[i][4 * g + 0]);
+          acc[i][4 * g + 1] = fmaf(pk, x.y, acc[i][4 * g + 1]);
+          acc[i][4 * g + 2] = fmaf(pk, x.z, acc[i][4 * g + 2]);
+          acc[i][4 * g + 3] = fmaf(pk, x.w, acc[i][4 * g + 3]);
+        }
+      }
+    }
+  }
+}
+
+// write rows ty + 16 i of a 64 x D accumulator tile, divided by den[i]
+template <typename T, int D>
+__device__ __forceinline__ void store_rows(T* dst, size_t rs, int ty, int tx,
+                                           float acc[4][D / 16],
+                                           const float den[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    T* row = dst + (ty + 16 * i) * rs;
+#pragma unroll
+    for (int g = 0; g < D / 64; ++g) {
+      st4(row + 64 * g + 4 * tx,
+          make_float4(acc[i][4 * g] / den[i], acc[i][4 * g + 1] / den[i],
+                      acc[i][4 * g + 2] / den[i],
+                      acc[i][4 * g + 3] / den[i]));
+    }
+  }
+}
+
+__device__ __forceinline__ bool tiles_live(const int* qr, const int* kr) {
+  // segment-id ranges [min, max] overlap (the `_seg_live` predicate)
+  return qr[1] >= kr[0] && qr[0] <= kr[1];
+}
+
+template <typename T, int D>
+__host__ __device__ constexpr size_t tile_bytes() {
+  return static_cast<size_t>(TILE) * (D + PAD) * sizeof(T);
+}
+
+__host__ __device__ constexpr size_t ptile_bytes() {
+  return static_cast<size_t>(TILE) * PS * sizeof(float);
+}
+
+// ---------------------------------------------------------------------------
+// forward: one block per (query tile, head, batch)
+// ---------------------------------------------------------------------------
+
+template <typename T, int D>
+constexpr size_t fwd_smem() {
+  return 3 * tile_bytes<T, D>() + ptile_bytes() + 2 * TILE * sizeof(int);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NTHREADS)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const int* __restrict__ qrange,
+                 const int* __restrict__ krange,
+                 const int* __restrict__ qseg, const int* __restrict__ kseg,
+                 T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk,
+                 int H, int causal, int pv_f32, float scale) {
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int nqt = Sq / TILE, nkt = Sk / TILE;
+  const size_t rs = static_cast<size_t>(H) * D;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* q_s = reinterpret_cast<T*>(smem);
+  T* k_s = reinterpret_cast<T*>(smem + tile_bytes<T, D>());
+  T* v_s = reinterpret_cast<T*>(smem + 2 * tile_bytes<T, D>());
+  float* p_s = reinterpret_cast<float*>(smem + 3 * tile_bytes<T, D>());
+  int* qseg_s = reinterpret_cast<int*>(smem + 3 * tile_bytes<T, D>() +
+                                       ptile_bytes());
+  int* kseg_s = qseg_s + TILE;
+
+  const size_t q0 = static_cast<size_t>(b) * Sq + qt * TILE;
+  load_tile<T, D>(q_s, q + q0 * rs + h * D, rs, tid);
+  if (tid < TILE) qseg_s[tid] = qseg[q0 + tid];
+  const int* qr = qrange + (static_cast<size_t>(b) * nqt + qt) * 2;
+
+  float m[4], l[4], acc[4][D / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
+  }
+
+  // causal: key tiles past this query tile's last row are wholly masked
+  const int kt_end = causal ? min(nkt, qt + 1) : nkt;
+  for (int kt = 0; kt < kt_end; ++kt) {
+    if (!tiles_live(qr, krange + (static_cast<size_t>(b) * nkt + kt) * 2)) {
+      continue;   // the same for every thread of the block
+    }
+    __syncthreads();   // the previous tile's readers are done
+    const size_t k0 = static_cast<size_t>(b) * Sk + kt * TILE;
+    load_tile<T, D>(k_s, k + k0 * rs + h * D, rs, tid);
+    load_tile<T, D>(v_s, v + k0 * rs + h * D, rs, tid);
+    if (tid < TILE) kseg_s[tid] = kseg[k0 + tid];
+    __syncthreads();
+
+    float s[4][4];
+    tile_dot_nt<T, D>(q_s, k_s, ty, tx, s);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+      const int qi = qt * TILE + r;
+      const int qsg = qseg_s[r];
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        const bool live =
+            qsg == kseg_s[c] && (!causal || qi >= kt * TILE + c);
+        s[i][j] = live ? s[i][j] * scale : MASK_VALUE;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], half_warp_max(mx));
+      const float alpha = expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        sum += p;
+        p_s[r * PS + tx + 16 * j] = round_to<T>(p, pv_f32);
+      }
+      l[i] = alpha * l[i] + half_warp_sum(sum);
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < D / 16; ++c) acc[i][c] *= alpha;
+    }
+    __syncthreads();   // the P tile is complete
+    tile_acc_nn<T, D>(p_s, v_s, ty, tx, acc);
+  }
+
+  float den[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) den[i] = (l[i] == 0.f) ? 1.f : l[i];
+  store_rows<T, D>(o + q0 * rs + h * D, rs, ty, tx, acc, den);
+  if (tx == 0) {
+    float* lrow = lse + (static_cast<size_t>(b) * H + h) * Sq + qt * TILE;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) lrow[ty + 16 * i] = m[i] + logf(den[i]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dK/dV: one block per (key tile, head, batch), looping over query tiles
+// ---------------------------------------------------------------------------
+
+template <typename T, int D>
+constexpr size_t bwd_kv_smem() {
+  return 4 * tile_bytes<T, D>() + 2 * ptile_bytes() +
+         2 * TILE * sizeof(int) + 2 * TILE * sizeof(float);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NTHREADS)
+flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    const int* __restrict__ qrange,
+                    const int* __restrict__ krange,
+                    const int* __restrict__ qseg,
+                    const int* __restrict__ kseg, T* __restrict__ dk,
+                    T* __restrict__ dv, int Sq, int Sk, int H, int causal,
+                    int pv_f32, float scale) {
+  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int nqt = Sq / TILE, nkt = Sk / TILE;
+  const size_t rs = static_cast<size_t>(H) * D;
+  constexpr size_t TB = tile_bytes<T, D>();
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* k_s = reinterpret_cast<T*>(smem);
+  T* v_s = reinterpret_cast<T*>(smem + TB);
+  T* q_s = reinterpret_cast<T*>(smem + 2 * TB);
+  T* do_s = reinterpret_cast<T*>(smem + 3 * TB);
+  float* p_s = reinterpret_cast<float*>(smem + 4 * TB);
+  float* ds_s = p_s + TILE * PS;
+  int* qseg_s = reinterpret_cast<int*>(ds_s + TILE * PS);
+  int* kseg_s = qseg_s + TILE;
+  float* lse_s = reinterpret_cast<float*>(kseg_s + TILE);
+  float* delta_s = lse_s + TILE;
+
+  const size_t k0 = static_cast<size_t>(b) * Sk + kt * TILE;
+  load_tile<T, D>(k_s, k + k0 * rs + h * D, rs, tid);
+  load_tile<T, D>(v_s, v + k0 * rs + h * D, rs, tid);
+  if (tid < TILE) kseg_s[tid] = kseg[k0 + tid];
+  const int* kr = krange + (static_cast<size_t>(b) * nkt + kt) * 2;
+  const float* lse_bh = lse + (static_cast<size_t>(b) * H + h) * Sq;
+  const float* delta_bh = delta + (static_cast<size_t>(b) * H + h) * Sq;
+
+  float dka[4][D / 16], dva[4][D / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) {
+      dka[i][c] = 0.f;
+      dva[i][c] = 0.f;
+    }
+  }
+
+  // causal: query tiles before this key tile's first row are wholly masked
+  // (for Sk > Sq the loop may be empty: those keys get zero gradients)
+  for (int qt = causal ? kt : 0; qt < nqt; ++qt) {
+    if (!tiles_live(qrange + (static_cast<size_t>(b) * nqt + qt) * 2, kr)) {
+      continue;
+    }
+    __syncthreads();
+    const size_t q0 = static_cast<size_t>(b) * Sq + qt * TILE;
+    load_tile<T, D>(q_s, q + q0 * rs + h * D, rs, tid);
+    load_tile<T, D>(do_s, dout + q0 * rs + h * D, rs, tid);
+    if (tid < TILE) {
+      qseg_s[tid] = qseg[q0 + tid];
+      lse_s[tid] = lse_bh[qt * TILE + tid];
+      delta_s[tid] = delta_bh[qt * TILE + tid];
+    }
+    __syncthreads();
+
+    // transposed scores: row = key ty + 16 i, column = query tx + 16 j
+    float s[4][4], dp[4][4];
+    tile_dot_nt<T, D>(k_s, q_s, ty, tx, s);
+    tile_dot_nt<T, D>(v_s, do_s, ty, tx, dp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+      const int kj = kt * TILE + r;
+      const int ksg = kseg_s[r];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        const bool live =
+            qseg_s[c] == ksg && (!causal || qt * TILE + c >= kj);
+        const float p = live ? expf(s[i][j] * scale - lse_s[c]) : 0.f;
+        const float ds = p * (dp[i][j] - delta_s[c]) * scale;
+        p_s[r * PS + c] = round_to<T>(p, pv_f32);
+        ds_s[r * PS + c] = round_to<T>(ds, pv_f32);
+      }
+    }
+    __syncthreads();
+    tile_acc_nn<T, D>(p_s, do_s, ty, tx, dva);
+    tile_acc_nn<T, D>(ds_s, q_s, ty, tx, dka);
+  }
+
+  const float one[4] = {1.f, 1.f, 1.f, 1.f};
+  store_rows<T, D>(dk + k0 * rs + h * D, rs, ty, tx, dka, one);
+  store_rows<T, D>(dv + k0 * rs + h * D, rs, ty, tx, dva, one);
+}
+
+// ---------------------------------------------------------------------------
+// dQ: one block per (query tile, head, batch), looping over key tiles
+// ---------------------------------------------------------------------------
+
+template <typename T, int D>
+constexpr size_t bwd_dq_smem() {
+  return 4 * tile_bytes<T, D>() + ptile_bytes() + 2 * TILE * sizeof(int) +
+         2 * TILE * sizeof(float);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NTHREADS)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    const int* __restrict__ qrange,
+                    const int* __restrict__ krange,
+                    const int* __restrict__ qseg,
+                    const int* __restrict__ kseg, T* __restrict__ dq, int Sq,
+                    int Sk, int H, int causal, int pv_f32, float scale) {
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int nqt = Sq / TILE, nkt = Sk / TILE;
+  const size_t rs = static_cast<size_t>(H) * D;
+  constexpr size_t TB = tile_bytes<T, D>();
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* q_s = reinterpret_cast<T*>(smem);
+  T* do_s = reinterpret_cast<T*>(smem + TB);
+  T* k_s = reinterpret_cast<T*>(smem + 2 * TB);
+  T* v_s = reinterpret_cast<T*>(smem + 3 * TB);
+  float* ds_s = reinterpret_cast<float*>(smem + 4 * TB);
+  int* qseg_s = reinterpret_cast<int*>(ds_s + TILE * PS);
+  int* kseg_s = qseg_s + TILE;
+  float* lse_s = reinterpret_cast<float*>(kseg_s + TILE);
+  float* delta_s = lse_s + TILE;
+
+  const size_t q0 = static_cast<size_t>(b) * Sq + qt * TILE;
+  load_tile<T, D>(q_s, q + q0 * rs + h * D, rs, tid);
+  load_tile<T, D>(do_s, dout + q0 * rs + h * D, rs, tid);
+  if (tid < TILE) {
+    const size_t bh = (static_cast<size_t>(b) * H + h) * Sq + qt * TILE;
+    qseg_s[tid] = qseg[q0 + tid];
+    lse_s[tid] = lse[bh + tid];
+    delta_s[tid] = delta[bh + tid];
+  }
+  const int* qr = qrange + (static_cast<size_t>(b) * nqt + qt) * 2;
+
+  float dqa[4][D / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) dqa[i][c] = 0.f;
+  }
+
+  const int kt_end = causal ? min(nkt, qt + 1) : nkt;
+  for (int kt = 0; kt < kt_end; ++kt) {
+    if (!tiles_live(qr, krange + (static_cast<size_t>(b) * nkt + kt) * 2)) {
+      continue;
+    }
+    __syncthreads();
+    const size_t k0 = static_cast<size_t>(b) * Sk + kt * TILE;
+    load_tile<T, D>(k_s, k + k0 * rs + h * D, rs, tid);
+    load_tile<T, D>(v_s, v + k0 * rs + h * D, rs, tid);
+    if (tid < TILE) kseg_s[tid] = kseg[k0 + tid];
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+    tile_dot_nt<T, D>(q_s, k_s, ty, tx, s);
+    tile_dot_nt<T, D>(do_s, v_s, ty, tx, dp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+      const int qi = qt * TILE + r;
+      const int qsg = qseg_s[r];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        const bool live =
+            qsg == kseg_s[c] && (!causal || qi >= kt * TILE + c);
+        const float p = live ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
+        const float ds = p * (dp[i][j] - delta_s[r]) * scale;
+        ds_s[r * PS + c] = round_to<T>(ds, pv_f32);
+      }
+    }
+    __syncthreads();
+    tile_acc_nn<T, D>(ds_s, k_s, ty, tx, dqa);
+  }
+
+  const float one[4] = {1.f, 1.f, 1.f, 1.f};
+  store_rows<T, D>(dq + q0 * rs + h * D, rs, ty, tx, dqa, one);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores: mma.sync m16n8k16 (bf16 in, f32 accumulate)
+//
+// Four warps own one 64-row tile, 16 rows each.  Operand fragments are read
+// from shared memory tiles in the input type with rows padded by 8
+// elements, which makes both access patterns below free of bank conflicts:
+// 32-bit loads of two neighbouring columns of one row (A operands, and B
+// operands whose k runs along a tile row), and 16-bit loads of one column
+// in two neighbouring rows (B operands whose k runs down the tile).  A
+// product's f32 accumulator for two neighbouring 8-column tiles is laid out
+// as the A operand of the next product, so P and dS go from one mma to the
+// next in registers, rounded to bf16 on the way (the `_pv_operands` rule).
+// ---------------------------------------------------------------------------
+
+constexpr int MMA_WARPS = 4;
+constexpr int MMA_THREADS = 32 * MMA_WARPS;
+constexpr int MPAD = 8;   // bf16 row padding of the mma kernels' tiles
+
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// one column of two neighbouring rows (row stride xs), packed low = first
+__device__ __forceinline__ uint32_t ld_col2(const bf16* p, int xs) {
+  const uint32_t lo = *reinterpret_cast<const uint16_t*>(p);
+  const uint32_t hi = *reinterpret_cast<const uint16_t*>(p + xs);
+  return lo | (hi << 16);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A operand (16 x 16, row-major): rows r0.., columns k0.. of tile X
+__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* X, int xs,
+                                       int r0, int k0, int g, int t) {
+  const bf16* p = X + (r0 + g) * xs + k0 + 2 * t;
+  a[0] = ld32(p);
+  a[1] = ld32(p + 8 * xs);
+  a[2] = ld32(p + 8);
+  a[3] = ld32(p + 8 * xs + 8);
+}
+
+// A operand from the accumulators of 8-column tiles c0 (columns 0-7) and
+// c1 (8-15), rounded to bf16
+__device__ __forceinline__ void acc_to_a(uint32_t a[4], const float c0[4],
+                                         const float c1[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// c[j] += A x Y^T over k in [0, D) for NJ groups of 8 rows of Y from n0:
+// B[k][n] = Y[n0 + 8 j + n][k], Y row-major; A is read once per k step
+template <int D, int NJ>
+__device__ __forceinline__ void mma_abt(float c[][4], const bf16* A, int ar0,
+                                        const bf16* Y, int n0, int g, int t) {
+  constexpr int XS = D + MPAD;
+#pragma unroll
+  for (int k0 = 0; k0 < D; k0 += 16) {
+    uint32_t a[4];
+    load_a(a, A, XS, ar0, k0, g, t);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const bf16* y = Y + (n0 + 8 * j + g) * XS + k0 + 2 * t;
+      mma_bf16(c[j], a, ld32(y), ld32(y + 8));
+    }
+  }
+}
+
+// c[n] += a x Y[k0 .. k0 + 16, 8 n ..]: B[k][n] = Y[k0 + k][8 n + ...]
+template <int D>
+__device__ __forceinline__ void mma_ay(float c[][4], const uint32_t a[4],
+                                       const bf16* Y, int k0, int g, int t) {
+  constexpr int XS = D + MPAD;
+  const bf16* y = Y + (k0 + 2 * t) * XS + g;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    mma_bf16(c[n], a, ld_col2(y + 8 * n, XS), ld_col2(y + 8 * XS + 8 * n, XS));
+  }
+}
+
+// one 64-row tile of D columns into shared rows of D + MPAD, 16 bytes a move
+template <int D>
+__device__ __forceinline__ void load_tile_mma(bf16* dst, const bf16* src,
+                                              size_t rs, int tid) {
+  constexpr int CH = D / 8;
+  for (int idx = tid; idx < TILE * CH; idx += MMA_THREADS) {
+    const int r = idx / CH;
+    const int c = (idx % CH) * 8;
+    *reinterpret_cast<uint4*>(dst + r * (D + MPAD) + c) =
+        *reinterpret_cast<const uint4*>(src + r * rs + c);
+  }
+}
+
+// rows r0 + g and r0 + g + 8 of a 16 x D accumulator, divided by den[0] and
+// den[1], to bf16 rows of stride rs
+template <int D>
+__device__ __forceinline__ void store_acc(bf16* dst, size_t rs, int r0, int g,
+                                          int t, float c[][4],
+                                          const float den[2]) {
+  bf16* row0 = dst + (r0 + g) * rs + 2 * t;
+  bf16* row1 = row0 + 8 * rs;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    *reinterpret_cast<uint32_t*>(row0 + 8 * n) =
+        pack_bf16(c[n][0] / den[0], c[n][1] / den[0]);
+    *reinterpret_cast<uint32_t*>(row1 + 8 * n) =
+        pack_bf16(c[n][2] / den[1], c[n][3] / den[1]);
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+template <int D>
+__host__ __device__ constexpr size_t mma_tile_bytes() {
+  return static_cast<size_t>(TILE) * (D + MPAD) * sizeof(bf16);
+}
+
+template <int D>
+constexpr size_t fwd_mma_smem() {
+  return 3 * mma_tile_bytes<D>() + 2 * TILE * sizeof(int);
+}
+
+template <int D>
+constexpr size_t bwd_mma_smem() {
+  return 4 * mma_tile_bytes<D>() + 2 * TILE * sizeof(int) +
+         2 * TILE * sizeof(float);
+}
+
+// forward: one block per (query tile, head, batch); warp w owns query rows
+// 16 w .. 16 w + 15 of the tile; the thread holds rows g and g + 8 of them
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v,
+                     const int* __restrict__ qrange,
+                     const int* __restrict__ krange,
+                     const int* __restrict__ qseg,
+                     const int* __restrict__ kseg, bf16* __restrict__ o,
+                     float* __restrict__ lse, int Sq, int Sk, int H,
+                     int causal, float scale) {
+  constexpr int XS = D + MPAD;
+  constexpr int ND = D / 8;
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * (tid >> 5);
+  const int nqt = Sq / TILE, nkt = Sk / TILE;
+  const size_t rs = static_cast<size_t>(H) * D;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);
+  bf16* k_s = q_s + TILE * XS;
+  bf16* v_s = k_s + TILE * XS;
+  int* qseg_s = reinterpret_cast<int*>(v_s + TILE * XS);
+  int* kseg_s = qseg_s + TILE;
+
+  const size_t q0 = static_cast<size_t>(b) * Sq + qt * TILE;
+  load_tile_mma<D>(q_s, q + q0 * rs + h * D, rs, tid);
+  if (tid < TILE) qseg_s[tid] = qseg[q0 + tid];
+  const int* qr = qrange + (static_cast<size_t>(b) * nqt + qt) * 2;
+
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  }
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  const int kt_end = causal ? min(nkt, qt + 1) : nkt;
+  for (int kt = 0; kt < kt_end; ++kt) {
+    if (!tiles_live(qr, krange + (static_cast<size_t>(b) * nkt + kt) * 2)) {
+      continue;
+    }
+    __syncthreads();
+    const size_t k0 = static_cast<size_t>(b) * Sk + kt * TILE;
+    load_tile_mma<D>(k_s, k + k0 * rs + h * D, rs, tid);
+    load_tile_mma<D>(v_s, v + k0 * rs + h * D, rs, tid);
+    if (tid < TILE) kseg_s[tid] = kseg[k0 + tid];
+    __syncthreads();
+
+    float s[TILE / 8][4];
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    }
+    mma_abt<D, TILE / 8>(s, q_s, r0, k_s, 0, g, t);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + g + 8 * (e >> 1);
+        const int c = 8 * j + 2 * t + (e & 1);
+        const bool live = qseg_s[r] == kseg_s[c] &&
+                          (!causal || qt * TILE + r >= kt * TILE + c);
+        s[j][e] = live ? s[j][e] * scale : MASK_VALUE;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+    }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m[i], quad_max(mx[i]));
+      alpha[i] = expf(m[i] - m_new);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = expf(s[j][e] - m[e >> 1]);
+        sum[e >> 1] += s[j][e];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = alpha[i] * l[i] + quad_sum(sum[i]);
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+    // O += round(P) V, 16 keys a product
+#pragma unroll
+    for (int ks = 0; ks < TILE / 16; ++ks) {
+      uint32_t a[4];
+      acc_to_a(a, s[2 * ks], s[2 * ks + 1]);
+      mma_ay<D>(acc, a, v_s, 16 * ks, g, t);
+    }
+  }
+
+  float den[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) den[i] = (l[i] == 0.f) ? 1.f : l[i];
+  store_acc<D>(o + q0 * rs + h * D, rs, r0, g, t, acc, den);
+  if (t == 0) {
+    float* lrow = lse + (static_cast<size_t>(b) * H + h) * Sq + qt * TILE;
+    lrow[r0 + g] = m[0] + logf(den[0]);
+    lrow[r0 + g + 8] = m[1] + logf(den[1]);
+  }
+}
+
+// dK/dV: one block per (key tile, head, batch); warp w owns key rows
+// 16 w .. 16 w + 15; each query tile is taken in two halves of 32 queries
+// to keep the transposed scores and dP in registers beside dK and dV
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_bwd_kv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        const int* __restrict__ qrange,
+                        const int* __restrict__ krange,
+                        const int* __restrict__ qseg,
+                        const int* __restrict__ kseg, bf16* __restrict__ dk,
+                        bf16* __restrict__ dv, int Sq, int Sk, int H,
+                        int causal, float scale) {
+  constexpr int XS = D + MPAD;
+  constexpr int ND = D / 8;
+  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * (tid >> 5);
+  const int nqt = Sq / TILE, nkt = Sk / TILE;
+  const size_t rs = static_cast<size_t>(H) * D;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem);
+  bf16* v_s = k_s + TILE * XS;
+  bf16* q_s = v_s + TILE * XS;
+  bf16* do_s = q_s + TILE * XS;
+  int* qseg_s = reinterpret_cast<int*>(do_s + TILE * XS);
+  int* kseg_s = qseg_s + TILE;
+  float* lse_s = reinterpret_cast<float*>(kseg_s + TILE);
+  float* delta_s = lse_s + TILE;
+
+  const size_t k0 = static_cast<size_t>(b) * Sk + kt * TILE;
+  load_tile_mma<D>(k_s, k + k0 * rs + h * D, rs, tid);
+  load_tile_mma<D>(v_s, v + k0 * rs + h * D, rs, tid);
+  if (tid < TILE) kseg_s[tid] = kseg[k0 + tid];
+  const int* kr = krange + (static_cast<size_t>(b) * nkt + kt) * 2;
+  const float* lse_bh = lse + (static_cast<size_t>(b) * H + h) * Sq;
+  const float* delta_bh = delta + (static_cast<size_t>(b) * H + h) * Sq;
+
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+  }
+
+  for (int qt = causal ? kt : 0; qt < nqt; ++qt) {
+    if (!tiles_live(qrange + (static_cast<size_t>(b) * nqt + qt) * 2, kr)) {
+      continue;
+    }
+    __syncthreads();
+    const size_t q0 = static_cast<size_t>(b) * Sq + qt * TILE;
+    load_tile_mma<D>(q_s, q + q0 * rs + h * D, rs, tid);
+    load_tile_mma<D>(do_s, dout + q0 * rs + h * D, rs, tid);
+    if (tid < TILE) {
+      qseg_s[tid] = qseg[q0 + tid];
+      lse_s[tid] = lse_bh[qt * TILE + tid];
+      delta_s[tid] = delta_bh[qt * TILE + tid];
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      // transposed: row = key r0 + g (+8), column = query 32 half + 8 j ..
+      float st[4][4], dpt[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+      }
+      mma_abt<D, 4>(st, k_s, r0, q_s, 32 * half, g, t);
+      mma_abt<D, 4>(dpt, v_s, r0, do_s, 32 * half, g, t);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = r0 + g + 8 * (e >> 1);
+          const int c = 32 * half + 8 * j + 2 * t + (e & 1);
+          const bool live = qseg_s[c] == kseg_s[r] &&
+                            (!causal || qt * TILE + c >= kt * TILE + r);
+          const float p = live ? expf(st[j][e] * scale - lse_s[c]) : 0.f;
+          st[j][e] = p;                                    // P^T
+          dpt[j][e] = p * (dpt[j][e] - delta_s[c]) * scale;  // dS^T
+        }
+      }
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        uint32_t a[4];
+        acc_to_a(a, st[2 * ks], st[2 * ks + 1]);
+        mma_ay<D>(dva, a, do_s, 32 * half + 16 * ks, g, t);
+        acc_to_a(a, dpt[2 * ks], dpt[2 * ks + 1]);
+        mma_ay<D>(dka, a, q_s, 32 * half + 16 * ks, g, t);
+      }
+    }
+  }
+
+  const float one[2] = {1.f, 1.f};
+  store_acc<D>(dk + k0 * rs + h * D, rs, r0, g, t, dka, one);
+  store_acc<D>(dv + k0 * rs + h * D, rs, r0, g, t, dva, one);
+}
+
+// dQ: one block per (query tile, head, batch); warp w owns query rows
+// 16 w .. 16 w + 15; each key tile in two halves of 32 keys
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        const int* __restrict__ qrange,
+                        const int* __restrict__ krange,
+                        const int* __restrict__ qseg,
+                        const int* __restrict__ kseg, bf16* __restrict__ dq,
+                        int Sq, int Sk, int H, int causal, float scale) {
+  constexpr int XS = D + MPAD;
+  constexpr int ND = D / 8;
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * (tid >> 5);
+  const int nqt = Sq / TILE, nkt = Sk / TILE;
+  const size_t rs = static_cast<size_t>(H) * D;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);
+  bf16* do_s = q_s + TILE * XS;
+  bf16* k_s = do_s + TILE * XS;
+  bf16* v_s = k_s + TILE * XS;
+  int* qseg_s = reinterpret_cast<int*>(v_s + TILE * XS);
+  int* kseg_s = qseg_s + TILE;
+  float* lse_s = reinterpret_cast<float*>(kseg_s + TILE);
+  float* delta_s = lse_s + TILE;
+
+  const size_t q0 = static_cast<size_t>(b) * Sq + qt * TILE;
+  load_tile_mma<D>(q_s, q + q0 * rs + h * D, rs, tid);
+  load_tile_mma<D>(do_s, dout + q0 * rs + h * D, rs, tid);
+  if (tid < TILE) {
+    const size_t bh = (static_cast<size_t>(b) * H + h) * Sq + qt * TILE;
+    qseg_s[tid] = qseg[q0 + tid];
+    lse_s[tid] = lse[bh + tid];
+    delta_s[tid] = delta[bh + tid];
+  }
+  const int* qr = qrange + (static_cast<size_t>(b) * nqt + qt) * 2;
+
+  float dqa[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
+  }
+
+  const int kt_end = causal ? min(nkt, qt + 1) : nkt;
+  for (int kt = 0; kt < kt_end; ++kt) {
+    if (!tiles_live(qr, krange + (static_cast<size_t>(b) * nkt + kt) * 2)) {
+      continue;
+    }
+    __syncthreads();
+    const size_t k0 = static_cast<size_t>(b) * Sk + kt * TILE;
+    load_tile_mma<D>(k_s, k + k0 * rs + h * D, rs, tid);
+    load_tile_mma<D>(v_s, v + k0 * rs + h * D, rs, tid);
+    if (tid < TILE) kseg_s[tid] = kseg[k0 + tid];
+    __syncthreads();
+
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      }
+      mma_abt<D, 4>(s, q_s, r0, k_s, 32 * half, g, t);
+      mma_abt<D, 4>(dp, do_s, r0, v_s, 32 * half, g, t);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = r0 + g + 8 * (e >> 1);
+          const int c = 32 * half + 8 * j + 2 * t + (e & 1);
+          const bool live = qseg_s[r] == kseg_s[c] &&
+                            (!causal || qt * TILE + r >= kt * TILE + c);
+          const float p = live ? expf(s[j][e] * scale - lse_s[r]) : 0.f;
+          s[j][e] = p * (dp[j][e] - delta_s[r]) * scale;   // dS
+        }
+      }
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        uint32_t a[4];
+        acc_to_a(a, s[2 * ks], s[2 * ks + 1]);
+        mma_ay<D>(dqa, a, k_s, 32 * half + 16 * ks, g, t);
+      }
+    }
+  }
+
+  const float one[2] = {1.f, 1.f};
+  store_acc<D>(dq + q0 * rs + h * D, rs, r0, g, t, dqa, one);
+}
+
+// ---------------------------------------------------------------------------
+// launchers
+// ---------------------------------------------------------------------------
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+struct Args {
+  const void *q, *k, *v, *dout, *lse_in, *delta, *qrange, *krange, *qseg,
+      *kseg;
+  void *o, *lse, *dq, *dk, *dv;
+  int B, Sq, Sk, H, causal, pv_f32;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int D>
+cudaError_t run_fwd(const Args& a) {
+  auto kernel = flash_fwd_kernel<T, D>;
+  static bool attr_set = false;   // once per instantiation
+  if (!attr_set) {
+    const cudaError_t e = allow_smem(kernel, fwd_smem<T, D>());
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  const dim3 grid(a.Sq / TILE, a.H, a.B);
+  kernel<<<grid, NTHREADS, fwd_smem<T, D>(), a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const int*>(a.qrange),
+      static_cast<const int*>(a.krange), static_cast<const int*>(a.qseg),
+      static_cast<const int*>(a.kseg), static_cast<T*>(a.o),
+      static_cast<float*>(a.lse), a.Sq, a.Sk, a.H, a.causal, a.pv_f32,
+      a.scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t run_bwd_kv(const Args& a) {
+  auto kernel = flash_bwd_kv_kernel<T, D>;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = allow_smem(kernel, bwd_kv_smem<T, D>());
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  const dim3 grid(a.Sk / TILE, a.H, a.B);
+  kernel<<<grid, NTHREADS, bwd_kv_smem<T, D>(), a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.lse_in),
+      static_cast<const float*>(a.delta), static_cast<const int*>(a.qrange),
+      static_cast<const int*>(a.krange), static_cast<const int*>(a.qseg),
+      static_cast<const int*>(a.kseg), static_cast<T*>(a.dk),
+      static_cast<T*>(a.dv), a.Sq, a.Sk, a.H, a.causal, a.pv_f32, a.scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t run_bwd_dq(const Args& a) {
+  auto kernel = flash_bwd_dq_kernel<T, D>;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = allow_smem(kernel, bwd_dq_smem<T, D>());
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  const dim3 grid(a.Sq / TILE, a.H, a.B);
+  kernel<<<grid, NTHREADS, bwd_dq_smem<T, D>(), a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.lse_in),
+      static_cast<const float*>(a.delta), static_cast<const int*>(a.qrange),
+      static_cast<const int*>(a.krange), static_cast<const int*>(a.qseg),
+      static_cast<const int*>(a.kseg), static_cast<T*>(a.dq), a.Sq, a.Sk,
+      a.H, a.causal, a.pv_f32, a.scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t run_fwd_mma(const Args& a) {
+  auto kernel = flash_fwd_mma_kernel<D>;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = allow_smem(kernel, fwd_mma_smem<D>());
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  const dim3 grid(a.Sq / TILE, a.H, a.B);
+  kernel<<<grid, MMA_THREADS, fwd_mma_smem<D>(), a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const int*>(a.qrange),
+      static_cast<const int*>(a.krange), static_cast<const int*>(a.qseg),
+      static_cast<const int*>(a.kseg), static_cast<bf16*>(a.o),
+      static_cast<float*>(a.lse), a.Sq, a.Sk, a.H, a.causal, a.scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t run_bwd_kv_mma(const Args& a) {
+  auto kernel = flash_bwd_kv_mma_kernel<D>;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = allow_smem(kernel, bwd_mma_smem<D>());
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  const dim3 grid(a.Sk / TILE, a.H, a.B);
+  kernel<<<grid, MMA_THREADS, bwd_mma_smem<D>(), a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse_in),
+      static_cast<const float*>(a.delta), static_cast<const int*>(a.qrange),
+      static_cast<const int*>(a.krange), static_cast<const int*>(a.qseg),
+      static_cast<const int*>(a.kseg), static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.Sq, a.Sk, a.H, a.causal, a.scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t run_bwd_dq_mma(const Args& a) {
+  auto kernel = flash_bwd_dq_mma_kernel<D>;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = allow_smem(kernel, bwd_mma_smem<D>());
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  const dim3 grid(a.Sq / TILE, a.H, a.B);
+  kernel<<<grid, MMA_THREADS, bwd_mma_smem<D>(), a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse_in),
+      static_cast<const float*>(a.delta), static_cast<const int*>(a.qrange),
+      static_cast<const int*>(a.krange), static_cast<const int*>(a.qseg),
+      static_cast<const int*>(a.kseg), static_cast<bf16*>(a.dq), a.Sq, a.Sk,
+      a.H, a.causal, a.scale);
+  return cudaGetLastError();
+}
+
+enum Which { FWD = 0, BWD_KV = 1, BWD_DQ = 2 };
+
+template <int D>
+cudaError_t run_mma(Which w, const Args& a) {
+  switch (w) {
+    case FWD: return run_fwd_mma<D>(a);
+    case BWD_KV: return run_bwd_kv_mma<D>(a);
+    case BWD_DQ: return run_bwd_dq_mma<D>(a);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, int D>
+cudaError_t run(Which w, const Args& a) {
+  switch (w) {
+    case FWD: return run_fwd<T, D>(a);
+    case BWD_KV: return run_bwd_kv<T, D>(a);
+    case BWD_DQ: return run_bwd_dq<T, D>(a);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// dtype: 0 = f32, 1 = bf16; head_dim 64 or 128; sequence lengths whole
+// tiles.  bf16 with P rounded (pv_f32 off, the default) runs on the tensor
+// cores; f32, and bf16 with pv_f32, on the CUDA cores.
+cudaError_t dispatch(Which w, int D, int dtype, const Args& a) {
+  if (a.B <= 0 || a.H <= 0 || a.Sq <= 0 || a.Sk <= 0 || a.Sq % TILE != 0 ||
+      a.Sk % TILE != 0 || a.H > 65535 || a.B > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  if (dtype == 1 && !a.pv_f32 && D == 128) return run_mma<128>(w, a);
+  if (dtype == 1 && !a.pv_f32 && D == 64) return run_mma<64>(w, a);
+  if (dtype == 0 && D == 128) return run<float, 128>(w, a);
+  if (dtype == 0 && D == 64) return run<float, 64>(w, a);
+  if (dtype == 1 && D == 128) return run<bf16, 128>(w, a);
+  if (dtype == 1 && D == 64) return run<bf16, 64>(w, a);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" {
+
+int flash_fwd(const void* q, const void* k, const void* v,
+              const void* qrange, const void* krange, const void* qseg,
+              const void* kseg, void* o, void* lse, int B, int Sq, int Sk,
+              int H, int D, int dtype, int causal, int pv_f32, float scale,
+              void* stream) {
+  Args a{};
+  a.q = q; a.k = k; a.v = v; a.qrange = qrange; a.krange = krange;
+  a.qseg = qseg; a.kseg = kseg; a.o = o; a.lse = lse;
+  a.B = B; a.Sq = Sq; a.Sk = Sk; a.H = H; a.causal = causal;
+  a.pv_f32 = pv_f32; a.scale = scale;
+  a.stream = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(dispatch(FWD, D, dtype, a));
+}
+
+int flash_bwd_kv(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* delta,
+                 const void* qrange, const void* krange, const void* qseg,
+                 const void* kseg, void* dk, void* dv, int B, int Sq, int Sk,
+                 int H, int D, int dtype, int causal, int pv_f32,
+                 float scale, void* stream) {
+  Args a{};
+  a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse_in = lse;
+  a.delta = delta; a.qrange = qrange; a.krange = krange; a.qseg = qseg;
+  a.kseg = kseg; a.dk = dk; a.dv = dv;
+  a.B = B; a.Sq = Sq; a.Sk = Sk; a.H = H; a.causal = causal;
+  a.pv_f32 = pv_f32; a.scale = scale;
+  a.stream = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(dispatch(BWD_KV, D, dtype, a));
+}
+
+int flash_bwd_dq(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* delta,
+                 const void* qrange, const void* krange, const void* qseg,
+                 const void* kseg, void* dq, int B, int Sq, int Sk, int H,
+                 int D, int dtype, int causal, int pv_f32, float scale,
+                 void* stream) {
+  Args a{};
+  a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse_in = lse;
+  a.delta = delta; a.qrange = qrange; a.krange = krange; a.qseg = qseg;
+  a.kseg = kseg; a.dq = dq;
+  a.B = B; a.Sq = Sq; a.Sk = Sk; a.H = H; a.causal = causal;
+  a.pv_f32 = pv_f32; a.scale = scale;
+  a.stream = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(dispatch(BWD_DQ, D, dtype, a));
+}
+
+const char* flash_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -1,0 +1,31 @@
+"""Input type descriptors for data layers and the DataFeeder (a copy of
+``paddle_tpu/data_type.py`` trimmed to what the training slice reads)."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from enum import Enum
+
+
+class SeqKind(Enum):
+    NO_SEQUENCE = 0
+    SEQUENCE = 1
+    SUB_SEQUENCE = 2
+
+
+class SlotKind(Enum):
+    DENSE = 0
+    SPARSE_BINARY = 1
+    SPARSE_FLOAT = 2
+    INDEX = 3
+
+
+@dataclass(frozen=True)
+class InputType:
+    dim: int
+    slot: SlotKind
+    seq: SeqKind = SeqKind.NO_SEQUENCE
+
+
+def integer_value_sequence(value_range: int) -> InputType:
+    return InputType(value_range, SlotKind.INDEX, SeqKind.SEQUENCE)

@@ -1,0 +1,301 @@
+"""The layer DSL (the port of ``paddle_tpu/layer.py``, the transformer
+subset: ``data``, ``fc``, ``embedding``, ``layer_norm``, ``addto``,
+``multi_head_attention`` and ``classification_cost``).
+
+Each function returns a ``LayerOutput`` graph node whose compute fn is
+plain PyTorch on tensors or :class:`SequenceBatch` values; the dtype
+policy of each layer is the JAX package's (``ops/math.py``).  Cost layers
+return per-example (per-token) losses; the trainer reduces them.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from paddle_tpu_torch import activation as act_mod
+from paddle_tpu_torch.attr import ExtraAttr, ParamAttr
+from paddle_tpu_torch.data_type import InputType, SeqKind
+from paddle_tpu_torch.initializer import Constant
+from paddle_tpu_torch.ops import attention as pattn
+from paddle_tpu_torch.ops import losses as ploss
+from paddle_tpu_torch.ops import math as pmath
+from paddle_tpu_torch.ops import norm as pnorm
+from paddle_tpu_torch.ops.embedding import embedding_lookup
+from paddle_tpu_torch.platform.enforce import enforce_that
+from paddle_tpu_torch.sequence import SequenceBatch
+from paddle_tpu_torch.topology import Context, LayerOutput, ParamSpec, \
+    unique_name
+
+__all__ = ["data", "fc", "embedding", "layer_norm", "addto",
+           "multi_head_attention", "classification_cost"]
+
+
+def _as_list(x) -> list:
+    if x is None:
+        return []
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
+def _data_of(v):
+    return v.data if isinstance(v, SequenceBatch) else v
+
+
+def _like(template, data):
+    if isinstance(template, SequenceBatch):
+        return template.with_data(data)
+    return data
+
+
+def _cast_value(value, dtype):
+    return _like(value, _data_of(value).to(dtype))
+
+
+def _apply_act(activation, value):
+    """Apply an activation to a dense tensor or tokenwise to a
+    SequenceBatch."""
+    if activation.fn is None:
+        return value
+    return _like(value, activation.fn(_data_of(value)))
+
+
+def _act_then_cast(activation, value, dtype):
+    """Activation and cast to the storage dtype: softmax normalizes a row,
+    so it runs on the f32 accumulator before the cast; the pointwise ones
+    run after it (the JAX package's order)."""
+    if isinstance(activation, act_mod.SoftmaxActivation):
+        return _cast_value(_apply_act(activation, value), dtype)
+    return _apply_act(activation, _cast_value(value, dtype))
+
+
+def _check_extra(layer_attr) -> None:
+    enforce_that(ExtraAttr.to_attr(layer_attr).drop_rate == 0.0,
+                 "dropout is not ported yet: drop_rate must be 0",
+                 context="layer")
+
+
+def _need_seq(node: LayerOutput, ctx_name: str) -> None:
+    enforce_that(node.is_sequence,
+                 f"{ctx_name} needs a sequence input, got {node.name!r}",
+                 context=ctx_name)
+
+
+# ---------------------------------------------------------------------------
+# data
+# ---------------------------------------------------------------------------
+
+_data_counter = [0]
+
+
+def data(name: str, type: InputType, **_ignored) -> LayerOutput:
+    """Input placeholder; declaration order is the default feeding
+    order."""
+    node = LayerOutput(name=name, layer_type="data", inputs=[], fn=None,
+                       size=type.dim,
+                       is_sequence=type.seq != SeqKind.NO_SEQUENCE,
+                       input_type=type, declare_idx=_data_counter[0])
+    _data_counter[0] += 1
+    return node
+
+
+# ---------------------------------------------------------------------------
+# fc / embedding / norm / addto
+# ---------------------------------------------------------------------------
+
+
+def fc(input, size: int, act=None, name: Optional[str] = None,
+       param_attr=None, bias_attr=True, layer_attr=None) -> LayerOutput:
+    """Fully connected layer; several inputs are projected and summed.
+    Products accumulate in f32; the output is stored in
+    ``dense_activation_dtype``."""
+    inputs = _as_list(input)
+    name = name or unique_name("fc")
+    activation = act_mod.get(act)
+    _check_extra(layer_attr)
+    attrs = (_as_list(param_attr) if isinstance(param_attr, (list, tuple))
+             else [param_attr] * len(inputs))
+    params: Dict[str, ParamSpec] = {}
+    for i, (inp, pa) in enumerate(zip(inputs, attrs)):
+        enforce_that(inp.size is not None, f"input {inp.name} has no size",
+                     context="fc")
+        params[f"w{i}"] = ParamSpec((inp.size, size), ParamAttr.to_attr(pa))
+    has_bias = bool(bias_attr)
+    if has_bias:
+        params["b"] = ParamSpec((size,), ParamAttr.to_attr(
+            None if bias_attr is True else bias_attr))
+
+    def compute(ctx: Context, p, ins):
+        total = None
+        for i, v in enumerate(ins):
+            y = pmath.matmul(_data_of(v), p[f"w{i}"])
+            total = y if total is None else total + y
+        if has_bias:
+            total = total + p["b"]
+        out = _like(ins[0], total)
+        return _act_then_cast(activation, out, pmath.dense_activation_dtype())
+
+    return LayerOutput(name=name, layer_type="fc", inputs=inputs, fn=compute,
+                       params=params, size=size,
+                       is_sequence=inputs[0].is_sequence)
+
+
+def embedding(input, size: int, name: Optional[str] = None,
+              param_attr=None, layer_attr=None) -> LayerOutput:
+    """Table lookup."""
+    name = name or unique_name("embedding")
+    _check_extra(layer_attr)
+    params = {"w": ParamSpec((input.size, size),
+                             ParamAttr.to_attr(param_attr))}
+
+    def compute(ctx, p, ins):
+        v = ins[0]
+        out = embedding_lookup(p["w"], _data_of(v))
+        return _like(v, out.to(pmath.dense_activation_dtype()))
+
+    return LayerOutput(name=name, layer_type="embedding", inputs=[input],
+                       fn=compute, params=params, size=size,
+                       is_sequence=input.is_sequence)
+
+
+def layer_norm(input, act=None, name: Optional[str] = None, param_attr=None,
+               bias_attr=None, epsilon: float = 1e-5, **_kw) -> LayerOutput:
+    """Per-row layer normalization over the feature axis (statistics in
+    f32, output in the input dtype)."""
+    name = name or unique_name("layer_norm")
+    activation = act_mod.get(act)
+    params = {
+        "gamma": ParamSpec((input.size,), ParamAttr.to_attr(param_attr)
+                           if param_attr else
+                           ParamAttr(initializer=Constant(1.0))),
+        "beta": ParamSpec((input.size,), ParamAttr.to_attr(bias_attr)
+                          if bias_attr else
+                          ParamAttr(initializer=Constant(0.0))),
+    }
+
+    def compute(ctx, p, ins):
+        v = ins[0]
+        y = pnorm.layer_norm(_data_of(v), p["gamma"], p["beta"], eps=epsilon)
+        return _like(v, _apply_act(activation, y))
+
+    return LayerOutput(name=name, layer_type="layer_norm", inputs=[input],
+                       fn=compute, params=params, size=input.size,
+                       is_sequence=input.is_sequence)
+
+
+def addto(input, act=None, name: Optional[str] = None, bias_attr=False,
+          layer_attr=None) -> LayerOutput:
+    """Elementwise sum."""
+    inputs = _as_list(input)
+    name = name or unique_name("addto")
+    activation = act_mod.get(act)
+    _check_extra(layer_attr)
+    params = {}
+    has_bias = bool(bias_attr)
+    if has_bias:
+        params["b"] = ParamSpec((inputs[0].size,), ParamAttr.to_attr(
+            None if bias_attr is True else bias_attr))
+
+    def compute(ctx, p, ins):
+        total = _data_of(ins[0])
+        for v in ins[1:]:
+            total = total + _data_of(v)
+        if has_bias:
+            total = total + p["b"].to(total.dtype)
+        return _apply_act(activation, _like(ins[0], total))
+
+    return LayerOutput(name=name, layer_type="addto", inputs=inputs,
+                       fn=compute, params=params, size=inputs[0].size,
+                       is_sequence=inputs[0].is_sequence)
+
+
+# ---------------------------------------------------------------------------
+# attention and cost
+# ---------------------------------------------------------------------------
+
+
+def multi_head_attention(query, key=None, value=None, *, num_heads: int,
+                         size: int = None, causal: bool = False,
+                         name: Optional[str] = None, param_attr=None,
+                         layer_attr=None) -> LayerOutput:
+    """Multi-head flash attention over packed sequences: the segment ids
+    are the mask (no token attends across sequences), ``causal`` masks on
+    absolute positions in the packed buffer.  key/value default to the
+    query (self-attention)."""
+    q_in = query
+    k_in = key if key is not None else query
+    v_in = value if value is not None else k_in
+    for node in (q_in, k_in, v_in):
+        _need_seq(node, "multi_head_attention")
+    # two independently packed buffers have incomparable positions
+    enforce_that(not (causal and key is not None and key is not query),
+                 "causal=True is self-attention only (packed positions "
+                 "are incomparable across different key/query buffers)",
+                 context="multi_head_attention")
+    _check_extra(layer_attr)
+    size = size or q_in.size
+    enforce_that(size % num_heads == 0,
+                 f"num_heads {num_heads} must divide size {size}",
+                 context="multi_head_attention")
+    name = name or unique_name("mha")
+    attr = ParamAttr.to_attr(param_attr)
+    params = {
+        "wq": ParamSpec((q_in.size, size), attr),
+        "wk": ParamSpec((k_in.size, size), attr),
+        "wv": ParamSpec((v_in.size, size), attr),
+        "wo": ParamSpec((size, size), attr),
+    }
+    head_dim = size // num_heads
+
+    def compute(ctx, p, ins):
+        qs, ks, vs = ins
+        cap_q, cap_k = qs.capacity, ks.capacity
+        enforce_that(vs.capacity == cap_k,
+                     f"key/value capacities differ ({cap_k} vs "
+                     f"{vs.capacity}) — they must come from the same "
+                     "feeder bucket", context="multi_head_attention")
+        # q/k/v ride into flash attention in the compute dtype (bf16 under
+        # the policy); the projections accumulate in f32 and round once
+        qkv_t = pmath.compute_dtype(qs.data)
+        q = pmath.matmul(qs.data, p["wq"]).to(qkv_t).reshape(
+            1, cap_q, num_heads, head_dim)
+        k = pmath.matmul(ks.data, p["wk"]).to(qkv_t).reshape(
+            1, cap_k, num_heads, head_dim)
+        v = pmath.matmul(vs.data, p["wv"]).to(qkv_t).reshape(
+            1, cap_k, num_heads, head_dim)
+        out = pattn.flash_attention(
+            q, k, v, segment_ids=qs.segment_ids[None, :],
+            kv_segment_ids=ks.segment_ids[None, :], causal=causal)
+        y = pmath.matmul(out.reshape(cap_q, size), p["wo"])
+        return qs.with_data(y.to(pmath.dense_activation_dtype()))
+
+    return LayerOutput(name=name, layer_type="multi_head_attention",
+                       inputs=[q_in, k_in, v_in], fn=compute, params=params,
+                       size=size, is_sequence=True)
+
+
+def _per_example(fn_dense, value, *args):
+    """Run a per-row loss on dense or sequence (per-token) input; padding
+    tokens get 0."""
+    if isinstance(value, SequenceBatch):
+        out = fn_dense(value.data, *[_data_of(a) for a in args])
+        masked = torch.where(value.valid_mask, out, torch.zeros_like(out))
+        return value.with_data(masked)
+    return fn_dense(value, *[_data_of(a) for a in args])
+
+
+def classification_cost(input, label, name: Optional[str] = None,
+                        **_kw) -> LayerOutput:
+    """Softmax cross-entropy on logits, per example (per token for a
+    sequence)."""
+    name = name or unique_name("classification_cost")
+
+    def compute(ctx, p, ins):
+        def f(lg, lb):
+            return ploss.softmax_cross_entropy(lg, lb.reshape(lb.shape[0]))
+
+        return _per_example(f, ins[0], ins[1])
+
+    return LayerOutput(name=name, layer_type="classification_cost",
+                       inputs=[input, label], fn=compute, size=1,
+                       is_cost=True)

@@ -1,1 +1,2 @@
-"""Tensor ops of the port (only what the serving slice reads so far)."""
+"""Tensor ops of the port (what the serving and training slices read so
+far)."""

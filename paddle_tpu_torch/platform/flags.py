@@ -104,3 +104,21 @@ FLAGS.define("serving_preempt_budget", 3,
 FLAGS.define("serving_watchdog_ticks", 16,
              "a RUNNING request that makes no progress for this many "
              "ticks is FAILED; 0 disables", parser=int)
+
+# training slice (the JAX defaults of paddle_tpu/platform/flags.py)
+FLAGS.define("use_bf16", True,
+             "compute matmuls in bfloat16 with f32 accumulation; q/k/v "
+             "ride bf16 into flash attention")
+FLAGS.define("bf16_dense_activations", False,
+             "store fc/embedding/attention outputs (the transformer "
+             "residual stream) in bfloat16; norm statistics and losses "
+             "still reduce in f32. Only active when use_bf16 is also on.")
+FLAGS.define("attn_block", 0,
+             "flash-attention tile edge of the plain version's key "
+             "blocks; 0 = auto: the largest of 512/256/128 that divides "
+             "the sequence. The CUDA kernels keep their own 64-row tiles.",
+             parser=int)
+FLAGS.define("attn_pv_f32", False,
+             "keep the flash-attention P and dS operands in f32 instead of "
+             "rounding them to the inputs' dtype before the PV, dV, dK and "
+             "dQ products")

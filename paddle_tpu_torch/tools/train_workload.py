@@ -1,0 +1,214 @@
+"""The full-width training workload that ``chip_smoke.py`` drives, and the
+flash-attention kernel cases it checks, in one place so the script and
+``tests/test_torch_kernels_cuda.py`` run the same shapes.
+
+The model is the repo's headline transformer config (bench.py:428-431,
+first tier): ``transformer.build(vocab 32768, d_model 2048, 8 layers, 16
+heads, max_len 1024)`` trained with ``Momentum(0.9)`` (bench.py:89-94) at
+the flag defaults (bf16 matmul and attention inputs, f32 residual
+stream).  The learning rate is 1e-3, not bench.py's 0.01: the cost is
+the per-sequence sum of 1024 token losses (``trainer._reduce_cost``, as
+in the JAX package), so its gradient is ~1024 times a mean loss's, and
+at 0.01 the cost of a repeated batch rises after the second step; a
+step's work, and so its time, does not depend on the rate.  A batch is
+8 random sequences of 1024 tokens with next-token targets
+(bench.py:393-396), which the feeder packs into one
+8192-slot ``SequenceBatch``: every attention call is then q/k/v [1, 8192,
+16, 128] bf16 with 8 causal segments of 1024.
+
+Usage::
+
+    sgd = build_trainer(torch.device("cuda"))
+    sgd.train(repeat_reader(lm_samples(SEED + 1), steps), feeding=FEEDING)
+"""
+
+from __future__ import annotations
+
+import contextlib
+from dataclasses import dataclass
+from typing import Sequence
+
+import numpy as np
+import torch
+
+MODEL = dict(vocab_size=32768, d_model=2048, n_layers=8, n_heads=16,
+             max_len=1024)
+BATCH, SEQ = 8, 1024
+SEED = 0                 # weights; the batch uses SEED + 1
+FEEDING = {"tokens": 0, "pos": 1, "target": 2}
+MOMENTUM, LEARNING_RATE = 0.9, 1e-3
+
+
+def lm_samples(seed: int, bs: int = BATCH, seq: int = SEQ,
+               vocab: int = MODEL["vocab_size"]):
+    """``bs`` random sequences of ``seq`` tokens as (tokens, positions,
+    next-token targets) samples."""
+    rng = np.random.RandomState(seed)
+    samples = []
+    for _ in range(bs):
+        t = rng.randint(0, vocab, size=seq)
+        samples.append((t.tolist(), list(range(seq)),
+                        np.roll(t, -1).tolist()))
+    return samples
+
+
+def repeat_reader(samples, steps: int):
+    """A reader that yields the same batch ``steps`` times."""
+    return lambda: iter([samples] * steps)
+
+
+def build_trainer(device, n_layers: int = MODEL["n_layers"],
+                  seed: int = SEED):
+    """``trainer.SGD`` over ``transformer.build`` at the workload's width
+    with ``n_layers`` blocks, weights from ``seed``, on ``device``."""
+    from paddle_tpu_torch import optimizer, topology, trainer
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.parameters import Parameters
+
+    topology.reset_name_scope()
+    cfg = dict(MODEL, n_layers=n_layers)
+    *_, cost = transformer.build(**cfg)
+    params = Parameters.from_topology(topology.Topology([cost]), seed=seed,
+                                      device=device)
+    return trainer.SGD(cost, params, optimizer.Momentum(
+        momentum=MOMENTUM, learning_rate=LEARNING_RATE), device=device)
+
+
+@contextlib.contextmanager
+def plain_flash_path():
+    """Route the layers' flash attention through the plain versions on
+    the card (``flash_attention_reference``): the path the kernel path
+    is held against in a training run."""
+    from paddle_tpu_torch.ops import attention
+
+    kernels = attention.flash_attention
+    attention.flash_attention = attention.flash_attention_reference
+    try:
+        yield
+    finally:
+        attention.flash_attention = kernels
+
+
+# ---------------------------------------------------------------------------
+# flash-attention kernel cases
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class FlashCase:
+    name: str
+    q: torch.Tensor          # [B, Sq, H, D]
+    k: torch.Tensor          # [B, Sk, H, D]
+    v: torch.Tensor
+    dout: torch.Tensor       # [B, Sq, H, D]
+    q_seg: torch.Tensor      # [B, Sq] int32
+    kv_seg: torch.Tensor     # [B, Sk] int32
+    causal: bool
+
+    @property
+    def sm_scale(self) -> float:
+        return float(self.q.shape[-1]) ** -0.5
+
+
+def packed_segments(lengths: Sequence[int], capacity: int) -> np.ndarray:
+    """[1, capacity] segment ids as the feeder packs ``lengths``: the
+    slots past the last sequence take the id ``len(lengths)``."""
+    seg = np.full((1, capacity), len(lengths), np.int32)
+    off = 0
+    for i, n in enumerate(lengths):
+        seg[0, off:off + n] = i
+        off += n
+    return seg
+
+
+# the feeder's packing of 8 ragged sequences (6561 tokens) into 8192 slots
+RAGGED_LENGTHS = (1000, 700, 1024, 513, 900, 1024, 800, 600)
+_S = BATCH * SEQ
+# name: (dtype, Sq, Sk, H, D, causal, packed lengths or None); None means
+# no segment ids (one segment)
+FLASH_CASES = {
+    # (a) the training path: 8 causal segments of 1024 in 8192 slots
+    "a_bf16_8x1024_causal": ("bfloat16", _S, _S, 16, 128, True,
+                             (SEQ,) * BATCH),
+    # (b) ragged segments and a padding segment, as the feeder packs them
+    "b_bf16_ragged_padded": ("bfloat16", _S, _S, 16, 128, True,
+                             RAGGED_LENGTHS),
+    # (c) f32, causal segments at a smaller S, head dims 128 and 64
+    "c_f32_segments_causal": ("float32", 2048, 2048, 16, 128, True,
+                              (600, 1000, 300)),
+    "c_f32_segments_causal_d64": ("float32", 2048, 2048, 16, 64, True,
+                                  (600, 1000, 300)),
+    # (d) non-causal cross-attention, Sq != Sk
+    "d_bf16_cross": ("bfloat16", 1024, 2048, 16, 128, False, None),
+    "d_f32_cross": ("float32", 1024, 2048, 16, 128, False, None),
+    # (e) causal cross-attention with Sk > Sq
+    "e_f32_causal_sk_gt_sq": ("float32", 512, 2048, 16, 128, True, None),
+}
+
+
+def flash_case(name: str, device) -> FlashCase:
+    """The named case's inputs on ``device``, drawn from a seed."""
+    dtype, sq, sk, h, d, causal, lengths = FLASH_CASES[name]
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng([SEED, sorted(FLASH_CASES).index(name)])
+
+    def t(a, to=dt):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device, to)
+
+    def normal(s):
+        return t(rng.standard_normal((1, s, h, d), np.float32))
+
+    q_seg = (np.zeros((1, sq), np.int32) if lengths is None
+             else packed_segments(lengths, sq))
+    kv_seg = q_seg if sq == sk else np.zeros((1, sk), np.int32)
+    return FlashCase(name=name, q=normal(sq), k=normal(sk), v=normal(sk),
+                     dout=normal(sq), q_seg=t(q_seg, torch.int32),
+                     kv_seg=t(kv_seg, torch.int32), causal=causal)
+
+
+# f32 outputs (and lse, f32 in every case) against the plain version:
+# 1e-4 abs + rel.  bf16 outputs (O, dQ, dK, dV):
+# |err| <= 2**-7 |want| + 2e-3 max|want|: one bf16 step at the element's own
+# magnitude, for an output whose f32 sum, taken in another order, rounds to
+# the other neighbour, plus 2e-3 of the tensor's largest magnitude for
+# elements summed from many bf16-rounded P or dS terms that cancel.  The
+# plain version rounds P and dS to bf16 where the kernels do, at the
+# kernels' 64-key tiles (the same running maxima), and sums in f32.  On an
+# H100 the largest error over this limit came to 0.57 (bf16
+# cross-attention dQ); over 2e-3 max|want| alone it would have been 1.2
+# (dV, one bf16 step at a value above 4).
+FLASH_TOL_F32 = (1e-4, 1e-4)
+FLASH_TOL_BF16 = (2e-3, 2.0 ** -7)   # (of max|want|, of |want|)
+
+
+def flash_error(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """Max abs error of a kernel output against the plain version's, the
+    largest error over its limit, and whether every element is within
+    the tolerance above (and finite)."""
+    err = (got.float() - want.float()).abs()
+    want = want.float()
+    if got.dtype == torch.bfloat16:
+        limit = FLASH_TOL_BF16[0] * want.abs().max() + \
+            FLASH_TOL_BF16[1] * want.abs()
+    else:
+        limit = FLASH_TOL_F32[0] + FLASH_TOL_F32[1] * want.abs()
+    return {"max_abs_err": float(err.max()),
+            "max_abs_want": float(want.abs().max()),
+            "worst_err_over_limit": float((err / limit).max()),
+            "within_tolerance": bool((err <= limit).all()) and
+            bool(torch.isfinite(got).all())}
+
+
+def live_pairs(q_seg: np.ndarray, kv_seg: np.ndarray, causal: bool) -> int:
+    """(query, key) pairs the mask keeps, summed over the batch: same
+    segment id and, under ``causal``, key index <= query index."""
+    total = 0
+    for qs, ks in zip(q_seg, kv_seg):
+        for sid in np.unique(qs):
+            qpos = np.flatnonzero(qs == sid)
+            kpos = np.flatnonzero(ks == sid)
+            if causal:
+                total += int(np.searchsorted(kpos, qpos, side="right").sum())
+            else:
+                total += len(qpos) * len(kpos)
+    return total

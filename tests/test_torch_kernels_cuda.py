@@ -1,6 +1,9 @@
-"""The port's CUDA kernel on the card: the ragged paged-attention kernel
+"""The port's CUDA kernels on the card: the ragged paged-attention kernel
 against its plain PyTorch version, the decode-only view, and a small
-ServingEngine on CUDA against the port's greedy oracle.
+ServingEngine on CUDA against the port's greedy oracle; the three
+flash-attention kernels against their plain versions on ``chip_smoke.py``'s
+cases, through the autograd function, and a small transformer trained
+through the kernels against the same steps through the plain versions.
 
 Every test here needs a CUDA device and skips without one (the kernel has
 no CPU mode).  The file imports neither ``jax`` nor ``paddle_tpu``, so it
@@ -14,20 +17,27 @@ in different orders).  bf16 pages: 1e-3 against the plain version with
 ``round_p_tile``, which rounds the softmax probabilities to bf16 before
 the PV product at the kernel's tiles (scores summed in another order can
 still move a probability across a bf16 rounding step), and 2e-2 against
-the plain version that does not round.
+the plain version that does not round.  Flash kernels: f32 outputs and
+every lse at 1e-4 abs + rel; bf16 outputs within one bf16 step of their
+own magnitude plus 2e-3 of the tensor's largest (``train_workload.
+flash_error``: the plain version rounds P and dS at the kernels' tiles,
+an f32 sum in another order can still cross a bf16 rounding step).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch import event
 from paddle_tpu_torch.convert import decoder_lm_from_numpy, init_numpy_params
+from paddle_tpu_torch.ops import attention as tattn
 from paddle_tpu_torch.platform.enforce import EnforceError
 from paddle_tpu_torch.serving import (DecoderLM, ServingEngine,
                                       greedy_decode_reference,
                                       reference_logits)
 from paddle_tpu_torch.serving import decode_attention as tda
 from paddle_tpu_torch.serving.kv_cache import quantize_kv
+from paddle_tpu_torch.tools import train_workload as tw
 
 pytestmark = pytest.mark.cuda
 
@@ -158,3 +168,136 @@ def test_engine_on_cuda_matches_greedy_reference(cuda):
             j = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
             top2 = np.sort(reference_logits(model, prompt + want[:j]))[-2:]
             assert top2[1] - top2[0] < 1e-3 * abs(top2[1])
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+
+def _check_flash_case(case, pv_f32=False):
+    cfg = dict(causal=case.causal, sm_scale=case.sm_scale, pv_f32=pv_f32)
+    fwd = (case.q, case.k, case.v, case.q_seg, case.kv_seg)
+    o_ref, lse_ref = tattn.flash_fwd_reference(*fwd, **cfg)
+    bwd = fwd + (case.dout, lse_ref, tattn.attention_delta(o_ref, case.dout))
+    got = list(tattn.flash_fwd_kernel(*fwd, **cfg)) + \
+        list(tattn.flash_bwd_kv_kernel(*bwd, **cfg)) + \
+        [tattn.flash_bwd_dq_kernel(*bwd, **cfg)]
+    want = [o_ref, lse_ref, *tattn.flash_bwd_kv_reference(*bwd, **cfg),
+            tattn.flash_bwd_dq_reference(*bwd, **cfg)]
+    torch.cuda.synchronize()
+    for label, g, w in zip(("o", "lse", "dk", "dv", "dq"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, label
+        res = tw.flash_error(g, w)
+        assert res["within_tolerance"], (label, res)
+
+
+@pytest.mark.parametrize("name", sorted(tw.FLASH_CASES))
+def test_flash_kernels_match_plain(cuda, name):
+    """bf16 cases run the tensor-core kernels, f32 the CUDA-core ones."""
+    _check_flash_case(tw.flash_case(name, cuda))
+
+
+@pytest.mark.parametrize("name", ["b_bf16_ragged_padded", "d_bf16_cross"])
+def test_flash_kernels_with_pv_f32_match_plain(cuda, name):
+    """bf16 with ``attn_pv_f32`` (P and dS kept in f32) runs the CUDA-core
+    kernels."""
+    _check_flash_case(tw.flash_case(name, cuda), pv_f32=True)
+
+
+def test_flash_attention_launches_each_kernel_once(cuda):
+    case = tw.flash_case("c_f32_segments_causal", cuda)
+    q, k, v = (x.clone().requires_grad_(True)
+               for x in (case.q, case.k, case.v))
+    before = [kern.launches for kern in (tattn.flash_fwd_kernel,
+                                         tattn.flash_bwd_kv_kernel,
+                                         tattn.flash_bwd_dq_kernel)]
+    out = tattn.flash_attention(q, k, v, segment_ids=case.q_seg,
+                                causal=True)
+    torch.autograd.grad(out, (q, k, v), case.dout)
+    after = [kern.launches for kern in (tattn.flash_fwd_kernel,
+                                        tattn.flash_bwd_kv_kernel,
+                                        tattn.flash_bwd_dq_kernel)]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    want = tattn.flash_attention_reference(case.q, case.k, case.v,
+                                           segment_ids=case.q_seg,
+                                           causal=True)
+    torch.testing.assert_close(out.detach(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_flash_kernels_refuse_what_they_do_not_take(cuda):
+    seg = torch.zeros((1, 128), dtype=torch.int32, device=cuda)
+    for shape, dtype, match in (((1, 128, 2, 32), torch.float32, "head_dim"),
+                                ((1, 100, 2, 128), torch.float32, "64-row"),
+                                ((1, 128, 2, 128), torch.float16,
+                                 "float32 or bfloat16")):
+        x = torch.zeros(shape, dtype=dtype, device=cuda)
+        s = seg[:, :shape[1]].contiguous()
+        with pytest.raises(EnforceError, match=match):
+            tattn.flash_attention(x, x, x, segment_ids=s, causal=True)
+
+
+def test_training_kernel_path_matches_plain_path(cuda):
+    """Two steps of a small transformer (head dim 128) through the
+    kernels, and the same steps with the layers' flash attention routed
+    through the plain versions: costs within 1e-3 relative (bf16 flash
+    inputs; the kernels sum in another order)."""
+    from paddle_tpu_torch import optimizer, topology, trainer
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.parameters import Parameters
+
+    samples = tw.lm_samples(3, bs=2, seq=96, vocab=500)
+
+    def run():
+        topology.reset_name_scope()
+        *_, cost = transformer.build(vocab_size=500, d_model=256,
+                                     n_layers=2, n_heads=2, max_len=128)
+        params = Parameters.from_topology(topology.Topology([cost]),
+                                          seed=1, device=cuda)
+        sgd = trainer.SGD(cost, params, optimizer.Momentum(
+            momentum=0.9, learning_rate=0.01), device=cuda)
+        costs = []
+        sgd.train(tw.repeat_reader(samples, 2), event_handler=lambda ev:
+                  costs.append(ev.cost)
+                  if isinstance(ev, event.EndIteration) else None,
+                  feeding=tw.FEEDING)
+        return costs
+
+    before = tattn.flash_fwd_kernel.launches
+    kernel_costs = run()
+    assert tattn.flash_fwd_kernel.launches == before + 4
+    with tw.plain_flash_path():
+        plain_costs = run()
+    np.testing.assert_allclose(kernel_costs, plain_costs, rtol=1e-3)
+
+
+def test_bf16_matmul_with_f32_result_on_the_card(cuda):
+    """``ops/math.matmul`` under the bf16 policy on the card (cuBLAS on
+    bf16 inputs with an f32 result, and the backward the port gives it)
+    against the exact widening of the same bf16 values multiplied in f32
+    on the card.  Forward: the products are exact, only the order of the
+    f32 sums differs (1e-3 abs on values ~20).  Gradients: the cotangent
+    is rounded to bf16 and each gradient once more on the way out, as
+    JAX's transpose rule rounds to the input's dtype, so they agree to
+    one bf16 step (2**-7 relative) plus the sum-order term."""
+    from paddle_tpu_torch.ops import math as tmath
+    from paddle_tpu_torch.platform.flags import FLAGS
+
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    a, b, g = (torch.randn(shape, generator=gen).to(cuda)
+               for shape in ((256, 512), (512, 384), (256, 384)))
+    a.requires_grad_(True)
+    b.requires_grad_(True)
+    old = FLAGS.use_bf16
+    FLAGS.use_bf16 = True
+    try:
+        y = tmath.matmul(a, b)
+        ga, gb = torch.autograd.grad(y, (a, b), g)
+    finally:
+        FLAGS.use_bf16 = old
+    assert y.dtype == ga.dtype == gb.dtype == torch.float32
+    a16, b16, g16 = (x.detach().bfloat16().float() for x in (a, b, g))
+    torch.testing.assert_close(y, a16 @ b16, rtol=0, atol=1e-3)
+    for got, want in ((ga, g16 @ b16.T), (gb, a16.T @ g16)):
+        torch.testing.assert_close(got, want.bfloat16().float(),
+                                   rtol=2 ** -7, atol=1e-3)

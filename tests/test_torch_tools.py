@@ -1,6 +1,8 @@
 """The port's measurement tooling on the CPU: the shared serve workload of
 ``chip_smoke.py`` and ``profile_serve`` (at a narrow width, same prompts,
-same engine settings), and ``chip_smoke``'s roofline bound.  Nothing
+same engine settings), and ``chip_smoke``'s roofline bounds (the ragged
+kernel's, and the flash kernels' over the live pairs of the training
+workload's cases).  Nothing
 here is compared with the JAX package: these are the scripts' own
 contracts (the workload drains with a prefix-cache hit; the bound counts
 real rows only and prices each product at its operand type's rate)."""
@@ -15,6 +17,7 @@ import torch
 from paddle_tpu_torch.convert import decoder_lm_from_numpy, init_numpy_params
 from paddle_tpu_torch.serving import DecoderLM
 from paddle_tpu_torch.tools import serve_workload as sw
+from paddle_tpu_torch.tools import train_workload as tw
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
@@ -73,3 +76,35 @@ def test_chip_smoke_roofline_counts_real_rows_and_operand_rates(page_dtype):
     assert got["bound_ms"] == max(got["ops_ms"], got["bytes_ms"])
     assert got["bound_by"] == ("bytes" if got["bytes_ms"] >= got["ops_ms"]
                                else "operations")
+
+
+def test_flash_bound_counts_live_pairs_at_operand_rate():
+    """The training case's bound: 8 causal segments of 1024 keep
+    8 x 1024 x 1025 / 2 pairs a head; the forward reads q, k, v and writes
+    O (bf16) and lse, and is bound by bytes, the backward kernels by
+    bf16 operations."""
+    case = tw.flash_case("a_bf16_8x1024_causal", "cpu")
+    pairs = 8 * 1024 * 1025 // 2 * 16
+    elems = 8192 * 16 * 128
+    fwd = chip_smoke.flash_bound(case, "flash_fwd")
+    assert fwd["live_pairs"] == pairs
+    assert fwd["flops"] == 4 * pairs * 128
+    assert fwd["bytes"] == 4 * elems * 2 + 4 * 16 * 8192 + 4 * 2 * 8192
+    assert fwd["bound_by"] == "bytes"
+    for name, mults in (("flash_bwd_kv", 8), ("flash_bwd_dq", 6)):
+        got = chip_smoke.flash_bound(case, name)
+        assert got["flops"] == mults * pairs * 128
+        assert got["bound_by"] == "operations"
+        np.testing.assert_allclose(
+            got["bound_ms"], 1e3 * got["flops"] / chip_smoke.BF16_FLOPS_PER_S,
+            rtol=1e-12)
+
+
+def test_live_pairs_of_cross_and_padded_segments():
+    seg = tw.packed_segments((3, 2), 8)            # ids 0 0 0 1 1 2 2 2
+    assert seg.tolist() == [[0, 0, 0, 1, 1, 2, 2, 2]]
+    assert tw.live_pairs(seg, seg, causal=True) == 6 + 3 + 6
+    assert tw.live_pairs(seg, seg, causal=False) == 9 + 4 + 9
+    q, k = np.zeros((1, 4), np.int32), np.zeros((1, 6), np.int32)
+    assert tw.live_pairs(q, k, causal=True) == 1 + 2 + 3 + 4
+    assert tw.live_pairs(q, k, causal=False) == 24
