@@ -35,14 +35,33 @@ checkout of the repository).  Phases, each fatal on failure:
    launched 8 layers x 6 steps times;
 8. train_parity: a 2-layer model at the same width, batch 2 x 1024, 3
    steps through the kernels against the same steps through the plain
-   flash versions on the card, with the same weights and feeds.
+   flash versions on the card, with the same weights and feeds;
+9. rnn_kernels: the fused LSTM step (B5), the one-launch GRU step (B6)
+   and the two-launch GRU step (B7 then B8) against their plain PyTorch
+   versions on the same inputs: B5 at B 64 with H 512 and 1280, acts on
+   and off, and a bf16 xp; B6 at H 512 and B7 + B8 at H 1280, acts on and
+   off; with error, card time, plain time, the roofline bound and, for
+   B5, cuDNN's ``nn.LSTM`` forward over T = 128 steps divided by T;
+10. train_lstm: bench.py's IMDB text classifier (``models/text_lstm``,
+    dict 30000, embedding 128, 2 x LSTM h 512, max pooling, fc(2)) with
+    random weights from a seed, trained through ``SGD.train`` with
+    ``Momentum(0.9, 0.01)`` on one batch of 64 sequences of 100 tokens
+    repeated for 6 steps: finite, falling costs, B5 launched 2 layers x
+    128 steps x 6 times (the feeder buckets 100 to 128);
+11. train_gru: the same classifier with ``simple_gru`` layers, at h 512
+    (2 layers, 6 steps, B6 only) and at h 1280 (1 layer, 3 steps, B7 and
+    B8 only), each with finite, falling costs and exact launch counts;
+12. rnn_parity: the LSTM and the GRU classifier at full width, batch 16,
+    3 steps through the kernels against the same steps through the plain
+    versions on the card (``rnn_workload.plain_rnn_path``).
 
 Every line of output is one JSON object; the one before the last lists
 the kernels, the last is ``{"ok": true, "device": {...}}``.  The serve
 workload lives in ``paddle_tpu_torch/tools/serve_workload.py``, shared
 with the profiler ``python -m paddle_tpu_torch.tools.profile_serve``; the
 training workload and the flash cases in
-``paddle_tpu_torch/tools/train_workload.py``.
+``paddle_tpu_torch/tools/train_workload.py``; the recurrent workload and
+the RNN cases in ``paddle_tpu_torch/tools/rnn_workload.py``.
 """
 
 from __future__ import annotations
@@ -56,6 +75,7 @@ import numpy as np
 import torch
 
 # the port must come from this checkout; outside it this import fails
+from paddle_tpu_torch.tools import rnn_workload as rw
 from paddle_tpu_torch.tools import train_workload as tw
 from paddle_tpu_torch.tools.serve_workload import (MODEL, NEW_TOKENS, NO_EOS,
                                                    PREFIX_LEN, Workload,
@@ -563,10 +583,11 @@ def _reset_flash_launches() -> None:
         kern.launches = 0
 
 
-def _train_costs(sgd, samples, steps):
+def _train_costs(sgd, samples, steps, workload=tw):
     """Train ``steps`` steps on one batch through ``SGD.train``; per step
     the cost and the host time from BeginIteration to the cost on the
-    host (feeding, forward, backward, update)."""
+    host (feeding, forward, backward, update).  ``workload`` gives the
+    reader and the feeding."""
     from paddle_tpu_torch import event
 
     costs, step_ms, t = [], [], [0.0]
@@ -579,8 +600,8 @@ def _train_costs(sgd, samples, steps):
             costs.append(ev.cost)              # waits for the card
             step_ms.append(1e3 * (time.perf_counter() - t[0]))
 
-    sgd.train(tw.repeat_reader(samples, steps), num_passes=1,
-              event_handler=handler, feeding=tw.FEEDING)
+    sgd.train(workload.repeat_reader(samples, steps), num_passes=1,
+              event_handler=handler, feeding=workload.FEEDING)
     return costs, step_ms
 
 
@@ -638,6 +659,235 @@ def train_parity(dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# recurrent kernels and training
+# ---------------------------------------------------------------------------
+
+RNN_REPLACES = {"lstm_step": "paddle_tpu/ops/rnn.py:80",
+                "gru_step": "paddle_tpu/ops/rnn.py:212",
+                "gru_zr": "paddle_tpu/ops/rnn.py:234",
+                "gru_cand": "paddle_tpu/ops/rnn.py:244"}
+GRU_NO_LIBRARY = ("no PyTorch call computes this function: torch.nn.GRU "
+                  "applies the reset gate after the product, r(h W_hn + "
+                  "b_hn), Paddle's GRU before it, (r h) W_c")
+
+
+def rnn_bound(case, kernel: str) -> dict:
+    """Least time for one call: bytes (each input read once, each output
+    written once) at 3.35 TB/s against the recurrent product's f32
+    operations at 67 TFLOP/s."""
+    nbytes, flops = rw.case_io(case, kernel)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def cudnn_lstm_step_ms(B: int, H: int, dev) -> float:
+    """Card time of cuDNN's ``torch.nn.LSTM`` forward (input size H, the
+    same gate order and activations, plus the input projection) over
+    [B, T = 128, H], divided by T.  Timed here only; the port never
+    calls it."""
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    lstm = torch.nn.LSTM(H, H, batch_first=True).to(dev)
+    x = torch.randn((B, rw.STEPS_T, H), generator=gen).to(dev)
+    with torch.no_grad():
+        return device_ms(lambda: lstm(x), reps=5) / rw.STEPS_T
+
+
+def _rnn_case_calls(case):
+    """{kernel: (kernel call, plain call, {output: (got, want)})} of one
+    case; the two-launch GRU case runs B8 on B7's plain outputs."""
+    from paddle_tpu_torch.ops import rnn as R
+
+    kind, save, H = case["kind"], case["save_acts"], case["H"]
+    xp, h, w, b = case["xp"], case["h"], case["w_h"], case["bias"]
+    if kind == "lstm_step":
+        a = (xp, h, case["c"], w, b)
+        got = R.lstm_step_kernel(*a, save_acts=save)
+        want = R.lstm_step_reference(*a, save_acts=save)
+        outs = {"h": (got[0], want[0]), "c": (got[1], want[1])}
+        if save:
+            outs["acts"] = (got[2], want[2])
+        return {kind: (lambda: R.lstm_step_kernel(*a, save_acts=save),
+                       lambda: R.lstm_step_reference(*a, save_acts=save),
+                       outs)}
+    a = (xp, h, w, b)
+    if kind == "gru_step":
+        got = R.gru_step_kernel(*a, save_acts=save)
+        want = R.gru_step_reference(*a, save_acts=save)
+        outs = {"h": (got[0], want[0])}
+        if save:
+            outs["acts"] = (got[1], want[1])
+        return {kind: (lambda: R.gru_step_kernel(*a, save_acts=save),
+                       lambda: R.gru_step_reference(*a, save_acts=save),
+                       outs)}
+    zrc_k, rh_k = R.gru_zr_kernel(*a)
+    zrc_p, rh_p = R.gru_zr_reference(*a)
+    zk, zp = zrc_p.clone(), zrc_p.clone()
+    nh_k = R.gru_cand_kernel(rh_p, xp, w, b, zk, h, save_c=save)
+    nh_p = R.gru_cand_reference(rh_p, xp, w, b, zp, h, save_c=save)
+    cand = {"h": (nh_k, nh_p)}
+    if save:
+        cand["c"] = (zk[:, 2 * H:], zp[:, 2 * H:])
+    return {
+        "gru_zr": (lambda: R.gru_zr_kernel(*a), lambda: R.gru_zr_reference(*a),
+                   {"zr": (zrc_k[:, :2 * H], zrc_p[:, :2 * H]),
+                    "rh": (rh_k, rh_p)}),
+        "gru_cand": (lambda: R.gru_cand_kernel(rh_p, xp, w, b, zk, h,
+                                               save_c=save),
+                     lambda: R.gru_cand_reference(rh_p, xp, w, b, zp, h,
+                                                  save_c=save), cand)}
+
+
+def run_rnn_cases(dev) -> dict:
+    """Each RNN kernel against its plain version on every case; raises
+    if any output is outside its tolerance.  Card time (:func:`device_ms`)
+    of the wrapper's kernel and of the plain version's kernels.  Returns
+    {case: {kernel: result}}."""
+    results = {}
+    lib_ms = {H: cudnn_lstm_step_ms(rw.BATCH, H, dev) for H in (512, 1280)}
+    for name in rw.RNN_CASES:
+        case = rw.rnn_case(name, dev)
+        calls = _rnn_case_calls(case)
+        torch.cuda.synchronize()
+        res = {"phase": "rnn_kernels", "case": name, "B": case["B"],
+               "H": case["H"], "xp_dtype": str(case["xp"].dtype).replace(
+                   "torch.", ""), "save_acts": case["save_acts"]}
+        ok = True
+        for kname, (kern, plain, outs) in calls.items():
+            errs = {o: rw.rnn_error(g, w) for o, (g, w) in outs.items()}
+            ok = ok and all(e["within_tolerance"] for e in errs.values())
+            res[kname] = {
+                "errors": errs,
+                "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+                "ms": device_ms(kern, reps=20),
+                "plain_ms": device_ms(plain, reps=5),
+                "library_ms": (lib_ms[case["H"]] if kname == "lstm_step"
+                               else None),
+                **rnn_bound(case, kname)}
+        res["within_tolerance"] = ok
+        emit(res)
+        if not ok:
+            raise AssertionError(f"RNN case {name} outside tolerance")
+        results[name] = res
+    return results
+
+
+RNN_TRAIN_STEPS = 6      # the first is the untimed warm-up
+GRU_RUNS = (  # (hidden, layers, steps, the kernels that must launch)
+    (512, 2, 6, ("gru_step",)),
+    (1280, 1, 3, ("gru_zr", "gru_cand")))
+RNN_PARITY_BATCH, RNN_PARITY_STEPS = 16, 3
+# kernel path against the plain path, per-step cost, relative: both do
+# the recurrent products in f32 (the kernels sum in another order); the
+# rest of the step is the same torch code
+RNN_PARITY_RTOL = 1e-4
+
+
+def _rnn_train(dev, cell: str, steps: int, kernels, **cfg) -> dict:
+    """Train one classifier ``steps`` steps on one batch, counts set to 0
+    just before; checks finite, falling costs and that exactly
+    ``kernels`` launched, each layers x 128 x steps times."""
+    t0 = time.perf_counter()
+    sgd = rw.build_trainer(dev, cell, **cfg)
+    batch = rw.samples(rw.SEED + 1)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    rw.reset_launches()
+    costs, step_ms = _train_costs(sgd, batch, steps, rw)
+    used = rw.launches()
+    layers = cfg.get("num_layers", rw.MODEL["num_layers"])
+    expected = {k: (layers * rw.STEPS_T * steps if k in kernels else 0)
+                for k in used}
+    med = float(np.median(step_ms[1:]))
+    res = {"phase": f"train_{cell}", "model": dict(rw.MODEL, **cfg),
+           "batch": rw.BATCH, "seq": rw.SEQ, "time_steps": rw.STEPS_T,
+           "steps": steps, "costs": costs, "step_ms": step_ms,
+           "ms_per_batch": med, "sequences_per_s": rw.BATCH / (med / 1e3),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "parameters": sum(p.numel() for p in sgd.parameters.as_dict()
+                             .values()),
+           "setup_s": setup_s, "kernel_launches": used,
+           "launches_expected": expected}
+    emit(res)
+    if not all(np.isfinite(costs)) or not costs[-1] < costs[0]:
+        raise AssertionError(f"{cell} training did not learn: {costs}")
+    if used != expected:
+        raise AssertionError(f"{cell} launches {used}, expected {expected}")
+    return res
+
+
+def train_lstm(dev) -> dict:
+    return _rnn_train(dev, "lstm", RNN_TRAIN_STEPS, ("lstm_step",))
+
+
+def train_gru(dev) -> list:
+    return [_rnn_train(dev, "gru", steps, kernels, hidden=hidden,
+                       num_layers=layers)
+            for hidden, layers, steps, kernels in GRU_RUNS]
+
+
+def rnn_parity(dev) -> list:
+    out = []
+    batch = rw.samples(rw.SEED + 2, bs=RNN_PARITY_BATCH)
+    for cell in ("lstm", "gru"):
+        sgd = rw.build_trainer(dev, cell)
+        before = rw.launches()
+        kernel_costs, _ = _train_costs(sgd, batch, RNN_PARITY_STEPS, rw)
+        used = {k: v - before[k] for k, v in rw.launches().items()}
+        del sgd
+        sgd = rw.build_trainer(dev, cell)
+        with rw.plain_rnn_path():
+            plain_costs, _ = _train_costs(sgd, batch, RNN_PARITY_STEPS, rw)
+        del sgd
+        rel = [abs(a - b) / abs(b) for a, b in zip(kernel_costs, plain_costs)]
+        # at batch 16 the GRU takes B6 at h 512
+        kern = "lstm_step" if cell == "lstm" else "gru_step"
+        expected = {k: (rw.MODEL["num_layers"] * rw.STEPS_T *
+                        RNN_PARITY_STEPS if k == kern else 0) for k in used}
+        res = {"phase": "rnn_parity", "cell": cell,
+               "layers": rw.MODEL["num_layers"],
+               "hidden": rw.MODEL["hidden"], "batch": RNN_PARITY_BATCH,
+               "steps": RNN_PARITY_STEPS, "kernel_costs": kernel_costs,
+               "plain_costs": plain_costs, "max_rel_diff": max(rel),
+               "rtol": RNN_PARITY_RTOL, "kernel_launches": used,
+               "launches_expected": expected}
+        emit(res)
+        if max(rel) > RNN_PARITY_RTOL or used != expected:
+            raise AssertionError(f"{cell}: kernel path and plain path "
+                                 "disagree")
+        out.append(res)
+    return out
+
+
+def rnn_kernel_lines(cases, trained_lstm, trained_gru) -> list:
+    """The ``kernels`` entries of B5-B8: launches from the training runs
+    of the main path, the rest from their main-path case."""
+    launched = dict(trained_lstm["kernel_launches"])
+    for run in trained_gru:
+        for k, n in run["kernel_launches"].items():
+            launched[k] = launched.get(k, 0) + n
+    lines = []
+    for kname, cname in rw.MAIN_CASE.items():
+        r = cases[cname][kname]
+        lines.append({
+            "name": kname, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/rnn_cells.cu",
+            "replaces": RNN_REPLACES[kname], "launches": launched[kname],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "library": ("torch.nn.LSTM forward (cuDNN) over [64, 128, "
+                        f"{cases[cname]['H']}], per step"
+                        if kname == "lstm_step" else GRU_NO_LIBRARY),
+            "case": cname})
+    return lines
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script drives the port on "
@@ -674,6 +924,12 @@ def main() -> int:
     flash = run_flash_cases(dev)
     trained = train(dev)
     train_parity(dev)
+    torch.cuda.empty_cache()
+
+    rnn_cases = run_rnn_cases(dev)
+    trained_lstm = train_lstm(dev)
+    trained_gru = train_gru(dev)
+    rnn_parity(dev)
 
     main_case = next(c for c in cases if c["case"] == "mixed_f32")
     kernels = [{
@@ -711,6 +967,7 @@ def main() -> int:
                            "forward" if name == "flash_fwd"
                            else "forward + backward"),
             "case": "a_bf16_8x1024_causal"})
+    kernels += rnn_kernel_lines(rnn_cases, trained_lstm, trained_gru)
     emit({"phase": "done", "seconds_total": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

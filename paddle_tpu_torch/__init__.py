@@ -13,5 +13,5 @@ first launch.  Every entry point runs on ``cuda`` unless the caller passes
 
 __all__ = ["activation", "attr", "convert", "data_feeder", "data_type",
            "event", "initializer", "kernels", "layer", "minibatch", "models",
-           "ops", "optimizer", "parameters", "platform", "sequence",
-           "serving", "topology", "trainer"]
+           "networks", "ops", "optimizer", "parameters", "platform",
+           "pooling", "sequence", "serving", "topology", "trainer"]

@@ -1,8 +1,11 @@
 """Activation descriptors (the port of ``paddle_tpu/activation.py``, the
-three the transformer reads).
+six the transformer and the recurrent layers read).
 
 GELU is the tanh approximation: ``jax.nn.gelu`` defaults to it, and the
-exact erf form would not match the JAX package.
+exact erf form would not match the JAX package.  ``SigmoidActivation.fn``
+is ``torch.sigmoid`` and ``TanhActivation.fn`` ``torch.tanh`` themselves:
+the recurrent scans recognise the default gate triple by identity, as
+JAX's ``_use_fused`` does.
 """
 
 from __future__ import annotations
@@ -24,6 +27,21 @@ class LinearActivation(BaseActivation):
     fn = staticmethod(lambda x: x)
 
 
+class SigmoidActivation(BaseActivation):
+    name = "sigmoid"
+    fn = staticmethod(torch.sigmoid)
+
+
+class TanhActivation(BaseActivation):
+    name = "tanh"
+    fn = staticmethod(torch.tanh)
+
+
+class ReluActivation(BaseActivation):
+    name = "relu"
+    fn = staticmethod(torch.relu)
+
+
 class SoftmaxActivation(BaseActivation):
     name = "softmax"
     fn = staticmethod(lambda x: torch.softmax(x, dim=-1))
@@ -37,7 +55,8 @@ class GeluActivation(BaseActivation):
 
 
 _REGISTRY = {cls.name: cls for cls in
-             (LinearActivation, SoftmaxActivation, GeluActivation)}
+             (LinearActivation, SigmoidActivation, TanhActivation,
+              ReluActivation, SoftmaxActivation, GeluActivation)}
 
 
 def get(name_or_act):

@@ -1,19 +1,23 @@
 """DataFeeder: sample batches -> tensors / SequenceBatch (the port of
-``paddle_tpu/data_feeder.py``, sequence INDEX slots only so far).
+``paddle_tpu/data_feeder.py``, INDEX slots only so far: integer values
+and integer sequences).
 
-Sequence slots are packed into the flat segment-id form with a bucketed
-capacity (the next power of two over the batch's token count, at least
-64), as in the JAX package: the same batch gives the same capacity, the
-same segment ids and so the same attention masks in both packages.  The
-packed tensors go to the feeder's device, ``cuda`` unless asked.
+An integer value slot is one int32 per sample, a [B] tensor (a [B, n]
+one for rows of n > 1 values), as ``paddle_tpu/data_feeder.py:76-83``
+gives it.  Sequence slots are packed into the flat segment-id form with
+a bucketed capacity (the next power of two over the batch's token count,
+at least 64), as in the JAX package: the same batch gives the same
+capacity, the same segment ids and so the same attention masks in both
+packages.  The tensors go to the feeder's device, ``cuda`` unless asked.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Tuple, Union
 
 import numpy as np
+import torch
 
 from paddle_tpu_torch.data_type import InputType, SeqKind, SlotKind
 from paddle_tpu_torch.platform.device import DeviceLike, resolve_device
@@ -42,19 +46,30 @@ class DataFeeder:
         self.device = resolve_device(device)
         for name, itype in data_types:
             enforce_that(itype.slot == SlotKind.INDEX and
-                         itype.seq == SeqKind.SEQUENCE,
+                         itype.seq in (SeqKind.NO_SEQUENCE,
+                                       SeqKind.SEQUENCE),
                          f"slot {name!r} is {itype}: the port feeds integer "
-                         "sequences only so far", context="feeder")
+                         "values and integer sequences only so far",
+                         context="feeder")
 
-    def __call__(self, batch_data) -> Dict[str, SequenceBatch]:
+    def __call__(self, batch_data):
         return self.feed(batch_data)
 
-    def feed(self, batch_data) -> Dict[str, SequenceBatch]:
-        out: Dict[str, SequenceBatch] = {}
-        for name, _ in self.data_types:
+    def feed(self, batch_data) -> Dict[str, Union[torch.Tensor,
+                                                  SequenceBatch]]:
+        out: Dict[str, Union[torch.Tensor, SequenceBatch]] = {}
+        for name, itype in self.data_types:
             col = [sample[self.feeding[name]] for sample in batch_data]
-            out[name] = self._sequence(col)
+            out[name] = (self._sequence(col) if itype.seq == SeqKind.SEQUENCE
+                         else self._values(col))
         return out
+
+    def _values(self, col) -> torch.Tensor:
+        arr = np.stack([np.asarray(r, np.int32) for r in col])
+        arr = arr.reshape(len(col), -1)
+        if arr.shape[1] == 1:
+            arr = arr[:, 0]
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
     def _sequence(self, col) -> SequenceBatch:
         seqs = [np.asarray(s, np.int32).reshape(-1) for s in col]

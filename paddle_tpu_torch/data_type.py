@@ -1,5 +1,5 @@
 """Input type descriptors for data layers and the DataFeeder (a copy of
-``paddle_tpu/data_type.py`` trimmed to what the training slice reads)."""
+``paddle_tpu/data_type.py`` trimmed to what the training slices read)."""
 
 from __future__ import annotations
 
@@ -25,6 +25,10 @@ class InputType:
     dim: int
     slot: SlotKind
     seq: SeqKind = SeqKind.NO_SEQUENCE
+
+
+def integer_value(value_range: int) -> InputType:
+    return InputType(value_range, SlotKind.INDEX)
 
 
 def integer_value_sequence(value_range: int) -> InputType:

@@ -1,6 +1,7 @@
-"""The layer DSL (the port of ``paddle_tpu/layer.py``, the transformer
-subset: ``data``, ``fc``, ``embedding``, ``layer_norm``, ``addto``,
-``multi_head_attention`` and ``classification_cost``).
+"""The layer DSL (the port of ``paddle_tpu/layer.py``: the transformer
+subset ``data``, ``fc``, ``embedding``, ``layer_norm``, ``addto``,
+``multi_head_attention`` and ``classification_cost``, and the recurrent
+subset ``lstmemory``, ``grumemory`` and ``pooling``).
 
 Each function returns a ``LayerOutput`` graph node whose compute fn is
 plain PyTorch on tensors or :class:`SequenceBatch` values; the dtype
@@ -15,6 +16,7 @@ from typing import Dict, Optional
 import torch
 
 from paddle_tpu_torch import activation as act_mod
+from paddle_tpu_torch import pooling as pooling_mod
 from paddle_tpu_torch.attr import ExtraAttr, ParamAttr
 from paddle_tpu_torch.data_type import InputType, SeqKind
 from paddle_tpu_torch.initializer import Constant
@@ -22,6 +24,8 @@ from paddle_tpu_torch.ops import attention as pattn
 from paddle_tpu_torch.ops import losses as ploss
 from paddle_tpu_torch.ops import math as pmath
 from paddle_tpu_torch.ops import norm as pnorm
+from paddle_tpu_torch.ops import rnn as prnn
+from paddle_tpu_torch.ops import sequence_ops as pseq
 from paddle_tpu_torch.ops.embedding import embedding_lookup
 from paddle_tpu_torch.platform.enforce import enforce_that
 from paddle_tpu_torch.sequence import SequenceBatch
@@ -29,7 +33,8 @@ from paddle_tpu_torch.topology import Context, LayerOutput, ParamSpec, \
     unique_name
 
 __all__ = ["data", "fc", "embedding", "layer_norm", "addto",
-           "multi_head_attention", "classification_cost"]
+           "multi_head_attention", "pooling", "lstmemory", "grumemory",
+           "classification_cost"]
 
 
 def _as_list(x) -> list:
@@ -207,6 +212,95 @@ def addto(input, act=None, name: Optional[str] = None, bias_attr=False,
     return LayerOutput(name=name, layer_type="addto", inputs=inputs,
                        fn=compute, params=params, size=inputs[0].size,
                        is_sequence=inputs[0].is_sequence)
+
+
+# ---------------------------------------------------------------------------
+# sequence pooling and recurrent layers
+# ---------------------------------------------------------------------------
+
+
+def pooling(input, pooling_type=None, name: Optional[str] = None,
+            **_kw) -> LayerOutput:
+    """Sequence pooling to one vector per sequence (max, avg, sum or
+    sqrtn; max by default)."""
+    _need_seq(input, "pooling")
+    name = name or unique_name("seq_pool")
+    ptype = pooling_mod.get(pooling_type)
+    fn = {"max": pseq.seq_pool_max, "avg": pseq.seq_pool_avg,
+          "sum": pseq.seq_pool_sum}.get(ptype.name, pseq.seq_pool_sqrtn)
+
+    def compute(ctx, p, ins):
+        return fn(ins[0])
+
+    return LayerOutput(name=name, layer_type="seq_pool", inputs=[input],
+                       fn=compute, size=input.size, is_sequence=False)
+
+
+def lstmemory(input, size: int = None, reverse: bool = False, act=None,
+              gate_act=None, state_act=None, name: Optional[str] = None,
+              param_attr=None, bias_attr=True, layer_attr=None
+              ) -> LayerOutput:
+    """LSTM over a sequence whose input is already projected to 4 * size
+    (the reference's contract: the projection lives in the upstream fc;
+    ``networks.simple_lstm`` composes both).  Runs ``ops/rnn.lstm_scan``
+    over the [B, T] view, T the feeder's bucketed ``max_len``."""
+    _need_seq(input, "lstmemory")
+    enforce_that(input.size % 4 == 0, "lstmemory input size must be 4*size",
+                 context="lstmemory")
+    size = size or input.size // 4
+    name = name or unique_name("lstmemory")
+    _check_extra(layer_attr)
+    out_act = act_mod.get(act or "tanh")
+    g_act = act_mod.get(gate_act or "sigmoid")
+    s_act = act_mod.get(state_act or "tanh")
+    params = {"w": ParamSpec((size, 4 * size), ParamAttr.to_attr(param_attr))}
+    if bias_attr:
+        params["b"] = ParamSpec((4 * size,), ParamAttr.to_attr(
+            None if bias_attr is True else bias_attr))
+
+    def compute(ctx, p, ins):
+        sb: SequenceBatch = ins[0]
+        padded, mask = sb.to_padded()
+        hs, _ = prnn.lstm_scan(padded, mask, None, p["w"], p.get("b"),
+                               reverse=reverse, gate_act=g_act.fn,
+                               cell_act=s_act.fn, out_act=out_act.fn)
+        return SequenceBatch.from_padded(hs, sb.lengths,
+                                         capacity=sb.capacity)
+
+    return LayerOutput(name=name, layer_type="lstmemory", inputs=[input],
+                       fn=compute, params=params, size=size,
+                       is_sequence=True)
+
+
+def grumemory(input, size: int = None, reverse: bool = False, act=None,
+              gate_act=None, name: Optional[str] = None, param_attr=None,
+              bias_attr=True, layer_attr=None) -> LayerOutput:
+    """GRU over a sequence with input pre-projected to 3 * size.  ``act``
+    and ``gate_act`` are accepted and unused, as in the JAX package: the
+    GRU's gates are sigmoid and its candidate tanh."""
+    del act, gate_act
+    _need_seq(input, "grumemory")
+    enforce_that(input.size % 3 == 0, "grumemory input size must be 3*size",
+                 context="grumemory")
+    size = size or input.size // 3
+    name = name or unique_name("grumemory")
+    _check_extra(layer_attr)
+    params = {"w": ParamSpec((size, 3 * size), ParamAttr.to_attr(param_attr))}
+    if bias_attr:
+        params["b"] = ParamSpec((3 * size,), ParamAttr.to_attr(
+            None if bias_attr is True else bias_attr))
+
+    def compute(ctx, p, ins):
+        sb: SequenceBatch = ins[0]
+        padded, mask = sb.to_padded()
+        hs, _ = prnn.gru_scan(padded, mask, None, p["w"], p.get("b"),
+                              reverse=reverse)
+        return SequenceBatch.from_padded(hs, sb.lengths,
+                                         capacity=sb.capacity)
+
+    return LayerOutput(name=name, layer_type="grumemory", inputs=[input],
+                       fn=compute, params=params, size=size,
+                       is_sequence=True)
 
 
 # ---------------------------------------------------------------------------

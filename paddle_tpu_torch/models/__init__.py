@@ -1,1 +1,2 @@
-"""The model zoo of the port (the transformer LM so far)."""
+"""The model zoo of the port (the transformer LM and the text LSTM so
+far)."""

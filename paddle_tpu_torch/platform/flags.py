@@ -105,7 +105,12 @@ FLAGS.define("serving_watchdog_ticks", 16,
              "a RUNNING request that makes no progress for this many "
              "ticks is FAILED; 0 disables", parser=int)
 
-# training slice (the JAX defaults of paddle_tpu/platform/flags.py)
+# training slices (the JAX defaults of paddle_tpu/platform/flags.py)
+FLAGS.define("use_pallas", True,
+             "take the fused recurrent steps where the JAX package takes "
+             "its Pallas kernels (the hand-written CUDA kernels on the "
+             "card, their plain versions on the host); off = the plain "
+             "cells with identical semantics")
 FLAGS.define("use_bf16", True,
              "compute matmuls in bfloat16 with f32 accumulation; q/k/v "
              "ride bf16 into flash attention")

@@ -3,7 +3,12 @@ against its plain PyTorch version, the decode-only view, and a small
 ServingEngine on CUDA against the port's greedy oracle; the three
 flash-attention kernels against their plain versions on ``chip_smoke.py``'s
 cases, through the autograd function, and a small transformer trained
-through the kernels against the same steps through the plain versions.
+through the kernels against the same steps through the plain versions;
+the four RNN kernels (the fused LSTM step, the one-launch GRU step and
+the two-launch GRU step) against their plain versions on
+``chip_smoke.py``'s cases, the one-launch GRU step's refusal of a grid the
+card cannot hold at once, and small recurrent classifiers trained through
+the kernels against the plain versions.
 
 Every test here needs a CUDA device and skips without one (the kernel has
 no CPU mode).  The file imports neither ``jax`` nor ``paddle_tpu``, so it
@@ -21,7 +26,10 @@ the plain version that does not round.  Flash kernels: f32 outputs and
 every lse at 1e-4 abs + rel; bf16 outputs within one bf16 step of their
 own magnitude plus 2e-3 of the tensor's largest (``train_workload.
 flash_error``: the plain version rounds P and dS at the kernels' tiles,
-an f32 sum in another order can still cross a bf16 rounding step).
+an f32 sum in another order can still cross a bf16 rounding step).  RNN
+kernels: f32 outputs at 1e-5 abs + rel, a bf16 h' within one bf16 step
+of its magnitude (``rnn_workload.rnn_error``); recurrent training costs
+within 1e-4 relative.
 """
 
 import numpy as np
@@ -37,6 +45,7 @@ from paddle_tpu_torch.serving import (DecoderLM, ServingEngine,
                                       reference_logits)
 from paddle_tpu_torch.serving import decode_attention as tda
 from paddle_tpu_torch.serving.kv_cache import quantize_kv
+from paddle_tpu_torch.tools import rnn_workload as rw
 from paddle_tpu_torch.tools import train_workload as tw
 
 pytestmark = pytest.mark.cuda
@@ -301,3 +310,73 @@ def test_bf16_matmul_with_f32_result_on_the_card(cuda):
     for got, want in ((ga, g16 @ b16.T), (gb, a16.T @ g16)):
         torch.testing.assert_close(got, want.bfloat16().float(),
                                    rtol=2 ** -7, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# recurrent kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", sorted(rw.RNN_CASES))
+def test_rnn_kernels_match_plain(cuda, name):
+    import chip_smoke
+
+    case = rw.rnn_case(name, cuda)
+    before = rw.launches()
+    calls = chip_smoke._rnn_case_calls(case)
+    torch.cuda.synchronize()
+    for kname, (_, _, outs) in calls.items():
+        assert rw.launches()[kname] == before[kname] + 1
+        for label, (got, want) in outs.items():
+            assert got.dtype == want.dtype and got.shape == want.shape
+            res = rw.rnn_error(got, want)
+            assert res["within_tolerance"], (kname, label, res)
+
+
+def test_gru_block_kernel_refuses_a_grid_the_card_cannot_hold(cuda):
+    from paddle_tpu_torch.ops import rnn as R
+
+    case = rw.rnn_case("gru_tiled_f32_h1280", cuda)
+    args = (case["xp"], case["h"], case["w_h"], case["bias"])
+    assert R.gru_route(64, 1280, torch.float32, cuda) == "tiled"
+    assert R.gru_route(64, 512, torch.float32, cuda) == "block"
+    with pytest.raises(EnforceError, match="cooperative launch of 320"):
+        R.gru_step_kernel(*args)
+    with pytest.raises(EnforceError, match="float32 or bfloat16"):
+        R.gru_zr_kernel(case["xp"].double(), case["h"].double(),
+                        case["w_h"], case["bias"])
+    # the route the gate picks (B7 then B8) gives the plain answer
+    got, _ = R.gru_fused_step(*args)
+    zrc, rh = R.gru_zr_reference(*args)
+    want = R.gru_cand_reference(rh, case["xp"], case["w_h"], case["bias"],
+                                zrc, case["h"])
+    assert rw.rnn_error(got, want)["within_tolerance"]
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_rnn_training_kernel_path_matches_plain_path(cuda, cell):
+    """Three steps of a small classifier (dict 500, hidden 128, batch 8
+    of 40 tokens) through the kernels, and the same steps through the
+    plain versions on the card: costs within 1e-4 relative."""
+    batch = rw.samples(5, bs=8, seq=40, dict_size=500)
+    cfg = dict(dict_size=500, embed_size=32, hidden=128)
+
+    def run():
+        sgd = rw.build_trainer(cuda, cell, **cfg)
+        costs = []
+        sgd.train(rw.repeat_reader(batch, 3), event_handler=lambda ev:
+                  costs.append(ev.cost)
+                  if isinstance(ev, event.EndIteration) else None,
+                  feeding=rw.FEEDING)
+        return costs
+
+    rw.reset_launches()
+    kernel_costs = run()
+    used = rw.launches()
+    # 2 layers x 64 steps (40 buckets to 64) x 3 steps
+    kern = "lstm_step" if cell == "lstm" else "gru_step"
+    assert used == {k: (2 * 64 * 3 if k == kern else 0) for k in used}
+    with rw.plain_rnn_path():
+        plain_costs = run()
+    assert rw.launches() == used
+    np.testing.assert_allclose(kernel_costs, plain_costs, rtol=1e-4)
