@@ -24,9 +24,13 @@ checkout of the repository).  Phases, each fatal on failure:
    path's q/k/v [1, 8192, 16, 128] bf16 with 8 causal segments of 1024,
    ragged segments with padding as the feeder packs them, f32 causal
    segments at a smaller S (head dims 128 and 64), non-causal
-   cross-attention with Sq != Sk, causal with Sk > Sq; with error, kernel
-   time, plain time, the roofline bound and, on the training case,
-   ``scaled_dot_product_attention`` as the library yardstick;
+   cross-attention with Sq != Sk, causal with Sk > Sq (f32, and bf16 with
+   Sq an odd number of 64-row tiles), bf16 causal segments at head dim
+   64; with error, kernel time, plain time, the roofline bound, the
+   interior and boundary tile pairs and, on the training case,
+   ``scaled_dot_product_attention`` forward, backward alone and both as
+   the library yardsticks; the kernels line carries ptxas's registers and
+   spills of each flash kernel;
 7. train: the full-width transformer LM (vocab 32768, d 2048, 8 layers,
    16 heads) with random weights from a seed, trained through the port's
    v2 surface (``Parameters.from_topology``, ``trainer.SGD.train``,
@@ -416,6 +420,14 @@ def serve_int8(model, dev) -> dict:
 # ---------------------------------------------------------------------------
 
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_kv", "flash_bwd_dq")
+FLASH_SOURCES = {"flash_fwd": "flash_attention_sm90",
+                 "flash_bwd_kv": "flash_attention_sm90",
+                 "flash_bwd_dq": "flash_attention"}
+# the mangled name of each kernel that case a runs, in ptxas's report
+FLASH_PTXAS = {"flash_fwd": "flash_fwd_wgmma_kernelILi128",
+               "flash_bwd_kv": "flash_bwd_kv_wgmma_kernelILi128",
+               "flash_bwd_dq": "flash_bwd_dq_mma_kernelILi128"}
+LIBRARY_KEYS = ("library_fwd_ms", "library_bwd_ms", "library_fwd_bwd_ms")
 
 
 def flash_bound(case, which: str) -> dict:
@@ -452,7 +464,7 @@ def flash_bound(case, which: str) -> dict:
 def device_ms(fn, reps: int = 10) -> float:
     """Card time of one call: the sum of the CUDA kernel times of
     ``reps`` calls under ``torch.profiler``, over ``reps``, after one
-    warm-up call.  It leaves out the host's work between kernels, which
+    warm-up call (:func:`time_ms` where the trace holds no kernel).  It leaves out the host's work between kernels, which
     for a small kernel's wrapper or a call through autograd can be longer
     than the kernels themselves."""
     from torch.autograd import DeviceType
@@ -465,14 +477,20 @@ def device_ms(fn, reps: int = 10) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    if total == 0.0:
+        # the trace caught no kernel (it happens now and then on the card's
+        # machine): time the calls back to back with CUDA events instead
+        return time_ms(fn, reps=reps)
+    return total / 1e3 / reps
 
 
 def sdpa_ms(case) -> dict:
     """``scaled_dot_product_attention(is_causal=True)`` on the [B, H, S, D]
-    view of the equal-length batch (case a): card time of the forward, and
-    of forward plus backward (the yardstick of the three kernels
+    view of the equal-length batch (case a): card time of the forward, of
+    the backward alone (through a saved forward, the yardstick of dK/dV
+    and dQ), and of forward plus backward (of the three kernels
     together).  Timed here only; the port never calls it."""
     import torch.nn.functional as F
 
@@ -489,7 +507,13 @@ def sdpa_ms(case) -> dict:
         o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
         torch.autograd.grad(o, (qg, kg, vg), do)
 
+    saved = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+
+    def bwd():
+        torch.autograd.grad(saved, (qg, kg, vg), do, retain_graph=True)
+
     return {"library_fwd_ms": device_ms(fwd),
+            "library_bwd_ms": device_ms(bwd),
             "library_fwd_bwd_ms": device_ms(fwd_bwd),
             "library_out": fwd().transpose(1, 2).reshape(case.q.shape)}
 
@@ -539,10 +563,14 @@ def run_flash_cases(dev) -> dict:
                 "ms": device_ms(lambda: kern(*args, **cfg), reps=20),
                 "plain_ms": device_ms(lambda: plain(*args, **cfg), reps=3),
                 **flash_bound(case, kname)}
+        kinds = A.tile_pair_kinds(case.q_seg, case.kv_seg, case.causal)
+        res["tile_pairs"] = {kind: int((kinds == code).sum()) for kind, code
+                             in (("interior", A.PAIR_INTERIOR),
+                                 ("boundary", A.PAIR_BOUNDARY))}
         if case.name.startswith("a_"):
             lib = sdpa_ms(case)
-            res["library_fwd_ms"] = lib["library_fwd_ms"]
-            res["library_fwd_bwd_ms"] = lib["library_fwd_bwd_ms"]
+            for key in LIBRARY_KEYS:
+                res[key] = lib[key]
             res["library_out_max_abs_diff"] = float(
                 (lib["library_out"].float() - o.float()).abs().max())
         ok = all(e["within_tolerance"] for e in errs.values())
@@ -949,23 +977,28 @@ def main() -> int:
                 "flash_bwd_dq": "paddle_tpu/ops/attention.py:353"}
     for name in FLASH_KERNELS:
         r = flash_main[name]
+        src = FLASH_SOURCES[name]
+        ptxas = [v for k, v in build.ptxas_report(src).items()
+                 if FLASH_PTXAS[name] in k]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+            "source": f"paddle_tpu_torch/csrc/{src}.cu",
             "replaces": replaces[name],
             "launches": trained["kernel_launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
-            # the forward alone for the forward kernel; forward plus
-            # backward (all three kernels' work) for the backward ones
+            # the forward alone for the forward kernel; the backward alone
+            # (dK/dV and dQ together) for the backward ones
             "library_ms": (flash_main["library_fwd_ms"]
                            if name == "flash_fwd"
-                           else flash_main["library_fwd_bwd_ms"]),
+                           else flash_main["library_bwd_ms"]),
+            **{key: flash_main[key] for key in LIBRARY_KEYS},
             "library": "scaled_dot_product_attention(is_causal=True) on "
                        "[8, 16, 1024, 128], " + (
                            "forward" if name == "flash_fwd"
-                           else "forward + backward"),
+                           else "backward of a saved forward"),
+            "ptxas": ptxas[0] if ptxas else None,
             "case": "a_bf16_8x1024_causal"})
     kernels += rnn_kernel_lines(rnn_cases, trained_lstm, trained_gru)
     emit({"phase": "done", "seconds_total": time.perf_counter() - t_start})

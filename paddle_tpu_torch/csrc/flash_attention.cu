@@ -1,5 +1,8 @@
-// Flash attention for Hopper (sm_90a): forward, dK/dV and dQ, one kernel
-// each, over packed sequences with segment ids and causal masking.
+// Flash attention for Hopper (sm_90a): forward, dK/dV and dQ over packed
+// sequences with segment ids and causal masking.  This file holds the dQ
+// kernel of the bf16 tensor-core route and all three kernels of the f32
+// route and of bf16 with attn_pv_f32; the bf16 tensor-core forward and
+// dK/dV are flash_attention_sm90.cu's (wgmma fed by TMA).
 //
 // Replaces the three Pallas TPU kernels of paddle_tpu/ops/attention.py:
 //   flash_fwd    <- _flash_fwd_kernel    (:142, pallas_call :249)
@@ -14,9 +17,9 @@
 //     tiles visited averages their V, as the TPU kernel does;
 //   - a tile pair is skipped when its segment-id ranges are disjoint (the
 //     `_seg_live` predicate, from per-tile min/max the wrapper computes) or
-//     when it lies wholly above the causal diagonal; all three kernels use
-//     the same predicate, so lse is never read for a pair the forward
-//     skipped;
+//     when it lies wholly above the causal diagonal; every kernel, here
+//     and in flash_attention_sm90.cu, uses the same predicate at 64-row
+//     tiles, so lse is never read for a pair the forward skipped;
 //   - forward: online softmax with (m, l, acc) in f32 registers, the scale
 //     applied to the f32 product, P rounded to the input type before the PV
 //     product unless pv_f32 (`_pv_operands`), l == 0 -> 1, O cast to q's
@@ -30,31 +33,32 @@
 // causal, H = 16, D = 128, bf16) the live work is ~34 GFLOP forward, ~69
 // dK/dV and ~52 dQ a layer against 134 MB of q/k/v/o: at the tensor cores'
 // 989 TFLOP/s the forward is bound by bytes (~0.04 ms), the backward
-// kernels by operations.  So the bf16 kernels (pv_f32 off, the training
-// path) do their products on the tensor cores with mma.sync m16n8k16 (bf16
+// kernels by operations.  So the bf16 dQ kernel (pv_f32 off, the training
+// path) does its products on the tensor cores with mma.sync m16n8k16 (bf16
 // in, f32 accumulate), which keeps the TPU kernels' numerics: bf16 operands,
-// f32 sums, P and dS rounded to bf16 as the products take them.  f32 inputs
-// (and bf16 with pv_f32) run on the CUDA cores in f32 FMA: TF32 would break
-// the f32 contract, so those are bound by the cores' 67 TFLOP/s.
+// f32 sums, dS rounded to bf16 as the product takes it.  f32 inputs (and
+// bf16 with pv_f32) run on the CUDA cores in f32 FMA: TF32 would break the
+// f32 contract, so those are bound by the cores' 67 TFLOP/s.
 //
 // Design: the TPU streams the key (or query) axis through a sequential
 // grid dimension and carries state in VMEM scratch; Hopper's blocks run in
 // parallel and in no order, so one block owns one 64-row tile (queries for
 // forward and dQ, keys for dK/dV) and loops over the other axis itself,
 // carrying its sums in registers; every kernel skips the same tile pairs.
-// - Tensor-core kernels: 128 threads, each warp owns 16 rows of the tile;
-//   tiles live in shared memory in bf16 with rows padded by 8 elements
-//   (conflict-free fragment loads); the accumulator of one product is laid
-//   out as the A operand of the next, so P and dS never leave registers.
-//   The backward kernels take the other axis in halves of 32 to keep the
-//   scores and dP in registers beside the two (or one) output tiles.
+// - The tensor-core dQ kernel: 128 threads, each warp owns 16 rows of the
+//   tile; tiles live in shared memory in bf16 with rows padded by 8
+//   elements (conflict-free fragment loads); the accumulator of one
+//   product is laid out as the A operand of the next, so dS never leaves
+//   registers.  It takes the key tile in halves of 32 to keep the scores
+//   and dP in registers beside the output tile.
 // - CUDA-core kernels: 256 threads form a 16 x 16 grid: thread (ty, tx)
 //   owns score rows ty + 16 i and columns tx + 16 j (i, j < 4), and output
 //   rows ty + 16 i by columns 4 tx + 64 g .. + 3, so the rows of the
 //   softmax state never leave their half-warp; P and dS go through shared
 //   memory; rows are padded by 4 elements.
 // Above 48 KB, dynamic shared memory is enabled with cudaFuncSetAttribute.
-// No pipelining of the tile loads yet (cp.async or TMA is later work).
+// No pipelining of the tile loads in this file (flash_attention_sm90.cu
+// has the TMA ring).
 //
 // Plain C interface (built by paddle_tpu_torch/kernels/build.py with nvcc,
 // loaded with ctypes): each entry returns a cudaError_t.
@@ -549,7 +553,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores: mma.sync m16n8k16 (bf16 in, f32 accumulate)
+// bf16 dQ on the tensor cores: mma.sync m16n8k16 (bf16 in, f32 accumulate)
 //
 // Four warps own one 64-row tile, 16 rows each.  Operand fragments are read
 // from shared memory tiles in the input type with rows padded by 8
@@ -558,7 +562,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // operands whose k runs along a tile row), and 16-bit loads of one column
 // in two neighbouring rows (B operands whose k runs down the tile).  A
 // product's f32 accumulator for two neighbouring 8-column tiles is laid out
-// as the A operand of the next product, so P and dS go from one mma to the
+// as the A operand of the next product, so dS goes from one mma to the
 // next in registers, rounded to bf16 on the way (the `_pv_operands` rule).
 // ---------------------------------------------------------------------------
 
@@ -671,248 +675,15 @@ __device__ __forceinline__ void store_acc(bf16* dst, size_t rs, int r0, int g,
   }
 }
 
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 template <int D>
 __host__ __device__ constexpr size_t mma_tile_bytes() {
   return static_cast<size_t>(TILE) * (D + MPAD) * sizeof(bf16);
 }
 
 template <int D>
-constexpr size_t fwd_mma_smem() {
-  return 3 * mma_tile_bytes<D>() + 2 * TILE * sizeof(int);
-}
-
-template <int D>
 constexpr size_t bwd_mma_smem() {
   return 4 * mma_tile_bytes<D>() + 2 * TILE * sizeof(int) +
          2 * TILE * sizeof(float);
-}
-
-// forward: one block per (query tile, head, batch); warp w owns query rows
-// 16 w .. 16 w + 15 of the tile; the thread holds rows g and g + 8 of them
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v,
-                     const int* __restrict__ qrange,
-                     const int* __restrict__ krange,
-                     const int* __restrict__ qseg,
-                     const int* __restrict__ kseg, bf16* __restrict__ o,
-                     float* __restrict__ lse, int Sq, int Sk, int H,
-                     int causal, float scale) {
-  constexpr int XS = D + MPAD;
-  constexpr int ND = D / 8;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = 16 * (tid >> 5);
-  const int nqt = Sq / TILE, nkt = Sk / TILE;
-  const size_t rs = static_cast<size_t>(H) * D;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* k_s = q_s + TILE * XS;
-  bf16* v_s = k_s + TILE * XS;
-  int* qseg_s = reinterpret_cast<int*>(v_s + TILE * XS);
-  int* kseg_s = qseg_s + TILE;
-
-  const size_t q0 = static_cast<size_t>(b) * Sq + qt * TILE;
-  load_tile_mma<D>(q_s, q + q0 * rs + h * D, rs, tid);
-  if (tid < TILE) qseg_s[tid] = qseg[q0 + tid];
-  const int* qr = qrange + (static_cast<size_t>(b) * nqt + qt) * 2;
-
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  }
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-
-  const int kt_end = causal ? min(nkt, qt + 1) : nkt;
-  for (int kt = 0; kt < kt_end; ++kt) {
-    if (!tiles_live(qr, krange + (static_cast<size_t>(b) * nkt + kt) * 2)) {
-      continue;
-    }
-    __syncthreads();
-    const size_t k0 = static_cast<size_t>(b) * Sk + kt * TILE;
-    load_tile_mma<D>(k_s, k + k0 * rs + h * D, rs, tid);
-    load_tile_mma<D>(v_s, v + k0 * rs + h * D, rs, tid);
-    if (tid < TILE) kseg_s[tid] = kseg[k0 + tid];
-    __syncthreads();
-
-    float s[TILE / 8][4];
-#pragma unroll
-    for (int j = 0; j < TILE / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    }
-    mma_abt<D, TILE / 8>(s, q_s, r0, k_s, 0, g, t);
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < TILE / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = r0 + g + 8 * (e >> 1);
-        const int c = 8 * j + 2 * t + (e & 1);
-        const bool live = qseg_s[r] == kseg_s[c] &&
-                          (!causal || qt * TILE + r >= kt * TILE + c);
-        s[j][e] = live ? s[j][e] * scale : MASK_VALUE;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-      }
-    }
-    float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(m[i], quad_max(mx[i]));
-      alpha[i] = expf(m[i] - m_new);
-      m[i] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < TILE / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = expf(s[j][e] - m[e >> 1]);
-        sum[e >> 1] += s[j][e];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = alpha[i] * l[i] + quad_sum(sum[i]);
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
-    // O += round(P) V, 16 keys a product
-#pragma unroll
-    for (int ks = 0; ks < TILE / 16; ++ks) {
-      uint32_t a[4];
-      acc_to_a(a, s[2 * ks], s[2 * ks + 1]);
-      mma_ay<D>(acc, a, v_s, 16 * ks, g, t);
-    }
-  }
-
-  float den[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) den[i] = (l[i] == 0.f) ? 1.f : l[i];
-  store_acc<D>(o + q0 * rs + h * D, rs, r0, g, t, acc, den);
-  if (t == 0) {
-    float* lrow = lse + (static_cast<size_t>(b) * H + h) * Sq + qt * TILE;
-    lrow[r0 + g] = m[0] + logf(den[0]);
-    lrow[r0 + g + 8] = m[1] + logf(den[1]);
-  }
-}
-
-// dK/dV: one block per (key tile, head, batch); warp w owns key rows
-// 16 w .. 16 w + 15; each query tile is taken in two halves of 32 queries
-// to keep the transposed scores and dP in registers beside dK and dV
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-flash_bwd_kv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
-                        const bf16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        const int* __restrict__ qrange,
-                        const int* __restrict__ krange,
-                        const int* __restrict__ qseg,
-                        const int* __restrict__ kseg, bf16* __restrict__ dk,
-                        bf16* __restrict__ dv, int Sq, int Sk, int H,
-                        int causal, float scale) {
-  constexpr int XS = D + MPAD;
-  constexpr int ND = D / 8;
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = 16 * (tid >> 5);
-  const int nqt = Sq / TILE, nkt = Sk / TILE;
-  const size_t rs = static_cast<size_t>(H) * D;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem);
-  bf16* v_s = k_s + TILE * XS;
-  bf16* q_s = v_s + TILE * XS;
-  bf16* do_s = q_s + TILE * XS;
-  int* qseg_s = reinterpret_cast<int*>(do_s + TILE * XS);
-  int* kseg_s = qseg_s + TILE;
-  float* lse_s = reinterpret_cast<float*>(kseg_s + TILE);
-  float* delta_s = lse_s + TILE;
-
-  const size_t k0 = static_cast<size_t>(b) * Sk + kt * TILE;
-  load_tile_mma<D>(k_s, k + k0 * rs + h * D, rs, tid);
-  load_tile_mma<D>(v_s, v + k0 * rs + h * D, rs, tid);
-  if (tid < TILE) kseg_s[tid] = kseg[k0 + tid];
-  const int* kr = krange + (static_cast<size_t>(b) * nkt + kt) * 2;
-  const float* lse_bh = lse + (static_cast<size_t>(b) * H + h) * Sq;
-  const float* delta_bh = delta + (static_cast<size_t>(b) * H + h) * Sq;
-
-  float dka[ND][4], dva[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
-  }
-
-  for (int qt = causal ? kt : 0; qt < nqt; ++qt) {
-    if (!tiles_live(qrange + (static_cast<size_t>(b) * nqt + qt) * 2, kr)) {
-      continue;
-    }
-    __syncthreads();
-    const size_t q0 = static_cast<size_t>(b) * Sq + qt * TILE;
-    load_tile_mma<D>(q_s, q + q0 * rs + h * D, rs, tid);
-    load_tile_mma<D>(do_s, dout + q0 * rs + h * D, rs, tid);
-    if (tid < TILE) {
-      qseg_s[tid] = qseg[q0 + tid];
-      lse_s[tid] = lse_bh[qt * TILE + tid];
-      delta_s[tid] = delta_bh[qt * TILE + tid];
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      // transposed: row = key r0 + g (+8), column = query 32 half + 8 j ..
-      float st[4][4], dpt[4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-      }
-      mma_abt<D, 4>(st, k_s, r0, q_s, 32 * half, g, t);
-      mma_abt<D, 4>(dpt, v_s, r0, do_s, 32 * half, g, t);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = r0 + g + 8 * (e >> 1);
-          const int c = 32 * half + 8 * j + 2 * t + (e & 1);
-          const bool live = qseg_s[c] == kseg_s[r] &&
-                            (!causal || qt * TILE + c >= kt * TILE + r);
-          const float p = live ? expf(st[j][e] * scale - lse_s[c]) : 0.f;
-          st[j][e] = p;                                    // P^T
-          dpt[j][e] = p * (dpt[j][e] - delta_s[c]) * scale;  // dS^T
-        }
-      }
-#pragma unroll
-      for (int ks = 0; ks < 2; ++ks) {
-        uint32_t a[4];
-        acc_to_a(a, st[2 * ks], st[2 * ks + 1]);
-        mma_ay<D>(dva, a, do_s, 32 * half + 16 * ks, g, t);
-        acc_to_a(a, dpt[2 * ks], dpt[2 * ks + 1]);
-        mma_ay<D>(dka, a, q_s, 32 * half + 16 * ks, g, t);
-      }
-    }
-  }
-
-  const float one[2] = {1.f, 1.f};
-  store_acc<D>(dk + k0 * rs + h * D, rs, r0, g, t, dka, one);
-  store_acc<D>(dv + k0 * rs + h * D, rs, r0, g, t, dva, one);
 }
 
 // dQ: one block per (query tile, head, batch); warp w owns query rows
@@ -1095,46 +866,6 @@ cudaError_t run_bwd_dq(const Args& a) {
 }
 
 template <int D>
-cudaError_t run_fwd_mma(const Args& a) {
-  auto kernel = flash_fwd_mma_kernel<D>;
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t e = allow_smem(kernel, fwd_mma_smem<D>());
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
-  const dim3 grid(a.Sq / TILE, a.H, a.B);
-  kernel<<<grid, MMA_THREADS, fwd_mma_smem<D>(), a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const int*>(a.qrange),
-      static_cast<const int*>(a.krange), static_cast<const int*>(a.qseg),
-      static_cast<const int*>(a.kseg), static_cast<bf16*>(a.o),
-      static_cast<float*>(a.lse), a.Sq, a.Sk, a.H, a.causal, a.scale);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t run_bwd_kv_mma(const Args& a) {
-  auto kernel = flash_bwd_kv_mma_kernel<D>;
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t e = allow_smem(kernel, bwd_mma_smem<D>());
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
-  const dim3 grid(a.Sk / TILE, a.H, a.B);
-  kernel<<<grid, MMA_THREADS, bwd_mma_smem<D>(), a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-      static_cast<const float*>(a.lse_in),
-      static_cast<const float*>(a.delta), static_cast<const int*>(a.qrange),
-      static_cast<const int*>(a.krange), static_cast<const int*>(a.qseg),
-      static_cast<const int*>(a.kseg), static_cast<bf16*>(a.dk),
-      static_cast<bf16*>(a.dv), a.Sq, a.Sk, a.H, a.causal, a.scale);
-  return cudaGetLastError();
-}
-
-template <int D>
 cudaError_t run_bwd_dq_mma(const Args& a) {
   auto kernel = flash_bwd_dq_mma_kernel<D>;
   static bool attr_set = false;
@@ -1157,16 +888,6 @@ cudaError_t run_bwd_dq_mma(const Args& a) {
 
 enum Which { FWD = 0, BWD_KV = 1, BWD_DQ = 2 };
 
-template <int D>
-cudaError_t run_mma(Which w, const Args& a) {
-  switch (w) {
-    case FWD: return run_fwd_mma<D>(a);
-    case BWD_KV: return run_bwd_kv_mma<D>(a);
-    case BWD_DQ: return run_bwd_dq_mma<D>(a);
-  }
-  return cudaErrorInvalidValue;
-}
-
 template <typename T, int D>
 cudaError_t run(Which w, const Args& a) {
   switch (w) {
@@ -1179,14 +900,18 @@ cudaError_t run(Which w, const Args& a) {
 
 // dtype: 0 = f32, 1 = bf16; head_dim 64 or 128; sequence lengths whole
 // tiles.  bf16 with P rounded (pv_f32 off, the default) runs on the tensor
-// cores; f32, and bf16 with pv_f32, on the CUDA cores.
+// cores: dQ here, the forward and dK/dV in flash_attention_sm90.cu (the
+// Python wrappers send those there; here they are refused).  f32, and bf16
+// with pv_f32, run on the CUDA cores.
 cudaError_t dispatch(Which w, int D, int dtype, const Args& a) {
   if (a.B <= 0 || a.H <= 0 || a.Sq <= 0 || a.Sk <= 0 || a.Sq % TILE != 0 ||
       a.Sk % TILE != 0 || a.H > 65535 || a.B > 65535) {
     return cudaErrorInvalidValue;
   }
-  if (dtype == 1 && !a.pv_f32 && D == 128) return run_mma<128>(w, a);
-  if (dtype == 1 && !a.pv_f32 && D == 64) return run_mma<64>(w, a);
+  if (dtype == 1 && !a.pv_f32) {
+    if (w != BWD_DQ || (D != 128 && D != 64)) return cudaErrorInvalidValue;
+    return D == 128 ? run_bwd_dq_mma<128>(a) : run_bwd_dq_mma<64>(a);
+  }
   if (dtype == 0 && D == 128) return run<float, 128>(w, a);
   if (dtype == 0 && D == 64) return run<float, 64>(w, a);
   if (dtype == 1 && D == 128) return run<bf16, 128>(w, a);

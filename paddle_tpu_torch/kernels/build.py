@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -83,6 +84,7 @@ def _finish(name: str, job) -> None:
         raise EnforceError(f"nvcc failed building {name} "
                            f"(exit {proc.returncode}):\n{log}",
                            context="kernels")
+    out.with_suffix(".log").write_text(log)   # the ptxas report, kept
     os.replace(tmp, out)   # atomic: a half-written library is never loaded
     BUILD_LOG[name] = (time.perf_counter() - t0, log)
 
@@ -122,6 +124,34 @@ def load(name: str, signatures: Signatures) -> ctypes.CDLL:
             fn.restype = restype
         _LIBS[name] = lib
     return lib
+
+
+def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
+    """Registers and spill bytes of each kernel of ``csrc/<name>.cu``
+    from the ``-Xptxas -v`` report of its current build (empty when it
+    has none): ``{mangled kernel name: {"registers", "spill_stores",
+    "spill_loads"}}``."""
+    if name in BUILD_LOG:
+        log = BUILD_LOG[name][1]
+    else:
+        saved = _target(name)[1].with_suffix(".log")
+        log = saved.read_text() if saved.exists() else ""
+    report: Dict[str, Dict[str, int]] = {}
+    current = None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            current = report.setdefault(entry.group(1), {})
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if current is not None and spill:
+            current["spill_stores"] = int(spill.group(1))
+            current["spill_loads"] = int(spill.group(2))
+        if current is not None and regs:
+            current["registers"] = int(regs.group(1))
+    return report
 
 
 def sources() -> List[str]:

@@ -2,12 +2,14 @@
 
 Two implementations of each of the module's three functions:
 
-- the hand-written CUDA kernels of ``csrc/flash_attention.cu``
-  (:func:`flash_fwd_kernel`, :func:`flash_bwd_kv_kernel`,
-  :func:`flash_bwd_dq_kernel`), the Hopper counterparts of the Pallas
-  ``_flash_fwd_kernel``, ``_flash_bwd_kv_kernel`` and
-  ``_flash_bwd_dq_kernel``: bf16 on the tensor cores, f32 (and bf16
-  under ``attn_pv_f32``) on the CUDA cores;
+- the hand-written CUDA kernels (:func:`flash_fwd_kernel`,
+  :func:`flash_bwd_kv_kernel`, :func:`flash_bwd_dq_kernel`), the Hopper
+  counterparts of the Pallas ``_flash_fwd_kernel``,
+  ``_flash_bwd_kv_kernel`` and ``_flash_bwd_dq_kernel``.  bf16 runs on the
+  tensor cores: the forward and dK/dV as wgmma kernels fed by TMA
+  (``csrc/flash_attention_sm90.cu``), dQ with mma.sync
+  (``csrc/flash_attention.cu``); f32 (and bf16 under ``attn_pv_f32``) runs
+  on the CUDA cores (``csrc/flash_attention.cu``);
 - their plain PyTorch versions (:func:`flash_fwd_reference`,
   :func:`flash_bwd_kv_reference`, :func:`flash_bwd_dq_reference`): a loop
   over key blocks, as the JAX package's plain backward ``_flash_bwd`` is,
@@ -227,6 +229,9 @@ _SIGNATURES = {
                      _INT),
     "flash_error_string": ([_INT], ctypes.c_char_p),
 }
+# csrc/flash_attention_sm90.cu: the same entries but dQ
+_SM90_SIGNATURES = {name: _SIGNATURES[name] for name in
+                    ("flash_fwd", "flash_bwd_kv", "flash_error_string")}
 
 
 def kernel_shape_error(q_shape, k_shape, dtype) -> Optional[str]:
@@ -281,6 +286,47 @@ def _tile_ranges(seg):
         torch.int32).contiguous()
 
 
+# how the kernels treat a (query tile, key tile) pair
+PAIR_SKIPPED, PAIR_INTERIOR, PAIR_BOUNDARY = 0, 1, 2
+
+
+def tile_pair_kinds(q_seg, kv_seg, causal: bool) -> torch.Tensor:
+    """[B, Sq / tile, Sk / tile] int8: how every flash kernel treats each
+    (query tile, key tile) pair of :data:`KERNEL_TILE` rows.  Skipped:
+    the segment-id ranges are disjoint, or under ``causal`` the key tile
+    lies past the query tile's diagonal.  Interior: one segment on both
+    sides and, under ``causal``, the key tile wholly below the diagonal,
+    so every pair is live and the wgmma kernels build no mask.  Boundary:
+    the rest, masked element by element.  This is the rule of
+    ``pair_live`` and ``pair_interior`` in ``csrc/flash_attention_sm90.cu``
+    written out for tests and records; the kernels compute it themselves
+    from the per-tile ranges."""
+    qr = _tile_ranges(q_seg)[:, :, None]       # [B, nqt, 1, 2]
+    kr = _tile_ranges(kv_seg)[:, None]         # [B, 1, nkt, 2]
+    live = (qr[..., 1] >= kr[..., 0]) & (qr[..., 0] <= kr[..., 1])
+    interior = ((qr[..., 0] == qr[..., 1]) & (kr[..., 0] == kr[..., 1]) &
+                (qr[..., 0] == kr[..., 0]))
+    if causal:
+        qt = torch.arange(qr.shape[1], device=q_seg.device)[:, None]
+        kt = torch.arange(kr.shape[2], device=q_seg.device)[None, :]
+        live = live & (kt <= qt)
+        interior = interior & (kt < qt)
+    kinds = torch.full(live.shape, PAIR_SKIPPED, dtype=torch.int8,
+                       device=q_seg.device)
+    kinds[live] = PAIR_BOUNDARY
+    kinds[live & interior] = PAIR_INTERIOR
+    return kinds
+
+
+def _library(q, pv_f32: bool):
+    """The built library a forward or dK/dV launch goes to: the wgmma
+    kernels for bf16 with P rounded, else ``flash_attention.cu``.  Both
+    export the same C entries."""
+    if q.dtype == torch.bfloat16 and not pv_f32:
+        return build.load("flash_attention_sm90", _SM90_SIGNATURES)
+    return build.load("flash_attention", _SIGNATURES)
+
+
 def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
@@ -306,7 +352,7 @@ def flash_fwd_kernel(q, k, v, q_seg, kv_seg, *, causal: bool,
     enforce_that(k.dtype == q.dtype and v.dtype == q.dtype and
                  v.shape == k.shape, "q, k, v must share one dtype and k, v "
                  "one shape", context="flash_attention")
-    lib = build.load("flash_attention", _SIGNATURES)
+    lib = _library(q, pv_f32)
     b, sq, h, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -343,7 +389,7 @@ def flash_bwd_kv_kernel(q, k, v, q_seg, kv_seg, dout, lse, delta, *,
     results as :func:`flash_bwd_kv_reference`.  Each launch adds one to
     ``flash_bwd_kv_kernel.launches``."""
     _check_bwd(q, k, v, q_seg, kv_seg, dout, lse, delta)
-    lib = build.load("flash_attention", _SIGNATURES)
+    lib = _library(q, pv_f32)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     qr, kr = _tile_ranges(q_seg), _tile_ranges(kv_seg)

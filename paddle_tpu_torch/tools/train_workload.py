@@ -143,12 +143,28 @@ FLASH_CASES = {
     "d_f32_cross": ("float32", 1024, 2048, 16, 128, False, None),
     # (e) causal cross-attention with Sk > Sq
     "e_f32_causal_sk_gt_sq": ("float32", 512, 2048, 16, 128, True, None),
+    # (f) the wgmma kernels at head dim 64: bf16 causal segments
+    "f_bf16_segments_causal_d64": ("bfloat16", 2048, 2048, 16, 64, True,
+                                   (600, 1000, 300)),
+    # (g) bf16 causal cross-attention with Sk > Sq and Sq an odd number of
+    # 64-row tiles (the forward's last block holds one query tile)
+    "g_bf16_causal_cross_sq576": ("bfloat16", 576, 2048, 16, 128, True,
+                                  None),
 }
+
+
+def case_segments(name: str):
+    """The named case's (q_seg [1, Sq], kv_seg [1, Sk]) int32 arrays."""
+    _, sq, sk, _, _, _, lengths = FLASH_CASES[name]
+    q_seg = (np.zeros((1, sq), np.int32) if lengths is None
+             else packed_segments(lengths, sq))
+    kv_seg = q_seg if sq == sk else np.zeros((1, sk), np.int32)
+    return q_seg, kv_seg
 
 
 def flash_case(name: str, device) -> FlashCase:
     """The named case's inputs on ``device``, drawn from a seed."""
-    dtype, sq, sk, h, d, causal, lengths = FLASH_CASES[name]
+    dtype, sq, sk, h, d, causal, _ = FLASH_CASES[name]
     dt = getattr(torch, dtype)
     rng = np.random.default_rng([SEED, sorted(FLASH_CASES).index(name)])
 
@@ -158,9 +174,7 @@ def flash_case(name: str, device) -> FlashCase:
     def normal(s):
         return t(rng.standard_normal((1, s, h, d), np.float32))
 
-    q_seg = (np.zeros((1, sq), np.int32) if lengths is None
-             else packed_segments(lengths, sq))
-    kv_seg = q_seg if sq == sk else np.zeros((1, sk), np.int32)
+    q_seg, kv_seg = case_segments(name)
     return FlashCase(name=name, q=normal(sq), k=normal(sk), v=normal(sk),
                      dout=normal(sq), q_seg=t(q_seg, torch.int32),
                      kv_seg=t(kv_seg, torch.int32), causal=causal)

@@ -203,8 +203,46 @@ def _check_flash_case(case, pv_f32=False):
 
 @pytest.mark.parametrize("name", sorted(tw.FLASH_CASES))
 def test_flash_kernels_match_plain(cuda, name):
-    """bf16 cases run the tensor-core kernels, f32 the CUDA-core ones."""
+    """bf16 cases run the tensor-core kernels (the forward and dK/dV the
+    wgmma ones), f32 the CUDA-core ones."""
     _check_flash_case(tw.flash_case(name, cuda))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_padding_tile_that_matches_nothing(cuda, d):
+    """A query tile of padding whose segment id no key carries, though it
+    lies inside every key tile's id range (keys alternate ids 0 and 2,
+    the tile is id 1): the kernels visit every key tile for it and mask
+    every pair, so each of its rows averages V over all keys, as the plain
+    version does: finite O and lse equal to the plain version's, and no
+    gradient from it.  Sq = Sk = 576, 9 tiles: the last forward and dK/dV
+    blocks hold one tile each."""
+    s, h = 576, 4
+    rng = np.random.default_rng(11)
+    kv_seg = np.tile(np.array([0, 2], np.int32), s // 2)[None]
+    q_seg = kv_seg.copy()
+    q_seg[:, -tattn.KERNEL_TILE:] = 1
+
+    def normal():
+        return torch.from_numpy(rng.standard_normal((1, s, h, d),
+                                                    np.float32)).to(
+            cuda, torch.bfloat16)
+
+    case = tw.FlashCase(name="padding_tile", q=normal(), k=normal(),
+                        v=normal(), dout=normal(),
+                        q_seg=torch.from_numpy(q_seg).to(cuda),
+                        kv_seg=torch.from_numpy(kv_seg).to(cuda),
+                        causal=True)
+    _check_flash_case(case)
+    o, lse = tattn.flash_fwd_kernel(case.q, case.k, case.v, case.q_seg,
+                                    case.kv_seg, causal=True,
+                                    sm_scale=case.sm_scale)
+    pad = slice(s - tattn.KERNEL_TILE, s)
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    # the mean of 576 unit normals is below 0.2, where one bf16 step is
+    # under 1e-3
+    want = case.v.float().mean(1, keepdim=True).expand(-1, 64, -1, -1)
+    torch.testing.assert_close(o[:, pad].float(), want, rtol=0, atol=1e-3)
 
 
 @pytest.mark.parametrize("name", ["b_bf16_ragged_padded", "d_bf16_cross"])
