@@ -30,7 +30,7 @@ checkout of the repository).  Phases, each fatal on failure:
    interior and boundary tile pairs and, on the training case,
    ``scaled_dot_product_attention`` forward, backward alone and both as
    the library yardsticks; the kernels line carries ptxas's registers and
-   spills of each flash kernel;
+   spills of each flash and RNN kernel;
 7. train: the full-width transformer LM (vocab 32768, d 2048, 8 layers,
    16 heads) with random weights from a seed, trained through the port's
    v2 surface (``Parameters.from_topology``, ``trainer.SGD.train``,
@@ -81,6 +81,7 @@ import torch
 # the port must come from this checkout; outside it this import fails
 from paddle_tpu_torch.tools import rnn_workload as rw
 from paddle_tpu_torch.tools import train_workload as tw
+from paddle_tpu_torch.tools.compare_flash import card_ms
 from paddle_tpu_torch.tools.serve_workload import (MODEL, NEW_TOKENS, NO_EOS,
                                                    PREFIX_LEN, Workload,
                                                    build_model, make_engine,
@@ -420,14 +421,20 @@ def serve_int8(model, dev) -> dict:
 # ---------------------------------------------------------------------------
 
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_kv", "flash_bwd_dq")
-FLASH_SOURCES = {"flash_fwd": "flash_attention_sm90",
-                 "flash_bwd_kv": "flash_attention_sm90",
-                 "flash_bwd_dq": "flash_attention"}
 # the mangled name of each kernel that case a runs, in ptxas's report
 FLASH_PTXAS = {"flash_fwd": "flash_fwd_wgmma_kernelILi128",
                "flash_bwd_kv": "flash_bwd_kv_wgmma_kernelILi128",
-               "flash_bwd_dq": "flash_bwd_dq_mma_kernelILi128"}
+               "flash_bwd_dq": "flash_bwd_dq_wgmma_kernelILi128"}
 LIBRARY_KEYS = ("library_fwd_ms", "library_bwd_ms", "library_fwd_bwd_ms")
+
+
+def ptxas_of(source: str, kernel: str):
+    """ptxas's registers and spills of the kernel of ``csrc/<source>.cu``
+    whose mangled name holds ``kernel``, or None."""
+    from paddle_tpu_torch.kernels import build
+
+    found = [v for k, v in build.ptxas_report(source).items() if kernel in k]
+    return found[0] if found else None
 
 
 def flash_bound(case, which: str) -> dict:
@@ -461,29 +468,18 @@ def flash_bound(case, which: str) -> dict:
             "bytes": nbytes, "flops": flops, "live_pairs": pairs}
 
 
-def device_ms(fn, reps: int = 10) -> float:
+def device_ms(fn, reps: int = 10, what: str = "") -> float:
     """Card time of one call: the sum of the CUDA kernel times of
     ``reps`` calls under ``torch.profiler``, over ``reps``, after one
-    warm-up call (:func:`time_ms` where the trace holds no kernel).  It leaves out the host's work between kernels, which
-    for a small kernel's wrapper or a call through autograd can be longer
-    than the kernels themselves."""
-    from torch.autograd import DeviceType
-
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
-    if total == 0.0:
-        # the trace caught no kernel (it happens now and then on the card's
-        # machine): time the calls back to back with CUDA events instead
-        return time_ms(fn, reps=reps)
-    return total / 1e3 / reps
+    warm-up call (``compare_flash.card_ms``).  It leaves out the host's
+    work between kernels, which for a small kernel's wrapper or a call
+    through autograd can be longer than the kernels themselves.  Where the
+    trace caught no kernel in a few tries, the calls are timed back to
+    back with CUDA events instead, and a line naming ``what`` says so."""
+    ms, timer = card_ms(fn, reps)
+    if timer != "profiler":
+        emit({"timer": timer, "what": what, "ms": ms})
+    return ms
 
 
 def sdpa_ms(case) -> dict:
@@ -512,9 +508,9 @@ def sdpa_ms(case) -> dict:
     def bwd():
         torch.autograd.grad(saved, (qg, kg, vg), do, retain_graph=True)
 
-    return {"library_fwd_ms": device_ms(fwd),
-            "library_bwd_ms": device_ms(bwd),
-            "library_fwd_bwd_ms": device_ms(fwd_bwd),
+    return {"library_fwd_ms": device_ms(fwd, what="sdpa_fwd"),
+            "library_bwd_ms": device_ms(bwd, what="sdpa_bwd"),
+            "library_fwd_bwd_ms": device_ms(fwd_bwd, what="sdpa_fwd_bwd"),
             "library_out": fwd().transpose(1, 2).reshape(case.q.shape)}
 
 
@@ -560,8 +556,10 @@ def run_flash_cases(dev) -> dict:
         for kname, (kern, plain, args, outs) in kernels.items():
             res[kname] = {
                 "max_abs_err": max(errs[o]["max_abs_err"] for o in outs),
-                "ms": device_ms(lambda: kern(*args, **cfg), reps=20),
-                "plain_ms": device_ms(lambda: plain(*args, **cfg), reps=3),
+                "ms": device_ms(lambda: kern(*args, **cfg), reps=20,
+                                what=f"{name} {kname}"),
+                "plain_ms": device_ms(lambda: plain(*args, **cfg), reps=3,
+                                      what=f"{name} {kname} plain"),
                 **flash_bound(case, kname)}
         kinds = A.tile_pair_kinds(case.q_seg, case.kv_seg, case.causal)
         res["tile_pairs"] = {kind: int((kinds == code).sum()) for kind, code
@@ -695,6 +693,11 @@ RNN_REPLACES = {"lstm_step": "paddle_tpu/ops/rnn.py:80",
                 "gru_step": "paddle_tpu/ops/rnn.py:212",
                 "gru_zr": "paddle_tpu/ops/rnn.py:234",
                 "gru_cand": "paddle_tpu/ops/rnn.py:244"}
+# the mangled name of each kernel that its main-path case (f32) runs
+RNN_PTXAS = {"lstm_step": "lstm_step_kernelIfLb1E",
+             "gru_step": "gru_step_kernelIfE",
+             "gru_zr": "gru_zr_kernelIfE",
+             "gru_cand": "gru_cand_kernelIfE"}
 GRU_NO_LIBRARY = ("no PyTorch call computes this function: torch.nn.GRU "
                   "applies the reset gate after the product, r(h W_hn + "
                   "b_hn), Paddle's GRU before it, (r h) W_c")
@@ -721,7 +724,8 @@ def cudnn_lstm_step_ms(B: int, H: int, dev) -> float:
     lstm = torch.nn.LSTM(H, H, batch_first=True).to(dev)
     x = torch.randn((B, rw.STEPS_T, H), generator=gen).to(dev)
     with torch.no_grad():
-        return device_ms(lambda: lstm(x), reps=5) / rw.STEPS_T
+        return device_ms(lambda: lstm(x), reps=5,
+                         what=f"cudnn_lstm H {H}") / rw.STEPS_T
 
 
 def _rnn_case_calls(case):
@@ -790,8 +794,9 @@ def run_rnn_cases(dev) -> dict:
             res[kname] = {
                 "errors": errs,
                 "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
-                "ms": device_ms(kern, reps=20),
-                "plain_ms": device_ms(plain, reps=5),
+                "ms": device_ms(kern, reps=20, what=f"{name} {kname}"),
+                "plain_ms": device_ms(plain, reps=5,
+                                      what=f"{name} {kname} plain"),
                 "library_ms": (lib_ms[case["H"]] if kname == "lstm_step"
                                else None),
                 **rnn_bound(case, kname)}
@@ -909,6 +914,7 @@ def rnn_kernel_lines(cases, trained_lstm, trained_gru) -> list:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+            "ptxas": ptxas_of("rnn_cells", RNN_PTXAS[kname]),
             "library": ("torch.nn.LSTM forward (cuDNN) over [64, 128, "
                         f"{cases[cname]['H']}], per step"
                         if kname == "lstm_step" else GRU_NO_LIBRARY),
@@ -977,12 +983,9 @@ def main() -> int:
                 "flash_bwd_dq": "paddle_tpu/ops/attention.py:353"}
     for name in FLASH_KERNELS:
         r = flash_main[name]
-        src = FLASH_SOURCES[name]
-        ptxas = [v for k, v in build.ptxas_report(src).items()
-                 if FLASH_PTXAS[name] in k]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"paddle_tpu_torch/csrc/{src}.cu",
+            "source": "paddle_tpu_torch/csrc/flash_attention_sm90.cu",
             "replaces": replaces[name],
             "launches": trained["kernel_launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -998,7 +1001,7 @@ def main() -> int:
                        "[8, 16, 1024, 128], " + (
                            "forward" if name == "flash_fwd"
                            else "backward of a saved forward"),
-            "ptxas": ptxas[0] if ptxas else None,
+            "ptxas": ptxas_of("flash_attention_sm90", FLASH_PTXAS[name]),
             "case": "a_bf16_8x1024_causal"})
     kernels += rnn_kernel_lines(rnn_cases, trained_lstm, trained_gru)
     emit({"phase": "done", "seconds_total": time.perf_counter() - t_start})

@@ -1,8 +1,7 @@
-// Flash attention for Hopper (sm_90a): forward, dK/dV and dQ over packed
-// sequences with segment ids and causal masking.  This file holds the dQ
-// kernel of the bf16 tensor-core route and all three kernels of the f32
-// route and of bf16 with attn_pv_f32; the bf16 tensor-core forward and
-// dK/dV are flash_attention_sm90.cu's (wgmma fed by TMA).
+// Flash attention for Hopper (sm_90a) on the CUDA cores: forward, dK/dV and
+// dQ over packed sequences with segment ids and causal masking, for f32
+// inputs and for bf16 with attn_pv_f32.  bf16 with P and dS rounded (the
+// training path) is flash_attention_sm90.cu's: wgmma kernels fed by TMA.
 //
 // Replaces the three Pallas TPU kernels of paddle_tpu/ops/attention.py:
 //   flash_fwd    <- _flash_fwd_kernel    (:142, pallas_call :249)
@@ -29,36 +28,23 @@
 //     dK += round(dS)^T Q; dQ: dQ += round(dS) K. Results cast to the
 //     input type.
 //
-// What bounds it on the H100: at the training shapes (8 segments of 1024,
-// causal, H = 16, D = 128, bf16) the live work is ~34 GFLOP forward, ~69
-// dK/dV and ~52 dQ a layer against 134 MB of q/k/v/o: at the tensor cores'
-// 989 TFLOP/s the forward is bound by bytes (~0.04 ms), the backward
-// kernels by operations.  So the bf16 dQ kernel (pv_f32 off, the training
-// path) does its products on the tensor cores with mma.sync m16n8k16 (bf16
-// in, f32 accumulate), which keeps the TPU kernels' numerics: bf16 operands,
-// f32 sums, dS rounded to bf16 as the product takes it.  f32 inputs (and
-// bf16 with pv_f32) run on the CUDA cores in f32 FMA: TF32 would break the
-// f32 contract, so those are bound by the cores' 67 TFLOP/s.
+// What bounds it on the H100: f32 inputs run in f32 FMA (TF32 would break
+// the f32 contract), so the cores' 67 TFLOP/s bound all three kernels at
+// the training shapes; bf16 with pv_f32 keeps P and dS in f32, so its
+// products are f32 FMA too.
 //
 // Design: the TPU streams the key (or query) axis through a sequential
 // grid dimension and carries state in VMEM scratch; Hopper's blocks run in
 // parallel and in no order, so one block owns one 64-row tile (queries for
 // forward and dQ, keys for dK/dV) and loops over the other axis itself,
 // carrying its sums in registers; every kernel skips the same tile pairs.
-// - The tensor-core dQ kernel: 128 threads, each warp owns 16 rows of the
-//   tile; tiles live in shared memory in bf16 with rows padded by 8
-//   elements (conflict-free fragment loads); the accumulator of one
-//   product is laid out as the A operand of the next, so dS never leaves
-//   registers.  It takes the key tile in halves of 32 to keep the scores
-//   and dP in registers beside the output tile.
-// - CUDA-core kernels: 256 threads form a 16 x 16 grid: thread (ty, tx)
-//   owns score rows ty + 16 i and columns tx + 16 j (i, j < 4), and output
-//   rows ty + 16 i by columns 4 tx + 64 g .. + 3, so the rows of the
-//   softmax state never leave their half-warp; P and dS go through shared
-//   memory; rows are padded by 4 elements.
-// Above 48 KB, dynamic shared memory is enabled with cudaFuncSetAttribute.
-// No pipelining of the tile loads in this file (flash_attention_sm90.cu
-// has the TMA ring).
+// 256 threads form a 16 x 16 grid: thread (ty, tx) owns score rows
+// ty + 16 i and columns tx + 16 j (i, j < 4), and output rows ty + 16 i by
+// columns 4 tx + 64 g .. + 3, so the rows of the softmax state never leave
+// their half-warp; P and dS go through shared memory; rows are padded by 4
+// elements.  Above 48 KB, dynamic shared memory is enabled with
+// cudaFuncSetAttribute.  No pipelining of the tile loads in this file
+// (flash_attention_sm90.cu has the TMA ring).
 //
 // Plain C interface (built by paddle_tpu_torch/kernels/build.py with nvcc,
 // loaded with ctypes): each entry returns a cudaError_t.
@@ -553,236 +539,6 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dQ on the tensor cores: mma.sync m16n8k16 (bf16 in, f32 accumulate)
-//
-// Four warps own one 64-row tile, 16 rows each.  Operand fragments are read
-// from shared memory tiles in the input type with rows padded by 8
-// elements, which makes both access patterns below free of bank conflicts:
-// 32-bit loads of two neighbouring columns of one row (A operands, and B
-// operands whose k runs along a tile row), and 16-bit loads of one column
-// in two neighbouring rows (B operands whose k runs down the tile).  A
-// product's f32 accumulator for two neighbouring 8-column tiles is laid out
-// as the A operand of the next product, so dS goes from one mma to the
-// next in registers, rounded to bf16 on the way (the `_pv_operands` rule).
-// ---------------------------------------------------------------------------
-
-constexpr int MMA_WARPS = 4;
-constexpr int MMA_THREADS = 32 * MMA_WARPS;
-constexpr int MPAD = 8;   // bf16 row padding of the mma kernels' tiles
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// one column of two neighbouring rows (row stride xs), packed low = first
-__device__ __forceinline__ uint32_t ld_col2(const bf16* p, int xs) {
-  const uint32_t lo = *reinterpret_cast<const uint16_t*>(p);
-  const uint32_t hi = *reinterpret_cast<const uint16_t*>(p + xs);
-  return lo | (hi << 16);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// A operand (16 x 16, row-major): rows r0.., columns k0.. of tile X
-__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* X, int xs,
-                                       int r0, int k0, int g, int t) {
-  const bf16* p = X + (r0 + g) * xs + k0 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * xs);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * xs + 8);
-}
-
-// A operand from the accumulators of 8-column tiles c0 (columns 0-7) and
-// c1 (8-15), rounded to bf16
-__device__ __forceinline__ void acc_to_a(uint32_t a[4], const float c0[4],
-                                         const float c1[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
-
-// c[j] += A x Y^T over k in [0, D) for NJ groups of 8 rows of Y from n0:
-// B[k][n] = Y[n0 + 8 j + n][k], Y row-major; A is read once per k step
-template <int D, int NJ>
-__device__ __forceinline__ void mma_abt(float c[][4], const bf16* A, int ar0,
-                                        const bf16* Y, int n0, int g, int t) {
-  constexpr int XS = D + MPAD;
-#pragma unroll
-  for (int k0 = 0; k0 < D; k0 += 16) {
-    uint32_t a[4];
-    load_a(a, A, XS, ar0, k0, g, t);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const bf16* y = Y + (n0 + 8 * j + g) * XS + k0 + 2 * t;
-      mma_bf16(c[j], a, ld32(y), ld32(y + 8));
-    }
-  }
-}
-
-// c[n] += a x Y[k0 .. k0 + 16, 8 n ..]: B[k][n] = Y[k0 + k][8 n + ...]
-template <int D>
-__device__ __forceinline__ void mma_ay(float c[][4], const uint32_t a[4],
-                                       const bf16* Y, int k0, int g, int t) {
-  constexpr int XS = D + MPAD;
-  const bf16* y = Y + (k0 + 2 * t) * XS + g;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    mma_bf16(c[n], a, ld_col2(y + 8 * n, XS), ld_col2(y + 8 * XS + 8 * n, XS));
-  }
-}
-
-// one 64-row tile of D columns into shared rows of D + MPAD, 16 bytes a move
-template <int D>
-__device__ __forceinline__ void load_tile_mma(bf16* dst, const bf16* src,
-                                              size_t rs, int tid) {
-  constexpr int CH = D / 8;
-  for (int idx = tid; idx < TILE * CH; idx += MMA_THREADS) {
-    const int r = idx / CH;
-    const int c = (idx % CH) * 8;
-    *reinterpret_cast<uint4*>(dst + r * (D + MPAD) + c) =
-        *reinterpret_cast<const uint4*>(src + r * rs + c);
-  }
-}
-
-// rows r0 + g and r0 + g + 8 of a 16 x D accumulator, divided by den[0] and
-// den[1], to bf16 rows of stride rs
-template <int D>
-__device__ __forceinline__ void store_acc(bf16* dst, size_t rs, int r0, int g,
-                                          int t, float c[][4],
-                                          const float den[2]) {
-  bf16* row0 = dst + (r0 + g) * rs + 2 * t;
-  bf16* row1 = row0 + 8 * rs;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    *reinterpret_cast<uint32_t*>(row0 + 8 * n) =
-        pack_bf16(c[n][0] / den[0], c[n][1] / den[0]);
-    *reinterpret_cast<uint32_t*>(row1 + 8 * n) =
-        pack_bf16(c[n][2] / den[1], c[n][3] / den[1]);
-  }
-}
-
-template <int D>
-__host__ __device__ constexpr size_t mma_tile_bytes() {
-  return static_cast<size_t>(TILE) * (D + MPAD) * sizeof(bf16);
-}
-
-template <int D>
-constexpr size_t bwd_mma_smem() {
-  return 4 * mma_tile_bytes<D>() + 2 * TILE * sizeof(int) +
-         2 * TILE * sizeof(float);
-}
-
-// dQ: one block per (query tile, head, batch); warp w owns query rows
-// 16 w .. 16 w + 15; each key tile in two halves of 32 keys
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
-                        const bf16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        const int* __restrict__ qrange,
-                        const int* __restrict__ krange,
-                        const int* __restrict__ qseg,
-                        const int* __restrict__ kseg, bf16* __restrict__ dq,
-                        int Sq, int Sk, int H, int causal, float scale) {
-  constexpr int XS = D + MPAD;
-  constexpr int ND = D / 8;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = 16 * (tid >> 5);
-  const int nqt = Sq / TILE, nkt = Sk / TILE;
-  const size_t rs = static_cast<size_t>(H) * D;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* do_s = q_s + TILE * XS;
-  bf16* k_s = do_s + TILE * XS;
-  bf16* v_s = k_s + TILE * XS;
-  int* qseg_s = reinterpret_cast<int*>(v_s + TILE * XS);
-  int* kseg_s = qseg_s + TILE;
-  float* lse_s = reinterpret_cast<float*>(kseg_s + TILE);
-  float* delta_s = lse_s + TILE;
-
-  const size_t q0 = static_cast<size_t>(b) * Sq + qt * TILE;
-  load_tile_mma<D>(q_s, q + q0 * rs + h * D, rs, tid);
-  load_tile_mma<D>(do_s, dout + q0 * rs + h * D, rs, tid);
-  if (tid < TILE) {
-    const size_t bh = (static_cast<size_t>(b) * H + h) * Sq + qt * TILE;
-    qseg_s[tid] = qseg[q0 + tid];
-    lse_s[tid] = lse[bh + tid];
-    delta_s[tid] = delta[bh + tid];
-  }
-  const int* qr = qrange + (static_cast<size_t>(b) * nqt + qt) * 2;
-
-  float dqa[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
-  }
-
-  const int kt_end = causal ? min(nkt, qt + 1) : nkt;
-  for (int kt = 0; kt < kt_end; ++kt) {
-    if (!tiles_live(qr, krange + (static_cast<size_t>(b) * nkt + kt) * 2)) {
-      continue;
-    }
-    __syncthreads();
-    const size_t k0 = static_cast<size_t>(b) * Sk + kt * TILE;
-    load_tile_mma<D>(k_s, k + k0 * rs + h * D, rs, tid);
-    load_tile_mma<D>(v_s, v + k0 * rs + h * D, rs, tid);
-    if (tid < TILE) kseg_s[tid] = kseg[k0 + tid];
-    __syncthreads();
-
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-      }
-      mma_abt<D, 4>(s, q_s, r0, k_s, 32 * half, g, t);
-      mma_abt<D, 4>(dp, do_s, r0, v_s, 32 * half, g, t);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = r0 + g + 8 * (e >> 1);
-          const int c = 32 * half + 8 * j + 2 * t + (e & 1);
-          const bool live = qseg_s[r] == kseg_s[c] &&
-                            (!causal || qt * TILE + r >= kt * TILE + c);
-          const float p = live ? expf(s[j][e] * scale - lse_s[r]) : 0.f;
-          s[j][e] = p * (dp[j][e] - delta_s[r]) * scale;   // dS
-        }
-      }
-#pragma unroll
-      for (int ks = 0; ks < 2; ++ks) {
-        uint32_t a[4];
-        acc_to_a(a, s[2 * ks], s[2 * ks + 1]);
-        mma_ay<D>(dqa, a, k_s, 32 * half + 16 * ks, g, t);
-      }
-    }
-  }
-
-  const float one[2] = {1.f, 1.f};
-  store_acc<D>(dq + q0 * rs + h * D, rs, r0, g, t, dqa, one);
-}
-
-// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -865,27 +621,6 @@ cudaError_t run_bwd_dq(const Args& a) {
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t run_bwd_dq_mma(const Args& a) {
-  auto kernel = flash_bwd_dq_mma_kernel<D>;
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t e = allow_smem(kernel, bwd_mma_smem<D>());
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
-  const dim3 grid(a.Sq / TILE, a.H, a.B);
-  kernel<<<grid, MMA_THREADS, bwd_mma_smem<D>(), a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-      static_cast<const float*>(a.lse_in),
-      static_cast<const float*>(a.delta), static_cast<const int*>(a.qrange),
-      static_cast<const int*>(a.krange), static_cast<const int*>(a.qseg),
-      static_cast<const int*>(a.kseg), static_cast<bf16*>(a.dq), a.Sq, a.Sk,
-      a.H, a.causal, a.scale);
-  return cudaGetLastError();
-}
-
 enum Which { FWD = 0, BWD_KV = 1, BWD_DQ = 2 };
 
 template <typename T, int D>
@@ -899,18 +634,14 @@ cudaError_t run(Which w, const Args& a) {
 }
 
 // dtype: 0 = f32, 1 = bf16; head_dim 64 or 128; sequence lengths whole
-// tiles.  bf16 with P rounded (pv_f32 off, the default) runs on the tensor
-// cores: dQ here, the forward and dK/dV in flash_attention_sm90.cu (the
-// Python wrappers send those there; here they are refused).  f32, and bf16
-// with pv_f32, run on the CUDA cores.
+// tiles.  f32, and bf16 with pv_f32, run here on the CUDA cores; bf16 with
+// P rounded (pv_f32 off, the default) is flash_attention_sm90.cu's (the
+// Python wrappers send it there; here it is refused).
 cudaError_t dispatch(Which w, int D, int dtype, const Args& a) {
   if (a.B <= 0 || a.H <= 0 || a.Sq <= 0 || a.Sk <= 0 || a.Sq % TILE != 0 ||
-      a.Sk % TILE != 0 || a.H > 65535 || a.B > 65535) {
+      a.Sk % TILE != 0 || a.H > 65535 || a.B > 65535 ||
+      (dtype == 1 && !a.pv_f32)) {
     return cudaErrorInvalidValue;
-  }
-  if (dtype == 1 && !a.pv_f32) {
-    if (w != BWD_DQ || (D != 128 && D != 64)) return cudaErrorInvalidValue;
-    return D == 128 ? run_bwd_dq_mma<128>(a) : run_bwd_dq_mma<64>(a);
   }
   if (dtype == 0 && D == 128) return run<float, 128>(w, a);
   if (dtype == 0 && D == 64) return run<float, 64>(w, a);

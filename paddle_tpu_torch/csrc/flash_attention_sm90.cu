@@ -1,35 +1,38 @@
 // Flash attention for Hopper (sm_90a) on the bf16 tensor-core route: the
-// forward and the dK/dV kernels as warp-specialised kernels, wgmma products
+// forward, dK/dV and dQ kernels as warp-specialised kernels, wgmma products
 // fed by a TMA + mbarrier ring in shared memory.
 //
-// Replaces two Pallas TPU kernels of paddle_tpu/ops/attention.py:
+// Replaces three Pallas TPU kernels of paddle_tpu/ops/attention.py:
 //   flash_fwd    <- _flash_fwd_kernel    (:142, pallas_call :249)   B1
 //   flash_bwd_kv <- _flash_bwd_kv_kernel (:289, pallas_call :448)   B2
+//   flash_bwd_dq <- _flash_bwd_dq_kernel (:353, pallas_call :488)   B3
 // for bf16 q/k/v/dO with P and dS rounded to bf16 (attn_pv_f32 off), head
-// dims 64 and 128.  flash_attention.cu keeps the dQ kernel (B3) and the
-// CUDA-core kernels of the f32 and pv_f32 routes.  What the kernels compute
-// is that file's contract, unchanged:
+// dims 64 and 128.  flash_attention.cu keeps the CUDA-core kernels of the
+// f32 and pv_f32 routes.  What the kernels compute is that file's
+// contract, unchanged:
 //   - q [B, Sq, H, D], k/v [B, Sk, H, D] bf16; segment ids [B, S] int32;
 //     lse and delta [B, H, Sq] f32;
 //   - mask q_seg == k_seg and, under causal, q_index >= k_index on absolute
 //     positions in the packed buffer; a masked score is DEFAULT_MASK_VALUE
 //     (finite), so a row that matches nothing in the visited tiles averages
 //     their V; tile pairs are visited or skipped at 64-row tiles by the
-//     `_seg_live` ranges and the causal clamp, exactly as the dQ kernel
-//     does, so lse is never read for a pair the forward skipped;
+//     `_seg_live` ranges and the causal clamp, the same pairs in all three
+//     kernels, so lse is never read for a pair the forward skipped;
 //   - forward: online softmax in f32, P rounded to bf16 before PV, l == 0
 //     -> 1, O in bf16, lse = m + log l in natural-log units;
 //   - dK/dV: p = exp(s - lse) on the mask (else 0), dV += round(p)^T dO,
 //     dS = p (dP - delta) scale with p unrounded, dK += round(dS)^T Q;
-//     results in bf16.
+//   - dQ: the same p and dS, dQ += round(dS) K; results in bf16, and a
+//     row that matches nothing gets zero gradients.
 //
 // What bounds them on the H100, at the training case (q/k/v [1, 8192, 16,
 // 128], 8 causal segments of 1024): the forward moves 134 MB of q/k/v/O
 // for 34 GFLOP of live products, so bytes bound it (0.0402 ms at 3.35
-// TB/s); dK/dV does 69 GFLOP against 201 MB, so operations bound it
-// (0.0696 ms at 989 TFLOP/s).  The first versions (mma.sync, one 4-warp
-// block a 64-row tile, tiles loaded through registers with no overlap)
-// took 10x and 9x their bounds.  What this design does about it:
+// TB/s); dK/dV does 69 GFLOP against 201 MB and dQ 52 GFLOP against 168
+// MB, so operations bound them (0.0696 and 0.0522 ms at 989 TFLOP/s).
+// The first versions (mma.sync, one 4-warp block a 64-row tile, tiles
+// loaded through registers with no overlap) took 10x, 9x and 11x their
+// bounds.  What this design does about it:
 //   - products are wgmma (the only instruction that reaches the tensor
 //     cores' full rate).  Forward: Q is read once from shared memory into
 //     registers as the A operand of every S = Q K^T; P stays in registers
@@ -37,12 +40,17 @@
 //     through the descriptor's transpose bit; the PV product of one key
 //     tile is issued behind the next tile's S product and runs under its
 //     softmax.  dK/dV: S^T = K Q^T and dP^T = V dO^T from shared memory,
-//     P^T read while dP^T runs, dV += round(P^T) dO while dS is formed;
+//     P^T read while dP^T runs, dV += round(P^T) dO while dS is formed.
+//     dQ: the forward's shape, S = Q K^T with Q in registers and dP = dO
+//     V^T with dO read from shared memory (its registers would not fit
+//     beside dQ's 64), dS rounded straight into A-operand registers, and
+//     dQ += round(dS) K with K read MN-major, issued behind the next
+//     tile's S and dP products;
 //   - one producer thread keeps the next tiles in flight with TMA (no
 //     registers or address arithmetic spent on copies), completion
 //     signalled on mbarriers; two consumer warpgroups own 64 rows each
-//     (128 query rows a block in the forward, 128 keys in dK/dV) and
-//     share each tile the ring brings;
+//     (128 query rows a block in the forward and dQ, 128 keys in dK/dV)
+//     and share each tile the ring brings;
 //   - the tiles a block visits are found 32 at a time by a warp ballot
 //     over the per-tile ranges (`walk_masks`), not tile by tile;
 //   - tiles arrive 128-byte swizzled (a D = 128 row is two 64-column
@@ -52,8 +60,8 @@
 //   - interior tile pairs (one segment on both sides and, under causal,
 //     the key tile wholly below the diagonal) skip per-element masking;
 //     only boundary and diagonal pairs read segment ids;
-//   - dK/dV accumulate in f32 registers for the whole query loop and are
-//     written once.
+//   - dK/dV and dQ accumulate in f32 registers for the whole loop and are
+//     written once; dQ goes out through shared memory by a TMA store.
 // Key tiles stay 64 wide, so the running maxima, and P rounded from them,
 // are the plain version's at KERNEL_TILE.
 // A block is 384 threads, two consumer warpgroups and a producer
@@ -88,6 +96,7 @@ constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
 constexpr int FWD_STAGES = 3;   // K/V tile pairs in flight
 constexpr int BWD_STAGES = 2;   // Q/dO tile pairs in flight
+constexpr int DQ_STAGES = 4;    // K/V tile pairs in flight in dQ
 constexpr float MASK_VALUE = -0.7f * FLT_MAX;   // DEFAULT_MASK_VALUE
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -161,6 +170,26 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// one 64-row x 64-column box from shared memory to a [rows, H, D] map; the
+// writers of the box must have made their stores visible to the copy
+// (fence.proxy.async) first
+__device__ __forceinline__ void tma_store_box(const CUtensorMap* map,
+                                              uint32_t src, int col,
+                                              int head, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%1, %2, %3}], [%4];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(col), "r"(head), "r"(row), "r"(src)
+      : "memory");
+}
+
+// wait until the issued TMA stores have read their shared memory
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile(
+      "cp.async.bulk.commit_group;\n"
+      "cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -332,6 +361,13 @@ __device__ __forceinline__ void a_operand(uint32_t (&a)[4],
   }
 }
 
+// byte offset of element (x, c) of a 64-row tile of 128-byte swizzled
+// 64-column boxes: the layout TMA writes and reads
+__device__ __forceinline__ int swizzled(int x, int c) {
+  return (c / BOX) * BOX_BYTES + x * 128 +
+         ((((c % BOX) / 8) ^ (x % 8)) * 16) + (c % 8) * 2;
+}
+
 // rows r and r + 8 of a warpgroup's 64-row tile of D columns as the A
 // operands of its D / 16 k-steps, read from the 128-byte swizzled boxes
 // TMA wrote (16-byte chunk c of row x lies at chunk c ^ (x % 8))
@@ -343,11 +379,8 @@ __device__ __forceinline__ void load_a_tile(uint32_t (&a)[D / 16][4],
   for (int kk = 0; kk < D / 16; ++kk) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int x = r + 8 * (i & 1);
-      const int c = (kk % 4) * 16 + 8 * (i >> 1) + 2 * t;   // in the box
       a[kk][i] = *reinterpret_cast<const uint32_t*>(
-          tile + (kk / 4) * BOX_BYTES + x * 128 +
-          (((c / 8) ^ (x % 8)) * 16) + (c % 8) * 2);
+          tile + swizzled(r + 8 * (i & 1), 16 * kk + 8 * (i >> 1) + 2 * t));
     }
   }
 }
@@ -441,6 +474,64 @@ __device__ __forceinline__ TileMasks walk_masks(int2 own0, int2 own1,
           __ballot_sync(0xffffffffu, interior)};
 }
 
+// The producer warp of the forward and dQ: walks the key tiles either of
+// the block's query tiles visits, 32 at a time, and keeps STAGES K/V tile
+// pairs in flight; stage s holds K at kv0 + 2 TB s and V TB after it.
+// Every lane walks (the ballot needs the warp), one `leader` copies.
+template <int D, int STAGES>
+__device__ __forceinline__ void kv_ring_producer(
+    bool leader, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+    uint32_t kv0, uint32_t full0, uint32_t empty0, int2 qr0, int2 qr1,
+    const int2* kr, int qt0, int nact, int kt_end, int h, int k_row,
+    int causal) {
+  constexpr int TB = tile_bytes<D>();
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int base = 0; base < kt_end; base += 32) {
+    const unsigned needed = walk_masks(qr0, qr1, qt0, nact, 0, kr, base,
+                                       kt_end, 0, causal).needed;
+    for (unsigned bits = leader ? needed : 0; bits != 0; bits &= bits - 1) {
+      const int kt = base + __ffs(bits) - 1;
+      mbar_wait(empty0 + 8 * stage, phase ^ 1);
+      const uint32_t full = full0 + 8 * stage, k_tile = kv0 + 2 * TB * stage;
+      mbar_expect_tx(full, 2 * TB);
+      for (int c = 0; c < D / BOX; ++c) {
+        tma_box(k_tile + c * BOX_BYTES, tm_k, c * BOX, h, k_row + kt * TILE,
+                full);
+        tma_box(k_tile + TB + c * BOX_BYTES, tm_v, c * BOX, h,
+                k_row + kt * TILE, full);
+      }
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  }
+}
+
+// The forward and dQ consumers hold their last tile's stage: its product,
+// acc += round(A) B with the tile's B (V, or K in dQ) read MN-major at
+// b_tile, is issued behind the next own tile's products.  This issues it
+// alone, waits for it and releases the stage.  Besides the end of the
+// walk, it is needed where the ring is about to refill the held stage
+// (the tiles since were the other warpgroup's): the producer waits for
+// the stage to be released and the consumer for it to be refilled.
+template <int D>
+__device__ __forceinline__ void finish_held(float (&acc)[D / 2],
+                                            uint32_t (&a)[4][4],
+                                            uint32_t b_tile, uint32_t empty) {
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    wgmma_rs<D>(acc, a[ks], desc_mn(b_tile + ks * 16 * 128));
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+  mbar_arrive(empty);
+}
+
 // ---------------------------------------------------------------------------
 // forward: one block per (two query tiles, head, batch)
 //
@@ -501,6 +592,10 @@ __device__ __forceinline__ void fwd_consumer(
                                        kt_end, 0, causal);
     for (unsigned bits = masks.needed; bits != 0; bits &= bits - 1) {
       const int j = __ffs(bits) - 1, kt = base + j;
+      if (held == stage) {
+        finish_held<D>(acc, p, kv0 + 2 * TB * held + TB, empty0 + 8 * held);
+        held = -1;
+      }
       mbar_wait(full0 + 8 * stage, phase);
       if (!((masks.mine >> j) & 1)) {
         mbar_arrive(empty0 + 8 * stage);   // the other warpgroup's tile
@@ -601,20 +696,9 @@ __device__ __forceinline__ void fwd_consumer(
       }
     }
   }
-  if (held >= 0) {
-    // O += round(P) V for the last tile
-    const uint32_t v_tile = kv0 + 2 * TB * held + TB;
-    fence_regs(acc);
-    wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      wgmma_rs<D>(acc, p[ks], desc_mn(v_tile + ks * 16 * 128));
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(acc);
-    mbar_arrive(empty0 + 8 * held);
-  }
+  // O += round(P) V for the last tile
+  if (held >= 0) finish_held<D>(acc, p, kv0 + 2 * TB * held + TB,
+                                empty0 + 8 * held);
 
   const float den0 = (l0 == 0.f) ? 1.f : l0, den1 = (l1 == 0.f) ? 1.f : l1;
   const size_t rs = static_cast<size_t>(H) * D;
@@ -685,28 +769,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
       }
     }
-    int stage = 0;
-    uint32_t phase = 0;
-    for (int base = 0; base < kt_end; base += 32) {
-      const unsigned needed = walk_masks(qr0, qr1, qt0, nact, 0, kr, base,
-                                         kt_end, 0, causal).needed;
-      for (unsigned bits = leader ? needed : 0; bits != 0; bits &= bits - 1) {
-        const int kt = base + __ffs(bits) - 1;
-        mbar_wait(empty0 + 8 * stage, phase ^ 1);
-        const uint32_t full = full0 + 8 * stage, k_tile = kv0 + 2 * TB * stage;
-        mbar_expect_tx(full, 2 * TB);
-        for (int c = 0; c < D / BOX; ++c) {
-          tma_box(k_tile + c * BOX_BYTES, &tm_k, c * BOX, h,
-                  k_row + kt * TILE, full);
-          tma_box(k_tile + TB + c * BOX_BYTES, &tm_v, c * BOX, h,
-                  k_row + kt * TILE, full);
-        }
-        if (++stage == FWD_STAGES) {
-          stage = 0;
-          phase ^= 1;
-        }
-      }
-    }
+    kv_ring_producer<D, FWD_STAGES>(leader, &tm_k, &tm_v, kv0, full0, empty0,
+                                    qr0, qr1, kr, qt0, nact, kt_end, h,
+                                    k_row, causal);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
     if (wg >= nact) return;
@@ -975,6 +1040,266 @@ flash_bwd_kv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ---------------------------------------------------------------------------
+// dQ: one block per (two query tiles, head, batch)
+//
+// The forward's block: warpgroup w owns query tile 2 blockIdx.x + w; the
+// producer's first thread loads both Q and dO tiles and their lse and
+// delta rows once, then keeps DQ_STAGES K/V tile pairs in flight over the
+// key tiles either query tile visits.  Per key tile: S = Q K^T (Q in
+// registers) and dP = dO V^T (dO in shared memory), p = exp2(s scale log2 e
+// - lse log2 e) on the mask, dS = p (dP - delta) scale rounded into
+// A-operand registers, and dQ += round(dS) K, issued behind the next key
+// tile's S and dP products; the stage is released once that product has
+// completed.  dQ is written once, in bf16, through this warpgroup's Q tile
+// (free once Q is in registers) and a TMA store.
+// ---------------------------------------------------------------------------
+
+template <int D>
+__host__ __device__ constexpr size_t bwd_dq_smem() {
+  // alignment slack, Q and dO tiles, K/V stages, lse/delta rows, barriers
+  return 1024 +
+         static_cast<size_t>(2 * CONSUMERS + 2 * DQ_STAGES) * tile_bytes<D>() +
+         CONSUMERS * 2 * TILE * sizeof(float) + 8 * (1 + 2 * DQ_STAGES);
+}
+
+template <int D>
+__device__ __forceinline__ void bwd_dq_consumer(
+    int wg, unsigned char* q_tile, uint32_t do_tile, const float* rows,
+    uint32_t kv0, uint32_t q_full, uint32_t full0, uint32_t empty0,
+    int2 qr0, int2 qr1, const int2* kr, const int* __restrict__ qseg,
+    const int* __restrict__ kseg, const CUtensorMap* tm_dq, int qt0,
+    int nact, int kt_end, int b, int h, int Sq, int Sk, int causal,
+    float scale) {
+  constexpr int TB = tile_bytes<D>();
+  const int tid = threadIdx.x % WG, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r = 16 * (tid / 32) + g;     // this thread's rows r and r + 8
+  const int qt = qt0 + wg;
+  const size_t q0 = static_cast<size_t>(b) * Sq + qt * TILE;
+  const int qsg0 = qseg[q0 + r], qsg1 = qseg[q0 + r + 8];
+  const float sl2 = scale * LOG2E;
+
+  float dqa[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+
+  mbar_wait(q_full, 0);
+  uint32_t qa[D / 16][4];
+  load_a_tile<D>(qa, q_tile, r, t);
+  // lse and delta of this thread's two rows, fixed for the whole loop
+  const float nl0 = -rows[r] * LOG2E, nl1 = -rows[r + 8] * LOG2E;
+  const float dl0 = rows[TILE + r], dl1 = rows[TILE + r + 8];
+
+  // round(dS) of the last tile computed, and its stage: its dQ product is
+  // issued behind the next tile's S and dP products
+  uint32_t ds[4][4];
+  int held = -1;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int base = 0; base < kt_end; base += 32) {
+    const TileMasks masks = walk_masks(qr0, qr1, qt0, nact, wg, kr, base,
+                                       kt_end, 0, causal);
+    for (unsigned bits = masks.needed; bits != 0; bits &= bits - 1) {
+      const int j = __ffs(bits) - 1, kt = base + j;
+      if (held == stage) {
+        finish_held<D>(dqa, ds, kv0 + 2 * TB * held, empty0 + 8 * held);
+        held = -1;
+      }
+      mbar_wait(full0 + 8 * stage, phase);
+      if (!((masks.mine >> j) & 1)) {
+        mbar_arrive(empty0 + 8 * stage);   // the other warpgroup's tile
+      } else {
+        const uint32_t k_tile = kv0 + 2 * TB * stage, v_tile = k_tile + TB;
+        float s[32], dp[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+        fence_regs(dqa);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          wgmma_rs<64, 0>(s, qa[kk], desc_k(kstep(k_tile, kk)));
+        }
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          wgmma_ss(dp, desc_k(kstep(do_tile, kk)), desc_k(kstep(v_tile, kk)),
+                   kk > 0);
+        }
+        wgmma_commit();
+        if (held >= 0) {
+          const uint32_t kh = kv0 + 2 * TB * held;
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks) {
+            wgmma_rs<D>(dqa, ds[ks], desc_mn(kh + ks * 16 * 128));
+          }
+          wgmma_commit();
+          wgmma_wait<1>();   // S and dP are done; dQ may still run
+        } else {
+          wgmma_wait<0>();
+        }
+        fence_regs(s);
+        fence_regs(dp);
+
+        // p = exp(s - lse) on the mask, else 0, in log2 units
+        if ((masks.interior >> j) & 1) {
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            s[4 * n] = exp2f(fmaf(s[4 * n], sl2, nl0));
+            s[4 * n + 1] = exp2f(fmaf(s[4 * n + 1], sl2, nl0));
+            s[4 * n + 2] = exp2f(fmaf(s[4 * n + 2], sl2, nl1));
+            s[4 * n + 3] = exp2f(fmaf(s[4 * n + 3], sl2, nl1));
+          }
+        } else {
+          const int* ks = kseg + static_cast<size_t>(b) * Sk + kt * TILE;
+          const int dqi = (qt - kt) * TILE;   // query index - key index
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            const int c = 8 * n + 2 * t;
+            const int2 kg = make_int2(ks[c], ks[c + 1]);
+            const bool c0 = qsg0 == kg.x && (!causal || dqi + r >= c);
+            const bool c1 = qsg0 == kg.y && (!causal || dqi + r >= c + 1);
+            const bool c2 = qsg1 == kg.x && (!causal || dqi + r + 8 >= c);
+            const bool c3 = qsg1 == kg.y && (!causal || dqi + r + 8 >= c + 1);
+            s[4 * n] = c0 ? exp2f(fmaf(s[4 * n], sl2, nl0)) : 0.f;
+            s[4 * n + 1] = c1 ? exp2f(fmaf(s[4 * n + 1], sl2, nl0)) : 0.f;
+            s[4 * n + 2] = c2 ? exp2f(fmaf(s[4 * n + 2], sl2, nl1)) : 0.f;
+            s[4 * n + 3] = c3 ? exp2f(fmaf(s[4 * n + 3], sl2, nl1)) : 0.f;
+          }
+        }
+        // dS = p (dP - delta) scale with p unrounded (0 off the mask)
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          dp[4 * n] = s[4 * n] * (dp[4 * n] - dl0) * scale;
+          dp[4 * n + 1] = s[4 * n + 1] * (dp[4 * n + 1] - dl0) * scale;
+          dp[4 * n + 2] = s[4 * n + 2] * (dp[4 * n + 2] - dl1) * scale;
+          dp[4 * n + 3] = s[4 * n + 3] * (dp[4 * n + 3] - dl1) * scale;
+        }
+
+        // the held product has finished: release its stage and hold this
+        // tile's round(dS)
+        wgmma_wait<0>();
+        fence_regs(dqa);
+        if (held >= 0) mbar_arrive(empty0 + 8 * held);
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) a_operand(ds[ks], dp, ks);
+        held = stage;
+      }
+      if (++stage == DQ_STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  }
+  // dQ += round(dS) K for the last tile
+  if (held >= 0) finish_held<D>(dqa, ds, kv0 + 2 * TB * held,
+                                empty0 + 8 * held);
+
+  // dQ in bf16 into the Q tile, swizzled as TMA reads it, then one thread
+  // of the warpgroup stores the tile
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int c = 8 * n + 2 * t;
+    *reinterpret_cast<uint32_t*>(q_tile + swizzled(r, c)) =
+        pack_bf16(dqa[4 * n], dqa[4 * n + 1]);
+    *reinterpret_cast<uint32_t*>(q_tile + swizzled(r + 8, c)) =
+        pack_bf16(dqa[4 * n + 2], dqa[4 * n + 3]);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(WG) : "memory");
+  if (tid == 0) {
+    const uint32_t src = smem_u32(q_tile);
+    for (int c = 0; c < D / BOX; ++c) {
+      tma_store_box(tm_dq, src + c * BOX_BYTES, c * BOX, h,
+                    static_cast<int>(q0));
+    }
+    tma_store_wait();
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const __grid_constant__ CUtensorMap tm_dq,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          const int* __restrict__ qrange,
+                          const int* __restrict__ krange,
+                          const int* __restrict__ qseg,
+                          const int* __restrict__ kseg, int Sq, int Sk,
+                          int H, int causal, float scale) {
+  constexpr int TB = tile_bytes<D>();
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t q_s = base;                           // CONSUMERS tiles
+  const uint32_t do_s = q_s + CONSUMERS * TB;          // CONSUMERS tiles
+  const uint32_t kv0 = do_s + CONSUMERS * TB;          // stage s: K, V
+  const uint32_t rows_s = kv0 + 2 * DQ_STAGES * TB;    // tile w: lse, delta
+  const uint32_t q_full = rows_s + CONSUMERS * 2 * TILE * sizeof(float);
+  const uint32_t full0 = q_full + 8, empty0 = full0 + 8 * DQ_STAGES;
+
+  const int qt0 = CONSUMERS * blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int nqt = Sq / TILE, nkt = Sk / TILE;
+  const int nact = min(CONSUMERS, nqt - qt0);
+  const int2* qr =
+      reinterpret_cast<const int2*>(qrange) + static_cast<size_t>(b) * nqt;
+  const int2* kr =
+      reinterpret_cast<const int2*>(krange) + static_cast<size_t>(b) * nkt;
+  const int2 qr0 = __ldg(qr + qt0), qr1 = __ldg(qr + qt0 + nact - 1);
+  // causal: no key tile past the last query tile's diagonal is visited
+  const int kt_end = causal ? min(nkt, qt0 + nact) : nkt;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, nact * WG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG;
+  if (wg == CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x >= CONSUMERS * WG + 32) return;   // one producer warp
+    const bool leader = threadIdx.x == CONSUMERS * WG;   // issues the copies
+    const int q_row = b * Sq + qt0 * TILE, k_row = b * Sk;
+    if (leader) {
+      const size_t bh = (static_cast<size_t>(b) * H + h) * Sq + qt0 * TILE;
+      mbar_expect_tx(q_full, nact * (2 * TB + 2 * TILE * sizeof(float)));
+      for (int w = 0; w < nact; ++w) {
+        for (int c = 0; c < D / BOX; ++c) {
+          tma_box(q_s + w * TB + c * BOX_BYTES, &tm_q, c * BOX, h,
+                  q_row + w * TILE, q_full);
+          tma_box(do_s + w * TB + c * BOX_BYTES, &tm_do, c * BOX, h,
+                  q_row + w * TILE, q_full);
+        }
+        const uint32_t rows = rows_s + w * 2 * TILE * sizeof(float);
+        bulk_copy(rows, lse + bh + w * TILE, TILE * sizeof(float), q_full);
+        bulk_copy(rows + TILE * sizeof(float), delta + bh + w * TILE,
+                  TILE * sizeof(float), q_full);
+      }
+    }
+    kv_ring_producer<D, DQ_STAGES>(leader, &tm_k, &tm_v, kv0, full0, empty0,
+                                   qr0, qr1, kr, qt0, nact, kt_end, h, k_row,
+                                   causal);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    if (wg >= nact) return;
+    const float* rows = reinterpret_cast<const float*>(
+        smem_raw + (rows_s - raw) + wg * 2 * TILE * sizeof(float));
+    bwd_dq_consumer<D>(wg, smem_raw + (q_s - raw) + wg * TB, do_s + wg * TB,
+                       rows, kv0, q_full, full0, empty0, qr0, qr1, kr, qseg,
+                       kseg, &tm_dq, qt0, nact, kt_end, b, h, Sq, Sk, causal,
+                       scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -1040,7 +1365,7 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 struct Args {
   const void *q, *k, *v, *dout, *lse_in, *delta, *qrange, *krange, *qseg,
       *kseg;
-  void *o, *lse, *dk, *dv;
+  void *o, *lse, *dq, *dk, *dv;
   int B, Sq, Sk, H, causal;
   float scale;
   cudaStream_t stream;
@@ -1094,6 +1419,31 @@ cudaError_t run_bwd_kv(const Args& a) {
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t run_bwd_dq(const Args& a) {
+  CUtensorMap tq, tk, tv, tdo, tdq;
+  cudaError_t e = row_map(&tq, a.q, a.B * a.Sq, a.H, D);
+  if (e == cudaSuccess) e = row_map(&tk, a.k, a.B * a.Sk, a.H, D);
+  if (e == cudaSuccess) e = row_map(&tv, a.v, a.B * a.Sk, a.H, D);
+  if (e == cudaSuccess) e = row_map(&tdo, a.dout, a.B * a.Sq, a.H, D);
+  if (e == cudaSuccess) e = row_map(&tdq, a.dq, a.B * a.Sq, a.H, D);
+  if (e != cudaSuccess) return e;
+  auto kernel = flash_bwd_dq_wgmma_kernel<D>;
+  static bool attr_set = false;
+  if (!attr_set) {
+    e = allow_smem(kernel, bwd_dq_smem<D>());
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  const dim3 grid((a.Sq / TILE + CONSUMERS - 1) / CONSUMERS, a.H, a.B);
+  kernel<<<grid, THREADS, bwd_dq_smem<D>(), a.stream>>>(
+      tq, tk, tv, tdo, tdq, static_cast<const float*>(a.lse_in),
+      static_cast<const float*>(a.delta), static_cast<const int*>(a.qrange),
+      static_cast<const int*>(a.krange), static_cast<const int*>(a.qseg),
+      static_cast<const int*>(a.kseg), a.Sq, a.Sk, a.H, a.causal, a.scale);
+  return cudaGetLastError();
+}
+
 // bf16 (dtype 1) with P rounded (pv_f32 off), head_dim 64 or 128, sequence
 // lengths whole 64-row tiles; anything else is flash_attention.cu's
 cudaError_t check(int D, int dtype, int pv_f32, const Args& a) {
@@ -1142,6 +1492,26 @@ int flash_bwd_kv(const void* q, const void* k, const void* v,
   cudaError_t e = check(D, dtype, pv_f32, a);
   if (e == cudaSuccess) {
     e = D == 128 ? run_bwd_kv<128>(a) : run_bwd_kv<64>(a);
+  }
+  return static_cast<int>(e);
+}
+
+int flash_bwd_dq(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* delta,
+                 const void* qrange, const void* krange, const void* qseg,
+                 const void* kseg, void* dq, int B, int Sq, int Sk, int H,
+                 int D, int dtype, int causal, int pv_f32, float scale,
+                 void* stream) {
+  Args a{};
+  a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse_in = lse;
+  a.delta = delta; a.qrange = qrange; a.krange = krange; a.qseg = qseg;
+  a.kseg = kseg; a.dq = dq;
+  a.B = B; a.Sq = Sq; a.Sk = Sk; a.H = H; a.causal = causal;
+  a.scale = scale;
+  a.stream = static_cast<cudaStream_t>(stream);
+  cudaError_t e = check(D, dtype, pv_f32, a);
+  if (e == cudaSuccess) {
+    e = D == 128 ? run_bwd_dq<128>(a) : run_bwd_dq<64>(a);
   }
   return static_cast<int>(e);
 }

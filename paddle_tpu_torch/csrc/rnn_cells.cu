@@ -28,14 +28,17 @@
 // H 1280) stays in the 50 MB L2 from one step to the next.
 //
 // Design: the TPU runs 1-5 large hidden tiles in a sequential grid; on the
-// card that would fill 1-5 of 132 SMs.  So a block owns 16 hidden units
-// (all gates of them, so the gate math stays in registers) by 16 batch
-// rows: 8 x 16 = 128 threads, thread (ty, tx) owns unit tx and rows
-// 2 ty, 2 ty + 1, and keeps NG x 2 f32 sums (NG = 4 gates for the LSTM,
-// 2 for z/r, 1 for the candidate).  At B 64, H 512 that is 128 blocks.
-// The K axis is taken in chunks of 32: the block stages the chunk of its
-// h rows ([16][33], padded against bank conflicts) and of its W_h columns
-// ([32][NG * 16]) in shared memory, coalesced, then every thread sums.
+// card that would fill 1-5 of 132 SMs.  So blocks tile the hidden units,
+// each owning all gates of its units so the gate math stays in registers.
+// B5 has its own main loop (below, at its kernel): 256-thread blocks of
+// 32 rows by 8 units, a cp.async ring over K, K split across the warps,
+// 32 sums a thread.  B6-B8 share the first design: a block owns 16 hidden
+// units by 16 batch rows, 8 x 16 = 128 threads, thread (ty, tx) owns unit
+// tx and rows 2 ty, 2 ty + 1, and keeps NG x 2 f32 sums (NG = 2 gates for
+// z/r, 1 for the candidate); the K axis is taken in chunks of 32, the
+// block staging the chunk of its h rows ([16][33], padded against bank
+// conflicts) and of its W_h columns ([32][NG * 16]) in shared memory,
+// coalesced, then every thread sums.
 //
 // B6 has the GRU's coupling: the candidate of every unit needs r h of all
 // H units.  The TPU holds one whole block; here B6 is one cooperative
@@ -50,7 +53,7 @@
 // an SM holds, and rnn_gru_block_capacity reports the card's answer.  The
 // Python gate (ops/rnn.py) takes B6 when the grid fits and B7 + B8
 // otherwise; B7 and B8 are ordinary launches that take any shape.  Later
-// work: wider thread tiles and cp.async pipelining of the chunks.
+// work for B6-B8: B5's main loop.
 //
 // Plain C interface (built by paddle_tpu_torch/kernels/build.py with nvcc,
 // loaded with ctypes): each entry returns a cudaError_t.
@@ -60,6 +63,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace cg = cooperative_groups;
 
@@ -179,45 +183,260 @@ __device__ __forceinline__ void gemm_resident(float (&acc)[NG][RPT],
 }
 
 // ---------------------------------------------------------------------------
-// B5: LSTM step
+// B5: LSTM step, with its own main loop
+//
+// A block of 256 threads owns LSTM_ROWS = 32 batch rows by LSTM_UNITS = 8
+// hidden units (their 32 gate columns of W_h): 128 blocks at B 64, H 512,
+// 320 at H 1280.  K (= H) streams through a ring of LSTM_STAGES chunks of
+// LSTM_KC = 64 in shared memory, filled by 16-byte cp.async for h and
+// 8-byte cp.async for W (zero-filled past B and K), one barrier a chunk.
+// Each of the 8 warps takes 8 k of every chunk (a split of K inside the
+// block): lane (ry, ux) keeps rows ry + 8 i (i < 4) by the 4 gates of
+// units 2 ux, 2 ux + 1, 32 f32 sums, reading its h rows as 16-byte words
+// (row stride padded so the 8 rows of a read sit in 8 bank groups) and
+// its 8 W values of a k as two float4 (the chunk stores W as [k][unit
+// pair][gate][2]): 24 shared loads per 256 FMAs.  After the loop the
+// warps' sums meet in shared memory; thread (row, unit) adds the 8 slices
+// of its 4 gates and does the gate math in registers.  H not a multiple
+// of 8 (rows of h or W no longer 16- and 8-byte aligned) stages through
+// registers instead of cp.async, with the same loop (so do h or W not
+// 16-byte aligned).
 // ---------------------------------------------------------------------------
 
+constexpr int LSTM_ROWS = 32;
+constexpr int LSTM_UNITS = 8;
+constexpr int LSTM_COLS = 4 * LSTM_UNITS;          // W columns of a block
+constexpr int LSTM_WARPS = 8;
+constexpr int LSTM_THREADS = 32 * LSTM_WARPS;      // 256
+constexpr int LSTM_KC = 64;                        // K chunk
+constexpr int LSTM_KW = LSTM_KC / LSTM_WARPS;      // k of a chunk a warp takes
+constexpr int LSTM_STAGES = 4;
+
+// h row stride in shared memory, in elements: the chunk plus 16 bytes
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__host__ __device__ constexpr int lstm_hld() {
+  return LSTM_KC + 16 / static_cast<int>(sizeof(T));
+}
+
+template <typename T>
+__host__ __device__ constexpr size_t lstm_stage_bytes() {
+  return sizeof(T) * LSTM_ROWS * lstm_hld<T>() +
+         sizeof(float) * LSTM_KC * LSTM_COLS;
+}
+
+template <typename T>
+__host__ __device__ constexpr size_t lstm_smem() {
+  // the ring, reused after the loop for the warps' partial sums
+  return LSTM_STAGES * lstm_stage_bytes<T>() >
+                 sizeof(float) * LSTM_WARPS * LSTM_ROWS * LSTM_COLS
+             ? LSTM_STAGES * lstm_stage_bytes<T>()
+             : sizeof(float) * LSTM_WARPS * LSTM_ROWS * LSTM_COLS;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// `bytes` (16 or 8) from src, or zeros when !valid (src is not read)
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool valid) {
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "r"(valid ? 16 : 0)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "r"(valid ? 8 : 0)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Chunk k0 .. k0 + LSTM_KC of the block's h rows into hs[row][k] and of its
+// W columns into ws[k][unit pair][gate][2].  VEC: cp.async (H % 8 == 0);
+// else element by element through registers.
+template <typename T, bool VEC>
+__device__ __forceinline__ void lstm_stage(T* hs, float* ws, const T* h,
+                                           const float* W, int B, int H,
+                                           int b0, int j0, int k0) {
+  const int tid = threadIdx.x;
+  if constexpr (VEC) {
+    constexpr int VE = 16 / sizeof(T);              // elements a copy
+    constexpr int PER_ROW = LSTM_KC / VE;
+    for (int e = tid; e < LSTM_ROWS * PER_ROW; e += LSTM_THREADS) {
+      const int row = e / PER_ROW, k = k0 + (e % PER_ROW) * VE;
+      const bool ok = b0 + row < B && k < H;
+      cp_async<16>(hs + row * lstm_hld<T>() + (e % PER_ROW) * VE,
+                   ok ? h + (size_t)(b0 + row) * H + k : h, ok);
+    }
+    // 16 copies a k: gate g, unit pair p (the 4 pairs of a gate lie
+    // side by side in device memory)
+    for (int e = tid; e < LSTM_KC * 16; e += LSTM_THREADS) {
+      const int kk = e / 16, g = (e % 16) / 4, p = e % 4;
+      const bool ok = k0 + kk < H;
+      cp_async<8>(ws + kk * LSTM_COLS + p * 8 + g * 2,
+                  ok ? W + (size_t)(k0 + kk) * 4 * H + (size_t)g * H + j0 +
+                           2 * p
+                     : W,
+                  ok);
+    }
+  } else {
+    for (int e = tid; e < LSTM_ROWS * LSTM_KC; e += LSTM_THREADS) {
+      const int row = e / LSTM_KC, kk = e % LSTM_KC, k = k0 + kk;
+      const int b = b0 + row;
+      hs[row * lstm_hld<T>() + kk] =
+          (b < B && k < H) ? h[(size_t)b * H + k] : from_f<T>(0.f);
+    }
+    for (int e = tid; e < LSTM_KC * LSTM_COLS; e += LSTM_THREADS) {
+      const int kk = e / LSTM_COLS, g = (e % LSTM_COLS) / LSTM_UNITS;
+      const int u = e % LSTM_UNITS, k = k0 + kk, j = j0 + u;
+      ws[kk * LSTM_COLS + (u / 2) * 8 + g * 2 + u % 2] =
+          (k < H && j < H) ? W[(size_t)k * 4 * H + (size_t)g * H + j] : 0.f;
+    }
+  }
+}
+
+// 8 consecutive h values of one row, as f32
+__device__ __forceinline__ void load_h8(float (&v)[8], const float* p) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ void load_h8(float (&v)[8], const bf16* p) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+// acc[i][g][e] += sum over this warp's LSTM_KW k of the chunk of
+// h[row ry + 8 i][k] W[k][gate g, unit 2 ux + e]
+template <typename T>
+__device__ __forceinline__ void lstm_mac(float (&acc)[4][4][2], const T* hs,
+                                         const float* ws, int ry, int ux,
+                                         int kw) {
+  float hv[4][LSTM_KW];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) load_h8(hv[i], hs + (ry + 8 * i) * lstm_hld<T>() + kw);
+#pragma unroll
+  for (int kk = 0; kk < LSTM_KW; ++kk) {
+    const float* wk = ws + (kw + kk) * LSTM_COLS + ux * 8;
+    const float4 w0 = *reinterpret_cast<const float4*>(wk);
+    const float4 w1 = *reinterpret_cast<const float4*>(wk + 4);
+    const float w[4][2] = {{w0.x, w0.y}, {w0.z, w0.w}, {w1.x, w1.y},
+                           {w1.z, w1.w}};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        acc[i][g][0] = fmaf(hv[i][kk], w[g][0], acc[i][g][0]);
+        acc[i][g][1] = fmaf(hv[i][kk], w[g][1], acc[i][g][1]);
+      }
+    }
+  }
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(LSTM_THREADS, 2)
     lstm_step_kernel(const T* __restrict__ xp, const T* __restrict__ h,
                      const float* __restrict__ c, const float* __restrict__ W,
                      const float* __restrict__ bias, T* __restrict__ new_h,
                      float* __restrict__ new_c, float* __restrict__ acts,
                      int B, int H) {
-  __shared__ float As[ROWS * AS_LD];
-  __shared__ float Ws[KT * 4 * UNITS];
-  const int tx = threadIdx.x % UNITS, ty = threadIdx.x / UNITS;
-  const int j0 = blockIdx.x * UNITS, b0 = blockIdx.y * ROWS;
-  float acc[4][RPT] = {};
-  gemm_staged<4>(acc, h, B, b0, H, W, 4 * H, 0, j0, H, As, Ws);
-  const int j = j0 + tx;
-  if (j >= H) return;
+  extern __shared__ __align__(16) unsigned char lstm_smem_raw[];
+  const int j0 = blockIdx.x * LSTM_UNITS, b0 = blockIdx.y * LSTM_ROWS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ry = lane / 4, ux = lane % 4;
+  auto hs = [&](int st) {
+    return reinterpret_cast<T*>(lstm_smem_raw + st * lstm_stage_bytes<T>());
+  };
+  auto ws = [&](int st) {
+    return reinterpret_cast<float*>(lstm_smem_raw +
+                                    st * lstm_stage_bytes<T>() +
+                                    sizeof(T) * LSTM_ROWS * lstm_hld<T>());
+  };
+
+  float acc[4][4][2] = {};
+  const int nchunks = (H + LSTM_KC - 1) / LSTM_KC;
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int b = b0 + ty * RPT + i;
-    if (b >= B) continue;
-    const T* x = xp + (size_t)b * 4 * H;
-    const float gi = sigmoid(to_f(x[j]) + acc[0][i] + bias[j]);
-    const float gf = sigmoid(to_f(x[H + j]) + acc[1][i] + bias[H + j]);
-    const float gg = tanhf(to_f(x[2 * H + j]) + acc[2][i] + bias[2 * H + j]);
-    const float go = sigmoid(to_f(x[3 * H + j]) + acc[3][i] + bias[3 * H + j]);
-    const float cn = gf * c[(size_t)b * H + j] + gi * gg;
-    const float tn = tanhf(cn);
-    new_h[(size_t)b * H + j] = from_f<T>(go * tn);
-    new_c[(size_t)b * H + j] = cn;
-    if (acts != nullptr) {
-      float* a = acts + (size_t)b * 5 * H;
-      a[j] = gi;
-      a[H + j] = gf;
-      a[2 * H + j] = gg;
-      a[3 * H + j] = go;
-      a[4 * H + j] = tn;
+  for (int st = 0; st < LSTM_STAGES - 1; ++st) {
+    if (st < nchunks) {
+      lstm_stage<T, VEC>(hs(st), ws(st), h, W, B, H, b0, j0, st * LSTM_KC);
     }
+    cp_commit();
+  }
+  for (int ch = 0; ch < nchunks; ++ch) {
+    cp_wait<LSTM_STAGES - 2>();   // chunk ch has landed (this thread's part)
+    __syncthreads();              // everyone's, and chunk ch - 1 is done
+    const int next = ch + LSTM_STAGES - 1;
+    if (next < nchunks) {
+      lstm_stage<T, VEC>(hs(next % LSTM_STAGES), ws(next % LSTM_STAGES), h, W,
+                         B, H, b0, j0, next * LSTM_KC);
+    }
+    cp_commit();
+    lstm_mac<T>(acc, hs(ch % LSTM_STAGES), ws(ch % LSTM_STAGES), ry, ux,
+                warp * LSTM_KW);
+  }
+  cp_wait<0>();
+  __syncthreads();
+
+  // the 8 warps' sums of each (gate, row, unit) meet in shared memory
+  float* red = reinterpret_cast<float*>(lstm_smem_raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      *reinterpret_cast<float2*>(
+          red + ((warp * 4 + g) * LSTM_ROWS + ry + 8 * i) * LSTM_UNITS +
+          2 * ux) = make_float2(acc[i][g][0], acc[i][g][1]);
+    }
+  }
+  __syncthreads();
+  const int row = threadIdx.x / LSTM_UNITS, u = threadIdx.x % LSTM_UNITS;
+  const int b = b0 + row, j = j0 + u;
+  if (b >= B || j >= H) return;
+  float gate[4] = {};
+#pragma unroll
+  for (int w = 0; w < LSTM_WARPS; ++w) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      gate[g] += red[((w * 4 + g) * LSTM_ROWS + row) * LSTM_UNITS + u];
+    }
+  }
+  const T* x = xp + (size_t)b * 4 * H;
+  const float gi = sigmoid(to_f(x[j]) + gate[0] + bias[j]);
+  const float gf = sigmoid(to_f(x[H + j]) + gate[1] + bias[H + j]);
+  const float gg = tanhf(to_f(x[2 * H + j]) + gate[2] + bias[2 * H + j]);
+  const float go = sigmoid(to_f(x[3 * H + j]) + gate[3] + bias[3 * H + j]);
+  const float cn = gf * c[(size_t)b * H + j] + gi * gg;
+  const float tn = tanhf(cn);
+  new_h[(size_t)b * H + j] = from_f<T>(go * tn);
+  new_c[(size_t)b * H + j] = cn;
+  if (acts != nullptr) {
+    float* a = acts + (size_t)b * 5 * H;
+    a[j] = gi;
+    a[H + j] = gf;
+    a[2 * H + j] = gg;
+    a[3 * H + j] = go;
+    a[4 * H + j] = tn;
   }
 }
 
@@ -353,16 +572,41 @@ dim3 grid_of(int B, int H) {
   return dim3((H + UNITS - 1) / UNITS, (B + ROWS - 1) / ROWS);
 }
 
-template <typename T>
-cudaError_t launch_lstm(const void* xp, const void* h, const void* c,
-                        const void* w, const void* b, void* nh, void* nc,
-                        void* acts, int B, int H, cudaStream_t s) {
-  lstm_step_kernel<T><<<grid_of(B, H), THREADS, 0, s>>>(
+template <typename T, bool VEC>
+cudaError_t launch_lstm_as(const void* xp, const void* h, const void* c,
+                           const void* w, const void* b, void* nh, void* nc,
+                           void* acts, int B, int H, cudaStream_t s) {
+  auto kernel = lstm_step_kernel<T, VEC>;
+  static bool attr_set = false;   // once per instantiation
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)lstm_smem<T>());
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  const dim3 grid((H + LSTM_UNITS - 1) / LSTM_UNITS,
+                  (B + LSTM_ROWS - 1) / LSTM_ROWS);
+  kernel<<<grid, LSTM_THREADS, lstm_smem<T>(), s>>>(
       static_cast<const T*>(xp), static_cast<const T*>(h),
       static_cast<const float*>(c), static_cast<const float*>(w),
       static_cast<const float*>(b), static_cast<T*>(nh),
       static_cast<float*>(nc), static_cast<float*>(acts), B, H);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_lstm(const void* xp, const void* h, const void* c,
+                        const void* w, const void* b, void* nh, void* nc,
+                        void* acts, int B, int H, cudaStream_t s) {
+  if (B <= 0 || H <= 0 || B > 65535 * LSTM_ROWS) return cudaErrorInvalidValue;
+  // rows of h (bf16) and W and their unit pairs 16- and 8-byte aligned
+  const bool aligned = ((reinterpret_cast<uintptr_t>(h) |
+                         reinterpret_cast<uintptr_t>(w)) % 16) == 0;
+  if (H % 8 == 0 && aligned) {
+    return launch_lstm_as<T, true>(xp, h, c, w, b, nh, nc, acts, B, H, s);
+  }
+  return launch_lstm_as<T, false>(xp, h, c, w, b, nh, nc, acts, B, H, s);
 }
 
 template <typename T>

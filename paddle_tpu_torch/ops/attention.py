@@ -6,10 +6,9 @@ Two implementations of each of the module's three functions:
   :func:`flash_bwd_kv_kernel`, :func:`flash_bwd_dq_kernel`), the Hopper
   counterparts of the Pallas ``_flash_fwd_kernel``,
   ``_flash_bwd_kv_kernel`` and ``_flash_bwd_dq_kernel``.  bf16 runs on the
-  tensor cores: the forward and dK/dV as wgmma kernels fed by TMA
-  (``csrc/flash_attention_sm90.cu``), dQ with mma.sync
-  (``csrc/flash_attention.cu``); f32 (and bf16 under ``attn_pv_f32``) runs
-  on the CUDA cores (``csrc/flash_attention.cu``);
+  tensor cores, all three as wgmma kernels fed by TMA
+  (``csrc/flash_attention_sm90.cu``); f32 (and bf16 under ``attn_pv_f32``)
+  runs on the CUDA cores (``csrc/flash_attention.cu``);
 - their plain PyTorch versions (:func:`flash_fwd_reference`,
   :func:`flash_bwd_kv_reference`, :func:`flash_bwd_dq_reference`): a loop
   over key blocks, as the JAX package's plain backward ``_flash_bwd`` is,
@@ -229,9 +228,6 @@ _SIGNATURES = {
                      _INT),
     "flash_error_string": ([_INT], ctypes.c_char_p),
 }
-# csrc/flash_attention_sm90.cu: the same entries but dQ
-_SM90_SIGNATURES = {name: _SIGNATURES[name] for name in
-                    ("flash_fwd", "flash_bwd_kv", "flash_error_string")}
 
 
 def kernel_shape_error(q_shape, k_shape, dtype) -> Optional[str]:
@@ -319,12 +315,12 @@ def tile_pair_kinds(q_seg, kv_seg, causal: bool) -> torch.Tensor:
 
 
 def _library(q, pv_f32: bool):
-    """The built library a forward or dK/dV launch goes to: the wgmma
-    kernels for bf16 with P rounded, else ``flash_attention.cu``.  Both
-    export the same C entries."""
-    if q.dtype == torch.bfloat16 and not pv_f32:
-        return build.load("flash_attention_sm90", _SM90_SIGNATURES)
-    return build.load("flash_attention", _SIGNATURES)
+    """The built library a launch goes to: the wgmma kernels for bf16 with
+    P rounded, else ``flash_attention.cu``.  Both export the same C
+    entries."""
+    name = ("flash_attention_sm90" if q.dtype == torch.bfloat16
+            and not pv_f32 else "flash_attention")
+    return build.load(name, _SIGNATURES)
 
 
 def _stream(dev):
@@ -409,7 +405,7 @@ def flash_bwd_dq_kernel(q, k, v, q_seg, kv_seg, dout, lse, delta, *,
     as :func:`flash_bwd_dq_reference`.  Each launch adds one to
     ``flash_bwd_dq_kernel.launches``."""
     _check_bwd(q, k, v, q_seg, kv_seg, dout, lse, delta)
-    lib = build.load("flash_attention", _SIGNATURES)
+    lib = _library(q, pv_f32)
     dq = torch.empty_like(q)
     qr, kr = _tile_ranges(q_seg), _tile_ranges(kv_seg)
     rc = lib.flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),

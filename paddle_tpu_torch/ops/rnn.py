@@ -147,10 +147,11 @@ def _use_fused(batch: int, w_h, gate_act, cell_act, out_act) -> bool:
 # The port's own gate between B6 and B7 + B8, sized by the card
 # ---------------------------------------------------------------------------
 
-# geometry of csrc/rnn_cells.cu: a block owns 16 hidden units x 16 batch
-# rows in 128 threads and takes K in chunks of 32; B6 keeps the block's 16
-# h (then r h) rows resident in shared memory, and is compiled with
-# __launch_bounds__(128, 4), so registers allow at least 4 blocks an SM
+# geometry of the GRU kernels of csrc/rnn_cells.cu: a block owns 16 hidden
+# units x 16 batch rows in 128 threads and takes K in chunks of 32; B6
+# keeps the block's 16 h (then r h) rows resident in shared memory, and is
+# compiled with __launch_bounds__(128, 4), so registers allow at least 4
+# blocks an SM
 BLOCK_UNITS, BLOCK_ROWS, BLOCK_THREADS, K_CHUNK = 16, 16, 128, 32
 GRU_BLOCK_MIN_BLOCKS = 4
 # an H100 SXM: 132 SMs, 228 KB of shared memory an SM, 227 KB a block, 1 KB

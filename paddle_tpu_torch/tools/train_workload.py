@@ -150,6 +150,12 @@ FLASH_CASES = {
     # 64-row tiles (the forward's last block holds one query tile)
     "g_bf16_causal_cross_sq576": ("bfloat16", 576, 2048, 16, 128, True,
                                   None),
+    # (h) bf16 non-causal segments, as `layer.multi_head_attention` runs
+    # them: a warpgroup's last tile is followed by many the other one's
+    # alone (query tile 8 of segment 0 beside tile 9, which reaches into
+    # segment 1), so the held stage comes round in the ring again
+    "h_bf16_segments_noncausal": ("bfloat16", 2048, 2048, 16, 128, False,
+                                  (600, 1000, 300)),
 }
 
 

@@ -3,9 +3,12 @@ tile) pairs the kernels visit, and which of those the wgmma forward and
 dK/dV kernels compute without a mask (``attention.tile_pair_kinds``, the
 rule the kernels apply to the per-tile segment-id ranges), held against
 a brute-force count of live (query, key) pairs; the wrappers' choice of
-library; the reading of ptxas's register and spill report; and the
-ablation tool's variants of the kernel source.  No JAX here: these are
+library; which cases bring a held stage of the K/V ring round again;
+the reading of ptxas's register and spill report; and the ablation
+tool's variants of the kernel source.  No JAX here: these are
 the port's own contracts."""
+
+import re
 
 import numpy as np
 import pytest
@@ -49,6 +52,7 @@ def _check_kinds(q_seg, kv_seg, causal):
                                   "b_bf16_ragged_padded",
                                   "f_bf16_segments_causal_d64",
                                   "g_bf16_causal_cross_sq576",
+                                  "h_bf16_segments_noncausal",
                                   "e_f32_causal_sk_gt_sq"])
 def test_tile_pair_kinds_cover_every_live_pair(name):
     q_seg, kv_seg = tw.case_segments(name)
@@ -65,6 +69,48 @@ def test_tile_pair_kinds_of_the_training_case():
     assert int((kinds == tattn.PAIR_INTERIOR).sum()) == 8 * 120
     assert int((kinds == tattn.PAIR_BOUNDARY).sum()) == 8 * 16
     assert (np.diag(kinds) == tattn.PAIR_BOUNDARY).all()
+
+
+def _ring_stages(constant):
+    source = (build.CSRC_DIR / "flash_attention_sm90.cu").read_text()
+    return int(re.search(rf"constexpr int {constant} = (\d+);",
+                         source).group(1))
+
+
+def _longest_foreign_run(name):
+    """Over the blocks of two query tiles of a case: the most key tiles
+    in a row that only the other warpgroup visits, after a tile this
+    warpgroup computed (the tile whose stage it holds)."""
+    q_seg, kv_seg = tw.case_segments(name)
+    kinds = tattn.tile_pair_kinds(torch.from_numpy(q_seg),
+                                  torch.from_numpy(kv_seg),
+                                  tw.FLASH_CASES[name][5])[0].numpy()
+    visits = kinds != tattn.PAIR_SKIPPED
+    best = 0
+    for qt0 in range(0, visits.shape[0], 2):
+        rows = visits[qt0:qt0 + 2]
+        for own in rows:
+            run = None
+            for kt in np.flatnonzero(rows.any(axis=0)):
+                if own[kt]:
+                    run = 0
+                elif run is not None:
+                    run += 1
+                    best = max(best, run)
+    return best
+
+
+def test_non_causal_segments_bring_a_held_stage_round_again():
+    """Case h drives the forward's and dQ's `finish_held` before a refill:
+    after a warpgroup's last own key tile come more tiles that only the
+    other warpgroup visits than either ring has stages, so the ring
+    refills the stage the first warpgroup still holds.  The causal
+    training case never does (one foreign tile, the other warpgroup's
+    diagonal)."""
+    stages = (_ring_stages("FWD_STAGES"), _ring_stages("DQ_STAGES"))
+    assert _longest_foreign_run("h_bf16_segments_noncausal") >= max(stages)
+    assert _longest_foreign_run("a_bf16_8x1024_causal") == 1
+    assert min(stages) > 2
 
 
 def test_tile_pair_kinds_non_causal_and_interleaved_ids():
@@ -84,10 +130,10 @@ def test_tile_pair_kinds_non_causal_and_interleaved_ids():
 
 
 def test_bf16_forward_and_dkdv_go_to_the_wgmma_source(monkeypatch):
-    """bf16 with P rounded sends the forward and dK/dV to
-    ``flash_attention_sm90`` and dQ to ``flash_attention``; f32 and
-    ``attn_pv_f32`` send all three to ``flash_attention`` (the wrappers
-    driven on CPU tensors against a library that records its calls)."""
+    """bf16 with P rounded sends the forward, dK/dV and dQ to
+    ``flash_attention_sm90``; f32 and ``attn_pv_f32`` send all three to
+    ``flash_attention`` (the wrappers driven on CPU tensors against a
+    library that records its calls)."""
     calls = []
 
     class Library:
@@ -113,7 +159,7 @@ def test_bf16_forward_and_dkdv_go_to_the_wgmma_source(monkeypatch):
         tattn.flash_bwd_dq_kernel(*bwd, **cfg)
     wgmma, other = "flash_attention_sm90", "flash_attention"
     assert calls == [(wgmma, "flash_fwd"), (wgmma, "flash_bwd_kv"),
-                     (other, "flash_bwd_dq")] + [
+                     (wgmma, "flash_bwd_dq")] + [
         (other, "flash_fwd"), (other, "flash_bwd_kv"),
         (other, "flash_bwd_dq")] * 2
     assert "flash_attention_sm90" in build.sources()
@@ -153,3 +199,27 @@ def test_ablation_variants_apply_to_the_kernel_source(name):
     source = (build.CSRC_DIR / "flash_attention_sm90.cu").read_text()
     out = flash_ablate.variant_source(name, source)
     assert (out == source) == (name == "as_built")
+
+
+def test_variant_source_raises_where_an_anchor_count_differs():
+    """The substitution shared by ``flash_ablate`` and ``compare_rnn``:
+    every occurrence replaced, and an anchor found another number of
+    times than given is an error, not a silent no-op."""
+    variants = {"twice": [("x", "y", 2)]}
+    assert flash_ablate.variant_source("twice", "x + x", variants) == "y + y"
+    with pytest.raises(ValueError, match="found 1 times, not 2"):
+        flash_ablate.variant_source("twice", "x", variants)
+
+
+@pytest.mark.parametrize("name", ["no_products", "no_tile_loop"])
+def test_ablation_variants_reach_the_dq_kernel(name):
+    """B3's variants: leaving out the products or the tile loop changes
+    the dQ kernel's own code, not only the forward's and dK/dV's."""
+    source = (build.CSRC_DIR / "flash_attention_sm90.cu").read_text()
+    out = flash_ablate.variant_source(name, source)
+
+    def dq_code(text):
+        start = text.index("__device__ __forceinline__ void bwd_dq_consumer(")
+        return text[start:text.index("// launchers", start)]
+
+    assert dq_code(out) != dq_code(source)

@@ -6,7 +6,8 @@ cases, through the autograd function, and a small transformer trained
 through the kernels against the same steps through the plain versions;
 the four RNN kernels (the fused LSTM step, the one-launch GRU step and
 the two-launch GRU step) against their plain versions on
-``chip_smoke.py``'s cases, the one-launch GRU step's refusal of a grid the
+``chip_smoke.py``'s cases and, for the LSTM step, on shapes that are not
+whole tiles, the one-launch GRU step's refusal of a grid the
 card cannot hold at once, and small recurrent classifiers trained through
 the kernels against the plain versions.
 
@@ -38,6 +39,7 @@ import torch
 
 from paddle_tpu_torch import event
 from paddle_tpu_torch.convert import decoder_lm_from_numpy, init_numpy_params
+from paddle_tpu_torch.kernels import build
 from paddle_tpu_torch.ops import attention as tattn
 from paddle_tpu_torch.platform.enforce import EnforceError
 from paddle_tpu_torch.serving import (DecoderLM, ServingEngine,
@@ -203,8 +205,9 @@ def _check_flash_case(case, pv_f32=False):
 
 @pytest.mark.parametrize("name", sorted(tw.FLASH_CASES))
 def test_flash_kernels_match_plain(cuda, name):
-    """bf16 cases run the tensor-core kernels (the forward and dK/dV the
-    wgmma ones), f32 the CUDA-core ones."""
+    """bf16 cases run the wgmma kernels, f32 the CUDA-core ones.  Case h
+    (non-causal segments) makes the forward and dQ consumers finish a
+    held product before the ring refills its stage."""
     _check_flash_case(tw.flash_case(name, cuda))
 
 
@@ -243,6 +246,18 @@ def test_flash_padding_tile_that_matches_nothing(cuda, d):
     # under 1e-3
     want = case.v.float().mean(1, keepdim=True).expand(-1, 64, -1, -1)
     torch.testing.assert_close(o[:, pad].float(), want, rtol=0, atol=1e-3)
+    # dQ of bf16 is the wgmma kernel's, and the padding rows get none
+    assert tattn._library(case.q, False) is build.load(
+        "flash_attention_sm90", tattn._SIGNATURES)
+    before = tattn.flash_bwd_dq_kernel.launches
+    dq = tattn.flash_bwd_dq_kernel(
+        case.q, case.k, case.v, case.q_seg, case.kv_seg, case.dout, lse,
+        tattn.attention_delta(o, case.dout), causal=True,
+        sm_scale=case.sm_scale)
+    torch.cuda.synchronize()
+    assert tattn.flash_bwd_dq_kernel.launches == before + 1
+    assert bool((dq[:, pad] == 0).all())
+    assert bool(torch.isfinite(dq.float()).all())
 
 
 @pytest.mark.parametrize("name", ["b_bf16_ragged_padded", "d_bf16_cross"])
@@ -369,6 +384,45 @@ def test_rnn_kernels_match_plain(cuda, name):
             assert got.dtype == want.dtype and got.shape == want.shape
             res = rw.rnn_error(got, want)
             assert res["within_tolerance"], (kname, label, res)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H", [(37, 200), (5, 77), (50, 1104),
+                                 (50, 1100)],
+                         ids=["b37_h200", "b5_h77", "b50_h1104",
+                              "b50_h1100"])
+def test_lstm_step_on_shapes_that_are_not_whole_tiles(cuda, B, H, dtype):
+    """B5 where neither the batch nor K fills its tiles, against the plain
+    version, acts saved: B 37 x H 200 (5 of 32 rows of the second row
+    block live, the last K chunk 8 of 64, the cp.async path), B 5 x H 77
+    (units and K ragged, rows of h and W not 16-byte aligned: the path
+    that stages through registers), and B 50 (18 of 32 rows live) at H
+    1104 (the last K chunk 16 of 64, cp.async) and H 1100 (through
+    registers)."""
+    from paddle_tpu_torch.ops import rnn as R
+
+    rng = np.random.default_rng([B, H])
+    dt = getattr(torch, dtype)
+
+    def t(a, to=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+            cuda, to)
+
+    bound = np.sqrt(6.0 / (5 * H))
+    args = (t(rng.standard_normal((B, 4 * H)), dt),
+            t(np.tanh(rng.standard_normal((B, H))), dt),
+            t(rng.standard_normal((B, H))),
+            t(rng.uniform(-bound, bound, (H, 4 * H))),
+            t(0.1 * rng.standard_normal(4 * H)))
+    before = R.lstm_step_kernel.launches
+    got = R.lstm_step_kernel(*args, save_acts=True)
+    want = R.lstm_step_reference(*args, save_acts=True)
+    torch.cuda.synchronize()
+    assert R.lstm_step_kernel.launches == before + 1
+    for label, g, w in zip(("h", "c", "acts"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, label
+        res = rw.rnn_error(g, w)
+        assert res["within_tolerance"], (label, res)
 
 
 def test_gru_block_kernel_refuses_a_grid_the_card_cannot_hold(cuda):

@@ -1,11 +1,13 @@
 """The port's measurement tooling on the CPU: the shared serve workload of
 ``chip_smoke.py`` and ``profile_serve`` (at a narrow width, same prompts,
-same engine settings), and ``chip_smoke``'s roofline bounds (the ragged
+same engine settings), ``chip_smoke``'s roofline bounds (the ragged
 kernel's, and the flash kernels' over the live pairs of the training
-workload's cases).  Nothing
-here is compared with the JAX package: these are the scripts' own
-contracts (the workload drains with a prefix-cache hit; the bound counts
-real rows only and prices each product at its operand type's rate)."""
+workload's cases) and its choice of each kernel's ptxas entry, and the
+comparison tools' choice of an earlier tree's entries and of B5's
+ablation variants.  Nothing here is compared with the JAX package: these
+are the scripts' own contracts (the workload drains with a prefix-cache
+hit; the bound counts real rows only and prices each product at its
+operand type's rate)."""
 
 import sys
 import pathlib
@@ -15,7 +17,9 @@ import pytest
 import torch
 
 from paddle_tpu_torch.convert import decoder_lm_from_numpy, init_numpy_params
+from paddle_tpu_torch.kernels import build
 from paddle_tpu_torch.serving import DecoderLM
+from paddle_tpu_torch.tools import compare_flash, compare_rnn
 from paddle_tpu_torch.tools import serve_workload as sw
 from paddle_tpu_torch.tools import train_workload as tw
 
@@ -108,3 +112,84 @@ def test_live_pairs_of_cross_and_padded_segments():
     q, k = np.zeros((1, 4), np.int32), np.zeros((1, 6), np.int32)
     assert tw.live_pairs(q, k, causal=True) == 1 + 2 + 3 + 4
     assert tw.live_pairs(q, k, causal=False) == 24
+
+
+def test_compare_flash_takes_each_entry_from_the_first_source_with_it(
+        monkeypatch, tmp_path):
+    """An earlier tree's bf16 route: the wgmma source's entries where it
+    exports them (this tree's parent: forward and dK/dV), else
+    ``flash_attention.cu``'s; a tree without the wgmma source takes all
+    three from ``flash_attention.cu``."""
+
+    class Lib:
+        def __init__(self, name, syms):
+            for sym in syms:
+                setattr(self, sym, type("Fn", (), {"lib": name})())
+
+    parent = {"flash_attention_sm90": Lib("sm90", compare_flash.ENTRIES[:2]),
+              "flash_attention": Lib("cu", compare_flash.ENTRIES)}
+    older = {"flash_attention": Lib("cu", compare_flash.ENTRIES)}
+    for libs, want in ((parent, ["sm90", "sm90", "cu"]),
+                       (older, ["cu", "cu", "cu"])):
+        monkeypatch.setattr(compare_flash, "build_earlier",
+                            lambda tree, names, libs=libs: libs)
+        entries = compare_flash.earlier_entries(tmp_path)
+        assert [entries[e].lib for e in compare_flash.ENTRIES] == want
+        assert entries["flash_bwd_dq"].restype is not None
+
+
+def test_comparison_summary_keeps_each_time_and_its_timer():
+    """The tools' summary line: the median, every time, and every timer
+    that took them, so a time from CUDA events is never passed off as a
+    profiler's."""
+    got = compare_flash.summary({"k": {"this": [
+        (1.0, "profiler"), (3.0, "events"), (2.0, "profiler")]}})
+    assert got == {"k": {"this": {"median_ms": 2.0,
+                                  "all_ms": [1.0, 3.0, 2.0],
+                                  "timers": ["events", "profiler"]}}}
+
+
+@pytest.mark.parametrize("name", sorted(compare_rnn.VARIANTS))
+def test_compare_rnn_variants_apply_to_the_lstm_source(name, monkeypatch,
+                                                       tmp_path):
+    """Each B5 ablation finds its anchors in the current
+    ``csrc/rnn_cells.cu`` the given number of times and writes a tree
+    whose source differs only there."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    tree = compare_rnn.variant_tree(name)
+    out = (tree / "paddle_tpu_torch" / "csrc" / "rnn_cells.cu").read_text()
+    source = (build.CSRC_DIR / "rnn_cells.cu").read_text()
+    assert out != source and out.count("if (H < 0)") == sum(
+        times for _, _, times in compare_rnn.VARIANTS[name])
+
+
+def test_chip_smoke_picks_each_kernels_ptxas_entry(monkeypatch):
+    """The kernels line's ptxas fields: the entry of the instantiation the
+    main path runs (f32 B5 on its cp.async path, f32 B6-B8, the D 128
+    flash kernels), one per name, from a report of every instantiation."""
+    def entry(name, regs):
+        return [f"ptxas info    : Compiling entry function '{name}' for "
+                "'sm_90a'",
+                "    0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+                "spill loads", f"ptxas info    : Used {regs} registers"]
+
+    ns = "_ZN45_GLOBAL__N__0_12_rnn_cells_cu_0"
+    rnn = [f"{ns}16lstm_step_kernelI{t}Lb{v}EEEvPKT_S4_ii"
+           for t in ("f", "13__nv_bfloat16") for v in (0, 1)]
+    rnn += [f"{ns}{len(k)}{k}I{t}EEvPKT_ii" for k in
+            ("gru_step_kernel", "gru_zr_kernel", "gru_cand_kernel")
+            for t in ("f", "13__nv_bfloat16")]
+    flash = [f"_ZN0_{k}ILi{d}EEEv14CUtensorMap_st" for k in
+             ("flash_fwd_wgmma_kernel", "flash_bwd_kv_wgmma_kernel",
+              "flash_bwd_dq_wgmma_kernel") for d in (64, 128)]
+    for src, names in (("rnn_cells", rnn), ("flash_attention_sm90", flash)):
+        log = [line for i, n in enumerate(names) for line in entry(n, 40 + i)]
+        monkeypatch.setitem(build.BUILD_LOG, src, (1.0, "\n".join(log)))
+    want = {"lstm_step": 41, "gru_step": 44, "gru_zr": 46, "gru_cand": 48}
+    for kname, regs in want.items():
+        got = chip_smoke.ptxas_of("rnn_cells", chip_smoke.RNN_PTXAS[kname])
+        assert got["registers"] == regs, kname
+    for i, kname in enumerate(chip_smoke.FLASH_KERNELS):
+        got = chip_smoke.ptxas_of("flash_attention_sm90",
+                                  chip_smoke.FLASH_PTXAS[kname])
+        assert got["registers"] == 41 + 2 * i, kname
