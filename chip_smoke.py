@@ -10,8 +10,12 @@ checkout of the repository).  Phases, each fatal on failure:
    parallel;
 3. kernels: the ragged paged-attention kernel against its plain PyTorch
    version at the serving shapes (H=16, D=128, page 128, 8 pages a
-   sequence) — decode-only, mixed prefill+decode, GQA, int8 and bf16
-   pages — with error, kernel time, plain time and the roofline bound;
+   sequence; ``tools/ragged_cases.py``) — decode-only, mixed
+   prefill+decode, GQA 4, int8 and bf16 pages, bf16 queries on bf16 pages
+   (the tensor-core path, decode and mixed) and on f32 pages, and the
+   mixed step at G 3 (12 heads over 4 KV heads), G 16 (one KV head) and
+   head dims 16, 32, 64 and 256 — with error, kernel time, plain time and
+   the roofline bound;
 4. serve: a full-width DecoderLM (vocab 32768, d 2048, 8 layers, 16
    heads) with random weights from a seed, through the port's
    ServingEngine at the flag defaults with a 129-page pool: 8 requests,
@@ -19,6 +23,9 @@ checkout of the repository).  Phases, each fatal on failure:
    run must drain with page conservation, launch the kernel once per
    layer per step, and match the port's own greedy reference;
 5. int8 serve: a short serve on an int8 pool plus the QUANT-DRIFT check;
+   then ``DecoderLM`` at its defaults (2 layers, 2 heads of head_dim 16)
+   and its bf16 version, each served briefly and held to the greedy
+   oracle;
 6. flash_kernels: the flash-attention forward, dK/dV and dQ kernels
    against their plain PyTorch versions on the same inputs: the training
    path's q/k/v [1, 8192, 16, 128] bf16 with 8 causal segments of 1024,
@@ -26,7 +33,8 @@ checkout of the repository).  Phases, each fatal on failure:
    segments at a smaller S (head dims 128 and 64), non-causal
    cross-attention with Sq != Sk, causal with Sk > Sq (f32, and bf16 with
    Sq an odd number of 64-row tiles), bf16 causal segments at head dim
-   64; with error, kernel time, plain time, the roofline bound, the
+   64, and the CUDA-core route at head dims 32 and 256 and at Sq 96;
+   with error, kernel time, plain time, the roofline bound, the
    interior and boundary tile pairs and, on the training case,
    ``scaled_dot_product_attention`` forward, backward alone and both as
    the library yardsticks; the kernels line carries ptxas's registers and
@@ -79,6 +87,7 @@ import numpy as np
 import torch
 
 # the port must come from this checkout; outside it this import fails
+from paddle_tpu_torch.tools import ragged_cases as rc
 from paddle_tpu_torch.tools import rnn_workload as rw
 from paddle_tpu_torch.tools import train_workload as tw
 from paddle_tpu_torch.tools.compare_flash import card_ms
@@ -91,19 +100,12 @@ from paddle_tpu_torch.tools.serve_workload import (MODEL, NEW_TOKENS, NO_EOS,
 # dense): the roofline bound of a kernel is the larger of bytes / HBM rate
 # and, summed over its products, operations / peak rate of their operand
 # type (f32 on the CUDA cores; bf16 on the tensor cores)
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
-BF16_FLOPS_PER_S = 989e12
+HBM_BYTES_PER_S = rc.HBM_BYTES_PER_S
+F32_FLOPS_PER_S = rc.F32_FLOPS_PER_S
+BF16_FLOPS_PER_S = rc.BF16_FLOPS_PER_S
 
 SEED = 0
-H, D, PAGE, PM = 16, 128, 128, 8
-NUM_PAGES = 129
-# (abs, rel) against the plain version; bf16 pages are held to the plain
-# version that rounds P at the kernel's tiles as the kernel does, and, as
-# a second check, to the one that does not round
-TOL = {"float32": (1e-4, 1e-4), "int8": (1e-4, 1e-4),
-       "bfloat16": (1e-3, 1e-3)}
-TOL_BF16_UNROUNDED = (2e-2, 2e-2)
+H = rc.H
 
 
 def emit(obj) -> None:
@@ -141,151 +143,44 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 # kernel cases
 # ---------------------------------------------------------------------------
 
-def build_case(rng, seqs, kvh, dev):
-    """A sequence-packed batch in the kernel's block packing.  ``seqs``
-    is a list of (kv_len, q_rows, q_start): one decode row at kv_len-1
-    when q_rows == 1, else a prefill chunk at q_start..q_start+q_rows-1.
-    Live pages hold random K/V, the rest random garbage."""
-    kp = rng.standard_normal((NUM_PAGES, PAGE, kvh, D), np.float32)
-    vp = rng.standard_normal((NUM_PAGES, PAGE, kvh, D), np.float32)
-    table = np.zeros((len(seqs), PM), np.int32)
-    free = list(range(1, NUM_PAGES))
-    rng.shuffle(free)
-    row_seq, qpos = [], []
-    for i, (n, qr, qs) in enumerate(seqs):
-        for j in range(-(-n // PAGE)):
-            table[i, j] = free.pop()
-        blocks = -(-qr // 8)
-        pos = list(range(qs, qs + qr)) if qr > 1 else [n - 1]
-        qpos += pos + [-1] * (blocks * 8 - qr)
-        row_seq += [i] * blocks * 8
-    q = rng.standard_normal((len(qpos), H, D), np.float32)
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    return dict(q=t(q), k_pages=t(kp), v_pages=t(vp), page_table=t(table),
-                kv_lens=t(np.asarray([s[0] for s in seqs], np.int32)),
-                row_seq=t(np.asarray(row_seq, np.int32)),
-                qpos=t(np.asarray(qpos, np.int32)))
-
-
-def with_pages(case, dtype):
-    """The same case with its pages stored as ``dtype`` (int8 through the
-    pool's own quantize-on-write rule)."""
-    from paddle_tpu_torch.serving.kv_cache import quantize_kv
-
-    out = dict(case)
-    if dtype == "int8":
-        out["k_pages"], out["k_scale"] = quantize_kv(case["k_pages"])
-        out["v_pages"], out["v_scale"] = quantize_kv(case["v_pages"])
-    elif dtype == "bfloat16":
-        out["k_pages"] = case["k_pages"].to(torch.bfloat16)
-        out["v_pages"] = case["v_pages"].to(torch.bfloat16)
-    return out
-
-
-def roofline(case) -> dict:
-    """Least time for this case's work: each input byte the function
-    needs read once, each output byte written once (live K/V, and q and
-    out of real rows only — padded rows' output is arbitrary by
-    contract), and the operations of the live (row, head, token) triples,
-    2 flops per multiply-add: QK on f32 queries at the f32 rate, PV at
-    the rate of its operands (bf16 P and V on bf16 pages, else f32)."""
-    q, kp = case["q"], case["k_pages"]
-    _, h, d = q.shape
-    kvh = kp.shape[2]
-    lens = case["kv_lens"].cpu().numpy()
-    qpos = case["qpos"].cpu().numpy()
-    rs = case["row_seq"].cpu().numpy()
-    tok_bytes = kvh * d * kp.element_size()
-    if "k_scale" in case:
-        tok_bytes += kvh * 4
-    seq_tokens = {}
-    real = [r for r in range(len(qpos)) if qpos[r] >= 0]
-    for r in real:
-        s = int(rs[r])
-        seq_tokens[s] = max(seq_tokens.get(s, 0),
-                            min(int(lens[s]), int(qpos[r]) + 1))
-    nbytes = (2 * sum(seq_tokens.values()) * tok_bytes
-              + 2 * len(real) * h * d * 4
-              + sum(case[k].numel() * 4 for k in
-                    ("page_table", "kv_lens", "row_seq", "qpos")))
-    live = sum(int(qpos[r]) + 1 for r in real)
-    half = 2.0 * live * h * d            # QK, and again PV
-    pv_rate = BF16_FLOPS_PER_S if kp.dtype == torch.bfloat16 \
-        else F32_FLOPS_PER_S
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = (half / F32_FLOPS_PER_S + half / pv_rate) * 1e3
-    return {"bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": nbytes, "flops": 2 * half, "bytes_ms": bytes_ms,
-            "ops_ms": ops_ms}
-
-
-# decode-only: 8 sequences, one row each; mixed: one 256-row prefill chunk
-# at offset 512 plus 7 decode rows — the unified step's shape
-DECODE_SEQS = [(n, 1, 0) for n in (0, 1, 127, 128, 129, 500, 777, 1024)]
-MIXED_SEQS = [(768, 256, 512)] + [(n, 1, 0) for n in
-                                  (1, 128, 129, 300, 640, 900, 1024)]
-
-
-def kernel_cases(dev):
-    rng = np.random.default_rng(SEED)
-    mixed = build_case(rng, MIXED_SEQS, H, dev)
-    return [
-        ("decode_f32", build_case(rng, DECODE_SEQS, H, dev), "float32"),
-        ("mixed_f32", mixed, "float32"),
-        ("mixed_gqa4_f32", build_case(rng, MIXED_SEQS, 4, dev), "float32"),
-        ("mixed_int8", with_pages(mixed, "int8"), "int8"),
-        ("mixed_bf16", with_pages(mixed, "bfloat16"), "bfloat16"),
-    ]
-
-
 def run_kernel_cases(dev):
-    """Every case through the kernel and the plain version on the card;
-    raises if any case is outside its tolerance."""
+    """Every case of ``ragged_cases`` through the kernel and the plain
+    version on the card; raises if any case is outside its tolerance.
+    ``ms`` is card time (:func:`device_ms`: the kernel's plan, attention
+    and merge launches); ``host_ms`` is the call back to back between CUDA
+    events (:func:`time_ms`), which also holds the wrapper's host work
+    where that outlasts the card's; ``plain_ms`` is the plain version's,
+    between CUDA events (milliseconds of card work, outlasting its host
+    work)."""
     from paddle_tpu_torch.serving.decode_attention import (
-        KERNEL_TILE_TOKENS, ragged_paged_attention_kernel,
-        ragged_paged_attention_reference)
-
-    def max_err(got, want, real, tol):
-        err = (got[real] - want[real]).abs()
-        limit = tol[0] + tol[1] * want[real].abs()
-        return float(err.max()), bool((err <= limit).all())
+        ragged_paged_attention_kernel, ragged_paged_attention_reference)
 
     results = []
-    for name, case, dtype in kernel_cases(dev):
-        kw = {k: case[k] for k in ("k_scale", "v_scale") if k in case}
-        args = [case[k] for k in ("q", "k_pages", "v_pages", "page_table",
-                                  "kv_lens", "row_seq", "qpos")]
+    for name, case in rc.kernel_cases(dev):
+        args, kw = rc.args(case), rc.scales(case)
         got = ragged_paged_attention_kernel(*args, **kw)
-        want = ragged_paged_attention_reference(*args, **kw)
-        real = case["qpos"] >= 0
-        extra = {}
-        if dtype == "bfloat16":
-            err2, ok2 = max_err(got, want, real, TOL_BF16_UNROUNDED)
-            extra = {"max_abs_err_unrounded": err2,
-                     "tol_unrounded": TOL_BF16_UNROUNDED,
-                     "within_tolerance_unrounded": ok2}
-            want = ragged_paged_attention_reference(
-                *args, round_p_tile=KERNEL_TILE_TOKENS)
         torch.cuda.synchronize()
-        err, ok = max_err(got, want, real, TOL[dtype])
-        ok = ok and extra.get("within_tolerance_unrounded", True) and \
-            bool(torch.isfinite(got[real]).all())
-        atol, rtol = TOL[dtype]
-        res = {"phase": "kernel", "case": name, "pages": dtype,
+        real = case["qpos"] >= 0
+        res = {"phase": "kernel", "case": name,
+               "q": str(case["q"].dtype).replace("torch.", ""),
+               "pages": str(case["k_pages"].dtype).replace("torch.", ""),
                "rows": int(case["q"].shape[0]),
                "real_rows": int(real.sum()),
+               "heads": int(case["q"].shape[1]),
                "kv_heads": int(case["k_pages"].shape[2]),
-               "max_abs_err": err, "atol": atol, "rtol": rtol, **extra,
-               "within_tolerance": ok,
-               "ms": time_ms(lambda: ragged_paged_attention_kernel(
+               "head_dim": int(case["q"].shape[2]),
+               **rc.check(case, got),
+               "ms": device_ms(lambda: ragged_paged_attention_kernel(
+                   *args, **kw), reps=30, what=f"{name} kernel"),
+               "host_ms": time_ms(lambda: ragged_paged_attention_kernel(
                    *args, **kw)),
-               "plain_ms": time_ms(lambda: ragged_paged_attention_reference(
-                   *args, **kw)),
+               "plain_ms": time_ms(
+                   lambda: ragged_paged_attention_reference(*args, **kw),
+                   reps=3, warmup=1),
                "library_ms": None}
-        res.update(roofline(case))
+        res.update(rc.roofline(case))
         emit(res)
-        if not ok:
+        if not res["within_tolerance"]:
             raise AssertionError(f"kernel case {name} outside tolerance: "
                                  f"max abs err {res['max_abs_err']}")
         results.append(res)
@@ -296,7 +191,8 @@ def run_kernel_cases(dev):
 # serving
 # ---------------------------------------------------------------------------
 
-def check_against_reference(model, prompts, outputs) -> list:
+def check_against_reference(model, prompts, outputs,
+                            new_tokens: int = NEW_TOKENS) -> list:
     """Every request's tokens against the port's non-paged greedy oracle
     on the card.  A mismatch passes only as a near tie: the oracle's
     top-two logit gap at the first differing position under 1e-3 of its
@@ -306,7 +202,7 @@ def check_against_reference(model, prompts, outputs) -> list:
 
     ties = []
     for i, (prompt, got) in enumerate(zip(prompts, outputs)):
-        want = greedy_decode_reference(model, prompt, NEW_TOKENS, NO_EOS)
+        want = greedy_decode_reference(model, prompt, new_tokens, NO_EOS)
         if got == want:
             continue
         j = next((k for k, (a, b) in enumerate(zip(got, want)) if a != b),
@@ -396,10 +292,8 @@ def serve_int8(model, dev) -> dict:
     eng.run()
     launches = kernel.launches
     outputs = [eng.result(r) for r in rids]
-    case = build_case(np.random.default_rng(SEED), MIXED_SEQS, H, dev)
-    drift = check_quant_drift(*[case[k] for k in (
-        "q", "k_pages", "v_pages", "page_table", "kv_lens", "row_seq",
-        "qpos")])
+    case = rc.build_case(np.random.default_rng(SEED), rc.MIXED_SEQS, H, dev)
+    drift = check_quant_drift(*rc.args(case))
     res = {"phase": "serve_int8", "requests": len(rids),
            "completed": eng.metrics.completed,
            "drained": not eng.has_work and all(
@@ -414,6 +308,59 @@ def serve_int8(model, dev) -> dict:
             launches != res["launches_expected"]:
         raise AssertionError("int8 serve failed")
     return res
+
+
+SMALL_SERVE_TOKENS = 16
+
+
+def serve_small(dev) -> list:
+    """``DecoderLM`` at its defaults (2 layers, 2 heads of head_dim 16)
+    with the serve workload's vocabulary, in f32 and in bf16, served on
+    the card at the engine's flag defaults: 4 requests of 16 new tokens,
+    the ragged kernel launched once a layer a step, tokens equal to the
+    greedy oracle (near ties as in the full-width serve)."""
+    from paddle_tpu_torch.convert import decoder_lm_from_numpy, \
+        init_numpy_params
+    from paddle_tpu_torch.serving import DecoderLM, ServingEngine
+    from paddle_tpu_torch.serving.decode_attention import \
+        ragged_paged_attention_kernel as kernel
+
+    out = []
+    rng = np.random.default_rng(SEED + 3)
+    prompts = [rng.integers(2, MODEL["vocab_size"], n).tolist()
+               for n in (40, 300, 7, 130)]
+    for dtype in (torch.float32, torch.bfloat16):
+        model = DecoderLM(vocab_size=MODEL["vocab_size"], device=dev,
+                          dtype=dtype)
+        decoder_lm_from_numpy(init_numpy_params(model, SEED), model)
+        eng = ServingEngine(model, eos_id=NO_EOS, num_pages=33,
+                            max_pages_per_seq=8, device=dev)
+        kernel.launches = 0
+        rids = [eng.submit(p, max_tokens=SMALL_SERVE_TOKENS)
+                for p in prompts]
+        eng.run()
+        launches = kernel.launches
+        outputs = [eng.result(r) for r in rids]
+        ties = check_against_reference(model, prompts, outputs,
+                                       SMALL_SERVE_TOKENS)
+        res = {"phase": "serve_small", "dtype": str(dtype).replace(
+            "torch.", ""), "head_dim": model.head_dim,
+            "heads": model.num_heads, "layers": model.num_layers,
+            "requests": len(rids),
+            "drained": not eng.has_work and all(
+                o is not None and len(o) == SMALL_SERVE_TOKENS
+                for o in outputs),
+            "conservation": eng.healthz()["ok"],
+            "kernel_launches": launches,
+            "launches_expected": model.num_layers *
+            eng.metrics.step_dispatches,
+            "identical": len(prompts) - len(ties), "near_ties": len(ties)}
+        emit(res)
+        if not (res["drained"] and res["conservation"]) or launches == 0 \
+                or launches != res["launches_expected"]:
+            raise AssertionError(f"{dtype} DecoderLM serve failed")
+        out.append(res)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -551,6 +498,9 @@ def run_flash_cases(dev) -> dict:
         }
         res = {"phase": "flash_kernels", "case": case.name,
                "dtype": str(case.q.dtype).replace("torch.", ""),
+               "route": A.kernel_route(tuple(case.q.shape),
+                                       tuple(case.k.shape), case.q.dtype,
+                                       False),
                "q": list(case.q.shape), "k": list(case.k.shape),
                "causal": case.causal, "errors": errs}
         for kname, (kern, plain, args, outs) in kernels.items():
@@ -561,7 +511,8 @@ def run_flash_cases(dev) -> dict:
                 "plain_ms": device_ms(lambda: plain(*args, **cfg), reps=3,
                                       what=f"{name} {kname} plain"),
                 **flash_bound(case, kname)}
-        kinds = A.tile_pair_kinds(case.q_seg, case.kv_seg, case.causal)
+        kinds = A.tile_pair_kinds(case.q_seg, case.kv_seg, case.causal,
+                                  A.kernel_tile(case.q.shape[3]))
         res["tile_pairs"] = {kind: int((kinds == code).sum()) for kind, code
                              in (("interior", A.PAIR_INTERIOR),
                                  ("boundary", A.PAIR_BOUNDARY))}
@@ -954,6 +905,7 @@ def main() -> int:
     serve_int8(model, dev)
     del model
     torch.cuda.empty_cache()
+    serve_small(dev)
 
     flash = run_flash_cases(dev)
     trained = train(dev)
@@ -966,17 +918,20 @@ def main() -> int:
     rnn_parity(dev)
 
     main_case = next(c for c in cases if c["case"] == "mixed_f32")
+    decode_case = next(c for c in cases if c["case"] == "decode_f32")
     kernels = [{
         "name": "ragged_paged_attention", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "paddle_tpu/serving/decode_attention.py:173",
         "launches": served["kernel_launches"],
         "max_abs_err": max(c["max_abs_err"] for c in cases
-                           if c["pages"] == "float32"),
+                           if c["pages"] == c["q"] == "float32"),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"], "library_ms": None,
-        "case": "mixed_f32"}]
+        "case": "mixed_f32",
+        "decode_f32": {k: decode_case[k] for k in
+                       ("ms", "plain_ms", "bound_ms", "bound_by")}}]
     flash_main = flash["a_bf16_8x1024_causal"]
     replaces = {"flash_fwd": "paddle_tpu/ops/attention.py:142",
                 "flash_bwd_kv": "paddle_tpu/ops/attention.py:289",

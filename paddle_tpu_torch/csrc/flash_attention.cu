@@ -1,7 +1,10 @@
 // Flash attention for Hopper (sm_90a) on the CUDA cores: forward, dK/dV and
 // dQ over packed sequences with segment ids and causal masking, for f32
-// inputs and for bf16 with attn_pv_f32.  bf16 with P and dS rounded (the
-// training path) is flash_attention_sm90.cu's: wgmma kernels fed by TMA.
+// inputs and for bf16 (P and dS rounded to bf16 before their products, or
+// kept in f32 under attn_pv_f32), at head dims 16, 32, 64, 128 and 256 and
+// any sequence lengths.  bf16 with P and dS rounded at head dim 64 or 128
+// on whole 64-row tiles (the training path) is flash_attention_sm90.cu's:
+// wgmma kernels fed by TMA; every other shape and type is this file's.
 //
 // Replaces the three Pallas TPU kernels of paddle_tpu/ops/attention.py:
 //   flash_fwd    <- _flash_fwd_kernel    (:142, pallas_call :249)
@@ -15,10 +18,11 @@
 //     is DEFAULT_MASK_VALUE (finite), so a row that matches nothing in the
 //     tiles visited averages their V, as the TPU kernel does;
 //   - a tile pair is skipped when its segment-id ranges are disjoint (the
-//     `_seg_live` predicate, from per-tile min/max the wrapper computes) or
-//     when it lies wholly above the causal diagonal; every kernel, here
-//     and in flash_attention_sm90.cu, uses the same predicate at 64-row
-//     tiles, so lse is never read for a pair the forward skipped;
+//     `_seg_live` predicate, from per-tile min/max the wrapper computes at
+//     this file's tile) or when it lies wholly above the causal diagonal.
+//     A skipped pair holds no live (query, key) pair at any tile size, so
+//     the three kernels of one call (all of this file, at one tile) never
+//     need lse where the forward wrote none;
 //   - forward: online softmax with (m, l, acc) in f32 registers, the scale
 //     applied to the f32 product, P rounded to the input type before the PV
 //     product unless pv_f32 (`_pv_operands`), l == 0 -> 1, O cast to q's
@@ -28,23 +32,27 @@
 //     dK += round(dS)^T Q; dQ: dQ += round(dS) K. Results cast to the
 //     input type.
 //
-// What bounds it on the H100: f32 inputs run in f32 FMA (TF32 would break
-// the f32 contract), so the cores' 67 TFLOP/s bound all three kernels at
-// the training shapes; bf16 with pv_f32 keeps P and dS in f32, so its
-// products are f32 FMA too.
+// What bounds it on the H100: every product is f32 FMA on the CUDA cores
+// (TF32 would break the f32 contract; bf16 operands are widened), so the
+// cores' 67 TFLOP/s bound all three kernels.
 //
 // Design: the TPU streams the key (or query) axis through a sequential
 // grid dimension and carries state in VMEM scratch; Hopper's blocks run in
-// parallel and in no order, so one block owns one 64-row tile (queries for
-// forward and dQ, keys for dK/dV) and loops over the other axis itself,
-// carrying its sums in registers; every kernel skips the same tile pairs.
+// parallel and in no order, so one block owns one tile of TILE rows
+// (queries for forward and dQ, keys for dK/dV) and loops over the other
+// axis itself, carrying its sums in registers.  TILE is 64, and 32 at head
+// dim 256, where four f32 tiles of 64 rows would not fit shared memory.
 // 256 threads form a 16 x 16 grid: thread (ty, tx) owns score rows
-// ty + 16 i and columns tx + 16 j (i, j < 4), and output rows ty + 16 i by
-// columns 4 tx + 64 g .. + 3, so the rows of the softmax state never leave
-// their half-warp; P and dS go through shared memory; rows are padded by 4
-// elements.  Above 48 KB, dynamic shared memory is enabled with
-// cudaFuncSetAttribute.  No pipelining of the tile loads in this file
-// (flash_attention_sm90.cu has the TMA ring).
+// ty + 16 i and columns tx + 16 j (i, j < TILE / 16), and output rows
+// ty + 16 i by D / 16 columns (groups of CW = min(4, D / 16) neighbours,
+// column 16 CW g + CW tx + e), so the rows of the softmax state never
+// leave their half-warp; P and dS go through shared memory; rows are
+// padded by 4 elements.  A last tile shorter than TILE (lengths that are
+// not whole tiles) loads zeros past the end; keys past Sk are masked to
+// p = 0, queries past Sq are masked in dK/dV and never stored.  Above
+// 48 KB, dynamic shared memory is enabled with cudaFuncSetAttribute.  No
+// pipelining of the tile loads in this file (flash_attention_sm90.cu has
+// the TMA ring).
 //
 // Plain C interface (built by paddle_tpu_torch/kernels/build.py with nvcc,
 // loaded with ctypes): each entry returns a cudaError_t.
@@ -59,13 +67,22 @@
 
 namespace {
 
-constexpr int TILE = 64;          // rows of a query tile and of a key tile
 constexpr int NTHREADS = 256;     // 16 x 16: ty = tid / 16, tx = tid % 16
 constexpr int PAD = 4;            // shared-memory row padding, in elements
-constexpr int PS = TILE + 4;      // row stride of the f32 P / dS tiles
 constexpr float MASK_VALUE = -0.7f * FLT_MAX;   // DEFAULT_MASK_VALUE
 
 using bf16 = __nv_bfloat16;
+
+// rows of a query tile and of a key tile at head dim D
+template <int D>
+struct Tile {
+  static constexpr int ROWS = D == 256 ? 32 : 64;
+  static constexpr int RI = ROWS / 16;          // rows (and columns) a thread
+  static constexpr int PS = ROWS + 4;           // f32 P / dS tile stride
+  static constexpr int CW = D >= 64 ? 4 : D / 16;   // neighbouring columns
+  static constexpr int NG = D / (16 * CW);          // column groups
+  static constexpr int NC = NG * CW;                // output columns a thread
+};
 
 template <typename T> struct Raw4;   // 4 elements moved as one word
 template <> struct Raw4<float> { using type = float4; };
@@ -84,17 +101,24 @@ __device__ __forceinline__ float4 ld4(const bf16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
-__device__ __forceinline__ void st4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+
+__device__ __forceinline__ void from_f(float* p, float x) { *p = x; }
+__device__ __forceinline__ void from_f(bf16* p, float x) {
+  *p = __float2bfloat16(x);
 }
 
-__device__ __forceinline__ void st4(bf16* p, float4 v) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&a);
-  u.y = *reinterpret_cast<uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = u;
+// CW neighbouring elements of a shared tile as floats
+template <int CW, typename T>
+__device__ __forceinline__ void ld_cols(const T* p, float* x) {
+  if constexpr (CW == 4) {
+    const float4 v = ld4(p);
+    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < CW; ++e) x[e] = to_f(p[e]);
+  }
 }
 
 __device__ __forceinline__ float comp(const float4& v, int i) {
@@ -128,41 +152,44 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
-// one 64-row tile (row stride `rs` elements in global memory) into shared
-// memory rows of D + PAD elements
+// one tile (row stride `rs` elements in global memory) into shared memory
+// rows of D + PAD elements; rows at or past n_rows are zero
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, size_t rs,
-                                          int tid) {
+                                          int n_rows, int tid) {
   using R = typename Raw4<T>::type;
   constexpr int CH = D / 4;
-  for (int idx = tid; idx < TILE * CH; idx += NTHREADS) {
+  for (int idx = tid; idx < Tile<D>::ROWS * CH; idx += NTHREADS) {
     const int r = idx / CH;
     const int c = (idx % CH) * 4;
-    *reinterpret_cast<R*>(dst + r * (D + PAD) + c) =
-        *reinterpret_cast<const R*>(src + r * rs + c);
+    R v{};
+    if (r < n_rows) v = *reinterpret_cast<const R*>(src + r * rs + c);
+    *reinterpret_cast<R*>(dst + r * (D + PAD) + c) = v;
   }
 }
 
 // c[i][j] = sum_d A[ty + 16 i][d] * B[tx + 16 j][d] over shared tiles
 template <typename T, int D>
-__device__ __forceinline__ void tile_dot_nt(const T* A, const T* B, int ty,
-                                            int tx, float c[4][4]) {
+__device__ __forceinline__ void tile_dot_nt(
+    const T* A, const T* B, int ty, int tx,
+    float c[Tile<D>::RI][Tile<D>::RI]) {
+  constexpr int RI = Tile<D>::RI;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) c[i][j] = 0.f;
+    for (int j = 0; j < RI; ++j) c[i][j] = 0.f;
   }
 #pragma unroll 4
   for (int d = 0; d < D; d += 4) {
-    float4 a[4], b[4];
+    float4 a[RI], b[RI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = ld4(A + (ty + 16 * i) * (D + PAD) + d);
+    for (int i = 0; i < RI; ++i) a[i] = ld4(A + (ty + 16 * i) * (D + PAD) + d);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = ld4(B + (tx + 16 * j) * (D + PAD) + d);
+    for (int j = 0; j < RI; ++j) b[j] = ld4(B + (tx + 16 * j) * (D + PAD) + d);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         c[i][j] = fmaf(a[i].x, b[j].x, c[i][j]);
         c[i][j] = fmaf(a[i].y, b[j].y, c[i][j]);
         c[i][j] = fmaf(a[i].z, b[j].z, c[i][j]);
@@ -172,52 +199,59 @@ __device__ __forceinline__ void tile_dot_nt(const T* A, const T* B, int ty,
   }
 }
 
-// acc[i][4 g + e] += sum_k P[ty + 16 i][k] * X[k][64 g + 4 tx + e]:
+// acc[i][CW g + e] += sum_k P[ty + 16 i][k] * X[k][16 CW g + CW tx + e]:
 // P a f32 tile (row stride PS), X a shared tile of the input type
 template <typename T, int D>
-__device__ __forceinline__ void tile_acc_nn(const float* P, const T* X,
-                                            int ty, int tx,
-                                            float acc[4][D / 16]) {
-  constexpr int NG = D / 64;
+__device__ __forceinline__ void tile_acc_nn(
+    const float* P, const T* X, int ty, int tx,
+    float acc[Tile<D>::RI][Tile<D>::NC]) {
+  using TL = Tile<D>;
 #pragma unroll 2
-  for (int k = 0; k < TILE; k += 4) {
-    float4 p[4];
+  for (int k = 0; k < TL::ROWS; k += 4) {
+    float4 p[TL::RI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      p[i] = *reinterpret_cast<const float4*>(P + (ty + 16 * i) * PS + k);
+    for (int i = 0; i < TL::RI; ++i) {
+      p[i] = *reinterpret_cast<const float4*>(P + (ty + 16 * i) * TL::PS + k);
     }
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-      for (int g = 0; g < NG; ++g) {
-        const float4 x = ld4(X + (k + kk) * (D + PAD) + 64 * g + 4 * tx);
+      for (int g = 0; g < TL::NG; ++g) {
+        float x[TL::CW];
+        ld_cols<TL::CW>(X + (k + kk) * (D + PAD) + 16 * TL::CW * g +
+                            TL::CW * tx, x);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < TL::RI; ++i) {
           const float pk = comp(p[i], kk);
-          acc[i][4 * g + 0] = fmaf(pk, x.x, acc[i][4 * g + 0]);
-          acc[i][4 * g + 1] = fmaf(pk, x.y, acc[i][4 * g + 1]);
-          acc[i][4 * g + 2] = fmaf(pk, x.z, acc[i][4 * g + 2]);
-          acc[i][4 * g + 3] = fmaf(pk, x.w, acc[i][4 * g + 3]);
+#pragma unroll
+          for (int e = 0; e < TL::CW; ++e) {
+            acc[i][TL::CW * g + e] = fmaf(pk, x[e], acc[i][TL::CW * g + e]);
+          }
         }
       }
     }
   }
 }
 
-// write rows ty + 16 i of a 64 x D accumulator tile, divided by den[i]
+// write rows ty + 16 i (those below n_rows) of a tile's accumulator,
+// divided by den[i]
 template <typename T, int D>
 __device__ __forceinline__ void store_rows(T* dst, size_t rs, int ty, int tx,
-                                           float acc[4][D / 16],
-                                           const float den[4]) {
+                                           int n_rows,
+                                           float acc[Tile<D>::RI][Tile<D>::NC],
+                                           const float den[Tile<D>::RI]) {
+  using TL = Tile<D>;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < TL::RI; ++i) {
+    if (ty + 16 * i >= n_rows) continue;
     T* row = dst + (ty + 16 * i) * rs;
 #pragma unroll
-    for (int g = 0; g < D / 64; ++g) {
-      st4(row + 64 * g + 4 * tx,
-          make_float4(acc[i][4 * g] / den[i], acc[i][4 * g + 1] / den[i],
-                      acc[i][4 * g + 2] / den[i],
-                      acc[i][4 * g + 3] / den[i]));
+    for (int g = 0; g < TL::NG; ++g) {
+#pragma unroll
+      for (int e = 0; e < TL::CW; ++e) {
+        from_f(row + 16 * TL::CW * g + TL::CW * tx + e,
+               acc[i][TL::CW * g + e] / den[i]);
+      }
     }
   }
 }
@@ -229,11 +263,16 @@ __device__ __forceinline__ bool tiles_live(const int* qr, const int* kr) {
 
 template <typename T, int D>
 __host__ __device__ constexpr size_t tile_bytes() {
-  return static_cast<size_t>(TILE) * (D + PAD) * sizeof(T);
+  return static_cast<size_t>(Tile<D>::ROWS) * (D + PAD) * sizeof(T);
 }
 
+template <int D>
 __host__ __device__ constexpr size_t ptile_bytes() {
-  return static_cast<size_t>(TILE) * PS * sizeof(float);
+  return static_cast<size_t>(Tile<D>::ROWS) * Tile<D>::PS * sizeof(float);
+}
+
+__host__ __device__ constexpr int n_tiles(int s, int rows) {
+  return (s + rows - 1) / rows;
 }
 
 // ---------------------------------------------------------------------------
@@ -242,7 +281,8 @@ __host__ __device__ constexpr size_t ptile_bytes() {
 
 template <typename T, int D>
 constexpr size_t fwd_smem() {
-  return 3 * tile_bytes<T, D>() + ptile_bytes() + 2 * TILE * sizeof(int);
+  return 3 * tile_bytes<T, D>() + ptile_bytes<D>() +
+         2 * Tile<D>::ROWS * sizeof(int);
 }
 
 template <typename T, int D>
@@ -253,10 +293,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const int* __restrict__ qseg, const int* __restrict__ kseg,
                  T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk,
                  int H, int causal, int pv_f32, float scale) {
+  using TL = Tile<D>;
+  constexpr int TR = TL::ROWS, RI = TL::RI;
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int nqt = Sq / TILE, nkt = Sk / TILE;
+  const int nqt = n_tiles(Sq, TR), nkt = n_tiles(Sk, TR);
   const size_t rs = static_cast<size_t>(H) * D;
+  const int q_rows = min(TR, Sq - qt * TR);
 
   extern __shared__ __align__(16) unsigned char smem[];
   T* q_s = reinterpret_cast<T*>(smem);
@@ -264,21 +307,21 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* v_s = reinterpret_cast<T*>(smem + 2 * tile_bytes<T, D>());
   float* p_s = reinterpret_cast<float*>(smem + 3 * tile_bytes<T, D>());
   int* qseg_s = reinterpret_cast<int*>(smem + 3 * tile_bytes<T, D>() +
-                                       ptile_bytes());
-  int* kseg_s = qseg_s + TILE;
+                                       ptile_bytes<D>());
+  int* kseg_s = qseg_s + TR;
 
-  const size_t q0 = static_cast<size_t>(b) * Sq + qt * TILE;
-  load_tile<T, D>(q_s, q + q0 * rs + h * D, rs, tid);
-  if (tid < TILE) qseg_s[tid] = qseg[q0 + tid];
+  const size_t q0 = static_cast<size_t>(b) * Sq + qt * TR;
+  load_tile<T, D>(q_s, q + q0 * rs + h * D, rs, q_rows, tid);
+  if (tid < TR) qseg_s[tid] = tid < q_rows ? qseg[q0 + tid] : -1;
   const int* qr = qrange + (static_cast<size_t>(b) * nqt + qt) * 2;
 
-  float m[4], l[4], acc[4][D / 16];
+  float m[RI], l[RI], acc[RI][TL::NC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < TL::NC; ++c) acc[i][c] = 0.f;
   }
 
   // causal: key tiles past this query tile's last row are wholly masked
@@ -288,54 +331,59 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       continue;   // the same for every thread of the block
     }
     __syncthreads();   // the previous tile's readers are done
-    const size_t k0 = static_cast<size_t>(b) * Sk + kt * TILE;
-    load_tile<T, D>(k_s, k + k0 * rs + h * D, rs, tid);
-    load_tile<T, D>(v_s, v + k0 * rs + h * D, rs, tid);
-    if (tid < TILE) kseg_s[tid] = kseg[k0 + tid];
+    const size_t k0 = static_cast<size_t>(b) * Sk + kt * TR;
+    const int k_rows = min(TR, Sk - kt * TR);
+    load_tile<T, D>(k_s, k + k0 * rs + h * D, rs, k_rows, tid);
+    load_tile<T, D>(v_s, v + k0 * rs + h * D, rs, k_rows, tid);
+    if (tid < TR) kseg_s[tid] = tid < k_rows ? kseg[k0 + tid] : -1;
     __syncthreads();
 
-    float s[4][4];
+    float s[RI][RI];
     tile_dot_nt<T, D>(q_s, k_s, ty, tx, s);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       const int r = ty + 16 * i;
-      const int qi = qt * TILE + r;
+      const int qi = qt * TR + r;
       const int qsg = qseg_s[r];
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const int c = tx + 16 * j;
         const bool live =
-            qsg == kseg_s[c] && (!causal || qi >= kt * TILE + c);
-        s[i][j] = live ? s[i][j] * scale : MASK_VALUE;
+            qsg == kseg_s[c] && (!causal || qi >= kt * TR + c);
+        // keys past Sk take no weight; masked keys the finite mask value
+        s[i][j] = c >= k_rows ? -INFINITY
+                              : (live ? s[i][j] * scale : MASK_VALUE);
         mx = fmaxf(mx, s[i][j]);
       }
       const float m_new = fmaxf(m[i], half_warp_max(mx));
       const float alpha = expf(m[i] - m_new);
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const float p = expf(s[i][j] - m_new);
         sum += p;
-        p_s[r * PS + tx + 16 * j] = round_to<T>(p, pv_f32);
+        p_s[r * TL::PS + tx + 16 * j] = round_to<T>(p, pv_f32);
       }
       l[i] = alpha * l[i] + half_warp_sum(sum);
       m[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < D / 16; ++c) acc[i][c] *= alpha;
+      for (int c = 0; c < TL::NC; ++c) acc[i][c] *= alpha;
     }
     __syncthreads();   // the P tile is complete
     tile_acc_nn<T, D>(p_s, v_s, ty, tx, acc);
   }
 
-  float den[4];
+  float den[RI];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) den[i] = (l[i] == 0.f) ? 1.f : l[i];
-  store_rows<T, D>(o + q0 * rs + h * D, rs, ty, tx, acc, den);
+  for (int i = 0; i < RI; ++i) den[i] = (l[i] == 0.f) ? 1.f : l[i];
+  store_rows<T, D>(o + q0 * rs + h * D, rs, ty, tx, q_rows, acc, den);
   if (tx == 0) {
-    float* lrow = lse + (static_cast<size_t>(b) * H + h) * Sq + qt * TILE;
+    float* lrow = lse + (static_cast<size_t>(b) * H + h) * Sq + qt * TR;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) lrow[ty + 16 * i] = m[i] + logf(den[i]);
+    for (int i = 0; i < RI; ++i) {
+      if (ty + 16 * i < q_rows) lrow[ty + 16 * i] = m[i] + logf(den[i]);
+    }
   }
 }
 
@@ -345,8 +393,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 constexpr size_t bwd_kv_smem() {
-  return 4 * tile_bytes<T, D>() + 2 * ptile_bytes() +
-         2 * TILE * sizeof(int) + 2 * TILE * sizeof(float);
+  return 4 * tile_bytes<T, D>() + 2 * ptile_bytes<D>() +
+         2 * Tile<D>::ROWS * sizeof(int) + 2 * Tile<D>::ROWS * sizeof(float);
 }
 
 template <typename T, int D>
@@ -361,11 +409,14 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const int* __restrict__ kseg, T* __restrict__ dk,
                     T* __restrict__ dv, int Sq, int Sk, int H, int causal,
                     int pv_f32, float scale) {
+  using TL = Tile<D>;
+  constexpr int TR = TL::ROWS, RI = TL::RI;
   const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int nqt = Sq / TILE, nkt = Sk / TILE;
+  const int nqt = n_tiles(Sq, TR), nkt = n_tiles(Sk, TR);
   const size_t rs = static_cast<size_t>(H) * D;
   constexpr size_t TB = tile_bytes<T, D>();
+  const int k_rows = min(TR, Sk - kt * TR);
 
   extern __shared__ __align__(16) unsigned char smem[];
   T* k_s = reinterpret_cast<T*>(smem);
@@ -373,25 +424,25 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* q_s = reinterpret_cast<T*>(smem + 2 * TB);
   T* do_s = reinterpret_cast<T*>(smem + 3 * TB);
   float* p_s = reinterpret_cast<float*>(smem + 4 * TB);
-  float* ds_s = p_s + TILE * PS;
-  int* qseg_s = reinterpret_cast<int*>(ds_s + TILE * PS);
-  int* kseg_s = qseg_s + TILE;
-  float* lse_s = reinterpret_cast<float*>(kseg_s + TILE);
-  float* delta_s = lse_s + TILE;
+  float* ds_s = p_s + TR * TL::PS;
+  int* qseg_s = reinterpret_cast<int*>(ds_s + TR * TL::PS);
+  int* kseg_s = qseg_s + TR;
+  float* lse_s = reinterpret_cast<float*>(kseg_s + TR);
+  float* delta_s = lse_s + TR;
 
-  const size_t k0 = static_cast<size_t>(b) * Sk + kt * TILE;
-  load_tile<T, D>(k_s, k + k0 * rs + h * D, rs, tid);
-  load_tile<T, D>(v_s, v + k0 * rs + h * D, rs, tid);
-  if (tid < TILE) kseg_s[tid] = kseg[k0 + tid];
+  const size_t k0 = static_cast<size_t>(b) * Sk + kt * TR;
+  load_tile<T, D>(k_s, k + k0 * rs + h * D, rs, k_rows, tid);
+  load_tile<T, D>(v_s, v + k0 * rs + h * D, rs, k_rows, tid);
+  if (tid < TR) kseg_s[tid] = tid < k_rows ? kseg[k0 + tid] : -1;
   const int* kr = krange + (static_cast<size_t>(b) * nkt + kt) * 2;
   const float* lse_bh = lse + (static_cast<size_t>(b) * H + h) * Sq;
   const float* delta_bh = delta + (static_cast<size_t>(b) * H + h) * Sq;
 
-  float dka[4][D / 16], dva[4][D / 16];
+  float dka[RI][TL::NC], dva[RI][TL::NC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) {
+    for (int c = 0; c < TL::NC; ++c) {
       dka[i][c] = 0.f;
       dva[i][c] = 0.f;
     }
@@ -404,34 +455,36 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       continue;
     }
     __syncthreads();
-    const size_t q0 = static_cast<size_t>(b) * Sq + qt * TILE;
-    load_tile<T, D>(q_s, q + q0 * rs + h * D, rs, tid);
-    load_tile<T, D>(do_s, dout + q0 * rs + h * D, rs, tid);
-    if (tid < TILE) {
-      qseg_s[tid] = qseg[q0 + tid];
-      lse_s[tid] = lse_bh[qt * TILE + tid];
-      delta_s[tid] = delta_bh[qt * TILE + tid];
+    const size_t q0 = static_cast<size_t>(b) * Sq + qt * TR;
+    const int q_rows = min(TR, Sq - qt * TR);
+    load_tile<T, D>(q_s, q + q0 * rs + h * D, rs, q_rows, tid);
+    load_tile<T, D>(do_s, dout + q0 * rs + h * D, rs, q_rows, tid);
+    if (tid < TR) {
+      const bool in = tid < q_rows;
+      qseg_s[tid] = in ? qseg[q0 + tid] : -1;
+      lse_s[tid] = in ? lse_bh[qt * TR + tid] : 0.f;
+      delta_s[tid] = in ? delta_bh[qt * TR + tid] : 0.f;
     }
     __syncthreads();
 
     // transposed scores: row = key ty + 16 i, column = query tx + 16 j
-    float s[4][4], dp[4][4];
+    float s[RI][RI], dp[RI][RI];
     tile_dot_nt<T, D>(k_s, q_s, ty, tx, s);
     tile_dot_nt<T, D>(v_s, do_s, ty, tx, dp);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       const int r = ty + 16 * i;
-      const int kj = kt * TILE + r;
+      const int kj = kt * TR + r;
       const int ksg = kseg_s[r];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const int c = tx + 16 * j;
-        const bool live =
-            qseg_s[c] == ksg && (!causal || qt * TILE + c >= kj);
+        const bool live = c < q_rows && r < k_rows && qseg_s[c] == ksg &&
+                          (!causal || qt * TR + c >= kj);
         const float p = live ? expf(s[i][j] * scale - lse_s[c]) : 0.f;
         const float ds = p * (dp[i][j] - delta_s[c]) * scale;
-        p_s[r * PS + c] = round_to<T>(p, pv_f32);
-        ds_s[r * PS + c] = round_to<T>(ds, pv_f32);
+        p_s[r * TL::PS + c] = round_to<T>(p, pv_f32);
+        ds_s[r * TL::PS + c] = round_to<T>(ds, pv_f32);
       }
     }
     __syncthreads();
@@ -439,9 +492,11 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     tile_acc_nn<T, D>(ds_s, q_s, ty, tx, dka);
   }
 
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_rows<T, D>(dk + k0 * rs + h * D, rs, ty, tx, dka, one);
-  store_rows<T, D>(dv + k0 * rs + h * D, rs, ty, tx, dva, one);
+  float one[RI];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) one[i] = 1.f;
+  store_rows<T, D>(dk + k0 * rs + h * D, rs, ty, tx, k_rows, dka, one);
+  store_rows<T, D>(dv + k0 * rs + h * D, rs, ty, tx, k_rows, dva, one);
 }
 
 // ---------------------------------------------------------------------------
@@ -450,8 +505,8 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 constexpr size_t bwd_dq_smem() {
-  return 4 * tile_bytes<T, D>() + ptile_bytes() + 2 * TILE * sizeof(int) +
-         2 * TILE * sizeof(float);
+  return 4 * tile_bytes<T, D>() + ptile_bytes<D>() +
+         2 * Tile<D>::ROWS * sizeof(int) + 2 * Tile<D>::ROWS * sizeof(float);
 }
 
 template <typename T, int D>
@@ -465,11 +520,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const int* __restrict__ qseg,
                     const int* __restrict__ kseg, T* __restrict__ dq, int Sq,
                     int Sk, int H, int causal, int pv_f32, float scale) {
+  using TL = Tile<D>;
+  constexpr int TR = TL::ROWS, RI = TL::RI;
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int nqt = Sq / TILE, nkt = Sk / TILE;
+  const int nqt = n_tiles(Sq, TR), nkt = n_tiles(Sk, TR);
   const size_t rs = static_cast<size_t>(H) * D;
   constexpr size_t TB = tile_bytes<T, D>();
+  const int q_rows = min(TR, Sq - qt * TR);
 
   extern __shared__ __align__(16) unsigned char smem[];
   T* q_s = reinterpret_cast<T*>(smem);
@@ -477,27 +535,28 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* k_s = reinterpret_cast<T*>(smem + 2 * TB);
   T* v_s = reinterpret_cast<T*>(smem + 3 * TB);
   float* ds_s = reinterpret_cast<float*>(smem + 4 * TB);
-  int* qseg_s = reinterpret_cast<int*>(ds_s + TILE * PS);
-  int* kseg_s = qseg_s + TILE;
-  float* lse_s = reinterpret_cast<float*>(kseg_s + TILE);
-  float* delta_s = lse_s + TILE;
+  int* qseg_s = reinterpret_cast<int*>(ds_s + TR * TL::PS);
+  int* kseg_s = qseg_s + TR;
+  float* lse_s = reinterpret_cast<float*>(kseg_s + TR);
+  float* delta_s = lse_s + TR;
 
-  const size_t q0 = static_cast<size_t>(b) * Sq + qt * TILE;
-  load_tile<T, D>(q_s, q + q0 * rs + h * D, rs, tid);
-  load_tile<T, D>(do_s, dout + q0 * rs + h * D, rs, tid);
-  if (tid < TILE) {
-    const size_t bh = (static_cast<size_t>(b) * H + h) * Sq + qt * TILE;
-    qseg_s[tid] = qseg[q0 + tid];
-    lse_s[tid] = lse[bh + tid];
-    delta_s[tid] = delta[bh + tid];
+  const size_t q0 = static_cast<size_t>(b) * Sq + qt * TR;
+  load_tile<T, D>(q_s, q + q0 * rs + h * D, rs, q_rows, tid);
+  load_tile<T, D>(do_s, dout + q0 * rs + h * D, rs, q_rows, tid);
+  if (tid < TR) {
+    const size_t bh = (static_cast<size_t>(b) * H + h) * Sq + qt * TR;
+    const bool in = tid < q_rows;
+    qseg_s[tid] = in ? qseg[q0 + tid] : -1;
+    lse_s[tid] = in ? lse[bh + tid] : 0.f;
+    delta_s[tid] = in ? delta[bh + tid] : 0.f;
   }
   const int* qr = qrange + (static_cast<size_t>(b) * nqt + qt) * 2;
 
-  float dqa[4][D / 16];
+  float dqa[RI][TL::NC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) dqa[i][c] = 0.f;
+    for (int c = 0; c < TL::NC; ++c) dqa[i][c] = 0.f;
   }
 
   const int kt_end = causal ? min(nkt, qt + 1) : nkt;
@@ -506,36 +565,39 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       continue;
     }
     __syncthreads();
-    const size_t k0 = static_cast<size_t>(b) * Sk + kt * TILE;
-    load_tile<T, D>(k_s, k + k0 * rs + h * D, rs, tid);
-    load_tile<T, D>(v_s, v + k0 * rs + h * D, rs, tid);
-    if (tid < TILE) kseg_s[tid] = kseg[k0 + tid];
+    const size_t k0 = static_cast<size_t>(b) * Sk + kt * TR;
+    const int k_rows = min(TR, Sk - kt * TR);
+    load_tile<T, D>(k_s, k + k0 * rs + h * D, rs, k_rows, tid);
+    load_tile<T, D>(v_s, v + k0 * rs + h * D, rs, k_rows, tid);
+    if (tid < TR) kseg_s[tid] = tid < k_rows ? kseg[k0 + tid] : -1;
     __syncthreads();
 
-    float s[4][4], dp[4][4];
+    float s[RI][RI], dp[RI][RI];
     tile_dot_nt<T, D>(q_s, k_s, ty, tx, s);
     tile_dot_nt<T, D>(do_s, v_s, ty, tx, dp);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       const int r = ty + 16 * i;
-      const int qi = qt * TILE + r;
+      const int qi = qt * TR + r;
       const int qsg = qseg_s[r];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const int c = tx + 16 * j;
-        const bool live =
-            qsg == kseg_s[c] && (!causal || qi >= kt * TILE + c);
+        const bool live = r < q_rows && c < k_rows && qsg == kseg_s[c] &&
+                          (!causal || qi >= kt * TR + c);
         const float p = live ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
         const float ds = p * (dp[i][j] - delta_s[r]) * scale;
-        ds_s[r * PS + c] = round_to<T>(ds, pv_f32);
+        ds_s[r * TL::PS + c] = round_to<T>(ds, pv_f32);
       }
     }
     __syncthreads();
     tile_acc_nn<T, D>(ds_s, k_s, ty, tx, dqa);
   }
 
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_rows<T, D>(dq + q0 * rs + h * D, rs, ty, tx, dqa, one);
+  float one[RI];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) one[i] = 1.f;
+  store_rows<T, D>(dq + q0 * rs + h * D, rs, ty, tx, q_rows, dqa, one);
 }
 
 // ---------------------------------------------------------------------------
@@ -568,7 +630,7 @@ cudaError_t run_fwd(const Args& a) {
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
-  const dim3 grid(a.Sq / TILE, a.H, a.B);
+  const dim3 grid(n_tiles(a.Sq, Tile<D>::ROWS), a.H, a.B);
   kernel<<<grid, NTHREADS, fwd_smem<T, D>(), a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const int*>(a.qrange),
@@ -588,7 +650,7 @@ cudaError_t run_bwd_kv(const Args& a) {
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
-  const dim3 grid(a.Sk / TILE, a.H, a.B);
+  const dim3 grid(n_tiles(a.Sk, Tile<D>::ROWS), a.H, a.B);
   kernel<<<grid, NTHREADS, bwd_kv_smem<T, D>(), a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
@@ -609,7 +671,7 @@ cudaError_t run_bwd_dq(const Args& a) {
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
-  const dim3 grid(a.Sq / TILE, a.H, a.B);
+  const dim3 grid(n_tiles(a.Sq, Tile<D>::ROWS), a.H, a.B);
   kernel<<<grid, NTHREADS, bwd_dq_smem<T, D>(), a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
@@ -633,20 +695,28 @@ cudaError_t run(Which w, const Args& a) {
   return cudaErrorInvalidValue;
 }
 
-// dtype: 0 = f32, 1 = bf16; head_dim 64 or 128; sequence lengths whole
-// tiles.  f32, and bf16 with pv_f32, run here on the CUDA cores; bf16 with
-// P rounded (pv_f32 off, the default) is flash_attention_sm90.cu's (the
-// Python wrappers send it there; here it is refused).
+template <typename T>
+cudaError_t run_head_dim(Which w, int D, const Args& a) {
+  switch (D) {
+    case 16: return run<T, 16>(w, a);
+    case 32: return run<T, 32>(w, a);
+    case 64: return run<T, 64>(w, a);
+    case 128: return run<T, 128>(w, a);
+    case 256: return run<T, 256>(w, a);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// dtype: 0 = f32, 1 = bf16; head_dim 16, 32, 64, 128 or 256; any positive
+// lengths.  The range arrays hold one [min, max] per tile of
+// Tile<D>::ROWS rows (the Python wrappers compute them at that tile).
 cudaError_t dispatch(Which w, int D, int dtype, const Args& a) {
-  if (a.B <= 0 || a.H <= 0 || a.Sq <= 0 || a.Sk <= 0 || a.Sq % TILE != 0 ||
-      a.Sk % TILE != 0 || a.H > 65535 || a.B > 65535 ||
-      (dtype == 1 && !a.pv_f32)) {
+  if (a.B <= 0 || a.H <= 0 || a.Sq <= 0 || a.Sk <= 0 || a.H > 65535 ||
+      a.B > 65535) {
     return cudaErrorInvalidValue;
   }
-  if (dtype == 0 && D == 128) return run<float, 128>(w, a);
-  if (dtype == 0 && D == 64) return run<float, 64>(w, a);
-  if (dtype == 1 && D == 128) return run<bf16, 128>(w, a);
-  if (dtype == 1 && D == 64) return run<bf16, 64>(w, a);
+  if (dtype == 0) return run_head_dim<float>(w, D, a);
+  if (dtype == 1) return run_head_dim<bf16>(w, D, a);
   return cudaErrorInvalidValue;
 }
 

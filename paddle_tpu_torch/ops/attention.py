@@ -5,10 +5,12 @@ Two implementations of each of the module's three functions:
 - the hand-written CUDA kernels (:func:`flash_fwd_kernel`,
   :func:`flash_bwd_kv_kernel`, :func:`flash_bwd_dq_kernel`), the Hopper
   counterparts of the Pallas ``_flash_fwd_kernel``,
-  ``_flash_bwd_kv_kernel`` and ``_flash_bwd_dq_kernel``.  bf16 runs on the
-  tensor cores, all three as wgmma kernels fed by TMA
-  (``csrc/flash_attention_sm90.cu``); f32 (and bf16 under ``attn_pv_f32``)
-  runs on the CUDA cores (``csrc/flash_attention.cu``);
+  ``_flash_bwd_kv_kernel`` and ``_flash_bwd_dq_kernel``, at head dims
+  :data:`KERNEL_HEAD_DIMS` and any lengths.  bf16 at head dim 64 or 128
+  on whole 64-row tiles runs on the tensor cores, all three as wgmma
+  kernels fed by TMA (``csrc/flash_attention_sm90.cu``); every other
+  shape, f32, and bf16 under ``attn_pv_f32`` run on the CUDA cores
+  (``csrc/flash_attention.cu``); :func:`kernel_route` names the route;
 - their plain PyTorch versions (:func:`flash_fwd_reference`,
   :func:`flash_bwd_kv_reference`, :func:`flash_bwd_dq_reference`): a loop
   over key blocks, as the JAX package's plain backward ``_flash_bwd`` is,
@@ -49,10 +51,12 @@ from paddle_tpu_torch.platform.flags import FLAGS
 # uniform instead of NaN, exactly as in the JAX package
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
-# what the CUDA kernels take: query and key tiles of KERNEL_TILE rows,
-# these head dims, f32 or bf16 (one type for q, k, v and dO)
+# what the CUDA kernels take: these head dims, f32 or bf16 (one type for
+# q, k, v and dO), any lengths; the wgmma kernels take bf16 with P and dS
+# rounded at WGMMA_HEAD_DIMS on lengths in whole KERNEL_TILE-row tiles
 KERNEL_TILE = 64
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
+WGMMA_HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -100,12 +104,14 @@ def _pv_round(x, dtype, pv_f32: bool):
     return x.to(dtype).float()
 
 
-def _key_blocks(seq_k: int, block_k: int):
+def _key_blocks(seq_k: int, block_k: Optional[int], head_dim: int):
+    """Key blocks of ``block_k`` (default :func:`kernel_tile`), the last
+    one shorter where it does not divide ``seq_k``, as the kernels' last
+    tile."""
+    if block_k is None:
+        block_k = kernel_tile(head_dim)
     bk = min(int(block_k), seq_k)
-    enforce_that(seq_k % bk == 0, f"key length {seq_k} must divide by the "
-                 f"block {bk} (the feeder pads capacity to multiples)",
-                 context="flash_attention")
-    return [(j, j + bk) for j in range(0, seq_k, bk)]
+    return [(j, min(j + bk, seq_k)) for j in range(0, seq_k, bk)]
 
 
 def _block_mask(q_seg, kv_seg, j0, j1, causal):
@@ -120,22 +126,23 @@ def _block_mask(q_seg, kv_seg, j0, j1, causal):
 
 @torch.no_grad()
 def flash_fwd_reference(q, k, v, q_seg, kv_seg, *, causal: bool,
-                        sm_scale: float, block_k: int = KERNEL_TILE,
+                        sm_scale: float, block_k: Optional[int] = None,
                         pv_f32: bool = False) -> Tuple[torch.Tensor,
                                                        torch.Tensor]:
     """Plain forward: (O [B, Sq, H, D] in q's dtype, lse [B, H, Sq] f32).
 
     Online softmax over key blocks of ``block_k``: scores in f32, masked
     scores at :data:`DEFAULT_MASK_VALUE`, P rounded before PV as the
-    kernel does.  At ``block_k`` = :data:`KERNEL_TILE` the running maxima
-    and so the rounded P are the CUDA kernel's."""
+    kernel does.  ``block_k`` defaults to the kernels' tile
+    (:func:`kernel_tile`), where the running maxima and so the rounded P
+    are the CUDA kernels'."""
     dt = q.dtype
     qf = q.float().transpose(1, 2)                       # [B, H, Sq, D]
     b, h, sq, d = qf.shape
     m = torch.full((b, h, sq), float("-inf"), device=q.device)
     l = torch.zeros((b, h, sq), device=q.device)
     acc = torch.zeros((b, h, sq, d), device=q.device)
-    for j0, j1 in _key_blocks(k.shape[1], block_k):
+    for j0, j1 in _key_blocks(k.shape[1], block_k, q.shape[-1]):
         kb = k[:, j0:j1].float().transpose(1, 2)
         vb = v[:, j0:j1].float().transpose(1, 2)
         s = torch.matmul(qf, kb.transpose(-1, -2)) * sm_scale
@@ -166,7 +173,7 @@ def _bwd_block(qf, kb, vb, dof, lse, delta, mask, sm_scale):
 @torch.no_grad()
 def flash_bwd_kv_reference(q, k, v, q_seg, kv_seg, dout, lse, delta, *,
                            causal: bool, sm_scale: float,
-                           block_k: int = KERNEL_TILE,
+                           block_k: Optional[int] = None,
                            pv_f32: bool = False):
     """Plain dK/dV ([B, Sk, H, D] in k's and v's dtypes), block by block
     over keys: dV = round(P)^T dO, dK = round(dS)^T Q."""
@@ -174,7 +181,7 @@ def flash_bwd_kv_reference(q, k, v, q_seg, kv_seg, dout, lse, delta, *,
     qf = q.float().transpose(1, 2)
     dof = dout.float().transpose(1, 2)
     dks, dvs = [], []
-    for j0, j1 in _key_blocks(k.shape[1], block_k):
+    for j0, j1 in _key_blocks(k.shape[1], block_k, q.shape[-1]):
         kb = k[:, j0:j1].float().transpose(1, 2)
         vb = v[:, j0:j1].float().transpose(1, 2)
         p, ds = _bwd_block(qf, kb, vb, dof, lse, delta,
@@ -192,7 +199,7 @@ def flash_bwd_kv_reference(q, k, v, q_seg, kv_seg, dout, lse, delta, *,
 @torch.no_grad()
 def flash_bwd_dq_reference(q, k, v, q_seg, kv_seg, dout, lse, delta, *,
                            causal: bool, sm_scale: float,
-                           block_k: int = KERNEL_TILE,
+                           block_k: Optional[int] = None,
                            pv_f32: bool = False):
     """Plain dQ ([B, Sq, H, D] in q's dtype), summed over key blocks:
     dQ = sum round(dS) K."""
@@ -200,7 +207,7 @@ def flash_bwd_dq_reference(q, k, v, q_seg, kv_seg, dout, lse, delta, *,
     qf = q.float().transpose(1, 2)
     dof = dout.float().transpose(1, 2)
     dq = torch.zeros_like(qf)
-    for j0, j1 in _key_blocks(k.shape[1], block_k):
+    for j0, j1 in _key_blocks(k.shape[1], block_k, q.shape[-1]):
         kb = k[:, j0:j1].float().transpose(1, 2)
         vb = v[:, j0:j1].float().transpose(1, 2)
         _, ds = _bwd_block(qf, kb, vb, dof, lse, delta,
@@ -242,13 +249,34 @@ def kernel_shape_error(q_shape, k_shape, dtype) -> Optional[str]:
     if k_shape[0] != b or k_shape[2] != h or k_shape[3] != d:
         return (f"k/v must be [B, Sk, H, D] matching q {tuple(q_shape)}, got "
                 f"{tuple(k_shape)} (the flash kernels take no GQA)")
-    for name, n in (("Sq", sq), ("Sk", k_shape[1])):
-        if n <= 0 or n % KERNEL_TILE:
-            return (f"flash kernels take sequence lengths in whole "
-                    f"{KERNEL_TILE}-row tiles, got {name}={n}")
+    if sq <= 0 or k_shape[1] <= 0:
+        return f"flash kernels take positive lengths, got Sq={sq}, " \
+               f"Sk={k_shape[1]}"
     if h > 65535 or b > 65535:
         return f"flash kernels take at most 65535 heads and batches"
     return None
+
+
+def kernel_route(q_shape, k_shape, dtype, pv_f32: bool) -> str:
+    """The one library each shape goes to: ``"flash_attention_sm90"`` (the
+    wgmma kernels) for bf16 with P and dS rounded at head dim 64 or 128
+    with Sq and Sk in whole :data:`KERNEL_TILE`-row tiles; else
+    ``"flash_attention"`` (the CUDA-core kernels: f32, ``pv_f32``, head
+    dims 16, 32 and 256, and lengths that end in a partial tile).  Both
+    export the same C entries."""
+    if (dtype == torch.bfloat16 and not pv_f32 and
+            q_shape[3] in WGMMA_HEAD_DIMS and
+            q_shape[1] % KERNEL_TILE == 0 and k_shape[1] % KERNEL_TILE == 0):
+        return "flash_attention_sm90"
+    return "flash_attention"
+
+
+def kernel_tile(head_dim: int) -> int:
+    """Rows of the kernels' query and key tiles at ``head_dim``: 64, and 32
+    at head dim 256 (the CUDA-core kernels' four f32 tiles of 256 columns
+    fit shared memory at 32 rows).  The plain versions round P and dS at
+    the kernels' running maxima with ``block_k`` set to it."""
+    return 32 if head_dim == 256 else KERNEL_TILE
 
 
 def _check(tensors, q, k, seg_q, seg_k):
@@ -273,11 +301,15 @@ def _check(tensors, q, k, seg_q, seg_k):
                      context="flash_attention")
 
 
-def _tile_ranges(seg):
-    """Per-tile [min, max] of the segment ids, [B, S / tile, 2] int32:
-    the kernels skip a (query tile, key tile) pair whose ranges are
-    disjoint (JAX ``_seg_live``)."""
-    t = seg.view(seg.shape[0], -1, KERNEL_TILE)
+def _tile_ranges(seg, tile: int = KERNEL_TILE):
+    """Per-tile [min, max] of the segment ids, [B, ceil(S / tile), 2]
+    int32 (a last partial tile over its own ids only): the kernels skip a
+    (query tile, key tile) pair whose ranges are disjoint (JAX
+    ``_seg_live``)."""
+    pad = -seg.shape[1] % tile
+    if pad:
+        seg = torch.cat([seg, seg[:, -1:].expand(-1, pad)], dim=1)
+    t = seg.reshape(seg.shape[0], -1, tile)
     return torch.stack([t.amin(-1), t.amax(-1)], -1).to(
         torch.int32).contiguous()
 
@@ -286,9 +318,11 @@ def _tile_ranges(seg):
 PAIR_SKIPPED, PAIR_INTERIOR, PAIR_BOUNDARY = 0, 1, 2
 
 
-def tile_pair_kinds(q_seg, kv_seg, causal: bool) -> torch.Tensor:
+def tile_pair_kinds(q_seg, kv_seg, causal: bool,
+                    tile: int = KERNEL_TILE) -> torch.Tensor:
     """[B, Sq / tile, Sk / tile] int8: how every flash kernel treats each
-    (query tile, key tile) pair of :data:`KERNEL_TILE` rows.  Skipped:
+    (query tile, key tile) pair of ``tile`` rows (the kernels' tile is
+    :func:`kernel_tile`).  Skipped:
     the segment-id ranges are disjoint, or under ``causal`` the key tile
     lies past the query tile's diagonal.  Interior: one segment on both
     sides and, under ``causal``, the key tile wholly below the diagonal,
@@ -297,8 +331,8 @@ def tile_pair_kinds(q_seg, kv_seg, causal: bool) -> torch.Tensor:
     ``pair_live`` and ``pair_interior`` in ``csrc/flash_attention_sm90.cu``
     written out for tests and records; the kernels compute it themselves
     from the per-tile ranges."""
-    qr = _tile_ranges(q_seg)[:, :, None]       # [B, nqt, 1, 2]
-    kr = _tile_ranges(kv_seg)[:, None]         # [B, 1, nkt, 2]
+    qr = _tile_ranges(q_seg, tile)[:, :, None]       # [B, nqt, 1, 2]
+    kr = _tile_ranges(kv_seg, tile)[:, None]         # [B, 1, nkt, 2]
     live = (qr[..., 1] >= kr[..., 0]) & (qr[..., 0] <= kr[..., 1])
     interior = ((qr[..., 0] == qr[..., 1]) & (kr[..., 0] == kr[..., 1]) &
                 (qr[..., 0] == kr[..., 0]))
@@ -314,13 +348,16 @@ def tile_pair_kinds(q_seg, kv_seg, causal: bool) -> torch.Tensor:
     return kinds
 
 
-def _library(q, pv_f32: bool):
-    """The built library a launch goes to: the wgmma kernels for bf16 with
-    P rounded, else ``flash_attention.cu``.  Both export the same C
-    entries."""
-    name = ("flash_attention_sm90" if q.dtype == torch.bfloat16
-            and not pv_f32 else "flash_attention")
-    return build.load(name, _SIGNATURES)
+def _library(q, k, pv_f32: bool):
+    """The built library a launch goes to (:func:`kernel_route`)."""
+    return build.load(kernel_route(tuple(q.shape), tuple(k.shape), q.dtype,
+                                   pv_f32), _SIGNATURES)
+
+
+def _ranges(q, q_seg, kv_seg):
+    """Both segment-id range arrays at the kernels' tile."""
+    tile = kernel_tile(q.shape[3])
+    return _tile_ranges(q_seg, tile), _tile_ranges(kv_seg, tile)
 
 
 def _stream(dev):
@@ -348,13 +385,13 @@ def flash_fwd_kernel(q, k, v, q_seg, kv_seg, *, causal: bool,
     enforce_that(k.dtype == q.dtype and v.dtype == q.dtype and
                  v.shape == k.shape, "q, k, v must share one dtype and k, v "
                  "one shape", context="flash_attention")
-    lib = _library(q, pv_f32)
+    lib = _library(q, k, pv_f32)
     b, sq, h, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     # the ranges stay referenced until the launch: a freed block could be
     # handed to the next allocation before the kernel reads it
-    qr, kr = _tile_ranges(q_seg), _tile_ranges(kv_seg)
+    qr, kr = _ranges(q, q_seg, kv_seg)
     rc = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        qr.data_ptr(), kr.data_ptr(), q_seg.data_ptr(),
                        kv_seg.data_ptr(), out.data_ptr(), lse.data_ptr(),
@@ -385,10 +422,10 @@ def flash_bwd_kv_kernel(q, k, v, q_seg, kv_seg, dout, lse, delta, *,
     results as :func:`flash_bwd_kv_reference`.  Each launch adds one to
     ``flash_bwd_kv_kernel.launches``."""
     _check_bwd(q, k, v, q_seg, kv_seg, dout, lse, delta)
-    lib = _library(q, pv_f32)
+    lib = _library(q, k, pv_f32)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    qr, kr = _tile_ranges(q_seg), _tile_ranges(kv_seg)
+    qr, kr = _ranges(q, q_seg, kv_seg)
     rc = lib.flash_bwd_kv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                           qr.data_ptr(), kr.data_ptr(), q_seg.data_ptr(),
@@ -405,9 +442,9 @@ def flash_bwd_dq_kernel(q, k, v, q_seg, kv_seg, dout, lse, delta, *,
     as :func:`flash_bwd_dq_reference`.  Each launch adds one to
     ``flash_bwd_dq_kernel.launches``."""
     _check_bwd(q, k, v, q_seg, kv_seg, dout, lse, delta)
-    lib = _library(q, pv_f32)
+    lib = _library(q, k, pv_f32)
     dq = torch.empty_like(q)
-    qr, kr = _tile_ranges(q_seg), _tile_ranges(kv_seg)
+    qr, kr = _ranges(q, q_seg, kv_seg)
     rc = lib.flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                           qr.data_ptr(), kr.data_ptr(), q_seg.data_ptr(),
@@ -516,7 +553,7 @@ def flash_attention(q, k, v, segment_ids=None, kv_segment_ids=None,
     segment_ids.  causal: lower-triangular masking on absolute positions
     in the packed buffer.  ``block_q``/``block_k`` keep the JAX signature
     and set the plain version's key block; the CUDA kernels tile at
-    :data:`KERNEL_TILE`.  ``FLAGS.attn_pv_f32`` keeps P and dS in f32.
+    :func:`kernel_tile`.  ``FLAGS.attn_pv_f32`` keeps P and dS in f32.
 
     CPU tensors take the plain versions; CUDA tensors launch the three
     kernels or raise."""

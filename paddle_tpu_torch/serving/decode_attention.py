@@ -15,8 +15,12 @@ Two implementations of the same function:
 
 - :func:`ragged_paged_attention_kernel` launches the hand-written CUDA
   kernel ``csrc/ragged_paged_attention.cu`` (the Hopper counterpart of
-  the Pallas ``_ragged_kernel``).  It needs block-uniform packing: rows
-  come in :data:`BLOCK_ROWS` blocks, each block one sequence's.
+  the Pallas ``_ragged_kernel``) at head dims :data:`KERNEL_HEAD_DIMS`,
+  any group and page size, f32 or bf16 queries: a plan of work items,
+  persistent attention blocks over each sequence's tokens split into
+  spans of :func:`kernel_split_tokens`, and a merge of the spans.  It
+  needs block-uniform packing: rows come in :data:`BLOCK_ROWS` blocks,
+  each block one sequence's.
 - :func:`ragged_paged_attention_reference` is the plain PyTorch version:
   page-table gather plus a masked softmax in f32.
 
@@ -37,7 +41,7 @@ import torch.nn.functional as F
 from paddle_tpu_torch.kernels import build
 from paddle_tpu_torch.ops.attention import DEFAULT_MASK_VALUE
 from paddle_tpu_torch.platform.device import DeviceLike, resolve_device
-from paddle_tpu_torch.platform.enforce import enforce_that
+from paddle_tpu_torch.platform.enforce import EnforceError, enforce_that
 from paddle_tpu_torch.serving.kv_cache import dequantize_kv, quantize_kv
 
 BLOCK_ROWS = 8   # rows per kernel block; one sequence per block
@@ -47,14 +51,19 @@ BLOCK_ROWS = 8   # rows per kernel block; one sequence per block
 # leaves slack without letting a broken quant path slip through)
 QUANT_DRIFT_BOUND = 0.05
 
-# what the CUDA kernel is instantiated for: one head dim (a lane owns 4
-# of its columns) and the query heads per KV head it packs per block
-KERNEL_HEAD_DIM = 128
-KERNEL_GROUPS = (1, 2, 4, 8)
-# tokens per online-softmax tile of the CUDA kernel (KT in the source)
+# what the CUDA kernel is instantiated for: these head dims, any number of
+# query heads per KV head, f32 or bf16 queries
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
+# tokens per online-softmax tile of the CUDA kernel (KT in the source): the
+# tile whose running maximum P is rounded against on bf16 pages
 KERNEL_TILE_TOKENS = 32
+# the kernel splits each sequence's tokens into spans of at least this many
+# tokens (a multiple of the tile), and into at most KERNEL_MAX_SPLITS spans
+KERNEL_SPLIT_TOKENS = 128
+KERNEL_MAX_SPLITS = 16
 
 _PAGE_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_Q_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 # ---------------------------------------------------------------------------
@@ -64,16 +73,25 @@ _PAGE_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 def kernel_shape_error(head_dim: int, num_heads: int,
                        num_kv_heads: int) -> Optional[str]:
     """None when the CUDA kernel takes these shapes, else why not (with
-    the limit).  Any page size works."""
-    if head_dim != KERNEL_HEAD_DIM:
-        return (f"ragged kernel supports head_dim {KERNEL_HEAD_DIM}, got "
+    the limit).  Any page size and any group G = num_heads / num_kv_heads
+    work."""
+    if head_dim not in KERNEL_HEAD_DIMS:
+        return (f"ragged kernel takes head_dim in {KERNEL_HEAD_DIMS}, got "
                 f"{head_dim}")
-    if num_kv_heads < 1 or num_heads % num_kv_heads != 0 or \
-            num_heads // num_kv_heads not in KERNEL_GROUPS:
-        return (f"ragged kernel packs {KERNEL_GROUPS} query heads per KV "
-                f"head, got num_heads={num_heads}, "
-                f"num_kv_heads={num_kv_heads}")
+    if num_kv_heads < 1 or num_heads % num_kv_heads != 0:
+        return (f"ragged kernel needs num_kv_heads dividing num_heads, got "
+                f"num_heads={num_heads}, num_kv_heads={num_kv_heads}")
     return None
+
+
+def kernel_split_tokens(max_tokens: int) -> int:
+    """Tokens of one span of the CUDA kernel's split token axis, for a
+    page table covering ``max_tokens`` (``Pm * page``) tokens: at least
+    :data:`KERNEL_SPLIT_TOKENS`, a multiple of the tile, and few enough
+    that at most :data:`KERNEL_MAX_SPLITS` spans cover the table."""
+    per = -(-int(max_tokens) // KERNEL_MAX_SPLITS)
+    per = -(-per // KERNEL_TILE_TOKENS) * KERNEL_TILE_TOKENS
+    return max(KERNEL_SPLIT_TOKENS, per)
 
 
 def attention_path(head_dim: int, page_size: int, *, num_heads: int,
@@ -109,15 +127,17 @@ def ragged_paged_attention_reference(q, k_pages, v_pages, page_table,
                                      kv_lens, row_seq, qpos, *,
                                      k_scale=None, v_scale=None,
                                      sm_scale: Optional[float] = None,
-                                     round_p_tile: Optional[int] = None):
+                                     round_p_tile: Optional[int] = None,
+                                     round_p_span: Optional[int] = None):
     """Gather-then-mask version of the ragged kernel.
 
-    q: [T, H, D]; k_pages/v_pages: [num_pages, page, H_kv, D] (one
-    layer's pool slice, int8 with ``k_scale``/``v_scale`` [num_pages,
-    page, H_kv]); page_table: [S, Pm]; kv_lens: [S] — valid cached tokens
-    per sequence after this step's writes; row_seq: [T]; qpos: [T] (-1 =
-    padded row).  Returns [T, H, D] in q's dtype.  Padded rows return an
-    arbitrary finite value; callers never read them.
+    q: [T, H, D] (f32 or bf16); k_pages/v_pages: [num_pages, page, H_kv,
+    D] (one layer's pool slice, int8 with ``k_scale``/``v_scale``
+    [num_pages, page, H_kv]); page_table: [S, Pm]; kv_lens: [S] — valid
+    cached tokens per sequence after this step's writes; row_seq: [T];
+    qpos: [T] (-1 = padded row).  Returns [T, H, D] in q's dtype; scores
+    and sums are f32.  Padded rows return an arbitrary finite value;
+    callers never read them.
 
     ``round_p_tile`` mirrors a kernel's rounding on bf16 pages, which
     this version otherwise leaves out: the kernel takes the online
@@ -125,8 +145,10 @@ def ragged_paged_attention_reference(q, k_pages, v_pages, page_table,
     unnormalised probabilities (against the running maximum) to bf16
     before the PV product and keeps the normaliser in f32
     (``p.astype(vb.dtype)`` of the TPU kernel, whose tile is the page;
-    :data:`KERNEL_TILE_TOKENS` for the CUDA kernel).  It changes nothing
-    for f32 or int8 pages."""
+    :data:`KERNEL_TILE_TOKENS` for the CUDA kernel).  ``round_p_span``
+    restarts the running maximum every that many tokens, as the CUDA
+    kernel's split token axis does (:func:`kernel_split_tokens`).  Neither
+    changes anything for f32 or int8 pages."""
     t, h, d = q.shape
     _, page, kvh, _ = k_pages.shape
     pm = page_table.shape[1]
@@ -155,10 +177,14 @@ def ragged_paged_attention_reference(q, k_pages, v_pages, page_table,
         nt = -(-n // tile)
         tile_max = F.pad(s, (0, nt * tile - n), value=-math.inf).reshape(
             t, h, nt, tile).amax(dim=-1)
-        run = torch.cummax(tile_max, dim=-1).values          # [T, H, nt]
+        per = -(-int(round_p_span) // tile) if round_p_span else nt
+        ns = -(-nt // per)
+        run = torch.cummax(F.pad(tile_max, (0, ns * per - nt),
+                                 value=-math.inf).reshape(t, h, ns, per),
+                           dim=-1).values.reshape(t, h, ns * per)[..., :nt]
         m_tok = run.repeat_interleave(tile, dim=-1)[..., :n]
         e = torch.exp(s - m_tok)             # P as each tile computes it
-        w = torch.exp(m_tok - run[..., -1:])  # the later tiles' rescaling
+        w = torch.exp(m_tok - tile_max.amax(-1, keepdim=True))  # rescaling
         out = torch.einsum("thk,tkhd->thd",
                            e.to(torch.bfloat16).float() * w, v)
         out = out / (e * w).sum(dim=-1)[..., None]
@@ -192,10 +218,10 @@ def _ragged_reference_blocked(q, k_pages, v_pages, page_table, kv_lens,
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
 _RPA_SIGNATURES = {
-    # q, k_pages, v_pages, k_scale, v_scale, page_table, kv_lens,
-    # row_seq, qpos, out, T, H, KVH, D, page, Pm, page dtype, sm_scale,
-    # stream -> cudaError_t
-    "rpa_launch": ([_VOIDP] * 10 + [_INT] * 7 + [ctypes.c_float, _VOIDP],
+    # q, k_pages, v_pages, k_scale, v_scale, page_table, kv_lens, row_seq,
+    # qpos, out, ws_acc, ws_ml, plan, T, H, KVH, D, page, Pm, span, splits,
+    # max_items, page dtype, q dtype, sm_scale, stream -> cudaError_t
+    "rpa_launch": ([_VOIDP] * 13 + [_INT] * 11 + [ctypes.c_float, _VOIDP],
                    _INT),
     "rpa_error_string": ([_INT], ctypes.c_char_p),
 }
@@ -205,66 +231,82 @@ def _i32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int32).contiguous()
 
 
+def _kernel_args_error(q, k_pages, v_pages, page_table, kv_lens, row_seq,
+                       qpos, k_scale, v_scale) -> Optional[str]:
+    """None when the CUDA kernel takes these arguments, else why not (the
+    message is built only then: the checks run on every launch)."""
+    t, h, d = q.shape
+    num_pages, page, kvh, dk = k_pages.shape
+    dev = q.device
+    if dev.type != "cuda":
+        return f"the ragged kernel runs on CUDA tensors, got {dev}"
+    for name, x in (("k_pages", k_pages), ("v_pages", v_pages),
+                    ("page_table", page_table), ("kv_lens", kv_lens),
+                    ("row_seq", row_seq), ("qpos", qpos)):
+        if x.device != dev:
+            return f"{name} is on {x.device}, q on {dev}"
+    if q.dtype not in _Q_DTYPE_CODE:
+        return f"ragged kernel takes f32 or bf16 queries, got {q.dtype}"
+    if not (k_pages.dtype in _PAGE_DTYPE_CODE and
+            v_pages.dtype == k_pages.dtype and
+            v_pages.shape == k_pages.shape and dk == d):
+        return (f"pages must be matching f32/bf16/int8 [P, page, H_kv, "
+                f"{d}], got {k_pages.dtype} {tuple(k_pages.shape)} and "
+                f"{v_pages.dtype} {tuple(v_pages.shape)}")
+    if t % BLOCK_ROWS:
+        return (f"ragged kernel rows ({t}) must pack to BLOCK_ROWS "
+                f"({BLOCK_ROWS})")
+    if not (kv_lens.shape == page_table.shape[:1] and
+            row_seq.shape == q.shape[:1] and qpos.shape == q.shape[:1]):
+        return "kv_lens must be [S], row_seq and qpos [T]"
+    why = kernel_shape_error(d, h, kvh)
+    if why is not None:
+        return why
+    quantized = k_pages.dtype == torch.int8
+    if (k_scale is not None) != quantized or \
+            (v_scale is not None) != quantized:
+        return "int8 pages need k_scale and v_scale; float pages take none"
+    for x in ((k_scale, v_scale) if quantized else ()):
+        if not (x.dtype == torch.float32 and x.device == dev and
+                tuple(x.shape) == (num_pages, page, kvh) and
+                x.is_contiguous()):
+            return "scales must be contiguous f32 [P, page, H_kv] on q's " \
+                   "device"
+    if not (q.is_contiguous() and k_pages.is_contiguous() and
+            v_pages.is_contiguous()):
+        return "q and pages must be contiguous"
+    if (q.data_ptr() | k_pages.data_ptr() | v_pages.data_ptr()) % 16:
+        return ("q and pages must be 16-byte aligned (the kernel moves "
+                "16-byte chunks)")
+    return None
+
+
 def ragged_paged_attention_kernel(q, k_pages, v_pages, page_table, kv_lens,
                                   row_seq, qpos, *, k_scale=None,
                                   v_scale=None,
                                   sm_scale: Optional[float] = None):
     """Launch ``csrc/ragged_paged_attention.cu`` on CUDA tensors (same
-    arguments as :func:`ragged_paged_attention_reference`; q f32, pages
-    f32/bf16/int8).  Requires block-uniform packing: ``T`` a multiple of
-    :data:`BLOCK_ROWS` and each aligned block of rows one sequence's
-    (the block reads its sequence as ``row_seq[blk * BLOCK_ROWS]``).
-    Raises on anything the kernel does not take.  Each launch adds one
-    to ``ragged_paged_attention_kernel.launches``."""
+    arguments as :func:`ragged_paged_attention_reference`; q f32 or bf16,
+    pages f32/bf16/int8, head_dim in :data:`KERNEL_HEAD_DIMS`; output in
+    q's dtype).  bf16 queries on bf16 pages take bf16 tensor-core
+    products; every other pairing computes in f32: items of more than 16
+    score rows as 3xTF32 tensor-core products (about 22 bits of each f32
+    product), decode-sized ones on the CUDA cores.  Requires block-uniform
+    packing: ``T`` a
+    multiple of :data:`BLOCK_ROWS` and each aligned block of rows one
+    sequence's (the block reads its sequence as
+    ``row_seq[blk * BLOCK_ROWS]``).  Raises on anything the kernel does
+    not take.  Each launch adds one to
+    ``ragged_paged_attention_kernel.launches``."""
+    why = _kernel_args_error(q, k_pages, v_pages, page_table, kv_lens,
+                             row_seq, qpos, k_scale, v_scale)
+    if why is not None:
+        raise EnforceError(why, context="serving")
     t, h, d = q.shape
-    num_pages, page, kvh, dk = k_pages.shape
-    s, pm = page_table.shape
+    _, page, kvh, _ = k_pages.shape
+    pm = page_table.shape[1]
     dev = q.device
-    enforce_that(dev.type == "cuda", "the ragged kernel runs on CUDA "
-                 f"tensors, got {dev}", context="serving")
-    for name, x in (("k_pages", k_pages), ("v_pages", v_pages),
-                    ("page_table", page_table), ("kv_lens", kv_lens),
-                    ("row_seq", row_seq), ("qpos", qpos)):
-        enforce_that(x.device == dev, f"{name} is on {x.device}, q on "
-                     f"{dev}", context="serving")
-    enforce_that(q.dtype == torch.float32,
-                 f"ragged kernel takes f32 queries, got {q.dtype}",
-                 context="serving")
-    enforce_that(k_pages.dtype in _PAGE_DTYPE_CODE and
-                 v_pages.dtype == k_pages.dtype and
-                 v_pages.shape == k_pages.shape and dk == d,
-                 f"pages must be matching f32/bf16/int8 [P, page, H_kv, "
-                 f"{d}], got {k_pages.dtype} {tuple(k_pages.shape)} and "
-                 f"{v_pages.dtype} {tuple(v_pages.shape)}",
-                 context="serving")
-    enforce_that(t % BLOCK_ROWS == 0, f"ragged kernel rows ({t}) must pack "
-                 f"to BLOCK_ROWS ({BLOCK_ROWS})", context="serving")
-    enforce_that(tuple(kv_lens.shape) == (s,) and
-                 tuple(row_seq.shape) == (t,) and
-                 tuple(qpos.shape) == (t,),
-                 "kv_lens must be [S], row_seq and qpos [T]",
-                 context="serving")
-    why = kernel_shape_error(d, h, kvh)
-    enforce_that(why is None, str(why), context="serving")
-    quantized = k_pages.dtype == torch.int8
-    enforce_that((k_scale is not None) == quantized and
-                 (v_scale is not None) == quantized,
-                 "int8 pages need k_scale and v_scale; float pages take "
-                 "none", context="serving")
-    if quantized:
-        for x in (k_scale, v_scale):
-            enforce_that(x.dtype == torch.float32 and x.device == dev and
-                         tuple(x.shape) == (num_pages, page, kvh) and
-                         x.is_contiguous(),
-                         "scales must be contiguous f32 [P, page, H_kv] "
-                         "on q's device", context="serving")
-    enforce_that(q.is_contiguous() and k_pages.is_contiguous() and
-                 v_pages.is_contiguous(),
-                 "q and pages must be contiguous", context="serving")
-    enforce_that(all(x.data_ptr() % 16 == 0
-                     for x in (q, k_pages, v_pages)),
-                 "q and pages must be 16-byte aligned (the kernel moves "
-                 "16-byte chunks)", context="serving")
+    quantized = k_scale is not None
     if sm_scale is None:
         sm_scale = float(d) ** -0.5
     pt, ln, rs, qp = (_i32(page_table), _i32(kv_lens), _i32(row_seq),
@@ -272,15 +314,28 @@ def ragged_paged_attention_kernel(q, k_pages, v_pages, page_table, kv_lens,
     out = torch.empty_like(q)
     if t == 0:
         return out
+    span = kernel_split_tokens(pm * page)
+    splits = -(-(pm * page) // span)
+    # one scratch tensor: the partials of the rows whose tokens take more
+    # than one span ([splits, T, H, D] acc and [splits, T, H, 2] (m, l),
+    # f32), then the plan (a run of r row blocks has at most
+    # ceil(8 r G / 64) chunks of score rows, each at most `splits` items:
+    # int4 items, then three counters)
+    max_items = (t // BLOCK_ROWS) * (-(-(h // kvh) // 8) + 1) * splits
+    n_acc, n_ml = splits * t * h * d, splits * t * h * 2
+    scratch = torch.empty(n_acc + n_ml + 4 * max_items + 4,
+                          dtype=torch.float32, device=dev)
+    base = scratch.data_ptr()
     lib = build.load("ragged_paged_attention", _RPA_SIGNATURES)
     rc = lib.rpa_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None,
         pt.data_ptr(), ln.data_ptr(), rs.data_ptr(), qp.data_ptr(),
-        out.data_ptr(), t, h, kvh, d, page, pm,
-        _PAGE_DTYPE_CODE[k_pages.dtype], float(sm_scale),
-        torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), base, base + 4 * n_acc, base + 4 * (n_acc + n_ml),
+        t, h, kvh, d, page, pm, span, splits, max_items,
+        _PAGE_DTYPE_CODE[k_pages.dtype], _Q_DTYPE_CODE[q.dtype],
+        float(sm_scale), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("ragged_paged_attention launch failed: "
                            + lib.rpa_error_string(rc).decode())

@@ -171,7 +171,7 @@ def reference_logits(model: DecoderLM, tokens: Sequence[int]) -> np.ndarray:
         q, k, v = model.qkv(l, x)
         ctx = mha_reference(q, k, v, causal=True)
         x = model.attn_out(l, ctx, x)
-    return model.logits(x[0, -1]).cpu().numpy()
+    return model.logits(x[0, -1]).float().cpu().numpy()
 
 
 def greedy_decode_reference(model: DecoderLM, prompt: List[int],
@@ -355,7 +355,8 @@ class ServingEngine:
                          torch.where(wmask, v, 0.0), pages, offs)
             ctx = self._attend(l, q, table, att_lens, row_seq, qpos)
             x = model.attn_out(l, ctx, x)
-        logits = model.logits(x[sel]).cpu().numpy()   # the step's one sync
+        # the step's one sync; bf16 logits widen exactly to f32
+        logits = model.logits(x[sel]).float().cpu().numpy()
         return logits[:b], logits[b:]
 
     # ---- user surface ----------------------------------------------------

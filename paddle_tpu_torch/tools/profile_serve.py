@@ -37,7 +37,7 @@ from paddle_tpu_torch.tools.serve_workload import (Workload, build_model,
 
 def _group(name: str) -> str:
     low = name.lower()
-    if "ragged_paged_attention" in low:
+    if "ragged_attention" in low or "ragged_paged_attention" in low:
         return "ragged_attention"
     if "gemm" in low or "gemv" in low or "cutlass" in low:
         return "matmul"

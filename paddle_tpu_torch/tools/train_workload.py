@@ -156,6 +156,15 @@ FLASH_CASES = {
     # segment 1), so the held stage comes round in the ring again
     "h_bf16_segments_noncausal": ("bfloat16", 2048, 2048, 16, 128, False,
                                   (600, 1000, 300)),
+    # (i, j) the CUDA-core kernels at the head dims the wgmma ones do not
+    # take, as `layer.multi_head_attention` gives them: size 256 over 8
+    # heads (head dim 32) and size 2048 over 8 heads (head dim 256)
+    "i_bf16_segments_causal_d32": ("bfloat16", 2048, 2048, 8, 32, True,
+                                   (600, 1000, 300)),
+    "j_bf16_segments_causal_d256": ("bfloat16", 2048, 2048, 8, 256, True,
+                                    (600, 1000, 300)),
+    # (k) a length that is not whole 64-row tiles: 96 queries and keys
+    "k_bf16_causal_s96": ("bfloat16", 96, 96, 16, 128, True, None),
 }
 
 

@@ -132,6 +132,34 @@ def test_engine_token_identical_to_jax(models, kv_dtype, use_kernel):
         (jm_.prefill_rows, jm_.prefill_pad_rows)
 
 
+@pytest.mark.parametrize("use_kernel", [False, True],
+                         ids=["compact", "kernel_packing"])
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16"])
+def test_bf16_decoder_lm_serves_token_identical_to_its_oracle(models,
+                                                              kv_dtype,
+                                                              use_kernel):
+    """A bf16 ``DecoderLM`` (the JAX weights cast to bf16) through both row
+    packings and over f32 and bf16 pools: the attention takes bf16
+    queries and returns bf16, the host reads the logits widened to f32,
+    and every request is token-identical to the port's non-paged greedy
+    oracle on the same model."""
+    _, _, tm = models
+    params = {k: v.float().numpy() for k, v in tm.state_dict().items()}
+    bf = DecoderLM(**CFG, device="cpu", dtype=torch.bfloat16)
+    bf.load_state_dict({k: torch.from_numpy(v).to(torch.bfloat16)
+                        for k, v in params.items()})
+    eng = ServingEngine(bf, kv_dtype=kv_dtype, use_kernel=use_kernel,
+                        device="cpu", **ENGINE)
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(2, 64, size=n).tolist() for n in (3, 26, 11)]
+    rids = [eng.submit(p, max_tokens=6) for p in prompts]
+    eng.run(max_ticks=200)
+    assert_serving_drained(eng)
+    for prompt, rid in zip(prompts, rids):
+        want = greedy_decode_reference(bf, prompt, 6, ENGINE["eos_id"])
+        assert eng.result(rid) == want
+
+
 def _engine(tm, **kw):
     return ServingEngine(tm, device="cpu", **dict(ENGINE, **kw))
 

@@ -8,7 +8,10 @@ Inputs are made with numpy from a seed and handed to both.  The cases are
 those of ``tests/test_attention.py``: causal and not, packed segments
 with a padding segment, cross-attention with Sq != Sk (causal with Sk >
 Sq included), and bf16 inputs (non-causal attention without segment ids
-runs in the cross-attention case).
+runs in the cross-attention case); and the shapes the CUDA-core kernels
+add: head dims 16 and 256 and lengths 32 and 96, which JAX runs at one
+block clamped to the length.  The kernels' route and tile rules are
+checked here too.
 
 Tolerances: f32 2e-5 absolute on the output and the q/k/v gradients (the
 frameworks sum in other orders).  bf16: 1e-2 absolute and relative, about
@@ -93,14 +96,24 @@ CASES = {
     "segments_padding_causal": (1, 128, 128, 2, 32, 64, 64, (3, 7), True),
     "cross": (1, 64, 128, 2, 16, 32, 64, None, False),
     "cross_causal_sk_gt_sq": (1, 32, 128, 2, 16, 32, 32, None, True),
+    # the CUDA kernels' other head dims and lengths that are not whole
+    # 64-row tiles (JAX clamps its 128 block to the length)
+    "d16_segments_causal": (1, 128, 128, 2, 16, 64, 64, (3, 7), True),
+    "d256_segments_causal": (1, 128, 128, 2, 256, 64, 64, (3, 7), True),
+    "sq32_causal": (1, 32, 32, 2, 32, 128, 128, None, True),
+    "sq96_segments_padding_causal": (2, 96, 96, 2, 16, 128, 128, (3, 5),
+                                     True),
+    "sq96_d256_segments": (1, 96, 96, 2, 256, 128, 128, (2, 4), False),
 }
 
 
-# every case in f32; bf16 on the training path's causal self-attention
-# and on cross-attention
+# every case in f32; bf16 on the training path's causal self-attention,
+# on cross-attention, at head dims 16 and 256 and at lengths 32 and 96
 RUNS = [(c, "f32") for c in sorted(CASES)] + [
     ("full_causal", "bf16"), ("segments_padding_causal", "bf16"),
-    ("cross", "bf16")]
+    ("cross", "bf16"), ("d16_segments_causal", "bf16"),
+    ("d256_segments_causal", "bf16"), ("sq32_causal", "bf16"),
+    ("sq96_segments_padding_causal", "bf16")]
 
 
 @pytest.mark.parametrize("case,dtype", RUNS)
@@ -178,9 +191,13 @@ def test_cpu_path_launches_no_kernel_and_kernel_limits():
     assert err((1, 8192, 16, 128), (1, 8192, 16, 128), torch.bfloat16) \
         is None
     assert err((1, 128, 2, 64), (1, 256, 2, 64), torch.float32) is None
-    assert "head_dim" in err((1, 128, 2, 32), (1, 128, 2, 32), torch.float32)
-    assert "64-row tiles" in err((1, 100, 2, 128), (1, 100, 2, 128),
-                                 torch.float32)
+    # head dims 16-256 and lengths that end in a partial tile are taken;
+    # other head dims raise with the compiled set in the message
+    for d in tattn.KERNEL_HEAD_DIMS:
+        assert err((1, 96, 2, d), (1, 32, 2, d), torch.bfloat16) is None
+    assert err((1, 100, 2, 128), (1, 100, 2, 128), torch.float32) is None
+    assert "(16, 32, 64, 128, 256), got 80" in err(
+        (1, 128, 2, 80), (1, 128, 2, 80), torch.float32)
     assert "float32 or bfloat16" in err((1, 64, 2, 128), (1, 64, 2, 128),
                                         torch.float16)
     assert "GQA" in err((1, 64, 4, 128), (1, 64, 2, 128), torch.float32)
@@ -201,3 +218,61 @@ def test_train_slice_imports_no_jax():
             "m.startswith(('jax.', 'paddle_tpu.'))]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True)
+
+
+def test_each_shape_has_one_kernel_route():
+    """bf16 with P rounded at head dim 64 or 128 on whole 64-row tiles
+    goes to the wgmma kernels; every other shape the kernels take (f32,
+    ``pv_f32``, head dims 16, 32 and 256, a partial last tile) to the
+    CUDA-core ones, which tile at 32 rows at head dim 256."""
+    route = tattn.kernel_route
+    bf, f32 = torch.bfloat16, torch.float32
+    wgmma, cores = "flash_attention_sm90", "flash_attention"
+    assert route((1, 8192, 16, 128), (1, 8192, 16, 128), bf, False) == wgmma
+    assert route((1, 576, 16, 64), (1, 2048, 16, 64), bf, False) == wgmma
+    assert route((1, 8192, 16, 128), (1, 8192, 16, 128), bf, True) == cores
+    assert route((1, 1024, 16, 128), (1, 1024, 16, 128), f32, False) == cores
+    for d in (16, 32, 256):
+        assert route((1, 1024, 4, d), (1, 1024, 4, d), bf, False) == cores
+    assert route((1, 96, 4, 128), (1, 96, 4, 128), bf, False) == cores
+    assert route((1, 128, 4, 64), (1, 32, 4, 64), bf, False) == cores
+    assert [tattn.kernel_tile(d) for d in tattn.KERNEL_HEAD_DIMS] == \
+        [64, 64, 64, 64, 32]
+
+
+def test_tile_ranges_of_a_partial_last_tile():
+    """The per-tile segment-id ranges over a length that ends in a
+    partial tile cover only the ids the tile holds."""
+    seg = torch.tensor([[0] * 40 + [1] * 30 + [2] * 30], dtype=torch.int32)
+    got = tattn._tile_ranges(seg, 32)
+    assert got.tolist() == [[[0, 0], [0, 1], [1, 2], [2, 2]]]
+    assert tattn._tile_ranges(seg).tolist() == [[[0, 1], [1, 2]]]
+
+
+@pytest.mark.parametrize("d", [16, 256])
+def test_plain_key_blocks_follow_the_kernel_tile(d):
+    """The plain versions' default key block is the kernels' tile, with a
+    shorter last block where it does not divide the length: forward and
+    gradients equal the ones at an explicit block of that size, and stay
+    within the bf16 rounding of P of a single block."""
+    rng = np.random.RandomState(8)
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16) for x in
+                   _qkv(rng, 1, 96, 96, 2, d) + [rng.randn(1, 96, 2, d)
+                                                 .astype(np.float32)])
+    seg = torch.from_numpy(_segments(rng, 1, 96, 3, 5))
+    cfg = dict(causal=True, sm_scale=d ** -0.5)
+    tile = tattn.kernel_tile(d)
+    o, lse = tattn.flash_fwd_reference(q, k, v, seg, seg, **cfg)
+    o2, lse2 = tattn.flash_fwd_reference(q, k, v, seg, seg, block_k=tile,
+                                         **cfg)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    one, _ = tattn.flash_fwd_reference(q, k, v, seg, seg, block_k=96, **cfg)
+    np.testing.assert_allclose(o.float().numpy(), one.float().numpy(),
+                               atol=2e-2, rtol=2e-2)
+    args = (q, k, v, seg, seg, do, lse, tattn.attention_delta(o, do))
+    dk, dv = tattn.flash_bwd_kv_reference(*args, **cfg)
+    dk2, dv2 = tattn.flash_bwd_kv_reference(*args, block_k=tile, **cfg)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    assert torch.equal(tattn.flash_bwd_dq_reference(*args, **cfg),
+                       tattn.flash_bwd_dq_reference(*args, block_k=tile,
+                                                    **cfg))

@@ -1,10 +1,13 @@
 """The port's CUDA kernels on the card: the ragged paged-attention kernel
-against its plain PyTorch version, the decode-only view, and a small
-ServingEngine on CUDA against the port's greedy oracle; the three
-flash-attention kernels against their plain versions on ``chip_smoke.py``'s
-cases, through the autograd function, and a small transformer trained
-through the kernels against the same steps through the plain versions;
-the four RNN kernels (the fused LSTM step, the one-launch GRU step and
+against its plain PyTorch version at every head dim, group, query and
+page type it takes, the decode-only view, and small ServingEngines on
+CUDA (GQA; the default ``DecoderLM`` at head_dim 16, f32 and bf16)
+against the port's greedy oracle; the three flash-attention kernels
+against their plain versions on ``chip_smoke.py``'s cases and at head
+dims 16, 32, 256 and lengths that end in a partial tile, through the
+autograd function, and small transformers (head dims 128, 32, 256)
+trained through the kernels against the same steps through the plain
+versions; the four RNN kernels (the fused LSTM step, the one-launch GRU step and
 the two-launch GRU step) against their plain versions on
 ``chip_smoke.py``'s cases and, for the LSTM step, on shapes that are not
 whole tiles, the one-launch GRU step's refusal of a grid the
@@ -20,10 +23,13 @@ runs on a machine without JAX; there the repository's ``conftest.py``
 
 Tolerances: 1e-4 abs + rel for f32 and int8 pages (the two versions sum
 in different orders).  bf16 pages: 1e-3 against the plain version with
-``round_p_tile``, which rounds the softmax probabilities to bf16 before
-the PV product at the kernel's tiles (scores summed in another order can
-still move a probability across a bf16 rounding step), and 2e-2 against
-the plain version that does not round.  Flash kernels: f32 outputs and
+``round_p_tile`` and ``round_p_span``, which round the softmax
+probabilities to bf16 before the PV product at the kernel's tiles and
+spans (scores summed in another order can still move a probability
+across a bf16 rounding step), and 2e-2 against the plain version that
+does not round; bf16 outputs within one bf16 step of the value plus
+1e-3, on the tensor-core path (bf16 on bf16) for all but 0.1% of the
+elements (``tools/ragged_cases.check`` states why).  Flash kernels: f32 outputs and
 every lse at 1e-4 abs + rel; bf16 outputs within one bf16 step of their
 own magnitude plus 2e-3 of the tensor's largest (``train_workload.
 flash_error``: the plain version rounds P and dS at the kernels' tiles,
@@ -47,6 +53,7 @@ from paddle_tpu_torch.serving import (DecoderLM, ServingEngine,
                                       reference_logits)
 from paddle_tpu_torch.serving import decode_attention as tda
 from paddle_tpu_torch.serving.kv_cache import quantize_kv
+from paddle_tpu_torch.tools import ragged_cases as rc
 from paddle_tpu_torch.tools import rnn_workload as rw
 from paddle_tpu_torch.tools import train_workload as tw
 
@@ -65,7 +72,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def _case(dev, seqs, kvh, h, pm=4, num_pages=24, seed=0):
+def _case(dev, seqs, kvh, h, pm=4, num_pages=24, seed=0, d=D):
     """A batch in the kernel packing on ``dev``: (kv_len, q_rows, q_start)
     per sequence, each sequence's rows padded to whole 8-row blocks."""
     rng = np.random.default_rng(seed)
@@ -80,9 +87,9 @@ def _case(dev, seqs, kvh, h, pm=4, num_pages=24, seed=0):
         qpos += pos + [-1] * (blocks * tda.BLOCK_ROWS - qr)
         row_seq += [i] * blocks * tda.BLOCK_ROWS
     arrays = dict(
-        q=rng.standard_normal((len(qpos), h, D), np.float32),
-        k_pages=rng.standard_normal((num_pages, PAGE, kvh, D), np.float32),
-        v_pages=rng.standard_normal((num_pages, PAGE, kvh, D), np.float32),
+        q=rng.standard_normal((len(qpos), h, d), np.float32),
+        k_pages=rng.standard_normal((num_pages, PAGE, kvh, d), np.float32),
+        v_pages=rng.standard_normal((num_pages, PAGE, kvh, d), np.float32),
         page_table=table, kv_lens=np.asarray([s[0] for s in seqs], np.int32),
         row_seq=np.asarray(row_seq, np.int32),
         qpos=np.asarray(qpos, np.int32))
@@ -114,12 +121,52 @@ def test_kernel_matches_plain(cuda, dtype, kvh):
     torch.testing.assert_close(got[real], want[real], rtol=tol, atol=tol)
     if dtype == "bfloat16":
         rounded = tda.ragged_paged_attention_reference(
-            *args, round_p_tile=tda.KERNEL_TILE_TOKENS)
+            *args, **rc.kernel_rounding(c))
         torch.testing.assert_close(got[real], rounded[real], rtol=1e-3,
                                    atol=1e-3)
     # a block whose sequence holds nothing yields zeros, not NaN
     empty = c["row_seq"] == 1
     assert torch.equal(got[empty], torch.zeros_like(got[empty]))
+
+
+# (num_kv_heads, num_heads): G 1, 3 and 16, at every head dim
+GROUPS = [(2, 2), (2, 6), (1, 16)]
+
+
+@pytest.mark.parametrize("pages", ["float32", "int8", "bfloat16"])
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kvh,h", GROUPS, ids=["g1", "g3", "g16"])
+@pytest.mark.parametrize("d", tda.KERNEL_HEAD_DIMS)
+def test_kernel_matches_plain_at_every_shape(cuda, d, kvh, h, q_dtype,
+                                             pages):
+    """Every compiled head dim, G 1, 3 and 16, f32 and bf16 queries over
+    f32, int8 and bf16 pages (bf16 on bf16 runs on the tensor cores),
+    against the plain version at ``ragged_cases``' tolerances
+    (``ragged_cases.check``).  Rows of a 200-token chunk and of a 40-row
+    chunk take several spans and go through the merge."""
+    seqs = [(300, 40, 260), (0, 1, 0), (129, 1, 0), (77, 1, 0),
+            (512, 8, 504), (200, 200, 0)]
+    c = _case(cuda, seqs, kvh, h, pm=4, num_pages=32, seed=d + h, d=d)
+    kw = {}
+    if pages == "int8":
+        c["k_pages"], kw["k_scale"] = quantize_kv(c["k_pages"])
+        c["v_pages"], kw["v_scale"] = quantize_kv(c["v_pages"])
+    elif pages == "bfloat16":
+        c["k_pages"] = c["k_pages"].bfloat16()
+        c["v_pages"] = c["v_pages"].bfloat16()
+    if q_dtype == "bfloat16":
+        c["q"] = c["q"].bfloat16()
+    c.update(kw)
+    before = tda.ragged_paged_attention_kernel.launches
+    got = tda.ragged_paged_attention_kernel(*rc.args(c), **kw)
+    torch.cuda.synchronize()
+    assert tda.ragged_paged_attention_kernel.launches == before + 1
+    assert got.dtype == c["q"].dtype
+    res = rc.check(c, got)
+    assert res["within_tolerance"], res
+    real = c["qpos"] >= 0
+    # padded rows and the empty sequence's rows are zeros
+    assert torch.equal(got[~real], torch.zeros_like(got[~real]))
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
@@ -128,8 +175,11 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(EnforceError, match="BLOCK_ROWS"):
         tda.ragged_paged_attention_kernel(args[0][:-1], *args[1:5],
                                           args[5][:-1], args[6][:-1])
-    with pytest.raises(EnforceError, match="f32 queries"):
+    with pytest.raises(EnforceError, match="f32 or bf16 queries"):
         tda.ragged_paged_attention_kernel(args[0].double(), *args[1:])
+    c80 = _case(cuda, SEQS, 16, 16, d=80)
+    with pytest.raises(EnforceError, match=r"head_dim in \(16, 32"):
+        tda.ragged_paged_attention_kernel(*[c80[k] for k in _ARGS])
     with pytest.raises(EnforceError, match="use_kernel=False"):
         tda.attention_path(D, PAGE, num_heads=16, num_kv_heads=16,
                            device=cuda, use_kernel=False)
@@ -179,6 +229,31 @@ def test_engine_on_cuda_matches_greedy_reference(cuda):
             j = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
             top2 = np.sort(reference_logits(model, prompt + want[:j]))[-2:]
             assert top2[1] - top2[0] < 1e-3 * abs(top2[1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_engine_serves_the_default_decoder_lm_on_cuda(cuda, dtype):
+    """``DecoderLM`` at its defaults (2 layers, 2 heads of head_dim 16)
+    and its bf16 version, served on the card through the ragged kernel:
+    tokens equal to the greedy oracle, the kernel launched once a layer a
+    step."""
+    model = DecoderLM(vocab_size=512, device=cuda,
+                      dtype=getattr(torch, dtype))
+    assert model.head_dim == 16
+    decoder_lm_from_numpy(init_numpy_params(model, 5), model)
+    eng = ServingEngine(model, eos_id=-1, page_size=16, num_pages=64,
+                        max_pages_per_seq=16, max_slots=4, prefill_chunk=32,
+                        buckets=(32, 64), device=cuda)
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(2, 512, n).tolist() for n in (50, 70, 5)]
+    tda.ragged_paged_attention_kernel.launches = 0
+    rids = [eng.submit(p, max_tokens=8) for p in prompts]
+    eng.run()
+    assert tda.ragged_paged_attention_kernel.launches == \
+        model.num_layers * eng.metrics.step_dispatches > 0
+    for prompt, rid in zip(prompts, rids):
+        assert eng.result(rid) == greedy_decode_reference(model, prompt, 8,
+                                                          -1)
 
 
 # ---------------------------------------------------------------------------
@@ -247,7 +322,7 @@ def test_flash_padding_tile_that_matches_nothing(cuda, d):
     want = case.v.float().mean(1, keepdim=True).expand(-1, 64, -1, -1)
     torch.testing.assert_close(o[:, pad].float(), want, rtol=0, atol=1e-3)
     # dQ of bf16 is the wgmma kernel's, and the padding rows get none
-    assert tattn._library(case.q, False) is build.load(
+    assert tattn._library(case.q, case.k, False) is build.load(
         "flash_attention_sm90", tattn._SIGNATURES)
     before = tattn.flash_bwd_dq_kernel.launches
     dq = tattn.flash_bwd_dq_kernel(
@@ -289,14 +364,74 @@ def test_flash_attention_launches_each_kernel_once(cuda):
 
 def test_flash_kernels_refuse_what_they_do_not_take(cuda):
     seg = torch.zeros((1, 128), dtype=torch.int32, device=cuda)
-    for shape, dtype, match in (((1, 128, 2, 32), torch.float32, "head_dim"),
-                                ((1, 100, 2, 128), torch.float32, "64-row"),
+    for shape, dtype, match in (((1, 128, 2, 80), torch.float32,
+                                 r"head_dim in \(16, 32, 64, 128, 256\)"),
                                 ((1, 128, 2, 128), torch.float16,
                                  "float32 or bfloat16")):
         x = torch.zeros(shape, dtype=dtype, device=cuda)
         s = seg[:, :shape[1]].contiguous()
         with pytest.raises(EnforceError, match=match):
             tattn.flash_attention(x, x, x, segment_ids=s, causal=True)
+    q = torch.zeros((1, 64, 4, 64), device=cuda)
+    kv = torch.zeros((1, 64, 2, 64), device=cuda)
+    with pytest.raises(EnforceError, match="no GQA"):
+        tattn.flash_fwd_kernel(q, kv, kv, seg[:, :64].contiguous(),
+                               seg[:, :64].contiguous(), causal=True,
+                               sm_scale=0.125)
+
+
+# (B, Sq, Sk, H, D, causal, packed lengths or None): the CUDA-core route
+# at head dims 16, 32 and 256 and at lengths that are not whole 64-row
+# tiles (32, 96; 96 against 160 keys)
+SMALL_FLASH = {
+    "d16_sq96_segments": (2, 96, 96, 4, 16, True, (30, 50)),
+    "d32_s512_segments": (1, 512, 512, 4, 32, True, (200, 250)),
+    "d256_s256_segments": (1, 256, 256, 2, 256, True, (100, 120)),
+    "d256_sq96_cross": (1, 96, 160, 2, 256, False, None),
+    "d128_sq32_causal": (1, 32, 32, 4, 128, True, None),
+    "d64_sq96_sk160_causal": (1, 96, 160, 4, 64, True, None),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(SMALL_FLASH))
+def test_flash_kernels_at_other_head_dims_and_lengths(cuda, name, dtype):
+    """The three kernels against their plain versions (P and dS rounded
+    at the kernels' tiles) where the CUDA-core kernels take what the
+    wgmma kernels do not: head dims 16, 32 and 256 and lengths that end
+    in a partial tile; then the autograd function on the same inputs,
+    one launch of each kernel."""
+    b, sq, sk, h, d, causal, lengths = SMALL_FLASH[name]
+    rng = np.random.default_rng([b, sq, sk, d])
+    dt = getattr(torch, dtype)
+
+    def normal(s):
+        return torch.from_numpy(rng.standard_normal((b, s, h, d),
+                                                    np.float32)).to(cuda, dt)
+
+    q_seg = np.zeros((b, sq), np.int32) if lengths is None else \
+        np.repeat(tw.packed_segments(lengths, sq), b, axis=0)
+    kv_seg = q_seg if sq == sk else np.zeros((b, sk), np.int32)
+    case = tw.FlashCase(name=name, q=normal(sq), k=normal(sk), v=normal(sk),
+                        dout=normal(sq),
+                        q_seg=torch.from_numpy(q_seg).to(cuda),
+                        kv_seg=torch.from_numpy(kv_seg).to(cuda),
+                        causal=causal)
+    assert tattn.kernel_route(tuple(case.q.shape), tuple(case.k.shape), dt,
+                              False) == "flash_attention"
+    _check_flash_case(case)
+    q, k, v = (x.clone().requires_grad_(True)
+               for x in (case.q, case.k, case.v))
+    before = [kern.launches for kern in (tattn.flash_fwd_kernel,
+                                         tattn.flash_bwd_kv_kernel,
+                                         tattn.flash_bwd_dq_kernel)]
+    out = tattn.flash_attention(q, k, v, segment_ids=case.q_seg,
+                                kv_segment_ids=case.kv_seg, causal=causal)
+    torch.autograd.grad(out, (q, k, v), case.dout)
+    after = [kern.launches for kern in (tattn.flash_fwd_kernel,
+                                        tattn.flash_bwd_kv_kernel,
+                                        tattn.flash_bwd_dq_kernel)]
+    assert [a - b_ for a, b_ in zip(after, before)] == [1, 1, 1]
 
 
 def test_training_kernel_path_matches_plain_path(cuda):
@@ -328,6 +463,47 @@ def test_training_kernel_path_matches_plain_path(cuda):
     before = tattn.flash_fwd_kernel.launches
     kernel_costs = run()
     assert tattn.flash_fwd_kernel.launches == before + 4
+    with tw.plain_flash_path():
+        plain_costs = run()
+    np.testing.assert_allclose(kernel_costs, plain_costs, rtol=1e-3)
+
+
+@pytest.mark.parametrize("d_model,n_heads", [(256, 8), (512, 2)],
+                         ids=["head_dim32", "head_dim256"])
+def test_training_at_other_head_dims(cuda, d_model, n_heads):
+    """``layer.multi_head_attention`` at head_dim = size // heads of 32
+    and 256 trains on the card through the CUDA-core flash kernels: two
+    steps, each kernel launched once a layer a step, costs finite and
+    within 1e-3 relative of the same steps through the plain versions."""
+    from paddle_tpu_torch import optimizer, topology, trainer
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.parameters import Parameters
+
+    samples = tw.lm_samples(4, bs=2, seq=96, vocab=500)
+
+    def run():
+        topology.reset_name_scope()
+        *_, cost = transformer.build(vocab_size=500, d_model=d_model,
+                                     n_layers=2, n_heads=n_heads,
+                                     max_len=128)
+        params = Parameters.from_topology(topology.Topology([cost]),
+                                          seed=1, device=cuda)
+        sgd = trainer.SGD(cost, params, optimizer.Momentum(
+            momentum=0.9, learning_rate=1e-3), device=cuda)
+        costs = []
+        sgd.train(tw.repeat_reader(samples, 2), event_handler=lambda ev:
+                  costs.append(ev.cost)
+                  if isinstance(ev, event.EndIteration) else None,
+                  feeding=tw.FEEDING)
+        return costs
+
+    kernels = (tattn.flash_fwd_kernel, tattn.flash_bwd_kv_kernel,
+               tattn.flash_bwd_dq_kernel)
+    before = [kern.launches for kern in kernels]
+    kernel_costs = run()
+    assert [kern.launches - b for kern, b in zip(kernels, before)] == \
+        [4, 4, 4]
+    assert np.isfinite(kernel_costs).all()
     with tw.plain_flash_path():
         plain_costs = run()
     np.testing.assert_allclose(kernel_costs, plain_costs, rtol=1e-3)

@@ -2,9 +2,12 @@
 against the JAX package: the plain PyTorch version against the Pallas
 kernel in interpret mode and against the JAX plain version, on the mixed
 prefill+decode cases of the JAX suite, MHA and GQA, f32/int8/bf16 pages,
-with a length-0 sequence.  The same numpy inputs, made from a seed, go to
-both packages; only real rows (qpos >= 0) are compared — padded rows are
-arbitrary by contract.
+with a length-0 sequence; at the CUDA kernel's other head dims (16, 32,
+64, 256) and groups (1, 3, 16), and with bf16 queries (a bf16 output,
+held to one bf16 step of the value plus 2e-5); the P rounding over the
+kernel's spans (``round_p_span``) and its span rule.  The same numpy
+inputs, made from a seed, go to both packages; only real rows (qpos >=
+0) are compared — padded rows are arbitrary by contract.
 
 Tolerances: 2e-5 abs+rel for f32 math on both sides (the two libraries
 sum in different orders); bf16 pages against the Pallas kernel at 2e-2
@@ -210,11 +213,17 @@ def test_attention_path_chooser(monkeypatch):
     with pytest.raises(EnforceError, match="use_kernel=False"):
         tda.attention_path(128, 128, num_heads=16, num_kv_heads=16,
                            device="cuda", use_kernel=False)
-    with pytest.raises(EnforceError, match="head_dim 128"):
-        tda.attention_path(64, 128, num_heads=16, num_kv_heads=16,
+    # every compiled head dim, and any group that divides the heads
+    assert tda.attention_path(64, 128, num_heads=16, num_kv_heads=16,
+                              device="cuda") == "kernel"
+    assert tda.attention_path(128, 128, num_heads=12, num_kv_heads=4,
+                              device="cuda") == "kernel"
+    with pytest.raises(EnforceError,
+                       match=r"head_dim in \(16, 32, 64, 128, 256\)"):
+        tda.attention_path(80, 128, num_heads=16, num_kv_heads=16,
                            device="cuda")
-    with pytest.raises(EnforceError, match="query heads per KV head"):
-        tda.attention_path(128, 128, num_heads=12, num_kv_heads=4,
+    with pytest.raises(EnforceError, match="dividing num_heads"):
+        tda.attention_path(128, 128, num_heads=12, num_kv_heads=5,
                            device="cuda")
 
 
@@ -242,3 +251,109 @@ def test_round_p_plain_pins_pallas_bf16_rounding(case):
     np.testing.assert_array_equal(
         tda.ragged_paged_attention_reference(*_torch(f), round_p_tile=PAGE),
         tda.ragged_paged_attention_reference(*_torch(f)))
+
+
+# head dims and groups of the CUDA kernel: (head_dim, num_kv_heads,
+# num_heads); G 1, 3 and 16 (MQA)
+SHAPES = [(16, 2, 2), (32, 2, 6), (64, 1, 16), (256, 1, 3), (16, 1, 16),
+          (32, 4, 4), (256, 2, 32)]
+
+
+@pytest.mark.parametrize("d,kvh,h", SHAPES,
+                         ids=[f"d{d}_g{h // kvh}" for d, kvh, h in SHAPES])
+@pytest.mark.parametrize("case", [0, 2, 3])
+def test_plain_matches_pallas_at_every_kernel_head_dim_and_group(case, d,
+                                                                 kvh, h):
+    """The plain version against the Pallas kernel (interpret mode) and
+    the JAX plain version at the CUDA kernel's other head dims and at
+    groups of 1, 3 and 16 query heads per KV head, f32 at 2e-5."""
+    rng = np.random.RandomState(30 + case)
+    c = _build_mixed(rng, MIXED_CASES[case], kvh, h, d=d)
+    real = c["qpos"] >= 0
+    got = tda.ragged_paged_attention_reference(*_torch(c)).numpy()
+    ker = np.asarray(jda._ragged_pallas(
+        *_jax(c)[:3], None, None, *_jax(c)[3:], float(d) ** -0.5, True))
+    ref = np.asarray(jda.ragged_paged_attention_reference(*_jax(c)))
+    np.testing.assert_allclose(got[real], ker[real], **F32_TOL)
+    np.testing.assert_allclose(got[real], ref[real], **F32_TOL)
+
+
+# bf16 queries: the output is bf16 in both packages; each side rounds one
+# f32 result to bf16, so they agree to one bf16 step of the value
+# (2**-7 relative) plus 2e-5 for the order of the f32 sums
+BF16_OUT_TOL = dict(rtol=2.0 ** -7, atol=2e-5)
+
+
+@pytest.mark.parametrize("pages", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("d,kvh,h", [(16, 2, 6), (128, 1, 16)],
+                         ids=["d16_g3", "d128_g16"])
+def test_bf16_queries_match_jax(d, kvh, h, pages):
+    """bf16 queries over f32, bf16 and int8 pages: the port's plain
+    version returns bf16 and agrees with the JAX plain version; the Pallas
+    kernel rounds P on bf16 pages at its page tiles, which the plain
+    version does with ``round_p_tile`` set to the page."""
+    rng = np.random.RandomState(40 + d)
+    c = _pages_as(_build_mixed(rng, MIXED_CASES[2], kvh, h, d=d), pages)
+    c["q"] = np.asarray(jnp.asarray(c["q"], jnp.bfloat16))
+    real = c["qpos"] >= 0
+    args, kw = _torch_pages(c)
+    assert args[0].dtype == torch.bfloat16
+    got = tda.ragged_paged_attention_reference(*args, **kw)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    jkw = {k: jnp.asarray(c[k]) for k in ("k_scale", "v_scale") if k in c}
+    ref = jda.ragged_paged_attention_reference(*_jax(c), **jkw)
+    assert ref.dtype == jnp.bfloat16
+    np.testing.assert_allclose(got[real], np.asarray(ref, np.float32)[real],
+                               **BF16_OUT_TOL)
+    ker = jda._ragged_pallas(*_jax(c)[:3], jkw.get("k_scale"),
+                             jkw.get("v_scale"), *_jax(c)[3:],
+                             float(d) ** -0.5, True)
+    assert ker.dtype == jnp.bfloat16
+    rounded = tda.ragged_paged_attention_reference(
+        *args, round_p_tile=PAGE, **kw).float().numpy()
+    np.testing.assert_allclose(rounded[real],
+                               np.asarray(ker, np.float32)[real],
+                               **BF16_OUT_TOL)
+
+
+@pytest.mark.parametrize("span", [8, 16])
+def test_round_p_span_restarts_the_running_maximum(span):
+    """``round_p_span``: the running maximum that P is rounded against
+    restarts every ``span`` tokens, as in the CUDA kernel's split token
+    axis.  A span covering the whole table changes nothing; shorter spans
+    change the rounding only, so every result stays within the bf16
+    rounding of P of the unrounded one."""
+    rng = np.random.RandomState(50)
+    c = _pages_as(_build_mixed(rng, MIXED_CASES[2], 2, 4), "bfloat16")
+    real = c["qpos"] >= 0
+    args = _torch(c)
+    tile = 4
+    whole = tda.ragged_paged_attention_reference(*args, round_p_tile=tile)
+    np.testing.assert_array_equal(
+        tda.ragged_paged_attention_reference(
+            *args, round_p_tile=tile, round_p_span=PAGE * PM).numpy(),
+        whole.numpy())
+    split = tda.ragged_paged_attention_reference(
+        *args, round_p_tile=tile, round_p_span=span).numpy()
+    plain = tda.ragged_paged_attention_reference(*args).numpy()
+    np.testing.assert_allclose(split[real], plain[real], rtol=2e-2,
+                               atol=2e-2)
+    # a span of one tile rounds each tile against its own maximum
+    own = tda.ragged_paged_attention_reference(
+        *args, round_p_tile=tile, round_p_span=tile).numpy()
+    assert not np.array_equal(own[real], whole.numpy()[real])
+
+
+def test_kernel_split_tokens():
+    """At least 128 tokens a span, whole 32-token tiles, at most 16
+    spans over the page table."""
+    assert tda.kernel_split_tokens(1024) == 128
+    assert tda.kernel_split_tokens(100) == 128
+    assert tda.kernel_split_tokens(4096) == 256
+    assert tda.kernel_split_tokens(5000) == 320
+    for n in (1, 127, 2049, 32768, 100000):
+        span = tda.kernel_split_tokens(n)
+        assert span % tda.KERNEL_TILE_TOKENS == 0
+        assert span >= tda.KERNEL_SPLIT_TOKENS
+        assert -(-n // span) <= tda.KERNEL_MAX_SPLITS

@@ -19,7 +19,8 @@ import torch
 from paddle_tpu_torch.convert import decoder_lm_from_numpy, init_numpy_params
 from paddle_tpu_torch.kernels import build
 from paddle_tpu_torch.serving import DecoderLM
-from paddle_tpu_torch.tools import compare_flash, compare_rnn
+from paddle_tpu_torch.tools import compare_flash, compare_ragged, compare_rnn
+from paddle_tpu_torch.tools import ragged_cases as rc
 from paddle_tpu_torch.tools import serve_workload as sw
 from paddle_tpu_torch.tools import train_workload as tw
 
@@ -48,12 +49,13 @@ def test_serve_workload_drains_with_prefix_hit():
     eng.check_page_conservation()
 
 
-def _tiny_case(page_dtype):
+def _tiny_case(page_dtype, q_dtype=torch.float32):
     # one 8-row block: 3 real prefill-chunk rows over a 5-token
     # sequence, 5 padded rows
     h, d, page = 2, 8, 4
     qpos = torch.tensor([2, 3, 4, -1, -1, -1, -1, -1], dtype=torch.int32)
-    return dict(q=torch.zeros(8, h, d), page_table=torch.tensor([[1, 2]],
+    return dict(q=torch.zeros(8, h, d, dtype=q_dtype),
+                page_table=torch.tensor([[1, 2]],
                 dtype=torch.int32),
                 k_pages=torch.zeros(3, page, h, d, dtype=page_dtype),
                 v_pages=torch.zeros(3, page, h, d, dtype=page_dtype),
@@ -61,25 +63,63 @@ def _tiny_case(page_dtype):
                 row_seq=torch.zeros(8, dtype=torch.int32), qpos=qpos)
 
 
-@pytest.mark.parametrize("page_dtype", [torch.float32, torch.bfloat16])
-def test_chip_smoke_roofline_counts_real_rows_and_operand_rates(page_dtype):
-    case = _tiny_case(page_dtype)
-    got = chip_smoke.roofline(case)
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page_dtype", [torch.float32, torch.bfloat16,
+                                        torch.int8])
+def test_chip_smoke_roofline_counts_real_rows_and_operand_rates(page_dtype,
+                                                                q_dtype):
+    """``ragged_cases.roofline``, which chip_smoke's kernel phase prints:
+    q and out of real rows in q's type; products at the rate they run:
+    bf16 queries on bf16 pages at the bf16 rate, otherwise a narrow run's
+    (at most 16 score rows: here 3 rows of one head per KV head) on the
+    CUDA cores in f32."""
+    case = _tiny_case(page_dtype, q_dtype)
+    got = rc.roofline(case)
     h, d = 2, 8
     live = 3 + 4 + 5                            # tokens <= qpos per row
     kv_bytes = 2 * 5 * h * d * case["k_pages"].element_size()
-    qo_bytes = 2 * 3 * h * d * 4                 # real rows only
+    qo_bytes = 2 * 3 * h * d * case["q"].element_size()   # real rows only
     idx_bytes = 4 * (2 + 1 + 8 + 8)
     assert got["bytes"] == kv_bytes + qo_bytes + idx_bytes
     half = 2.0 * live * h * d
-    pv_rate = chip_smoke.BF16_FLOPS_PER_S if page_dtype == torch.bfloat16 \
-        else chip_smoke.F32_FLOPS_PER_S
-    np.testing.assert_allclose(
-        got["ops_ms"], 1e3 * (half / chip_smoke.F32_FLOPS_PER_S +
-                              half / pv_rate), rtol=1e-12)
+    rate = rc.BF16_FLOPS_PER_S if page_dtype == q_dtype == torch.bfloat16 \
+        else rc.F32_FLOPS_PER_S
+    np.testing.assert_allclose(got["ops_ms"], 1e3 * 2 * half / rate,
+                               rtol=1e-12)
     assert got["bound_ms"] == max(got["ops_ms"], got["bytes_ms"])
     assert got["bound_by"] == ("bytes" if got["bytes_ms"] >= got["ops_ms"]
                                else "operations")
+
+
+@pytest.mark.parametrize("page_dtype,qk_terms,pv_terms",
+                         [(torch.float32, 3, 3), (torch.bfloat16, 2, 1),
+                          (torch.int8, 2, 2)])
+def test_roofline_prices_wide_runs_as_3xtf32(page_dtype, qk_terms,
+                                             pv_terms):
+    """A run of 9 real rows over 2 KV heads of 4 query heads (36 score
+    rows) is a wide item: its f32 products run as 3xTF32, one TF32 product
+    a term the kernel issues; the single decode row after it is narrow."""
+    h, kvh, d, page = 8, 2, 8, 4
+    rows = 24
+    qpos = [-1] * rows
+    qpos[:9] = range(3, 12)                     # a chunk over 12 tokens
+    qpos[16] = 4                                # a decode row, 5 tokens
+    case = dict(q=torch.zeros(rows, h, d),
+                page_table=torch.tensor([[1, 2, 3], [4, 5, 0]],
+                                        dtype=torch.int32),
+                k_pages=torch.zeros(6, page, kvh, d, dtype=page_dtype),
+                v_pages=torch.zeros(6, page, kvh, d, dtype=page_dtype),
+                kv_lens=torch.tensor([12, 5], dtype=torch.int32),
+                row_seq=torch.tensor([0] * 16 + [1] * 8, dtype=torch.int32),
+                qpos=torch.tensor(qpos, dtype=torch.int32))
+    assert rc.wide_rows(case).tolist() == [True] * 9 + [False] * 15
+    got = rc.roofline(case)
+    half_w = 2.0 * sum(range(4, 13)) * h * d
+    half_n = 2.0 * 5 * h * d
+    want = (half_w * qk_terms / rc.TF32_FLOPS_PER_S +
+            half_w * pv_terms / rc.TF32_FLOPS_PER_S +
+            2 * half_n / rc.F32_FLOPS_PER_S)
+    np.testing.assert_allclose(got["ops_ms"], 1e3 * want, rtol=1e-12)
 
 
 def test_flash_bound_counts_live_pairs_at_operand_rate():
@@ -193,3 +233,25 @@ def test_chip_smoke_picks_each_kernels_ptxas_entry(monkeypatch):
         got = chip_smoke.ptxas_of("flash_attention_sm90",
                                   chip_smoke.FLASH_PTXAS[kname])
         assert got["registers"] == 41 + 2 * i, kname
+
+
+def test_ragged_cases_cover_every_kernel_shape():
+    """chip_smoke's ragged cases hold every compiled head dim, groups 1,
+    3, 4 and 16, f32 and bf16 queries and f32, bf16 and int8 pages, and
+    the main path's decode and mixed steps at 16 heads of head_dim 128."""
+    from paddle_tpu_torch.serving import decode_attention as da
+
+    shapes = rc.CASES.values()
+    assert {d for _, _, _, d, _, _ in shapes} == set(da.KERNEL_HEAD_DIMS)
+    assert {h // kvh for _, kvh, h, _, _, _ in shapes} == {1, 3, 4, 16}
+    assert {(q, p) for *_, q, p in shapes} >= {
+        ("float32", "float32"), ("float32", "int8"),
+        ("float32", "bfloat16"), ("bfloat16", "bfloat16"),
+        ("bfloat16", "float32")}
+    for name in compare_ragged.CASES:
+        assert rc.CASES[name][1:] == (16, 16, 128, "float32", "float32")
+    # the plain version on the CPU passes its own check
+    small = rc.build_case(np.random.default_rng(0), [(40, 9, 31), (5, 1, 0)],
+                          2, "cpu", h=6, d=16)
+    got = da.ragged_paged_attention(*rc.args(small))
+    assert rc.check(small, got)["within_tolerance"]
