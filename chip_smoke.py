@@ -52,8 +52,9 @@ checkout of the repository).  Phases, each fatal on failure:
    and the two-launch GRU step (B7 then B8) against their plain PyTorch
    versions on the same inputs: B5 at B 64 with H 512 and 1280, acts on
    and off, and a bf16 xp; B6 at H 512 and B7 + B8 at H 1280, acts on and
-   off; with error, card time, plain time, the roofline bound and, for
-   B5, cuDNN's ``nn.LSTM`` forward over T = 128 steps divided by T;
+   off; with error, card time, plain time, the roofline bound, the SM
+   clock read after the case's timings and, for B5, cuDNN's ``nn.LSTM``
+   forward over T = 128 steps divided by T;
 10. train_lstm: bench.py's IMDB text classifier (``models/text_lstm``,
     dict 30000, embedding 128, 2 x LSTM h 512, max pooling, fc(2)) with
     random weights from a seed, trained through ``SGD.train`` with
@@ -90,7 +91,7 @@ import torch
 from paddle_tpu_torch.tools import ragged_cases as rc
 from paddle_tpu_torch.tools import rnn_workload as rw
 from paddle_tpu_torch.tools import train_workload as tw
-from paddle_tpu_torch.tools.compare_flash import card_ms
+from paddle_tpu_torch.tools.compare_flash import card_ms, sm_clock
 from paddle_tpu_torch.tools.serve_workload import (MODEL, NEW_TOKENS, NO_EOS,
                                                    PREFIX_LEN, Workload,
                                                    build_model, make_engine,
@@ -416,13 +417,14 @@ def flash_bound(case, which: str) -> dict:
 
 
 def device_ms(fn, reps: int = 10, what: str = "") -> float:
-    """Card time of one call: the sum of the CUDA kernel times of
-    ``reps`` calls under ``torch.profiler``, over ``reps``, after one
-    warm-up call (``compare_flash.card_ms``).  It leaves out the host's
-    work between kernels, which for a small kernel's wrapper or a call
-    through autograd can be longer than the kernels themselves.  Where the
-    trace caught no kernel in a few tries, the calls are timed back to
-    back with CUDA events instead, and a line naming ``what`` says so."""
+    """Card time of one call: one call's worth of each CUDA kernel's mean
+    record over ``reps`` calls under ``torch.profiler``, after one warm-up
+    call (``compare_flash.card_ms``).  It leaves out the host's work
+    between kernels, which for a small kernel's wrapper or a call through
+    autograd can be longer than the kernels themselves.  Where the trace
+    lost kernel records, or caught too little in a few tries (the calls
+    are then timed back to back with CUDA events instead), a line naming
+    ``what`` says so."""
     ms, timer = card_ms(fn, reps)
     if timer != "profiler":
         emit({"timer": timer, "what": what, "ms": ms})
@@ -646,8 +648,8 @@ RNN_REPLACES = {"lstm_step": "paddle_tpu/ops/rnn.py:80",
                 "gru_cand": "paddle_tpu/ops/rnn.py:244"}
 # the mangled name of each kernel that its main-path case (f32) runs
 RNN_PTXAS = {"lstm_step": "lstm_step_kernelIfLb1E",
-             "gru_step": "gru_step_kernelIfE",
-             "gru_zr": "gru_zr_kernelIfE",
+             "gru_step": "gru_step_kernelIfLb1E",
+             "gru_zr": "gru_zr_kernelIfLb1E",
              "gru_cand": "gru_cand_kernelIfE"}
 GRU_NO_LIBRARY = ("no PyTorch call computes this function: torch.nn.GRU "
                   "applies the reset gate after the product, r(h W_hn + "
@@ -752,6 +754,7 @@ def run_rnn_cases(dev) -> dict:
                                else None),
                 **rnn_bound(case, kname)}
         res["within_tolerance"] = ok
+        res["sm_clock"] = sm_clock()   # just after the case's timings
         emit(res)
         if not ok:
             raise AssertionError(f"RNN case {name} outside tolerance")

@@ -19,41 +19,56 @@
 //     two launches; here it is B7's second output); B8 reads the complete
 //     r h and writes h' and, when asked, c into the buffer's last H columns.
 //   xp and h are f32 or bf16 (one type), c, W_h and b f32; every product is
-//   f32 FMA on the CUDA cores (no TF32: it would change the numbers).
+//   f32 FMA on the CUDA cores (no TF32: it would change the numbers; 3xTF32
+//   on mma.sync keeps them, but for B6 and B7 at the training shapes it ran
+//   slower than these FMAs on an H100).
 //
 // What bounds it on the H100: one step at the training shapes (B 64, H 512)
 // is a [64, 512] x [512, 2048] f32 product, 134 MFLOP, 2.0 us at the 67
 // TFLOP/s f32 peak, against ~5.9 MB of operands (1.8 us at 3.35 TB/s): so
 // operations, at the scale of a launch.  W_h (4.2 MB at H 512, 26 MB at
-// H 1280) stays in the 50 MB L2 from one step to the next.
+// H 1280) stays in the 50 MB L2 from one step to the next.  The GRU's two
+// products are 67 + 34 MFLOP at H 512 (B6) and 419 MFLOP for B7's z and r
+// at H 1280; past the bound, what a launch pays is the traffic from L2
+// (every block streams all H of its rows: B H (H / 8) x 4 bytes of rows a
+// product, and W_h once per 32 batch rows) and the latency of a short
+// chain of dependent steps.
 //
 // Design: the TPU runs 1-5 large hidden tiles in a sequential grid; on the
 // card that would fill 1-5 of 132 SMs.  So blocks tile the hidden units,
 // each owning all gates of its units so the gate math stays in registers.
-// B5 has its own main loop (below, at its kernel): 256-thread blocks of
-// 32 rows by 8 units, a cp.async ring over K, K split across the warps,
-// 32 sums a thread.  B6-B8 share the first design: a block owns 16 hidden
-// units by 16 batch rows, 8 x 16 = 128 threads, thread (ty, tx) owns unit
-// tx and rows 2 ty, 2 ty + 1, and keeps NG x 2 f32 sums (NG = 2 gates for
-// z/r, 1 for the candidate); the K axis is taken in chunks of 32, the
-// block staging the chunk of its h rows ([16][33], padded against bank
-// conflicts) and of its W_h columns ([32][NG * 16]) in shared memory,
-// coalesced, then every thread sums.
+// B5 and B6-B7 have one design of main loop, written out twice (B5's at its
+// kernel, the GRU's at B6): 256-thread blocks of 32 batch rows by 8 hidden
+// units, K streamed in chunks of 64 through a 4-stage cp.async ring (the
+// block's rows of h, or of r h, and its W_h columns), K split across the 8
+// warps inside the block, register micro-tiles fed by 16-byte shared loads,
+// and the warps' sums reduced through shared memory before the gate math in
+// registers.  The GRU's loop is written once for NG gates: NG = 2 (z and r,
+// phase 1 of B6 and all of B7) and NG = 1 (the candidate, phase 2 of B6).
+// B8 keeps the first design: a block owns 16 hidden units by 16 batch rows,
+// 8 x 16 = 128 threads, thread (ty, tx) owns unit tx and rows 2 ty,
+// 2 ty + 1; the K axis is taken in chunks of 32, the block staging the
+// chunk of its r h rows ([16][33], padded against bank conflicts) and of
+// its W_c columns ([32][16]) in shared memory, coalesced, then every
+// thread sums.
 //
 // B6 has the GRU's coupling: the candidate of every unit needs r h of all
 // H units.  The TPU holds one whole block; here B6 is one cooperative
 // launch (cudaLaunchCooperativeKernel) with a grid-wide sync between the
-// two phases: each block keeps the full h rows of its 16 batch rows
-// resident in shared memory for phase 1 (z, r of its units), writes its
-// r h tile to a scratch buffer, syncs the grid, loads the complete r h
-// rows into the same shared memory and computes c and h' for the same
-// units, with z and h still in registers.  A cooperative grid must be
-// co-resident: 16 (H + pad) x 4 bytes of rows a block and at most 128
-// registers a thread (__launch_bounds__(128, 4)) decide how many blocks
-// an SM holds, and rnn_gru_block_capacity reports the card's answer.  The
-// Python gate (ops/rnn.py) takes B6 when the grid fits and B7 + B8
-// otherwise; B7 and B8 are ordinary launches that take any shape.  Later
-// work for B6-B8: B5's main loop.
+// two phases.  Phase 1 streams h and W_zr through the ring, sums z and r of
+// the block's 32 x 8 tile and writes its r h tile to a scratch buffer; the
+// block then puts W_c's first chunks in flight (they do not depend on
+// r h), syncs the grid, streams the complete r h rows through the same
+// ring with cp.async.cg (read through L2: other SMs wrote them) and
+// computes c and h' of the same units, with z and h still in registers.
+// The epilogues' xp, bias and h values are fetched before phase 1.  A
+// cooperative grid must be co-resident: the ring's 51,200 bytes (the same
+// at every H) and at most 128 registers a thread (__launch_bounds__(256,
+// 2)) let an SM hold 2 blocks or more, and rnn_gru_block_capacity reports
+// the card's answer.  The Python gate (ops/rnn.py) takes B6 where JAX's
+// plan is its one block and the grid fits, and B7 + B8 otherwise; B7 (B6's
+// phase 1 alone, h streamed the same way) and B8 are ordinary launches
+// that take any shape.
 //
 // Plain C interface (built by paddle_tpu_torch/kernels/build.py with nvcc,
 // loaded with ctypes): each entry returns a cudaError_t.
@@ -69,14 +84,14 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+// B8's block (the first design)
 constexpr int UNITS = 16;                  // hidden units of a block (tx)
 constexpr int RGROUPS = 8;                 // row groups of a block (ty)
 constexpr int RPT = 2;                     // batch rows of a thread
 constexpr int ROWS = RGROUPS * RPT;        // batch rows of a block
 constexpr int THREADS = UNITS * RGROUPS;   // 128
 constexpr int KT = 32;                     // K chunk
-constexpr int AS_LD = KT + 1;              // staged h-chunk row stride
-constexpr int GRU_BLOCK_MIN_BLOCKS = 4;    // B6: <= 128 registers a thread
+constexpr int AS_LD = KT + 1;              // staged rh-chunk row stride
 
 using bf16 = __nv_bfloat16;
 
@@ -93,16 +108,6 @@ template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.f / (1.f + expf(-x));
-}
-
-// Row stride of the resident rows of B6: H rounded up to whole K chunks
-// (zeros beyond H) plus one, so two row groups of a warp hit other banks.
-__host__ __device__ __forceinline__ int resident_ld(int H) {
-  return (H + KT - 1) / KT * KT + 1;
-}
-
-__host__ __device__ __forceinline__ size_t gru_block_smem(int H) {
-  return sizeof(float) * ((size_t)ROWS * resident_ld(H) + KT * 2 * UNITS);
 }
 
 // Stage rows [k0, k0 + KT) of gate columns (goff + g) H + j0 .. + UNITS of
@@ -162,22 +167,6 @@ __device__ __forceinline__ void gemm_staged(float (&acc)[NG][RPT],
     stage_w<NG>(Ws, W, ldw, goff, j0, H, k0, K);
     __syncthreads();
     mac_chunk<NG>(acc, As, AS_LD, Ws, ty, tx);
-    __syncthreads();
-  }
-}
-
-// acc += Hs W[:, gate columns], Hs the block's resident rows.
-template <int NG>
-__device__ __forceinline__ void gemm_resident(float (&acc)[NG][RPT],
-                                              const float* Hs, int hs_ld,
-                                              int K, const float* W, int ldw,
-                                              int goff, int j0, int H,
-                                              float* Ws) {
-  const int tx = threadIdx.x % UNITS, ty = threadIdx.x / UNITS;
-  for (int k0 = 0; k0 < K; k0 += KT) {
-    stage_w<NG>(Ws, W, ldw, goff, j0, H, k0, K);
-    __syncthreads();
-    mac_chunk<NG>(acc, Hs + k0, hs_ld, Ws, ty, tx);
     __syncthreads();
   }
 }
@@ -441,99 +430,326 @@ __global__ void __launch_bounds__(LSTM_THREADS, 2)
 }
 
 // ---------------------------------------------------------------------------
+// B6 and B7: the GRU's main loop
+//
+// A block of GRU_THREADS = 256 threads owns GRU_ROWS = 32 batch rows by
+// GRU_UNITS = 8 hidden units, NG gate columns of each unit (NG = 2: z and
+// r; 1: the candidate): 128 blocks at B 64, H 512, 320 at H 1280.  K
+// streams through a ring of GRU_STAGES chunks of GRU_KC = 64 in shared
+// memory.  A stage holds the chunk of the block's 32 A rows ([row][k], h
+// or r h, the row stride padded by 16 bytes so the 8 rows of a read sit in
+// 8 bank groups) and of its W columns ([k][gate][unit]), both filled by
+// 16-byte cp.async.cg (zero-filled past B and H), one barrier a chunk.
+// Each of the 8 warps takes 8 k of every chunk: lane (ry, ux) keeps rows
+// ry + 8 i (i < 4) by units 2 ux, 2 ux + 1 of each gate, 8 NG f32 sums,
+// reading its rows as 16-byte words and W as one 8-byte word a gate and k:
+// 8 + 8 NG shared loads per 64 NG FMAs (the lanes that share a row or a
+// unit pair read one address).  After the loop the warps'
+// sums meet in shared memory (the ring, reused) and thread (row, unit) =
+// (tid / 8, tid % 8) adds the 8 slices of its NG gates.  H not a multiple
+// of 8, or h or W_h not 16-byte aligned, stages through registers instead
+// of cp.async, with the same loop.
+// ---------------------------------------------------------------------------
+
+constexpr int GRU_ROWS = 32;
+constexpr int GRU_UNITS = 8;
+constexpr int GRU_WARPS = 8;
+constexpr int GRU_THREADS = 32 * GRU_WARPS;      // 256
+constexpr int GRU_KC = 64;                       // K chunk
+constexpr int GRU_KW = GRU_KC / GRU_WARPS;       // k of a chunk a warp takes
+constexpr int GRU_STAGES = 4;
+// launch bounds: B7 at most 80 registers a thread, so an SM holds 3 of its
+// blocks and its 320 blocks at H 1280 run in one wave; B6 (128 blocks at
+// the training shape, one an SM) at most 128, 2 blocks an SM: the
+// registers buy more products in flight (and no spills) and the card still
+// holds 264 blocks at once, twice the grid
+constexpr int GRU_ZR_MIN_BLOCKS = 3;
+constexpr int GRU_STEP_MIN_BLOCKS = 2;
+
+// row stride of a staged A chunk, in elements: the chunk plus 16 bytes
+template <typename T>
+__host__ __device__ constexpr int gru_ald() {
+  return GRU_KC + 16 / static_cast<int>(sizeof(T));
+}
+
+// a stage: the A chunk, sized for f32 rows (B6's phase 2 streams f32 r h
+// under a bf16 h), then the W chunk of two gates
+constexpr size_t GRU_A_BYTES = sizeof(float) * GRU_ROWS * gru_ald<float>();
+constexpr size_t GRU_STAGE_BYTES =
+    GRU_A_BYTES + sizeof(float) * GRU_KC * 2 * GRU_UNITS;
+constexpr size_t GRU_SMEM = GRU_STAGES * GRU_STAGE_BYTES;   // 51,200 bytes
+static_assert(GRU_SMEM >= sizeof(float) * GRU_WARPS * 2 * GRU_ROWS *
+                              GRU_UNITS,
+              "the ring holds the warps' sums");
+
+template <typename TA>
+__device__ __forceinline__ TA* gru_a(unsigned char* ring, int st) {
+  return reinterpret_cast<TA*>(ring + st * GRU_STAGE_BYTES);
+}
+
+__device__ __forceinline__ float* gru_w(unsigned char* ring, int st) {
+  return reinterpret_cast<float*>(ring + st * GRU_STAGE_BYTES + GRU_A_BYTES);
+}
+
+// A element by element: f32 through L2 (B6's phase 2 reads r h that other
+// SMs wrote in this launch)
+__device__ __forceinline__ float gru_ld(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ bf16 gru_ld(const bf16* p) { return *p; }
+
+// Chunk k0 .. k0 + GRU_KC of rows b0 .. b0 + GRU_ROWS of A ([B, H]) into
+// as[row][k]; zeros outside.
+template <typename TA, bool VEC>
+__device__ __forceinline__ void gru_copy_a(TA* as, const TA* A, int B, int H,
+                                           int b0, int k0) {
+  if constexpr (VEC) {
+    constexpr int VE = 16 / sizeof(TA);              // elements a copy
+    constexpr int PER_ROW = GRU_KC / VE;
+    for (int e = threadIdx.x; e < GRU_ROWS * PER_ROW; e += GRU_THREADS) {
+      const int row = e / PER_ROW, kk = (e % PER_ROW) * VE;
+      const bool ok = b0 + row < B && k0 + kk < H;
+      cp_async<16>(as + row * gru_ald<TA>() + kk,
+                   ok ? A + (size_t)(b0 + row) * H + k0 + kk : A, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < GRU_ROWS * GRU_KC; e += GRU_THREADS) {
+      const int row = e / GRU_KC, kk = e % GRU_KC, b = b0 + row, k = k0 + kk;
+      as[row * gru_ald<TA>() + kk] =
+          (b < B && k < H) ? gru_ld(A + (size_t)b * H + k) : from_f<TA>(0.f);
+    }
+  }
+}
+
+// Rows k0 .. k0 + GRU_KC of W_h ([H, 3H]), gate columns (goff + g) H + j0
+// .. + GRU_UNITS for g < NG, into ws[k][g][unit]; zeros outside.
+template <int NG, bool VEC>
+__device__ __forceinline__ void gru_copy_w(float* ws, const float* W, int H,
+                                           int goff, int j0, int k0) {
+  if constexpr (VEC) {
+    // two 16-byte pieces a (k, gate); H % 8 == 0, so every unit is < H
+    for (int e = threadIdx.x; e < GRU_KC * NG * 2; e += GRU_THREADS) {
+      const int kk = e / (NG * 2), g = (e / 2) % NG, q = e % 2;
+      const bool ok = k0 + kk < H;
+      cp_async<16>(ws + (kk * NG + g) * GRU_UNITS + 4 * q,
+                   ok ? W + (size_t)(k0 + kk) * 3 * H + (size_t)(goff + g) * H +
+                            j0 + 4 * q
+                      : W,
+                   ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < GRU_KC * NG * GRU_UNITS;
+         e += GRU_THREADS) {
+      const int kk = e / (NG * GRU_UNITS), g = (e / GRU_UNITS) % NG;
+      const int k = k0 + kk, j = j0 + e % GRU_UNITS;
+      ws[e] = (k < H && j < H)
+                  ? W[(size_t)k * 3 * H + (size_t)(goff + g) * H + j]
+                  : 0.f;
+    }
+  }
+}
+
+// acc[i][g][e] += sum over this warp's GRU_KW k of the chunk of
+// A[row ry + 8 i][k] W[k][gate g, unit 2 ux + e]
+template <int NG, typename TA>
+__device__ __forceinline__ void gru_mac(float (&acc)[4][NG][2], const TA* as,
+                                        const float* ws, int ry, int ux,
+                                        int kw) {
+  float av[4][GRU_KW];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    load_h8(av[i], as + (ry + 8 * i) * gru_ald<TA>() + kw);
+  }
+#pragma unroll
+  for (int kk = 0; kk < GRU_KW; ++kk) {
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      const float2 w = *reinterpret_cast<const float2*>(
+          ws + ((kw + kk) * NG + g) * GRU_UNITS + 2 * ux);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[i][g][0] = fmaf(av[i][kk], w.x, acc[i][g][0]);
+        acc[i][g][1] = fmaf(av[i][kk], w.y, acc[i][g][1]);
+      }
+    }
+  }
+}
+
+// W_h's chunks of gate columns goff .. goff + NG into the first
+// GRU_STAGES - 1 stages, not committed: they join the loop's first group
+template <int NG, bool VEC>
+__device__ __forceinline__ void gru_prefetch_w(unsigned char* ring,
+                                               const float* W, int H,
+                                               int goff, int j0) {
+  const int nchunks = (H + GRU_KC - 1) / GRU_KC;
+#pragma unroll
+  for (int st = 0; st < GRU_STAGES - 1; ++st) {
+    if (st < nchunks) {
+      gru_copy_w<NG, VEC>(gru_w(ring, st), W, H, goff, j0, st * GRU_KC);
+    }
+  }
+}
+
+// acc += A[b0 .. b0 + 32, :] W_h[:, gate columns goff .. goff + NG of units
+// j0 .. j0 + 8], this warp's k of each chunk; with w_ready the first
+// stages' W chunks are already in flight (gru_prefetch_w).
+template <int NG, typename TA, bool VEC>
+__device__ __forceinline__ void gru_k_loop(float (&acc)[4][NG][2],
+                                           unsigned char* ring, const TA* A,
+                                           const float* W, int B, int H,
+                                           int b0, int j0, int goff,
+                                           bool w_ready) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ry = lane / 4, ux = lane % 4;
+  const int nchunks = (H + GRU_KC - 1) / GRU_KC;
+#pragma unroll
+  for (int st = 0; st < GRU_STAGES - 1; ++st) {
+    if (st < nchunks) {
+      gru_copy_a<TA, VEC>(gru_a<TA>(ring, st), A, B, H, b0, st * GRU_KC);
+      if (!w_ready) {
+        gru_copy_w<NG, VEC>(gru_w(ring, st), W, H, goff, j0, st * GRU_KC);
+      }
+    }
+    cp_commit();
+  }
+  for (int ch = 0; ch < nchunks; ++ch) {
+    cp_wait<GRU_STAGES - 2>();   // chunk ch has landed (this thread's part)
+    __syncthreads();             // everyone's, and chunk ch - 1 is done
+    const int next = ch + GRU_STAGES - 1;
+    if (next < nchunks) {
+      const int st = next % GRU_STAGES;
+      gru_copy_a<TA, VEC>(gru_a<TA>(ring, st), A, B, H, b0, next * GRU_KC);
+      gru_copy_w<NG, VEC>(gru_w(ring, st), W, H, goff, j0, next * GRU_KC);
+    }
+    cp_commit();
+    gru_mac<NG, TA>(acc, gru_a<TA>(ring, ch % GRU_STAGES),
+                    gru_w(ring, ch % GRU_STAGES), ry, ux, warp * GRU_KW);
+  }
+  cp_wait<0>();
+  __syncthreads();
+}
+
+// The warps' sums of each (gate, row, unit) meet in the ring; thread
+// (row, unit) = (tid / 8, tid % 8) gets the total of each of its NG gates.
+template <int NG>
+__device__ __forceinline__ void gru_reduce(float (&sum)[NG],
+                                           const float (&acc)[4][NG][2],
+                                           unsigned char* ring) {
+  float* red = reinterpret_cast<float*>(ring);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ry = lane / 4, ux = lane % 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      *reinterpret_cast<float2*>(
+          red + ((warp * NG + g) * GRU_ROWS + ry + 8 * i) * GRU_UNITS +
+          2 * ux) = make_float2(acc[i][g][0], acc[i][g][1]);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int g = 0; g < NG; ++g) {
+    sum[g] = 0.f;
+#pragma unroll
+    for (int w = 0; w < GRU_WARPS; ++w) {
+      sum[g] += red[(w * NG + g) * GRU_ROWS * GRU_UNITS + threadIdx.x];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // B6: GRU step in one cooperative launch
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS, GRU_BLOCK_MIN_BLOCKS)
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(GRU_THREADS, GRU_STEP_MIN_BLOCKS)
     gru_step_kernel(const T* __restrict__ xp, const T* __restrict__ h,
                     const float* __restrict__ W,
                     const float* __restrict__ bias, float* rh,
                     T* __restrict__ new_h, float* __restrict__ acts, int B,
                     int H) {
-  extern __shared__ float smem[];
-  const int hs_ld = resident_ld(H);
-  float* Hs = smem;                       // [ROWS][hs_ld]
-  float* Ws = smem + ROWS * hs_ld;        // [KT][2 * UNITS]
-  const int tx = threadIdx.x % UNITS, ty = threadIdx.x / UNITS;
-  const int j0 = blockIdx.x * UNITS, b0 = blockIdx.y * ROWS;
-  const int j = j0 + tx;
-
-  for (int e = threadIdx.x; e < ROWS * hs_ld; e += THREADS) {
-    const int r = e / hs_ld, k = e % hs_ld, b = b0 + r;
-    Hs[e] = (b < B && k < H) ? to_f(h[(size_t)b * H + k]) : 0.f;
-  }
-  __syncthreads();
-  float acc[2][RPT] = {};
-  gemm_resident<2>(acc, Hs, hs_ld, H, W, 3 * H, 0, j0, H, Ws);
-
-  float z[RPT], hv[RPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int b = b0 + ty * RPT + i;
-    z[i] = hv[i] = 0.f;
-    if (b >= B || j >= H) continue;
+  extern __shared__ __align__(16) unsigned char gru_ring[];
+  const int j0 = blockIdx.x * GRU_UNITS, b0 = blockIdx.y * GRU_ROWS;
+  const int b = b0 + threadIdx.x / GRU_UNITS;
+  const int j = j0 + threadIdx.x % GRU_UNITS;
+  const bool live = b < B && j < H;
+  // the epilogues' inputs, in flight during phase 1
+  float xz = 0.f, xr = 0.f, xc = 0.f, bz = 0.f, br = 0.f, bc = 0.f;
+  float hv = 0.f;
+  if (live) {
     const T* x = xp + (size_t)b * 3 * H;
-    z[i] = sigmoid(to_f(x[j]) + acc[0][i] + bias[j]);
-    const float r = sigmoid(to_f(x[H + j]) + acc[1][i] + bias[H + j]);
-    hv[i] = Hs[(ty * RPT + i) * hs_ld + j];
-    rh[(size_t)b * H + j] = r * hv[i];
+    xz = to_f(x[j]);
+    xr = to_f(x[H + j]);
+    xc = to_f(x[2 * H + j]);
+    bz = bias[j];
+    br = bias[H + j];
+    bc = bias[2 * H + j];
+    hv = to_f(h[(size_t)b * H + j]);
+  }
+
+  float acc[4][2][2] = {};
+  gru_k_loop<2, T, VEC>(acc, gru_ring, h, W, B, H, b0, j0, 0, false);
+  float zr[2];
+  gru_reduce<2>(zr, acc, gru_ring);
+  float z = 0.f;
+  if (live) {
+    z = sigmoid(xz + zr[0] + bz);
+    const float r = sigmoid(xr + zr[1] + br);
+    rh[(size_t)b * H + j] = r * hv;
     if (acts != nullptr) {
-      acts[(size_t)b * 3 * H + j] = z[i];
+      acts[(size_t)b * 3 * H + j] = z;
       acts[(size_t)b * 3 * H + H + j] = r;
     }
   }
+  __syncthreads();   // the sums are read: the ring takes W_c's first chunks
+  gru_prefetch_w<1, VEC>(gru_ring, W, H, 2, j0);
 
   cg::this_grid().sync();   // every block's r h tile is written
 
-  // the complete r h rows, read past L1 (other SMs wrote them)
-  for (int e = threadIdx.x; e < ROWS * hs_ld; e += THREADS) {
-    const int r = e / hs_ld, k = e % hs_ld, b = b0 + r;
-    Hs[e] = (b < B && k < H) ? __ldcg(rh + (size_t)b * H + k) : 0.f;
-  }
-  __syncthreads();
-  float accc[1][RPT] = {};
-  gemm_resident<1>(accc, Hs, hs_ld, H, W, 3 * H, 2, j0, H, Ws);
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int b = b0 + ty * RPT + i;
-    if (b >= B || j >= H) continue;
-    const float cc = tanhf(to_f(xp[(size_t)b * 3 * H + 2 * H + j]) +
-                           accc[0][i] + bias[2 * H + j]);
-    new_h[(size_t)b * H + j] = from_f<T>((1.f - z[i]) * hv[i] + z[i] * cc);
-    if (acts != nullptr) acts[(size_t)b * 3 * H + 2 * H + j] = cc;
-  }
+  float accc[4][1][2] = {};
+  gru_k_loop<1, float, VEC>(accc, gru_ring, rh, W, B, H, b0, j0, 2, true);
+  float c[1];
+  gru_reduce<1>(c, accc, gru_ring);
+  if (!live) return;
+  const float cc = tanhf(xc + c[0] + bc);
+  new_h[(size_t)b * H + j] = from_f<T>((1.f - z) * hv + z * cc);
+  if (acts != nullptr) acts[(size_t)b * 3 * H + 2 * H + j] = cc;
 }
 
 // ---------------------------------------------------------------------------
 // B7 + B8: the GRU step in two ordinary launches
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(GRU_THREADS, GRU_ZR_MIN_BLOCKS)
     gru_zr_kernel(const T* __restrict__ xp, const T* __restrict__ h,
                   const float* __restrict__ W, const float* __restrict__ bias,
                   float* __restrict__ zrc, float* __restrict__ rh, int B,
                   int H) {
-  __shared__ float As[ROWS * AS_LD];
-  __shared__ float Ws[KT * 2 * UNITS];
-  const int tx = threadIdx.x % UNITS, ty = threadIdx.x / UNITS;
-  const int j0 = blockIdx.x * UNITS, b0 = blockIdx.y * ROWS;
-  float acc[2][RPT] = {};
-  gemm_staged<2>(acc, h, B, b0, H, W, 3 * H, 0, j0, H, As, Ws);
-  const int j = j0 + tx;
-  if (j >= H) return;
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int b = b0 + ty * RPT + i;
-    if (b >= B) continue;
+  extern __shared__ __align__(16) unsigned char gru_ring[];
+  const int j0 = blockIdx.x * GRU_UNITS, b0 = blockIdx.y * GRU_ROWS;
+  const int b = b0 + threadIdx.x / GRU_UNITS;
+  const int j = j0 + threadIdx.x % GRU_UNITS;
+  const bool live = b < B && j < H;
+  // the epilogue's inputs, in flight during the loop
+  float xz = 0.f, xr = 0.f, bz = 0.f, br = 0.f, hv = 0.f;
+  if (live) {
     const T* x = xp + (size_t)b * 3 * H;
-    const float z = sigmoid(to_f(x[j]) + acc[0][i] + bias[j]);
-    const float r = sigmoid(to_f(x[H + j]) + acc[1][i] + bias[H + j]);
-    zrc[(size_t)b * 3 * H + j] = z;
-    zrc[(size_t)b * 3 * H + H + j] = r;
-    rh[(size_t)b * H + j] = r * to_f(h[(size_t)b * H + j]);
+    xz = to_f(x[j]);
+    xr = to_f(x[H + j]);
+    bz = bias[j];
+    br = bias[H + j];
+    hv = to_f(h[(size_t)b * H + j]);
   }
+  float acc[4][2][2] = {};
+  gru_k_loop<2, T, VEC>(acc, gru_ring, h, W, B, H, b0, j0, 0, false);
+  float zr[2];
+  gru_reduce<2>(zr, acc, gru_ring);
+  if (!live) return;
+  const float z = sigmoid(xz + zr[0] + bz);
+  const float r = sigmoid(xr + zr[1] + br);
+  zrc[(size_t)b * 3 * H + j] = z;
+  zrc[(size_t)b * 3 * H + H + j] = r;
+  rh[(size_t)b * H + j] = r * hv;
 }
 
 template <typename T>
@@ -609,33 +825,65 @@ cudaError_t launch_lstm(const void* xp, const void* h, const void* c,
   return launch_lstm_as<T, false>(xp, h, c, w, b, nh, nc, acts, B, H, s);
 }
 
-template <typename T>
-cudaError_t gru_block_capacity(int H, int* capacity) {
-  const size_t smem = gru_block_smem(H);
+dim3 gru_grid(int B, int H) {
+  return dim3((H + GRU_UNITS - 1) / GRU_UNITS, (B + GRU_ROWS - 1) / GRU_ROWS);
+}
+
+// rows of h (bf16: 8 to a 16-byte piece), of W_h and of r h in whole
+// 16-byte pieces: the cp.async path
+bool gru_vec(int H, const void* h, const void* w, const void* rh) {
+  return H % 8 == 0 && ((reinterpret_cast<uintptr_t>(h) |
+                         reinterpret_cast<uintptr_t>(w) |
+                         reinterpret_cast<uintptr_t>(rh)) % 16) == 0;
+}
+
+// The ring's size as the dynamic shared memory limit of B6 and B7, once
+// per instantiation.
+template <typename T, bool VEC>
+cudaError_t gru_set_smem() {
+  static bool set = false;
+  if (set) return cudaSuccess;
   cudaError_t e = cudaFuncSetAttribute(
-      gru_step_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      gru_step_kernel<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)GRU_SMEM);
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(gru_zr_kernel<T, VEC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)GRU_SMEM);
+  }
+  set = e == cudaSuccess;
+  return e;
+}
+
+template <typename T, bool VEC>
+cudaError_t gru_step_per_sm(int* per_sm) {
+  const cudaError_t e = gru_set_smem<T, VEC>();
   if (e != cudaSuccess) return e;
-  int per_sm = 0, dev = 0, sms = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm,
-                                                    gru_step_kernel<T>,
-                                                    THREADS, smem);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, gru_step_kernel<T, VEC>, GRU_THREADS, GRU_SMEM);
+}
+
+// B6 blocks the card holds at once: the lesser of its two paths' blocks
+// an SM, times the SMs
+template <typename T>
+cudaError_t gru_block_capacity(int* capacity) {
+  int vec = 0, reg = 0, dev = 0, sms = 0;
+  cudaError_t e = gru_step_per_sm<T, true>(&vec);
+  if (e == cudaSuccess) e = gru_step_per_sm<T, false>(&reg);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
   if (e != cudaSuccess) return e;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  *capacity = per_sm * sms;
+  *capacity = (vec < reg ? vec : reg) * sms;
   return cudaSuccess;
 }
 
-template <typename T>
-cudaError_t launch_gru_step(const void* xp, const void* h, const void* w,
-                            const void* b, void* rh, void* nh, void* acts,
-                            int B, int H, cudaStream_t s) {
-  size_t smem = gru_block_smem(H);
-  cudaError_t e = cudaFuncSetAttribute(
-      gru_step_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+template <typename T, bool VEC>
+cudaError_t launch_gru_step_as(const void* xp, const void* h, const void* w,
+                               const void* b, void* rh, void* nh, void* acts,
+                               int B, int H, cudaStream_t s) {
+  const cudaError_t e = gru_set_smem<T, VEC>();
   if (e != cudaSuccess) return e;
   const T* xp_ = static_cast<const T*>(xp);
   const T* h_ = static_cast<const T*>(h);
@@ -647,10 +895,34 @@ cudaError_t launch_gru_step(const void* xp, const void* h, const void* w,
   void* args[] = {&xp_, &h_, &w_, &b_, &rh_, &nh_, &acts_, &B, &H};
   // refuses (cudaErrorCooperativeLaunchTooLarge) a grid that is not
   // co-resident rather than launching it
-  e = cudaLaunchCooperativeKernel((const void*)gru_step_kernel<T>,
-                                  grid_of(B, H), dim3(THREADS), args, smem,
-                                  s);
+  const cudaError_t launched = cudaLaunchCooperativeKernel(
+      (const void*)gru_step_kernel<T, VEC>, gru_grid(B, H), dim3(GRU_THREADS),
+      args, GRU_SMEM, s);
+  if (launched != cudaSuccess) return launched;
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_gru_step(const void* xp, const void* h, const void* w,
+                            const void* b, void* rh, void* nh, void* acts,
+                            int B, int H, cudaStream_t s) {
+  if (B <= 0 || H <= 0 || B > 65535 * GRU_ROWS) return cudaErrorInvalidValue;
+  if (gru_vec(H, h, w, rh)) {
+    return launch_gru_step_as<T, true>(xp, h, w, b, rh, nh, acts, B, H, s);
+  }
+  return launch_gru_step_as<T, false>(xp, h, w, b, rh, nh, acts, B, H, s);
+}
+
+template <typename T, bool VEC>
+cudaError_t launch_gru_zr_as(const void* xp, const void* h, const void* w,
+                             const void* b, void* zrc, void* rh, int B,
+                             int H, cudaStream_t s) {
+  const cudaError_t e = gru_set_smem<T, VEC>();
   if (e != cudaSuccess) return e;
+  gru_zr_kernel<T, VEC><<<gru_grid(B, H), GRU_THREADS, GRU_SMEM, s>>>(
+      static_cast<const T*>(xp), static_cast<const T*>(h),
+      static_cast<const float*>(w), static_cast<const float*>(b),
+      static_cast<float*>(zrc), static_cast<float*>(rh), B, H);
   return cudaGetLastError();
 }
 
@@ -658,11 +930,11 @@ template <typename T>
 cudaError_t launch_gru_zr(const void* xp, const void* h, const void* w,
                           const void* b, void* zrc, void* rh, int B, int H,
                           cudaStream_t s) {
-  gru_zr_kernel<T><<<grid_of(B, H), THREADS, 0, s>>>(
-      static_cast<const T*>(xp), static_cast<const T*>(h),
-      static_cast<const float*>(w), static_cast<const float*>(b),
-      static_cast<float*>(zrc), static_cast<float*>(rh), B, H);
-  return cudaGetLastError();
+  if (B <= 0 || H <= 0 || B > 65535 * GRU_ROWS) return cudaErrorInvalidValue;
+  if (gru_vec(H, h, w, nullptr)) {
+    return launch_gru_zr_as<T, true>(xp, h, w, b, zrc, rh, B, H, s);
+  }
+  return launch_gru_zr_as<T, false>(xp, h, w, b, zrc, rh, B, H, s);
 }
 
 template <typename T>
@@ -695,12 +967,12 @@ int rnn_lstm_step(const void* xp, const void* h, const void* c,
   return cudaErrorInvalidValue;
 }
 
-// How many B6 blocks the card holds at once at this H (the cooperative
-// grid's limit): blocks an SM holds by registers, threads and shared
-// memory, times the SMs.
-int rnn_gru_block_capacity(int H, int dtype, int* capacity) {
-  if (dtype == 0) return gru_block_capacity<float>(H, capacity);
-  if (dtype == 1) return gru_block_capacity<bf16>(H, capacity);
+// How many B6 blocks the card holds at once (the cooperative grid's limit,
+// the same at every H): blocks an SM holds by registers, threads and
+// shared memory, times the SMs.
+int rnn_gru_block_capacity(int dtype, int* capacity) {
+  if (dtype == 0) return gru_block_capacity<float>(capacity);
+  if (dtype == 1) return gru_block_capacity<bf16>(capacity);
   return cudaErrorInvalidValue;
 }
 

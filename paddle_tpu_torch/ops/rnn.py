@@ -30,9 +30,9 @@ Two routes for a step, decided exactly as JAX decides them:
 
 Among the fused GRU shapes the port has its own gate (:func:`gru_route`),
 sized by the card: B6 is one cooperative launch whose grid must be
-co-resident, so it runs where the card holds the whole grid at once, and
-B7 + B8 (two ordinary launches) everywhere else.  Both compute the same
-f32 function.
+co-resident, so it runs where JAX's plan is its one block and the card
+holds the whole grid at once, and B7 + B8 (two ordinary launches)
+everywhere else.  Both compute the same f32 function.
 
 The backward of a fused step is the JAX closed form over the saved
 activations (``_fused_lstm_bwd``, ``_fused_gru_bwd``) in plain torch, its
@@ -122,16 +122,18 @@ def _gru_tile(H: int, B: int):
     return _hidden_tile(H, B, 2, 10)
 
 
-def _fused_vmem_ok(w_h, batch: int, rows_per_item: int) -> bool:
-    return (w_h.numel() + batch * rows_per_item * w_h.shape[0]) * 4 \
-        <= _FUSED_VMEM_BUDGET
+def _fused_vmem_ok(w_numel: int, H: int, batch: int,
+                   rows_per_item: int) -> bool:
+    """JAX's ``_fused_vmem_ok(w_h, batch, rows_per_item)`` for a ``w_h``
+    of ``w_numel`` elements and H rows."""
+    return (w_numel + batch * rows_per_item * H) * 4 <= _FUSED_VMEM_BUDGET
 
 
 def _gru_fused_plan(H: int, B: int, w_h):
     """JAX's plan: "block", a tile size, or None (the plain cell).  Only
     ``is not None`` matters here: which CUDA route runs is
     :func:`gru_route`'s choice."""
-    if _fused_vmem_ok(w_h, B, 11):
+    if _fused_vmem_ok(w_h.numel(), H, B, 11):
         return "block"
     return _gru_tile(H, B)
 
@@ -147,18 +149,22 @@ def _use_fused(batch: int, w_h, gate_act, cell_act, out_act) -> bool:
 # The port's own gate between B6 and B7 + B8, sized by the card
 # ---------------------------------------------------------------------------
 
-# geometry of the GRU kernels of csrc/rnn_cells.cu: a block owns 16 hidden
-# units x 16 batch rows in 128 threads and takes K in chunks of 32; B6
-# keeps the block's 16 h (then r h) rows resident in shared memory, and is
-# compiled with __launch_bounds__(128, 4), so registers allow at least 4
-# blocks an SM
-BLOCK_UNITS, BLOCK_ROWS, BLOCK_THREADS, K_CHUNK = 16, 16, 128, 32
-GRU_BLOCK_MIN_BLOCKS = 4
-# an H100 SXM: 132 SMs, 228 KB of shared memory an SM, 227 KB a block, 1 KB
-# of it reserved by the runtime for each block
+# geometry of B6 and B7 (csrc/rnn_cells.cu, the GRU's main loop): a block
+# of 256 threads owns 8 hidden units x 32 batch rows and streams K in
+# chunks of 64 through a 4-stage cp.async ring: each stage 32 rows of f32
+# (the chunk plus a 16-byte pad) and the chunk's W_h columns of 2 gates x
+# 8 units, 51,200 bytes in all, the same at every H (no row stays
+# resident); B6 is compiled with __launch_bounds__(256, 2), so registers
+# allow at least 2 of its blocks an SM.  B8 keeps its own block.
+BLOCK_UNITS, BLOCK_ROWS, BLOCK_THREADS, K_CHUNK = 8, 32, 256, 64
+RING_STAGES = 4
+GRU_BLOCK_MIN_BLOCKS = 2
+GRU_BLOCK_SMEM = RING_STAGES * 4 * (BLOCK_ROWS * (K_CHUNK + 4)
+                                    + K_CHUNK * 2 * BLOCK_UNITS)
+# an H100 SXM: 132 SMs, 228 KB of shared memory an SM, 1 KB of it reserved
+# by the runtime for each block
 H100_SMS = 132
 H100_SMEM_PER_SM = 233472
-H100_SMEM_PER_BLOCK = 232448
 SMEM_RESERVED_PER_BLOCK = 1024
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -167,42 +173,33 @@ def _grid_blocks(B: int, H: int) -> int:
     return -(-H // BLOCK_UNITS) * -(-B // BLOCK_ROWS)
 
 
-def gru_block_smem(H: int) -> int:
-    """Dynamic shared memory of one B6 block: its 16 resident rows, H
-    rounded up to whole K chunks plus one (bank) column, and a W_h chunk."""
-    ld = -(-H // K_CHUNK) * K_CHUNK + 1
-    return 4 * (BLOCK_ROWS * ld + K_CHUNK * 2 * BLOCK_UNITS)
-
-
-def gru_block_capacity_h100(H: int) -> int:
-    """B6 blocks an H100 holds at once at this H, reckoned from its shared
-    memory, its 2048 threads an SM and the 4 blocks the launch bounds
-    guarantee by registers: a lower bound of what
-    ``rnn_gru_block_capacity`` asks the card (on an H100, 792 at H 512
-    where ptxas allots 71 registers, the same 264 at H 1280)."""
-    smem = gru_block_smem(H)
-    if smem > H100_SMEM_PER_BLOCK:
-        return 0
-    per_sm = min(H100_SMEM_PER_SM // (smem + SMEM_RESERVED_PER_BLOCK),
+def gru_block_capacity_h100() -> int:
+    """B6 blocks an H100 holds at once, reckoned from its shared memory
+    (4 rings of 51,200 bytes an SM), its 2048 threads an SM (8 blocks) and
+    the 2 blocks the launch bounds guarantee by registers: 2 x 132 SMs, a
+    lower bound of what ``rnn_gru_block_capacity`` asks the card, the same
+    at every H."""
+    per_sm = min(H100_SMEM_PER_SM // (GRU_BLOCK_SMEM
+                                      + SMEM_RESERVED_PER_BLOCK),
                  2048 // BLOCK_THREADS, GRU_BLOCK_MIN_BLOCKS)
     return per_sm * H100_SMS
 
 
-_CAPACITY = {}   # (card, H, dtype) -> the card's B6 capacity, asked once
+_CAPACITY = {}   # (card, dtype) -> the card's B6 capacity, asked once
 
 
-def gru_block_capacity(H: int, dtype=torch.float32, device=None) -> int:
-    """B6's co-resident block limit at H: the card's own answer for a CUDA
+def gru_block_capacity(dtype=torch.float32, device=None) -> int:
+    """B6's co-resident block limit: the card's own answer for a CUDA
     ``device``, the H100 reckoning otherwise."""
     device = None if device is None else torch.device(device)
     if device is None or device.type != "cuda":
-        return gru_block_capacity_h100(H)
+        return gru_block_capacity_h100()
     key = (device.index if device.index is not None
-           else torch.cuda.current_device(), H, dtype)
+           else torch.cuda.current_device(), dtype)
     if key not in _CAPACITY:
         lib = build.load("rnn_cells", _SIGNATURES)
         cap = ctypes.c_int(0)
-        _raise_on(lib, lib.rnn_gru_block_capacity(H, _DTYPE_CODE[dtype],
+        _raise_on(lib, lib.rnn_gru_block_capacity(_DTYPE_CODE[dtype],
                                                   ctypes.byref(cap)),
                   "rnn_gru_block_capacity")
         _CAPACITY[key] = cap.value
@@ -212,22 +209,25 @@ def gru_block_capacity(H: int, dtype=torch.float32, device=None) -> int:
 def gru_block_refusal(B: int, H: int, dtype=torch.float32,
                       device=None) -> Optional[str]:
     """None when B6 takes a [B, H] step, else why not, with the limit."""
-    smem = gru_block_smem(H)
-    if smem > H100_SMEM_PER_BLOCK:
-        return (f"B6 keeps 16 h rows resident: {smem} bytes of shared "
-                f"memory at H={H}, over the {H100_SMEM_PER_BLOCK} a block "
-                "can use")
-    grid, cap = _grid_blocks(B, H), gru_block_capacity(H, dtype, device)
+    grid, cap = _grid_blocks(B, H), gru_block_capacity(dtype, device)
     if grid > cap:
         return (f"B6 is one cooperative launch of {grid} blocks at B={B}, "
                 f"H={H}; the card holds {cap} such blocks at once "
-                f"({smem} bytes of shared memory each)")
+                f"({BLOCK_THREADS} threads and {GRU_BLOCK_SMEM} bytes of "
+                "shared memory each)")
     return None
 
 
 def gru_route(B: int, H: int, dtype=torch.float32, device=None) -> str:
-    """``"block"`` (B6) where its grid is co-resident on the card, else
-    ``"tiled"`` (B7 then B8)."""
+    """``"block"`` (B6) where JAX's plan is its one block and B6's grid is
+    co-resident on the card, else ``"tiled"`` (B7 then B8).  At B 64,
+    H 1280 both say tiled: JAX's plan tiles H 1280, and B6's 320 blocks
+    are more than the 264 an H100 holds.  B6's ring does not grow with H,
+    so the card alone would let B6 take some shapes that JAX tiles (B 32,
+    H 1280: 160 blocks); the plan keeps the two packages' routes alike
+    there."""
+    if not _fused_vmem_ok(3 * H * H, H, B, 11):
+        return "tiled"
     return "block" if gru_block_refusal(B, H, dtype, device) is None \
         else "tiled"
 
@@ -306,7 +306,7 @@ _SIGNATURES = {
     "rnn_gru_zr": ([_VOIDP] * 6 + [_INT] * 3 + [_VOIDP], _INT),
     # rh xp w b zrc h new_h | save_c B H dtype stream
     "rnn_gru_cand": ([_VOIDP] * 7 + [_INT] * 4 + [_VOIDP], _INT),
-    "rnn_gru_block_capacity": ([_INT, _INT, ctypes.POINTER(_INT)], _INT),
+    "rnn_gru_block_capacity": ([_INT, ctypes.POINTER(_INT)], _INT),
     "rnn_error_string": ([_INT], ctypes.c_char_p),
 }
 

@@ -12,9 +12,9 @@ wrappers.  Both run the training case (``train_workload`` case a: q/k/v
 [1, 8192, 16, 128] bf16, 8 causal segments of 1024) on the same inputs;
 each is first held against the plain version
 (``train_workload.flash_error``), then timed in rounds of earlier, this,
-this, earlier.  A time is card time: the CUDA kernels of ``REPS`` calls
-under ``torch.profiler``, over ``REPS`` (the wrapper's small range ops
-included, for both); each time carries the timer that took it
+this, earlier.  A time is card time: one call's worth of each CUDA
+kernel's mean record over ``REPS`` calls under ``torch.profiler`` (the
+wrapper's small range ops included, for both); each time carries the timer that took it
 (:func:`card_ms`).  It prints one JSON line per kernel and round and a
 summary line.
 
@@ -49,21 +49,47 @@ ENTRIES = ("flash_fwd", "flash_bwd_kv", "flash_bwd_dq")
 # an earlier tree's bf16 route: the wgmma source first, where it exists
 EARLIER_SOURCES = ("flash_attention_sm90", "flash_attention")
 PROFILER_TRIES = 3
+# spin kernels (``torch.cuda._sleep``) launched before and after the timed
+# calls of a profiled window and left out of its sums: in a process that
+# has run the serving and training phases the trace loses a few records a
+# window (7 in a chip_smoke run), and these take the loss at either end
+PAD_KERNELS, PAD_NAME = 16, "spin_kernel"
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def per_call_us(kernels: Sequence[Tuple[int, float]], reps: int):
+    """Device us of one call from a trace of ``reps`` calls, and the
+    kernel records the trace lost: ``kernels`` holds (records, device us)
+    of each kernel name.  Each kernel counts its mean record times its
+    launches a call (its records over ``reps``, rounded), so a record the
+    trace lost is not read as time the card did not spend.  None where
+    the trace caught nothing, or a kernel's records are more than a
+    quarter of ``reps`` away from a whole number of launches a call."""
+    total, lost = 0.0, 0
+    for count, us in kernels:
+        per_call = round(count / reps)
+        if per_call == 0 or abs(count - per_call * reps) > reps / 4:
+            return None
+        total += us / count * per_call
+        lost += per_call * reps - count
+    return (total, lost) if kernels else None
+
+
 def card_ms(fn: Callable[[], object], reps: int = REPS,
             only: str = "") -> Tuple[float, str]:
     """Card time of one call and the timer that took it.  ``"profiler"``:
     the CUDA kernels (those whose name holds ``only``) of ``reps`` calls
-    under ``torch.profiler``, over ``reps``.  Where the trace caught no
-    kernel ``PROFILER_TRIES`` times (it happens now and then on the card's
-    machine), ``"events"``: the calls back to back between two CUDA
-    events, over ``reps``, which for a kernel shorter than its wrapper's
-    host work times the host instead."""
+    under ``torch.profiler``, one call's worth of each kernel's mean
+    record (:func:`per_call_us`), the window padded at both ends with
+    ``PAD_KERNELS`` spin kernels; where the trace still lost records of
+    the timed kernels the timer names how many.  Where the trace caught
+    too little ``PROFILER_TRIES`` times (it happens now and then on the
+    card's machine), ``"events"``: the calls back to back between two
+    CUDA events, over ``reps``, which for a kernel shorter than its
+    wrapper's host work times the host instead."""
     from torch.autograd import DeviceType
 
     fn()
@@ -72,13 +98,22 @@ def card_ms(fn: Callable[[], object], reps: int = REPS,
             torch.profiler.ProfilerActivity.CUDA]
     for _ in range(PROFILER_TRIES):
         with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(PAD_KERNELS):
+                torch.cuda._sleep(1)
             for _ in range(reps):
                 fn()
+            for _ in range(PAD_KERNELS):
+                torch.cuda._sleep(1)
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA and only in e.key)
-        if total > 0.0:
-            return total / 1e3 / reps, "profiler"
+        got = per_call_us([(e.count, e.self_device_time_total)
+                           for e in prof.key_averages()
+                           if e.device_type == DeviceType.CUDA
+                           and only in e.key and PAD_NAME not in e.key],
+                          reps)
+        if got is not None and got[0] > 0.0:
+            us, lost = got
+            return us / 1e3, ("profiler" if lost == 0 else
+                              f"profiler, {lost} kernel records lost")
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -101,6 +136,13 @@ def summary(times: Dict[str, Dict[str, list]]) -> dict:
 
 def card_name() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
+def sm_clock() -> str:
+    """The card's SM clock now, as ``nvidia-smi`` prints it."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
 

@@ -12,9 +12,9 @@ through its wrapper.  Both run the main path's cases (``ragged_cases``
 ``decode_f32`` and ``mixed_f32``: 16 heads of head_dim 128, page 128, f32
 pool) on the same inputs; each is first held against the plain version
 (``ragged_cases.check``), then timed in rounds of earlier, this, this,
-earlier.  A time is card time (``compare_flash.card_ms``: the CUDA
-kernels of ``REPS`` calls under ``torch.profiler``, over ``REPS``; this
-checkout's includes its merge launch and the wrapper's small casts, and
+earlier.  A time is card time (``compare_flash.card_ms``: one call's
+worth of each CUDA kernel's mean record over ``REPS`` calls under
+``torch.profiler``; this checkout's includes its merge launch and the wrapper's small casts, and
 so does the earlier one's casts); each time carries the timer that took
 it.  It prints one JSON line per case and round, then a summary line with
 the bound of each case and the card's name and power limit.

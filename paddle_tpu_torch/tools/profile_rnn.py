@@ -8,9 +8,10 @@ h 1280 (1 layer).  Per config: two warm-up steps, then ``STEPS`` steps
 unprofiled for the host wall time (each ending in the cost's host copy),
 then ``STEPS`` steps under ``torch.profiler`` for the kernels.  It prints
 wall ms a step, device busy ms a step (sum of CUDA kernel times of the
-profiled steps), ``idle_share`` = 1 - busy / wall, device ms a step
-grouped into the four RNN kernels, matrix products and everything else,
-kernel launches a step and the top kernels.
+profiled steps), ``idle_share`` = 1 - busy / wall, device ms and launches
+a step grouped into the four RNN kernels, matrix products and everything
+else, kernel launches a step, the top kernels, and the card's SM clock
+read just after the profiled steps.
 
 Run from the repository root on a machine with one GPU::
 
@@ -27,6 +28,7 @@ import time
 import torch
 
 from paddle_tpu_torch.tools import rnn_workload as rw
+from paddle_tpu_torch.tools.compare_flash import sm_clock
 
 STEPS = 3
 CONFIGS = (("lstm", 512, 2), ("gru", 512, 2), ("gru", 1280, 1))
@@ -74,18 +76,22 @@ def profile(dev, cell: str, hidden: int, layers: int) -> dict:
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts, acc_events=True) as prof:
         _steps(sgd, batch, STEPS)
+    clock = sm_clock()
     kernels = _kernels(prof)
     busy = sum(us for _, us, _ in kernels) / 1e3 / STEPS
-    groups = {}
-    for name, us, _ in kernels:
+    groups, counts = {}, {}
+    for name, us, count in kernels:
         groups[_group(name)] = groups.get(_group(name), 0.0) + \
             us / 1e3 / STEPS
+        counts[_group(name)] = counts.get(_group(name), 0) + count / STEPS
     top = sorted(kernels, key=lambda k: -k[1])[:10]
     return {"cell": cell, "hidden": hidden, "layers": layers,
             "batch": rw.BATCH, "time_steps": rw.STEPS_T, "steps": STEPS,
             "wall_ms_per_step": wall, "device_busy_ms_per_step": busy,
             "idle_share": 1.0 - busy / wall,
             "device_ms_per_step_by_group": groups,
+            "launches_per_step_by_group": counts,
+            "sm_clock_after_profile": clock,
             "kernel_launches_per_step": sum(c for _, _, c in kernels) / STEPS,
             "top_kernels": [{"name": n[:90], "ms_per_step": us / 1e3 / STEPS,
                              "count": c} for n, us, c in top]}

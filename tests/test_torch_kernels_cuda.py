@@ -9,8 +9,9 @@ autograd function, and small transformers (head dims 128, 32, 256)
 trained through the kernels against the same steps through the plain
 versions; the four RNN kernels (the fused LSTM step, the one-launch GRU step and
 the two-launch GRU step) against their plain versions on
-``chip_smoke.py``'s cases and, for the LSTM step, on shapes that are not
-whole tiles, the one-launch GRU step's refusal of a grid the
+``chip_smoke.py``'s cases and, for the LSTM step and the GRU steps' new
+main loop (B6, B7), on shapes that are not whole tiles, the one-launch GRU
+step on a grid at the edge of co-residency and its refusal of a grid the
 card cannot hold at once, and small recurrent classifiers trained through
 the kernels against the plain versions.
 
@@ -601,6 +602,85 @@ def test_lstm_step_on_shapes_that_are_not_whole_tiles(cuda, B, H, dtype):
         assert res["within_tolerance"], (label, res)
 
 
+def _gru_args(dev, B, H, dtype, seed):
+    """xp [B, 3H] and h [B, H] in ``dtype``, W_h XavierUniform and the
+    bias f32, drawn from ``seed`` at the scales of ``rw.rnn_case``."""
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+
+    def t(a, to=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+            dev, to)
+
+    bound = np.sqrt(6.0 / (4 * H))
+    return (t(rng.standard_normal((B, 3 * H)), dt),
+            t(np.tanh(rng.standard_normal((B, H))), dt),
+            t(rng.uniform(-bound, bound, (H, 3 * H))),
+            t(0.1 * rng.standard_normal(3 * H)))
+
+
+def _check_gru_kernels(args, save_acts):
+    """B6 and B7 on ``args`` against their plain versions, each one
+    launch."""
+    from paddle_tpu_torch.ops import rnn as R
+
+    H = args[1].shape[1]
+    before = (R.gru_step_kernel.launches, R.gru_zr_kernel.launches)
+    got_h, got_acts = R.gru_step_kernel(*args, save_acts=save_acts)
+    got_zrc, got_rh = R.gru_zr_kernel(*args)
+    want_h, want_acts = R.gru_step_reference(*args, save_acts=save_acts)
+    want_zrc, want_rh = R.gru_zr_reference(*args)
+    torch.cuda.synchronize()
+    assert (R.gru_step_kernel.launches, R.gru_zr_kernel.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert (got_acts is None) == (not save_acts)
+    pairs = {"h": (got_h, want_h), "zr": (got_zrc[:, :2 * H],
+                                          want_zrc[:, :2 * H]),
+             "rh": (got_rh, want_rh)}
+    if save_acts:
+        pairs["acts"] = (got_acts, want_acts)
+    for label, (g, w) in pairs.items():
+        assert g.dtype == w.dtype and g.shape == w.shape, label
+        res = rw.rnn_error(g, w)
+        assert res["within_tolerance"], (label, res)
+
+
+@pytest.mark.parametrize("save_acts", [True, False], ids=["acts", "noacts"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H", [100, 520])
+@pytest.mark.parametrize("B", [1, 17, 50])
+def test_gru_steps_on_shapes_that_are_not_whole_tiles(cuda, B, H, dtype,
+                                                      save_acts):
+    """B6 and B7 where the batch and K do not fill their tiles, against
+    the plain versions: B 1, 17 and 50 (1, 17 and 18 of a block's 32 rows
+    live); H 100 (the last unit block 4 of 8 units, the last K chunk 36 of
+    64, and H % 8 != 0, so rows stage through registers; bf16 rows of h
+    are not 16-byte aligned) and H 520 (the last K chunk 8 of 64, on the
+    cp.async path)."""
+    _check_gru_kernels(_gru_args(cuda, B, H, dtype, [B, H]), save_acts)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gru_block_kernel_at_the_edge_of_co_residency(cuda, dtype):
+    """B6 on a grid of exactly as many blocks as the card holds at once
+    (one unit block an SM, H = 8 x SMs, and as many 32-row blocks as an SM
+    holds B6 blocks) against the plain version; one batch row more adds a
+    row block, and the launch is refused with the limit."""
+    from paddle_tpu_torch.ops import rnn as R
+
+    dt = getattr(torch, dtype)
+    cap = R.gru_block_capacity(dt, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert cap % sms == 0 and cap >= R.gru_block_capacity_h100()
+    H, B = R.BLOCK_UNITS * sms, R.BLOCK_ROWS * (cap // sms)
+    assert R._grid_blocks(B, H) == cap
+    _check_gru_kernels(_gru_args(cuda, B, H, dtype, [B, H]), True)
+    args = _gru_args(cuda, B + 1, H, dtype, 0)
+    with pytest.raises(EnforceError, match=f"cooperative launch of "
+                       f"{cap + sms} blocks.*holds {cap}"):
+        R.gru_step_kernel(*args)
+
+
 def test_gru_block_kernel_refuses_a_grid_the_card_cannot_hold(cuda):
     from paddle_tpu_torch.ops import rnn as R
 
@@ -608,8 +688,13 @@ def test_gru_block_kernel_refuses_a_grid_the_card_cannot_hold(cuda):
     args = (case["xp"], case["h"], case["w_h"], case["bias"])
     assert R.gru_route(64, 1280, torch.float32, cuda) == "tiled"
     assert R.gru_route(64, 512, torch.float32, cuda) == "block"
-    with pytest.raises(EnforceError, match="cooperative launch of 320"):
-        R.gru_step_kernel(*args)
+    # B 256 at H 1280: 160 unit blocks x 8 row blocks, more than a card
+    # of 132 SMs holds at any number of blocks an SM that shared memory
+    # allows (4)
+    wide = (case["xp"].repeat(4, 1), case["h"].repeat(4, 1), case["w_h"],
+            case["bias"])
+    with pytest.raises(EnforceError, match="cooperative launch of 1280"):
+        R.gru_step_kernel(*wide)
     with pytest.raises(EnforceError, match="float32 or bfloat16"):
         R.gru_zr_kernel(case["xp"].double(), case["h"].double(),
                         case["w_h"], case["bias"])

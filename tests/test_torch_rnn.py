@@ -174,8 +174,8 @@ def test_gru_tiled_kernels_match_pallas_phases():
 def test_route_rules_match_jax_and_the_card_gate():
     """The fused-or-plain rule is JAX's, number for number; the port's
     own GRU gate takes B6 at the main path's B 64, H 512 and B7 + B8 at
-    B 64, H 1280 (an H100 holds 528 and 264 B6 blocks; the grids are 128
-    and 320)."""
+    B 64, H 1280 (JAX's plan tiles H 1280; the grids are 128 and 320 B6
+    blocks of 8 units x 32 rows, and an H100 holds 264 at every H)."""
     for H in (8, 512, 1000, 1280, 2048):
         for B in (3, 64, 256):
             w4, w3 = np.zeros((H, 4 * H), np.float32), \
@@ -191,8 +191,15 @@ def test_route_rules_match_jax_and_the_card_gate():
                                torch.sigmoid, torch.relu, torch.tanh)
     assert trnn.gru_route(64, 512) == "block"
     assert trnn.gru_route(64, 1280) == "tiled"
-    assert trnn.gru_block_capacity_h100(512) == 528
-    assert trnn.gru_block_capacity_h100(1280) == 264
+    # B6's ring: 4 stages x (32 rows x (64 + 4) f32 + 64 k x 2 gates x 8
+    # units f32) = 51,200 bytes at every H; an SM's 233,472 bytes hold 4
+    # such blocks (1,024 reserved each), its 2048 threads 8, and the launch
+    # bounds guarantee 2 by registers: 2 x 132 SMs = 264
+    assert trnn.GRU_BLOCK_SMEM == 51200
+    assert trnn.gru_block_capacity_h100() == 264
+    assert trnn.gru_block_refusal(64, 512) is None
+    # H 1280: 160 unit blocks x 2 row blocks
+    assert "320 blocks" in trnn.gru_block_refusal(64, 1280)
     assert "264" in trnn.gru_block_refusal(64, 1280)
     assert "shared memory" in trnn.gru_block_refusal(64, 4096)
 
@@ -293,8 +300,8 @@ def test_gru_scan_values_and_grads_match_jax(fused, reverse):
 
 
 def test_gru_scan_tiled_route_matches_jax():
-    """The port's B7 + B8 route through a scan (its gate would take B6
-    at B 3) against JAX's tiled plan at H = 1280, T = 3."""
+    """The port's B7 + B8 route through a scan, forced, against JAX's
+    tiled plan at H = 1280, T = 3."""
     B, T, D, H = 3, 3, 5, 1280
     rng = np.random.RandomState(4)
     x = rng.randn(B, T, D).astype(np.float32)

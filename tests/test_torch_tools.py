@@ -178,6 +178,23 @@ def test_compare_flash_takes_each_entry_from_the_first_source_with_it(
         assert entries["flash_bwd_dq"].restype is not None
 
 
+@pytest.mark.parametrize("kernels,want", [
+    ([(20, 200.0)], (10.0, 0)),                  # every record caught
+    ([(17, 170.0)], (10.0, 3)),                  # 3 of 20 lost
+    ([(20, 200.0), (58, 116.0)], (16.0, 2)),     # 3 launches a call, 2 lost
+    ([(14, 140.0)], None),                       # 6 of 20 lost: too many
+    ([(3, 30.0)], None),                         # under one launch a call
+    ([], None),                                  # nothing caught
+])
+def test_card_time_counts_a_call_from_the_records_caught(kernels, want):
+    """Card time of one call out of a trace of 20 calls: each kernel's
+    mean record times its launches a call, so records the trace lost
+    (the card's profiler drops a few a window in a long run, and a
+    reading below the kernel's bound once came of dividing what was left
+    by every call) are not read as time the card did not spend."""
+    assert compare_flash.per_call_us(kernels, 20) == want
+
+
 def test_comparison_summary_keeps_each_time_and_its_timer():
     """The tools' summary line: the median, every time, and every timer
     that took them, so a time from CUDA events is never passed off as a
@@ -192,9 +209,9 @@ def test_comparison_summary_keeps_each_time_and_its_timer():
 @pytest.mark.parametrize("name", sorted(compare_rnn.VARIANTS))
 def test_compare_rnn_variants_apply_to_the_lstm_source(name, monkeypatch,
                                                        tmp_path):
-    """Each B5 ablation finds its anchors in the current
-    ``csrc/rnn_cells.cu`` the given number of times and writes a tree
-    whose source differs only there."""
+    """Each ablation (of B5's loop, the GRU loop or both) finds its
+    anchors in the current ``csrc/rnn_cells.cu`` the given number of times
+    and writes a tree whose source differs only there."""
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     tree = compare_rnn.variant_tree(name)
     out = (tree / "paddle_tpu_torch" / "csrc" / "rnn_cells.cu").read_text()
@@ -203,9 +220,27 @@ def test_compare_rnn_variants_apply_to_the_lstm_source(name, monkeypatch,
         times for _, _, times in compare_rnn.VARIANTS[name])
 
 
+@pytest.mark.parametrize("name,anchor,times", [
+    (name, anchor, times) for name, subs in sorted(compare_rnn.VARIANTS.items())
+    for anchor, _, times in subs if anchor in compare_rnn.GRU_ANCHORS])
+def test_compare_rnn_variants_reach_the_gru_loop(name, anchor, times):
+    """The GRU ablations (``no_copies``, ``no_products``, ``no_sync``) find
+    each of their anchors the stated number of times, every one inside
+    the GRU's main loop and B6 (between the loop's header and B7's), so
+    they leave B5 and B8 alone; each GRU ablation has such an anchor."""
+    source = (build.CSRC_DIR / "rnn_cells.cu").read_text()
+    start = source.index("// B6 and B7: the GRU's main loop")
+    end = source.index("// B7 + B8: the GRU step in two ordinary launches")
+    assert source.count(anchor) == times
+    assert source[start:end].count(anchor) == times
+    gru = {n for n, subs in compare_rnn.VARIANTS.items()
+           if any(a in compare_rnn.GRU_ANCHORS for a, _, _ in subs)}
+    assert gru == {"no_copies", "no_products", "no_sync"}
+
+
 def test_chip_smoke_picks_each_kernels_ptxas_entry(monkeypatch):
     """The kernels line's ptxas fields: the entry of the instantiation the
-    main path runs (f32 B5 on its cp.async path, f32 B6-B8, the D 128
+    main path runs (f32 B5-B7 on their cp.async paths, f32 B8, the D 128
     flash kernels), one per name, from a report of every instantiation."""
     def entry(name, regs):
         return [f"ptxas info    : Compiling entry function '{name}' for "
@@ -216,8 +251,10 @@ def test_chip_smoke_picks_each_kernels_ptxas_entry(monkeypatch):
     ns = "_ZN45_GLOBAL__N__0_12_rnn_cells_cu_0"
     rnn = [f"{ns}16lstm_step_kernelI{t}Lb{v}EEEvPKT_S4_ii"
            for t in ("f", "13__nv_bfloat16") for v in (0, 1)]
-    rnn += [f"{ns}{len(k)}{k}I{t}EEvPKT_ii" for k in
-            ("gru_step_kernel", "gru_zr_kernel", "gru_cand_kernel")
+    rnn += [f"{ns}{len(k)}{k}I{t}Lb{v}EEvPKT_ii" for k in
+            ("gru_step_kernel", "gru_zr_kernel")
+            for t in ("f", "13__nv_bfloat16") for v in (0, 1)]
+    rnn += [f"{ns}15gru_cand_kernelI{t}EEvPKT_ii"
             for t in ("f", "13__nv_bfloat16")]
     flash = [f"_ZN0_{k}ILi{d}EEEv14CUtensorMap_st" for k in
              ("flash_fwd_wgmma_kernel", "flash_bwd_kv_wgmma_kernel",
@@ -225,7 +262,7 @@ def test_chip_smoke_picks_each_kernels_ptxas_entry(monkeypatch):
     for src, names in (("rnn_cells", rnn), ("flash_attention_sm90", flash)):
         log = [line for i, n in enumerate(names) for line in entry(n, 40 + i)]
         monkeypatch.setitem(build.BUILD_LOG, src, (1.0, "\n".join(log)))
-    want = {"lstm_step": 41, "gru_step": 44, "gru_zr": 46, "gru_cand": 48}
+    want = {"lstm_step": 41, "gru_step": 45, "gru_zr": 49, "gru_cand": 52}
     for kname, regs in want.items():
         got = chip_smoke.ptxas_of("rnn_cells", chip_smoke.RNN_PTXAS[kname])
         assert got["registers"] == regs, kname
