@@ -14,8 +14,9 @@ checkout of the repository).  Phases, each fatal on failure:
    prefill+decode, GQA 4, int8 and bf16 pages, bf16 queries on bf16 pages
    (the tensor-core path, decode and mixed) and on f32 pages, and the
    mixed step at G 3 (12 heads over 4 KV heads), G 16 (one KV head) and
-   head dims 16, 32, 64 and 256 — with error, kernel time, plain time and
-   the roofline bound;
+   head dims 16, 32, 64 and 256, and between the compiled widths at 96
+   (f32 pages) and 80 (int8 pages) — with error, kernel time, plain time
+   and the roofline bound;
 4. serve: a full-width DecoderLM (vocab 32768, d 2048, 8 layers, 16
    heads) with random weights from a seed, through the port's
    ServingEngine at the flag defaults with a 129-page pool: 8 requests,
@@ -33,7 +34,8 @@ checkout of the repository).  Phases, each fatal on failure:
    segments at a smaller S (head dims 128 and 64), non-causal
    cross-attention with Sq != Sk, causal with Sk > Sq (f32, and bf16 with
    Sq an odd number of 64-row tiles), bf16 causal segments at head dim
-   64, and the CUDA-core route at head dims 32 and 256 and at Sq 96;
+   64, and the CUDA-core route at head dims 32 and 256, at Sq 96, and at
+   head dims between its compiled widths (96 in bf16, 48 in f32);
    with error, kernel time, plain time, the roofline bound, the
    interior and boundary tile pairs and, on the training case,
    ``scaled_dot_product_attention`` forward, backward alone and both as
@@ -650,7 +652,7 @@ RNN_REPLACES = {"lstm_step": "paddle_tpu/ops/rnn.py:80",
 RNN_PTXAS = {"lstm_step": "lstm_step_kernelIfLb1E",
              "gru_step": "gru_step_kernelIfLb1E",
              "gru_zr": "gru_zr_kernelIfLb1E",
-             "gru_cand": "gru_cand_kernelIfE"}
+             "gru_cand": "gru_cand_kernelIfLb1E"}
 GRU_NO_LIBRARY = ("no PyTorch call computes this function: torch.nn.GRU "
                   "applies the reset gate after the product, r(h W_hn + "
                   "b_hn), Paddle's GRU before it, (r h) W_c")

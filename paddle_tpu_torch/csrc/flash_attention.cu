@@ -1,10 +1,11 @@
 // Flash attention for Hopper (sm_90a) on the CUDA cores: forward, dK/dV and
 // dQ over packed sequences with segment ids and causal masking, for f32
 // inputs and for bf16 (P and dS rounded to bf16 before their products, or
-// kept in f32 under attn_pv_f32), at head dims 16, 32, 64, 128 and 256 and
-// any sequence lengths.  bf16 with P and dS rounded at head dim 64 or 128
-// on whole 64-row tiles (the training path) is flash_attention_sm90.cu's:
-// wgmma kernels fed by TMA; every other shape and type is this file's.
+// kept in f32 under attn_pv_f32), at every head dim that is a multiple of
+// 8 from 8 to 256 and any sequence lengths.  bf16 with P and dS rounded at
+// head dim 64 or 128 on whole 64-row tiles (the training path) is
+// flash_attention_sm90.cu's: wgmma kernels fed by TMA; every other shape
+// and type is this file's.
 //
 // Replaces the three Pallas TPU kernels of paddle_tpu/ops/attention.py:
 //   flash_fwd    <- _flash_fwd_kernel    (:142, pallas_call :249)
@@ -36,12 +37,20 @@
 // (TF32 would break the f32 contract; bf16 operands are widened), so the
 // cores' 67 TFLOP/s bound all three kernels.
 //
-// Design: the TPU streams the key (or query) axis through a sequential
-// grid dimension and carries state in VMEM scratch; Hopper's blocks run in
-// parallel and in no order, so one block owns one tile of TILE rows
-// (queries for forward and dQ, keys for dK/dV) and loops over the other
-// axis itself, carrying its sums in registers.  TILE is 64, and 32 at head
-// dim 256, where four f32 tiles of 64 rows would not fit shared memory.
+// Design: the TPU streams the key (or query) axis through a sequential grid
+// dimension and carries state in VMEM scratch; Hopper's blocks run in parallel
+// and in no order, so one block owns one tile of TILE rows (queries for
+// forward and dQ, keys for dK/dV) and loops over the other axis itself,
+// carrying its sums in registers.  Kernels are compiled at the widths DP = 16,
+// 32, 64, 128 and 256; the head dim d is an argument, and the kernel at DP
+// runs every d with DP / 2 < d <= DP (DP = 16 also d = 8): rows are d elements
+// apart in device memory, columns d .. DP of a tile are zero in shared memory
+// (d % 8 == 0, so a 4-element word is wholly inside or wholly past d, and rows
+// stay 16-byte (f32) or 8-byte (bf16) aligned), zero columns add nothing to
+// q.k, and stores stop at column d.  Each kernel is instantiated twice a
+// width: FULL (d == DP, the head dim a compile-time constant) and not (d read
+// from the arguments).  TILE is 64, and 32 at DP 256, where four f32 tiles of
+// 64 rows would not fit shared memory.
 // 256 threads form a 16 x 16 grid: thread (ty, tx) owns score rows
 // ty + 16 i and columns tx + 16 j (i, j < TILE / 16), and output rows
 // ty + 16 i by D / 16 columns (groups of CW = min(4, D / 16) neighbours,
@@ -152,18 +161,21 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
-// one tile (row stride `rs` elements in global memory) into shared memory
-// rows of D + PAD elements; rows at or past n_rows are zero
+// one tile (row stride `rs` elements in global memory, dh columns) into
+// shared memory rows of D + PAD elements; rows at or past n_rows and
+// columns at or past dh are zero
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, size_t rs,
-                                          int n_rows, int tid) {
+                                          int n_rows, int dh, int tid) {
   using R = typename Raw4<T>::type;
   constexpr int CH = D / 4;
   for (int idx = tid; idx < Tile<D>::ROWS * CH; idx += NTHREADS) {
     const int r = idx / CH;
     const int c = (idx % CH) * 4;
     R v{};
-    if (r < n_rows) v = *reinterpret_cast<const R*>(src + r * rs + c);
+    if (r < n_rows && c < dh) {
+      v = *reinterpret_cast<const R*>(src + r * rs + c);
+    }
     *reinterpret_cast<R*>(dst + r * (D + PAD) + c) = v;
   }
 }
@@ -233,11 +245,11 @@ __device__ __forceinline__ void tile_acc_nn(
   }
 }
 
-// write rows ty + 16 i (those below n_rows) of a tile's accumulator,
-// divided by den[i]
+// write rows ty + 16 i (those below n_rows) and columns below dh of a
+// tile's accumulator, divided by den[i]
 template <typename T, int D>
 __device__ __forceinline__ void store_rows(T* dst, size_t rs, int ty, int tx,
-                                           int n_rows,
+                                           int n_rows, int dh,
                                            float acc[Tile<D>::RI][Tile<D>::NC],
                                            const float den[Tile<D>::RI]) {
   using TL = Tile<D>;
@@ -249,8 +261,8 @@ __device__ __forceinline__ void store_rows(T* dst, size_t rs, int ty, int tx,
     for (int g = 0; g < TL::NG; ++g) {
 #pragma unroll
       for (int e = 0; e < TL::CW; ++e) {
-        from_f(row + 16 * TL::CW * g + TL::CW * tx + e,
-               acc[i][TL::CW * g + e] / den[i]);
+        const int col = 16 * TL::CW * g + TL::CW * tx + e;
+        if (col < dh) from_f(row + col, acc[i][TL::CW * g + e] / den[i]);
       }
     }
   }
@@ -285,20 +297,21 @@ constexpr size_t fwd_smem() {
          2 * Tile<D>::ROWS * sizeof(int);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool FULL>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ qrange,
                  const int* __restrict__ krange,
                  const int* __restrict__ qseg, const int* __restrict__ kseg,
                  T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk,
-                 int H, int causal, int pv_f32, float scale) {
+                 int H, int dh, int causal, int pv_f32, float scale) {
   using TL = Tile<D>;
   constexpr int TR = TL::ROWS, RI = TL::RI;
+  if (FULL) dh = D;
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int nqt = n_tiles(Sq, TR), nkt = n_tiles(Sk, TR);
-  const size_t rs = static_cast<size_t>(H) * D;
+  const size_t rs = static_cast<size_t>(H) * dh;
   const int q_rows = min(TR, Sq - qt * TR);
 
   extern __shared__ __align__(16) unsigned char smem[];
@@ -311,7 +324,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int* kseg_s = qseg_s + TR;
 
   const size_t q0 = static_cast<size_t>(b) * Sq + qt * TR;
-  load_tile<T, D>(q_s, q + q0 * rs + h * D, rs, q_rows, tid);
+  load_tile<T, D>(q_s, q + q0 * rs + h * dh, rs, q_rows, dh, tid);
   if (tid < TR) qseg_s[tid] = tid < q_rows ? qseg[q0 + tid] : -1;
   const int* qr = qrange + (static_cast<size_t>(b) * nqt + qt) * 2;
 
@@ -333,8 +346,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();   // the previous tile's readers are done
     const size_t k0 = static_cast<size_t>(b) * Sk + kt * TR;
     const int k_rows = min(TR, Sk - kt * TR);
-    load_tile<T, D>(k_s, k + k0 * rs + h * D, rs, k_rows, tid);
-    load_tile<T, D>(v_s, v + k0 * rs + h * D, rs, k_rows, tid);
+    load_tile<T, D>(k_s, k + k0 * rs + h * dh, rs, k_rows, dh, tid);
+    load_tile<T, D>(v_s, v + k0 * rs + h * dh, rs, k_rows, dh, tid);
     if (tid < TR) kseg_s[tid] = tid < k_rows ? kseg[k0 + tid] : -1;
     __syncthreads();
 
@@ -377,7 +390,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float den[RI];
 #pragma unroll
   for (int i = 0; i < RI; ++i) den[i] = (l[i] == 0.f) ? 1.f : l[i];
-  store_rows<T, D>(o + q0 * rs + h * D, rs, ty, tx, q_rows, acc, den);
+  store_rows<T, D>(o + q0 * rs + h * dh, rs, ty, tx, q_rows, dh, acc, den);
   if (tx == 0) {
     float* lrow = lse + (static_cast<size_t>(b) * H + h) * Sq + qt * TR;
 #pragma unroll
@@ -397,7 +410,7 @@ constexpr size_t bwd_kv_smem() {
          2 * Tile<D>::ROWS * sizeof(int) + 2 * Tile<D>::ROWS * sizeof(float);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool FULL>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
@@ -407,14 +420,15 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const int* __restrict__ krange,
                     const int* __restrict__ qseg,
                     const int* __restrict__ kseg, T* __restrict__ dk,
-                    T* __restrict__ dv, int Sq, int Sk, int H, int causal,
-                    int pv_f32, float scale) {
+                    T* __restrict__ dv, int Sq, int Sk, int H, int dh,
+                    int causal, int pv_f32, float scale) {
   using TL = Tile<D>;
   constexpr int TR = TL::ROWS, RI = TL::RI;
+  if (FULL) dh = D;
   const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int nqt = n_tiles(Sq, TR), nkt = n_tiles(Sk, TR);
-  const size_t rs = static_cast<size_t>(H) * D;
+  const size_t rs = static_cast<size_t>(H) * dh;
   constexpr size_t TB = tile_bytes<T, D>();
   const int k_rows = min(TR, Sk - kt * TR);
 
@@ -431,8 +445,8 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* delta_s = lse_s + TR;
 
   const size_t k0 = static_cast<size_t>(b) * Sk + kt * TR;
-  load_tile<T, D>(k_s, k + k0 * rs + h * D, rs, k_rows, tid);
-  load_tile<T, D>(v_s, v + k0 * rs + h * D, rs, k_rows, tid);
+  load_tile<T, D>(k_s, k + k0 * rs + h * dh, rs, k_rows, dh, tid);
+  load_tile<T, D>(v_s, v + k0 * rs + h * dh, rs, k_rows, dh, tid);
   if (tid < TR) kseg_s[tid] = tid < k_rows ? kseg[k0 + tid] : -1;
   const int* kr = krange + (static_cast<size_t>(b) * nkt + kt) * 2;
   const float* lse_bh = lse + (static_cast<size_t>(b) * H + h) * Sq;
@@ -457,8 +471,8 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     const size_t q0 = static_cast<size_t>(b) * Sq + qt * TR;
     const int q_rows = min(TR, Sq - qt * TR);
-    load_tile<T, D>(q_s, q + q0 * rs + h * D, rs, q_rows, tid);
-    load_tile<T, D>(do_s, dout + q0 * rs + h * D, rs, q_rows, tid);
+    load_tile<T, D>(q_s, q + q0 * rs + h * dh, rs, q_rows, dh, tid);
+    load_tile<T, D>(do_s, dout + q0 * rs + h * dh, rs, q_rows, dh, tid);
     if (tid < TR) {
       const bool in = tid < q_rows;
       qseg_s[tid] = in ? qseg[q0 + tid] : -1;
@@ -495,8 +509,8 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float one[RI];
 #pragma unroll
   for (int i = 0; i < RI; ++i) one[i] = 1.f;
-  store_rows<T, D>(dk + k0 * rs + h * D, rs, ty, tx, k_rows, dka, one);
-  store_rows<T, D>(dv + k0 * rs + h * D, rs, ty, tx, k_rows, dva, one);
+  store_rows<T, D>(dk + k0 * rs + h * dh, rs, ty, tx, k_rows, dh, dka, one);
+  store_rows<T, D>(dv + k0 * rs + h * dh, rs, ty, tx, k_rows, dh, dva, one);
 }
 
 // ---------------------------------------------------------------------------
@@ -509,7 +523,7 @@ constexpr size_t bwd_dq_smem() {
          2 * Tile<D>::ROWS * sizeof(int) + 2 * Tile<D>::ROWS * sizeof(float);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool FULL>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
@@ -519,13 +533,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const int* __restrict__ krange,
                     const int* __restrict__ qseg,
                     const int* __restrict__ kseg, T* __restrict__ dq, int Sq,
-                    int Sk, int H, int causal, int pv_f32, float scale) {
+                    int Sk, int H, int dh, int causal, int pv_f32,
+                    float scale) {
   using TL = Tile<D>;
   constexpr int TR = TL::ROWS, RI = TL::RI;
+  if (FULL) dh = D;
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int nqt = n_tiles(Sq, TR), nkt = n_tiles(Sk, TR);
-  const size_t rs = static_cast<size_t>(H) * D;
+  const size_t rs = static_cast<size_t>(H) * dh;
   constexpr size_t TB = tile_bytes<T, D>();
   const int q_rows = min(TR, Sq - qt * TR);
 
@@ -541,8 +557,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* delta_s = lse_s + TR;
 
   const size_t q0 = static_cast<size_t>(b) * Sq + qt * TR;
-  load_tile<T, D>(q_s, q + q0 * rs + h * D, rs, q_rows, tid);
-  load_tile<T, D>(do_s, dout + q0 * rs + h * D, rs, q_rows, tid);
+  load_tile<T, D>(q_s, q + q0 * rs + h * dh, rs, q_rows, dh, tid);
+  load_tile<T, D>(do_s, dout + q0 * rs + h * dh, rs, q_rows, dh, tid);
   if (tid < TR) {
     const size_t bh = (static_cast<size_t>(b) * H + h) * Sq + qt * TR;
     const bool in = tid < q_rows;
@@ -567,8 +583,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     const size_t k0 = static_cast<size_t>(b) * Sk + kt * TR;
     const int k_rows = min(TR, Sk - kt * TR);
-    load_tile<T, D>(k_s, k + k0 * rs + h * D, rs, k_rows, tid);
-    load_tile<T, D>(v_s, v + k0 * rs + h * D, rs, k_rows, tid);
+    load_tile<T, D>(k_s, k + k0 * rs + h * dh, rs, k_rows, dh, tid);
+    load_tile<T, D>(v_s, v + k0 * rs + h * dh, rs, k_rows, dh, tid);
     if (tid < TR) kseg_s[tid] = tid < k_rows ? kseg[k0 + tid] : -1;
     __syncthreads();
 
@@ -597,7 +613,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float one[RI];
 #pragma unroll
   for (int i = 0; i < RI; ++i) one[i] = 1.f;
-  store_rows<T, D>(dq + q0 * rs + h * D, rs, ty, tx, q_rows, dqa, one);
+  store_rows<T, D>(dq + q0 * rs + h * dh, rs, ty, tx, q_rows, dh, dqa, one);
 }
 
 // ---------------------------------------------------------------------------
@@ -616,14 +632,14 @@ struct Args {
   const void *q, *k, *v, *dout, *lse_in, *delta, *qrange, *krange, *qseg,
       *kseg;
   void *o, *lse, *dq, *dk, *dv;
-  int B, Sq, Sk, H, causal, pv_f32;
+  int B, Sq, Sk, H, D, causal, pv_f32;   // D: the head dim
   float scale;
   cudaStream_t stream;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool FULL>
 cudaError_t run_fwd(const Args& a) {
-  auto kernel = flash_fwd_kernel<T, D>;
+  auto kernel = flash_fwd_kernel<T, D, FULL>;
   static bool attr_set = false;   // once per instantiation
   if (!attr_set) {
     const cudaError_t e = allow_smem(kernel, fwd_smem<T, D>());
@@ -636,14 +652,14 @@ cudaError_t run_fwd(const Args& a) {
       static_cast<const T*>(a.v), static_cast<const int*>(a.qrange),
       static_cast<const int*>(a.krange), static_cast<const int*>(a.qseg),
       static_cast<const int*>(a.kseg), static_cast<T*>(a.o),
-      static_cast<float*>(a.lse), a.Sq, a.Sk, a.H, a.causal, a.pv_f32,
+      static_cast<float*>(a.lse), a.Sq, a.Sk, a.H, a.D, a.causal, a.pv_f32,
       a.scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool FULL>
 cudaError_t run_bwd_kv(const Args& a) {
-  auto kernel = flash_bwd_kv_kernel<T, D>;
+  auto kernel = flash_bwd_kv_kernel<T, D, FULL>;
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = allow_smem(kernel, bwd_kv_smem<T, D>());
@@ -658,13 +674,14 @@ cudaError_t run_bwd_kv(const Args& a) {
       static_cast<const float*>(a.delta), static_cast<const int*>(a.qrange),
       static_cast<const int*>(a.krange), static_cast<const int*>(a.qseg),
       static_cast<const int*>(a.kseg), static_cast<T*>(a.dk),
-      static_cast<T*>(a.dv), a.Sq, a.Sk, a.H, a.causal, a.pv_f32, a.scale);
+      static_cast<T*>(a.dv), a.Sq, a.Sk, a.H, a.D, a.causal, a.pv_f32,
+      a.scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool FULL>
 cudaError_t run_bwd_dq(const Args& a) {
-  auto kernel = flash_bwd_dq_kernel<T, D>;
+  auto kernel = flash_bwd_dq_kernel<T, D, FULL>;
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = allow_smem(kernel, bwd_dq_smem<T, D>());
@@ -679,44 +696,47 @@ cudaError_t run_bwd_dq(const Args& a) {
       static_cast<const float*>(a.delta), static_cast<const int*>(a.qrange),
       static_cast<const int*>(a.krange), static_cast<const int*>(a.qseg),
       static_cast<const int*>(a.kseg), static_cast<T*>(a.dq), a.Sq, a.Sk,
-      a.H, a.causal, a.pv_f32, a.scale);
+      a.H, a.D, a.causal, a.pv_f32, a.scale);
   return cudaGetLastError();
 }
 
 enum Which { FWD = 0, BWD_KV = 1, BWD_DQ = 2 };
 
+template <typename T, int D, bool FULL>
+cudaError_t run_as(Which w, const Args& a) {
+  switch (w) {
+    case FWD: return run_fwd<T, D, FULL>(a);
+    case BWD_KV: return run_bwd_kv<T, D, FULL>(a);
+    case BWD_DQ: return run_bwd_dq<T, D, FULL>(a);
+  }
+  return cudaErrorInvalidValue;
+}
+
 template <typename T, int D>
 cudaError_t run(Which w, const Args& a) {
-  switch (w) {
-    case FWD: return run_fwd<T, D>(a);
-    case BWD_KV: return run_bwd_kv<T, D>(a);
-    case BWD_DQ: return run_bwd_dq<T, D>(a);
-  }
-  return cudaErrorInvalidValue;
+  return a.D == D ? run_as<T, D, true>(w, a) : run_as<T, D, false>(w, a);
 }
 
+// the kernel compiled at the least width DP >= the head dim
 template <typename T>
-cudaError_t run_head_dim(Which w, int D, const Args& a) {
-  switch (D) {
-    case 16: return run<T, 16>(w, a);
-    case 32: return run<T, 32>(w, a);
-    case 64: return run<T, 64>(w, a);
-    case 128: return run<T, 128>(w, a);
-    case 256: return run<T, 256>(w, a);
-  }
-  return cudaErrorInvalidValue;
+cudaError_t run_head_dim(Which w, const Args& a) {
+  if (a.D <= 16) return run<T, 16>(w, a);
+  if (a.D <= 32) return run<T, 32>(w, a);
+  if (a.D <= 64) return run<T, 64>(w, a);
+  if (a.D <= 128) return run<T, 128>(w, a);
+  return run<T, 256>(w, a);
 }
 
-// dtype: 0 = f32, 1 = bf16; head_dim 16, 32, 64, 128 or 256; any positive
-// lengths.  The range arrays hold one [min, max] per tile of
-// Tile<D>::ROWS rows (the Python wrappers compute them at that tile).
-cudaError_t dispatch(Which w, int D, int dtype, const Args& a) {
+// dtype: 0 = f32, 1 = bf16; head dim a multiple of 8 from 8 to 256; any
+// positive lengths.  The range arrays hold one [min, max] per tile of
+// Tile<DP>::ROWS rows (the Python wrappers compute them at that tile).
+cudaError_t dispatch(Which w, int dtype, const Args& a) {
   if (a.B <= 0 || a.H <= 0 || a.Sq <= 0 || a.Sk <= 0 || a.H > 65535 ||
-      a.B > 65535) {
+      a.B > 65535 || a.D < 8 || a.D > 256 || a.D % 8 != 0) {
     return cudaErrorInvalidValue;
   }
-  if (dtype == 0) return run_head_dim<float>(w, D, a);
-  if (dtype == 1) return run_head_dim<bf16>(w, D, a);
+  if (dtype == 0) return run_head_dim<float>(w, a);
+  if (dtype == 1) return run_head_dim<bf16>(w, a);
   return cudaErrorInvalidValue;
 }
 
@@ -732,10 +752,10 @@ int flash_fwd(const void* q, const void* k, const void* v,
   Args a{};
   a.q = q; a.k = k; a.v = v; a.qrange = qrange; a.krange = krange;
   a.qseg = qseg; a.kseg = kseg; a.o = o; a.lse = lse;
-  a.B = B; a.Sq = Sq; a.Sk = Sk; a.H = H; a.causal = causal;
+  a.B = B; a.Sq = Sq; a.Sk = Sk; a.H = H; a.D = D; a.causal = causal;
   a.pv_f32 = pv_f32; a.scale = scale;
   a.stream = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(dispatch(FWD, D, dtype, a));
+  return static_cast<int>(dispatch(FWD, dtype, a));
 }
 
 int flash_bwd_kv(const void* q, const void* k, const void* v,
@@ -748,10 +768,10 @@ int flash_bwd_kv(const void* q, const void* k, const void* v,
   a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse_in = lse;
   a.delta = delta; a.qrange = qrange; a.krange = krange; a.qseg = qseg;
   a.kseg = kseg; a.dk = dk; a.dv = dv;
-  a.B = B; a.Sq = Sq; a.Sk = Sk; a.H = H; a.causal = causal;
+  a.B = B; a.Sq = Sq; a.Sk = Sk; a.H = H; a.D = D; a.causal = causal;
   a.pv_f32 = pv_f32; a.scale = scale;
   a.stream = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(dispatch(BWD_KV, D, dtype, a));
+  return static_cast<int>(dispatch(BWD_KV, dtype, a));
 }
 
 int flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -764,10 +784,10 @@ int flash_bwd_dq(const void* q, const void* k, const void* v,
   a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse_in = lse;
   a.delta = delta; a.qrange = qrange; a.krange = krange; a.qseg = qseg;
   a.kseg = kseg; a.dq = dq;
-  a.B = B; a.Sq = Sq; a.Sk = Sk; a.H = H; a.causal = causal;
+  a.B = B; a.Sq = Sq; a.Sk = Sk; a.H = H; a.D = D; a.causal = causal;
   a.pv_f32 = pv_f32; a.scale = scale;
   a.stream = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(dispatch(BWD_DQ, D, dtype, a));
+  return static_cast<int>(dispatch(BWD_DQ, dtype, a));
 }
 
 const char* flash_error_string(int err) {

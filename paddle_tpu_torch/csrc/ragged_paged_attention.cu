@@ -16,7 +16,17 @@
 //   - online softmax with (m, l, acc) in f32; bf16 pages round P to bf16
 //     before the PV product, as the TPU kernel's p.astype(vb.dtype) does;
 //   - a row with nothing live (kv_len 0, or a padded row) yields 0.
-// Head dims 16, 32, 64, 128 and 256; any page size.
+// Every head dim d that is a multiple of 8 from 8 to 256; any page size.
+// The kernels are compiled at the widths DP = 16, 32, 64, 128 and 256 and
+// the one at DP runs every d with DP / 2 < d <= DP (DP = 16 also d = 8):
+// rows of q, of the pages, of the output and of the partials are d
+// elements apart, columns d .. DP of the Q and K/V tiles are zero-filled as
+// they are loaded (zero columns add nothing to q.k, and the PV product's
+// columns past d are never stored), which also pads the last k-step of the
+// tensor-core products (k = 8 in 3xTF32, 16 in bf16).  Rows of f32 and bf16
+// stay 16-byte aligned; int8 rows at d % 16 == 8 move in 8-byte pieces.
+// Each kernel is instantiated twice a width: FULL (d == DP, the head dim a
+// compile-time constant) and not (d read from the parameters).
 //
 // What bounds it on the H100: a decode row reads every live K/V byte of its
 // sequence once for 2 * G * D multiply-adds per token and KV head, far
@@ -110,7 +120,7 @@ struct Params {
                      // row blocks of the run):
                      // wide items from the front, the rest from the back
   int* counts;       // wide items, other items, next work item
-  int T, H, KVH, D, page, Pm, span, max_items, q_bf16;
+  int T, H, KVH, D, page, Pm, span, max_items, q_bf16;   // D: the head dim
   float sm_scale;
 };
 
@@ -235,6 +245,14 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                "l"(gmem), "r"(n));
 }
 
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem,
+                                          bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = full ? 8 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n));
+}
+
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
                                           bool full) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -256,6 +274,12 @@ __device__ __forceinline__ void cp_async_wait() {
 // the attention blocks and the merge all count spans with this
 __device__ __forceinline__ int row_tokens(int qpos, int kv_len, int cap) {
   return qpos < 0 ? 0 : max(0, min(min(kv_len, qpos + 1), cap));
+}
+
+// the head dim: DP itself in a FULL instantiation, else the call's
+template <int DP, bool FULL>
+__device__ __forceinline__ int head_dim(const Params& p) {
+  return FULL ? DP : p.D;
 }
 
 // ---------------------------------------------------------------------------
@@ -339,33 +363,61 @@ __device__ __forceinline__ void for_each_item(const Params& p, Meta& meta,
   }
 }
 
+// The K and V rows of one tile in BYTES-byte pieces: the row's d elements,
+// then zeros up to D; rows at or past t_end are zero-filled.  A warp's
+// lanes take neighbouring pieces of a row.
+template <typename T, int D, bool FULL, int KS, int VS, int NT, int BYTES>
+__device__ __forceinline__ void fetch_rows(const Params& p, const int* pt,
+                                           int kh, int t0, int t_end,
+                                           T* k_dst, T* v_dst) {
+  constexpr int PIECES = D * static_cast<int>(sizeof(T)) / BYTES;
+  const int row_bytes =
+      head_dim<D, FULL>(p) * static_cast<int>(sizeof(T));
+  const unsigned char* kp = static_cast<const unsigned char*>(p.k_pages);
+  const unsigned char* vp = static_cast<const unsigned char*>(p.v_pages);
+  for (int idx = threadIdx.x; idx < KT * PIECES; idx += NT) {
+    const int r = idx / PIECES;
+    const int at = (idx % PIECES) * BYTES;
+    const int tok = t0 + r;
+    const bool live = tok < t_end && (FULL || at < row_bytes);
+    size_t off = 0;
+    if (live) {
+      off = ((static_cast<size_t>(pt[tok / p.page]) * p.page +
+              tok % p.page) * p.KVH + kh) * row_bytes + at;
+    }
+    unsigned char* kd = reinterpret_cast<unsigned char*>(k_dst + r * KS) + at;
+    unsigned char* vd = reinterpret_cast<unsigned char*>(v_dst + r * VS) + at;
+    if constexpr (BYTES == 16) {
+      cp_async16(kd, kp + off, live);
+      cp_async16(vd, vp + off, live);
+    } else {
+      cp_async8(kd, kp + off, live);
+      cp_async8(vd, vp + off, live);
+    }
+  }
+}
+
 // One K/V tile of tokens [t0, t0 + KT) of KV head kh into shared memory
 // (K rows of KS, V rows of VS elements), each token row fetched through
-// the page table; rows at or past t_end are zero-filled.  Threads split the
-// tile in 16-byte chunks, a warp's lanes on neighbouring chunks of a row.
-template <typename T, int D, int KS, int VS, int NT>
+// the page table; rows at or past t_end, and columns d .. D, are
+// zero-filled.  16-byte pieces, but 8-byte ones for int8 rows whose d
+// bytes are not whole 16-byte pieces (nor 16-byte aligned).
+template <typename T, int D, bool FULL, int KS, int VS, int NT>
 __device__ __forceinline__ void fetch_tile(const Params& p, const int* pt,
                                            int kh, int t0, int t_end,
                                            T* k_dst, T* v_dst, float* ks_dst,
                                            float* vs_dst) {
-  constexpr int CHUNKS = D * static_cast<int>(sizeof(T)) / 16;
-  const T* kp = static_cast<const T*>(p.k_pages);
-  const T* vp = static_cast<const T*>(p.v_pages);
-  for (int idx = threadIdx.x; idx < KT * CHUNKS; idx += NT) {
-    const int r = idx / CHUNKS;
-    const int cc = idx % CHUNKS;
-    const int tok = t0 + r;
-    const bool live = tok < t_end;
-    size_t row = 0;
-    if (live) {
-      row = (static_cast<size_t>(pt[tok / p.page]) * p.page + tok % p.page) *
-                p.KVH + kh;
+  if constexpr (std::is_same<T, int8_t>::value && !FULL) {
+    if (p.D % 16 != 0) {
+      fetch_rows<T, D, FULL, KS, VS, NT, 8>(p, pt, kh, t0, t_end, k_dst,
+                                            v_dst);
+    } else {
+      fetch_rows<T, D, FULL, KS, VS, NT, 16>(p, pt, kh, t0, t_end, k_dst,
+                                             v_dst);
     }
-    const size_t off = row * D * sizeof(T) + cc * 16;
-    cp_async16(reinterpret_cast<unsigned char*>(k_dst + r * KS) + cc * 16,
-               reinterpret_cast<const unsigned char*>(kp) + off, live);
-    cp_async16(reinterpret_cast<unsigned char*>(v_dst + r * VS) + cc * 16,
-               reinterpret_cast<const unsigned char*>(vp) + off, live);
+  } else {
+    fetch_rows<T, D, FULL, KS, VS, NT, 16>(p, pt, kh, t0, t_end, k_dst,
+                                           v_dst);
   }
   if constexpr (std::is_same<T, int8_t>::value) {
     for (int r = threadIdx.x; r < KT; r += NT) {
@@ -553,15 +605,16 @@ __device__ __forceinline__ void online_softmax(
   }
 }
 
-// A warp's rows r0 and r1 of the item: a row taking one span is finished
-// here (in q's type); one taking more leaves its partial for the merge.
-template <int NN>
+// A warp's rows r0 and r1 of the item, columns below d: a row taking one
+// span is finished here (in q's type); one taking more leaves its partial
+// for the merge.
+template <int NN, bool FULL>
 __device__ __forceinline__ void write_rows(const Params& p, const Meta& meta,
                                            float o[NN][4], float m0,
                                            float m1, float l0, float l1,
                                            int r0, int r1, int n_rows,
                                            int split, int t) {
-  constexpr int D = NN * 8;
+  const int D = head_dim<NN * 8, FULL>(p);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = h ? r1 : r0;
@@ -573,6 +626,7 @@ __device__ __forceinline__ void write_rows(const Params& p, const Meta& meta,
     const size_t part = static_cast<size_t>(split) * p.T * p.H + rh;
 #pragma unroll
     for (int n = 0; n < NN; ++n) {
+      if (8 * n >= D) break;   // d % 8 == 0: columns 8 n .. 8 n + 7 all past d
       const size_t col = 8 * n + 2 * t;
       const float x0 = o[n][2 * h] * inv, x1 = o[n][2 * h + 1] * inv;
       if (done) {
@@ -611,7 +665,7 @@ struct F32Layout {
   static constexpr size_t BYTES = S_OFF + NSTAGE * STAGE;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool FULL>
 __device__ __forceinline__ void f32_item(const Params& p,
                                          unsigned char* smem, int blk,
                                          int run, int chunk, int split,
@@ -643,7 +697,7 @@ __device__ __forceinline__ void f32_item(const Params& p,
   auto v_sc = [&](int s) { return k_sc(s) + KT; };
   auto fetch = [&](int t0, int t1, int tile) {
     const int s = tile % NSTAGE;
-    fetch_tile<T, D, L::KS, L::VS, NT>(p, pt, kh, t0, t1, k_tile(s),
+    fetch_tile<T, D, FULL, L::KS, L::VS, NT>(p, pt, kh, t0, t1, k_tile(s),
                                        v_tile(s), k_sc(s), v_sc(s));
   };
 
@@ -663,14 +717,16 @@ __device__ __forceinline__ void f32_item(const Params& p,
   const int n_tiles = (t_end - t_begin + KT - 1) / KT;
   const bool active = rg * 16 < n_rows;        // warp-uniform
 
-  // Q tile in f32: score rows past n_rows are zero
+  // Q tile in f32: score rows past n_rows and columns past d are zero
   for (int idx = tid; idx < MT * (D / 4); idx += NT) {
     const int r = idx / (D / 4);
     const int c4 = (idx % (D / 4)) * 4;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < n_rows) {
+    if (r < n_rows && c4 < head_dim<D, FULL>(p)) {
       const size_t off =
-          (static_cast<size_t>(meta.row[r]) * p.H + meta.head[r]) * D + c4;
+          (static_cast<size_t>(meta.row[r]) * p.H + meta.head[r]) *
+              head_dim<D, FULL>(p) +
+          c4;
       v = p.q_bf16 ? load4(static_cast<const bf16*>(p.q) + off)
                    : load4(static_cast<const float*>(p.q) + off);
     }
@@ -796,7 +852,7 @@ __device__ __forceinline__ void f32_item(const Params& p,
       o[n][2] += b1.x;
       o[n][3] += b1.y;
     }
-    write_rows<NN>(p, meta, o, m0, m1, l0 + p_s[r0 * L::PS + 1],
+    write_rows<NN, FULL>(p, meta, o, m0, m1, l0 + p_s[r0 * L::PS + 1],
                    l1 + p_s[r1 * L::PS + 1], r0, r1, n_rows, split, t);
   }
 }
@@ -827,7 +883,7 @@ struct NarrowLayout {
 // warp's (lane = token).  PV: eight lanes share 4 columns of RK rows,
 // lane i taking tokens i, i + 8, ..; they add up their sums once, at the
 // end of the item.
-template <typename T, int D>
+template <typename T, int D, bool FULL>
 __device__ __forceinline__ void narrow_item(const Params& p,
                                             unsigned char* smem, int blk,
                                             int run, int chunk, int split,
@@ -852,7 +908,7 @@ __device__ __forceinline__ void narrow_item(const Params& p,
   auto fetch = [&](int t0, int t1, int tile) {
     unsigned char* b = stage(tile);
     float* sc = reinterpret_cast<float*>(b + 2 * L::TILE);
-    fetch_tile<T, D, L::KS, L::KS, NT>(p, pt, kh, t0, t1,
+    fetch_tile<T, D, FULL, L::KS, L::KS, NT>(p, pt, kh, t0, t1,
                                        reinterpret_cast<T*>(b),
                                        reinterpret_cast<T*>(b + L::TILE), sc,
                                        sc + KT);
@@ -874,11 +930,16 @@ __device__ __forceinline__ void narrow_item(const Params& p,
   for (int idx = tid; idx < n_rows * C4; idx += NT) {
     const int r = idx / C4;
     const int c = (idx % C4) * 4;
-    const size_t off =
-        (static_cast<size_t>(meta.row[r]) * p.H + meta.head[r]) * D + c;
-    *reinterpret_cast<float4*>(q_s + r * L::QS + c) =
-        p.q_bf16 ? load4(static_cast<const bf16*>(p.q) + off)
-                 : load4(static_cast<const float*>(p.q) + off);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);   // columns past d
+    if (c < head_dim<D, FULL>(p)) {
+      const size_t off =
+          (static_cast<size_t>(meta.row[r]) * p.H + meta.head[r]) *
+              head_dim<D, FULL>(p) +
+          c;
+      v = p.q_bf16 ? load4(static_cast<const bf16*>(p.q) + off)
+                   : load4(static_cast<const float*>(p.q) + off);
+    }
+    *reinterpret_cast<float4*>(q_s + r * L::QS + c) = v;
   }
   if (tid < NARROW_ROWS) {
     meta.row_m[tid] = -INFINITY;
@@ -1015,12 +1076,14 @@ __device__ __forceinline__ void narrow_item(const Params& p,
 #pragma unroll
     for (int u = 0; u < CK; ++u) {
       const int c = 4 * (cg + CG * u);
+      const int dh = head_dim<D, FULL>(p);
+      if (c >= dh) continue;   // columns past d
       const float* x = acc[k][u];
       if (done) {
-        store2(p.out, rh * D + c, x[0] * inv, x[1] * inv, p.q_bf16);
-        store2(p.out, rh * D + c + 2, x[2] * inv, x[3] * inv, p.q_bf16);
+        store2(p.out, rh * dh + c, x[0] * inv, x[1] * inv, p.q_bf16);
+        store2(p.out, rh * dh + c + 2, x[2] * inv, x[3] * inv, p.q_bf16);
       } else {
-        *reinterpret_cast<float4*>(p.ws_acc + part * D + c) =
+        *reinterpret_cast<float4*>(p.ws_acc + part * dh + c) =
             make_float4(x[0], x[1], x[2], x[3]);
       }
     }
@@ -1030,7 +1093,7 @@ __device__ __forceinline__ void narrow_item(const Params& p,
 
 // two blocks an SM where their shared memory fits (head dims up to 128):
 // at most 128 registers a thread
-template <typename T, int D>
+template <typename T, int D, bool FULL>
 __global__ void __launch_bounds__(F32_THREADS, D > 128 ? 1 : 2)
 ragged_attention_f32_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -1038,9 +1101,11 @@ ragged_attention_f32_kernel(const Params p) {
                 [&](bool wide, int blk, int run, int chunk, int split,
                     int kh) {
                   if (wide) {
-                    f32_item<T, D>(p, smem, blk, run, chunk, split, kh);
+                    f32_item<T, D, FULL>(p, smem, blk, run, chunk, split,
+                                         kh);
                   } else {
-                    narrow_item<T, D>(p, smem, blk, run, chunk, split, kh);
+                    narrow_item<T, D, FULL>(p, smem, blk, run, chunk,
+                                            split, kh);
                   }
                 });
 }
@@ -1059,7 +1124,7 @@ struct Bf16Layout {
   static constexpr size_t BYTES = S_OFF + NSTAGE * STAGE;
 };
 
-template <int D>
+template <int D, bool FULL>
 __device__ __forceinline__ void bf16_item(const Params& p,
                                           unsigned char* smem, int blk,
                                           int run, int chunk, int split,
@@ -1093,7 +1158,7 @@ __device__ __forceinline__ void bf16_item(const Params& p,
   };
   auto fetch = [&](int tile) {
     const int s = tile % NSTAGE;
-    fetch_tile<bf16, D, L::QS, L::QS, BF16_THREADS>(
+    fetch_tile<bf16, D, FULL, L::QS, L::QS, BF16_THREADS>(
         p, pt, kh, t_begin + tile * KT, t_end, k_tile(s), v_tile(s),
         nullptr, nullptr);
   };
@@ -1104,10 +1169,12 @@ __device__ __forceinline__ void bf16_item(const Params& p,
     const int r = idx / (D / 8);
     const int c8 = (idx % (D / 8)) * 8;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n_rows) {
+    if (r < n_rows && c8 < head_dim<D, FULL>(p)) {
       v = *reinterpret_cast<const uint4*>(
           static_cast<const bf16*>(p.q) +
-          (static_cast<size_t>(meta.row[r]) * p.H + meta.head[r]) * D + c8);
+          (static_cast<size_t>(meta.row[r]) * p.H + meta.head[r]) *
+              head_dim<D, FULL>(p) +
+          c8);
     }
     *reinterpret_cast<uint4*>(q_s + r * L::QS + c8) = v;
   }
@@ -1173,17 +1240,18 @@ __device__ __forceinline__ void bf16_item(const Params& p,
   }
 
   if (active) {
-    write_rows<NN>(p, meta, o, m0, m1, l0, l1, r0, r1, n_rows, split, t);
+    write_rows<NN, FULL>(p, meta, o, m0, m1, l0, l1, r0, r1, n_rows, split,
+                         t);
   }
 }
 
-template <int D>
+template <int D, bool FULL>
 __global__ void __launch_bounds__(BF16_THREADS)
 ragged_attention_bf16_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   for_each_item(p, *reinterpret_cast<Meta*>(smem),
                 [&](bool, int blk, int run, int chunk, int split, int kh) {
-                  bf16_item<D>(p, smem, blk, run, chunk, split, kh);
+                  bf16_item<D, FULL>(p, smem, blk, run, chunk, split, kh);
                 });
 }
 
@@ -1354,42 +1422,48 @@ cudaError_t launch_persistent(K kernel, int threads, size_t bytes,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool FULL>
 cudaError_t run_f32(const Params& p, cudaStream_t stream) {
   static int blocks = 0;   // once per instantiation
-  return launch_persistent(ragged_attention_f32_kernel<T, D>, F32_THREADS,
-                           F32Layout<T, D>::BYTES, blocks, p, stream);
+  return launch_persistent(ragged_attention_f32_kernel<T, D, FULL>,
+                           F32_THREADS, F32Layout<T, D>::BYTES, blocks, p,
+                           stream);
 }
 
-template <int D>
+template <int D, bool FULL>
 cudaError_t run_bf16(const Params& p, cudaStream_t stream) {
   static int blocks = 0;
-  return launch_persistent(ragged_attention_bf16_kernel<D>, BF16_THREADS,
-                           Bf16Layout<D>::BYTES, blocks, p, stream);
+  return launch_persistent(ragged_attention_bf16_kernel<D, FULL>,
+                           BF16_THREADS, Bf16Layout<D>::BYTES, blocks, p,
+                           stream);
+}
+
+template <int D, bool FULL>
+cudaError_t run_pages(const Params& p, int page_dtype, cudaStream_t stream) {
+  if (page_dtype == 1 && p.q_bf16) return run_bf16<D, FULL>(p, stream);
+  switch (page_dtype) {
+    case 0: return run_f32<float, D, FULL>(p, stream);
+    case 1: return run_f32<bf16, D, FULL>(p, stream);
+    case 2: return run_f32<int8_t, D, FULL>(p, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <int D>
 cudaError_t run_head_dim(const Params& p, int page_dtype,
                          cudaStream_t stream) {
-  if (page_dtype == 1 && p.q_bf16) return run_bf16<D>(p, stream);
-  switch (page_dtype) {
-    case 0: return run_f32<float, D>(p, stream);
-    case 1: return run_f32<bf16, D>(p, stream);
-    case 2: return run_f32<int8_t, D>(p, stream);
-  }
-  return cudaErrorInvalidValue;
+  return p.D == D ? run_pages<D, true>(p, page_dtype, stream)
+                  : run_pages<D, false>(p, page_dtype, stream);
 }
 
+// the kernels compiled at the least width DP >= the head dim
 cudaError_t run_attention(const Params& p, int page_dtype,
                           cudaStream_t stream) {
-  switch (p.D) {
-    case 16: return run_head_dim<16>(p, page_dtype, stream);
-    case 32: return run_head_dim<32>(p, page_dtype, stream);
-    case 64: return run_head_dim<64>(p, page_dtype, stream);
-    case 128: return run_head_dim<128>(p, page_dtype, stream);
-    case 256: return run_head_dim<256>(p, page_dtype, stream);
-  }
-  return cudaErrorInvalidValue;
+  if (p.D <= 16) return run_head_dim<16>(p, page_dtype, stream);
+  if (p.D <= 32) return run_head_dim<32>(p, page_dtype, stream);
+  if (p.D <= 64) return run_head_dim<64>(p, page_dtype, stream);
+  if (p.D <= 128) return run_head_dim<128>(p, page_dtype, stream);
+  return run_head_dim<256>(p, page_dtype, stream);
 }
 
 }  // namespace
@@ -1412,6 +1486,7 @@ int rpa_launch(const void* q, const void* k_pages, const void* v_pages,
                int max_items, int page_dtype, int q_dtype, float sm_scale,
                void* stream) {
   if (KVH <= 0 || H % KVH != 0 || T_rows <= 0 || T_rows % BLOCK_ROWS != 0 ||
+      D < 8 || D > 256 || D % 8 != 0 ||
       page <= 0 || Pm <= 0 || span <= 0 || span % KT != 0 ||
       n_splits <= 0 || n_splits > MAX_SPLITS || H > 65535 ||
       max_items <= 0 ||

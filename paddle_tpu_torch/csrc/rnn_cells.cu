@@ -28,29 +28,33 @@
 // TFLOP/s f32 peak, against ~5.9 MB of operands (1.8 us at 3.35 TB/s): so
 // operations, at the scale of a launch.  W_h (4.2 MB at H 512, 26 MB at
 // H 1280) stays in the 50 MB L2 from one step to the next.  The GRU's two
-// products are 67 + 34 MFLOP at H 512 (B6) and 419 MFLOP for B7's z and r
-// at H 1280; past the bound, what a launch pays is the traffic from L2
-// (every block streams all H of its rows: B H (H / 8) x 4 bytes of rows a
+// products are 67 + 34 MFLOP at H 512 (B6), and 419 MFLOP for B7's z and r
+// and 210 for B8's candidate at H 1280 (3.1 us at the f32 peak); past the
+// bound, what a launch pays is the traffic from L2
+// (every block streams all H of its rows: B H (H / U) x 4 bytes of rows a
 // product, and W_h once per 32 batch rows) and the latency of a short
 // chain of dependent steps.
 //
 // Design: the TPU runs 1-5 large hidden tiles in a sequential grid; on the
 // card that would fill 1-5 of 132 SMs.  So blocks tile the hidden units,
 // each owning all gates of its units so the gate math stays in registers.
-// B5 and B6-B7 have one design of main loop, written out twice (B5's at its
-// kernel, the GRU's at B6): 256-thread blocks of 32 batch rows by 8 hidden
-// units, K streamed in chunks of 64 through a 4-stage cp.async ring (the
-// block's rows of h, or of r h, and its W_h columns), K split across the 8
-// warps inside the block, register micro-tiles fed by 16-byte shared loads,
-// and the warps' sums reduced through shared memory before the gate math in
-// registers.  The GRU's loop is written once for NG gates: NG = 2 (z and r,
-// phase 1 of B6 and all of B7) and NG = 1 (the candidate, phase 2 of B6).
-// B8 keeps the first design: a block owns 16 hidden units by 16 batch rows,
-// 8 x 16 = 128 threads, thread (ty, tx) owns unit tx and rows 2 ty,
-// 2 ty + 1; the K axis is taken in chunks of 32, the block staging the
-// chunk of its r h rows ([16][33], padded against bank conflicts) and of
-// its W_c columns ([32][16]) in shared memory, coalesced, then every
-// thread sums.
+// B5 and B6-B8 have one design of main loop, written out twice (B5's at its
+// kernel, the GRU's at B6): 256-thread blocks of 32 batch rows, K streamed
+// in chunks of 64 through a 4-stage cp.async ring (the block's rows of h,
+// or of r h, and its W_h columns), K split across the 8 warps inside the
+// block, register micro-tiles fed by 16-byte shared loads, and the warps'
+// sums reduced through shared memory before the gate math in registers.
+// The GRU's loop is written once for NG gates of U units, NG x U <= 16 W
+// columns a block: NG = 2, U = 8 (z and r: phase 1 of B6, and B7) and
+// NG = 1, U = 8 (the candidate: phase 2 of B6) or U = 16 (the candidate:
+// B8).  B8's 16-unit tile keeps the 16 sums a thread of B7's and the same
+// ring, and streams each block's r h rows once per 16 units, not 8: at
+// B 64, H 1280 ~26 MB of rows and ~13 MB of W_c from L2 a launch.  Its
+// (80, 2) tiles would leave most SMs one block and some two, so each
+// tile's K is split between a cluster of GRU_CAND_SPLITS = 2 blocks (an
+// (80, 2, 2) grid, 3 blocks an SM: one wave, the same bytes): the second
+// block hands its sums to the first through distributed shared memory,
+// and the first does the epilogue.
 //
 // B6 has the GRU's coupling: the candidate of every unit needs r h of all
 // H units.  The TPU holds one whole block; here B6 is one cooperative
@@ -67,8 +71,8 @@
 // 2)) let an SM hold 2 blocks or more, and rnn_gru_block_capacity reports
 // the card's answer.  The Python gate (ops/rnn.py) takes B6 where JAX's
 // plan is its one block and the grid fits, and B7 + B8 otherwise; B7 (B6's
-// phase 1 alone, h streamed the same way) and B8 are ordinary launches
-// that take any shape.
+// phase 1 alone, h streamed the same way) and B8 (clusters of 2 blocks)
+// need no co-resident grid and take any shape.
 //
 // Plain C interface (built by paddle_tpu_torch/kernels/build.py with nvcc,
 // loaded with ctypes): each entry returns a cudaError_t.
@@ -83,15 +87,6 @@
 namespace cg = cooperative_groups;
 
 namespace {
-
-// B8's block (the first design)
-constexpr int UNITS = 16;                  // hidden units of a block (tx)
-constexpr int RGROUPS = 8;                 // row groups of a block (ty)
-constexpr int RPT = 2;                     // batch rows of a thread
-constexpr int ROWS = RGROUPS * RPT;        // batch rows of a block
-constexpr int THREADS = UNITS * RGROUPS;   // 128
-constexpr int KT = 32;                     // K chunk
-constexpr int AS_LD = KT + 1;              // staged rh-chunk row stride
 
 using bf16 = __nv_bfloat16;
 
@@ -108,67 +103,6 @@ template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.f / (1.f + expf(-x));
-}
-
-// Stage rows [k0, k0 + KT) of gate columns (goff + g) H + j0 .. + UNITS of
-// W ([K, ldw] f32) into Ws[KT][NG * UNITS]; zeros outside.
-template <int NG>
-__device__ __forceinline__ void stage_w(float* Ws, const float* W, int ldw,
-                                        int goff, int j0, int H, int k0,
-                                        int K) {
-  for (int e = threadIdx.x; e < KT * NG * UNITS; e += THREADS) {
-    const int kk = e / (NG * UNITS), col = e % (NG * UNITS);
-    const int g = col / UNITS, j = j0 + col % UNITS, k = k0 + kk;
-    Ws[e] = (k < K && j < H) ? W[(size_t)k * ldw + (size_t)(goff + g) * H + j]
-                             : 0.f;
-  }
-}
-
-// Stage columns [k0, k0 + KT) of rows b0 .. b0 + ROWS of A ([B, K]) into
-// As[ROWS][AS_LD] as f32; zeros outside.
-template <typename TA>
-__device__ __forceinline__ void stage_a(float* As, const TA* A, int B, int b0,
-                                        int k0, int K) {
-  for (int e = threadIdx.x; e < ROWS * KT; e += THREADS) {
-    const int r = e / KT, kk = e % KT, b = b0 + r, k = k0 + kk;
-    As[r * AS_LD + kk] = (b < B && k < K) ? to_f(A[(size_t)b * K + k]) : 0.f;
-  }
-}
-
-// acc[g][i] += sum over one chunk of A[row ty RPT + i][kk] Ws[kk][g][tx].
-template <int NG>
-__device__ __forceinline__ void mac_chunk(float (&acc)[NG][RPT],
-                                          const float* As, int as_ld,
-                                          const float* Ws, int ty, int tx) {
-#pragma unroll 8
-  for (int kk = 0; kk < KT; ++kk) {
-    float a[RPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) a[i] = As[(ty * RPT + i) * as_ld + kk];
-#pragma unroll
-    for (int g = 0; g < NG; ++g) {
-      const float w = Ws[kk * NG * UNITS + g * UNITS + tx];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) acc[g][i] = fmaf(a[i], w, acc[g][i]);
-    }
-  }
-}
-
-// acc += A[b0 .., :] W[:, gate columns], A streamed from device memory.
-template <int NG, typename TA>
-__device__ __forceinline__ void gemm_staged(float (&acc)[NG][RPT],
-                                            const TA* A, int B, int b0,
-                                            int K, const float* W, int ldw,
-                                            int goff, int j0, int H,
-                                            float* As, float* Ws) {
-  const int tx = threadIdx.x % UNITS, ty = threadIdx.x / UNITS;
-  for (int k0 = 0; k0 < K; k0 += KT) {
-    stage_a(As, A, B, b0, k0, K);
-    stage_w<NG>(Ws, W, ldw, goff, j0, H, k0, K);
-    __syncthreads();
-    mac_chunk<NG>(acc, As, AS_LD, Ws, ty, tx);
-    __syncthreads();
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -430,29 +364,32 @@ __global__ void __launch_bounds__(LSTM_THREADS, 2)
 }
 
 // ---------------------------------------------------------------------------
-// B6 and B7: the GRU's main loop
+// B6, B7 and B8: the GRU's main loop
 //
-// A block of GRU_THREADS = 256 threads owns GRU_ROWS = 32 batch rows by
-// GRU_UNITS = 8 hidden units, NG gate columns of each unit (NG = 2: z and
-// r; 1: the candidate): 128 blocks at B 64, H 512, 320 at H 1280.  K
-// streams through a ring of GRU_STAGES chunks of GRU_KC = 64 in shared
-// memory.  A stage holds the chunk of the block's 32 A rows ([row][k], h
-// or r h, the row stride padded by 16 bytes so the 8 rows of a read sit in
-// 8 bank groups) and of its W columns ([k][gate][unit]), both filled by
-// 16-byte cp.async.cg (zero-filled past B and H), one barrier a chunk.
-// Each of the 8 warps takes 8 k of every chunk: lane (ry, ux) keeps rows
-// ry + 8 i (i < 4) by units 2 ux, 2 ux + 1 of each gate, 8 NG f32 sums,
-// reading its rows as 16-byte words and W as one 8-byte word a gate and k:
-// 8 + 8 NG shared loads per 64 NG FMAs (the lanes that share a row or a
-// unit pair read one address).  After the loop the warps'
-// sums meet in shared memory (the ring, reused) and thread (row, unit) =
-// (tid / 8, tid % 8) adds the 8 slices of its NG gates.  H not a multiple
-// of 8, or h or W_h not 16-byte aligned, stages through registers instead
-// of cp.async, with the same loop.
+// A block of GRU_THREADS = 256 threads owns GRU_ROWS = 32 batch rows by U
+// hidden units, NG gate columns of each unit, NG x U <= GRU_COLS = 16 W
+// columns (NG = 2, U = 8: z and r, in B6 and B7; NG = 1: the candidate, U = 8
+// in B6 and 16 in B8): B7 has 320 blocks at B 64, H 1280, B8 160.  K streams
+// through a ring of GRU_STAGES chunks of GRU_KC = 64 in shared memory.  A
+// stage holds the chunk of the block's 32 A rows ([row][k], h or r h, the row
+// stride padded by 16 bytes so the 8 rows of a read sit in 8 bank groups) and
+// of its 16 W columns ([k][gate][unit]), both filled by 16-byte cp.async.cg
+// (zero-filled past B and H), one barrier a chunk.  Each of the 8 warps takes
+// 8 k of every chunk: lane (ry, ux) keeps rows ry + 8 i (i < 4) by units U / 4
+// ux .. + U / 4 of each gate, NG U f32 sums (16 in B7 and B8), reading its
+// rows as 16-byte words and W as one U-byte word a gate and k: 8 + 8 NG shared
+// loads per 64 NG U / 4 FMAs (the lanes that share a row or a unit group read
+// one address).  After the loop the warps' sums meet in shared memory (the
+// ring, reused) and thread tid adds the 8 slices of its NG gates at (row,
+// unit) = ((tid + 256 p) / U, tid % U), p < U / 8.  H not a multiple of 8, or
+// h, W_h or r h not 16-byte aligned, stages through registers instead of
+// cp.async, with the same loop.
 // ---------------------------------------------------------------------------
 
 constexpr int GRU_ROWS = 32;
-constexpr int GRU_UNITS = 8;
+constexpr int GRU_UNITS = 8;                     // B6 and B7
+constexpr int GRU_CAND_UNITS = 16;               // B8
+constexpr int GRU_COLS = 16;                     // NG x U, W columns a block
 constexpr int GRU_WARPS = 8;
 constexpr int GRU_THREADS = 32 * GRU_WARPS;      // 256
 constexpr int GRU_KC = 64;                       // K chunk
@@ -462,9 +399,13 @@ constexpr int GRU_STAGES = 4;
 // blocks and its 320 blocks at H 1280 run in one wave; B6 (128 blocks at
 // the training shape, one an SM) at most 128, 2 blocks an SM: the
 // registers buy more products in flight (and no spills) and the card still
-// holds 264 blocks at once, twice the grid
+// holds 264 blocks at once, twice the grid; B8 (320 blocks at H 1280) at
+// 3 blocks an SM, as B7, holds its grid in one wave
 constexpr int GRU_ZR_MIN_BLOCKS = 3;
 constexpr int GRU_STEP_MIN_BLOCKS = 2;
+constexpr int GRU_CAND_MIN_BLOCKS = 3;
+// blocks (a cluster) that share the K axis of a B8 tile
+constexpr int GRU_CAND_SPLITS = 2;
 
 // row stride of a staged A chunk, in elements: the chunk plus 16 bytes
 template <typename T>
@@ -472,15 +413,22 @@ __host__ __device__ constexpr int gru_ald() {
   return GRU_KC + 16 / static_cast<int>(sizeof(T));
 }
 
-// a stage: the A chunk, sized for f32 rows (B6's phase 2 streams f32 r h
-// under a bf16 h), then the W chunk of two gates
+// a stage: the A chunk, sized for f32 rows (B6's phase 2 and B8 stream f32
+// r h under a bf16 h), then the chunk of the block's 16 W columns
 constexpr size_t GRU_A_BYTES = sizeof(float) * GRU_ROWS * gru_ald<float>();
 constexpr size_t GRU_STAGE_BYTES =
-    GRU_A_BYTES + sizeof(float) * GRU_KC * 2 * GRU_UNITS;
+    GRU_A_BYTES + sizeof(float) * GRU_KC * GRU_COLS;
 constexpr size_t GRU_SMEM = GRU_STAGES * GRU_STAGE_BYTES;   // 51,200 bytes
-static_assert(GRU_SMEM >= sizeof(float) * GRU_WARPS * 2 * GRU_ROWS *
-                              GRU_UNITS,
+static_assert(GRU_SMEM >= sizeof(float) * GRU_WARPS * GRU_ROWS * GRU_COLS,
               "the ring holds the warps' sums");
+// B8: past the ring, the sums the cluster's other blocks hand the first
+constexpr size_t GRU_CAND_SMEM =
+    GRU_SMEM + sizeof(float) * (GRU_CAND_SPLITS - 1) * GRU_ROWS *
+                   GRU_CAND_UNITS;
+
+__host__ __device__ constexpr int gru_chunks(int H) {
+  return (H + GRU_KC - 1) / GRU_KC;
+}
 
 template <typename TA>
 __device__ __forceinline__ TA* gru_a(unsigned char* ring, int st) {
@@ -520,26 +468,28 @@ __device__ __forceinline__ void gru_copy_a(TA* as, const TA* A, int B, int H,
 }
 
 // Rows k0 .. k0 + GRU_KC of W_h ([H, 3H]), gate columns (goff + g) H + j0
-// .. + GRU_UNITS for g < NG, into ws[k][g][unit]; zeros outside.
-template <int NG, bool VEC>
+// .. + U for g < NG, into ws[k][g][unit]; zeros outside.
+template <int NG, int U, bool VEC>
 __device__ __forceinline__ void gru_copy_w(float* ws, const float* W, int H,
                                            int goff, int j0, int k0) {
+  static_assert(NG * U <= GRU_COLS, "a stage holds 16 W columns");
   if constexpr (VEC) {
-    // two 16-byte pieces a (k, gate); H % 8 == 0, so every unit is < H
-    for (int e = threadIdx.x; e < GRU_KC * NG * 2; e += GRU_THREADS) {
-      const int kk = e / (NG * 2), g = (e / 2) % NG, q = e % 2;
-      const bool ok = k0 + kk < H;
-      cp_async<16>(ws + (kk * NG + g) * GRU_UNITS + 4 * q,
+    // U / 4 16-byte pieces a (k, gate); H % 8 == 0, so a piece's 4 units
+    // are all < H or all past it
+    for (int e = threadIdx.x; e < GRU_KC * NG * U / 4; e += GRU_THREADS) {
+      const int kk = e / (NG * U / 4), g = (e / (U / 4)) % NG;
+      const int u = 4 * (e % (U / 4));
+      const bool ok = k0 + kk < H && j0 + u < H;
+      cp_async<16>(ws + (kk * NG + g) * U + u,
                    ok ? W + (size_t)(k0 + kk) * 3 * H + (size_t)(goff + g) * H +
-                            j0 + 4 * q
+                            j0 + u
                       : W,
                    ok);
     }
   } else {
-    for (int e = threadIdx.x; e < GRU_KC * NG * GRU_UNITS;
-         e += GRU_THREADS) {
-      const int kk = e / (NG * GRU_UNITS), g = (e / GRU_UNITS) % NG;
-      const int k = k0 + kk, j = j0 + e % GRU_UNITS;
+    for (int e = threadIdx.x; e < GRU_KC * NG * U; e += GRU_THREADS) {
+      const int kk = e / (NG * U), g = (e / U) % NG;
+      const int k = k0 + kk, j = j0 + e % U;
       ws[e] = (k < H && j < H)
                   ? W[(size_t)k * 3 * H + (size_t)(goff + g) * H + j]
                   : 0.f;
@@ -547,12 +497,25 @@ __device__ __forceinline__ void gru_copy_w(float* ws, const float* W, int H,
   }
 }
 
+// U / 4 consecutive W values of one (k, gate)
+template <int N>
+__device__ __forceinline__ void load_w(float (&w)[N], const float* p) {
+  static_assert(N == 2 || N == 4, "8- or 16-byte words");
+  if constexpr (N == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    w[0] = v.x; w[1] = v.y;
+  } else {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  }
+}
+
 // acc[i][g][e] += sum over this warp's GRU_KW k of the chunk of
-// A[row ry + 8 i][k] W[k][gate g, unit 2 ux + e]
-template <int NG, typename TA>
-__device__ __forceinline__ void gru_mac(float (&acc)[4][NG][2], const TA* as,
-                                        const float* ws, int ry, int ux,
-                                        int kw) {
+// A[row ry + 8 i][k] W[k][gate g, unit U / 4 ux + e]
+template <int NG, int U, typename TA>
+__device__ __forceinline__ void gru_mac(float (&acc)[4][NG][U / 4],
+                                        const TA* as, const float* ws, int ry,
+                                        int ux, int kw) {
   float av[4][GRU_KW];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -562,12 +525,14 @@ __device__ __forceinline__ void gru_mac(float (&acc)[4][NG][2], const TA* as,
   for (int kk = 0; kk < GRU_KW; ++kk) {
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
-      const float2 w = *reinterpret_cast<const float2*>(
-          ws + ((kw + kk) * NG + g) * GRU_UNITS + 2 * ux);
+      float w[U / 4];
+      load_w(w, ws + ((kw + kk) * NG + g) * U + (U / 4) * ux);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        acc[i][g][0] = fmaf(av[i][kk], w.x, acc[i][g][0]);
-        acc[i][g][1] = fmaf(av[i][kk], w.y, acc[i][g][1]);
+#pragma unroll
+        for (int e = 0; e < U / 4; ++e) {
+          acc[i][g][e] = fmaf(av[i][kk], w[e], acc[i][g][e]);
+        }
       }
     }
   }
@@ -575,37 +540,39 @@ __device__ __forceinline__ void gru_mac(float (&acc)[4][NG][2], const TA* as,
 
 // W_h's chunks of gate columns goff .. goff + NG into the first
 // GRU_STAGES - 1 stages, not committed: they join the loop's first group
-template <int NG, bool VEC>
+template <int NG, int U, bool VEC>
 __device__ __forceinline__ void gru_prefetch_w(unsigned char* ring,
                                                const float* W, int H,
                                                int goff, int j0) {
-  const int nchunks = (H + GRU_KC - 1) / GRU_KC;
+  const int nchunks = gru_chunks(H);
 #pragma unroll
   for (int st = 0; st < GRU_STAGES - 1; ++st) {
     if (st < nchunks) {
-      gru_copy_w<NG, VEC>(gru_w(ring, st), W, H, goff, j0, st * GRU_KC);
+      gru_copy_w<NG, U, VEC>(gru_w(ring, st), W, H, goff, j0, st * GRU_KC);
     }
   }
 }
 
-// acc += A[b0 .. b0 + 32, :] W_h[:, gate columns goff .. goff + NG of units
-// j0 .. j0 + 8], this warp's k of each chunk; with w_ready the first
-// stages' W chunks are already in flight (gru_prefetch_w).
-template <int NG, typename TA, bool VEC>
-__device__ __forceinline__ void gru_k_loop(float (&acc)[4][NG][2],
+// acc += A[b0 .. b0 + 32, k] W_h[k, gate columns goff .. goff + NG of
+// units j0 .. j0 + U] over the K chunks c0 .. c1 (k from GRU_KC c0), this
+// warp's k of each chunk; with w_ready the first stages' W chunks are
+// already in flight (gru_prefetch_w, c0 = 0).
+template <int NG, int U, typename TA, bool VEC>
+__device__ __forceinline__ void gru_k_loop(float (&acc)[4][NG][U / 4],
                                            unsigned char* ring, const TA* A,
                                            const float* W, int B, int H,
                                            int b0, int j0, int goff,
-                                           bool w_ready) {
+                                           bool w_ready, int c0, int c1) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int ry = lane / 4, ux = lane % 4;
-  const int nchunks = (H + GRU_KC - 1) / GRU_KC;
+  const int nchunks = c1 - c0;
 #pragma unroll
   for (int st = 0; st < GRU_STAGES - 1; ++st) {
     if (st < nchunks) {
-      gru_copy_a<TA, VEC>(gru_a<TA>(ring, st), A, B, H, b0, st * GRU_KC);
+      const int k0 = (c0 + st) * GRU_KC;
+      gru_copy_a<TA, VEC>(gru_a<TA>(ring, st), A, B, H, b0, k0);
       if (!w_ready) {
-        gru_copy_w<NG, VEC>(gru_w(ring, st), W, H, goff, j0, st * GRU_KC);
+        gru_copy_w<NG, U, VEC>(gru_w(ring, st), W, H, goff, j0, k0);
       }
     }
     cp_commit();
@@ -615,23 +582,24 @@ __device__ __forceinline__ void gru_k_loop(float (&acc)[4][NG][2],
     __syncthreads();             // everyone's, and chunk ch - 1 is done
     const int next = ch + GRU_STAGES - 1;
     if (next < nchunks) {
-      const int st = next % GRU_STAGES;
-      gru_copy_a<TA, VEC>(gru_a<TA>(ring, st), A, B, H, b0, next * GRU_KC);
-      gru_copy_w<NG, VEC>(gru_w(ring, st), W, H, goff, j0, next * GRU_KC);
+      const int st = next % GRU_STAGES, k0 = (c0 + next) * GRU_KC;
+      gru_copy_a<TA, VEC>(gru_a<TA>(ring, st), A, B, H, b0, k0);
+      gru_copy_w<NG, U, VEC>(gru_w(ring, st), W, H, goff, j0, k0);
     }
     cp_commit();
-    gru_mac<NG, TA>(acc, gru_a<TA>(ring, ch % GRU_STAGES),
-                    gru_w(ring, ch % GRU_STAGES), ry, ux, warp * GRU_KW);
+    gru_mac<NG, U, TA>(acc, gru_a<TA>(ring, ch % GRU_STAGES),
+                       gru_w(ring, ch % GRU_STAGES), ry, ux, warp * GRU_KW);
   }
   cp_wait<0>();
   __syncthreads();
 }
 
-// The warps' sums of each (gate, row, unit) meet in the ring; thread
-// (row, unit) = (tid / 8, tid % 8) gets the total of each of its NG gates.
-template <int NG>
-__device__ __forceinline__ void gru_reduce(float (&sum)[NG],
-                                           const float (&acc)[4][NG][2],
+// The warps' sums of each (gate, row, unit) meet in the ring; thread tid
+// gets the total of each of its NG gates at (row, unit) = ((tid + 256 p) /
+// U, tid % U), p < U / 8.
+template <int NG, int U>
+__device__ __forceinline__ void gru_reduce(float (&sum)[NG][U / 8],
+                                           const float (&acc)[4][NG][U / 4],
                                            unsigned char* ring) {
   float* red = reinterpret_cast<float*>(ring);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -640,18 +608,28 @@ __device__ __forceinline__ void gru_reduce(float (&sum)[NG],
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
-      *reinterpret_cast<float2*>(
-          red + ((warp * NG + g) * GRU_ROWS + ry + 8 * i) * GRU_UNITS +
-          2 * ux) = make_float2(acc[i][g][0], acc[i][g][1]);
+      float* dst = red + ((warp * NG + g) * GRU_ROWS + ry + 8 * i) * U +
+                   (U / 4) * ux;
+      if constexpr (U == 8) {
+        *reinterpret_cast<float2*>(dst) = make_float2(acc[i][g][0],
+                                                      acc[i][g][1]);
+      } else {
+        *reinterpret_cast<float4*>(dst) = make_float4(
+            acc[i][g][0], acc[i][g][1], acc[i][g][2], acc[i][g][3]);
+      }
     }
   }
   __syncthreads();
 #pragma unroll
   for (int g = 0; g < NG; ++g) {
-    sum[g] = 0.f;
 #pragma unroll
-    for (int w = 0; w < GRU_WARPS; ++w) {
-      sum[g] += red[(w * NG + g) * GRU_ROWS * GRU_UNITS + threadIdx.x];
+    for (int p = 0; p < U / 8; ++p) {
+      sum[g][p] = 0.f;
+#pragma unroll
+      for (int w = 0; w < GRU_WARPS; ++w) {
+        sum[g][p] += red[(w * NG + g) * GRU_ROWS * U + threadIdx.x +
+                         GRU_THREADS * p];
+      }
     }
   }
 }
@@ -687,13 +665,14 @@ __global__ void __launch_bounds__(GRU_THREADS, GRU_STEP_MIN_BLOCKS)
   }
 
   float acc[4][2][2] = {};
-  gru_k_loop<2, T, VEC>(acc, gru_ring, h, W, B, H, b0, j0, 0, false);
-  float zr[2];
-  gru_reduce<2>(zr, acc, gru_ring);
+  gru_k_loop<2, GRU_UNITS, T, VEC>(acc, gru_ring, h, W, B, H, b0, j0, 0,
+                                   false, 0, gru_chunks(H));
+  float zr[2][1];
+  gru_reduce<2, GRU_UNITS>(zr, acc, gru_ring);
   float z = 0.f;
   if (live) {
-    z = sigmoid(xz + zr[0] + bz);
-    const float r = sigmoid(xr + zr[1] + br);
+    z = sigmoid(xz + zr[0][0] + bz);
+    const float r = sigmoid(xr + zr[1][0] + br);
     rh[(size_t)b * H + j] = r * hv;
     if (acts != nullptr) {
       acts[(size_t)b * 3 * H + j] = z;
@@ -701,16 +680,17 @@ __global__ void __launch_bounds__(GRU_THREADS, GRU_STEP_MIN_BLOCKS)
     }
   }
   __syncthreads();   // the sums are read: the ring takes W_c's first chunks
-  gru_prefetch_w<1, VEC>(gru_ring, W, H, 2, j0);
+  gru_prefetch_w<1, GRU_UNITS, VEC>(gru_ring, W, H, 2, j0);
 
   cg::this_grid().sync();   // every block's r h tile is written
 
   float accc[4][1][2] = {};
-  gru_k_loop<1, float, VEC>(accc, gru_ring, rh, W, B, H, b0, j0, 2, true);
-  float c[1];
-  gru_reduce<1>(c, accc, gru_ring);
+  gru_k_loop<1, GRU_UNITS, float, VEC>(accc, gru_ring, rh, W, B, H, b0, j0,
+                                       2, true, 0, gru_chunks(H));
+  float c[1][1];
+  gru_reduce<1, GRU_UNITS>(c, accc, gru_ring);
   if (!live) return;
-  const float cc = tanhf(xc + c[0] + bc);
+  const float cc = tanhf(xc + c[0][0] + bc);
   new_h[(size_t)b * H + j] = from_f<T>((1.f - z) * hv + z * cc);
   if (acts != nullptr) acts[(size_t)b * 3 * H + 2 * H + j] = cc;
 }
@@ -741,41 +721,96 @@ __global__ void __launch_bounds__(GRU_THREADS, GRU_ZR_MIN_BLOCKS)
     hv = to_f(h[(size_t)b * H + j]);
   }
   float acc[4][2][2] = {};
-  gru_k_loop<2, T, VEC>(acc, gru_ring, h, W, B, H, b0, j0, 0, false);
-  float zr[2];
-  gru_reduce<2>(zr, acc, gru_ring);
+  gru_k_loop<2, GRU_UNITS, T, VEC>(acc, gru_ring, h, W, B, H, b0, j0, 0,
+                                   false, 0, gru_chunks(H));
+  float zr[2][1];
+  gru_reduce<2, GRU_UNITS>(zr, acc, gru_ring);
   if (!live) return;
-  const float z = sigmoid(xz + zr[0] + bz);
-  const float r = sigmoid(xr + zr[1] + br);
+  const float z = sigmoid(xz + zr[0][0] + bz);
+  const float r = sigmoid(xr + zr[1][0] + br);
   zrc[(size_t)b * 3 * H + j] = z;
   zrc[(size_t)b * 3 * H + H + j] = r;
   rh[(size_t)b * H + j] = r * hv;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+// cluster barriers of every thread of the cluster's blocks: arrive
+// (relaxed: no memory to publish), and arrive then wait, publishing what
+// was written before
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// B8: block z of a cluster of GRU_CAND_SPLITS takes K chunks
+// [z n / S, (z + 1) n / S) of the tile's (80, 2) place in the grid; thread
+// tid owns unit j0 + tid % 16 of rows b0 + tid / 16 and b0 + tid / 16 + 16,
+// the (row, unit) pairs gru_reduce<1, 16> hands it.  Blocks z > 0 write
+// their sums into block 0's shared memory past its ring; block 0 adds them
+// and does the epilogue.
+template <typename T, bool VEC>
+__global__ void __cluster_dims__(1, 1, GRU_CAND_SPLITS)
+    __launch_bounds__(GRU_THREADS, GRU_CAND_MIN_BLOCKS)
     gru_cand_kernel(const float* __restrict__ rh, const T* __restrict__ xp,
                     const float* __restrict__ W,
-                    const float* __restrict__ bias, float* __restrict__ zrc,
+                    const float* __restrict__ bias, float* zrc,
                     const T* __restrict__ h, T* __restrict__ new_h,
                     int save_c, int B, int H) {
-  __shared__ float As[ROWS * AS_LD];
-  __shared__ float Ws[KT * UNITS];
-  const int tx = threadIdx.x % UNITS, ty = threadIdx.x / UNITS;
-  const int j0 = blockIdx.x * UNITS, b0 = blockIdx.y * ROWS;
-  float acc[1][RPT] = {};
-  gemm_staged<1>(acc, rh, B, b0, H, W, 3 * H, 2, j0, H, As, Ws);
-  const int j = j0 + tx;
-  if (j >= H) return;
+  constexpr int U = GRU_CAND_UNITS, P = U / 8;   // (row, unit) pairs a thread
+  extern __shared__ __align__(16) unsigned char gru_ring[];
+  cluster_arrive_relaxed();   // this block runs: its shared memory exists
+  const int j0 = blockIdx.x * U, b0 = blockIdx.y * GRU_ROWS;
+  const int z = blockIdx.z;   // the block's rank in its cluster
+  const int j = j0 + threadIdx.x % U;
+  // the epilogue's inputs (block 0's), in flight during the loop
+  float xc[P] = {}, zv[P] = {}, hv[P] = {}, bc = 0.f;
+  if (z == 0 && j < H) {
+    bc = bias[2 * H + j];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int b = b0 + ty * RPT + i;
+    for (int p = 0; p < P; ++p) {
+      const int b = b0 + (threadIdx.x + GRU_THREADS * p) / U;
+      if (b < B) {
+        xc[p] = to_f(xp[(size_t)b * 3 * H + 2 * H + j]);
+        zv[p] = zrc[(size_t)b * 3 * H + j];
+        hv[p] = to_f(h[(size_t)b * H + j]);
+      }
+    }
+  }
+  const int n = gru_chunks(H);
+  float acc[4][1][U / 4] = {};
+  gru_k_loop<1, U, float, VEC>(acc, gru_ring, rh, W, B, H, b0, j0, 2, false,
+                               z * n / GRU_CAND_SPLITS,
+                               (z + 1) * n / GRU_CAND_SPLITS);
+  float c[1][P];
+  gru_reduce<1, U>(c, acc, gru_ring);
+  float* part = reinterpret_cast<float*>(gru_ring + GRU_SMEM);
+  cluster_wait();   // every block of the cluster runs
+  if (z > 0) {
+    float* dst = cg::this_cluster().map_shared_rank(part, 0) +
+                 (z - 1) * GRU_THREADS * P;
+#pragma unroll
+    for (int p = 0; p < P; ++p) dst[threadIdx.x + GRU_THREADS * p] = c[0][p];
+  }
+  cluster_sync();   // the sums are in block 0's shared memory
+  if (z > 0 || j >= H) return;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    for (int s = 1; s < GRU_CAND_SPLITS; ++s) {
+      c[0][p] += part[(s - 1) * GRU_THREADS * P + threadIdx.x +
+                      GRU_THREADS * p];
+    }
+    const int b = b0 + (threadIdx.x + GRU_THREADS * p) / U;
     if (b >= B) continue;
-    const float cc = tanhf(to_f(xp[(size_t)b * 3 * H + 2 * H + j]) +
-                           acc[0][i] + bias[2 * H + j]);
-    const float z = zrc[(size_t)b * 3 * H + j];
-    const float hv = to_f(h[(size_t)b * H + j]);
-    new_h[(size_t)b * H + j] = from_f<T>((1.f - z) * hv + z * cc);
+    const float cc = tanhf(xc[p] + c[0][p] + bc);
+    new_h[(size_t)b * H + j] =
+        from_f<T>((1.f - zv[p]) * hv[p] + zv[p] * cc);
     if (save_c) zrc[(size_t)b * 3 * H + 2 * H + j] = cc;
   }
 }
@@ -783,10 +818,6 @@ __global__ void __launch_bounds__(THREADS)
 // ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
-
-dim3 grid_of(int B, int H) {
-  return dim3((H + UNITS - 1) / UNITS, (B + ROWS - 1) / ROWS);
-}
 
 template <typename T, bool VEC>
 cudaError_t launch_lstm_as(const void* xp, const void* h, const void* c,
@@ -825,8 +856,8 @@ cudaError_t launch_lstm(const void* xp, const void* h, const void* c,
   return launch_lstm_as<T, false>(xp, h, c, w, b, nh, nc, acts, B, H, s);
 }
 
-dim3 gru_grid(int B, int H) {
-  return dim3((H + GRU_UNITS - 1) / GRU_UNITS, (B + GRU_ROWS - 1) / GRU_ROWS);
+dim3 gru_grid(int B, int H, int units) {
+  return dim3((H + units - 1) / units, (B + GRU_ROWS - 1) / GRU_ROWS);
 }
 
 // rows of h (bf16: 8 to a 16-byte piece), of W_h and of r h in whole
@@ -837,8 +868,8 @@ bool gru_vec(int H, const void* h, const void* w, const void* rh) {
                          reinterpret_cast<uintptr_t>(rh)) % 16) == 0;
 }
 
-// The ring's size as the dynamic shared memory limit of B6 and B7, once
-// per instantiation.
+// The ring's size (and B8's past it) as the dynamic shared memory limit of
+// B6, B7 and B8, once per instantiation.
 template <typename T, bool VEC>
 cudaError_t gru_set_smem() {
   static bool set = false;
@@ -850,6 +881,11 @@ cudaError_t gru_set_smem() {
     e = cudaFuncSetAttribute(gru_zr_kernel<T, VEC>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)GRU_SMEM);
+  }
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(gru_cand_kernel<T, VEC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)GRU_CAND_SMEM);
   }
   set = e == cudaSuccess;
   return e;
@@ -896,7 +932,8 @@ cudaError_t launch_gru_step_as(const void* xp, const void* h, const void* w,
   // refuses (cudaErrorCooperativeLaunchTooLarge) a grid that is not
   // co-resident rather than launching it
   const cudaError_t launched = cudaLaunchCooperativeKernel(
-      (const void*)gru_step_kernel<T, VEC>, gru_grid(B, H), dim3(GRU_THREADS),
+      (const void*)gru_step_kernel<T, VEC>, gru_grid(B, H, GRU_UNITS),
+      dim3(GRU_THREADS),
       args, GRU_SMEM, s);
   if (launched != cudaSuccess) return launched;
   return cudaGetLastError();
@@ -919,7 +956,8 @@ cudaError_t launch_gru_zr_as(const void* xp, const void* h, const void* w,
                              int H, cudaStream_t s) {
   const cudaError_t e = gru_set_smem<T, VEC>();
   if (e != cudaSuccess) return e;
-  gru_zr_kernel<T, VEC><<<gru_grid(B, H), GRU_THREADS, GRU_SMEM, s>>>(
+  gru_zr_kernel<T, VEC><<<gru_grid(B, H, GRU_UNITS), GRU_THREADS, GRU_SMEM,
+                          s>>>(
       static_cast<const T*>(xp), static_cast<const T*>(h),
       static_cast<const float*>(w), static_cast<const float*>(b),
       static_cast<float*>(zrc), static_cast<float*>(rh), B, H);
@@ -937,17 +975,35 @@ cudaError_t launch_gru_zr(const void* xp, const void* h, const void* w,
   return launch_gru_zr_as<T, false>(xp, h, w, b, zrc, rh, B, H, s);
 }
 
-template <typename T>
-cudaError_t launch_gru_cand(const void* rh, const void* xp, const void* w,
-                            const void* b, void* zrc, const void* h,
-                            void* nh, int save_c, int B, int H,
-                            cudaStream_t s) {
-  gru_cand_kernel<T><<<grid_of(B, H), THREADS, 0, s>>>(
+template <typename T, bool VEC>
+cudaError_t launch_gru_cand_as(const void* rh, const void* xp, const void* w,
+                               const void* b, void* zrc, const void* h,
+                               void* nh, int save_c, int B, int H,
+                               cudaStream_t s) {
+  const cudaError_t e = gru_set_smem<T, VEC>();
+  if (e != cudaSuccess) return e;
+  dim3 grid = gru_grid(B, H, GRU_CAND_UNITS);
+  grid.z = GRU_CAND_SPLITS;   // a cluster a tile (__cluster_dims__)
+  gru_cand_kernel<T, VEC><<<grid, GRU_THREADS, GRU_CAND_SMEM, s>>>(
       static_cast<const float*>(rh), static_cast<const T*>(xp),
       static_cast<const float*>(w), static_cast<const float*>(b),
       static_cast<float*>(zrc), static_cast<const T*>(h),
       static_cast<T*>(nh), save_c, B, H);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_gru_cand(const void* rh, const void* xp, const void* w,
+                            const void* b, void* zrc, const void* h,
+                            void* nh, int save_c, int B, int H,
+                            cudaStream_t s) {
+  if (B <= 0 || H <= 0 || B > 65535 * GRU_ROWS) return cudaErrorInvalidValue;
+  if (gru_vec(H, h, w, rh)) {
+    return launch_gru_cand_as<T, true>(rh, xp, w, b, zrc, h, nh, save_c, B, H,
+                                       s);
+  }
+  return launch_gru_cand_as<T, false>(rh, xp, w, b, zrc, h, nh, save_c, B, H,
+                                      s);
 }
 
 }  // namespace

@@ -5,8 +5,9 @@ Two implementations of each of the module's three functions:
 - the hand-written CUDA kernels (:func:`flash_fwd_kernel`,
   :func:`flash_bwd_kv_kernel`, :func:`flash_bwd_dq_kernel`), the Hopper
   counterparts of the Pallas ``_flash_fwd_kernel``,
-  ``_flash_bwd_kv_kernel`` and ``_flash_bwd_dq_kernel``, at head dims
-  :data:`KERNEL_HEAD_DIMS` and any lengths.  bf16 at head dim 64 or 128
+  ``_flash_bwd_kv_kernel`` and ``_flash_bwd_dq_kernel``, at every head
+  dim that is a multiple of 8 from 8 to 256 (:func:`kernel_width`) and any
+  lengths.  bf16 at head dim 64 or 128
   on whole 64-row tiles runs on the tensor cores, all three as wgmma
   kernels fed by TMA (``csrc/flash_attention_sm90.cu``); every other
   shape, f32, and bf16 under ``attn_pv_f32`` run on the CUDA cores
@@ -51,11 +52,15 @@ from paddle_tpu_torch.platform.flags import FLAGS
 # uniform instead of NaN, exactly as in the JAX package
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
-# what the CUDA kernels take: these head dims, f32 or bf16 (one type for
-# q, k, v and dO), any lengths; the wgmma kernels take bf16 with P and dS
-# rounded at WGMMA_HEAD_DIMS on lengths in whole KERNEL_TILE-row tiles
+# what the CUDA kernels take: head dims that are multiples of 8 from 8 to
+# 256, f32 or bf16 (one type for q, k, v and dO), any lengths; the
+# CUDA-core kernels are compiled at KERNEL_WIDTHS and the one at the least
+# width >= the head dim runs it, its columns past the head dim zero; the
+# wgmma kernels take bf16 with P and dS rounded at WGMMA_HEAD_DIMS on
+# lengths in whole KERNEL_TILE-row tiles
 KERNEL_TILE = 64
-KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
+KERNEL_WIDTHS = (16, 32, 64, 128, 256)
+HEAD_DIM_LIMIT = "a multiple of 8 from 8 to 256"
 WGMMA_HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -243,9 +248,8 @@ def kernel_shape_error(q_shape, k_shape, dtype) -> Optional[str]:
     b, sq, h, d = q_shape
     if dtype not in _DTYPE_CODE:
         return f"flash kernels take float32 or bfloat16, got {dtype}"
-    if d not in KERNEL_HEAD_DIMS:
-        return (f"flash kernels take head_dim in {KERNEL_HEAD_DIMS}, got "
-                f"{d}")
+    if kernel_width(d) is None:
+        return f"flash kernels take head_dim {HEAD_DIM_LIMIT}, got {d}"
     if k_shape[0] != b or k_shape[2] != h or k_shape[3] != d:
         return (f"k/v must be [B, Sk, H, D] matching q {tuple(q_shape)}, got "
                 f"{tuple(k_shape)} (the flash kernels take no GQA)")
@@ -261,9 +265,9 @@ def kernel_route(q_shape, k_shape, dtype, pv_f32: bool) -> str:
     """The one library each shape goes to: ``"flash_attention_sm90"`` (the
     wgmma kernels) for bf16 with P and dS rounded at head dim 64 or 128
     with Sq and Sk in whole :data:`KERNEL_TILE`-row tiles; else
-    ``"flash_attention"`` (the CUDA-core kernels: f32, ``pv_f32``, head
-    dims 16, 32 and 256, and lengths that end in a partial tile).  Both
-    export the same C entries."""
+    ``"flash_attention"`` (the CUDA-core kernels: f32, ``pv_f32``, every
+    other head dim, and lengths that end in a partial tile).  Both export
+    the same C entries."""
     if (dtype == torch.bfloat16 and not pv_f32 and
             q_shape[3] in WGMMA_HEAD_DIMS and
             q_shape[1] % KERNEL_TILE == 0 and k_shape[1] % KERNEL_TILE == 0):
@@ -271,12 +275,21 @@ def kernel_route(q_shape, k_shape, dtype, pv_f32: bool) -> str:
     return "flash_attention"
 
 
+def kernel_width(head_dim: int) -> Optional[int]:
+    """The compiled width of the CUDA-core kernel that runs ``head_dim``
+    (the least of :data:`KERNEL_WIDTHS` not below it), or None for a head
+    dim the kernels do not take (not :data:`HEAD_DIM_LIMIT`)."""
+    if head_dim % 8 or not 8 <= head_dim <= KERNEL_WIDTHS[-1]:
+        return None
+    return next(w for w in KERNEL_WIDTHS if w >= head_dim)
+
+
 def kernel_tile(head_dim: int) -> int:
     """Rows of the kernels' query and key tiles at ``head_dim``: 64, and 32
-    at head dim 256 (the CUDA-core kernels' four f32 tiles of 256 columns
-    fit shared memory at 32 rows).  The plain versions round P and dS at
-    the kernels' running maxima with ``block_k`` set to it."""
-    return 32 if head_dim == 256 else KERNEL_TILE
+    above 128, where the CUDA-core kernels run at width 256 (four f32 tiles
+    of 256 columns fit shared memory at 32 rows).  The plain versions round
+    P and dS at the kernels' running maxima with ``block_k`` set to it."""
+    return 32 if head_dim > 128 else KERNEL_TILE
 
 
 def _check(tensors, q, k, seg_q, seg_k):

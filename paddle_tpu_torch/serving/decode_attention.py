@@ -15,7 +15,9 @@ Two implementations of the same function:
 
 - :func:`ragged_paged_attention_kernel` launches the hand-written CUDA
   kernel ``csrc/ragged_paged_attention.cu`` (the Hopper counterpart of
-  the Pallas ``_ragged_kernel``) at head dims :data:`KERNEL_HEAD_DIMS`,
+  the Pallas ``_ragged_kernel``) at every head dim that is a multiple of
+  8 from 8 to 256 (compiled at :data:`KERNEL_WIDTHS`, the columns past the
+  head dim zero-filled as they are loaded: no padded copy of the pool),
   any group and page size, f32 or bf16 queries: a plan of work items,
   persistent attention blocks over each sequence's tokens split into
   spans of :func:`kernel_split_tokens`, and a merge of the spans.  It
@@ -39,7 +41,12 @@ import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.kernels import build
-from paddle_tpu_torch.ops.attention import DEFAULT_MASK_VALUE
+# the head dims the CUDA kernel takes are the flash kernels': multiples of
+# 8 from 8 to 256, each run by the kernel compiled at the least width in
+# KERNEL_WIDTHS not below it
+from paddle_tpu_torch.ops.attention import (DEFAULT_MASK_VALUE,
+                                            HEAD_DIM_LIMIT, KERNEL_WIDTHS,
+                                            kernel_width)
 from paddle_tpu_torch.platform.device import DeviceLike, resolve_device
 from paddle_tpu_torch.platform.enforce import EnforceError, enforce_that
 from paddle_tpu_torch.serving.kv_cache import dequantize_kv, quantize_kv
@@ -51,9 +58,6 @@ BLOCK_ROWS = 8   # rows per kernel block; one sequence per block
 # leaves slack without letting a broken quant path slip through)
 QUANT_DRIFT_BOUND = 0.05
 
-# what the CUDA kernel is instantiated for: these head dims, any number of
-# query heads per KV head, f32 or bf16 queries
-KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 # tokens per online-softmax tile of the CUDA kernel (KT in the source): the
 # tile whose running maximum P is rounded against on bf16 pages
 KERNEL_TILE_TOKENS = 32
@@ -75,8 +79,8 @@ def kernel_shape_error(head_dim: int, num_heads: int,
     """None when the CUDA kernel takes these shapes, else why not (with
     the limit).  Any page size and any group G = num_heads / num_kv_heads
     work."""
-    if head_dim not in KERNEL_HEAD_DIMS:
-        return (f"ragged kernel takes head_dim in {KERNEL_HEAD_DIMS}, got "
+    if kernel_width(head_dim) is None:
+        return (f"ragged kernel takes head_dim {HEAD_DIM_LIMIT}, got "
                 f"{head_dim}")
     if num_kv_heads < 1 or num_heads % num_kv_heads != 0:
         return (f"ragged kernel needs num_kv_heads dividing num_heads, got "
@@ -287,7 +291,7 @@ def ragged_paged_attention_kernel(q, k_pages, v_pages, page_table, kv_lens,
                                   sm_scale: Optional[float] = None):
     """Launch ``csrc/ragged_paged_attention.cu`` on CUDA tensors (same
     arguments as :func:`ragged_paged_attention_reference`; q f32 or bf16,
-    pages f32/bf16/int8, head_dim in :data:`KERNEL_HEAD_DIMS`; output in
+    pages f32/bf16/int8, head_dim :data:`HEAD_DIM_LIMIT`; output in
     q's dtype).  bf16 queries on bf16 pages take bf16 tensor-core
     products; every other pairing computes in f32: items of more than 16
     score rows as 3xTF32 tensor-core products (about 22 bits of each f32

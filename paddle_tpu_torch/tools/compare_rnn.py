@@ -14,14 +14,15 @@ at B 64, f32, on the same inputs:
 - B5: the LSTM cases at H 512 and H 1280, acts saved and not;
 - B6: ``gru_block_f32_h512_acts`` and ``gru_block_f32_h512``;
 - B7: ``gru_tiled_f32_h1280_acts``;
-- B8 on B7's plain outputs at the same case, a control: this checkout
-  leaves B8 as it was.
+- B8 on B7's plain outputs at both H 1280 cases (``gru_tiled_f32_h1280_acts``
+  saves c, ``gru_tiled_f32_h1280`` does not).
 
 Each is first held against the plain version (``rnn_workload.rnn_error``),
 then timed in rounds of earlier, this, this, earlier.  A time is card time
 (``compare_flash.card_ms``: one call's worth of each CUDA kernel's mean
-record over ``REPS`` calls under ``torch.profiler``) and carries the
-timer that took it and
+record over ``REPS`` calls under ``torch.profiler``; for the GRU kernels
+their own kernel's records only, not the copy of z a B8 call starts
+from) and carries the timer that took it and
 the card's SM clock read just after it (``nvidia-smi --query-gpu=
 clocks.sm``).  Once a round, this checkout's B6 on its main case is also
 timed three other ways, for the gap between one kernel's readings in
@@ -33,18 +34,32 @@ scan's): ``spaced``, each call waited for before the next is launched
 product (which evicts the L2 too), as ``chip_smoke.py`` times a kernel
 right after its plain version's products.  The library yardstick, timed once a round, is cuDNN's
 ``torch.nn.LSTM`` forward (input size H, TF32 off) over [64, 128, H]
-divided by 128 steps; the port never calls it.  It prints one JSON line
-per case, version and round and a summary line with the card's name and
-power limit.
+divided by 128 steps; the port never calls it.  Beside B8, as a yardstick
+only (no PyTorch call computes B8's function), cuBLAS's f32 product
+``torch.mm(r h, W_c)`` at B 64, H 1280 (TF32 off), once a round.  It
+prints one JSON line per case, version and round and a summary line with
+the card's name and power limit.
 
 ``--variant NAME`` times, in the earlier version's place and under the
-name ``variant``, a variant of this checkout's own ``rnn_cells.cu`` that
-leaves out one part of the main loops' work (``flash_ablate.
-variant_source``: a text substitution whose anchor must occur the given
-number of times); its outputs are wrong by design and are not checked:
+name ``variant``, a variant of this checkout's own ``rnn_cells.cu``
+(``flash_ablate.variant_source``: a text substitution whose anchor must
+occur the given number of times).  Three change B8's geometry and keep
+its function, and their outputs are checked (:data:`EXACT_VARIANTS`); B8
+as built takes 16 units a tile, each tile's K split between a cluster of
+2 blocks, 3 blocks an SM (320 blocks at B 64, H 1280):
+
+- ``cand_one_block``: a tile's whole K in one block, 2 blocks an SM (160
+  blocks): the 16-unit tile without the split;
+- ``cand_8_units``: B7's tile, 8 units a block, the whole K in one block,
+  3 blocks an SM (320 blocks);
+- ``cand_2_blocks``: as built, but at most 2 blocks an SM (128 registers
+  a thread; 264 of the 320 blocks at once).
+
+The others leave out one part of the main loops' work; their outputs are
+wrong by design and are not checked:
 
 - ``no_copies``: the rings are never filled (B5's, and the GRU loop's of
-  B6 and B7); the products run on whatever shared memory holds: the
+  B6, B7 and B8); the products run on whatever shared memory holds: the
   products, barriers and epilogues alone;
 - ``no_products``: the rings are filled and waited for but nothing is
   summed: the copy pipelines, barriers and epilogues alone;
@@ -82,7 +97,10 @@ CASES = ("lstm_f32_h512_acts", "lstm_f32_h512", "lstm_f32_h1280_acts",
 GRU_CASES = (("gru_block_f32_h512_acts", "gru_step"),
              ("gru_block_f32_h512", "gru_step"),
              ("gru_tiled_f32_h1280_acts", "gru_zr"),
-             ("gru_tiled_f32_h1280_acts", "gru_cand"))
+             ("gru_tiled_f32_h1280_acts", "gru_cand"),
+             ("gru_tiled_f32_h1280", "gru_cand"))
+# B8's product, r h [64, 1280] by W_c, for cuBLAS's yardstick
+MM_CASE = "gru_tiled_f32_h1280_acts"
 GAP_CASE = "gru_step:gru_block_f32_h512_acts"
 REPS = 50
 ROUNDS = 2
@@ -91,18 +109,34 @@ L2_FLUSH_BYTES = 64 << 20
 # variant: [(anchor, replacement, times the anchor occurs)]; the GRU
 # loop's anchors are listed in GRU_ANCHORS
 VARIANTS: Variants = {
+    "cand_one_block": [
+        ("constexpr int GRU_CAND_SPLITS = 2;",
+         "constexpr int GRU_CAND_SPLITS = 1;", 1),
+        ("constexpr int GRU_CAND_MIN_BLOCKS = 3;",
+         "constexpr int GRU_CAND_MIN_BLOCKS = 2;", 1),
+    ],
+    "cand_8_units": [
+        ("constexpr int GRU_CAND_UNITS = 16;",
+         "constexpr int GRU_CAND_UNITS = 8;", 1),
+        ("constexpr int GRU_CAND_SPLITS = 2;",
+         "constexpr int GRU_CAND_SPLITS = 1;", 1),
+    ],
+    "cand_2_blocks": [
+        ("constexpr int GRU_CAND_MIN_BLOCKS = 3;",
+         "constexpr int GRU_CAND_MIN_BLOCKS = 2;", 1),
+    ],
     "no_copies": [
         ("      lstm_stage<T, VEC>(",
          "      if (H < 0) lstm_stage<T, VEC>(", 2),
         ("gru_copy_a<TA, VEC>(gru_a", "if (H < 0) gru_copy_a<TA, VEC>(gru_a",
          2),
-        ("gru_copy_w<NG, VEC>(gru_w", "if (H < 0) gru_copy_w<NG, VEC>(gru_w",
-         3),
+        ("gru_copy_w<NG, U, VEC>(gru_w",
+         "if (H < 0) gru_copy_w<NG, U, VEC>(gru_w", 3),
     ],
     "no_products": [
         ("    lstm_mac<T>(acc, ", "    if (H < 0) lstm_mac<T>(acc, ", 1),
-        ("    gru_mac<NG, TA>(acc, ", "    if (H < 0) gru_mac<NG, TA>(acc, ",
-         1),
+        ("    gru_mac<NG, U, TA>(acc, ",
+         "    if (H < 0) gru_mac<NG, U, TA>(acc, ", 1),
     ],
     "no_sync": [
         ("  cg::this_grid().sync();", "  if (H < 0) cg::this_grid().sync();",
@@ -115,8 +149,13 @@ VARIANTS: Variants = {
         ("      cp_async<16>(hs", "      if (H < 0) cp_async<16>(hs", 1),
     ],
 }
-GRU_ANCHORS = {"gru_copy_a<TA, VEC>(gru_a", "gru_copy_w<NG, VEC>(gru_w",
-               "    gru_mac<NG, TA>(acc, ", "  cg::this_grid().sync();"}
+GRU_ANCHORS = {"gru_copy_a<TA, VEC>(gru_a", "gru_copy_w<NG, U, VEC>(gru_w",
+               "    gru_mac<NG, U, TA>(acc, ", "  cg::this_grid().sync();",
+               "constexpr int GRU_CAND_UNITS = 16;",
+               "constexpr int GRU_CAND_MIN_BLOCKS = 3;",
+               "constexpr int GRU_CAND_SPLITS = 2;"}
+# the variants that keep the kernels' function: their outputs are checked
+EXACT_VARIANTS = {"cand_one_block", "cand_8_units", "cand_2_blocks"}
 
 
 def variant_tree(name: str) -> Path:
@@ -230,6 +269,15 @@ def cudnn_step_ms(H: int) -> float:
     return ms / rw.STEPS_T, timer
 
 
+def cublas_mm_call(case):
+    """cuBLAS's f32 product r h W_c on ``case`` (B8's recurrent product,
+    r h from the plain B7), the yardstick beside B8."""
+    xp, h, w, b = case["xp"], case["h"], case["w_h"], case["bias"]
+    _, rh = R.gru_zr_reference(xp, h, w, b)
+    w_c = w[:, 2 * h.shape[1]:]
+    return lambda: torch.mm(rh, w_c)
+
+
 def gap_versions(call) -> dict:
     """B6's main case called ``spaced`` (each call waited for), after an
     L2 flush (``cold_l2``) and after a large product (``after_load``); of
@@ -285,20 +333,22 @@ def main(argv=None) -> int:
                         *a, save_acts=save)}
         want = R.lstm_step_reference(*a, save_acts=save)
         for version, call in versions.items():
-            if version == "variant":
+            if version == "variant" and args.variant not in EXACT_VARIANTS:
                 continue
             got = call()
             torch.cuda.synchronize()
             check(version, name, dict(enumerate(got)),
                   dict(enumerate(want)))
         calls[name] = versions
+    kernel_of = {}   # the kernel a GRU case's time counts
     for cname, kernel in GRU_CASES:
         name = f"{kernel}:{cname}"
+        kernel_of[name] = f"{kernel}_kernel"
         case = rw.rnn_case(cname, "cuda")
         versions = {}
         for version, vlib in ((other, lib), ("this", this_lib)):
             call, want = gru_entry_call(vlib, case, kernel)
-            if version != "variant":
+            if version != "variant" or args.variant in EXACT_VARIANTS:
                 got = call()
                 torch.cuda.synchronize()
                 check(version, name, got, want)
@@ -308,10 +358,12 @@ def main(argv=None) -> int:
     gaps = gap_versions(calls[GAP_CASE]["this"])
     times[GAP_CASE].update({v: [] for v in gaps})
     cudnn = {512: [], 1280: []}
+    mm_call, mm = cublas_mm_call(rw.rnn_case(MM_CASE, "cuda")), []
     for rnd in range(ROUNDS):
         for version in (other, "this", "this", other):
             for name, versions in calls.items():
-                ms, timer = card_ms(versions[version], reps=REPS)
+                ms, timer = card_ms(versions[version], reps=REPS,
+                                    only=kernel_of.get(name, ""))
                 times[name][version].append((ms, timer))
                 emit({"round": rnd, "case": name, "version": version,
                       "ms": ms, "timer": timer, "sm_clock": sm_clock(),
@@ -327,6 +379,10 @@ def main(argv=None) -> int:
             cudnn[H].append((ms, timer))
             emit({"round": rnd, "cudnn_H": H, "ms_per_step": ms,
                   "timer": timer})
+        ms, timer = card_ms(mm_call, reps=REPS)
+        mm.append((ms, timer))
+        emit({"round": rnd, "cublas_mm_rh_wc_ms": ms, "timer": timer,
+              "sm_clock": sm_clock()})
     emit({"card": card, "sm_clock": sm_clock(), "reps": REPS,
           other: str(args.tree or args.variant),
           "cudnn_ms_per_step": {
@@ -334,6 +390,8 @@ def main(argv=None) -> int:
               for H, t in cudnn.items()},
           "cudnn_timers": sorted({timer for t in cudnn.values()
                                   for _, timer in t}),
+          "cublas_mm_rh_wc_ms": float(np.median([ms for ms, _ in mm])),
+          "cublas_mm_timers": sorted({timer for _, timer in mm}),
           **summary(times)})
     return 0
 

@@ -126,7 +126,9 @@ def kernel_rounding(case) -> dict:
 # name: (sequences, KV heads, heads, head dim, q type, page type) — the
 # main path's decode and mixed steps, then the same sequences over the
 # other page and query types, head dims and groups (G 1, 3 with 12 heads
-# over 4 KV heads, 4, and 16 over one KV head)
+# over 4 KV heads, 4, and 16 over one KV head): the compiled widths, and
+# head dims between them (96 on f32 pages, 80 on int8 pages), which the
+# kernels at widths 128 run with their columns past the head dim zero
 CASES = {
     "decode_f32": ("decode", 16, 16, 128, "float32", "float32"),
     "mixed_f32": ("mixed", 16, 16, 128, "float32", "float32"),
@@ -142,6 +144,8 @@ CASES = {
     "mixed_f32_d32": ("mixed", 16, 16, 32, "float32", "float32"),
     "mixed_f32_d64": ("mixed", 16, 16, 64, "float32", "float32"),
     "mixed_f32_d256": ("mixed", 16, 16, 256, "float32", "float32"),
+    "mixed_f32_d96": ("mixed", 16, 16, 96, "float32", "float32"),
+    "mixed_int8_d80": ("mixed", 16, 16, 80, "float32", "int8"),
 }
 SEQS = {"decode": DECODE_SEQS, "mixed": MIXED_SEQS}
 

@@ -165,6 +165,13 @@ FLASH_CASES = {
                                     (600, 1000, 300)),
     # (k) a length that is not whole 64-row tiles: 96 queries and keys
     "k_bf16_causal_s96": ("bfloat16", 96, 96, 16, 128, True, None),
+    # (l, m) head dims between the CUDA-core kernels' compiled widths, run
+    # by the kernels at widths 128 and 64 with their columns past the head
+    # dim zero: size 384 over 4 heads (head dim 96), and head dim 48 in f32
+    "l_bf16_segments_causal_d96": ("bfloat16", 2048, 2048, 4, 96, True,
+                                   (600, 1000, 300)),
+    "m_f32_segments_causal_d48": ("float32", 2048, 2048, 8, 48, True,
+                                  (600, 1000, 300)),
 }
 
 

@@ -9,9 +9,9 @@ those of ``tests/test_attention.py``: causal and not, packed segments
 with a padding segment, cross-attention with Sq != Sk (causal with Sk >
 Sq included), and bf16 inputs (non-causal attention without segment ids
 runs in the cross-attention case); and the shapes the CUDA-core kernels
-add: head dims 16 and 256 and lengths 32 and 96, which JAX runs at one
-block clamped to the length.  The kernels' route and tile rules are
-checked here too.
+add: head dims 16 and 256, head dims between their compiled widths (48,
+96), and lengths 32 and 96, which JAX runs at one block clamped to the
+length.  The kernels' route, width and tile rules are checked here too.
 
 Tolerances: f32 2e-5 absolute on the output and the q/k/v gradients (the
 frameworks sum in other orders).  bf16: 1e-2 absolute and relative, about
@@ -104,6 +104,11 @@ CASES = {
     "sq96_segments_padding_causal": (2, 96, 96, 2, 16, 128, 128, (3, 5),
                                      True),
     "sq96_d256_segments": (1, 96, 96, 2, 256, 128, 128, (2, 4), False),
+    # head dims between the compiled widths (the kernels at widths 64 and
+    # 128 with their columns past the head dim zero)
+    "d48_segments_causal": (1, 128, 128, 2, 48, 64, 64, (3, 7), True),
+    "d96_segments_padding": (2, 128, 128, 2, 96, 64, 64, (4, 9), False),
+    "d96_cross_causal_sk_gt_sq": (1, 64, 128, 2, 96, 32, 64, None, True),
 }
 
 
@@ -113,7 +118,8 @@ RUNS = [(c, "f32") for c in sorted(CASES)] + [
     ("full_causal", "bf16"), ("segments_padding_causal", "bf16"),
     ("cross", "bf16"), ("d16_segments_causal", "bf16"),
     ("d256_segments_causal", "bf16"), ("sq32_causal", "bf16"),
-    ("sq96_segments_padding_causal", "bf16")]
+    ("sq96_segments_padding_causal", "bf16"),
+    ("d48_segments_causal", "bf16"), ("d96_segments_padding", "bf16")]
 
 
 @pytest.mark.parametrize("case,dtype", RUNS)
@@ -191,13 +197,15 @@ def test_cpu_path_launches_no_kernel_and_kernel_limits():
     assert err((1, 8192, 16, 128), (1, 8192, 16, 128), torch.bfloat16) \
         is None
     assert err((1, 128, 2, 64), (1, 256, 2, 64), torch.float32) is None
-    # head dims 16-256 and lengths that end in a partial tile are taken;
-    # other head dims raise with the compiled set in the message
-    for d in tattn.KERNEL_HEAD_DIMS:
+    # every head dim that is a multiple of 8 from 8 to 256 and lengths
+    # that end in a partial tile are taken; other head dims raise with the
+    # limit in the message
+    for d in tattn.KERNEL_WIDTHS + (8, 48, 80, 96, 112, 160, 192):
         assert err((1, 96, 2, d), (1, 32, 2, d), torch.bfloat16) is None
     assert err((1, 100, 2, 128), (1, 100, 2, 128), torch.float32) is None
-    assert "(16, 32, 64, 128, 256), got 80" in err(
-        (1, 128, 2, 80), (1, 128, 2, 80), torch.float32)
+    for d in (100, 12, 264):
+        assert f"head_dim a multiple of 8 from 8 to 256, got {d}" in err(
+            (1, 128, 2, d), (1, 128, 2, d), torch.float32)
     assert "float32 or bfloat16" in err((1, 64, 2, 128), (1, 64, 2, 128),
                                         torch.float16)
     assert "GQA" in err((1, 64, 4, 128), (1, 64, 2, 128), torch.float32)
@@ -223,8 +231,9 @@ def test_train_slice_imports_no_jax():
 def test_each_shape_has_one_kernel_route():
     """bf16 with P rounded at head dim 64 or 128 on whole 64-row tiles
     goes to the wgmma kernels; every other shape the kernels take (f32,
-    ``pv_f32``, head dims 16, 32 and 256, a partial last tile) to the
-    CUDA-core ones, which tile at 32 rows at head dim 256."""
+    ``pv_f32``, the other head dims, a partial last tile) to the
+    CUDA-core ones, the one compiled at the least width not below the
+    head dim, which tile at 32 rows above head dim 128 (width 256)."""
     route = tattn.kernel_route
     bf, f32 = torch.bfloat16, torch.float32
     wgmma, cores = "flash_attention_sm90", "flash_attention"
@@ -232,12 +241,19 @@ def test_each_shape_has_one_kernel_route():
     assert route((1, 576, 16, 64), (1, 2048, 16, 64), bf, False) == wgmma
     assert route((1, 8192, 16, 128), (1, 8192, 16, 128), bf, True) == cores
     assert route((1, 1024, 16, 128), (1, 1024, 16, 128), f32, False) == cores
-    for d in (16, 32, 256):
+    for d in (8, 16, 32, 48, 80, 96, 112, 160, 192, 256):
         assert route((1, 1024, 4, d), (1, 1024, 4, d), bf, False) == cores
     assert route((1, 96, 4, 128), (1, 96, 4, 128), bf, False) == cores
     assert route((1, 128, 4, 64), (1, 32, 4, 64), bf, False) == cores
-    assert [tattn.kernel_tile(d) for d in tattn.KERNEL_HEAD_DIMS] == \
+    assert [tattn.kernel_tile(d) for d in tattn.KERNEL_WIDTHS] == \
         [64, 64, 64, 64, 32]
+    assert [tattn.kernel_width(d) for d in (8, 16, 24, 40, 48, 72, 96, 120,
+                                            136, 192, 256)] == \
+        [16, 16, 32, 64, 64, 128, 128, 128, 256, 256, 256]
+    assert [tattn.kernel_width(d) for d in (0, 4, 12, 100, 264)] == \
+        [None] * 5
+    assert [tattn.kernel_tile(d) for d in (96, 128, 136, 160, 192)] == \
+        [64, 64, 32, 32, 32]
 
 
 def test_tile_ranges_of_a_partial_last_tile():
@@ -249,7 +265,7 @@ def test_tile_ranges_of_a_partial_last_tile():
     assert tattn._tile_ranges(seg).tolist() == [[[0, 1], [1, 2]]]
 
 
-@pytest.mark.parametrize("d", [16, 256])
+@pytest.mark.parametrize("d", [16, 96, 160, 256])
 def test_plain_key_blocks_follow_the_kernel_tile(d):
     """The plain versions' default key block is the kernels' tile, with a
     shorter last block where it does not divide the length: forward and

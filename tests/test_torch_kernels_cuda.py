@@ -1,16 +1,18 @@
 """The port's CUDA kernels on the card: the ragged paged-attention kernel
-against its plain PyTorch version at every head dim, group, query and
-page type it takes, the decode-only view, and small ServingEngines on
-CUDA (GQA; the default ``DecoderLM`` at head_dim 16, f32 and bf16)
-against the port's greedy oracle; the three flash-attention kernels
-against their plain versions on ``chip_smoke.py``'s cases and at head
-dims 16, 32, 256 and lengths that end in a partial tile, through the
-autograd function, and small transformers (head dims 128, 32, 256)
-trained through the kernels against the same steps through the plain
-versions; the four RNN kernels (the fused LSTM step, the one-launch GRU step and
-the two-launch GRU step) against their plain versions on
-``chip_smoke.py``'s cases and, for the LSTM step and the GRU steps' new
-main loop (B6, B7), on shapes that are not whole tiles, the one-launch GRU
+against its plain PyTorch version at every compiled width and at head
+dims between them (8, 40, 48, 80, 96, 112, 160, 192), every group, query
+and page type it takes, the decode-only view, and small ServingEngines on
+CUDA (GQA; the default ``DecoderLM`` at head_dim 16 and one at head_dim
+96, f32 and bf16) against the port's greedy oracle; the three
+flash-attention kernels against their plain versions on
+``chip_smoke.py``'s cases and at head dims 8-256 and lengths that end in
+a partial tile, through the autograd function, and small transformers
+(head dims 128, 32, 96, 256) trained through the kernels against the same
+steps through the plain versions; the four RNN kernels (the fused LSTM
+step, the one-launch GRU step and the two-launch GRU step) against their
+plain versions on ``chip_smoke.py``'s cases and, for the LSTM step and
+the GRU main loop (B6, B7, B8), on shapes that are not whole tiles (B8
+also on a misaligned r h), the one-launch GRU
 step on a grid at the edge of co-residency and its refusal of a grid the
 card cannot hold at once, and small recurrent classifiers trained through
 the kernels against the plain versions.
@@ -132,17 +134,22 @@ def test_kernel_matches_plain(cuda, dtype, kvh):
 
 # (num_kv_heads, num_heads): G 1, 3 and 16, at every head dim
 GROUPS = [(2, 2), (2, 6), (1, 16)]
+# the compiled widths, and head dims between them that the kernels at the
+# next width run with their columns past the head dim zero (8 and 40: int8
+# rows that are not whole 16-byte pieces, copied in 8-byte ones)
+RAGGED_HEAD_DIMS = tda.KERNEL_WIDTHS + (8, 40, 48, 80, 96, 112, 160, 192)
 
 
 @pytest.mark.parametrize("pages", ["float32", "int8", "bfloat16"])
 @pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kvh,h", GROUPS, ids=["g1", "g3", "g16"])
-@pytest.mark.parametrize("d", tda.KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("d", RAGGED_HEAD_DIMS)
 def test_kernel_matches_plain_at_every_shape(cuda, d, kvh, h, q_dtype,
                                              pages):
-    """Every compiled head dim, G 1, 3 and 16, f32 and bf16 queries over
-    f32, int8 and bf16 pages (bf16 on bf16 runs on the tensor cores),
-    against the plain version at ``ragged_cases``' tolerances
+    """Every compiled width and head dims between them (the pool holds
+    d columns; no padded copy is made), G 1, 3 and 16, f32 and bf16
+    queries over f32, int8 and bf16 pages (bf16 on bf16 runs on the
+    tensor cores), against the plain version at ``ragged_cases``' tolerances
     (``ragged_cases.check``).  Rows of a 200-token chunk and of a 40-row
     chunk take several spans and go through the merge."""
     seqs = [(300, 40, 260), (0, 1, 0), (129, 1, 0), (77, 1, 0),
@@ -178,9 +185,10 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
                                           args[5][:-1], args[6][:-1])
     with pytest.raises(EnforceError, match="f32 or bf16 queries"):
         tda.ragged_paged_attention_kernel(args[0].double(), *args[1:])
-    c80 = _case(cuda, SEQS, 16, 16, d=80)
-    with pytest.raises(EnforceError, match=r"head_dim in \(16, 32"):
-        tda.ragged_paged_attention_kernel(*[c80[k] for k in _ARGS])
+    c100 = _case(cuda, SEQS, 16, 16, d=100)
+    with pytest.raises(EnforceError,
+                       match="head_dim a multiple of 8 from 8 to 256"):
+        tda.ragged_paged_attention_kernel(*[c100[k] for k in _ARGS])
     with pytest.raises(EnforceError, match="use_kernel=False"):
         tda.attention_path(D, PAGE, num_heads=16, num_kv_heads=16,
                            device=cuda, use_kernel=False)
@@ -255,6 +263,43 @@ def test_engine_serves_the_default_decoder_lm_on_cuda(cuda, dtype):
     for prompt, rid in zip(prompts, rids):
         assert eng.result(rid) == greedy_decode_reference(model, prompt, 8,
                                                           -1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_engine_serves_a_decoder_lm_at_head_dim_96(cuda, dtype):
+    """A ``DecoderLM`` of 4 heads of head_dim 96 (between the kernel's
+    compiled widths 64 and 128), f32 and bf16, served on the card through
+    the ragged kernel over a pool of 96-column pages: chunked prefill,
+    decode and a cached prefix, tokens equal to the greedy oracle (a
+    mismatch only at a near tie: top-two gap under 1e-3 of the top
+    logit), the kernel launched once a layer a step."""
+    model = DecoderLM(vocab_size=512, num_layers=2, num_heads=4,
+                      head_dim=96, max_positions=512, device=cuda,
+                      dtype=getattr(torch, dtype))
+    decoder_lm_from_numpy(init_numpy_params(model, 7), model)
+    eng = ServingEngine(model, eos_id=-1, page_size=16, num_pages=64,
+                        max_pages_per_seq=16, max_slots=4, prefill_chunk=32,
+                        buckets=(32, 64), device=cuda)
+    rng = np.random.default_rng(10)
+    prefix = rng.integers(2, 512, 40).tolist()
+    prompts = [prefix + [3, 4], rng.integers(2, 512, 70).tolist(),
+               rng.integers(2, 512, 5).tolist()]
+    tda.ragged_paged_attention_kernel.launches = 0
+    rids = [eng.submit(p, max_tokens=8) for p in prompts]
+    for _ in range(5):
+        eng.step()
+    prompts.append(prefix + [9])
+    rids.append(eng.submit(prompts[-1], max_tokens=8))
+    eng.run()
+    assert tda.ragged_paged_attention_kernel.launches == \
+        model.num_layers * eng.metrics.step_dispatches > 0
+    for prompt, rid in zip(prompts, rids):
+        got = eng.result(rid)
+        want = greedy_decode_reference(model, prompt, 8, -1)
+        if got != want:
+            j = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+            top2 = np.sort(reference_logits(model, prompt + want[:j]))[-2:]
+            assert top2[1] - top2[0] < 1e-3 * abs(top2[1])
 
 
 # ---------------------------------------------------------------------------
@@ -365,8 +410,12 @@ def test_flash_attention_launches_each_kernel_once(cuda):
 
 def test_flash_kernels_refuse_what_they_do_not_take(cuda):
     seg = torch.zeros((1, 128), dtype=torch.int32, device=cuda)
-    for shape, dtype, match in (((1, 128, 2, 80), torch.float32,
-                                 r"head_dim in \(16, 32, 64, 128, 256\)"),
+    for shape, dtype, match in (((1, 128, 2, 100), torch.float32,
+                                 "head_dim a multiple of 8 from 8 to 256, "
+                                 "got 100"),
+                                ((1, 128, 2, 264), torch.float32,
+                                 "head_dim a multiple of 8 from 8 to 256, "
+                                 "got 264"),
                                 ((1, 128, 2, 128), torch.float16,
                                  "float32 or bfloat16")):
         x = torch.zeros(shape, dtype=dtype, device=cuda)
@@ -382,9 +431,17 @@ def test_flash_kernels_refuse_what_they_do_not_take(cuda):
 
 
 # (B, Sq, Sk, H, D, causal, packed lengths or None): the CUDA-core route
-# at head dims 16, 32 and 256 and at lengths that are not whole 64-row
+# at head dims 16, 32 and 256, at head dims between its compiled widths
+# (8, 48, 80, 96, 112, 160, 192) and at lengths that are not whole 64-row
 # tiles (32, 96; 96 against 160 keys)
 SMALL_FLASH = {
+    "d8_s128_causal": (2, 128, 128, 4, 8, True, None),
+    "d48_s256_segments": (1, 256, 256, 4, 48, True, (100, 120)),
+    "d80_sq96_sk160_causal": (1, 96, 160, 4, 80, True, None),
+    "d96_s512_segments": (1, 512, 512, 4, 96, True, (200, 250)),
+    "d112_sq256_sk192_cross": (1, 256, 192, 2, 112, False, None),
+    "d160_s256_segments": (1, 256, 256, 2, 160, True, (100, 120)),
+    "d192_sq96_cross": (1, 96, 160, 2, 192, False, None),
     "d16_sq96_segments": (2, 96, 96, 4, 16, True, (30, 50)),
     "d32_s512_segments": (1, 512, 512, 4, 32, True, (200, 250)),
     "d256_s256_segments": (1, 256, 256, 2, 256, True, (100, 120)),
@@ -399,8 +456,9 @@ SMALL_FLASH = {
 def test_flash_kernels_at_other_head_dims_and_lengths(cuda, name, dtype):
     """The three kernels against their plain versions (P and dS rounded
     at the kernels' tiles) where the CUDA-core kernels take what the
-    wgmma kernels do not: head dims 16, 32 and 256 and lengths that end
-    in a partial tile; then the autograd function on the same inputs,
+    wgmma kernels do not: head dims 8-256 other than 64 and 128 (the
+    q/k/v rows hold d columns; no padded copy is made) and lengths that
+    end in a partial tile; then the autograd function on the same inputs,
     one launch of each kernel."""
     b, sq, sk, h, d, causal, lengths = SMALL_FLASH[name]
     rng = np.random.default_rng([b, sq, sk, d])
@@ -469,13 +527,14 @@ def test_training_kernel_path_matches_plain_path(cuda):
     np.testing.assert_allclose(kernel_costs, plain_costs, rtol=1e-3)
 
 
-@pytest.mark.parametrize("d_model,n_heads", [(256, 8), (512, 2)],
-                         ids=["head_dim32", "head_dim256"])
+@pytest.mark.parametrize("d_model,n_heads", [(256, 8), (512, 2), (384, 4)],
+                         ids=["head_dim32", "head_dim256", "head_dim96"])
 def test_training_at_other_head_dims(cuda, d_model, n_heads):
-    """``layer.multi_head_attention`` at head_dim = size // heads of 32
-    and 256 trains on the card through the CUDA-core flash kernels: two
-    steps, each kernel launched once a layer a step, costs finite and
-    within 1e-3 relative of the same steps through the plain versions."""
+    """``layer.multi_head_attention`` at head_dim = size // heads of 32,
+    256 and 96 trains on the card through the CUDA-core flash kernels: two
+    steps, each kernel launched once a layer a step, costs finite, falling
+    and within 1e-3 relative of the same steps through the plain
+    versions."""
     from paddle_tpu_torch import optimizer, topology, trainer
     from paddle_tpu_torch.models import transformer
     from paddle_tpu_torch.parameters import Parameters
@@ -505,6 +564,7 @@ def test_training_at_other_head_dims(cuda, d_model, n_heads):
     assert [kern.launches - b for kern, b in zip(kernels, before)] == \
         [4, 4, 4]
     assert np.isfinite(kernel_costs).all()
+    assert kernel_costs[-1] < kernel_costs[0]
     with tw.plain_flash_path():
         plain_costs = run()
     np.testing.assert_allclose(kernel_costs, plain_costs, rtol=1e-3)
@@ -658,6 +718,64 @@ def test_gru_steps_on_shapes_that_are_not_whole_tiles(cuda, B, H, dtype,
     are not 16-byte aligned) and H 520 (the last K chunk 8 of 64, on the
     cp.async path)."""
     _check_gru_kernels(_gru_args(cuda, B, H, dtype, [B, H]), save_acts)
+
+
+def _check_gru_cand(args, save_c, rh=None):
+    """B8 on ``args`` and the plain B7's z and r h (or ``rh``, the same
+    values in another tensor) against its plain version, one launch."""
+    from paddle_tpu_torch.ops import rnn as R
+
+    H = args[1].shape[1]
+    zrc, rh_p = R.gru_zr_reference(*args)
+    if rh is None:
+        rh = rh_p
+    zk, zp = zrc.clone(), zrc.clone()
+    before = R.gru_cand_kernel.launches
+    xp, h, w, b = args
+    got = R.gru_cand_kernel(rh, xp, w, b, zk, h, save_c=save_c)
+    want = R.gru_cand_reference(rh_p, xp, w, b, zp, h, save_c=save_c)
+    torch.cuda.synchronize()
+    assert R.gru_cand_kernel.launches == before + 1
+    pairs = {"h": (got, want), "zr": (zk[:, :2 * H], zp[:, :2 * H])}
+    if save_c:
+        pairs["c"] = (zk[:, 2 * H:], zp[:, 2 * H:])
+    else:   # c is left as it was
+        assert torch.equal(zk[:, 2 * H:], zrc[:, 2 * H:])
+    for label, (g, w) in pairs.items():
+        assert g.dtype == w.dtype and g.shape == w.shape, label
+        res = rw.rnn_error(g, w)
+        assert res["within_tolerance"], (label, res)
+
+
+@pytest.mark.parametrize("save_c", [True, False], ids=["c", "noc"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H", [100, 520, 1280, 1288])
+@pytest.mark.parametrize("B", [1, 17, 64, 65, 128])
+def test_gru_cand_kernel_on_every_tile_edge(cuda, B, H, dtype, save_c):
+    """B8 (16 units by 32 rows a block) against its plain version: B 1,
+    17, 64, 65 and 128 (a block's 32 rows partly or wholly live, one row
+    in a third row block); H 100 (H % 8 != 0: rows stage through
+    registers), 520 and 1288 (the last unit block 8 of 16 units live, the
+    last K chunk 8 of 64) and 1280 (whole tiles, the main path's); c
+    saved into the acts' last H columns or not."""
+    _check_gru_cand(_gru_args(cuda, B, H, dtype, [B, H, 8]), save_c)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gru_cand_kernel_on_a_misaligned_rh(cuda, dtype):
+    """B8 on an r h whose rows start 4 bytes past a 16-byte boundary (a
+    contiguous view one element into a buffer), at H 1280: the register
+    path, the same answer."""
+    B, H = 64, 1280
+    args = _gru_args(cuda, B, H, dtype, [B, H, 9])
+    from paddle_tpu_torch.ops import rnn as R
+
+    _, rh_p = R.gru_zr_reference(*args)
+    buf = torch.empty(B * H + 1, dtype=torch.float32, device=cuda)
+    rh = buf[1:].view(B, H)
+    rh.copy_(rh_p)
+    assert rh.is_contiguous() and rh.data_ptr() % 16 == 4
+    _check_gru_cand(args, True, rh=rh)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -3,9 +3,9 @@ against the JAX package: the plain PyTorch version against the Pallas
 kernel in interpret mode and against the JAX plain version, on the mixed
 prefill+decode cases of the JAX suite, MHA and GQA, f32/int8/bf16 pages,
 with a length-0 sequence; at the CUDA kernel's other head dims (16, 32,
-64, 256) and groups (1, 3, 16), and with bf16 queries (a bf16 output,
-held to one bf16 step of the value plus 2e-5); the P rounding over the
-kernel's spans (``round_p_span``) and its span rule.  The same numpy
+48, 64, 80, 96, 256) and groups (1, 3, 16), and with bf16 queries (a bf16
+output, held to one bf16 step of the value plus 2e-5); the P rounding over
+the kernel's spans (``round_p_span``) and its span rule.  The same numpy
 inputs, made from a seed, go to both packages; only real rows (qpos >=
 0) are compared — padded rows are arbitrary by contract.
 
@@ -213,15 +213,19 @@ def test_attention_path_chooser(monkeypatch):
     with pytest.raises(EnforceError, match="use_kernel=False"):
         tda.attention_path(128, 128, num_heads=16, num_kv_heads=16,
                            device="cuda", use_kernel=False)
-    # every compiled head dim, and any group that divides the heads
-    assert tda.attention_path(64, 128, num_heads=16, num_kv_heads=16,
-                              device="cuda") == "kernel"
+    # every head dim that is a multiple of 8 up to 256, and any group
+    # that divides the heads; other head dims raise with the limit
+    for d in (8, 40, 64, 80, 96, 192, 256):
+        assert tda.attention_path(d, 128, num_heads=16, num_kv_heads=16,
+                                  device="cuda") == "kernel"
     assert tda.attention_path(128, 128, num_heads=12, num_kv_heads=4,
                               device="cuda") == "kernel"
-    with pytest.raises(EnforceError,
-                       match=r"head_dim in \(16, 32, 64, 128, 256\)"):
-        tda.attention_path(80, 128, num_heads=16, num_kv_heads=16,
-                           device="cuda")
+    for d in (100, 12, 264):
+        with pytest.raises(EnforceError,
+                           match=f"head_dim a multiple of 8 from 8 to 256, "
+                                 f"got {d}"):
+            tda.attention_path(d, 128, num_heads=16, num_kv_heads=16,
+                               device="cuda")
     with pytest.raises(EnforceError, match="dividing num_heads"):
         tda.attention_path(128, 128, num_heads=12, num_kv_heads=5,
                            device="cuda")
@@ -254,9 +258,10 @@ def test_round_p_plain_pins_pallas_bf16_rounding(case):
 
 
 # head dims and groups of the CUDA kernel: (head_dim, num_kv_heads,
-# num_heads); G 1, 3 and 16 (MQA)
+# num_heads); G 1, 3 and 16 (MQA); head dims between the compiled widths
+# (48, 80, 96) too
 SHAPES = [(16, 2, 2), (32, 2, 6), (64, 1, 16), (256, 1, 3), (16, 1, 16),
-          (32, 4, 4), (256, 2, 32)]
+          (32, 4, 4), (256, 2, 32), (48, 1, 3), (80, 1, 16), (96, 2, 4)]
 
 
 @pytest.mark.parametrize("d,kvh,h", SHAPES,

@@ -209,39 +209,47 @@ def test_comparison_summary_keeps_each_time_and_its_timer():
 @pytest.mark.parametrize("name", sorted(compare_rnn.VARIANTS))
 def test_compare_rnn_variants_apply_to_the_lstm_source(name, monkeypatch,
                                                        tmp_path):
-    """Each ablation (of B5's loop, the GRU loop or both) finds its
-    anchors in the current ``csrc/rnn_cells.cu`` the given number of times
-    and writes a tree whose source differs only there."""
+    """Each variant (an ablation of B5's loop, the GRU loop or both, or
+    B8's unit tile and launch bounds) finds its anchors in the current
+    ``csrc/rnn_cells.cu`` the given number of times and writes a tree
+    whose source differs only there."""
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     tree = compare_rnn.variant_tree(name)
     out = (tree / "paddle_tpu_torch" / "csrc" / "rnn_cells.cu").read_text()
     source = (build.CSRC_DIR / "rnn_cells.cu").read_text()
-    assert out != source and out.count("if (H < 0)") == sum(
-        times for _, _, times in compare_rnn.VARIANTS[name])
+    assert out != source
+    for anchor, replacement, times in compare_rnn.VARIANTS[name]:
+        assert source.count(anchor) == times
+        assert out.count(replacement) == source.count(replacement) + times
 
 
 @pytest.mark.parametrize("name,anchor,times", [
     (name, anchor, times) for name, subs in sorted(compare_rnn.VARIANTS.items())
     for anchor, _, times in subs if anchor in compare_rnn.GRU_ANCHORS])
 def test_compare_rnn_variants_reach_the_gru_loop(name, anchor, times):
-    """The GRU ablations (``no_copies``, ``no_products``, ``no_sync``) find
-    each of their anchors the stated number of times, every one inside
-    the GRU's main loop and B6 (between the loop's header and B7's), so
-    they leave B5 and B8 alone; each GRU ablation has such an anchor."""
+    """The GRU variants (the ablations ``no_copies``, ``no_products``,
+    ``no_sync``, and B8's ``cand_one_block``, ``cand_8_units``,
+    ``cand_2_blocks``) find each
+    of their anchors the stated number of times, every one inside the
+    GRU's main loop and B6 (between the loop's header and B7's), which B8
+    runs too, so they leave B5 alone; each GRU variant has such an
+    anchor."""
     source = (build.CSRC_DIR / "rnn_cells.cu").read_text()
-    start = source.index("// B6 and B7: the GRU's main loop")
+    start = source.index("// B6, B7 and B8: the GRU's main loop")
     end = source.index("// B7 + B8: the GRU step in two ordinary launches")
     assert source.count(anchor) == times
     assert source[start:end].count(anchor) == times
     gru = {n for n, subs in compare_rnn.VARIANTS.items()
            if any(a in compare_rnn.GRU_ANCHORS for a, _, _ in subs)}
-    assert gru == {"no_copies", "no_products", "no_sync"}
+    exact = {"cand_one_block", "cand_8_units", "cand_2_blocks"}
+    assert gru == {"no_copies", "no_products", "no_sync"} | exact
+    assert compare_rnn.EXACT_VARIANTS == exact
 
 
 def test_chip_smoke_picks_each_kernels_ptxas_entry(monkeypatch):
     """The kernels line's ptxas fields: the entry of the instantiation the
-    main path runs (f32 B5-B7 on their cp.async paths, f32 B8, the D 128
-    flash kernels), one per name, from a report of every instantiation."""
+    main path runs (f32 B5-B8 on their cp.async paths, the D 128 flash
+    kernels), one per name, from a report of every instantiation."""
     def entry(name, regs):
         return [f"ptxas info    : Compiling entry function '{name}' for "
                 "'sm_90a'",
@@ -254,15 +262,15 @@ def test_chip_smoke_picks_each_kernels_ptxas_entry(monkeypatch):
     rnn += [f"{ns}{len(k)}{k}I{t}Lb{v}EEvPKT_ii" for k in
             ("gru_step_kernel", "gru_zr_kernel")
             for t in ("f", "13__nv_bfloat16") for v in (0, 1)]
-    rnn += [f"{ns}15gru_cand_kernelI{t}EEvPKT_ii"
-            for t in ("f", "13__nv_bfloat16")]
+    rnn += [f"{ns}15gru_cand_kernelI{t}Lb{v}EEvPKfPKT_ii"
+            for t in ("f", "13__nv_bfloat16") for v in (0, 1)]
     flash = [f"_ZN0_{k}ILi{d}EEEv14CUtensorMap_st" for k in
              ("flash_fwd_wgmma_kernel", "flash_bwd_kv_wgmma_kernel",
               "flash_bwd_dq_wgmma_kernel") for d in (64, 128)]
     for src, names in (("rnn_cells", rnn), ("flash_attention_sm90", flash)):
         log = [line for i, n in enumerate(names) for line in entry(n, 40 + i)]
         monkeypatch.setitem(build.BUILD_LOG, src, (1.0, "\n".join(log)))
-    want = {"lstm_step": 41, "gru_step": 45, "gru_zr": 49, "gru_cand": 52}
+    want = {"lstm_step": 41, "gru_step": 45, "gru_zr": 49, "gru_cand": 53}
     for kname, regs in want.items():
         got = chip_smoke.ptxas_of("rnn_cells", chip_smoke.RNN_PTXAS[kname])
         assert got["registers"] == regs, kname
@@ -279,7 +287,10 @@ def test_ragged_cases_cover_every_kernel_shape():
     from paddle_tpu_torch.serving import decode_attention as da
 
     shapes = rc.CASES.values()
-    assert {d for _, _, _, d, _, _ in shapes} == set(da.KERNEL_HEAD_DIMS)
+    assert {d for _, _, _, d, _, _ in shapes} == \
+        set(da.KERNEL_WIDTHS) | {80, 96}
+    assert rc.CASES["mixed_f32_d96"][3:] == (96, "float32", "float32")
+    assert rc.CASES["mixed_int8_d80"][3:] == (80, "float32", "int8")
     assert {h // kvh for _, kvh, h, _, _, _ in shapes} == {1, 3, 4, 16}
     assert {(q, p) for *_, q, p in shapes} >= {
         ("float32", "float32"), ("float32", "int8"),
