@@ -68,7 +68,23 @@ checkout of the repository).  Phases, each fatal on failure:
     B8 only), each with finite, falling costs and exact launch counts;
 12. rnn_parity: the LSTM and the GRU classifier at full width, batch 16,
     3 steps through the kernels against the same steps through the plain
-    versions on the card (``rnn_workload.plain_rnn_path``).
+    versions on the card (``rnn_workload.plain_rnn_path``);
+13. image_parity: ResNet-18 at 64 px, batch 8, in f32 (TF32 off): 3
+    ``Momentum(0.9, 0.01)`` steps through the port's plain CPU path, and
+    before each the same step on the card (cuDNN, channels-last maps) from
+    the CPU run's weights and moving statistics: costs and new moving
+    statistics within tolerance;
+14. train_resnet50: bench.py's headline cell (``tools/image_workload``:
+    ResNet-50, 224 px, batch 128, ``Momentum(0.9, 0.01)``, bf16 conv
+    operands and maps) with ``SGD.step`` on device-resident [B, H, W, C]
+    feeds, one warm-up and 6 timed steps on the repeated batch (finite
+    costs, the last below the first, every moving mean moved from 0), then
+    one ``SGD.train`` pass over 2 flat CHW batches through the
+    ``DataFeeder``'s dense slot; images/s, step ms, peak memory, the
+    analytic FLOP rate and launches a step;
+15. train_convnets: AlexNet (227 px, batch 128), GoogLeNet (224, 64),
+    SmallNet (32, 64) and LeNet (28, 64), 4 steps each with dropout at its
+    real rate: finite, falling costs and ms per batch.
 
 Every line of output is one JSON object; the one before the last lists
 the kernels, the last is ``{"ok": true, "device": {...}}``.  The serve
@@ -76,7 +92,11 @@ workload lives in ``paddle_tpu_torch/tools/serve_workload.py``, shared
 with the profiler ``python -m paddle_tpu_torch.tools.profile_serve``; the
 training workload and the flash cases in
 ``paddle_tpu_torch/tools/train_workload.py``; the recurrent workload and
-the RNN cases in ``paddle_tpu_torch/tools/rnn_workload.py``.
+the RNN cases in ``paddle_tpu_torch/tools/rnn_workload.py``; the image
+cells in ``paddle_tpu_torch/tools/image_workload.py``, shared with
+``python -m paddle_tpu_torch.tools.profile_image``.  The image phases run
+no hand-written kernel: no TPU kernel lies on that path, and the convs
+and batch norm are cuDNN's through PyTorch.
 """
 
 from __future__ import annotations
@@ -90,6 +110,8 @@ import numpy as np
 import torch
 
 # the port must come from this checkout; outside it this import fails
+from paddle_tpu_torch.tools import image_workload as iw
+from paddle_tpu_torch.tools import profile_image
 from paddle_tpu_torch.tools import ragged_cases as rc
 from paddle_tpu_torch.tools import rnn_workload as rw
 from paddle_tpu_torch.tools import train_workload as tw
@@ -878,6 +900,178 @@ def rnn_kernel_lines(cases, trained_lstm, trained_gru) -> list:
     return lines
 
 
+# ---------------------------------------------------------------------------
+# image models (no hand-written kernel: cuDNN through PyTorch)
+# ---------------------------------------------------------------------------
+
+IMAGE_PARITY = dict(depth=18, img_size=64, batch=8, steps=3)
+# f32 with TF32 off, each card step from the CPU run's weights and
+# statistics: the two sum the same products in other orders, and batch
+# norm over 32 values a channel amplifies it; an update is held looser,
+# since one ReLU input within f32 rounding of 0 that the two round to
+# opposite sides moves a tensor's gradient by about 1% (the CPU tests'
+# float64 runs hold every gradient to 1e-6)
+IMAGE_PARITY_COST_RTOL, IMAGE_PARITY_STATS_RTOL = 1e-4, 1e-3
+IMAGE_PARITY_UPDATE_RTOL = 1e-1
+RESNET50_STEPS = 6           # after one warm-up
+CONVNET_STEPS = 3            # after one warm-up: 4 in all
+
+
+def _rel_norm(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).norm() /
+                 b.double().norm().clamp_min(1e-30))
+
+
+def image_parity(dev) -> dict:
+    """ResNet-18 steps on the card against the port's plain CPU path: the
+    CPU run trains 3 steps; before each, the card's trainer takes its
+    weights and moving statistics and runs the same step on the same
+    batch.  Compared: the cost, the new moving statistics and each
+    parameter's update p_new - p_old (the Momentum slots are each
+    trainer's own)."""
+    from paddle_tpu_torch.platform.flags import FLAGS
+
+    cfg = IMAGE_PARITY
+    old = FLAGS.use_bf16
+    FLAGS.use_bf16 = False
+    try:
+        cpu = iw.build_trainer(iw.HEADLINE, torch.device("cpu"),
+                               depth=cfg["depth"], img_size=cfg["img_size"])
+        card = iw.build_trainer(iw.HEADLINE, dev, depth=cfg["depth"],
+                                img_size=cfg["img_size"])
+        rows = []
+        for i in range(cfg["steps"]):
+            feeds = iw.device_feeds(iw.HEADLINE, torch.device("cpu"),
+                                    seed=iw.SEED + 10 + i,
+                                    batch=cfg["batch"], img=cfg["img_size"])
+            old = {k: cpu.parameters[k].detach().clone()
+                   for k in cpu._names}
+            with torch.no_grad():
+                for k in card._names:
+                    card.parameters[k].copy_(old[k])
+            card.model_state = {
+                layer: {s: v.to(dev) for s, v in slots.items()}
+                for layer, slots in cpu.model_state.items()}
+            card_cost = float(card.step({k: v.to(dev)
+                                         for k, v in feeds.items()}))
+            cpu_cost = float(cpu.step(feeds))
+            stats = max(_rel_norm(card.model_state[layer][s].cpu(), v)
+                        for layer, slots in cpu.model_state.items()
+                        for s, v in slots.items())
+            updates = {k: _rel_norm(card.parameters[k].detach().cpu() -
+                                    old[k], cpu.parameters[k].detach() -
+                                    old[k]) for k in cpu._names}
+            worst = max(updates, key=updates.get)
+            rows.append({"cpu_cost": cpu_cost, "card_cost": card_cost,
+                         "cost_rel_diff": abs(card_cost - cpu_cost) /
+                         abs(cpu_cost), "stats_max_rel_diff": stats,
+                         "update_max_rel_diff": updates[worst],
+                         "update_worst": worst,
+                         "update_median_rel_diff": float(
+                             np.median(list(updates.values())))})
+    finally:
+        FLAGS.use_bf16 = old
+    res = {"phase": "image_parity", **cfg, "use_bf16": False,
+           "allow_tf32": [torch.backends.cuda.matmul.allow_tf32,
+                          torch.backends.cudnn.allow_tf32],
+           "cudnn_benchmark": torch.backends.cudnn.benchmark, "per_step": rows,
+           "cost_rtol": IMAGE_PARITY_COST_RTOL,
+           "stats_rtol": IMAGE_PARITY_STATS_RTOL,
+           "update_rtol": IMAGE_PARITY_UPDATE_RTOL}
+    emit(res)
+    if any(r["cost_rel_diff"] > IMAGE_PARITY_COST_RTOL or
+           r["stats_max_rel_diff"] > IMAGE_PARITY_STATS_RTOL or
+           r["update_max_rel_diff"] > IMAGE_PARITY_UPDATE_RTOL or
+           not np.isfinite(r["card_cost"]) for r in rows):
+        raise AssertionError("the card's image path and the CPU path "
+                             "disagree")
+    return res
+
+
+def train_resnet50(dev, card: str, cudnn: dict) -> dict:
+    cell = iw.MODELS[iw.HEADLINE]
+    t0 = time.perf_counter()
+    sgd = iw.build_trainer(iw.HEADLINE, dev)
+    feeds = iw.device_feeds(iw.HEADLINE, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    costs, step_ms = iw.time_steps(sgd, feeds, RESNET50_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = float(np.median(step_ms))
+    moved = [layer for layer, slots in sgd.model_state.items()
+             if torch.count_nonzero(slots["moving_mean"]) > 0]
+    launches = profile_image.launches_per_step(
+        profile_image.profile_steps(sgd, feeds))
+    pass_costs, pass_ms = _image_pass(sgd, iw.HEADLINE)
+    flop = 3 * iw.RESNET50_FWD_FLOP_PER_IMAGE * cell["batch"]
+    res = {"phase": "train_resnet50", "model": iw.HEADLINE,
+           "img": cell["img"], "batch": cell["batch"], **cudnn,
+           "steps": RESNET50_STEPS, "costs": costs, "step_ms": step_ms,
+           "step_ms_median": med,
+           "images_per_s": cell["batch"] / (med / 1e3),
+           "analytic_tflop_per_s": flop / (med / 1e3) / 1e12,
+           "peak_memory_gb": peak, "launches_per_step": launches,
+           "parameters": sum(p.numel() for p in
+                             sgd.parameters.as_dict().values()),
+           "batch_norm_layers": len(sgd.model_state),
+           "moving_means_moved": len(moved), "setup_s": setup_s,
+           "feeder_pass_costs": pass_costs, "feeder_pass_ms": pass_ms,
+           "nvidia_smi": card}
+    emit(res)
+    if not all(np.isfinite(costs + pass_costs)) or not costs[-1] < costs[0]:
+        raise AssertionError(f"ResNet-50 did not learn: costs {costs}, "
+                             f"feeder pass {pass_costs}")
+    if len(moved) != len(sgd.model_state):
+        raise AssertionError("a batch norm's moving mean stayed at 0")
+    return res
+
+
+def _image_pass(sgd, name: str):
+    """One ``SGD.train`` pass over a reader of 2 flat CHW batches through
+    the ``DataFeeder``: (costs, host ms per batch)."""
+    from paddle_tpu_torch import event
+
+    batches = [iw.flat_samples(name, iw.SEED + 20 + i) for i in range(2)]
+    costs, ms, t = [], [], [0.0]
+
+    def handler(ev):
+        if isinstance(ev, event.BeginIteration):
+            torch.cuda.synchronize()
+            t[0] = time.perf_counter()
+        elif isinstance(ev, event.EndIteration):
+            costs.append(ev.cost)
+            ms.append(1e3 * (time.perf_counter() - t[0]))
+
+    sgd.train(lambda: iter(batches), num_passes=1, event_handler=handler)
+    return costs, ms
+
+
+def train_convnets(dev, card: str, cudnn: dict) -> list:
+    out = []
+    for name in ("alexnet", "googlenet", "smallnet", "lenet"):
+        cell = iw.MODELS[name]
+        sgd = iw.build_trainer(name, dev)
+        feeds = iw.device_feeds(name, dev)
+        torch.cuda.reset_peak_memory_stats()
+        costs, step_ms = iw.time_steps(sgd, feeds, CONVNET_STEPS)
+        med = float(np.median(step_ms))
+        res = {"phase": "train_convnets", "model": name, "img": cell["img"],
+               "batch": cell["batch"], **cudnn,
+               "steps": CONVNET_STEPS + 1, "costs": costs,
+               "step_ms": step_ms, "ms_per_batch": med,
+               "images_per_s": cell["batch"] / (med / 1e3),
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+               "nvidia_smi": card}
+        emit(res)
+        if not all(np.isfinite(costs)) or not costs[-1] < costs[0]:
+            raise AssertionError(f"{name} did not learn: costs {costs}")
+        out.append(res)
+        del sgd, feeds
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script drives the port on "
@@ -921,6 +1115,13 @@ def main() -> int:
     trained_lstm = train_lstm(dev)
     trained_gru = train_gru(dev)
     rnn_parity(dev)
+    torch.cuda.empty_cache()
+
+    cudnn = iw.configure_cudnn()
+    image_parity(dev)
+    train_resnet50(dev, card, cudnn)
+    torch.cuda.empty_cache()
+    train_convnets(dev, card, cudnn)
 
     main_case = next(c for c in cases if c["case"] == "mixed_f32")
     decode_case = next(c for c in cases if c["case"] == "decode_f32")

@@ -36,8 +36,8 @@ class ParamAttr:
 
 @dataclass
 class ExtraAttr:
-    """Extra layer attributes: dropout only (at rate 0 until the dropout
-    layer is ported)."""
+    """Extra layer attributes: dropout only (``drop_rate``, applied to the
+    layer's output in training)."""
 
     drop_rate: float = 0.0
 

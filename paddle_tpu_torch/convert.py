@@ -2,7 +2,9 @@
 
 Training weights: a JAX ``Parameters`` read as numpy (``as_dict()`` values,
 or its tar) becomes the port's with :func:`parameters_from_numpy`; the
-names are the same ``<layer>.<param>`` keys in both packages.
+names are the same ``<layer>.<param>`` keys in both packages.  A JAX
+trainer's ``model_state`` (``{layer: {"moving_mean", "moving_var"}}``)
+becomes the port's with :func:`state_from_numpy`.
 
 Serving weights: the JAX package's ``DecoderLM.init_params`` returns a
 flat dict — ``emb`` [V, E], ``pos`` [P, E], per layer ``l{i}.wq``/``wk``/
@@ -37,6 +39,17 @@ def parameters_from_numpy(arrays: Dict[str, np.ndarray],
         # a copy: JAX arrays read as numpy are not writable
         params[name] = torch.from_numpy(np.array(arr, copy=True)).to(dev)
     return params
+
+
+def state_from_numpy(state: Dict[str, Dict[str, np.ndarray]],
+                     device: DeviceLike = None
+                     ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A port model state (``{layer: {slot: tensor}}``) holding copies of
+    ``state``'s arrays on ``device`` (``cuda`` unless asked)."""
+    dev = resolve_device(device)
+    return {layer: {k: torch.from_numpy(np.array(v, copy=True)).to(dev)
+                    for k, v in slots.items()}
+            for layer, slots in state.items()}
 
 
 def _targets(model) -> Dict[str, torch.Tensor]:

@@ -1,8 +1,10 @@
 """DataFeeder: sample batches -> tensors / SequenceBatch (the port of
-``paddle_tpu/data_feeder.py``, INDEX slots only so far: integer values
-and integer sequences).
+``paddle_tpu/data_feeder.py``: dense vectors, integer values and integer
+sequences so far).
 
-An integer value slot is one int32 per sample, a [B] tensor (a [B, n]
+A dense slot is one f32 row per sample, stacked to a [B, dim] tensor (a
+sample already shaped [H, W, C] or the like keeps its shape, as
+``paddle_tpu/data_feeder.py:55-60`` allows).  An integer value slot is one int32 per sample, a [B] tensor (a [B, n]
 one for rows of n > 1 values), as ``paddle_tpu/data_feeder.py:76-83``
 gives it.  Sequence slots are packed into the flat segment-id form with
 a bucketed capacity (the next power of two over the batch's token count,
@@ -45,12 +47,14 @@ class DataFeeder:
         self.feeding = feeding
         self.device = resolve_device(device)
         for name, itype in data_types:
-            enforce_that(itype.slot == SlotKind.INDEX and
-                         itype.seq in (SeqKind.NO_SEQUENCE,
-                                       SeqKind.SEQUENCE),
-                         f"slot {name!r} is {itype}: the port feeds integer "
-                         "values and integer sequences only so far",
-                         context="feeder")
+            enforce_that((itype.slot == SlotKind.INDEX and
+                          itype.seq in (SeqKind.NO_SEQUENCE,
+                                        SeqKind.SEQUENCE)) or
+                         (itype.slot == SlotKind.DENSE and
+                          itype.seq == SeqKind.NO_SEQUENCE),
+                         f"slot {name!r} is {itype}: the port feeds dense "
+                         "vectors, integer values and integer sequences "
+                         "only so far", context="feeder")
 
     def __call__(self, batch_data):
         return self.feed(batch_data)
@@ -60,9 +64,23 @@ class DataFeeder:
         out: Dict[str, Union[torch.Tensor, SequenceBatch]] = {}
         for name, itype in self.data_types:
             col = [sample[self.feeding[name]] for sample in batch_data]
-            out[name] = (self._sequence(col) if itype.seq == SeqKind.SEQUENCE
-                         else self._values(col))
+            if itype.seq == SeqKind.SEQUENCE:
+                out[name] = self._sequence(col)
+            elif itype.slot == SlotKind.DENSE:
+                out[name] = self._dense(itype, name, col)
+            else:
+                out[name] = self._values(col)
         return out
+
+    def _dense(self, itype: InputType, name: str, col) -> torch.Tensor:
+        rows = []
+        for r in col:
+            arr = np.asarray(r, dtype=np.float32)
+            enforce_that(arr.size == itype.dim or arr.ndim > 1,
+                         f"dense slot {name!r} expects dim {itype.dim}, got "
+                         f"shape {arr.shape}", context="feeder")
+            rows.append(arr.reshape(-1) if arr.ndim <= 1 else arr)
+        return torch.from_numpy(np.stack(rows)).to(self.device)
 
     def _values(self, col) -> torch.Tensor:
         arr = np.stack([np.asarray(r, np.int32) for r in col])

@@ -27,6 +27,14 @@ class InputType:
     seq: SeqKind = SeqKind.NO_SEQUENCE
 
 
+def dense_vector(dim: int) -> InputType:
+    return InputType(dim, SlotKind.DENSE)
+
+
+def dense_array(dim: int) -> InputType:  # alias used by some v2 code
+    return InputType(dim, SlotKind.DENSE)
+
+
 def integer_value(value_range: int) -> InputType:
     return InputType(value_range, SlotKind.INDEX)
 

@@ -1,17 +1,22 @@
 """The layer DSL (the port of ``paddle_tpu/layer.py``: the transformer
 subset ``data``, ``fc``, ``embedding``, ``layer_norm``, ``addto``,
-``multi_head_attention`` and ``classification_cost``, and the recurrent
-subset ``lstmemory``, ``grumemory`` and ``pooling``).
+``multi_head_attention`` and ``classification_cost``, the recurrent
+subset ``lstmemory``, ``grumemory`` and ``pooling``, and the convnet
+subset ``img_conv``, ``img_pool``, ``batch_norm``, ``img_cmrnorm``,
+``dropout`` and ``concat``).
 
 Each function returns a ``LayerOutput`` graph node whose compute fn is
 plain PyTorch on tensors or :class:`SequenceBatch` values; the dtype
-policy of each layer is the JAX package's (``ops/math.py``).  Cost layers
-return per-example (per-token) losses; the trainer reduces them.
+policy of each layer is the JAX package's (``ops/math.py``,
+``ops/conv.py``).  Image maps are NHWC tensors, as in the JAX package; a
+node carries its (H, W, C) in ``img_shape``.  Cost layers return
+per-example (per-token) losses; the trainer reduces them.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -21,18 +26,21 @@ from paddle_tpu_torch.attr import ExtraAttr, ParamAttr
 from paddle_tpu_torch.data_type import InputType, SeqKind
 from paddle_tpu_torch.initializer import Constant
 from paddle_tpu_torch.ops import attention as pattn
+from paddle_tpu_torch.ops import conv as pconv
 from paddle_tpu_torch.ops import losses as ploss
 from paddle_tpu_torch.ops import math as pmath
 from paddle_tpu_torch.ops import norm as pnorm
+from paddle_tpu_torch.ops import pool as ppool
 from paddle_tpu_torch.ops import rnn as prnn
 from paddle_tpu_torch.ops import sequence_ops as pseq
 from paddle_tpu_torch.ops.embedding import embedding_lookup
 from paddle_tpu_torch.platform.enforce import enforce_that
 from paddle_tpu_torch.sequence import SequenceBatch
 from paddle_tpu_torch.topology import Context, LayerOutput, ParamSpec, \
-    unique_name
+    StateSpec, unique_name
 
-__all__ = ["data", "fc", "embedding", "layer_norm", "addto",
+__all__ = ["data", "fc", "embedding", "layer_norm", "addto", "concat",
+           "dropout", "img_conv", "img_pool", "batch_norm", "img_cmrnorm",
            "multi_head_attention", "pooling", "lstmemory", "grumemory",
            "classification_cost"]
 
@@ -74,10 +82,51 @@ def _act_then_cast(activation, value, dtype):
     return _apply_act(activation, _cast_value(value, dtype))
 
 
-def _check_extra(layer_attr) -> None:
-    enforce_that(ExtraAttr.to_attr(layer_attr).drop_rate == 0.0,
-                 "dropout is not ported yet: drop_rate must be 0",
-                 context="layer")
+def _apply_extra(ctx: Context, name: str, value, layer_attr):
+    """The layer's ``ExtraAttr``: dropout at ``drop_rate`` from the
+    node's random stream."""
+    rate = ExtraAttr.to_attr(layer_attr).drop_rate
+    if rate > 0.0:
+        value = _like(value, pmath.dropout(_data_of(value), rate,
+                                           ctx.rng_for(name), ctx.train))
+    return value
+
+
+def _img_shape_of(node: LayerOutput) -> Optional[Tuple[int, int, int]]:
+    """(H, W, C) of a node's maps: its ``img_shape``, else a data layer's
+    height and width."""
+    if node.img_shape is not None:
+        return node.img_shape
+    h, w = node.height, node.width
+    if h and w and node.size and node.size % (h * w) == 0:
+        return (h, w, node.size // (h * w))
+    return None
+
+
+def _propagate_img_shape(node: LayerOutput, *sources) -> LayerOutput:
+    """Carry the first source's (H, W, C) through a shape-keeping
+    layer."""
+    for src in sources:
+        shp = _img_shape_of(src)
+        if shp is not None:
+            node.img_shape = shp
+            break
+    return node
+
+
+def _to_nhwc(v: torch.Tensor, shape_hwc: Tuple[int, int, int]
+             ) -> torch.Tensor:
+    """A [B, H, W, C] map passes through; a flat [B, C * H * W] row
+    (CHW-major, the reference's dense image slot) becomes a contiguous
+    NHWC map, so the convs downstream run channels-last."""
+    if v.dim() == 4:
+        return v
+    h, w, c = shape_hwc
+    return v.reshape(v.shape[0], c, h, w).permute(0, 2, 3, 1).contiguous()
+
+
+def _conv_out_dim(in_size: int, k: int, pad: int, stride: int) -> int:
+    return (in_size + 2 * pad - k) // stride + 1
 
 
 def _need_seq(node: LayerOutput, ctx_name: str) -> None:
@@ -93,13 +142,15 @@ def _need_seq(node: LayerOutput, ctx_name: str) -> None:
 _data_counter = [0]
 
 
-def data(name: str, type: InputType, **_ignored) -> LayerOutput:
-    """Input placeholder; declaration order is the default feeding
-    order."""
+def data(name: str, type: InputType, height: int = None, width: int = None,
+         **_ignored) -> LayerOutput:
+    """Input placeholder; declaration order is the default feeding order.
+    ``height`` and ``width`` give a dense slot its image geometry."""
     node = LayerOutput(name=name, layer_type="data", inputs=[], fn=None,
                        size=type.dim,
                        is_sequence=type.seq != SeqKind.NO_SEQUENCE,
-                       input_type=type, declare_idx=_data_counter[0])
+                       input_type=type, declare_idx=_data_counter[0],
+                       height=height, width=width)
     _data_counter[0] += 1
     return node
 
@@ -111,13 +162,12 @@ def data(name: str, type: InputType, **_ignored) -> LayerOutput:
 
 def fc(input, size: int, act=None, name: Optional[str] = None,
        param_attr=None, bias_attr=True, layer_attr=None) -> LayerOutput:
-    """Fully connected layer; several inputs are projected and summed.
-    Products accumulate in f32; the output is stored in
-    ``dense_activation_dtype``."""
+    """Fully connected layer; several inputs are projected and summed (an
+    image map flattened in NHWC order).  Products accumulate in f32; the
+    output is stored in ``dense_activation_dtype``."""
     inputs = _as_list(input)
     name = name or unique_name("fc")
     activation = act_mod.get(act)
-    _check_extra(layer_attr)
     attrs = (_as_list(param_attr) if isinstance(param_attr, (list, tuple))
              else [param_attr] * len(inputs))
     params: Dict[str, ParamSpec] = {}
@@ -133,12 +183,17 @@ def fc(input, size: int, act=None, name: Optional[str] = None,
     def compute(ctx: Context, p, ins):
         total = None
         for i, v in enumerate(ins):
-            y = pmath.matmul(_data_of(v), p[f"w{i}"])
+            d = _data_of(v)
+            if not isinstance(v, SequenceBatch) and d.dim() > 2:
+                d = d.reshape(d.shape[0], -1)
+            y = pmath.matmul(d, p[f"w{i}"])
             total = y if total is None else total + y
         if has_bias:
             total = total + p["b"]
         out = _like(ins[0], total)
-        return _act_then_cast(activation, out, pmath.dense_activation_dtype())
+        out = _act_then_cast(activation, out,
+                             pmath.dense_activation_dtype())
+        return _apply_extra(ctx, name, out, layer_attr)
 
     return LayerOutput(name=name, layer_type="fc", inputs=inputs, fn=compute,
                        params=params, size=size,
@@ -149,7 +204,6 @@ def embedding(input, size: int, name: Optional[str] = None,
               param_attr=None, layer_attr=None) -> LayerOutput:
     """Table lookup."""
     name = name or unique_name("embedding")
-    _check_extra(layer_attr)
     params = {"w": ParamSpec((input.size, size),
                              ParamAttr.to_attr(param_attr))}
 
@@ -190,11 +244,10 @@ def layer_norm(input, act=None, name: Optional[str] = None, param_attr=None,
 
 def addto(input, act=None, name: Optional[str] = None, bias_attr=False,
           layer_attr=None) -> LayerOutput:
-    """Elementwise sum."""
+    """Elementwise sum; image maps keep their geometry."""
     inputs = _as_list(input)
     name = name or unique_name("addto")
     activation = act_mod.get(act)
-    _check_extra(layer_attr)
     params = {}
     has_bias = bool(bias_attr)
     if has_bias:
@@ -207,11 +260,215 @@ def addto(input, act=None, name: Optional[str] = None, bias_attr=False,
             total = total + _data_of(v)
         if has_bias:
             total = total + p["b"].to(total.dtype)
-        return _apply_act(activation, _like(ins[0], total))
+        out = _apply_act(activation, _like(ins[0], total))
+        return _apply_extra(ctx, name, out, layer_attr)
 
-    return LayerOutput(name=name, layer_type="addto", inputs=inputs,
+    node = LayerOutput(name=name, layer_type="addto", inputs=inputs,
                        fn=compute, params=params, size=inputs[0].size,
                        is_sequence=inputs[0].is_sequence)
+    return _propagate_img_shape(node, *inputs)
+
+
+def concat(input, name: Optional[str] = None, act=None,
+           layer_attr=None) -> LayerOutput:
+    """Concatenation on the feature (last) axis: the channels of image
+    maps of one geometry (inception towers), which keeps (H, W, sum C)."""
+    inputs = _as_list(input)
+    name = name or unique_name("concat")
+    activation = act_mod.get(act)
+
+    def compute(ctx, p, ins):
+        out = torch.cat([_data_of(v) for v in ins], dim=-1)
+        out = _apply_act(activation, _like(ins[0], out))
+        return _apply_extra(ctx, name, out, layer_attr)
+
+    node = LayerOutput(name=name, layer_type="concat", inputs=inputs,
+                       fn=compute, size=sum(i.size for i in inputs),
+                       is_sequence=inputs[0].is_sequence)
+    shapes = [_img_shape_of(i) for i in inputs]
+    if all(s is not None for s in shapes) and \
+            len({(h, w) for h, w, _ in shapes}) == 1:
+        h, w, _ = shapes[0]
+        node.img_shape = (h, w, sum(c for _, _, c in shapes))
+    return node
+
+
+def dropout(input, dropout_rate: float,
+            name: Optional[str] = None) -> LayerOutput:
+    """Inverted dropout at ``dropout_rate`` in training, the identity
+    otherwise."""
+    name = name or unique_name("dropout")
+
+    def compute(ctx, p, ins):
+        v = ins[0]
+        return _like(v, pmath.dropout(_data_of(v), dropout_rate,
+                                      ctx.rng_for(name), ctx.train))
+
+    node = LayerOutput(name=name, layer_type="dropout", inputs=[input],
+                       fn=compute, size=input.size,
+                       is_sequence=input.is_sequence)
+    return _propagate_img_shape(node, input)
+
+
+# ---------------------------------------------------------------------------
+# image layers
+# ---------------------------------------------------------------------------
+
+
+def img_conv(input, filter_size: int, num_filters: int,
+             num_channels: int = None, stride: int = 1, padding: int = 0,
+             groups: int = 1, act=None, name: Optional[str] = None,
+             param_attr=None, bias_attr=True, shared_biases: bool = True,
+             trans: bool = False, dilation: int = 1,
+             layer_attr=None) -> LayerOutput:
+    """2-D convolution (``trans=True``: transposed), weights HWIO
+    ``[k, k, C / groups, num_filters]`` (``[k, k, C, num_filters]`` when
+    transposed), maps NHWC (``ops/conv.py``).  A shared bias is one per
+    filter, else one per output cell; it is cast to the activation dtype
+    before the add."""
+    inp = input
+    name = name or unique_name("conv")
+    activation = act_mod.get(act)
+    in_shape = _img_shape_of(inp)
+    enforce_that(in_shape is not None or num_channels is not None,
+                 "img_conv needs image shape metadata or num_channels",
+                 context="img_conv")
+    if in_shape is None:        # a square image
+        hw = int(round(math.sqrt(inp.size // num_channels)))
+        in_shape = (hw, hw, num_channels)
+    h, w, c = in_shape
+    num_channels = num_channels or c
+    if trans:
+        oh = (h - 1) * stride + filter_size - 2 * padding
+        ow = (w - 1) * stride + filter_size - 2 * padding
+        wshape = (filter_size, filter_size, num_channels, num_filters)
+    else:
+        oh = _conv_out_dim(h, filter_size, padding, stride)
+        ow = _conv_out_dim(w, filter_size, padding, stride)
+        wshape = (filter_size, filter_size, num_channels // groups,
+                  num_filters)
+    params = {"w": ParamSpec(wshape, ParamAttr.to_attr(param_attr))}
+    has_bias = bool(bias_attr)
+    if has_bias:
+        bshape = (num_filters,) if shared_biases else \
+            (num_filters * oh * ow,)
+        params["b"] = ParamSpec(bshape, ParamAttr.to_attr(
+            None if bias_attr is True else bias_attr))
+
+    def compute(ctx, p, ins):
+        x = _to_nhwc(_data_of(ins[0]), in_shape)
+        if trans:
+            y = pconv.conv2d_transpose(x, p["w"], stride=stride,
+                                       padding=padding)
+        else:
+            y = pconv.conv2d(x, p["w"], stride=stride, padding=padding,
+                             dilation=dilation, groups=groups)
+        if has_bias:
+            b = p["b"] if shared_biases else \
+                p["b"].reshape(1, oh, ow, num_filters)
+            y = y + b.to(y.dtype)
+        y = _apply_act(activation, y)
+        return _apply_extra(ctx, name, y, layer_attr)
+
+    node = LayerOutput(name=name, layer_type="conv", inputs=[inp],
+                       fn=compute, params=params, size=oh * ow * num_filters)
+    node.img_shape = (oh, ow, num_filters)
+    return node
+
+
+def img_pool(input, pool_size: int, pool_type=None, stride: int = None,
+             padding: int = 0, name: Optional[str] = None,
+             layer_attr=None, **_kw) -> LayerOutput:
+    """Max (default) or average pooling of image maps, floor-mode output
+    sizes."""
+    inp = input
+    name = name or unique_name("pool")
+    ptype = pooling_mod.get(pool_type)
+    stride = stride if stride is not None else pool_size
+    in_shape = _img_shape_of(inp)
+    enforce_that(in_shape is not None, "img_pool needs image shape",
+                 context="img_pool")
+    h, w, c = in_shape
+    oh = _conv_out_dim(h, pool_size, padding, stride)
+    ow = _conv_out_dim(w, pool_size, padding, stride)
+
+    def compute(ctx, p, ins):
+        x = _to_nhwc(_data_of(ins[0]), in_shape)
+        if isinstance(ptype, pooling_mod.MaxPooling):
+            y = ppool.max_pool2d(x, pool_size, stride, padding)
+        else:
+            y = ppool.avg_pool2d(x, pool_size, stride, padding)
+        return _apply_extra(ctx, name, y, layer_attr)
+
+    node = LayerOutput(name=name, layer_type="pool", inputs=[inp],
+                       fn=compute, size=oh * ow * c)
+    node.img_shape = (oh, ow, c)
+    return node
+
+
+def batch_norm(input, act=None, name: Optional[str] = None,
+               num_channels: int = None, bias_attr=None, param_attr=None,
+               use_global_stats: bool = None,
+               moving_average_fraction: float = 0.9, layer_attr=None,
+               **_kw) -> LayerOutput:
+    """Batch normalization over the channels of image maps (or the
+    features of rows), its moving statistics in the state slots
+    ``moving_mean`` (0) and ``moving_var`` (1)."""
+    inp = input
+    name = name or unique_name("batch_norm")
+    activation = act_mod.get(act)
+    in_shape = _img_shape_of(inp)
+    c = in_shape[2] if in_shape is not None else inp.size
+    params = {
+        "gamma": ParamSpec((c,), ParamAttr.to_attr(param_attr) if param_attr
+                           else ParamAttr(initializer=Constant(1.0))),
+        "beta": ParamSpec((c,), ParamAttr.to_attr(bias_attr) if bias_attr
+                          else ParamAttr(initializer=Constant(0.0))),
+    }
+    state = {"moving_mean": StateSpec((c,), 0.0),
+             "moving_var": StateSpec((c,), 1.0)}
+
+    def compute(ctx, p, ins):
+        v = ins[0]
+        x = _data_of(v)
+        if in_shape is not None:
+            x = _to_nhwc(x, in_shape)
+        y, nm, nv = pnorm.batch_norm(
+            x, p["gamma"], p["beta"], ctx.get_state(name, "moving_mean"),
+            ctx.get_state(name, "moving_var"), train=ctx.train,
+            momentum=moving_average_fraction,
+            use_global_stats=use_global_stats)
+        ctx.set_state(name, "moving_mean", nm)
+        ctx.set_state(name, "moving_var", nv)
+        y = _apply_extra(ctx, name, _apply_act(activation, y), layer_attr)
+        return _like(v, y)
+
+    node = LayerOutput(name=name, layer_type="batch_norm", inputs=[inp],
+                       fn=compute, params=params, state=state,
+                       size=inp.size, is_sequence=inp.is_sequence)
+    node.img_shape = in_shape
+    return node
+
+
+def img_cmrnorm(input, size: int = 5, scale: float = 0.0001,
+                power: float = 0.75, name: Optional[str] = None,
+                **_kw) -> LayerOutput:
+    """Local response normalization across channels
+    (``ops/norm.cross_map_norm``)."""
+    inp = input
+    name = name or unique_name("cmrnorm")
+    in_shape = _img_shape_of(inp)
+    enforce_that(in_shape is not None, "cmrnorm needs image shape",
+                 context="cmrnorm")
+
+    def compute(ctx, p, ins):
+        x = _to_nhwc(_data_of(ins[0]), in_shape)
+        return pnorm.cross_map_norm(x, size, scale, power)
+
+    node = LayerOutput(name=name, layer_type="cmrnorm", inputs=[inp],
+                       fn=compute, size=inp.size)
+    node.img_shape = in_shape
+    return node
 
 
 # ---------------------------------------------------------------------------
@@ -249,7 +506,6 @@ def lstmemory(input, size: int = None, reverse: bool = False, act=None,
                  context="lstmemory")
     size = size or input.size // 4
     name = name or unique_name("lstmemory")
-    _check_extra(layer_attr)
     out_act = act_mod.get(act or "tanh")
     g_act = act_mod.get(gate_act or "sigmoid")
     s_act = act_mod.get(state_act or "tanh")
@@ -264,8 +520,8 @@ def lstmemory(input, size: int = None, reverse: bool = False, act=None,
         hs, _ = prnn.lstm_scan(padded, mask, None, p["w"], p.get("b"),
                                reverse=reverse, gate_act=g_act.fn,
                                cell_act=s_act.fn, out_act=out_act.fn)
-        return SequenceBatch.from_padded(hs, sb.lengths,
-                                         capacity=sb.capacity)
+        out = SequenceBatch.from_padded(hs, sb.lengths, capacity=sb.capacity)
+        return _apply_extra(ctx, name, out, layer_attr)
 
     return LayerOutput(name=name, layer_type="lstmemory", inputs=[input],
                        fn=compute, params=params, size=size,
@@ -284,7 +540,6 @@ def grumemory(input, size: int = None, reverse: bool = False, act=None,
                  context="grumemory")
     size = size or input.size // 3
     name = name or unique_name("grumemory")
-    _check_extra(layer_attr)
     params = {"w": ParamSpec((size, 3 * size), ParamAttr.to_attr(param_attr))}
     if bias_attr:
         params["b"] = ParamSpec((3 * size,), ParamAttr.to_attr(
@@ -295,8 +550,8 @@ def grumemory(input, size: int = None, reverse: bool = False, act=None,
         padded, mask = sb.to_padded()
         hs, _ = prnn.gru_scan(padded, mask, None, p["w"], p.get("b"),
                               reverse=reverse)
-        return SequenceBatch.from_padded(hs, sb.lengths,
-                                         capacity=sb.capacity)
+        out = SequenceBatch.from_padded(hs, sb.lengths, capacity=sb.capacity)
+        return _apply_extra(ctx, name, out, layer_attr)
 
     return LayerOutput(name=name, layer_type="grumemory", inputs=[input],
                        fn=compute, params=params, size=size,
@@ -326,7 +581,6 @@ def multi_head_attention(query, key=None, value=None, *, num_heads: int,
                  "causal=True is self-attention only (packed positions "
                  "are incomparable across different key/query buffers)",
                  context="multi_head_attention")
-    _check_extra(layer_attr)
     size = size or q_in.size
     enforce_that(size % num_heads == 0,
                  f"num_heads {num_heads} must divide size {size}",
@@ -361,7 +615,8 @@ def multi_head_attention(query, key=None, value=None, *, num_heads: int,
             q, k, v, segment_ids=qs.segment_ids[None, :],
             kv_segment_ids=ks.segment_ids[None, :], causal=causal)
         y = pmath.matmul(out.reshape(cap_q, size), p["wo"])
-        return qs.with_data(y.to(pmath.dense_activation_dtype()))
+        out = qs.with_data(y.to(pmath.dense_activation_dtype()))
+        return _apply_extra(ctx, name, out, layer_attr)
 
     return LayerOutput(name=name, layer_type="multi_head_attention",
                        inputs=[q_in, k_in, v_in], fn=compute, params=params,

@@ -1,2 +1,2 @@
-"""The model zoo of the port (the transformer LM and the text LSTM so
-far)."""
+"""The model zoo of the port (the transformer LM, the text LSTM and the
+image models LeNet, SmallNet, ResNet, AlexNet and GoogLeNet so far)."""

@@ -1,2 +1,2 @@
-"""Tensor ops of the port (what the serving, training and recurrent
-slices read so far)."""
+"""Tensor ops of the port (what the serving, training, recurrent and
+convnet slices read so far)."""

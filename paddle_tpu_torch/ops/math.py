@@ -1,5 +1,5 @@
-"""Dense math under the bf16 policy (the port of ``paddle_tpu/ops/math.py:
-20-48``).
+"""Dense math under the bf16 policy and dropout (the port of
+``paddle_tpu/ops/math.py:20-48,65-71``).
 
 The JAX package multiplies bf16 inputs with f32 accumulation
 (``preferred_element_type``) and returns the f32 accumulator unrounded.  A
@@ -82,3 +82,19 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
     else:
         y = torch.matmul(a, b)
     return y.to(out_dtype)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
+            train: bool) -> torch.Tensor:
+    """Inverted dropout: each element kept with probability ``1 - rate``
+    and scaled by ``1 / (1 - rate)``, the mask drawn from ``generator``
+    (a CUDA generator for a CUDA tensor); the identity at ``train=False``
+    or rate 0.  The JAX package draws its mask from a PRNG key, which
+    torch cannot replay: the semantics are the same, the bits are not."""
+    if not train or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device)
+                       ).to(x.dtype)

@@ -106,6 +106,9 @@ FLAGS.define("serving_watchdog_ticks", 16,
              "ticks is FAILED; 0 disables", parser=int)
 
 # training slices (the JAX defaults of paddle_tpu/platform/flags.py)
+FLAGS.define("seed", 0,
+             "global random seed: each training step draws its dropout "
+             "masks from it and the step count")
 FLAGS.define("use_pallas", True,
              "take the fused recurrent steps where the JAX package takes "
              "its Pallas kernels (the hand-written CUDA kernels on the "
@@ -114,6 +117,11 @@ FLAGS.define("use_pallas", True,
 FLAGS.define("use_bf16", True,
              "compute matmuls in bfloat16 with f32 accumulation; q/k/v "
              "ride bf16 into flash attention")
+FLAGS.define("bf16_activations", True,
+             "store inter-layer image activations (conv, pool and "
+             "batch-norm outputs) in bfloat16; batch-norm statistics, "
+             "losses and parameters stay f32. Only active when use_bf16 "
+             "is also on.")
 FLAGS.define("bf16_dense_activations", False,
              "store fc/embedding/attention outputs (the transformer "
              "residual stream) in bfloat16; norm statistics and losses "

@@ -7,13 +7,21 @@ into a topological order and runs it eagerly in ``forward``.  There is no
 hand-written backward: ``torch.autograd`` differentiates ``forward`` as
 ``jax.grad`` does in the JAX package.
 
-Not yet ported: ``remat_scope`` (activation checkpointing), model state
-slots (batch-norm statistics) and the per-node RNG stream (dropout runs at
-rate 0 in this slice).
+Model state (batch norm's moving statistics) lives in ``{layer: {slot:
+tensor}}`` dicts outside the graph: :meth:`Topology.forward_with_state`
+reads the state it is given and returns the updated slots beside the
+outputs without changing it, as the JAX package's pure ``forward`` does.
+Each node draws its random numbers (dropout masks) from
+:meth:`Context.rng_for`, a generator seeded from the step's seed and the
+node's name.
+
+Not yet ported: ``remat_scope`` (activation checkpointing) and the
+foreign state slots of hosted step graphs.
 """
 
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -21,6 +29,7 @@ import torch
 
 from paddle_tpu_torch.attr import ParamAttr
 from paddle_tpu_torch.data_type import InputType
+from paddle_tpu_torch.platform.device import DeviceLike, resolve_device
 from paddle_tpu_torch.platform.enforce import EnforceError, enforce_that
 
 # ---------------------------------------------------------------------------
@@ -49,11 +58,46 @@ class ParamSpec:
     dtype: Any = torch.float32
 
 
-class Context:
-    """Per-forward execution context handed to each node's compute fn."""
+@dataclass
+class StateSpec:
+    """Non-trainable state slot (batch norm's moving statistics)."""
 
-    def __init__(self, train: bool):
+    shape: Tuple[int, ...]
+    init_value: float = 0.0
+    dtype: Any = torch.float32
+
+
+State = Dict[str, Dict[str, torch.Tensor]]
+
+
+class Context:
+    """Per-forward execution context handed to each node's compute fn:
+    the mode, the state read (``state_in``) and written (``state_out``),
+    and the step's seed and device for the nodes' random streams."""
+
+    def __init__(self, train: bool, state: State, seed: int = 0,
+                 device: torch.device = torch.device("cpu")):
         self.train = train
+        self.state_in = state
+        self.state_out: State = {}
+        self.seed = int(seed)
+        self.device = device
+
+    def rng_for(self, node_name: str) -> torch.Generator:
+        """A generator on the step's device, seeded from the step's seed
+        and ``node_name``: the same stream each time a node asks within a
+        step, different streams across nodes and steps."""
+        digest = hashlib.md5(f"{self.seed}/{node_name}".encode()).digest()
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int.from_bytes(digest[:8], "little") >> 1)
+        return gen
+
+    def get_state(self, node_name: str, key: str) -> torch.Tensor:
+        return self.state_in[node_name][key]
+
+    def set_state(self, node_name: str, key: str,
+                  value: torch.Tensor) -> None:
+        self.state_out.setdefault(node_name, {})[key] = value
 
 
 @dataclass
@@ -66,11 +110,15 @@ class LayerOutput:
     # fn(ctx, params: dict, inputs: list of values) -> value
     fn: Optional[Callable[[Context, Dict[str, torch.Tensor], List[Any]], Any]]
     params: Dict[str, ParamSpec] = field(default_factory=dict)
+    state: Dict[str, StateSpec] = field(default_factory=dict)
     size: Optional[int] = None          # feature dimension
     is_sequence: bool = False           # value is a SequenceBatch
     is_cost: bool = False               # per-example loss output
     input_type: Optional[InputType] = None   # data layers only
     declare_idx: int = 0                # data layers: declaration order
+    height: Optional[int] = None        # data layers: image geometry
+    width: Optional[int] = None
+    img_shape: Optional[Tuple[int, int, int]] = None  # (H, W, C) of maps
 
     def __post_init__(self):
         enforce_that(self.name is not None, "layer needs a name")
@@ -113,6 +161,18 @@ def topological_order(outputs: Sequence[LayerOutput]) -> List[LayerOutput]:
     return order
 
 
+def _device_of(params: Dict[str, torch.Tensor],
+               feeds: Dict[str, Any]) -> torch.device:
+    """The step's device: the parameters', else the first tensor feed's."""
+    for t in params.values():
+        return t.device
+    for v in feeds.values():
+        t = getattr(v, "data", v)
+        if isinstance(t, torch.Tensor):
+            return t.device
+    return torch.device("cpu")
+
+
 # ---------------------------------------------------------------------------
 # Topology
 # ---------------------------------------------------------------------------
@@ -151,13 +211,44 @@ class Topology:
         spec = node.params[pname]
         return spec.attr.name or f"{node.name}.{pname}"
 
+    def state_specs(self) -> Dict[str, Dict[str, StateSpec]]:
+        """``{layer: {slot: spec}}`` of every node with state."""
+        return {n.name: dict(n.state) for n in self.nodes if n.state}
+
+    def init_state(self, device: DeviceLike = None) -> State:
+        """Every state slot at its initial value on ``device`` (``cuda``
+        unless asked)."""
+        dev = resolve_device(device)
+        return {lname: {k: torch.full(tuple(s.shape), s.init_value,
+                                      dtype=s.dtype, device=dev)
+                        for k, s in slots.items()}
+                for lname, slots in self.state_specs().items()}
+
     def forward(self, params: Dict[str, torch.Tensor],
                 feeds: Dict[str, Any], *, train: bool = False,
-                outputs: Optional[Sequence[LayerOutput]] = None) -> List[Any]:
+                outputs: Optional[Sequence[LayerOutput]] = None,
+                state: Optional[State] = None, seed: int = 0) -> List[Any]:
         """Run the graph on ``feeds`` (data layer name -> value) and return
-        the values of ``outputs`` (default: the topology's outputs)."""
+        the values of ``outputs`` (default: the topology's outputs).
+        ``state`` defaults to :meth:`init_state` on the parameters'
+        device; the updated slots are dropped (see
+        :meth:`forward_with_state`)."""
+        return self.forward_with_state(params, state, feeds, train=train,
+                                       outputs=outputs, seed=seed)[0]
+
+    def forward_with_state(self, params: Dict[str, torch.Tensor],
+                           state: Optional[State], feeds: Dict[str, Any],
+                           *, train: bool = False, seed: int = 0,
+                           outputs: Optional[Sequence[LayerOutput]] = None
+                           ) -> Tuple[List[Any], State]:
+        """(values of ``outputs``, new state): the new state is ``state``
+        with the slots the nodes set replaced; ``state`` itself is not
+        changed.  ``seed`` seeds the nodes' random streams."""
         wanted = list(outputs) if outputs is not None else self.outputs
-        ctx = Context(train=train)
+        device = _device_of(params, feeds)
+        if state is None:
+            state = self.init_state(device) if self.state_specs() else {}
+        ctx = Context(train=train, state=state, seed=seed, device=device)
         values: Dict[str, Any] = {}
         for node in topological_order(wanted):
             if node.fn is None:  # data layers
@@ -179,7 +270,10 @@ class Topology:
                     f"{node.name!r} (type={node.layer_type}, "
                     f"inputs={[i.name for i in node.inputs]})")
                 raise
-        return [values[w.name] for w in wanted]
+        new_state = dict(state)
+        for ns, slots in ctx.state_out.items():
+            new_state[ns] = {**new_state.get(ns, {}), **slots}
+        return [values[w.name] for w in wanted], new_state
 
     def __repr__(self):
         return (f"Topology({len(self.nodes)} nodes, "

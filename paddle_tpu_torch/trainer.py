@@ -2,11 +2,17 @@
 with ``train`` and one ``step``).
 
 One step is the forward of the topology, ``torch.autograd.grad`` of the
-summed costs, and the optimizer's in-place update.  The JAX step is one
-jitted program that donates the old parameter and slot buffers
-(trainer.py:448-451); the port runs eagerly and updates the same tensors
-in place under ``torch.no_grad()``, which keeps one copy of the weights
-as donation does.  A step returns its cost as a 0-d device tensor and
+summed costs, and the optimizer's in-place update.  The trainer holds the
+model state (batch norm's moving statistics, ``model_state``) on its
+device; a step threads it through ``forward_with_state(train=True)`` and
+commits the new slots only after the update, so a step that raises leaves
+the statistics as they were, as the JAX step's functional state does.
+Its dropout masks come from the ``seed`` flag and the step count.
+
+The JAX step is one jitted program that donates the old parameter and
+slot buffers (trainer.py:448-451); the port runs eagerly and updates the
+same tensors in place under ``torch.no_grad()``, which keeps one copy of
+the weights as donation does.  A step returns its cost as a 0-d device tensor and
 never waits for the card; ``EndIteration.cost`` converts on first access.
 
 Not yet ported: meshes and data parallelism, ZeRO, the pipeline path,
@@ -26,6 +32,7 @@ from paddle_tpu_torch.optimizer import Optimizer
 from paddle_tpu_torch.parameters import Parameters
 from paddle_tpu_torch.platform.device import DeviceLike, resolve_device
 from paddle_tpu_torch.platform.enforce import enforce_that
+from paddle_tpu_torch.platform.flags import FLAGS
 from paddle_tpu_torch.sequence import SequenceBatch
 from paddle_tpu_torch.topology import LayerOutput, Topology
 
@@ -79,13 +86,17 @@ class SGD:
         self.optimizer.set_param_specs(specs)
         self.opt_state = self.optimizer.init_state(
             {k: parameters[k] for k in self._names})
+        self.model_state = self.topology.init_state(self.device)
 
     def step(self, feeds: Dict[str, object]) -> torch.Tensor:
         """One forward, backward and update on converted ``feeds``;
         returns the cost (0-d tensor on the device)."""
         params = {k: self.parameters[k].requires_grad_(True)
                   for k in self._names}
-        outs = self.topology.forward(params, feeds, train=True)
+        step = self.opt_state["step"]
+        outs, new_state = self.topology.forward_with_state(
+            params, self.model_state, feeds, train=True,
+            seed=(FLAGS.seed or 0) * 1_000_003 + step)
         total = _reduce_cost(outs[0])
         for o in outs[1:self._n_costs]:
             total = total + _reduce_cost(o)
@@ -93,6 +104,7 @@ class SGD:
                                     allow_unused=True)
         self.optimizer.apply(params, dict(zip(self._names, grads)),
                              self.opt_state)
+        self.model_state = new_state
         return total.detach()
 
     def train(self, reader, num_passes: int = 1, event_handler=None,
