@@ -69,6 +69,26 @@ checkout of the repository).  Phases, each fatal on failure:
 12. rnn_parity: the LSTM and the GRU classifier at full width, batch 16,
     3 steps through the kernels against the same steps through the plain
     versions on the card (``rnn_workload.plain_rnn_path``);
+12a. nmt_parity: the attention seq2seq NMT (``tools/nmt_workload``,
+    demo/seqToseq's width: dictionaries of 30000, word vectors and GRUs
+    of 512) in f32, batch 8 of lengths 10-20: one step on the card (the
+    encoder's GRUs through B6) against the same step on the port's CPU
+    path, same weights and batch: the cost and each parameter's update;
+12b. train_nmt: the NMT at its configuration (batch 50 of lengths 10-80,
+    Adam at 5e-4, the bf16 policy) through ``SGD.train`` on one batch, a
+    warm-up and 5 timed steps: finite, falling costs, B6 launched 2 x the
+    source frames a step; step ms, target tokens/s, peak memory, launches
+    a step;
+12c. generate_nmt: ``seq2seq.build_generator`` (beam 3, max_length 250)
+    through ``Inference`` on the trained weights, shared by name, for 16
+    sources, with ``<e>`` banned by a ``candidate_adjust`` until each
+    source's drawn target length (outputs of 10-80 words, as the data's)
+    and, as the worst case, until step 250: ms a batch, steps taken,
+    sentences/s, B6 launched 2 x the source frames a batch; every step of
+    the timed runs against the CPU path with the same weights, made to
+    follow the card's beams (``nmt_workload.Replay``): the same choices,
+    or others only at a near tie, the same log-probabilities, the same
+    paths and scores at the end;
 13. image_parity: ResNet-18 at 64 px, batch 8, in f32 (TF32 off): 3
     ``Momentum(0.9, 0.01)`` steps through the port's plain CPU path, and
     before each the same step on the card (cuDNN, channels-last maps) from
@@ -92,7 +112,9 @@ workload lives in ``paddle_tpu_torch/tools/serve_workload.py``, shared
 with the profiler ``python -m paddle_tpu_torch.tools.profile_serve``; the
 training workload and the flash cases in
 ``paddle_tpu_torch/tools/train_workload.py``; the recurrent workload and
-the RNN cases in ``paddle_tpu_torch/tools/rnn_workload.py``; the image
+the RNN cases in ``paddle_tpu_torch/tools/rnn_workload.py``; the NMT
+in ``paddle_tpu_torch/tools/nmt_workload.py``, shared with
+``python -m paddle_tpu_torch.tools.profile_nmt``; the image
 cells in ``paddle_tpu_torch/tools/image_workload.py``, shared with
 ``python -m paddle_tpu_torch.tools.profile_image``.  The image phases run
 no hand-written kernel: no TPU kernel lies on that path, and the convs
@@ -110,7 +132,9 @@ import numpy as np
 import torch
 
 # the port must come from this checkout; outside it this import fails
+from paddle_tpu_torch.convert import parameters_from_numpy, state_from_numpy
 from paddle_tpu_torch.tools import image_workload as iw
+from paddle_tpu_torch.tools import nmt_workload as nw
 from paddle_tpu_torch.tools import profile_image
 from paddle_tpu_torch.tools import ragged_cases as rc
 from paddle_tpu_torch.tools import rnn_workload as rw
@@ -874,16 +898,174 @@ def rnn_parity(dev) -> list:
     return out
 
 
-def rnn_kernel_lines(cases, trained_lstm, trained_gru) -> list:
+# ---------------------------------------------------------------------------
+# the attention seq2seq NMT: recurrent_group training and beam search
+# ---------------------------------------------------------------------------
+
+NMT_STEPS = 6            # the first is the untimed warm-up
+NMT_PARITY = dict(bs=8, min_len=10, max_len=20)
+# card against CPU, f32 with TF32 off, one step from the same weights: the
+# two sum the same products in other orders, through ~20 decoder frames
+# and 32 encoder frames of sigmoid and tanh: the cost within 1e-4
+# relative, each parameter's update (-lr g) within 1e-3 in norm
+NMT_PARITY_COST_RTOL, NMT_PARITY_UPDATE_RTOL = 1e-4, 1e-3
+GEN_RUNS = 2             # timed batches, after one warm-up
+
+
+def nmt_parity(dev) -> dict:
+    batch = nw.samples(nw.SEED + 3, **NMT_PARITY)
+    res = {"phase": "nmt_parity", "model": nw.MODEL, **NMT_PARITY,
+           "use_bf16": False, **nw.step_parity(dev, batch),
+           "cost_rtol": NMT_PARITY_COST_RTOL,
+           "update_rtol": NMT_PARITY_UPDATE_RTOL}
+    emit(res)
+    if res["cost_rel_diff"] > NMT_PARITY_COST_RTOL or \
+            res["update_max_rel_diff"] > NMT_PARITY_UPDATE_RTOL or \
+            res["b6_launches"] != 2 * res["source_frames"]:
+        raise AssertionError("the card's NMT step and the CPU path's "
+                             "disagree")
+    return res
+
+
+def train_nmt(dev, card: str):
+    """The NMT's training at its configuration; returns (result, trainer)
+    for the generation phase."""
+    t0 = time.perf_counter()
+    sgd = nw.build_trainer(dev)
+    batch = nw.samples(nw.SEED + 1)
+    frames = nw.source_frames(batch)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    rw.reset_launches()
+    costs, step_ms = _train_costs(sgd, batch, NMT_STEPS, nw)
+    b6 = rw.launches()["gru_step"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = profile_image.launches_per_step(profile_image.profile_steps(
+        sgd, nw.feeds(sgd, batch), steps=1), steps=1)
+    med = float(np.median(step_ms[1:]))
+    res = {"phase": "train_nmt", "model": nw.MODEL, "batch": nw.BATCH,
+           "lengths": [nw.MIN_LEN, nw.MAX_LEN], "source_frames": frames,
+           "target_tokens": nw.target_tokens(batch), "steps": NMT_STEPS,
+           "costs": costs, "step_ms": step_ms, "step_ms_median": med,
+           "target_tokens_per_s": nw.target_tokens(batch) / (med / 1e3),
+           "peak_memory_gb": peak, "launches_per_step": launches,
+           "b6_launches": b6, "b6_launches_per_step": b6 / NMT_STEPS,
+           "b6_expected": 2 * frames * NMT_STEPS,
+           "parameters": sum(p.numel() for p in
+                             sgd.parameters.as_dict().values()),
+           "setup_s": setup_s, "nvidia_smi": card}
+    emit(res)
+    if not all(np.isfinite(costs)) or not costs[-1] < costs[0]:
+        raise AssertionError(f"the NMT did not learn: costs {costs}")
+    if b6 != res["b6_expected"]:
+        raise AssertionError(f"B6 launched {b6} times, expected "
+                             f"{res['b6_expected']}")
+    return res, sgd
+
+
+def generate_nmt(dev, sgd, card: str) -> dict:
+    """Each of ``nw.GENERATIONS`` (``<e>`` banned until each source's
+    target length, and until step 250): its result, by name.  The timed
+    runs (the bf16 policy) keep their beams each step, and the CPU path
+    follows the first of them step by step from the same weights
+    (``nw.replay``, within ``nw.BF16_ATOL``), and the second too unless
+    it is the first to the bit; then one run with the policy off, held
+    within ``nw.TIE_ATOL`` at every step."""
+    seed = nw.SEED + 4
+    srcs = nw.sources(seed)
+    frames = nw.source_frames(srcs)
+    cpu_params = parameters_from_numpy(
+        {k: v.detach().cpu().numpy() for k, v in sgd.parameters.items()},
+        device="cpu")
+    cpu_state = state_from_numpy(
+        {ns: {k: v.cpu().numpy() for k, v in slots.items()}
+         for ns, slots in sgd.model_state.items()}, device="cpu")
+    out = {}
+    for variant in nw.GENERATIONS:
+        until = nw.eos_until(variant, seed)
+        ban = nw.EosBan(until)
+        _, inf = nw.generator(sgd.parameters, sgd.model_state, dev,
+                              hooks={"candidate_adjust": ban})
+        nw.generate(inf, srcs)                           # warm-up
+        rw.reset_launches()
+        ms, runs = [], []
+        for _ in range(GEN_RUNS):
+            ban.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outputs = nw.generate(inf, srcs)             # on the host
+            ms.append(1e3 * (time.perf_counter() - t0))
+            runs.append(ban.run(outputs))
+        b6 = rw.launches()["gru_step"]
+        same = nw.runs_equal(runs[0], runs[1])
+        t0 = time.perf_counter()
+        checks = [dict(nw.replay(cpu_params, cpu_state, srcs, until, run,
+                                 atol=nw.BF16_ATOL), run=i, policy="bf16")
+                  for i, run in enumerate(runs[:1] if same else runs)]
+        with nw.f32_policy():              # a run held at TIE_ATOL
+            ban.clear()
+            run = ban.run(nw.generate(inf, srcs))
+            checks.append(dict(nw.replay(cpu_params, cpu_state, srcs, until,
+                                         run), run="f32", policy="f32"))
+        replay_s = time.perf_counter() - t0
+        tokens, lengths, scores = runs[-1][0]
+        med = float(np.median(ms))
+        res = {"phase": "generate_nmt", "variant": variant,
+               "sources": len(srcs), "beam": nw.BEAM,
+               "max_length": nw.MAX_LENGTH, "source_frames": frames,
+               "eos_banned_until": until.tolist(),
+               "ms_per_batch": ms, "ms_per_batch_median": med,
+               "steps_taken": [len(r[1]) for r in runs],
+               "sentences_per_s": len(srcs) / (med / 1e3),
+               "generated_tokens_per_s": float(lengths.sum()) /
+               (med / 1e3),
+               "lengths_mean": float(lengths.mean()),
+               "finite_scores": bool(np.isfinite(scores).all()),
+               "b6_launches": b6, "b6_expected": 2 * frames * GEN_RUNS,
+               "card_runs_equal": same, "cpu_replay": checks,
+               "replay_s": replay_s, "nvidia_smi": card}
+        emit(res)
+        if not (res["finite_scores"] and all(c["ok"] for c in checks) and
+                tokens.shape == (len(srcs), nw.BEAM, nw.MAX_LENGTH) and
+                ((tokens >= 0) &
+                 (tokens < nw.MODEL["trg_dict_size"])).all() and
+                (lengths >= np.minimum(until + 1,
+                                       nw.MAX_LENGTH)[:, None]).all()):
+            raise AssertionError(f"NMT generation {variant} wrong: {checks}")
+        if b6 != res["b6_expected"]:
+            raise AssertionError(f"B6 launched {b6} times in generation "
+                                 f"{variant}, expected {res['b6_expected']}")
+        out[variant] = res
+    return out
+
+
+NMT_CASES = {"train": "nmt_gru_block_f32_b50_acts",
+             "generate": "nmt_gru_block_f32_b16"}
+
+
+def rnn_kernel_lines(cases, trained_lstm, trained_gru, nmt) -> list:
     """The ``kernels`` entries of B5-B8: launches from the training runs
-    of the main path, the rest from their main-path case."""
+    of the main path and, for B6, the NMT's training and generation
+    (``nmt``: phase -> its result or results), the rest from their
+    main-path case
+    (B6's NMT cases beside it)."""
     launched = dict(trained_lstm["kernel_launches"])
     for run in trained_gru:
         for k, n in run["kernel_launches"].items():
             launched[k] = launched.get(k, 0) + n
+    nmt_launches = {"train_nmt": nmt["train_nmt"]["b6_launches"],
+                    **{f"generate_nmt_{v}": r["b6_launches"]
+                       for v, r in nmt["generate_nmt"].items()}}
+    launched["gru_step"] += sum(nmt_launches.values())
     lines = []
     for kname, cname in rw.MAIN_CASE.items():
         r = cases[cname][kname]
+        extra = {} if kname != "gru_step" else {
+            "launches_nmt": nmt_launches,
+            "nmt_cases": {phase: {k: cases[c][kname][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+                for phase, c in NMT_CASES.items()}}
         lines.append({
             "name": kname, "route": "cuda",
             "source": "paddle_tpu_torch/csrc/rnn_cells.cu",
@@ -896,7 +1078,7 @@ def rnn_kernel_lines(cases, trained_lstm, trained_gru) -> list:
             "library": ("torch.nn.LSTM forward (cuDNN) over [64, 128, "
                         f"{cases[cname]['H']}], per step"
                         if kname == "lstm_step" else GRU_NO_LIBRARY),
-            "case": cname})
+            "case": cname, **extra})
     return lines
 
 
@@ -1117,6 +1299,12 @@ def main() -> int:
     rnn_parity(dev)
     torch.cuda.empty_cache()
 
+    nmt_parity(dev)
+    trained_nmt, nmt_sgd = train_nmt(dev, card)
+    generated_nmt = generate_nmt(dev, nmt_sgd, card)
+    del nmt_sgd
+    torch.cuda.empty_cache()
+
     cudnn = iw.configure_cudnn()
     image_parity(dev)
     train_resnet50(dev, card, cudnn)
@@ -1164,7 +1352,9 @@ def main() -> int:
                            else "backward of a saved forward"),
             "ptxas": ptxas_of("flash_attention_sm90", FLASH_PTXAS[name]),
             "case": "a_bf16_8x1024_causal"})
-    kernels += rnn_kernel_lines(rnn_cases, trained_lstm, trained_gru)
+    kernels += rnn_kernel_lines(rnn_cases, trained_lstm, trained_gru,
+                                {"train_nmt": trained_nmt,
+                                 "generate_nmt": generated_nmt})
     emit({"phase": "done", "seconds_total": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

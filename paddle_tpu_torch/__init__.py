@@ -12,6 +12,7 @@ first launch.  Every entry point runs on ``cuda`` unless the caller passes
 """
 
 __all__ = ["activation", "attr", "convert", "data_feeder", "data_type",
-           "event", "initializer", "kernels", "layer", "minibatch", "models",
-           "networks", "ops", "optimizer", "parameters", "platform",
-           "pooling", "sequence", "serving", "topology", "trainer"]
+           "event", "generation", "inference", "initializer", "kernels",
+           "layer", "minibatch", "models", "networks", "ops", "optimizer",
+           "parameters", "platform", "pooling", "recurrent", "sequence",
+           "serving", "topology", "trainer"]

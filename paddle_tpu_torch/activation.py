@@ -1,5 +1,5 @@
 """Activation descriptors (the port of ``paddle_tpu/activation.py``, the
-six the transformer and the recurrent layers read).
+seven the transformer, the recurrent layers and attention read).
 
 GELU is the tanh approximation: ``jax.nn.gelu`` defaults to it, and the
 exact erf form would not match the JAX package.  ``SigmoidActivation.fn``
@@ -47,6 +47,15 @@ class SoftmaxActivation(BaseActivation):
     fn = staticmethod(lambda x: torch.softmax(x, dim=-1))
 
 
+class SequenceSoftmaxActivation(BaseActivation):
+    """Softmax over each variable-length sequence's scalar scores; it
+    needs the segment ids, so the layers resolve it
+    (``ops/sequence_ops.sequence_softmax``)."""
+
+    name = "sequence_softmax"
+    fn = None
+
+
 class GeluActivation(BaseActivation):
     """GELU, tanh form (``jax.nn.gelu(approximate=True)``)."""
 
@@ -56,7 +65,8 @@ class GeluActivation(BaseActivation):
 
 _REGISTRY = {cls.name: cls for cls in
              (LinearActivation, SigmoidActivation, TanhActivation,
-              ReluActivation, SoftmaxActivation, GeluActivation)}
+              ReluActivation, SoftmaxActivation, SequenceSoftmaxActivation,
+              GeluActivation)}
 
 
 def get(name_or_act):

@@ -35,6 +35,10 @@ def dense_array(dim: int) -> InputType:  # alias used by some v2 code
     return InputType(dim, SlotKind.DENSE)
 
 
+def dense_vector_sequence(dim: int) -> InputType:
+    return InputType(dim, SlotKind.DENSE, SeqKind.SEQUENCE)
+
+
 def integer_value(value_range: int) -> InputType:
     return InputType(value_range, SlotKind.INDEX)
 

@@ -1,7 +1,12 @@
 """The layer DSL (the port of ``paddle_tpu/layer.py``: the transformer
 subset ``data``, ``fc``, ``embedding``, ``layer_norm``, ``addto``,
 ``multi_head_attention`` and ``classification_cost``, the recurrent
-subset ``lstmemory``, ``grumemory`` and ``pooling``, and the convnet
+subset ``lstmemory``, ``grumemory``, ``pooling``, ``first_seq``,
+``last_seq``, ``expand``, the Elman ``recurrent`` layer, the step layers
+``gru_step``/``lstm_step`` with ``recurrent_group``, ``memory`` and
+``StaticInput`` from ``recurrent.py``, the attention subset ``mixed``
+(with ``full_matrix_projection`` and ``identity_projection``),
+``dotmul``, ``dotmul_bcast`` and ``cross_entropy_cost``, and the convnet
 subset ``img_conv``, ``img_pool``, ``batch_norm``, ``img_cmrnorm``,
 ``dropout`` and ``concat``).
 
@@ -42,7 +47,11 @@ from paddle_tpu_torch.topology import Context, LayerOutput, ParamSpec, \
 __all__ = ["data", "fc", "embedding", "layer_norm", "addto", "concat",
            "dropout", "img_conv", "img_pool", "batch_norm", "img_cmrnorm",
            "multi_head_attention", "pooling", "lstmemory", "grumemory",
-           "classification_cost"]
+           "classification_cost", "full_matrix_projection",
+           "identity_projection", "mixed", "dotmul", "dotmul_bcast",
+           "first_seq", "last_seq", "expand", "recurrent",
+           "cross_entropy_cost", "StaticInput", "memory", "recurrent_group",
+           "gru_step", "lstm_step", "lstm_step_output", "lstm_step_state"]
 
 
 def _as_list(x) -> list:
@@ -67,17 +76,24 @@ def _cast_value(value, dtype):
 
 def _apply_act(activation, value):
     """Apply an activation to a dense tensor or tokenwise to a
-    SequenceBatch."""
+    SequenceBatch; ``sequence_softmax`` normalizes over each sequence."""
+    if isinstance(activation, act_mod.SequenceSoftmaxActivation):
+        enforce_that(isinstance(value, SequenceBatch),
+                     "sequence_softmax needs a sequence input",
+                     context="layer")
+        return pseq.sequence_softmax(value)
     if activation.fn is None:
         return value
     return _like(value, activation.fn(_data_of(value)))
 
 
 def _act_then_cast(activation, value, dtype):
-    """Activation and cast to the storage dtype: softmax normalizes a row,
-    so it runs on the f32 accumulator before the cast; the pointwise ones
-    run after it (the JAX package's order)."""
-    if isinstance(activation, act_mod.SoftmaxActivation):
+    """Activation and cast to the storage dtype: the softmax family
+    normalizes a row or a sequence, so it runs on the f32 accumulator
+    before the cast; the pointwise ones run after it (the JAX package's
+    order)."""
+    if isinstance(activation, (act_mod.SoftmaxActivation,
+                               act_mod.SequenceSoftmaxActivation)):
         return _cast_value(_apply_act(activation, value), dtype)
     return _apply_act(activation, _cast_value(value, dtype))
 
@@ -311,6 +327,130 @@ def dropout(input, dropout_rate: float,
 
 
 # ---------------------------------------------------------------------------
+# mixed and its projections, elementwise products
+# ---------------------------------------------------------------------------
+
+
+class Projection:
+    """A projection for :func:`mixed`: one input's [*, size]
+    contribution to the sum, with its own parameters."""
+
+    def __init__(self, input: LayerOutput, size: Optional[int]):
+        self.input = input
+        self.size = size
+        self.params: Dict[str, ParamSpec] = {}
+
+    def compute(self, p: Dict[str, torch.Tensor], value) -> torch.Tensor:
+        raise NotImplementedError
+
+
+class _FullMatrixProjection(Projection):
+    def __init__(self, input, size, param_attr=None):
+        super().__init__(input, size)
+        self.params["w"] = ParamSpec((input.size, size),
+                                     ParamAttr.to_attr(param_attr))
+
+    def compute(self, p, value):
+        return pmath.matmul(_data_of(value), p["w"])
+
+
+class _IdentityProjection(Projection):
+    def __init__(self, input, offset=0, size=None):
+        super().__init__(input, size or input.size)
+        self.offset = offset
+
+    def compute(self, p, value):
+        return _data_of(value)[..., self.offset:self.offset + self.size]
+
+
+def full_matrix_projection(input, size: int, param_attr=None) -> Projection:
+    """``x W``, W [input.size, size]."""
+    return _FullMatrixProjection(input, size, param_attr)
+
+
+def identity_projection(input, offset: int = 0,
+                        size: int = None) -> Projection:
+    """Columns ``offset:offset + size`` of the input (all by default)."""
+    return _IdentityProjection(input, offset, size)
+
+
+def mixed(size: int = None, input=None, name: Optional[str] = None,
+          act=None, bias_attr=False, layer_attr=None) -> LayerOutput:
+    """Sum of projections (a bare layer counts as its identity
+    projection), plus a bias, then the activation.  Component i's
+    parameters are ``p{i}_<name>``."""
+    name = name or unique_name("mixed")
+    comps = _as_list(input)
+    enforce_that(len(comps) > 0, "mixed needs at least one projection",
+                 context="mixed")
+    activation = act_mod.get(act)
+    if size is None:
+        sizes = [c.size for c in comps if c.size is not None]
+        enforce_that(len(sizes) > 0, "mixed size cannot be inferred",
+                     context="mixed")
+        size = sizes[0]
+    projs = []
+    params: Dict[str, ParamSpec] = {}
+    for ci, comp in enumerate(comps):
+        if isinstance(comp, LayerOutput):
+            comp = identity_projection(comp)
+        enforce_that(isinstance(comp, Projection),
+                     f"bad mixed component {comp!r} (the port has the full "
+                     "matrix and identity projections so far)",
+                     context="mixed")
+        for pn, spec in comp.params.items():
+            params[f"p{ci}_{pn}"] = spec
+        projs.append((f"p{ci}_", comp))
+    has_bias = bool(bias_attr)
+    if has_bias:
+        params["b"] = ParamSpec((size,), ParamAttr.to_attr(
+            None if bias_attr is True else bias_attr))
+
+    def compute(ctx, p, ins):
+        total = None
+        for (prefix, comp), v in zip(projs, ins):
+            local = {k[len(prefix):]: t for k, t in p.items()
+                     if k.startswith(prefix)}
+            y = comp.compute(local, v)
+            total = y if total is None else total + y
+        if has_bias:
+            total = total + p["b"]
+        out = _apply_act(activation, _like(ins[0], total))
+        return _apply_extra(ctx, name, out, layer_attr)
+
+    inputs = [comp.input for _, comp in projs]
+    return LayerOutput(name=name, layer_type="mixed", inputs=inputs,
+                       fn=compute, params=params, size=size,
+                       is_sequence=inputs[0].is_sequence)
+
+
+def dotmul(a, b, name: Optional[str] = None) -> LayerOutput:
+    """Elementwise product of two layers."""
+    name = name or unique_name("dotmul")
+
+    def compute(ctx, p, ins):
+        return _like(ins[0], _data_of(ins[0]) * _data_of(ins[1]))
+
+    return LayerOutput(name=name, layer_type="dotmul", inputs=[a, b],
+                       fn=compute, size=a.size, is_sequence=a.is_sequence)
+
+
+def dotmul_bcast(a, b, name: Optional[str] = None) -> LayerOutput:
+    """Tokenwise product broadcast over the feature axis: each token of
+    ``a`` scaled by its scalar in ``b`` (attention weights)."""
+    name = name or unique_name("dotmul_bcast")
+
+    def compute(ctx, p, ins):
+        va, vb = _data_of(ins[0]), _data_of(ins[1])
+        if vb.dim() < va.dim():
+            vb = vb[..., None]
+        return _like(ins[0], va * vb)
+
+    return LayerOutput(name=name, layer_type="dotmul_bcast", inputs=[a, b],
+                       fn=compute, size=a.size, is_sequence=a.is_sequence)
+
+
+# ---------------------------------------------------------------------------
 # image layers
 # ---------------------------------------------------------------------------
 
@@ -493,6 +633,36 @@ def pooling(input, pooling_type=None, name: Optional[str] = None,
                        fn=compute, size=input.size, is_sequence=False)
 
 
+def last_seq(input, name: Optional[str] = None, **_kw) -> LayerOutput:
+    """Last token of each sequence."""
+    _need_seq(input, "last_seq")
+    name = name or unique_name("last_seq")
+    return LayerOutput(name=name, layer_type="last_seq", inputs=[input],
+                       fn=lambda ctx, p, ins: pseq.seq_last(ins[0]),
+                       size=input.size, is_sequence=False)
+
+
+def first_seq(input, name: Optional[str] = None, **_kw) -> LayerOutput:
+    """First token of each sequence."""
+    _need_seq(input, "first_seq")
+    name = name or unique_name("first_seq")
+    return LayerOutput(name=name, layer_type="first_seq", inputs=[input],
+                       fn=lambda ctx, p, ins: pseq.seq_first(ins[0]),
+                       size=input.size, is_sequence=False)
+
+
+def expand(input, expand_as, name: Optional[str] = None,
+           **_kw) -> LayerOutput:
+    """Each sequence's row of ``input`` copied to every token of its
+    sequence in ``expand_as``."""
+    name = name or unique_name("expand")
+    return LayerOutput(name=name, layer_type="expand",
+                       inputs=[input, expand_as],
+                       fn=lambda ctx, p, ins: pseq.seq_expand(ins[0],
+                                                              ins[1]),
+                       size=input.size, is_sequence=True)
+
+
 def lstmemory(input, size: int = None, reverse: bool = False, act=None,
               gate_act=None, state_act=None, name: Optional[str] = None,
               param_attr=None, bias_attr=True, layer_attr=None
@@ -554,6 +724,43 @@ def grumemory(input, size: int = None, reverse: bool = False, act=None,
         return _apply_extra(ctx, name, out, layer_attr)
 
     return LayerOutput(name=name, layer_type="grumemory", inputs=[input],
+                       fn=compute, params=params, size=size,
+                       is_sequence=True)
+
+
+def recurrent(input, size: int = None, act=None, reverse: bool = False,
+              name: Optional[str] = None, param_attr=None,
+              bias_attr=True) -> LayerOutput:
+    """Elman recurrent layer, ``h_t = act(x_t + h_{t-1} W + b)``, over the
+    [B, T] view with masked carry (``reverse`` scans from the last
+    frame)."""
+    _need_seq(input, "recurrent")
+    size = size or input.size
+    name = name or unique_name("recurrent")
+    activation = act_mod.get(act or "tanh")
+    params = {"w": ParamSpec((size, size), ParamAttr.to_attr(param_attr))}
+    has_bias = bool(bias_attr)
+    if has_bias:
+        params["b"] = ParamSpec((size,), ParamAttr.to_attr(
+            None if bias_attr is True else bias_attr))
+
+    def compute(ctx, p, ins):
+        sb: SequenceBatch = ins[0]
+        padded, mask = sb.to_padded()
+        B, T, _ = padded.shape
+        xs, ms = padded.unbind(1), mask.unbind(1)
+        h = padded.new_zeros((B, size))
+        hs = [None] * T
+        for t in (range(T - 1, -1, -1) if reverse else range(T)):
+            pre = xs[t] + pmath.matmul(h, p["w"])
+            nh = activation.fn(pre + p["b"] if has_bias else pre)
+            m = ms[t][:, None].to(nh.dtype)
+            h = m * nh + (1 - m) * h
+            hs[t] = h
+        return SequenceBatch.from_padded(torch.stack(hs, dim=1), sb.lengths,
+                                         capacity=sb.capacity)
+
+    return LayerOutput(name=name, layer_type="recurrent", inputs=[input],
                        fn=compute, params=params, size=size,
                        is_sequence=True)
 
@@ -648,3 +855,111 @@ def classification_cost(input, label, name: Optional[str] = None,
     return LayerOutput(name=name, layer_type="classification_cost",
                        inputs=[input, label], fn=compute, size=1,
                        is_cost=True)
+
+
+def cross_entropy_cost(input, label, name: Optional[str] = None,
+                       **_kw) -> LayerOutput:
+    """Cross entropy on probabilities, ``-log(clip(p[label], 1e-10, 1))``
+    per example (per token for a sequence)."""
+    name = name or unique_name("cross_entropy")
+
+    def compute(ctx, p, ins):
+        def f(pr, lb):
+            lb = lb.reshape(lb.shape[0]).long()
+            picked = torch.gather(pr, -1, lb[:, None])[:, 0]
+            return -torch.log(torch.clamp(picked, 1e-10, 1.0))
+
+        return _per_example(f, ins[0], ins[1])
+
+    return LayerOutput(name=name, layer_type="cross_entropy",
+                       inputs=[input, label], fn=compute, size=1,
+                       is_cost=True)
+
+
+# ---------------------------------------------------------------------------
+# the recurrent group surface (recurrent.py) and its step layers
+# ---------------------------------------------------------------------------
+
+from paddle_tpu_torch.recurrent import (StaticInput, memory,  # noqa: E402
+                                        recurrent_group)
+
+
+def gru_step(input, output_mem, size: int = None, act=None, gate_act=None,
+             name: Optional[str] = None, param_attr=None,
+             bias_attr=True) -> LayerOutput:
+    """One GRU step inside a ``recurrent_group``: ``input`` is x_t
+    projected to [B, 3 * size], ``output_mem`` the memory of h_{t-1}.
+    The plain cell (``ops/rnn.gru_cell``), as in the JAX package."""
+    size = size or output_mem.size
+    name = name or unique_name("gru_step")
+    params = {"w": ParamSpec((size, 3 * size), ParamAttr.to_attr(param_attr))}
+    has_bias = bool(bias_attr)
+    if has_bias:
+        params["b"] = ParamSpec((3 * size,), ParamAttr.to_attr(
+            None if bias_attr is True else bias_attr))
+    cand = act_mod.get(act or "tanh")
+    gate = act_mod.get(gate_act or "sigmoid")
+
+    def compute(ctx, p, ins):
+        return prnn.gru_cell(_data_of(ins[0]), _data_of(ins[1]), p["w"],
+                             p.get("b"), gate_act=gate.fn, cand_act=cand.fn)
+
+    return LayerOutput(name=name, layer_type="gru_step",
+                       inputs=[input, output_mem], fn=compute, params=params,
+                       size=size, is_sequence=False)
+
+
+def lstm_step(input, state_mem, output_mem=None, size: int = None, act=None,
+              gate_act=None, state_act=None, name: Optional[str] = None,
+              param_attr=None, bias_attr=True) -> LayerOutput:
+    """One LSTM step: ``input`` is x_t projected to [B, 4 * size],
+    ``state_mem`` the memory of c_{t-1}, ``output_mem`` that of h_{t-1}
+    (without it the recurrence is pre-projected into ``input`` and the
+    step has no weight).  Its value is [h_t, c_t] side by side; split it
+    with :func:`lstm_step_output` and :func:`lstm_step_state`."""
+    size = size or state_mem.size
+    name = name or unique_name("lstm_step")
+    params = {}
+    if output_mem is not None:
+        params["w"] = ParamSpec((size, 4 * size),
+                                ParamAttr.to_attr(param_attr))
+    if bias_attr:
+        params["b"] = ParamSpec((4 * size,), ParamAttr.to_attr(
+            None if bias_attr is True else bias_attr))
+    o_act = act_mod.get(act or "tanh")
+    g_act = act_mod.get(gate_act or "sigmoid")
+    s_act = act_mod.get(state_act or "tanh")
+    inputs = [input, state_mem] + ([output_mem] if output_mem is not None
+                                   else [])
+
+    def compute(ctx, p, ins):
+        x, c = _data_of(ins[0]), _data_of(ins[1])
+        h = _data_of(ins[2]) if len(ins) > 2 else torch.zeros_like(c)
+        new_h, st = prnn.lstm_cell(x, prnn.LSTMState(h, c), p.get("w"),
+                                   p.get("b"), gate_act=g_act.fn,
+                                   cell_act=s_act.fn, out_act=o_act.fn)
+        return torch.cat([new_h, st.c], dim=-1)
+
+    node = LayerOutput(name=name, layer_type="lstm_step", inputs=inputs,
+                       fn=compute, params=params, size=2 * size,
+                       is_sequence=False)
+    node.lstm_size = size
+    return node
+
+
+def lstm_step_output(step_node, name: Optional[str] = None) -> LayerOutput:
+    """The h_t half of an :func:`lstm_step` node."""
+    size = step_node.lstm_size
+    return LayerOutput(name=name or unique_name("lstm_h"),
+                       layer_type="lstm_h", inputs=[step_node],
+                       fn=lambda ctx, p, ins: _data_of(ins[0])[..., :size],
+                       size=size, is_sequence=False)
+
+
+def lstm_step_state(step_node, name: Optional[str] = None) -> LayerOutput:
+    """The c_t half of an :func:`lstm_step` node."""
+    size = step_node.lstm_size
+    return LayerOutput(name=name or unique_name("lstm_c"),
+                       layer_type="lstm_c", inputs=[step_node],
+                       fn=lambda ctx, p, ins: _data_of(ins[0])[..., size:],
+                       size=size, is_sequence=False)

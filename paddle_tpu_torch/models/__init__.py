@@ -1,2 +1,3 @@
 """The model zoo of the port (the transformer LM, the text LSTM and the
-image models LeNet, SmallNet, ResNet, AlexNet and GoogLeNet so far)."""
+image models LeNet, SmallNet, ResNet, AlexNet and GoogLeNet, and the
+attention seq2seq NMT so far)."""

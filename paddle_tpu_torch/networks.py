@@ -1,16 +1,21 @@
-"""Prebuilt network helpers (the port of ``paddle_tpu/networks.py:39-100``:
-``simple_img_conv_pool``, ``img_conv_group``, ``simple_lstm`` and
-``simple_gru`` so far)."""
+"""Prebuilt network helpers (the port of ``paddle_tpu/networks.py:39-160``:
+``simple_img_conv_pool``, ``img_conv_group``, ``simple_lstm``,
+``simple_gru``, ``bidirectional_lstm``, ``bidirectional_gru``,
+``simple_attention`` and ``dot_product_attention``), with the JAX
+package's layer names."""
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+from paddle_tpu_torch import activation as A
 from paddle_tpu_torch import layer as L
+from paddle_tpu_torch import pooling as P
 from paddle_tpu_torch.topology import LayerOutput, unique_name
 
 __all__ = ["simple_img_conv_pool", "img_conv_group", "simple_lstm",
-           "simple_gru"]
+           "simple_gru", "bidirectional_lstm", "bidirectional_gru",
+           "simple_attention", "dot_product_attention"]
 
 
 def simple_img_conv_pool(input, filter_size: int, num_filters: int,
@@ -68,3 +73,70 @@ def simple_gru(input, size: int, reverse: bool = False, act=None,
     proj = L.fc(input=input, size=size * 3, name=f"{name}_input_proj")
     return L.grumemory(input=proj, size=size, reverse=reverse, act=act,
                        gate_act=gate_act, name=name)
+
+
+def bidirectional_lstm(input, size: int, name: Optional[str] = None,
+                       return_seq: bool = True, **kw) -> LayerOutput:
+    """A forward and a reverse ``simple_lstm``, concatenated per token
+    (``return_seq``), or the forward's last and the reverse's first
+    token."""
+    name = name or unique_name("bidirectional_lstm")
+    fwd = simple_lstm(input, size, reverse=False, name=f"{name}_fwd")
+    bwd = simple_lstm(input, size, reverse=True, name=f"{name}_bwd")
+    if return_seq:
+        return L.concat(input=[fwd, bwd])
+    return L.concat(input=[L.last_seq(fwd), L.first_seq(bwd)])
+
+
+def bidirectional_gru(input, size: int, name: Optional[str] = None,
+                      return_seq: bool = True, **kw) -> LayerOutput:
+    """:func:`bidirectional_lstm` with ``simple_gru``s."""
+    name = name or unique_name("bidirectional_gru")
+    fwd = simple_gru(input, size, reverse=False, name=f"{name}_fwd")
+    bwd = simple_gru(input, size, reverse=True, name=f"{name}_bwd")
+    if return_seq:
+        return L.concat(input=[fwd, bwd])
+    return L.concat(input=[L.last_seq(fwd), L.first_seq(bwd)])
+
+
+def simple_attention(encoded_sequence, encoded_proj, decoder_state,
+                     transform_param_attr=None, softmax_param_attr=None,
+                     name: Optional[str] = None) -> LayerOutput:
+    """Additive attention: score_t = v . tanh(enc_proj_t + W s), context =
+    sum_t sequence_softmax(score)_t enc_t."""
+    name = name or unique_name("attention")
+    dec_proj = L.fc(input=decoder_state, size=encoded_proj.size,
+                    name=f"{name}_decoder_proj",
+                    param_attr=transform_param_attr, bias_attr=False)
+    expanded = L.expand(input=dec_proj, expand_as=encoded_sequence,
+                        name=f"{name}_expand")
+    combined = L.addto(input=[encoded_proj, expanded], act="tanh",
+                       name=f"{name}_combine")
+    scores = L.fc(input=combined, size=1, act=None, bias_attr=False,
+                  param_attr=softmax_param_attr, name=f"{name}_scores")
+    weights = L.mixed(size=1, input=[L.identity_projection(scores)],
+                      act=A.SequenceSoftmaxActivation(),
+                      name=f"{name}_softmax")
+    scaled = L.dotmul_bcast(encoded_sequence, weights, name=f"{name}_scale")
+    return L.pooling(input=scaled, pooling_type=P.SumPooling(),
+                     name=f"{name}_context")
+
+
+def dot_product_attention(encoded_sequence, attended_sequence,
+                          transformed_state,
+                          name: Optional[str] = None) -> LayerOutput:
+    """Dot-product attention: score_t = enc_t . s, context = sum_t
+    sequence_softmax(score)_t attended_t."""
+    name = name or unique_name("dot_attention")
+    expanded = L.expand(input=transformed_state, expand_as=encoded_sequence,
+                        name=f"{name}_expand")
+    scores_tok = L.dotmul(expanded, encoded_sequence, name=f"{name}_dot")
+    scores = L.fc(input=scores_tok, size=1, bias_attr=False,
+                  name=f"{name}_sum")
+    weights = L.mixed(size=1, input=[L.identity_projection(scores)],
+                      act=A.SequenceSoftmaxActivation(),
+                      name=f"{name}_softmax")
+    scaled = L.dotmul_bcast(attended_sequence, weights,
+                            name=f"{name}_scale")
+    return L.pooling(input=scaled, pooling_type=P.SumPooling(),
+                     name=f"{name}_context")

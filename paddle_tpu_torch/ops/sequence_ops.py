@@ -1,8 +1,13 @@
-"""Sequence pooling on the flat segment-id form (the port of
-``paddle_tpu/ops/sequence_ops.py:24-52``, the pooling ops so far).
+"""Sequence ops on the flat segment-id form (the port of
+``paddle_tpu/ops/sequence_ops.py:24-101``: the pooling ops, ``seq_first``,
+``seq_last``, ``sequence_softmax`` and ``seq_expand``).
 
 Padding slots go to one trash segment (``num_seqs``) that is cut off the
-result, so no per-sequence loop is needed.
+result, so no per-sequence loop is needed; segment reductions are
+``index_add`` and ``scatter_reduce`` over the segment ids, and gathers
+``index_select``, whose backward is an ``index_add`` (the backward of an
+advanced-index gather sorts its indices first: on an H100 it took 73 of
+a 195 ms NMT training step's card time in ``seq_expand``).
 """
 
 from __future__ import annotations
@@ -51,3 +56,52 @@ def seq_pool_max(sb: SequenceBatch) -> torch.Tensor:
     out = out.scatter_reduce(0, _rows(_seg(sb), masked), masked, "amax",
                              include_self=True)
     return out[:sb.num_seqs]
+
+
+def seq_first(sb: SequenceBatch) -> torch.Tensor:
+    """First token of each sequence (sequences packed in order from slot
+    0, as the feeder and ``from_padded`` pack them)."""
+    ends = torch.cumsum(sb.lengths, 0)
+    starts = torch.cat([ends.new_zeros((1,)), ends[:-1]])
+    return sb.data.index_select(0, starts.long())
+
+
+def seq_last(sb: SequenceBatch) -> torch.Tensor:
+    """Last token of each sequence (slot 0 for an empty one)."""
+    ends = torch.clamp(torch.cumsum(sb.lengths, 0) - 1, min=0)
+    return sb.data.index_select(0, ends.long())
+
+
+def sequence_softmax(sb: SequenceBatch) -> SequenceBatch:
+    """Softmax over each sequence's scalar scores; data [capacity] or
+    [capacity, 1].  The per-sequence maximum only shifts the exponent, so
+    it carries no gradient (the softmax's derivative through it is 0)."""
+    x = sb.data
+    squeeze = x.dim() > 1
+    if squeeze:
+        x = x[..., 0]
+    seg = _seg(sb)
+    n = sb.num_seqs + 1
+    valid = sb.valid_mask
+    x = torch.where(valid, x, torch.full_like(x, float("-inf")))
+    mx = torch.full((n,), float("-inf"), dtype=x.dtype, device=x.device)
+    mx = mx.scatter_reduce(0, seg, x.detach(), "amax", include_self=True)
+    mx = torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
+    ex = torch.where(valid, torch.exp(x - mx.index_select(0, seg)),
+                     torch.zeros_like(x))
+    z = ex.new_zeros((n,)).index_add(0, seg, ex)
+    out = ex / torch.clamp(z.index_select(0, seg), min=1e-30)
+    if squeeze:
+        out = out[..., None]
+    return sb.with_data(out.to(sb.data.dtype))
+
+
+def seq_expand(short, sb_long: SequenceBatch) -> SequenceBatch:
+    """Each sequence's row of ``short`` (a dense [num_seqs, ...] tensor,
+    or a SequenceBatch whose first tokens are taken) copied to every
+    token of that sequence in ``sb_long``; padding slots are 0."""
+    values = seq_first(short) if isinstance(short, SequenceBatch) else short
+    seg = torch.clamp(sb_long.segment_ids, 0, values.shape[0] - 1).long()
+    data = values.index_select(0, seg)
+    mask = sb_long.valid_mask.reshape((-1,) + (1,) * (data.dim() - 1))
+    return sb_long.with_data(torch.where(mask, data, torch.zeros_like(data)))

@@ -83,7 +83,10 @@ class SequenceBatch:
         valid_full = pos_full < lengths[seg_full.long()]
         order = torch.argsort((~valid_full).to(torch.int32), stable=True)
         take = order[:cap]
-        flat = padded.reshape((B * T,) + padded.shape[2:])[take]
+        # index_select: its backward is an index_add, where an indexed
+        # gather's sorts the indices first
+        flat = padded.reshape((B * T,) + padded.shape[2:]).index_select(
+            0, take)
         seg = torch.where(valid_full[take], seg_full[take],
                           B).to(torch.int32)
         if cap > B * T:          # pad out to the requested capacity

@@ -11,7 +11,7 @@ wall ms a step, device busy ms a step (sum of CUDA kernel times of the
 profiled steps), ``idle_share`` = 1 - busy / wall, device ms and launches
 a step grouped into the four RNN kernels, matrix products and everything
 else, kernel launches a step, the top kernels, and the card's SM clock
-read just after the profiled steps.
+read just after the profiled steps (every count and time is a step's).
 
 Run from the repository root on a machine with one GPU::
 
@@ -53,6 +53,26 @@ def _kernels(prof):
             if e.device_type == DeviceType.CUDA]
 
 
+def summary(prof, runs: int, wall_ms: float) -> dict:
+    """Per run (a step, a generated batch) of a profile of ``runs`` runs:
+    the wall ms given, device busy ms, the idle share, device ms and
+    launches by group, all launches and the top kernels."""
+    kernels = _kernels(prof)
+    busy = sum(us for _, us, _ in kernels) / 1e3 / runs
+    groups, counts = {}, {}
+    for name, us, count in kernels:
+        g = _group(name)
+        groups[g] = groups.get(g, 0.0) + us / 1e3 / runs
+        counts[g] = counts.get(g, 0) + count / runs
+    top = sorted(kernels, key=lambda k: -k[1])[:10]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms,
+            "device_ms_by_group": groups, "launches_by_group": counts,
+            "kernel_launches": sum(c for _, _, c in kernels) / runs,
+            "top_kernels": [{"name": n[:90], "ms": us / 1e3 / runs,
+                             "count": c / runs} for n, us, c in top]}
+
+
 def _steps(sgd, batch, n: int) -> float:
     """Wall ms of ``n`` steps through ``SGD.train``, ending in the last
     cost's host copy."""
@@ -77,24 +97,9 @@ def profile(dev, cell: str, hidden: int, layers: int) -> dict:
     with torch.profiler.profile(activities=acts, acc_events=True) as prof:
         _steps(sgd, batch, STEPS)
     clock = sm_clock()
-    kernels = _kernels(prof)
-    busy = sum(us for _, us, _ in kernels) / 1e3 / STEPS
-    groups, counts = {}, {}
-    for name, us, count in kernels:
-        groups[_group(name)] = groups.get(_group(name), 0.0) + \
-            us / 1e3 / STEPS
-        counts[_group(name)] = counts.get(_group(name), 0) + count / STEPS
-    top = sorted(kernels, key=lambda k: -k[1])[:10]
     return {"cell": cell, "hidden": hidden, "layers": layers,
             "batch": rw.BATCH, "time_steps": rw.STEPS_T, "steps": STEPS,
-            "wall_ms_per_step": wall, "device_busy_ms_per_step": busy,
-            "idle_share": 1.0 - busy / wall,
-            "device_ms_per_step_by_group": groups,
-            "launches_per_step_by_group": counts,
-            "sm_clock_after_profile": clock,
-            "kernel_launches_per_step": sum(c for _, _, c in kernels) / STEPS,
-            "top_kernels": [{"name": n[:90], "ms_per_step": us / 1e3 / STEPS,
-                             "count": c} for n, us, c in top]}
+            **summary(prof, STEPS, wall), "sm_clock_after_profile": clock}
 
 
 def main() -> int:

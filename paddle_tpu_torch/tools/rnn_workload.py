@@ -141,6 +141,11 @@ RNN_CASES = {
     "gru_block_f32_h512": ("gru_step", 64, 512, "float32", False),
     "gru_tiled_f32_h1280_acts": ("gru_tiled", 64, 1280, "float32", True),
     "gru_tiled_f32_h1280": ("gru_tiled", 64, 1280, "float32", False),
+    # B6 at the NMT encoder's shapes (tools/nmt_workload.py): a training
+    # step (B 50, acts saved) and a generated batch of 16 sources; 50 and
+    # 16 rows take a partial 32-row block
+    "nmt_gru_block_f32_b50_acts": ("gru_step", 50, 512, "float32", True),
+    "nmt_gru_block_f32_b16": ("gru_step", 16, 512, "float32", False),
 }
 # the main path's case of each kernel (the training calls save acts)
 MAIN_CASE = {"lstm_step": "lstm_f32_h512_acts",

@@ -13,10 +13,13 @@ reads the state it is given and returns the updated slots beside the
 outputs without changing it, as the JAX package's pure ``forward`` does.
 Each node draws its random numbers (dropout masks) from
 :meth:`Context.rng_for`, a generator seeded from the step's seed and the
-node's name.
+node's name.  A node that hosts a step graph (``recurrent_group``,
+``beam_search``) declares its sub-layers' state slots as
+``foreign_state``, under the sub-layers' own names, and runs the step
+graph as a sub-topology through :meth:`Topology.forward_with_state` with
+its own parameter dict, state and seed.
 
-Not yet ported: ``remat_scope`` (activation checkpointing) and the
-foreign state slots of hosted step graphs.
+Not yet ported: ``remat_scope`` (activation checkpointing).
 """
 
 from __future__ import annotations
@@ -82,14 +85,21 @@ class Context:
         self.state_out: State = {}
         self.seed = int(seed)
         self.device = device
+        self.current: Optional[str] = None   # the node being computed
+
+    def seed_for(self, *names) -> int:
+        """A 63-bit seed from the step's seed and ``names``: the same each
+        time within a step, different across names and steps."""
+        key = "/".join(str(n) for n in (self.seed,) + names)
+        digest = hashlib.md5(key.encode()).digest()
+        return int.from_bytes(digest[:8], "little") >> 1
 
     def rng_for(self, node_name: str) -> torch.Generator:
         """A generator on the step's device, seeded from the step's seed
         and ``node_name``: the same stream each time a node asks within a
         step, different streams across nodes and steps."""
-        digest = hashlib.md5(f"{self.seed}/{node_name}".encode()).digest()
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(int.from_bytes(digest[:8], "little") >> 1)
+        gen.manual_seed(self.seed_for(node_name))
         return gen
 
     def get_state(self, node_name: str, key: str) -> torch.Tensor:
@@ -111,6 +121,11 @@ class LayerOutput:
     fn: Optional[Callable[[Context, Dict[str, torch.Tensor], List[Any]], Any]]
     params: Dict[str, ParamSpec] = field(default_factory=dict)
     state: Dict[str, StateSpec] = field(default_factory=dict)
+    # slots this node keeps under OTHER namespaces: the sub-layers of a
+    # hosted step graph, by their own names, so a training group and a
+    # generator built from the same step share them as they share weights
+    foreign_state: Dict[str, Dict[str, StateSpec]] = field(
+        default_factory=dict)
     size: Optional[int] = None          # feature dimension
     is_sequence: bool = False           # value is a SequenceBatch
     is_cost: bool = False               # per-example loss output
@@ -212,8 +227,23 @@ class Topology:
         return spec.attr.name or f"{node.name}.{pname}"
 
     def state_specs(self) -> Dict[str, Dict[str, StateSpec]]:
-        """``{layer: {slot: spec}}`` of every node with state."""
-        return {n.name: dict(n.state) for n in self.nodes if n.state}
+        """``{namespace: {slot: spec}}``: every node's own slots under its
+        name, and every hosted sub-layer's under the sub-layer's name."""
+        out: Dict[str, Dict[str, StateSpec]] = {}
+        for n in self.nodes:
+            if n.state:
+                out.setdefault(n.name, {}).update(n.state)
+            for ns, slots in n.foreign_state.items():
+                have = out.setdefault(ns, {})
+                for k, spec in slots.items():
+                    if k not in have:
+                        have[k] = spec
+                        continue
+                    enforce_that(tuple(have[k].shape) == tuple(spec.shape),
+                                 f"shared state slot {ns}/{k} shape "
+                                 f"mismatch {have[k].shape} vs {spec.shape}",
+                                 context="topology")
+        return out
 
     def init_state(self, device: DeviceLike = None) -> State:
         """Every state slot at its initial value on ``device`` (``cuda``
@@ -245,12 +275,13 @@ class Topology:
         with the slots the nodes set replaced; ``state`` itself is not
         changed.  ``seed`` seeds the nodes' random streams."""
         wanted = list(outputs) if outputs is not None else self.outputs
+        order = self.nodes if outputs is None else topological_order(wanted)
         device = _device_of(params, feeds)
         if state is None:
             state = self.init_state(device) if self.state_specs() else {}
         ctx = Context(train=train, state=state, seed=seed, device=device)
         values: Dict[str, Any] = {}
-        for node in topological_order(wanted):
+        for node in order:
             if node.fn is None:  # data layers
                 if node.name not in feeds:
                     raise EnforceError(f"missing feed for data layer "
@@ -260,6 +291,7 @@ class Topology:
             node_params = {p: params[self.param_key(node, p)]
                            for p in node.params}
             ins = [values[i.name] for i in node.inputs]
+            ctx.current = node.name
             try:
                 values[node.name] = node.fn(ctx, node_params, ins)
             except Exception as e:

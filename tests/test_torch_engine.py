@@ -263,7 +263,11 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
            for n in _imports(f) if _forbidden(n)}
     assert bad == {}
     code = ("import sys, paddle_tpu_torch.serving, paddle_tpu_torch.convert,"
-            " paddle_tpu_torch.kernels.build, chip_smoke; "
+            " paddle_tpu_torch.kernels.build, paddle_tpu_torch.recurrent,"
+            " paddle_tpu_torch.generation, paddle_tpu_torch.inference,"
+            " paddle_tpu_torch.models.seq2seq,"
+            " paddle_tpu_torch.tools.nmt_workload,"
+            " paddle_tpu_torch.tools.profile_nmt, chip_smoke; "
             "print(sorted(m for m in sys.modules if m in ('jax', "
             "'paddle_tpu') or m.startswith(('jax.', 'paddle_tpu.'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
