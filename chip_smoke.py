@@ -104,7 +104,36 @@ checkout of the repository).  Phases, each fatal on failure:
     analytic FLOP rate and launches a step;
 15. train_convnets: AlexNet (227 px, batch 128), GoogLeNet (224, 64),
     SmallNet (32, 64) and LeNet (28, 64), 4 steps each with dropout at its
-    real rate: finite, falling costs and ms per batch.
+    real rate: finite, falling costs and ms per batch;
+16. head_dims: the flash kernels (B1-B3) at head dims 12, 100 and 320 in
+    f32 and bf16 (``tw.C4_FLASH_CASES``) and the ragged kernel (B4) at
+    the same head dims on f32, bf16 and int8 pages, decode and mixed
+    (``rc.C4_CASES``) against their plain versions, with error, card
+    time, plain time and bound; a ``DecoderLM`` at head_dim 100 (d_model
+    400, 4 heads, its pool rows padded to 104) serving 4 requests held to
+    the greedy oracle; ``multi_head_attention`` at head dims 12 and 320
+    trained 3 steps on the card against the CPU path (f32);
+17. reproducible: two NMT training steps (after 12c) and two DeepFM
+    steps at full width (after 19) from one state give the same bits
+    (``tools/repro.step_twice``), and so do the timed generations of 12c;
+18. deepfm_parity: DeepFM in f32 (39 fields, the full tower, V 65,536,
+    batch 512), 3 Adam steps on the card against the CPU path: costs and
+    every parameter;
+19. train_deepfm: DeepFM at Criteo's width (``tools/ctr_workload``: V
+    33,763,409, k 10, 400-400-400, batch 4096, Adam 1e-3) through
+    ``SGD.train`` on one batch, a warm-up and 6 timed steps: finite,
+    falling costs; step ms, examples/s, peak memory, launches a step, the
+    idle share and the card time by group (``tools/profile_ctr``);
+20. sparse_rows: ``parallel/sparse``'s row updates on the full-width
+    ``deepfm.v`` table with one batch's 159,744 ids against the dense
+    step, untouched rows bit-identical, and their card ms;
+21. train_gan: the GAN (``tools/gan_vae_workload``) at MNIST's width and
+    the uniform demo's, 20 alternating step pairs through
+    ``MultiTaskTrainer``: each task's first step leaves the other side's
+    tensors bit-identical; at MNIST's width ``d_cost`` falls; ms a pair;
+22. train_vae, train_traffic: the VAE (784/128/100) and the traffic
+    forecaster (24 horizons), 20 steps each: finite, falling costs, ms a
+    step.
 
 Every line of output is one JSON object; the one before the last lists
 the kernels, the last is ``{"ok": true, "device": {...}}``.  The serve
@@ -116,9 +145,13 @@ the RNN cases in ``paddle_tpu_torch/tools/rnn_workload.py``; the NMT
 in ``paddle_tpu_torch/tools/nmt_workload.py``, shared with
 ``python -m paddle_tpu_torch.tools.profile_nmt``; the image
 cells in ``paddle_tpu_torch/tools/image_workload.py``, shared with
-``python -m paddle_tpu_torch.tools.profile_image``.  The image phases run
-no hand-written kernel: no TPU kernel lies on that path, and the convs
-and batch norm are cuDNN's through PyTorch.
+``python -m paddle_tpu_torch.tools.profile_image``; DeepFM in
+``paddle_tpu_torch/tools/ctr_workload.py``, shared with ``python -m
+paddle_tpu_torch.tools.profile_ctr``; the GAN, VAE and traffic
+forecaster in ``paddle_tpu_torch/tools/gan_vae_workload.py``.  The image
+phases and 18-22 run no hand-written kernel: no TPU kernel lies on those
+paths (the convs and batch norm are cuDNN's through PyTorch, the CTR and
+GAN products cuBLAS's).
 """
 
 from __future__ import annotations
@@ -133,10 +166,13 @@ import torch
 
 # the port must come from this checkout; outside it this import fails
 from paddle_tpu_torch.convert import parameters_from_numpy, state_from_numpy
+from paddle_tpu_torch.tools import ctr_workload as cw
+from paddle_tpu_torch.tools import gan_vae_workload as gw
 from paddle_tpu_torch.tools import image_workload as iw
 from paddle_tpu_torch.tools import nmt_workload as nw
 from paddle_tpu_torch.tools import profile_image
 from paddle_tpu_torch.tools import ragged_cases as rc
+from paddle_tpu_torch.tools import repro
 from paddle_tpu_torch.tools import rnn_workload as rw
 from paddle_tpu_torch.tools import train_workload as tw
 from paddle_tpu_torch.tools.compare_flash import card_ms, sm_clock
@@ -192,9 +228,10 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 # kernel cases
 # ---------------------------------------------------------------------------
 
-def run_kernel_cases(dev):
-    """Every case of ``ragged_cases`` through the kernel and the plain
-    version on the card; raises if any case is outside its tolerance.
+def run_kernel_cases(dev, cases=None, phase: str = "kernel"):
+    """Every case of ``ragged_cases`` (``cases``, default its ``CASES``)
+    through the kernel and the plain version on the card; raises if any
+    case is outside its tolerance.
     ``ms`` is card time (:func:`device_ms`: the kernel's plan, attention
     and merge launches); ``host_ms`` is the call back to back between CUDA
     events (:func:`time_ms`), which also holds the wrapper's host work
@@ -205,12 +242,12 @@ def run_kernel_cases(dev):
         ragged_paged_attention_kernel, ragged_paged_attention_reference)
 
     results = []
-    for name, case in rc.kernel_cases(dev):
+    for name, case in rc.kernel_cases(dev, cases):
         args, kw = rc.args(case), rc.scales(case)
         got = ragged_paged_attention_kernel(*args, **kw)
         torch.cuda.synchronize()
         real = case["qpos"] >= 0
-        res = {"phase": "kernel", "case": name,
+        res = {"phase": phase, "case": name,
                "q": str(case["q"].dtype).replace("torch.", ""),
                "pages": str(case["k_pages"].dtype).replace("torch.", ""),
                "rows": int(case["q"].shape[0]),
@@ -362,53 +399,62 @@ def serve_int8(model, dev) -> dict:
 SMALL_SERVE_TOKENS = 16
 
 
-def serve_small(dev) -> list:
-    """``DecoderLM`` at its defaults (2 layers, 2 heads of head_dim 16)
-    with the serve workload's vocabulary, in f32 and in bf16, served on
-    the card at the engine's flag defaults: 4 requests of 16 new tokens,
-    the ragged kernel launched once a layer a step, tokens equal to the
-    greedy oracle (near ties as in the full-width serve)."""
-    from paddle_tpu_torch.convert import decoder_lm_from_numpy, \
-        init_numpy_params
-    from paddle_tpu_torch.serving import DecoderLM, ServingEngine
+def serve_checked(model, dev, prompts, **fields) -> dict:
+    """``prompts`` served on the card at the engine's flag defaults
+    (``SMALL_SERVE_TOKENS`` new tokens each): the run drains with pages
+    conserved, the ragged kernel launched once a layer a step, tokens
+    equal to the greedy oracle (near ties as in the full-width serve).
+    ``fields`` go into the result line."""
+    from paddle_tpu_torch.serving import ServingEngine
     from paddle_tpu_torch.serving.decode_attention import \
         ragged_paged_attention_kernel as kernel
 
-    out = []
+    eng = ServingEngine(model, eos_id=NO_EOS, num_pages=33,
+                        max_pages_per_seq=8, device=dev)
+    kernel.launches = 0
+    rids = [eng.submit(p, max_tokens=SMALL_SERVE_TOKENS) for p in prompts]
+    eng.run()
+    launches = kernel.launches
+    outputs = [eng.result(r) for r in rids]
+    ties = check_against_reference(model, prompts, outputs,
+                                   SMALL_SERVE_TOKENS)
+    res = {**fields, "head_dim": model.head_dim, "heads": model.num_heads,
+           "layers": model.num_layers,
+           "pool_head_dim": int(eng.kv_cfg.pool_head_dim),
+           "requests": len(rids),
+           "drained": not eng.has_work and all(
+               o is not None and len(o) == SMALL_SERVE_TOKENS
+               for o in outputs),
+           "conservation": eng.healthz()["ok"],
+           "kernel_launches": launches,
+           "launches_expected": model.num_layers *
+           eng.metrics.step_dispatches,
+           "identical": len(prompts) - len(ties), "near_ties": len(ties)}
+    emit(res)
+    if not (res["drained"] and res["conservation"]) or launches == 0 \
+            or launches != res["launches_expected"]:
+        raise AssertionError(f"the serve of {fields} failed")
+    return res
+
+
+def serve_small(dev) -> list:
+    """``DecoderLM`` at its defaults (2 layers, 2 heads of head_dim 16)
+    with the serve workload's vocabulary, in f32 and in bf16, each served
+    by :func:`serve_checked`: 4 requests of 16 new tokens."""
+    from paddle_tpu_torch.convert import decoder_lm_from_numpy, \
+        init_numpy_params
+    from paddle_tpu_torch.serving import DecoderLM
+
     rng = np.random.default_rng(SEED + 3)
     prompts = [rng.integers(2, MODEL["vocab_size"], n).tolist()
                for n in (40, 300, 7, 130)]
+    out = []
     for dtype in (torch.float32, torch.bfloat16):
         model = DecoderLM(vocab_size=MODEL["vocab_size"], device=dev,
                           dtype=dtype)
         decoder_lm_from_numpy(init_numpy_params(model, SEED), model)
-        eng = ServingEngine(model, eos_id=NO_EOS, num_pages=33,
-                            max_pages_per_seq=8, device=dev)
-        kernel.launches = 0
-        rids = [eng.submit(p, max_tokens=SMALL_SERVE_TOKENS)
-                for p in prompts]
-        eng.run()
-        launches = kernel.launches
-        outputs = [eng.result(r) for r in rids]
-        ties = check_against_reference(model, prompts, outputs,
-                                       SMALL_SERVE_TOKENS)
-        res = {"phase": "serve_small", "dtype": str(dtype).replace(
-            "torch.", ""), "head_dim": model.head_dim,
-            "heads": model.num_heads, "layers": model.num_layers,
-            "requests": len(rids),
-            "drained": not eng.has_work and all(
-                o is not None and len(o) == SMALL_SERVE_TOKENS
-                for o in outputs),
-            "conservation": eng.healthz()["ok"],
-            "kernel_launches": launches,
-            "launches_expected": model.num_layers *
-            eng.metrics.step_dispatches,
-            "identical": len(prompts) - len(ties), "near_ties": len(ties)}
-        emit(res)
-        if not (res["drained"] and res["conservation"]) or launches == 0 \
-                or launches != res["launches_expected"]:
-            raise AssertionError(f"{dtype} DecoderLM serve failed")
-        out.append(res)
+        out.append(serve_checked(model, dev, prompts, phase="serve_small",
+                                 dtype=str(dtype).replace("torch.", "")))
     return out
 
 
@@ -511,16 +557,17 @@ def sdpa_ms(case) -> dict:
             "library_out": fwd().transpose(1, 2).reshape(case.q.shape)}
 
 
-def run_flash_cases(dev) -> dict:
-    """Each flash kernel against its plain version on every case; raises
-    if any output is outside its tolerance.  Times are card time
-    (:func:`device_ms`): the wrapper's kernel with its small helper ops,
-    the plain version's kernels, the library call's kernels.  Returns
-    the results by case name."""
+def run_flash_cases(dev, names=tuple(tw.FLASH_CASES),
+                    phase: str = "flash_kernels") -> dict:
+    """Each flash kernel against its plain version on every case of
+    ``names``; raises if any output is outside its tolerance.  Times are
+    card time (:func:`device_ms`): the wrapper's kernel with its small
+    helper ops, the plain version's kernels, the library call's kernels.
+    Returns the results by case name."""
     from paddle_tpu_torch.ops import attention as A
 
     results = {}
-    for name in tw.FLASH_CASES:
+    for name in names:
         case = tw.flash_case(name, dev)
         cfg = dict(causal=case.causal, sm_scale=case.sm_scale)
         fwd_args = (case.q, case.k, case.v, case.q_seg, case.kv_seg)
@@ -546,7 +593,7 @@ def run_flash_cases(dev) -> dict:
             "flash_bwd_dq": (A.flash_bwd_dq_kernel, A.flash_bwd_dq_reference,
                              bwd_args, ("dq",)),
         }
-        res = {"phase": "flash_kernels", "case": case.name,
+        res = {"phase": phase, "case": case.name,
                "dtype": str(case.q.dtype).replace("torch.", ""),
                "route": A.kernel_route(tuple(case.q.shape),
                                        tuple(case.k.shape), case.q.dtype,
@@ -1254,6 +1301,350 @@ def train_convnets(dev, card: str, cudnn: dict) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# head dims (C4): the kernels at 12, 100 and 320
+# ---------------------------------------------------------------------------
+
+HEAD_DIM_SERVE = dict(num_layers=2, num_heads=4, head_dim=100)
+HEAD_DIM_TRAIN_STEPS = 3
+# card against CPU path, f32 with TF32 off, 3 Momentum steps from the same
+# weights: the kernels and the plain versions sum in other orders
+HEAD_DIM_COST_RTOL = 1e-4
+
+
+def head_dims(dev) -> dict:
+    """B1-B3 (``tw.C4_FLASH_CASES``) and B4 (``rc.C4_CASES``) against
+    their plain versions at head dims 12, 100 and 320; a ``DecoderLM`` at
+    head_dim 100 (d_model 400, 4 heads) served on the card, 4 requests,
+    tokens held to the greedy oracle; ``multi_head_attention`` trained at
+    head dims 12 and 320 for 3 steps on the card against the same steps on
+    the CPU path."""
+    from paddle_tpu_torch.convert import decoder_lm_from_numpy, \
+        init_numpy_params
+    from paddle_tpu_torch.serving import DecoderLM
+
+    flash = run_flash_cases(dev, tuple(tw.C4_FLASH_CASES), "head_dims")
+    ragged = run_kernel_cases(dev, rc.C4_CASES, "head_dims")
+
+    rng = np.random.default_rng(SEED + 5)
+    prompts = [rng.integers(2, MODEL["vocab_size"], n).tolist()
+               for n in (40, 300, 7, 130)]
+    model = DecoderLM(vocab_size=MODEL["vocab_size"], device=dev,
+                      **HEAD_DIM_SERVE)
+    decoder_lm_from_numpy(init_numpy_params(model, SEED), model)
+    serve_res = serve_checked(model, dev, prompts, phase="head_dims",
+                              what="serve", d_model=model.embed_dim)
+    del model
+
+    trained = []
+    samples = tw.lm_samples(tw.SEED + 3, bs=tw.HEAD_DIM_BATCH,
+                            seq=tw.HEAD_DIM_SEQ, vocab=tw.HEAD_DIM_VOCAB)
+    for d in tw.HEAD_DIM_MODELS:
+        with nw.f32_policy():
+            costs = {}
+            for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+                sgd = tw.head_dim_trainer(where, d)
+                _reset_flash_launches()
+                costs[side], _ = _train_costs(sgd, samples,
+                                              HEAD_DIM_TRAIN_STEPS)
+                if side == "card":
+                    used = _flash_launches()
+        rel = [abs(a - b) / abs(b) for a, b in
+               zip(costs["card"], costs["cpu"])]
+        res = {"phase": "head_dims", "what": "train", "head_dim": d,
+               **tw.HEAD_DIM_MODELS[d], "batch": tw.HEAD_DIM_BATCH,
+               "seq": tw.HEAD_DIM_SEQ, "use_bf16": False,
+               "card_costs": costs["card"], "cpu_costs": costs["cpu"],
+               "max_rel_diff": max(rel), "rtol": HEAD_DIM_COST_RTOL,
+               "kernel_launches": used}
+        emit(res)
+        if max(rel) > HEAD_DIM_COST_RTOL or not all(
+                n == HEAD_DIM_TRAIN_STEPS for n in used.values()):
+            raise AssertionError(f"training at head_dim {d}: the card and "
+                                 "the CPU path disagree")
+        trained.append(res)
+    return {"flash": flash, "ragged": ragged, "serve": serve_res,
+            "train": trained}
+
+
+# ---------------------------------------------------------------------------
+# reproducibility (C5)
+# ---------------------------------------------------------------------------
+
+def steps_equal(what: str, sgd, feeds) -> dict:
+    """Two training steps from the same weights, optimizer state and
+    feeds (``repro.step_twice``): the same costs and parameters to the
+    bit."""
+    cost_equal, differ = repro.step_twice(sgd, feeds)
+    res = {"phase": "reproducible", "what": what, "cost_equal": cost_equal,
+           "parameters": len(sgd.parameters.as_dict()),
+           "parameters_differing": differ,
+           "equal": cost_equal and not differ}
+    emit(res)
+    if not res["equal"]:
+        raise AssertionError(f"two {what} steps from one state differ")
+    return res
+
+
+def generations_equal(generated) -> dict:
+    """The NMT generation's two timed runs of each variant: equal tokens
+    and scores, to the bit."""
+    res = {"phase": "reproducible", "what": "nmt_generation",
+           "runs_equal": {v: r["card_runs_equal"]
+                          for v, r in generated.items()},
+           "ms_per_batch_median": {v: r["ms_per_batch_median"]
+                                   for v, r in generated.items()}}
+    res["equal"] = all(res["runs_equal"].values())
+    emit(res)
+    if not res["equal"]:
+        raise AssertionError("two timed generations differ")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# DeepFM at Criteo's width, sparse rows (BASELINE config #4)
+# ---------------------------------------------------------------------------
+
+CTR_STEPS = 7                # the first is the untimed warm-up
+CTR_PARITY = dict(vocab=65536, batch=512, steps=3)
+# card against CPU path, f32 with TF32 off, 3 Adam steps from the same
+# weights and batches
+CTR_COST_RTOL, CTR_PARAM_RTOL = 1e-5, 1e-4
+
+
+def deepfm_parity(dev) -> dict:
+    """DeepFM's f32 card path against its CPU path: 39 fields, the full
+    tower, V cut to 65,536, 3 Adam steps: the costs and every parameter
+    after the steps."""
+    vocab, batch, steps = (CTR_PARITY[k] for k in ("vocab", "batch",
+                                                   "steps"))
+    data = cw.CtrData(torch.device("cpu"), steps, batch=batch, vocab=vocab)
+    costs, params = {}, {}
+    with nw.f32_policy():
+        for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+            sgd = cw.build_trainer(where, vocab=vocab)
+            costs[side] = [float(sgd.step({k: v.to(where) for k, v in
+                                           data.feeds(i).items()}))
+                           for i in range(steps)]
+            params[side] = {k: v.detach().cpu() for k, v in
+                            sgd.parameters.items()}
+    rel = {k: nw.rel_norm(v, params["cpu"][k])
+           for k, v in params["card"].items()}
+    worst = max(rel, key=rel.get)
+    cost_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(costs["card"], costs["cpu"]))
+    res = {"phase": "deepfm_parity", **CTR_PARITY, "fields": cw.FIELDS,
+           "factor": cw.FACTOR, "deep": cw.DEEP, "use_bf16": False,
+           "card_costs": costs["card"], "cpu_costs": costs["cpu"],
+           "cost_max_rel_diff": cost_rel, "param_max_rel_diff": rel[worst],
+           "param_worst": worst, "cost_rtol": CTR_COST_RTOL,
+           "param_rtol": CTR_PARAM_RTOL}
+    emit(res)
+    if cost_rel > CTR_COST_RTOL or rel[worst] > CTR_PARAM_RTOL:
+        raise AssertionError("the card's DeepFM steps and the CPU path's "
+                             "disagree")
+    return res
+
+
+def train_deepfm(dev, card: str):
+    """DeepFM at Criteo's width through ``SGD.train`` on one batch
+    repeated: a warm-up and 6 timed steps; finite, falling costs; step ms
+    (BeginIteration to the cost on the host), examples/s, peak memory,
+    launches a step and the idle share of ``SGD.step`` on device feeds.
+    Returns (result, trainer, data)."""
+    from paddle_tpu_torch.tools import profile_ctr
+
+    t0 = time.perf_counter()
+    sgd = cw.build_trainer(dev)
+    data = cw.CtrData(dev, batches=1)
+    samples = data.samples(0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    costs, step_ms = _train_costs(sgd, samples, CTR_STEPS, cw)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    feeds = data.feeds(0)
+    wall = profile_ctr.step_wall_ms(sgd, feeds, 2)
+    profile_ctr.ranged_optimizer(sgd)
+    prof = profile_image.profile_steps(sgd, feeds, steps=2)
+    br = profile_ctr.breakdown(prof, 2, wall)
+    med = float(np.median(step_ms[1:]))
+    res = {"phase": "train_deepfm", "vocab": cw.VOCAB, "fields": cw.FIELDS,
+           "factor": cw.FACTOR, "deep": cw.DEEP, "batch": cw.BATCH,
+           "steps": CTR_STEPS, "costs": costs, "step_ms": step_ms,
+           "step_ms_median": med, "examples_per_s": cw.BATCH / (med / 1e3),
+           "peak_memory_gb": peak,
+           "launches_per_step": br["kernel_launches"],
+           "sgd_step_ms": wall, "device_busy_ms": br["device_busy_ms"],
+           "idle_share": br["idle_share"],
+           "device_ms_by_group": br["device_ms_by_group"],
+           "parameters": sum(p.numel() for p in
+                             sgd.parameters.as_dict().values()),
+           "setup_s": setup_s, "nvidia_smi": card}
+    emit(res)
+    if not all(np.isfinite(costs)) or not costs[-1] < costs[0]:
+        raise AssertionError(f"DeepFM did not learn: costs {costs}")
+    return res, sgd, data
+
+
+SPARSE_LR = 0.05
+# the SGD row update against the dense step, absolute: the dense gradient
+# sums each id's rows with index_put's atomics, the row update in slot
+# order; at up to ~700 rows of one id (the numeric fields' first ids) the
+# two f32 sums part by ~1e-5 of a gradient element of ~30
+SPARSE_ATOL = 1e-5
+
+
+def sparse_rows(dev, table, ids) -> dict:
+    """``sgd_update_rows``, ``adagrad_update_rows`` and
+    ``SparseEmbeddingUpdater.apply`` on copies of the full-width
+    ``deepfm.v`` table with one batch's ids and random rows: against the
+    dense step (a dense gradient summed with ``index_put``; for Adagrad
+    the rows' own combined gradient) on the touched rows, untouched rows
+    bit-identical; card ms of each (CUDA events, back to back)."""
+    from paddle_tpu_torch.parallel import sparse as sp
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    ids = ids.reshape(-1).long()
+    rows = torch.randn((ids.numel(), table.shape[1]), generator=gen,
+                       device=dev)
+    dense_g = torch.zeros_like(table).index_put_((ids,), rows,
+                                                 accumulate=True)
+    touched = torch.zeros(table.shape[0], dtype=torch.bool, device=dev)
+    touched[ids] = True
+    grad = sp.SelectedRows(ids, rows, table.shape[0])
+
+    def held(got, want, name) -> dict:
+        err = float((got[touched] - want[touched]).abs().max())
+        same = bool(torch.equal(got[~touched], table[~touched]))
+        return {f"{name}_max_abs_err": err,
+                f"{name}_untouched_identical": same,
+                f"{name}_ok": err <= SPARSE_ATOL and same}
+
+    res = {"phase": "sparse_rows", "rows": table.shape[0],
+           "dim": table.shape[1], "ids": ids.numel(),
+           "distinct_ids": int(touched.sum()), "lr": SPARSE_LR}
+    with torch.no_grad():
+        t = sp.sgd_update_rows(table.clone(), grad, SPARSE_LR)
+        res.update(held(t, table - SPARSE_LR * dense_g, "sgd"))
+        # Adagrad's first step, lr g / (|g| + eps), magnifies the sums'
+        # rounding where g is near 0: it is held against the dense step on
+        # the row update's own combined gradient
+        combined = grad.to_dense()
+        acc = torch.zeros_like(table)
+        t, _ = sp.adagrad_update_rows(table.clone(), acc, grad, SPARSE_LR)
+        want = table - SPARSE_LR * combined / (combined.square().sqrt() +
+                                               1e-6)
+        res.update(held(t, want, "adagrad"))
+        upd = sp.SparseEmbeddingUpdater(sparse_params=("deepfm.v",))
+        t = upd.apply({"deepfm.v": table.clone()}, {"deepfm.v": dense_g},
+                      SPARSE_LR, ids={"deepfm.v": ids})["deepfm.v"]
+        res.update(held(t, table - SPARSE_LR * dense_g, "updater"))
+        work, acc = table.clone(), torch.zeros_like(table)
+        res["sgd_ms"] = time_ms(lambda: sp.sgd_update_rows(
+            work, grad, SPARSE_LR), reps=10)
+        res["adagrad_ms"] = time_ms(lambda: sp.adagrad_update_rows(
+            work, acc, grad, SPARSE_LR), reps=10)
+        res["updater_ms"] = time_ms(lambda: upd.apply(
+            {"deepfm.v": work}, {"deepfm.v": dense_g}, SPARSE_LR,
+            ids={"deepfm.v": ids}), reps=10)
+        res["dense_sgd_ms"] = time_ms(lambda: work.sub_(
+            SPARSE_LR * dense_g), reps=10)
+    emit(res)
+    if not all(res[f"{n}_ok"] for n in ("sgd", "adagrad", "updater")):
+        raise AssertionError("a sparse row update disagrees with the dense "
+                             "step")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# GAN, VAE, traffic (BASELINE config #5)
+# ---------------------------------------------------------------------------
+
+GAN_PAIRS = 20
+SMALL_STEPS = 20
+
+
+def train_gan(dev, card: str) -> list:
+    """Both GAN widths, 20 alternating (d, g) step pairs through
+    ``MultiTaskTrainer``: the first d step leaves every ``gen_*`` tensor
+    bit-identical and the first g step every ``dis_*`` one; finite costs;
+    at MNIST's width ``d_cost``'s last 5 below its first 3; ms a pair."""
+    out = []
+    for width in gw.GAN_WIDTHS:
+        t, params = gw.build_gan(width, dev)
+        data = gw.gan_data(width, GAN_PAIRS, dev)
+        masked = {}
+        d_costs, g_costs, pair_ms = [], [], []
+        for i in range(GAN_PAIRS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for task, other in (("d", "gen_"), ("g", "dis_")):
+                if i == 0:
+                    before = {k: v.detach().clone() for k, v in
+                              params.items() if k.startswith(other)}
+                cost = t.step(task, gw.gan_feeds(data, i, task))
+                (d_costs if task == "d" else g_costs).append(cost)
+                if i == 0:
+                    masked[task] = all(torch.equal(params[k].detach(), v)
+                                       for k, v in before.items())
+            pair_ms.append(1e3 * (time.perf_counter() - t0))
+        first, last = float(np.mean(d_costs[:3])), float(np.mean(d_costs[-5:]))
+        res = {"phase": "train_gan", "width": width,
+               **gw.GAN_WIDTHS[width], "batch": gw.BATCH, "pairs": GAN_PAIRS,
+               "d_costs": d_costs, "g_costs": g_costs,
+               "d_cost_first3_mean": first, "d_cost_last5_mean": last,
+               "d_step_leaves_gen_identical": masked["d"],
+               "g_step_leaves_dis_identical": masked["g"],
+               "pair_ms": pair_ms,
+               "pair_ms_median": float(np.median(pair_ms[1:])),
+               "steps_run": [t.steps_run("d"), t.steps_run("g")],
+               "nvidia_smi": card}
+        emit(res)
+        if not (masked["d"] and masked["g"]) or not all(
+                np.isfinite(d_costs + g_costs)):
+            raise AssertionError(f"GAN {width}: masking or costs wrong")
+        if width == "mnist" and not last < first:
+            raise AssertionError(f"GAN {width}: d_cost did not fall")
+        out.append(res)
+    return out
+
+
+def _train_steps(sgd, feeds):
+    """A step per feed dict; costs and host ms, each to the cost on the
+    host."""
+    costs, ms = [], []
+    for f in feeds:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        costs.append(float(sgd.step(f)))
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return costs, ms
+
+
+def train_small(dev, card: str) -> list:
+    """The VAE (784/128/100) and traffic_prediction (24 horizons), 20
+    steps each: finite costs, the last 5's mean below the first 3's; ms a
+    step."""
+    out = []
+    for name, build, feeds, cfg in (
+            ("train_vae", gw.build_vae, gw.vae_feeds, gw.VAE),
+            ("train_traffic", gw.build_traffic, gw.traffic_feeds,
+             gw.TRAFFIC)):
+        sgd = build(dev)
+        costs, ms = _train_steps(sgd, feeds(SMALL_STEPS, dev))
+        res = {"phase": name, **cfg, "batch": gw.BATCH,
+               "steps": SMALL_STEPS, "costs": costs, "step_ms": ms,
+               "step_ms_median": float(np.median(ms[1:])),
+               "nvidia_smi": card}
+        emit(res)
+        if not all(np.isfinite(costs)) or \
+                not np.mean(costs[-5:]) < np.mean(costs[:3]):
+            raise AssertionError(f"{name} did not learn: costs {costs}")
+        out.append(res)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script drives the port on "
@@ -1302,6 +1693,9 @@ def main() -> int:
     nmt_parity(dev)
     trained_nmt, nmt_sgd = train_nmt(dev, card)
     generated_nmt = generate_nmt(dev, nmt_sgd, card)
+    steps_equal("nmt_step", nmt_sgd,
+                nw.feeds(nmt_sgd, nw.samples(nw.SEED + 1)))
+    generations_equal(generated_nmt)
     del nmt_sgd
     torch.cuda.empty_cache()
 
@@ -1310,6 +1704,18 @@ def main() -> int:
     train_resnet50(dev, card, cudnn)
     torch.cuda.empty_cache()
     train_convnets(dev, card, cudnn)
+    torch.cuda.empty_cache()
+
+    head_dims(dev)
+    deepfm_parity(dev)
+    _, ctr_sgd, ctr_data = train_deepfm(dev, card)
+    steps_equal("deepfm_step", ctr_sgd, ctr_data.feeds(0))
+    sparse_rows(dev, ctr_sgd.parameters["deepfm.v"].detach(),
+                ctr_data.ids[0])
+    del ctr_sgd, ctr_data
+    torch.cuda.empty_cache()
+    train_gan(dev, card)
+    train_small(dev, card)
 
     main_case = next(c for c in cases if c["case"] == "mixed_f32")
     decode_case = next(c for c in cases if c["case"] == "decode_f32")

@@ -2,7 +2,9 @@
 // dQ over packed sequences with segment ids and causal masking, for f32
 // inputs and for bf16 (P and dS rounded to bf16 before their products, or
 // kept in f32 under attn_pv_f32), at every head dim that is a multiple of
-// 8 from 8 to 256 and any sequence lengths.  bf16 with P and dS rounded at
+// 8 from 8 to 512 and any sequence lengths (the wrapper runs a head dim
+// that is not a multiple of 8 on copies of q, k, v widened with zero
+// columns to the next one).  bf16 with P and dS rounded at
 // head dim 64 or 128 on whole 64-row tiles (the training path) is
 // flash_attention_sm90.cu's: wgmma kernels fed by TMA; every other shape
 // and type is this file's.
@@ -42,15 +44,17 @@
 // and in no order, so one block owns one tile of TILE rows (queries for
 // forward and dQ, keys for dK/dV) and loops over the other axis itself,
 // carrying its sums in registers.  Kernels are compiled at the widths DP = 16,
-// 32, 64, 128 and 256; the head dim d is an argument, and the kernel at DP
-// runs every d with DP / 2 < d <= DP (DP = 16 also d = 8): rows are d elements
-// apart in device memory, columns d .. DP of a tile are zero in shared memory
-// (d % 8 == 0, so a 4-element word is wholly inside or wholly past d, and rows
-// stay 16-byte (f32) or 8-byte (bf16) aligned), zero columns add nothing to
+// 32, 64, 128, 256 and 512; the head dim d is an argument, and the kernel at
+// DP runs every d with DP / 2 < d <= DP (DP = 16 also d = 8): rows are d
+// elements apart in device memory, columns d .. DP of a tile are zero in
+// shared memory (d % 8 == 0, so a 4-element word is wholly inside or wholly
+// past d, and rows stay 16-byte (f32) or 8-byte (bf16) aligned), zero columns add nothing to
 // q.k, and stores stop at column d.  Each kernel is instantiated twice a
 // width: FULL (d == DP, the head dim a compile-time constant) and not (d read
-// from the arguments).  TILE is 64, and 32 at DP 256, where four f32 tiles of
-// 64 rows would not fit shared memory.
+// from the arguments).  TILE is 64, 32 at DP 256 and 16 at DP 512, where
+// four f32 tiles of 64 (or 32) rows would not fit shared memory: at DP 512
+// the dK/dV kernel's four f32 tiles of 16 rows take 132 KB of the 227 KB a
+// block may use.
 // 256 threads form a 16 x 16 grid: thread (ty, tx) owns score rows
 // ty + 16 i and columns tx + 16 j (i, j < TILE / 16), and output rows
 // ty + 16 i by D / 16 columns (groups of CW = min(4, D / 16) neighbours,
@@ -85,7 +89,7 @@ using bf16 = __nv_bfloat16;
 // rows of a query tile and of a key tile at head dim D
 template <int D>
 struct Tile {
-  static constexpr int ROWS = D == 256 ? 32 : 64;
+  static constexpr int ROWS = D == 512 ? 16 : (D == 256 ? 32 : 64);
   static constexpr int RI = ROWS / 16;          // rows (and columns) a thread
   static constexpr int PS = ROWS + 4;           // f32 P / dS tile stride
   static constexpr int CW = D >= 64 ? 4 : D / 16;   // neighbouring columns
@@ -724,15 +728,16 @@ cudaError_t run_head_dim(Which w, const Args& a) {
   if (a.D <= 32) return run<T, 32>(w, a);
   if (a.D <= 64) return run<T, 64>(w, a);
   if (a.D <= 128) return run<T, 128>(w, a);
-  return run<T, 256>(w, a);
+  if (a.D <= 256) return run<T, 256>(w, a);
+  return run<T, 512>(w, a);
 }
 
-// dtype: 0 = f32, 1 = bf16; head dim a multiple of 8 from 8 to 256; any
+// dtype: 0 = f32, 1 = bf16; head dim a multiple of 8 from 8 to 512; any
 // positive lengths.  The range arrays hold one [min, max] per tile of
 // Tile<DP>::ROWS rows (the Python wrappers compute them at that tile).
 cudaError_t dispatch(Which w, int dtype, const Args& a) {
   if (a.B <= 0 || a.H <= 0 || a.Sq <= 0 || a.Sk <= 0 || a.H > 65535 ||
-      a.B > 65535 || a.D < 8 || a.D > 256 || a.D % 8 != 0) {
+      a.B > 65535 || a.D < 8 || a.D > 512 || a.D % 8 != 0) {
     return cudaErrorInvalidValue;
   }
   if (dtype == 0) return run_head_dim<float>(w, a);

@@ -16,9 +16,13 @@
 //   - online softmax with (m, l, acc) in f32; bf16 pages round P to bf16
 //     before the PV product, as the TPU kernel's p.astype(vb.dtype) does;
 //   - a row with nothing live (kv_len 0, or a padded row) yields 0.
-// Every head dim d that is a multiple of 8 from 8 to 256; any page size.
-// The kernels are compiled at the widths DP = 16, 32, 64, 128 and 256 and
-// the one at DP runs every d with DP / 2 < d <= DP (DP = 16 also d = 8):
+// Every head dim d that is a multiple of 8 from 8 to 512; any page size (a
+// head dim that is not a multiple of 8 is served from a pool the port's
+// kv_cache allocates at the next one, its columns past d zero, with q
+// widened to match by the wrapper).  Head dims above 256 take the wide
+// kernel at the end of this file (ragged_attention_wide_kernel).
+// The other kernels are compiled at the widths DP = 16, 32, 64, 128 and 256
+// and the one at DP runs every d with DP / 2 < d <= DP (DP = 16 also d = 8):
 // rows of q, of the pages, of the output and of the partials are d
 // elements apart, columns d .. DP of the Q and K/V tiles are zero-filled as
 // they are loaded (zero columns add nothing to q.k, and the PV product's
@@ -1389,6 +1393,117 @@ ragged_attention_merge_kernel(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
+// head dims above 256: the wide kernel
+// ---------------------------------------------------------------------------
+
+// Above head dim 256 the persistent kernels' Q tile and K/V ring no longer
+// fit a block's shared memory (at 512: 132 KB of Q and 264 KB of ring in
+// f32).  The wide kernel is the simple form of the same function: one block
+// per (query row, query head, span), 4 warps on the CUDA cores, no shared
+// K/V tiles.  It walks its span's live tokens in tiles of KT: warp w scores
+// tokens w, w + 4, ... of a tile (lanes across the row's columns, K read
+// through the page table once per query head), every thread takes the
+// tile's running maximum and the P of its 32 tokens (rounded to bf16 on
+// bf16 pages against that maximum, as the plain version's round_p_tile and
+// round_p_span do), and thread t accumulates columns t, t + 128, ... of the
+// PV product.  A row taking one span writes its output; a row taking more
+// writes its partial for the merge, as the other kernels do.  What bounds
+// it: every K and V row is read once per query head (G times under GQA)
+// with one multiply-add per element, so bytes; it makes no use of the
+// tensor cores and is not tuned: it serves head dims no model of the
+// repository uses.
+constexpr int WIDE_THREADS = 128;
+constexpr int WIDE_MAX_D = 512;
+
+template <typename T>
+__global__ void __launch_bounds__(WIDE_THREADS)
+ragged_attention_wide_kernel(const Params p) {
+  __shared__ float q_s[WIDE_MAX_D];
+  __shared__ float s_s[KT];
+  const int row = blockIdx.x, head = blockIdx.y, split = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int D = p.D;
+  const int seq = p.row_seq[(row / BLOCK_ROWS) * BLOCK_ROWS];
+  const int n = row_tokens(p.qpos[row], p.kv_lens[seq], p.Pm * p.page);
+  const int ns = (n + p.span - 1) / p.span;
+  if (split >= ns) return;   // the merge writes rows without live tokens
+  const int t_begin = split * p.span, t_end = min(t_begin + p.span, n);
+  const int kh = head / (p.H / p.KVH);
+  const int* pt = p.page_table + static_cast<size_t>(seq) * p.Pm;
+  const size_t rh = static_cast<size_t>(row) * p.H + head;
+  for (int c = tid; c < D; c += WIDE_THREADS) {
+    const size_t at = rh * D + c;
+    q_s[c] = p.q_bf16 ? ld1(static_cast<const bf16*>(p.q) + at)
+                      : static_cast<const float*>(p.q)[at];
+  }
+  const T* kp = static_cast<const T*>(p.k_pages);
+  const T* vp = static_cast<const T*>(p.v_pages);
+  constexpr bool QUANT = std::is_same<T, int8_t>::value;
+  float acc[WIDE_MAX_D / WIDE_THREADS];
+#pragma unroll
+  for (int i = 0; i < WIDE_MAX_D / WIDE_THREADS; ++i) acc[i] = 0.f;
+  float m = -INFINITY, l = 0.f;
+  __syncthreads();
+  for (int t0 = t_begin; t0 < t_end; t0 += KT) {
+    for (int j = warp; j < KT; j += WIDE_THREADS / 32) {
+      const int tok = t0 + j;
+      float s = -INFINITY;
+      if (tok < t_end) {
+        const size_t at = (static_cast<size_t>(pt[tok / p.page]) * p.page +
+                           tok % p.page) * p.KVH + kh;
+        const T* krow = kp + at * D;
+        float dot = 0.f;
+        for (int c = lane; c < D; c += 32) dot += q_s[c] * ld1(krow + c);
+        dot = warp_sum(dot);
+        if (QUANT) dot *= p.k_scale[at];
+        s = dot * p.sm_scale;
+      }
+      if (lane == 0) s_s[j] = s;
+    }
+    __syncthreads();
+    float mx = -INFINITY;
+    for (int j = 0; j < KT; ++j) mx = fmaxf(mx, s_s[j]);
+    const float m_new = fmaxf(m, mx);
+    const float alpha = expf(m - m_new);
+    l *= alpha;
+#pragma unroll
+    for (int i = 0; i < WIDE_MAX_D / WIDE_THREADS; ++i) acc[i] *= alpha;
+    for (int j = 0; j < KT && t0 + j < t_end; ++j) {
+      const int tok = t0 + j;
+      const float e = expf(s_s[j] - m_new);
+      l += e;
+      const size_t at = (static_cast<size_t>(pt[tok / p.page]) * p.page +
+                         tok % p.page) * p.KVH + kh;
+      const T* vrow = vp + at * D;
+      const float w = round_p<T>(e) * (QUANT ? p.v_scale[at] : 1.f);
+#pragma unroll
+      for (int i = 0; i < WIDE_MAX_D / WIDE_THREADS; ++i) {
+        const int c = tid + WIDE_THREADS * i;
+        if (c < D) acc[i] = fmaf(w, ld1(vrow + c), acc[i]);
+      }
+    }
+    m = m_new;
+    __syncthreads();   // every thread has read this tile's scores
+  }
+  const bool done = ns == 1;
+  const float inv = done ? 1.f / (l == 0.f ? 1.f : l) : 1.f;
+  const size_t part = static_cast<size_t>(split) * p.T * p.H + rh;
+#pragma unroll
+  for (int i = 0; i < WIDE_MAX_D / WIDE_THREADS; ++i) {
+    const int c = tid + WIDE_THREADS * i;
+    if (c >= D) continue;
+    if (!done) {
+      p.ws_acc[part * D + c] = acc[i];
+    } else if (p.q_bf16) {
+      static_cast<bf16*>(p.out)[rh * D + c] = __float2bfloat16(acc[i] * inv);
+    } else {
+      static_cast<float*>(p.out)[rh * D + c] = acc[i] * inv;
+    }
+  }
+  if (!done && tid == 0) p.ws_ml[part] = make_float2(m, l);
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -1456,6 +1571,27 @@ cudaError_t run_head_dim(const Params& p, int page_dtype,
                   : run_pages<D, false>(p, page_dtype, stream);
 }
 
+cudaError_t run_wide(const Params& p, int page_dtype, cudaStream_t stream) {
+  const int n_splits = (p.Pm * p.page + p.span - 1) / p.span;
+  const dim3 grid(p.T, p.H, n_splits);
+  switch (page_dtype) {
+    case 0:
+      ragged_attention_wide_kernel<float><<<grid, WIDE_THREADS, 0, stream>>>(
+          p);
+      break;
+    case 1:
+      ragged_attention_wide_kernel<bf16><<<grid, WIDE_THREADS, 0, stream>>>(p);
+      break;
+    case 2:
+      ragged_attention_wide_kernel<int8_t><<<grid, WIDE_THREADS, 0, stream>>>(
+          p);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 // the kernels compiled at the least width DP >= the head dim
 cudaError_t run_attention(const Params& p, int page_dtype,
                           cudaStream_t stream) {
@@ -1486,7 +1622,7 @@ int rpa_launch(const void* q, const void* k_pages, const void* v_pages,
                int max_items, int page_dtype, int q_dtype, float sm_scale,
                void* stream) {
   if (KVH <= 0 || H % KVH != 0 || T_rows <= 0 || T_rows % BLOCK_ROWS != 0 ||
-      D < 8 || D > 256 || D % 8 != 0 ||
+      D < 8 || D > WIDE_MAX_D || D % 8 != 0 ||
       page <= 0 || Pm <= 0 || span <= 0 || span % KT != 0 ||
       n_splits <= 0 || n_splits > MAX_SPLITS || H > 65535 ||
       max_items <= 0 ||
@@ -1524,10 +1660,14 @@ int rpa_launch(const void* q, const void* k_pages, const void* v_pages,
   cudaError_t e = cudaMemsetAsync(p.counts, 0, 4 * sizeof(int), st);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int n_blocks = T_rows / BLOCK_ROWS;
-  ragged_attention_plan_kernel<<<(n_blocks + PLAN_WARPS - 1) / PLAN_WARPS,
-                                 PLAN_WARPS * 32, 0, st>>>(p);
-  e = cudaGetLastError();
-  if (e == cudaSuccess) e = run_attention(p, page_dtype, st);
+  if (D > 256) {
+    e = run_wide(p, page_dtype, st);
+  } else {
+    ragged_attention_plan_kernel<<<(n_blocks + PLAN_WARPS - 1) / PLAN_WARPS,
+                                   PLAN_WARPS * 32, 0, st>>>(p);
+    e = cudaGetLastError();
+    if (e == cudaSuccess) e = run_attention(p, page_dtype, st);
+  }
   if (e != cudaSuccess) return static_cast<int>(e);
   ragged_attention_merge_kernel<<<dim3(n_blocks, H), MERGE_THREADS, 0,
                                   st>>>(p);

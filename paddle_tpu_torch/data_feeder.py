@@ -83,8 +83,8 @@ class DataFeeder:
         return torch.from_numpy(np.stack(rows)).to(self.device)
 
     def _values(self, col) -> torch.Tensor:
-        arr = np.stack([np.asarray(r, np.int32) for r in col])
-        arr = arr.reshape(len(col), -1)
+        # one conversion for the column (rows of one shape), not one a row
+        arr = np.asarray(col, np.int32).reshape(len(col), -1)
         if arr.shape[1] == 1:
             arr = arr[:, 0]
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)

@@ -6,9 +6,10 @@ subset ``lstmemory``, ``grumemory``, ``pooling``, ``first_seq``,
 ``gru_step``/``lstm_step`` with ``recurrent_group``, ``memory`` and
 ``StaticInput`` from ``recurrent.py``, the attention subset ``mixed``
 (with ``full_matrix_projection`` and ``identity_projection``),
-``dotmul``, ``dotmul_bcast`` and ``cross_entropy_cost``, and the convnet
+``dotmul``, ``dotmul_bcast`` and ``cross_entropy_cost``, the convnet
 subset ``img_conv``, ``img_pool``, ``batch_norm``, ``img_cmrnorm``,
-``dropout`` and ``concat``).
+``dropout`` and ``concat``, and the CTR/GAN subset ``slope_intercept``
+and ``multi_binary_label_cross_entropy_cost``).
 
 Each function returns a ``LayerOutput`` graph node whose compute fn is
 plain PyTorch on tensors or :class:`SequenceBatch` values; the dtype
@@ -51,7 +52,8 @@ __all__ = ["data", "fc", "embedding", "layer_norm", "addto", "concat",
            "identity_projection", "mixed", "dotmul", "dotmul_bcast",
            "first_seq", "last_seq", "expand", "recurrent",
            "cross_entropy_cost", "StaticInput", "memory", "recurrent_group",
-           "gru_step", "lstm_step", "lstm_step_output", "lstm_step_state"]
+           "gru_step", "lstm_step", "lstm_step_output", "lstm_step_state",
+           "slope_intercept", "multi_binary_label_cross_entropy_cost"]
 
 
 def _as_list(x) -> list:
@@ -448,6 +450,19 @@ def dotmul_bcast(a, b, name: Optional[str] = None) -> LayerOutput:
 
     return LayerOutput(name=name, layer_type="dotmul_bcast", inputs=[a, b],
                        fn=compute, size=a.size, is_sequence=a.is_sequence)
+
+
+def slope_intercept(input, slope: float = 1.0, intercept: float = 0.0,
+                    name: Optional[str] = None) -> LayerOutput:
+    """``y = slope * x + intercept``."""
+    name = name or unique_name("slope_intercept")
+
+    def compute(ctx, p, ins):
+        return _like(ins[0], slope * _data_of(ins[0]) + intercept)
+
+    return LayerOutput(name=name, layer_type="slope_intercept",
+                       inputs=[input], fn=compute, size=input.size,
+                       is_sequence=input.is_sequence)
 
 
 # ---------------------------------------------------------------------------
@@ -872,6 +887,29 @@ def cross_entropy_cost(input, label, name: Optional[str] = None,
         return _per_example(f, ins[0], ins[1])
 
     return LayerOutput(name=name, layer_type="cross_entropy",
+                       inputs=[input, label], fn=compute, size=1,
+                       is_cost=True)
+
+
+def multi_binary_label_cross_entropy_cost(input, label,
+                                          name: Optional[str] = None
+                                          ) -> LayerOutput:
+    """Sigmoid cross entropy on logits summed over the feature axis, per
+    example (per token for a sequence); the label is cast to the logits'
+    dtype.  An integer ``[B]`` label against ``[B, 1]`` logits is
+    reshaped to them, not broadcast to ``[B, B]``."""
+    name = name or unique_name("multi_binary_label_xent")
+
+    def compute(ctx, p, ins):
+        def f(lg, lb):
+            if lb.numel() == lg.numel():
+                lb = lb.reshape(lg.shape)
+            return ploss.multi_binary_label_cross_entropy(lg,
+                                                          lb.to(lg.dtype))
+
+        return _per_example(f, ins[0], ins[1])
+
+    return LayerOutput(name=name, layer_type="multi_binary_label_xent",
                        inputs=[input, label], fn=compute, size=1,
                        is_cost=True)
 

@@ -6,10 +6,11 @@ Two implementations of each of the module's three functions:
   :func:`flash_bwd_kv_kernel`, :func:`flash_bwd_dq_kernel`), the Hopper
   counterparts of the Pallas ``_flash_fwd_kernel``,
   ``_flash_bwd_kv_kernel`` and ``_flash_bwd_dq_kernel``, at every head
-  dim that is a multiple of 8 from 8 to 256 (:func:`kernel_width`) and any
-  lengths.  bf16 at head dim 64 or 128
-  on whole 64-row tiles runs on the tensor cores, all three as wgmma
-  kernels fed by TMA (``csrc/flash_attention_sm90.cu``); every other
+  dim from 1 to 512 (:func:`kernel_width`; a head dim that is not a
+  multiple of 8 runs on copies of q, k, v and dO widened with zero
+  columns to :func:`padded_head_dim`) and any lengths.  bf16 at head dim
+  64 or 128 on whole 64-row tiles runs on the tensor cores, all three as
+  wgmma kernels fed by TMA (``csrc/flash_attention_sm90.cu``); every other
   shape, f32, and bf16 under ``attn_pv_f32`` run on the CUDA cores
   (``csrc/flash_attention.cu``); :func:`kernel_route` names the route;
 - their plain PyTorch versions (:func:`flash_fwd_reference`,
@@ -52,15 +53,16 @@ from paddle_tpu_torch.platform.flags import FLAGS
 # uniform instead of NaN, exactly as in the JAX package
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
-# what the CUDA kernels take: head dims that are multiples of 8 from 8 to
-# 256, f32 or bf16 (one type for q, k, v and dO), any lengths; the
-# CUDA-core kernels are compiled at KERNEL_WIDTHS and the one at the least
-# width >= the head dim runs it, its columns past the head dim zero; the
+# what the CUDA kernels take: head dims from 1 to 512, f32 or bf16 (one
+# type for q, k, v and dO), any lengths; the kernels run head dims that are
+# multiples of 8 (others on inputs widened with zero columns to the next
+# one), the CUDA-core ones compiled at KERNEL_WIDTHS, the one at the least
+# width >= the head dim running it, its columns past the head dim zero; the
 # wgmma kernels take bf16 with P and dS rounded at WGMMA_HEAD_DIMS on
 # lengths in whole KERNEL_TILE-row tiles
 KERNEL_TILE = 64
-KERNEL_WIDTHS = (16, 32, 64, 128, 256)
-HEAD_DIM_LIMIT = "a multiple of 8 from 8 to 256"
+KERNEL_WIDTHS = (16, 32, 64, 128, 256, 512)
+HEAD_DIM_LIMIT = "from 1 to 512"
 WGMMA_HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -275,21 +277,40 @@ def kernel_route(q_shape, k_shape, dtype, pv_f32: bool) -> str:
     return "flash_attention"
 
 
+def padded_head_dim(head_dim: int) -> int:
+    """The head dim the kernels run ``head_dim`` at: the next multiple of
+    8 (rows of 16 bytes in f32, 8 in bf16), the columns past ``head_dim``
+    zero.  Zero columns of q and k add nothing to q.k, those of v give
+    output columns that are cut off; the scale stays the true head
+    dim's."""
+    return -(-int(head_dim) // 8) * 8
+
+
 def kernel_width(head_dim: int) -> Optional[int]:
     """The compiled width of the CUDA-core kernel that runs ``head_dim``
     (the least of :data:`KERNEL_WIDTHS` not below it), or None for a head
     dim the kernels do not take (not :data:`HEAD_DIM_LIMIT`)."""
-    if head_dim % 8 or not 8 <= head_dim <= KERNEL_WIDTHS[-1]:
+    if not 1 <= head_dim <= KERNEL_WIDTHS[-1]:
         return None
     return next(w for w in KERNEL_WIDTHS if w >= head_dim)
 
 
 def kernel_tile(head_dim: int) -> int:
-    """Rows of the kernels' query and key tiles at ``head_dim``: 64, and 32
-    above 128, where the CUDA-core kernels run at width 256 (four f32 tiles
-    of 256 columns fit shared memory at 32 rows).  The plain versions round
-    P and dS at the kernels' running maxima with ``block_k`` set to it."""
+    """Rows of the kernels' query and key tiles at ``head_dim``: 64, 32
+    above 128 and 16 above 256, where the CUDA-core kernels run at widths
+    256 and 512 (four f32 tiles of 256 columns fit shared memory at 32
+    rows, of 512 at 16).  The plain versions round P and dS at the
+    kernels' running maxima with ``block_k`` set to it."""
+    if head_dim > 256:
+        return 16
     return 32 if head_dim > 128 else KERNEL_TILE
+
+
+def widen_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
+    """``x`` with zero columns appended to ``width`` (itself if it has
+    them)."""
+    pad = width - x.shape[-1]
+    return torch.nn.functional.pad(x, (0, pad)) if pad else x
 
 
 def _check(tensors, q, k, seg_q, seg_k):
@@ -398,6 +419,13 @@ def flash_fwd_kernel(q, k, v, q_seg, kv_seg, *, causal: bool,
     enforce_that(k.dtype == q.dtype and v.dtype == q.dtype and
                  v.shape == k.shape, "q, k, v must share one dtype and k, v "
                  "one shape", context="flash_attention")
+    d = q.shape[3]
+    if d % 8:
+        dp = padded_head_dim(d)
+        out, lse = flash_fwd_kernel(
+            *(widen_head_dim(x, dp) for x in (q, k, v)), q_seg, kv_seg,
+            causal=causal, sm_scale=sm_scale, pv_f32=pv_f32)
+        return out[..., :d].contiguous(), lse
     lib = _library(q, k, pv_f32)
     b, sq, h, _ = q.shape
     out = torch.empty_like(q)
@@ -435,6 +463,14 @@ def flash_bwd_kv_kernel(q, k, v, q_seg, kv_seg, dout, lse, delta, *,
     results as :func:`flash_bwd_kv_reference`.  Each launch adds one to
     ``flash_bwd_kv_kernel.launches``."""
     _check_bwd(q, k, v, q_seg, kv_seg, dout, lse, delta)
+    d = q.shape[3]
+    if d % 8:
+        dp = padded_head_dim(d)
+        dk, dv = flash_bwd_kv_kernel(
+            *(widen_head_dim(x, dp) for x in (q, k, v)), q_seg, kv_seg,
+            widen_head_dim(dout, dp), lse, delta, causal=causal,
+            sm_scale=sm_scale, pv_f32=pv_f32)
+        return dk[..., :d].contiguous(), dv[..., :d].contiguous()
     lib = _library(q, k, pv_f32)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -455,6 +491,14 @@ def flash_bwd_dq_kernel(q, k, v, q_seg, kv_seg, dout, lse, delta, *,
     as :func:`flash_bwd_dq_reference`.  Each launch adds one to
     ``flash_bwd_dq_kernel.launches``."""
     _check_bwd(q, k, v, q_seg, kv_seg, dout, lse, delta)
+    d = q.shape[3]
+    if d % 8:
+        dp = padded_head_dim(d)
+        dq = flash_bwd_dq_kernel(
+            *(widen_head_dim(x, dp) for x in (q, k, v)), q_seg, kv_seg,
+            widen_head_dim(dout, dp), lse, delta, causal=causal,
+            sm_scale=sm_scale, pv_f32=pv_f32)
+        return dq[..., :d].contiguous()
     lib = _library(q, k, pv_f32)
     dq = torch.empty_like(q)
     qr, kr = _ranges(q, q_seg, kv_seg)

@@ -3,11 +3,21 @@
 ``seq_last``, ``sequence_softmax`` and ``seq_expand``).
 
 Padding slots go to one trash segment (``num_seqs``) that is cut off the
-result, so no per-sequence loop is needed; segment reductions are
-``index_add`` and ``scatter_reduce`` over the segment ids, and gathers
-``index_select``, whose backward is an ``index_add`` (the backward of an
-advanced-index gather sorts its indices first: on an H100 it took 73 of
-a 195 ms NMT training step's card time in ``seq_expand``).
+result, so no per-sequence loop is needed.  Sequences are packed in order
+from slot 0 with the padding after them (as the feeder, ``from_list`` and
+``from_padded`` pack them), so the segment ids are non-decreasing and
+every segment is a contiguous run of slots.  That makes every sum here an
+ordered one, and a run reproducible to the bit on the card:
+
+- segment sums are :func:`segment_sum` (``torch.segment_reduce`` over the
+  runs' lengths, each segment added in slot order), where ``index_add``
+  adds with atomics in no fixed order on the card;
+- gathers by segment are :func:`gather_rows`, an ``index_select`` whose
+  backward is that ordered segment sum (``index_select``'s own backward is
+  an ``index_add``; an advanced-index gather's sorts its indices first: on
+  an H100 that took 73 of a 195 ms NMT training step's card time);
+- the per-segment maximum is ``scatter_reduce`` with ``"amax"``, exact in
+  any order.
 """
 
 from __future__ import annotations
@@ -22,13 +32,45 @@ def _seg(sb: SequenceBatch) -> torch.Tensor:
     return torch.where(sb.valid_mask, sb.segment_ids, sb.num_seqs).long()
 
 
+def segment_sum(data: torch.Tensor, seg: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """``out[s] = sum(data[i] for i with seg[i] == s)`` along dim 0, each
+    segment added in slot order; ``seg`` is non-decreasing, slots past
+    the last segment (``seg[i] >= num_segments``) are left out, and an
+    empty segment sums to 0."""
+    seg = seg.long()
+    r = torch.arange(num_segments, device=seg.device)
+    counts = (torch.searchsorted(seg, r, right=True) -
+              torch.searchsorted(seg, r))
+    return torch.segment_reduce(data, "sum", lengths=counts, axis=0,
+                                unsafe=True)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, values, idx):
+        ctx.save_for_backward(idx)
+        ctx.n = values.shape[0]
+        return values.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        idx, = ctx.saved_tensors
+        return segment_sum(grad, idx, ctx.n), None
+
+
+def gather_rows(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``values[idx]`` along dim 0 for a non-decreasing ``idx``; its
+    backward sums the rows' gradients in slot order (:func:`segment_sum`)."""
+    return _GatherRows.apply(values, idx.long())
+
+
 def _rows(seg: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     return seg.reshape((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
 
 
 def seq_pool_sum(sb: SequenceBatch) -> torch.Tensor:
-    out = sb.data.new_zeros((sb.num_seqs + 1,) + sb.data.shape[1:])
-    return out.index_add(0, _seg(sb), sb.data)[:sb.num_seqs]
+    return segment_sum(sb.data, _seg(sb), sb.num_seqs)
 
 
 def seq_pool_avg(sb: SequenceBatch) -> torch.Tensor:
@@ -63,13 +105,13 @@ def seq_first(sb: SequenceBatch) -> torch.Tensor:
     0, as the feeder and ``from_padded`` pack them)."""
     ends = torch.cumsum(sb.lengths, 0)
     starts = torch.cat([ends.new_zeros((1,)), ends[:-1]])
-    return sb.data.index_select(0, starts.long())
+    return gather_rows(sb.data, starts)
 
 
 def seq_last(sb: SequenceBatch) -> torch.Tensor:
     """Last token of each sequence (slot 0 for an empty one)."""
     ends = torch.clamp(torch.cumsum(sb.lengths, 0) - 1, min=0)
-    return sb.data.index_select(0, ends.long())
+    return gather_rows(sb.data, ends)
 
 
 def sequence_softmax(sb: SequenceBatch) -> SequenceBatch:
@@ -89,8 +131,8 @@ def sequence_softmax(sb: SequenceBatch) -> SequenceBatch:
     mx = torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
     ex = torch.where(valid, torch.exp(x - mx.index_select(0, seg)),
                      torch.zeros_like(x))
-    z = ex.new_zeros((n,)).index_add(0, seg, ex)
-    out = ex / torch.clamp(z.index_select(0, seg), min=1e-30)
+    z = segment_sum(ex, seg, n)
+    out = ex / torch.clamp(gather_rows(z, seg), min=1e-30)
     if squeeze:
         out = out[..., None]
     return sb.with_data(out.to(sb.data.dtype))
@@ -102,6 +144,6 @@ def seq_expand(short, sb_long: SequenceBatch) -> SequenceBatch:
     token of that sequence in ``sb_long``; padding slots are 0."""
     values = seq_first(short) if isinstance(short, SequenceBatch) else short
     seg = torch.clamp(sb_long.segment_ids, 0, values.shape[0] - 1).long()
-    data = values.index_select(0, seg)
+    data = gather_rows(values, seg)
     mask = sb_long.valid_mask.reshape((-1,) + (1,) * (data.dim() - 1))
     return sb_long.with_data(torch.where(mask, data, torch.zeros_like(data)))

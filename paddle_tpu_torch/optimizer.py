@@ -1,5 +1,5 @@
 """Optimizers (the port of ``paddle_tpu/optimizer.py``: the base class,
-``Momentum`` and ``Adam``).
+``Sgd``, ``Momentum`` and ``Adam``).
 
 The JAX package's ``apply`` is a pure function returning new parameters
 and slots, and its trainer donates the old buffers.  Here ``apply``
@@ -70,6 +70,13 @@ class Optimizer:
             self._update(p, g, {s: state["slots"][s][name]
                                 for s in self.slot_names()}, lr, step)
         state["step"] = step + 1
+
+
+class Sgd(Optimizer):
+    """Plain SGD: ``p -= lr * g``."""
+
+    def _update(self, p, g, slots, lr, step):
+        p.sub_(lr * g)
 
 
 class Momentum(Optimizer):

@@ -84,7 +84,9 @@ class SequenceBatch:
         order = torch.argsort((~valid_full).to(torch.int32), stable=True)
         take = order[:cap]
         # index_select: its backward is an index_add, where an indexed
-        # gather's sorts the indices first
+        # gather's sorts the indices first; `take` holds each slot at most
+        # once, so every row of that index_add gets one addend and the sum
+        # is the same to the bit in any order
         flat = padded.reshape((B * T,) + padded.shape[2:]).index_select(
             0, take)
         seg = torch.where(valid_full[take], seg_full[take],

@@ -15,14 +15,19 @@ Two implementations of the same function:
 
 - :func:`ragged_paged_attention_kernel` launches the hand-written CUDA
   kernel ``csrc/ragged_paged_attention.cu`` (the Hopper counterpart of
-  the Pallas ``_ragged_kernel``) at every head dim that is a multiple of
-  8 from 8 to 256 (compiled at :data:`KERNEL_WIDTHS`, the columns past the
-  head dim zero-filled as they are loaded: no padded copy of the pool),
-  any group and page size, f32 or bf16 queries: a plan of work items,
+  the Pallas ``_ragged_kernel``) at every head dim from 1 to 512, any
+  group and page size, f32 or bf16 queries: a plan of work items,
   persistent attention blocks over each sequence's tokens split into
-  spans of :func:`kernel_split_tokens`, and a merge of the spans.  It
-  needs block-uniform packing: rows come in :data:`BLOCK_ROWS` blocks,
-  each block one sequence's.
+  spans of :func:`kernel_split_tokens`, and a merge of the spans.  Head
+  dims up to 256 run on kernels compiled at 16, 32, 64, 128 and 256, the
+  columns past the head dim zero-filled as they are loaded; above 256 the
+  attention blocks are the simple wide kernel, one block per row, head
+  and span.  The pool's rows are :func:`padded_head_dim` wide (the
+  port's ``kv_cache`` allocates them so, the columns past the head dim
+  zero), and a head dim that is not a multiple of 8 runs on q widened
+  to that width: the pool is never copied.  It needs block-uniform
+  packing: rows come in :data:`BLOCK_ROWS` blocks, each block one
+  sequence's.
 - :func:`ragged_paged_attention_reference` is the plain PyTorch version:
   page-table gather plus a masked softmax in f32.
 
@@ -41,12 +46,12 @@ import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.kernels import build
-# the head dims the CUDA kernel takes are the flash kernels': multiples of
-# 8 from 8 to 256, each run by the kernel compiled at the least width in
-# KERNEL_WIDTHS not below it
+# the head dims the CUDA kernel takes are the flash kernels': 1 to 512,
+# run at padded_head_dim (the next multiple of 8)
 from paddle_tpu_torch.ops.attention import (DEFAULT_MASK_VALUE,
                                             HEAD_DIM_LIMIT, KERNEL_WIDTHS,
-                                            kernel_width)
+                                            kernel_width, padded_head_dim,
+                                            widen_head_dim)
 from paddle_tpu_torch.platform.device import DeviceLike, resolve_device
 from paddle_tpu_torch.platform.enforce import EnforceError, enforce_that
 from paddle_tpu_torch.serving.kv_cache import dequantize_kv, quantize_kv
@@ -136,8 +141,9 @@ def ragged_paged_attention_reference(q, k_pages, v_pages, page_table,
     """Gather-then-mask version of the ragged kernel.
 
     q: [T, H, D] (f32 or bf16); k_pages/v_pages: [num_pages, page, H_kv,
-    D] (one layer's pool slice, int8 with ``k_scale``/``v_scale``
-    [num_pages, page, H_kv]); page_table: [S, Pm]; kv_lens: [S] — valid
+    D or :func:`padded_head_dim` (D)] (one layer's pool slice, columns
+    past D zero; int8 with ``k_scale``/``v_scale`` [num_pages, page,
+    H_kv]); page_table: [S, Pm]; kv_lens: [S] — valid
     cached tokens per sequence after this step's writes; row_seq: [T];
     qpos: [T] (-1 = padded row).  Returns [T, H, D] in q's dtype; scores
     and sums are f32.  Padded rows return an arbitrary finite value;
@@ -158,6 +164,7 @@ def ragged_paged_attention_reference(q, k_pages, v_pages, page_table,
     pm = page_table.shape[1]
     if sm_scale is None:
         sm_scale = float(d) ** -0.5
+    k_pages, v_pages = k_pages[..., :d], v_pages[..., :d]
     rs = row_seq.long()
     pt = page_table.long()[rs]                     # [T, Pm]
     k = k_pages[pt]                                # [T, Pm, page, KVH, D]
@@ -251,21 +258,23 @@ def _kernel_args_error(q, k_pages, v_pages, page_table, kv_lens, row_seq,
             return f"{name} is on {x.device}, q on {dev}"
     if q.dtype not in _Q_DTYPE_CODE:
         return f"ragged kernel takes f32 or bf16 queries, got {q.dtype}"
+    why = kernel_shape_error(d, h, kvh)
+    if why is not None:
+        return why
     if not (k_pages.dtype in _PAGE_DTYPE_CODE and
             v_pages.dtype == k_pages.dtype and
-            v_pages.shape == k_pages.shape and dk == d):
+            v_pages.shape == k_pages.shape and dk == padded_head_dim(d)):
         return (f"pages must be matching f32/bf16/int8 [P, page, H_kv, "
-                f"{d}], got {k_pages.dtype} {tuple(k_pages.shape)} and "
-                f"{v_pages.dtype} {tuple(v_pages.shape)}")
+                f"{padded_head_dim(d)}] (head_dim {d} padded to a "
+                f"multiple of 8), got {k_pages.dtype} "
+                f"{tuple(k_pages.shape)} and {v_pages.dtype} "
+                f"{tuple(v_pages.shape)}")
     if t % BLOCK_ROWS:
         return (f"ragged kernel rows ({t}) must pack to BLOCK_ROWS "
                 f"({BLOCK_ROWS})")
     if not (kv_lens.shape == page_table.shape[:1] and
             row_seq.shape == q.shape[:1] and qpos.shape == q.shape[:1]):
         return "kv_lens must be [S], row_seq and qpos [T]"
-    why = kernel_shape_error(d, h, kvh)
-    if why is not None:
-        return why
     quantized = k_pages.dtype == torch.int8
     if (k_scale is not None) != quantized or \
             (v_scale is not None) != quantized:
@@ -291,8 +300,8 @@ def ragged_paged_attention_kernel(q, k_pages, v_pages, page_table, kv_lens,
                                   sm_scale: Optional[float] = None):
     """Launch ``csrc/ragged_paged_attention.cu`` on CUDA tensors (same
     arguments as :func:`ragged_paged_attention_reference`; q f32 or bf16,
-    pages f32/bf16/int8, head_dim :data:`HEAD_DIM_LIMIT`; output in
-    q's dtype).  bf16 queries on bf16 pages take bf16 tensor-core
+    pages f32/bf16/int8 at :func:`padded_head_dim`, head_dim
+    :data:`HEAD_DIM_LIMIT`; output in q's dtype).  bf16 queries on bf16 pages take bf16 tensor-core
     products; every other pairing computes in f32: items of more than 16
     score rows as 3xTF32 tensor-core products (about 22 bits of each f32
     product), decode-sized ones on the CUDA cores.  Requires block-uniform
@@ -307,12 +316,18 @@ def ragged_paged_attention_kernel(q, k_pages, v_pages, page_table, kv_lens,
     if why is not None:
         raise EnforceError(why, context="serving")
     t, h, d = q.shape
-    _, page, kvh, _ = k_pages.shape
+    _, page, kvh, dp = k_pages.shape
     pm = page_table.shape[1]
     dev = q.device
     quantized = k_scale is not None
     if sm_scale is None:
         sm_scale = float(d) ** -0.5
+    if dp != d:
+        out = ragged_paged_attention_kernel(
+            widen_head_dim(q, dp), k_pages, v_pages, page_table, kv_lens,
+            row_seq, qpos, k_scale=k_scale, v_scale=v_scale,
+            sm_scale=sm_scale)
+        return out[..., :d].contiguous()
     pt, ln, rs, qp = (_i32(page_table), _i32(kv_lens), _i32(row_seq),
                       _i32(qpos))
     out = torch.empty_like(q)

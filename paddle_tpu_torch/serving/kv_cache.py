@@ -30,6 +30,7 @@ from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
 
 import torch
 
+from paddle_tpu_torch.ops.attention import padded_head_dim, widen_head_dim
 from paddle_tpu_torch.platform.device import DeviceLike, resolve_device
 from paddle_tpu_torch.platform.enforce import enforce_that
 
@@ -93,11 +94,17 @@ class PagedKVConfig:
     def max_seq_len(self) -> int:
         return self.page_size * self.max_pages_per_seq
 
+    @property
+    def pool_head_dim(self) -> int:
+        """Columns of a pool row: the head dim padded to a multiple of 8
+        (the ragged kernel's row width), the columns past it zero."""
+        return padded_head_dim(self.head_dim)
+
     def bytes_per_page(self) -> int:
         """K + V bytes one page costs across all layers, scales included."""
         itemsize = torch.empty((), dtype=self.dtype).element_size()
         per = (self.num_layers * self.page_size * self.kv_heads *
-               self.head_dim * itemsize)
+               self.pool_head_dim * itemsize)
         if self.quantized:
             per += self.num_layers * self.page_size * self.kv_heads * 4
         return 2 * per
@@ -121,7 +128,8 @@ def pages_for_budget(pool_bytes: int, num_layers: int, num_heads: int,
 
 class KVPages(NamedTuple):
     """The device-resident pool: ``k``/``v`` are [num_layers, num_pages,
-    page_size, num_kv_heads, head_dim]; int8 pools add ``k_scale``/
+    page_size, num_kv_heads, pool_head_dim] (the columns past head_dim
+    zero); int8 pools add ``k_scale``/
     ``v_scale`` [num_layers, num_pages, page_size, num_kv_heads] f32."""
 
     k: torch.Tensor
@@ -138,7 +146,7 @@ def init_kv_pages(cfg: PagedKVConfig, device: DeviceLike = None) -> KVPages:
     """Allocate a zeroed pool on ``device`` (default ``cuda``)."""
     dev = resolve_device(device)
     shape = (cfg.num_layers, cfg.num_pages, cfg.page_size, cfg.kv_heads,
-             cfg.head_dim)
+             cfg.pool_head_dim)
     if cfg.quantized:
         return KVPages(torch.zeros(shape, dtype=torch.int8, device=dev),
                        torch.zeros(shape, dtype=torch.int8, device=dev),
@@ -176,8 +184,11 @@ def append_token(kv: KVPages, layer: int, k_new: torch.Tensor,
     rows pass ``page_ids == NULL_PAGE`` with ZERO payloads: a scatter
     with duplicate indices keeps an arbitrary one of the duplicates,
     which is harmless only while every duplicate is the same zero row.
-    Quantized pools quantize on write."""
+    Quantized pools quantize on write (the zero columns of a padded row
+    leave its absmax scale as it is)."""
     idx = (page_ids, offsets)
+    width = kv.k.shape[-1]
+    k_new, v_new = widen_head_dim(k_new, width), widen_head_dim(v_new, width)
     if kv.quantized:
         kq, ks = quantize_kv(k_new)
         vq, vs = quantize_kv(v_new)

@@ -66,9 +66,16 @@ def build_case(rng, seqs, kvh, dev, h: int = H, d: int = D):
     """A sequence-packed batch in the kernel's block packing.  ``seqs``
     is a list of (kv_len, q_rows, q_start): one decode row at kv_len-1
     when q_rows == 1, else a prefill chunk at q_start..q_start+q_rows-1.
-    Live pages hold random K/V, the rest random garbage."""
-    kp = rng.standard_normal((NUM_PAGES, PAGE, kvh, d), np.float32)
-    vp = rng.standard_normal((NUM_PAGES, PAGE, kvh, d), np.float32)
+    Live pages hold random K/V, the rest random garbage; page rows are
+    ``padded_head_dim(d)`` wide, as the pool allocates them, the columns
+    past d zero."""
+    from paddle_tpu_torch.ops.attention import padded_head_dim
+
+    dp = padded_head_dim(d)
+    kp = rng.standard_normal((NUM_PAGES, PAGE, kvh, dp), np.float32)
+    vp = rng.standard_normal((NUM_PAGES, PAGE, kvh, dp), np.float32)
+    kp[..., d:] = 0.0
+    vp[..., d:] = 0.0
     table = np.zeros((len(seqs), PM), np.int32)
     free = list(range(1, NUM_PAGES))
     rng.shuffle(free)
@@ -149,18 +156,32 @@ CASES = {
 }
 SEQS = {"decode": DECODE_SEQS, "mixed": MIXED_SEQS}
 
+# head dims served from pools padded to the next multiple of 8 (12 and 100,
+# rows of 16 and 104) and by the wide kernel above 256 (320): decode and
+# mixed steps on f32, bf16 and int8 pages, and bf16 queries on bf16 pages,
+# over 4 heads
+C4_CASES = {
+    f"c4_{seqs}_{name}_d{d}": (seqs, 4, 4, d, q, pages)
+    for d in (12, 100, 320) for seqs in ("decode", "mixed")
+    for name, q, pages in (("f32", "float32", "float32"),
+                           ("bf16", "float32", "bfloat16"),
+                           ("int8", "float32", "int8"),
+                           ("bf16q_bf16", "bfloat16", "bfloat16"))}
 
-def kernel_cases(dev):
-    """[(name, case)] of :data:`CASES`, in order; cases of the same
-    sequences and shapes share their f32 data."""
-    rng = np.random.default_rng(SEED)
+
+def kernel_cases(dev, cases=None):
+    """[(name, case)] of ``cases`` (default :data:`CASES`), in order;
+    cases of the same sequences and shapes share their f32 data."""
+    cases = CASES if cases is None else cases
+    rng = np.random.default_rng(SEED if cases is CASES else SEED + 1)
     base = {}
     # the main path's two first, as every earlier run drew them
-    for key in (("mixed", 16, 16, 128), ("decode", 16, 16, 128)):
+    for key in ((("mixed", 16, 16, 128), ("decode", 16, 16, 128))
+                if cases is CASES else ()):
         base[key] = build_case(rng, SEQS[key[0]], key[1], dev, h=key[2],
                                d=key[3])
     out = []
-    for name, (seqs, kvh, h, d, q, pages) in CASES.items():
+    for name, (seqs, kvh, h, d, q, pages) in cases.items():
         key = (seqs, kvh, h, d)
         if key not in base:
             base[key] = build_case(rng, SEQS[seqs], kvh, dev, h=h, d=d)

@@ -74,6 +74,32 @@ def build_trainer(device, n_layers: int = MODEL["n_layers"],
         momentum=MOMENTUM, learning_rate=LEARNING_RATE), device=device)
 
 
+# multi_head_attention at the head dims the kernels run on zero columns
+# (12) and at their compiled width 512 (320): one block, vocab 1024, 2
+# sequences of 256 tokens, 3 Momentum steps
+HEAD_DIM_MODELS = {12: dict(d_model=48, n_heads=4),
+                   320: dict(d_model=640, n_heads=2)}
+HEAD_DIM_BATCH, HEAD_DIM_SEQ, HEAD_DIM_VOCAB = 2, 256, 1024
+
+
+def head_dim_trainer(device, head_dim: int, seed: int = SEED):
+    """``trainer.SGD`` over a one-block ``transformer.build`` whose
+    attention runs at ``head_dim`` (:data:`HEAD_DIM_MODELS`), weights
+    from ``seed`` (drawn on the host: the same on every device)."""
+    from paddle_tpu_torch import optimizer, topology, trainer
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.parameters import Parameters
+
+    topology.reset_name_scope()
+    *_, cost = transformer.build(vocab_size=HEAD_DIM_VOCAB, n_layers=1,
+                                 max_len=HEAD_DIM_SEQ,
+                                 **HEAD_DIM_MODELS[head_dim])
+    params = Parameters.from_topology(topology.Topology([cost]), seed=seed,
+                                      device=device)
+    return trainer.SGD(cost, params, optimizer.Momentum(
+        momentum=MOMENTUM, learning_rate=LEARNING_RATE), device=device)
+
+
 @contextlib.contextmanager
 def plain_flash_path():
     """Route the layers' flash attention through the plain versions on
@@ -175,9 +201,25 @@ FLASH_CASES = {
 }
 
 
+# head dims the kernels run on inputs widened with zero columns (12 and
+# 100, to 16 and 104) and at the compiled width 512 (320), each in f32 and
+# bf16 over causal segments
+C4_FLASH_CASES = {
+    f"c4_{dtype[:4]}_segments_causal_d{d}": (dtype, 1024, 1024, 4, d, True,
+                                             (300, 500, 200))
+    for d in (12, 100, 320) for dtype in ("float32", "bfloat16")}
+
+
+def _case(name: str):
+    """(the case's entry, the seed of its draws)."""
+    table = FLASH_CASES if name in FLASH_CASES else C4_FLASH_CASES
+    base = 0 if table is FLASH_CASES else len(FLASH_CASES)
+    return table[name], [SEED, base + sorted(table).index(name)]
+
+
 def case_segments(name: str):
     """The named case's (q_seg [1, Sq], kv_seg [1, Sk]) int32 arrays."""
-    _, sq, sk, _, _, _, lengths = FLASH_CASES[name]
+    _, sq, sk, _, _, _, lengths = _case(name)[0]
     q_seg = (np.zeros((1, sq), np.int32) if lengths is None
              else packed_segments(lengths, sq))
     kv_seg = q_seg if sq == sk else np.zeros((1, sk), np.int32)
@@ -186,9 +228,9 @@ def case_segments(name: str):
 
 def flash_case(name: str, device) -> FlashCase:
     """The named case's inputs on ``device``, drawn from a seed."""
-    dtype, sq, sk, h, d, causal, _ = FLASH_CASES[name]
+    (dtype, sq, sk, h, d, causal, _), seed = _case(name)
     dt = getattr(torch, dtype)
-    rng = np.random.default_rng([SEED, sorted(FLASH_CASES).index(name)])
+    rng = np.random.default_rng(seed)
 
     def t(a, to=dt):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device, to)

@@ -259,6 +259,13 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
     files = sorted((REPO / "paddle_tpu_torch").rglob("*.py")) + \
         [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    # the sixth slice's modules, parallel/ among them, are walked too
+    names = {str(f.relative_to(REPO)) for f in files}
+    assert names >= {f"paddle_tpu_torch/{m}.py" for m in (
+        "models/deepfm", "models/gan", "models/vae",
+        "models/traffic_prediction", "parallel/sparse",
+        "tools/ctr_workload", "tools/gan_vae_workload",
+        "tools/profile_ctr")}
     bad = {str(f.relative_to(REPO)): n for f in files
            for n in _imports(f) if _forbidden(n)}
     assert bad == {}
@@ -267,7 +274,15 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             " paddle_tpu_torch.generation, paddle_tpu_torch.inference,"
             " paddle_tpu_torch.models.seq2seq,"
             " paddle_tpu_torch.tools.nmt_workload,"
-            " paddle_tpu_torch.tools.profile_nmt, chip_smoke; "
+            " paddle_tpu_torch.tools.profile_nmt,"
+            " paddle_tpu_torch.models.deepfm, paddle_tpu_torch.models.gan,"
+            " paddle_tpu_torch.models.vae,"
+            " paddle_tpu_torch.models.traffic_prediction,"
+            " paddle_tpu_torch.parallel.sparse,"
+            " paddle_tpu_torch.tools.ctr_workload,"
+            " paddle_tpu_torch.tools.gan_vae_workload,"
+            " paddle_tpu_torch.tools.profile_ctr,"
+            " paddle_tpu_torch.tools.repro, chip_smoke; "
             "print(sorted(m for m in sys.modules if m in ('jax', "
             "'paddle_tpu') or m.startswith(('jax.', 'paddle_tpu.'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

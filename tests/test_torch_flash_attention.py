@@ -197,14 +197,14 @@ def test_cpu_path_launches_no_kernel_and_kernel_limits():
     assert err((1, 8192, 16, 128), (1, 8192, 16, 128), torch.bfloat16) \
         is None
     assert err((1, 128, 2, 64), (1, 256, 2, 64), torch.float32) is None
-    # every head dim that is a multiple of 8 from 8 to 256 and lengths
-    # that end in a partial tile are taken; other head dims raise with the
-    # limit in the message
-    for d in tattn.KERNEL_WIDTHS + (8, 48, 80, 96, 112, 160, 192):
+    # every head dim from 1 to 512 and lengths that end in a partial tile
+    # are taken; other head dims raise with the limit in the message
+    for d in tattn.KERNEL_WIDTHS + (1, 8, 12, 48, 80, 96, 100, 112, 160,
+                                    192, 264, 320):
         assert err((1, 96, 2, d), (1, 32, 2, d), torch.bfloat16) is None
     assert err((1, 100, 2, 128), (1, 100, 2, 128), torch.float32) is None
-    for d in (100, 12, 264):
-        assert f"head_dim a multiple of 8 from 8 to 256, got {d}" in err(
+    for d in (0, 513, 640):
+        assert f"head_dim from 1 to 512, got {d}" in err(
             (1, 128, 2, d), (1, 128, 2, d), torch.float32)
     assert "float32 or bfloat16" in err((1, 64, 2, 128), (1, 64, 2, 128),
                                         torch.float16)
@@ -233,7 +233,8 @@ def test_each_shape_has_one_kernel_route():
     goes to the wgmma kernels; every other shape the kernels take (f32,
     ``pv_f32``, the other head dims, a partial last tile) to the
     CUDA-core ones, the one compiled at the least width not below the
-    head dim, which tile at 32 rows above head dim 128 (width 256)."""
+    head dim, which tile at 32 rows above head dim 128 (width 256) and at
+    16 above 256 (width 512)."""
     route = tattn.kernel_route
     bf, f32 = torch.bfloat16, torch.float32
     wgmma, cores = "flash_attention_sm90", "flash_attention"
@@ -246,14 +247,16 @@ def test_each_shape_has_one_kernel_route():
     assert route((1, 96, 4, 128), (1, 96, 4, 128), bf, False) == cores
     assert route((1, 128, 4, 64), (1, 32, 4, 64), bf, False) == cores
     assert [tattn.kernel_tile(d) for d in tattn.KERNEL_WIDTHS] == \
-        [64, 64, 64, 64, 32]
+        [64, 64, 64, 64, 32, 16]
     assert [tattn.kernel_width(d) for d in (8, 16, 24, 40, 48, 72, 96, 120,
                                             136, 192, 256)] == \
         [16, 16, 32, 64, 64, 128, 128, 128, 256, 256, 256]
-    assert [tattn.kernel_width(d) for d in (0, 4, 12, 100, 264)] == \
-        [None] * 5
-    assert [tattn.kernel_tile(d) for d in (96, 128, 136, 160, 192)] == \
-        [64, 64, 32, 32, 32]
+    assert [tattn.kernel_width(d) for d in (1, 4, 12, 100, 264, 320, 512)] \
+        == [16, 16, 16, 128, 512, 512, 512]
+    assert [tattn.kernel_width(d) for d in (0, 513)] == [None] * 2
+    assert [tattn.kernel_tile(d) for d in (96, 128, 136, 160, 192, 264,
+                                           512)] == \
+        [64, 64, 32, 32, 32, 16, 16]
 
 
 def test_tile_ranges_of_a_partial_last_tile():

@@ -213,17 +213,16 @@ def test_attention_path_chooser(monkeypatch):
     with pytest.raises(EnforceError, match="use_kernel=False"):
         tda.attention_path(128, 128, num_heads=16, num_kv_heads=16,
                            device="cuda", use_kernel=False)
-    # every head dim that is a multiple of 8 up to 256, and any group
-    # that divides the heads; other head dims raise with the limit
-    for d in (8, 40, 64, 80, 96, 192, 256):
+    # every head dim from 1 to 512, and any group that divides the heads;
+    # other head dims raise with the limit
+    for d in (1, 8, 12, 40, 64, 80, 96, 100, 192, 256, 264, 320, 512):
         assert tda.attention_path(d, 128, num_heads=16, num_kv_heads=16,
                                   device="cuda") == "kernel"
     assert tda.attention_path(128, 128, num_heads=12, num_kv_heads=4,
                               device="cuda") == "kernel"
-    for d in (100, 12, 264):
+    for d in (0, 513, 640):
         with pytest.raises(EnforceError,
-                           match=f"head_dim a multiple of 8 from 8 to 256, "
-                                 f"got {d}"):
+                           match=f"head_dim from 1 to 512, got {d}"):
             tda.attention_path(d, 128, num_heads=16, num_kv_heads=16,
                                device="cuda")
     with pytest.raises(EnforceError, match="dividing num_heads"):

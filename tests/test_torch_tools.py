@@ -281,14 +281,23 @@ def test_chip_smoke_picks_each_kernels_ptxas_entry(monkeypatch):
 
 
 def test_ragged_cases_cover_every_kernel_shape():
-    """chip_smoke's ragged cases hold every compiled head dim, groups 1,
-    3, 4 and 16, f32 and bf16 queries and f32, bf16 and int8 pages, and
-    the main path's decode and mixed steps at 16 heads of head_dim 128."""
+    """chip_smoke's ragged cases hold every compiled head dim (with the
+    head-dim cases, ``C4_CASES``: 12 and 100 on pools padded to 16 and
+    104, 320 on the wide kernel), groups 1, 3, 4 and 16, f32 and bf16
+    queries and f32, bf16 and int8 pages, and the main path's decode and
+    mixed steps at 16 heads of head_dim 128."""
     from paddle_tpu_torch.serving import decode_attention as da
 
     shapes = rc.CASES.values()
     assert {d for _, _, _, d, _, _ in shapes} == \
-        set(da.KERNEL_WIDTHS) | {80, 96}
+        set(da.KERNEL_WIDTHS[:-1]) | {80, 96}
+    c4 = rc.C4_CASES.values()
+    assert {d for _, _, _, d, _, _ in c4} == {12, 100, 320}
+    assert {da.kernel_width(d) for _, _, _, d, _, _ in
+            list(shapes) + list(c4)} == set(da.KERNEL_WIDTHS)
+    assert {(s, q, p) for s, _, _, _, q, p in c4} >= {
+        (s, "float32", p) for s in ("decode", "mixed")
+        for p in ("float32", "bfloat16", "int8")}
     assert rc.CASES["mixed_f32_d96"][3:] == (96, "float32", "float32")
     assert rc.CASES["mixed_int8_d80"][3:] == (80, "float32", "int8")
     assert {h // kvh for _, kvh, h, _, _, _ in shapes} == {1, 3, 4, 16}
