@@ -53,7 +53,8 @@ checkout of the repository).  Phases, each fatal on failure:
 9. rnn_kernels: the fused LSTM step (B5), the one-launch GRU step (B6)
    and the two-launch GRU step (B7 then B8) against their plain PyTorch
    versions on the same inputs: B5 at B 64 with H 512 and 1280, acts on
-   and off, and a bf16 xp; B6 at H 512 and B7 + B8 at H 1280, acts on and
+   and off, and a bf16 xp, and at H 128 with B 10 (SRL) and 128
+   (quick_start); B6 at H 512 and B7 + B8 at H 1280, acts on and
    off; with error, card time, plain time, the roofline bound, the SM
    clock read after the case's timings and, for B5, cuDNN's ``nn.LSTM``
    forward over T = 128 steps divided by T;
@@ -105,14 +106,16 @@ checkout of the repository).  Phases, each fatal on failure:
 15. train_convnets: AlexNet (227 px, batch 128), GoogLeNet (224, 64),
     SmallNet (32, 64) and LeNet (28, 64), 4 steps each with dropout at its
     real rate: finite, falling costs and ms per batch;
-16. head_dims: the flash kernels (B1-B3) at head dims 12, 100 and 320 in
-    f32 and bf16 (``tw.C4_FLASH_CASES``) and the ragged kernel (B4) at
-    the same head dims on f32, bf16 and int8 pages, decode and mixed
-    (``rc.C4_CASES``) against their plain versions, with error, card
-    time, plain time and bound; a ``DecoderLM`` at head_dim 100 (d_model
-    400, 4 heads, its pool rows padded to 104) serving 4 requests held to
-    the greedy oracle; ``multi_head_attention`` at head dims 12 and 320
-    trained 3 steps on the card against the CPU path (f32);
+16. head_dims: the flash kernels (B1-B3) at head dims 12, 100 and 320
+    (``tw.C4_FLASH_CASES``) and, on the wide kernels, 640 and 1024
+    (``tw.C4_WIDE_FLASH_CASES``), in f32 and bf16, and the ragged kernel
+    (B4) at the same head dims on f32, bf16 (and, up to 320, int8) pages,
+    decode and mixed (``rc.C4_CASES``, ``rc.C4_WIDE_CASES``) against
+    their plain versions, with error, card time, plain time and bound; a
+    ``DecoderLM`` at head_dim 100 (d_model 400, 4 heads, its pool rows
+    padded to 104) serving 4 requests held to the greedy oracle;
+    ``multi_head_attention`` at head dims 12, 320 and 640 trained 3 steps
+    on the card against the CPU path (f32);
 17. reproducible: two NMT training steps (after 12c) and two DeepFM
     steps at full width (after 19) from one state give the same bits
     (``tools/repro.step_twice``), and so do the timed generations of 12c;
@@ -133,7 +136,30 @@ checkout of the repository).  Phases, each fatal on failure:
     tensors bit-identical; at MNIST's width ``d_cost`` falls; ms a pair;
 22. train_vae, train_traffic: the VAE (784/128/100) and the traffic
     forecaster (24 horizons), 20 steps each: finite, falling costs, ms a
-    step.
+    step;
+23. srl_parity: SRL (``tools/srl_workload``) in f32 at depth 3, LSTMs of
+    32, vocab 512, batch 10: 3 steps on the card (B5) against the CPU
+    path from the same weights, costs and every parameter, then both
+    decode the batch: the same paths;
+24. train_srl: SRL at the PaddlePaddle book's width (depth 8, LSTMs of
+    128, the conll05 dictionaries' sizes), batch 10, ``Momentum(0,
+    1e-3)``, a warm-up and 6 timed steps: finite, falling costs, B5
+    launched 8 x frames a step; sentences/s, tokens/s, peak memory, the
+    card time by group and the idle share of a profiled step; then
+    ``crf_decoding`` through ``Inference``: ms a batch, paths equal to
+    the CPU path's;
+25. train_chunker: the CoNLL-2000 chunker (``models/sequence_tagging``,
+    23 tags), batch 64, Adam 1e-3, 6 steps, then its decode against the
+    CPU path's;
+26. train_quick_start: the seven quick_start classifiers
+    (``tools/quick_start_workload``: dict 30000, embedding 128, batch 128
+    of 10-100 tokens, Adam 2e-3), 4 steps each: finite, falling costs, B5
+    launched layers x frames a step, ms a batch;
+27. nested_groups, beam_cost: three hierarchical groups
+    (``tools/nested_workload``, width 128, batch 16 through the
+    sub-sequence slot), 3 Adam steps on the card against the CPU path;
+    ``cross_entropy_over_beam`` on its cases, costs and gradients, card
+    against CPU.
 
 Every line of output is one JSON object; the one before the last lists
 the kernels, the last is ``{"ok": true, "device": {...}}``.  The serve
@@ -148,9 +174,12 @@ cells in ``paddle_tpu_torch/tools/image_workload.py``, shared with
 ``python -m paddle_tpu_torch.tools.profile_image``; DeepFM in
 ``paddle_tpu_torch/tools/ctr_workload.py``, shared with ``python -m
 paddle_tpu_torch.tools.profile_ctr``; the GAN, VAE and traffic
-forecaster in ``paddle_tpu_torch/tools/gan_vae_workload.py``.  The image
-phases and 18-22 run no hand-written kernel: no TPU kernel lies on those
-paths (the convs and batch norm are cuDNN's through PyTorch, the CTR and
+forecaster in ``paddle_tpu_torch/tools/gan_vae_workload.py``; the CRF
+taggers in ``paddle_tpu_torch/tools/srl_workload.py``, quick_start in
+``paddle_tpu_torch/tools/quick_start_workload.py`` and the nested groups
+in ``paddle_tpu_torch/tools/nested_workload.py``.  The image
+phases, 18-22, 25 and 27 run no hand-written kernel: no TPU kernel lies
+on those paths (the convs and batch norm are cuDNN's through PyTorch, the CTR and
 GAN products cuBLAS's).
 """
 
@@ -169,11 +198,14 @@ from paddle_tpu_torch.convert import parameters_from_numpy, state_from_numpy
 from paddle_tpu_torch.tools import ctr_workload as cw
 from paddle_tpu_torch.tools import gan_vae_workload as gw
 from paddle_tpu_torch.tools import image_workload as iw
+from paddle_tpu_torch.tools import nested_workload as nestw
 from paddle_tpu_torch.tools import nmt_workload as nw
 from paddle_tpu_torch.tools import profile_image
+from paddle_tpu_torch.tools import quick_start_workload as qw
 from paddle_tpu_torch.tools import ragged_cases as rc
 from paddle_tpu_torch.tools import repro
 from paddle_tpu_torch.tools import rnn_workload as rw
+from paddle_tpu_torch.tools import srl_workload as sw
 from paddle_tpu_torch.tools import train_workload as tw
 from paddle_tpu_torch.tools.compare_flash import card_ms, sm_clock
 from paddle_tpu_torch.tools.serve_workload import (MODEL, NEW_TOKENS, NO_EOS,
@@ -558,11 +590,15 @@ def sdpa_ms(case) -> dict:
 
 
 def run_flash_cases(dev, names=tuple(tw.FLASH_CASES),
-                    phase: str = "flash_kernels") -> dict:
+                    phase: str = "flash_kernels",
+                    plain_events: bool = False) -> dict:
     """Each flash kernel against its plain version on every case of
     ``names``; raises if any output is outside its tolerance.  Times are
     card time (:func:`device_ms`): the wrapper's kernel with its small
     helper ops, the plain version's kernels, the library call's kernels.
+    With ``plain_events`` the plain version is timed once between CUDA
+    events instead (:func:`time_ms`): late in the run the profiler loses
+    the records of its hundreds of small kernels and retries three times.
     Returns the results by case name."""
     from paddle_tpu_torch.ops import attention as A
 
@@ -594,6 +630,7 @@ def run_flash_cases(dev, names=tuple(tw.FLASH_CASES),
                              bwd_args, ("dq",)),
         }
         res = {"phase": phase, "case": case.name,
+               "plain_timer": "events" if plain_events else "profiler",
                "dtype": str(case.q.dtype).replace("torch.", ""),
                "route": A.kernel_route(tuple(case.q.shape),
                                        tuple(case.k.shape), case.q.dtype,
@@ -605,8 +642,10 @@ def run_flash_cases(dev, names=tuple(tw.FLASH_CASES),
                 "max_abs_err": max(errs[o]["max_abs_err"] for o in outs),
                 "ms": device_ms(lambda: kern(*args, **cfg), reps=20,
                                 what=f"{name} {kname}"),
-                "plain_ms": device_ms(lambda: plain(*args, **cfg), reps=3,
-                                      what=f"{name} {kname} plain"),
+                "plain_ms": (time_ms(lambda: plain(*args, **cfg), reps=1,
+                                     warmup=1) if plain_events else
+                             device_ms(lambda: plain(*args, **cfg), reps=3,
+                                       what=f"{name} {kname} plain")),
                 **flash_bound(case, kname)}
         kinds = A.tile_pair_kinds(case.q_seg, case.kv_seg, case.causal,
                                   A.kernel_tile(case.q.shape[3]))
@@ -827,7 +866,10 @@ def run_rnn_cases(dev) -> dict:
     of the wrapper's kernel and of the plain version's kernels.  Returns
     {case: {kernel: result}}."""
     results = {}
-    lib_ms = {H: cudnn_lstm_step_ms(rw.BATCH, H, dev) for H in (512, 1280)}
+    lib_ms = {}
+    for kind, B, H, _, _ in rw.RNN_CASES.values():
+        if kind == "lstm_step" and (B, H) not in lib_ms:
+            lib_ms[B, H] = cudnn_lstm_step_ms(B, H, dev)
     for name in rw.RNN_CASES:
         case = rw.rnn_case(name, dev)
         calls = _rnn_case_calls(case)
@@ -845,8 +887,8 @@ def run_rnn_cases(dev) -> dict:
                 "ms": device_ms(kern, reps=20, what=f"{name} {kname}"),
                 "plain_ms": device_ms(plain, reps=5,
                                       what=f"{name} {kname} plain"),
-                "library_ms": (lib_ms[case["H"]] if kname == "lstm_step"
-                               else None),
+                "library_ms": (lib_ms[case["B"], case["H"]]
+                               if kname == "lstm_step" else None),
                 **rnn_bound(case, kname)}
         res["within_tolerance"] = ok
         res["sm_clock"] = sm_clock()   # just after the case's timings
@@ -1089,15 +1131,19 @@ def generate_nmt(dev, sgd, card: str) -> dict:
 
 NMT_CASES = {"train": "nmt_gru_block_f32_b50_acts",
              "generate": "nmt_gru_block_f32_b16"}
+# B5's cases at the seventh slice's shapes
+SEQ_CASES = {"srl": "lstm_f32_h128_b10_acts",
+             "quick_start": "lstm_f32_h128_b128_acts"}
 
 
-def rnn_kernel_lines(cases, trained_lstm, trained_gru, nmt) -> list:
+def rnn_kernel_lines(cases, trained_lstm, trained_gru, nmt, seq) -> list:
     """The ``kernels`` entries of B5-B8: launches from the training runs
     of the main path and, for B6, the NMT's training and generation
-    (``nmt``: phase -> its result or results), the rest from their
-    main-path case
-    (B6's NMT cases beside it)."""
+    (``nmt``: phase -> its result or results), for B5 SRL's and
+    quick_start's (``seq``: path -> launches), the rest from their
+    main-path case (B6's NMT cases and B5's H 128 cases beside it)."""
     launched = dict(trained_lstm["kernel_launches"])
+    launched["lstm_step"] += sum(seq.values())
     for run in trained_gru:
         for k, n in run["kernel_launches"].items():
             launched[k] = launched.get(k, 0) + n
@@ -1108,11 +1154,19 @@ def rnn_kernel_lines(cases, trained_lstm, trained_gru, nmt) -> list:
     lines = []
     for kname, cname in rw.MAIN_CASE.items():
         r = cases[cname][kname]
-        extra = {} if kname != "gru_step" else {
-            "launches_nmt": nmt_launches,
-            "nmt_cases": {phase: {k: cases[c][kname][k] for k in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
-                for phase, c in NMT_CASES.items()}}
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")
+        extra = {}
+        if kname == "gru_step":
+            extra = {"launches_nmt": nmt_launches,
+                     "nmt_cases": {phase: {k: cases[c][kname][k]
+                                           for k in keys[:-1]}
+                                   for phase, c in NMT_CASES.items()}}
+        elif kname == "lstm_step":
+            extra = {**{f"launches_{p}": n for p, n in seq.items()},
+                     "h128_cases": {p: {"case": c, **{
+                         k: cases[c][kname][k] for k in keys}}
+                         for p, c in SEQ_CASES.items()}}
         lines.append({
             "name": kname, "route": "cuda",
             "source": "paddle_tpu_torch/csrc/rnn_cells.cu",
@@ -1122,8 +1176,8 @@ def rnn_kernel_lines(cases, trained_lstm, trained_gru, nmt) -> list:
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "ptxas": ptxas_of("rnn_cells", RNN_PTXAS[kname]),
-            "library": ("torch.nn.LSTM forward (cuDNN) over [64, 128, "
-                        f"{cases[cname]['H']}], per step"
+            "library": ("torch.nn.LSTM forward (cuDNN) over [B, 128, H] at "
+                        "each case's B and H, per step"
                         if kname == "lstm_step" else GRU_NO_LIBRARY),
             "case": cname, **extra})
     return lines
@@ -1302,7 +1356,7 @@ def train_convnets(dev, card: str, cudnn: dict) -> list:
 
 
 # ---------------------------------------------------------------------------
-# head dims (C4): the kernels at 12, 100 and 320
+# head dims (C4): the kernels at 12, 100, 320, 640 and 1024
 # ---------------------------------------------------------------------------
 
 HEAD_DIM_SERVE = dict(num_layers=2, num_heads=4, head_dim=100)
@@ -1313,18 +1367,22 @@ HEAD_DIM_COST_RTOL = 1e-4
 
 
 def head_dims(dev) -> dict:
-    """B1-B3 (``tw.C4_FLASH_CASES``) and B4 (``rc.C4_CASES``) against
-    their plain versions at head dims 12, 100 and 320; a ``DecoderLM`` at
-    head_dim 100 (d_model 400, 4 heads) served on the card, 4 requests,
-    tokens held to the greedy oracle; ``multi_head_attention`` trained at
-    head dims 12 and 320 for 3 steps on the card against the same steps on
-    the CPU path."""
+    """B1-B3 (``tw.C4_FLASH_CASES``, ``tw.C4_WIDE_FLASH_CASES``) and B4
+    (``rc.C4_CASES``, ``rc.C4_WIDE_CASES``) against their plain versions
+    at head dims 12, 100, 320, 640 and 1024; a ``DecoderLM`` at head_dim
+    100 (d_model 400, 4 heads) served on the card, 4 requests, tokens held
+    to the greedy oracle; ``multi_head_attention`` trained at head dims
+    12, 320 and 640 for 3 steps on the card against the same steps on the
+    CPU path."""
     from paddle_tpu_torch.convert import decoder_lm_from_numpy, \
         init_numpy_params
     from paddle_tpu_torch.serving import DecoderLM
 
-    flash = run_flash_cases(dev, tuple(tw.C4_FLASH_CASES), "head_dims")
-    ragged = run_kernel_cases(dev, rc.C4_CASES, "head_dims")
+    flash = run_flash_cases(dev, tuple(tw.C4_FLASH_CASES) +
+                            tuple(tw.C4_WIDE_FLASH_CASES), "head_dims",
+                            plain_events=True)
+    ragged = run_kernel_cases(dev, {**rc.C4_CASES, **rc.C4_WIDE_CASES},
+                              "head_dims")
 
     rng = np.random.default_rng(SEED + 5)
     prompts = [rng.integers(2, MODEL["vocab_size"], n).tolist()
@@ -1645,6 +1703,276 @@ def train_small(dev, card: str) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the CRF taggers, quick_start and the nested groups (seventh slice)
+# ---------------------------------------------------------------------------
+
+SRL_STEPS = 7            # the first is the untimed warm-up
+SRL_PROFILED_STEPS = 1   # its events take ~10 s to walk a step
+DECODE_RUNS = 3          # timed decodes, after one warm-up
+PARITY_STEPS_SEQ = 3
+# card against CPU, f32 with TF32 off, 3 steps from the same weights: B5
+# and the plain cell sum h W_h in other orders, the rest is the same torch
+# code: costs within 1e-4 relative, every parameter within 1e-4 relative
+# in norm; decoded paths equal
+SEQ_COST_RTOL, SEQ_PARAM_RTOL = 1e-4, 1e-4
+TAGGER_STEPS = 6
+QUICK_START_STEPS = 4
+# the beam cost on the card against the CPU: costs 1e-5 relative,
+# gradients 1e-5 relative and 1e-6 absolute
+BEAM_RTOL, BEAM_ATOL = 1e-5, 1e-6
+
+
+def _lstm_launches() -> int:
+    return rw.launches()["lstm_step"]
+
+
+def _data_names(sgd):
+    return [n.name for n in sgd.topology.data_nodes]
+
+
+def _cpu_copy(params):
+    return parameters_from_numpy(
+        {k: v.detach().cpu().numpy() for k, v in params.as_dict().items()},
+        device="cpu")
+
+
+def _decode_on_both(decoded, sgd, batch, dev):
+    """The card's decoded paths, the CPU path's on a copy of the same
+    weights, and the card's ms a batch (one warm-up, then
+    :data:`DECODE_RUNS` timed runs, each to the paths on the host)."""
+    names = _data_names(sgd)
+    got = sw.decode(decoded, sgd.parameters, batch, names, dev)
+    before = _lstm_launches()
+    ms = []
+    for _ in range(DECODE_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sw.decode(decoded, sgd.parameters, batch, names, dev)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    launched = (_lstm_launches() - before) / DECODE_RUNS
+    want = sw.decode(decoded, _cpu_copy(sgd.parameters), batch, names,
+                     torch.device("cpu"))
+    return got, want, ms, launched
+
+
+def srl_parity(dev) -> dict:
+    """SRL at ``sw.PARITY`` (depth 3, hidden 32, vocab 512), f32: 3
+    steps on the card against the same steps on the CPU path, from the
+    same weights on the same batch; then both decode it."""
+    batch = sw.srl_batch(sw.PARITY)
+    runs = {}
+    with nw.f32_policy():
+        for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+            sgd, dec = sw.build_srl(where, sw.PARITY)
+            before = _lstm_launches()
+            costs = (_train_costs(sgd, batch, PARITY_STEPS_SEQ, sw)[0]
+                     if side == "card" else
+                     _cpu_steps(sgd, batch, PARITY_STEPS_SEQ, sw))
+            paths = sw.decode(dec, sgd.parameters, batch, _data_names(sgd),
+                              where)
+            runs[side] = (sgd, [float(c) for c in costs], paths,
+                          _lstm_launches() - before)
+    (csgd, ccosts, cpaths, launched), (psgd, pcosts, ppaths, _) = \
+        runs["card"], runs["cpu"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(ccosts, pcosts)]
+    params = {k: _rel_norm(csgd.parameters[k].detach().cpu(), v.detach())
+              for k, v in psgd.parameters.as_dict().items()}
+    frames = sw.frames(batch)
+    expected = sw.PARITY["depth"] * frames * (PARITY_STEPS_SEQ + 1)
+    res = {"phase": "srl_parity", "config": sw.PARITY, "batch": len(batch),
+           "frames": frames, "steps": PARITY_STEPS_SEQ,
+           "card_costs": ccosts, "cpu_costs": pcosts,
+           "max_rel_diff": max(rel), "cost_rtol": SEQ_COST_RTOL,
+           "max_param_rel_diff": max(params.values()),
+           "param_rtol": SEQ_PARAM_RTOL,
+           "paths_equal": bool(np.array_equal(cpaths, ppaths)),
+           "b5_launches": launched, "b5_launches_expected": expected}
+    emit(res)
+    if max(rel) > SEQ_COST_RTOL or max(params.values()) > SEQ_PARAM_RTOL \
+            or not res["paths_equal"] or launched != expected:
+        raise AssertionError("SRL: the card and the CPU path disagree")
+    return res
+
+
+def train_srl(dev, card: str) -> dict:
+    """SRL at the book's width (``sw.BOOK``: depth 8, LSTMs of 128,
+    dictionaries 44068/59/3162), batch 10, ``Momentum(0, 1e-3)``: a
+    warm-up and 6 timed ``SGD.train`` steps on one batch (finite, falling
+    costs; B5 launched 8 x frames a step), a profiled step (the card time
+    by group, the idle share), then ``crf_decoding`` through
+    ``Inference``: ms a batch, paths equal to the CPU path's."""
+    from paddle_tpu_torch.tools.profile_ctr import ranged_optimizer
+
+    t0 = time.perf_counter()
+    sgd, decoded = sw.build_srl(dev)
+    batch = sw.srl_batch()
+    frames = sw.frames(batch)
+    tokens = sum(len(s[0]) for s in batch)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    rw.reset_launches()
+    costs, step_ms = _train_costs(sgd, batch, SRL_STEPS, sw)
+    used = rw.launches()
+    depth = sw.BOOK["depth"]
+    expected = {k: (depth * frames * SRL_STEPS if k == "lstm_step" else 0)
+                for k in used}
+    med = float(np.median(step_ms[1:]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ranged_optimizer(sgd)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with sw.ranged_crf(), torch.profiler.profile(activities=acts,
+                                                 acc_events=True) as prof:
+        _train_costs(sgd, batch, SRL_PROFILED_STEPS, sw)
+    breakdown = sw.breakdown(prof, SRL_PROFILED_STEPS, med,
+                             "lstm_step_kernel")
+    got, want, dec_ms, dec_launches = _decode_on_both(decoded, sgd, batch,
+                                                      dev)
+    res = {"phase": "train_srl", "config": sw.BOOK, "batch": len(batch),
+           "tokens": tokens, "frames": frames,
+           "optimizer": {"momentum": sw.SRL_MOMENTUM,
+                         "learning_rate": sw.SRL_LEARNING_RATE},
+           "steps": SRL_STEPS, "costs": costs, "step_ms": step_ms,
+           "ms_per_step": med, "sentences_per_s": len(batch) / (med / 1e3),
+           "tokens_per_s": tokens / (med / 1e3), "peak_memory_gb": peak,
+           "parameters": sum(p.numel() for p in
+                             sgd.parameters.as_dict().values()),
+           "setup_s": setup_s, "kernel_launches": used,
+           "launches_expected": expected,
+           "b5_launches_per_step": used["lstm_step"] / SRL_STEPS,
+           "profile": breakdown,
+           "decode_ms": dec_ms,
+           "decode_ms_median": float(np.median(dec_ms)),
+           "decode_b5_launches": dec_launches,
+           "decode_paths_equal_cpu": bool(np.array_equal(got, want)),
+           "nvidia_smi": card}
+    emit(res)
+    if not all(np.isfinite(costs)) or not costs[-1] < costs[0]:
+        raise AssertionError(f"SRL did not learn: {costs}")
+    if used != expected or not res["decode_paths_equal_cpu"]:
+        raise AssertionError("SRL: launches or decoded paths wrong")
+    return res
+
+
+def train_chunker(dev, card: str) -> dict:
+    """The CoNLL-2000 chunker (23 tags), batch 64, Adam 1e-3, 6 steps on
+    one batch, then its decode against the CPU path's."""
+    sgd, decoded = sw.build_chunker(dev)
+    batch = sw.chunk_batch()
+    costs, step_ms = _train_costs(sgd, batch, TAGGER_STEPS, sw)
+    got, want, dec_ms, _ = _decode_on_both(decoded, sgd, batch, dev)
+    med = float(np.median(step_ms[1:]))
+    res = {"phase": "train_chunker", "config": sw.CHUNK,
+           "batch": len(batch), "steps": TAGGER_STEPS, "costs": costs,
+           "step_ms": step_ms, "ms_per_step": med,
+           "sentences_per_s": len(batch) / (med / 1e3),
+           "decode_ms_median": float(np.median(dec_ms)),
+           "decode_paths_equal_cpu": bool(np.array_equal(got, want)),
+           "nvidia_smi": card}
+    emit(res)
+    if not all(np.isfinite(costs)) or not costs[-1] < costs[0] or \
+            not res["decode_paths_equal_cpu"]:
+        raise AssertionError("chunker: costs or decoded paths wrong")
+    return res
+
+
+# LSTM layers of each quick_start architecture
+QS_LSTM_LAYERS = {"lstm": 1, "bidi_lstm": 2, "db_lstm": 4, "resnet_lstm": 4}
+
+
+def train_quick_start(dev, card: str) -> list:
+    """Every quick_start architecture at the demo's width (dict 30000,
+    embedding 128), batch 128 of reviews of 10-100 tokens, Adam 2e-3, 4
+    steps on one batch: finite, falling costs; B5 launched layers x 128
+    frames a step; ms a batch and samples/s."""
+    out = []
+    for arch in qw.quick_start.ARCHS:
+        sgd, _ = qw.build_trainer(arch, dev)
+        batch = qw.batch(arch)
+        rw.reset_launches()
+        costs, step_ms = _train_costs(sgd, batch, QUICK_START_STEPS, qw)
+        launched = _lstm_launches()
+        expected = QS_LSTM_LAYERS.get(arch, 0) * QUICK_START_STEPS * (
+            sw.frames(batch) if arch != "lr" else 0)
+        med = float(np.median(step_ms[1:]))
+        res = {"phase": "train_quick_start", "arch": arch, **qw.DEMO,
+               "batch": qw.BATCH, "steps": QUICK_START_STEPS,
+               "costs": costs, "step_ms": step_ms, "ms_per_batch": med,
+               "samples_per_s": qw.BATCH / (med / 1e3),
+               "b5_launches": launched, "b5_launches_expected": expected,
+               "nvidia_smi": card}
+        emit(res)
+        if not all(np.isfinite(costs)) or not costs[-1] < costs[0] or \
+                launched != expected:
+            raise AssertionError(f"quick_start {arch}: costs or launches "
+                                 "wrong")
+        out.append(res)
+        del sgd
+    return out
+
+
+def nested_groups(dev) -> dict:
+    """The hierarchical groups (``tools/nested_workload``) at width 128,
+    fed through the sub-sequence slot: 3 Adam steps on the card against
+    the CPU path, f32; then ``cross_entropy_over_beam`` on its cases,
+    costs and gradients, card against CPU."""
+    groups = []
+    docs = nestw.documents()
+    with nw.f32_policy():
+        for config in nestw.CONFIGS:
+            costs = {}
+            for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+                sgd = nestw.build_trainer(config, where)
+                costs[side] = [float(c) for c in (
+                    _train_costs(sgd, docs, PARITY_STEPS_SEQ, nestw)[0]
+                    if side == "card" else
+                    _cpu_steps(sgd, docs, PARITY_STEPS_SEQ, nestw))]
+            rel = [abs(a - b) / abs(b) for a, b in
+                   zip(costs["card"], costs["cpu"])]
+            res = {"phase": "nested_groups", "config": config,
+                   "width": nestw.WIDTH, "batch": nestw.BATCH,
+                   "card_costs": costs["card"], "cpu_costs": costs["cpu"],
+                   "max_rel_diff": max(rel), "rtol": SEQ_COST_RTOL}
+            emit(res)
+            if max(rel) > SEQ_COST_RTOL or not all(
+                    np.isfinite(costs["card"])):
+                raise AssertionError(f"nested {config}: the card and the "
+                                     "CPU path disagree")
+            groups.append(res)
+    beams = []
+    for name, case in nestw.beam_cases().items():
+        card_cost, card_grads = nestw.beam_cost_and_grads(case, dev)
+        cpu_cost, cpu_grads = nestw.beam_cost_and_grads(case, "cpu")
+        cost_ok = np.allclose(card_cost, cpu_cost, rtol=BEAM_RTOL, atol=0)
+        grad_err = max(float(np.abs(a - b).max())
+                       for a, b in zip(card_grads, cpu_grads))
+        grads_ok = all(np.allclose(a, b, rtol=BEAM_RTOL, atol=BEAM_ATOL)
+                       for a, b in zip(card_grads, cpu_grads))
+        res = {"phase": "beam_cost", "case": name,
+               "card_costs": card_cost.tolist(),
+               "cpu_costs": cpu_cost.tolist(),
+               "max_grad_abs_diff": grad_err,
+               "within_tolerance": bool(cost_ok and grads_ok)}
+        emit(res)
+        if not res["within_tolerance"]:
+            raise AssertionError(f"beam cost {name}: card and CPU differ")
+        beams.append(res)
+    return {"groups": groups, "beams": beams}
+
+
+def _cpu_steps(sgd, batch, steps, workload):
+    from paddle_tpu_torch import event
+
+    costs = []
+    sgd.train(workload.repeat_reader(batch, steps), event_handler=lambda ev:
+              costs.append(float(ev.cost))
+              if isinstance(ev, event.EndIteration) else None,
+              feeding=workload.FEEDING)
+    return costs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script drives the port on "
@@ -1656,6 +1984,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+    laps, last = {}, [t_start]
+
+    def lap(name: str) -> None:
+        """Seconds since the last lap, under ``name``."""
+        now = time.perf_counter()
+        laps[name] = round(now - last[0], 1)
+        last[0] = now
+
     card = card_line()
     emit({"phase": "card", "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -1670,6 +2006,7 @@ def main() -> int:
           "ptxas": [line.strip() for _, log in build.BUILD_LOG.values()
                     for line in log.splitlines() if "registers" in line
                     or "spill" in line]})
+    lap("build")
 
     cases = run_kernel_cases(dev)
     model = build_model(dev)
@@ -1678,17 +2015,20 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     serve_small(dev)
+    lap("kernel_and_serve")
 
     flash = run_flash_cases(dev)
     trained = train(dev)
     train_parity(dev)
     torch.cuda.empty_cache()
+    lap("flash_and_train")
 
     rnn_cases = run_rnn_cases(dev)
     trained_lstm = train_lstm(dev)
     trained_gru = train_gru(dev)
     rnn_parity(dev)
     torch.cuda.empty_cache()
+    lap("rnn")
 
     nmt_parity(dev)
     trained_nmt, nmt_sgd = train_nmt(dev, card)
@@ -1698,6 +2038,7 @@ def main() -> int:
     generations_equal(generated_nmt)
     del nmt_sgd
     torch.cuda.empty_cache()
+    lap("nmt")
 
     cudnn = iw.configure_cudnn()
     image_parity(dev)
@@ -1705,8 +2046,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_convnets(dev, card, cudnn)
     torch.cuda.empty_cache()
+    lap("image")
 
     head_dims(dev)
+    lap("head_dims")
     deepfm_parity(dev)
     _, ctr_sgd, ctr_data = train_deepfm(dev, card)
     steps_equal("deepfm_step", ctr_sgd, ctr_data.feeds(0))
@@ -1714,8 +2057,20 @@ def main() -> int:
                 ctr_data.ids[0])
     del ctr_sgd, ctr_data
     torch.cuda.empty_cache()
+    lap("ctr")
     train_gan(dev, card)
     train_small(dev, card)
+    torch.cuda.empty_cache()
+    lap("gan_vae_traffic")
+
+    srl_parity(dev)
+    trained_srl = train_srl(dev, card)
+    train_chunker(dev, card)
+    lap("taggers")
+    trained_qs = train_quick_start(dev, card)
+    lap("quick_start")
+    nested_groups(dev)
+    lap("nested")
 
     main_case = next(c for c in cases if c["case"] == "mixed_f32")
     decode_case = next(c for c in cases if c["case"] == "decode_f32")
@@ -1758,10 +2113,13 @@ def main() -> int:
                            else "backward of a saved forward"),
             "ptxas": ptxas_of("flash_attention_sm90", FLASH_PTXAS[name]),
             "case": "a_bf16_8x1024_causal"})
-    kernels += rnn_kernel_lines(rnn_cases, trained_lstm, trained_gru,
-                                {"train_nmt": trained_nmt,
-                                 "generate_nmt": generated_nmt})
-    emit({"phase": "done", "seconds_total": time.perf_counter() - t_start})
+    kernels += rnn_kernel_lines(
+        rnn_cases, trained_lstm, trained_gru,
+        {"train_nmt": trained_nmt, "generate_nmt": generated_nmt},
+        {"srl": trained_srl["kernel_launches"]["lstm_step"],
+         "quick_start": sum(r["b5_launches"] for r in trained_qs)})
+    emit({"phase": "done", "seconds_total": time.perf_counter() - t_start,
+          "seconds_by_phase": laps})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 // dQ over packed sequences with segment ids and causal masking, for f32
 // inputs and for bf16 (P and dS rounded to bf16 before their products, or
 // kept in f32 under attn_pv_f32), at every head dim that is a multiple of
-// 8 from 8 to 512 and any sequence lengths (the wrapper runs a head dim
+// 8 (above 512 on the wide kernels, in chunks of 512 columns) and any
+// sequence lengths (the wrapper runs a head dim
 // that is not a multiple of 8 on copies of q, k, v widened with zero
 // columns to the next one).  bf16 with P and dS rounded at
 // head dim 64 or 128 on whole 64-row tiles (the training path) is
@@ -184,17 +185,13 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, size_t rs,
   }
 }
 
-// c[i][j] = sum_d A[ty + 16 i][d] * B[tx + 16 j][d] over shared tiles
+// c[i][j] += sum_d A[ty + 16 i][d] * B[tx + 16 j][d] over shared tiles,
+// d in order
 template <typename T, int D>
-__device__ __forceinline__ void tile_dot_nt(
+__device__ __forceinline__ void tile_dot_nt_add(
     const T* A, const T* B, int ty, int tx,
     float c[Tile<D>::RI][Tile<D>::RI]) {
   constexpr int RI = Tile<D>::RI;
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-#pragma unroll
-    for (int j = 0; j < RI; ++j) c[i][j] = 0.f;
-  }
 #pragma unroll 4
   for (int d = 0; d < D; d += 4) {
     float4 a[RI], b[RI];
@@ -213,6 +210,20 @@ __device__ __forceinline__ void tile_dot_nt(
       }
     }
   }
+}
+
+// c[i][j] = sum_d A[ty + 16 i][d] * B[tx + 16 j][d] over shared tiles
+template <typename T, int D>
+__device__ __forceinline__ void tile_dot_nt(
+    const T* A, const T* B, int ty, int tx,
+    float c[Tile<D>::RI][Tile<D>::RI]) {
+  constexpr int RI = Tile<D>::RI;
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+#pragma unroll
+    for (int j = 0; j < RI; ++j) c[i][j] = 0.f;
+  }
+  tile_dot_nt_add<T, D>(A, B, ty, tx, c);
 }
 
 // acc[i][CW g + e] += sum_k P[ty + 16 i][k] * X[k][16 CW g + CW tx + e]:
@@ -621,6 +632,378 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// head dims above 512: the wide kernels
+// ---------------------------------------------------------------------------
+//
+// Above 512 columns a tile no longer fits the layout of the kernels above
+// (four f32 tiles of 16 rows x 1024 columns would take 264 KB).  The wide
+// kernels are their simple form: the head dim is cut into chunks of
+// WD = 512 columns and each block owns one (tile, head, batch, chunk c).
+// Its products over the whole head dim (Q K^T, and dO V^T in the
+// backward) stream chunk after chunk through the 16-row tiles of Tile<512>,
+// adding into the same registers in column order, so every block of a
+// (tile, head, batch) computes the same scores, softmax and P; each then
+// takes its own chunk of V (forward), of dO and Q (dK/dV) or of K (dQ) for
+// the product it accumulates and writes chunk c of its output (the
+// forward's chunk-0 block writes lse).  The scores are recomputed once per
+// chunk: the price of keeping the tiles and registers of width 512.  Rows
+// are d elements apart; a chunk past d is zero-filled as it loads.
+
+constexpr int WD = 512;
+
+__host__ __device__ constexpr int n_chunks(int dh) { return (dh + WD - 1) / WD; }
+
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS)
+flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const int* __restrict__ qrange,
+                      const int* __restrict__ krange,
+                      const int* __restrict__ qseg,
+                      const int* __restrict__ kseg, T* __restrict__ o,
+                      float* __restrict__ lse, int Sq, int Sk, int H, int dh,
+                      int causal, int pv_f32, float scale) {
+  using TL = Tile<WD>;
+  constexpr int TR = TL::ROWS, RI = TL::RI;
+  const int nch = n_chunks(dh);
+  const int qt = blockIdx.x, h = blockIdx.y;
+  const int b = blockIdx.z / nch, ch = blockIdx.z % nch;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int nqt = n_tiles(Sq, TR), nkt = n_tiles(Sk, TR);
+  const size_t rs = static_cast<size_t>(H) * dh;
+  const int q_rows = min(TR, Sq - qt * TR);
+  const int cw = min(WD, dh - ch * WD);
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* q_s = reinterpret_cast<T*>(smem);
+  T* k_s = reinterpret_cast<T*>(smem + tile_bytes<T, WD>());
+  T* v_s = reinterpret_cast<T*>(smem + 2 * tile_bytes<T, WD>());
+  float* p_s = reinterpret_cast<float*>(smem + 3 * tile_bytes<T, WD>());
+  int* qseg_s = reinterpret_cast<int*>(smem + 3 * tile_bytes<T, WD>() +
+                                       ptile_bytes<WD>());
+  int* kseg_s = qseg_s + TR;
+
+  const size_t q0 = static_cast<size_t>(b) * Sq + qt * TR;
+  const T* q_base = q + q0 * rs + h * dh;
+  if (tid < TR) qseg_s[tid] = tid < q_rows ? qseg[q0 + tid] : -1;
+  const int* qr = qrange + (static_cast<size_t>(b) * nqt + qt) * 2;
+
+  float m[RI], l[RI], acc[RI][TL::NC];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < TL::NC; ++c) acc[i][c] = 0.f;
+  }
+
+  const int kt_end = causal ? min(nkt, qt + 1) : nkt;
+  for (int kt = 0; kt < kt_end; ++kt) {
+    if (!tiles_live(qr, krange + (static_cast<size_t>(b) * nkt + kt) * 2)) {
+      continue;
+    }
+    const size_t k0 = static_cast<size_t>(b) * Sk + kt * TR;
+    const T* k_base = k + k0 * rs + h * dh;
+    const int k_rows = min(TR, Sk - kt * TR);
+    float s[RI][RI];
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+#pragma unroll
+      for (int j = 0; j < RI; ++j) s[i][j] = 0.f;
+    }
+    for (int c = 0; c < nch; ++c) {
+      const int w = min(WD, dh - c * WD);
+      __syncthreads();   // the previous readers of the tiles are done
+      load_tile<T, WD>(q_s, q_base + c * WD, rs, q_rows, w, tid);
+      load_tile<T, WD>(k_s, k_base + c * WD, rs, k_rows, w, tid);
+      __syncthreads();
+      tile_dot_nt_add<T, WD>(q_s, k_s, ty, tx, s);
+    }
+    load_tile<T, WD>(v_s, v + k0 * rs + h * dh + ch * WD, rs, k_rows, cw,
+                     tid);
+    if (tid < TR) kseg_s[tid] = tid < k_rows ? kseg[k0 + tid] : -1;
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int r = ty + 16 * i;
+      const int qi = qt * TR + r;
+      const int qsg = qseg_s[r];
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < RI; ++j) {
+        const int c = tx + 16 * j;
+        const bool live =
+            qsg == kseg_s[c] && (!causal || qi >= kt * TR + c);
+        s[i][j] = c >= k_rows ? -INFINITY
+                              : (live ? s[i][j] * scale : MASK_VALUE);
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], half_warp_max(mx));
+      const float alpha = expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < RI; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        sum += p;
+        p_s[r * TL::PS + tx + 16 * j] = round_to<T>(p, pv_f32);
+      }
+      l[i] = alpha * l[i] + half_warp_sum(sum);
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < TL::NC; ++c) acc[i][c] *= alpha;
+    }
+    __syncthreads();   // the P tile is complete
+    tile_acc_nn<T, WD>(p_s, v_s, ty, tx, acc);
+  }
+
+  float den[RI];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) den[i] = (l[i] == 0.f) ? 1.f : l[i];
+  store_rows<T, WD>(o + q0 * rs + h * dh + ch * WD, rs, ty, tx, q_rows, cw,
+                    acc, den);
+  if (ch == 0 && tx == 0) {
+    float* lrow = lse + (static_cast<size_t>(b) * H + h) * Sq + qt * TR;
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      if (ty + 16 * i < q_rows) lrow[ty + 16 * i] = m[i] + logf(den[i]);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS)
+flash_bwd_kv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         const int* __restrict__ qrange,
+                         const int* __restrict__ krange,
+                         const int* __restrict__ qseg,
+                         const int* __restrict__ kseg, T* __restrict__ dk,
+                         T* __restrict__ dv, int Sq, int Sk, int H, int dh,
+                         int causal, int pv_f32, float scale) {
+  using TL = Tile<WD>;
+  constexpr int TR = TL::ROWS, RI = TL::RI;
+  const int nch = n_chunks(dh);
+  const int kt = blockIdx.x, h = blockIdx.y;
+  const int b = blockIdx.z / nch, ch = blockIdx.z % nch;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int nqt = n_tiles(Sq, TR), nkt = n_tiles(Sk, TR);
+  const size_t rs = static_cast<size_t>(H) * dh;
+  constexpr size_t TB = tile_bytes<T, WD>();
+  const int k_rows = min(TR, Sk - kt * TR);
+  const int cw = min(WD, dh - ch * WD);
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* k_s = reinterpret_cast<T*>(smem);
+  T* v_s = reinterpret_cast<T*>(smem + TB);
+  T* q_s = reinterpret_cast<T*>(smem + 2 * TB);
+  T* do_s = reinterpret_cast<T*>(smem + 3 * TB);
+  float* p_s = reinterpret_cast<float*>(smem + 4 * TB);
+  float* ds_s = p_s + TR * TL::PS;
+  int* qseg_s = reinterpret_cast<int*>(ds_s + TR * TL::PS);
+  int* kseg_s = qseg_s + TR;
+  float* lse_s = reinterpret_cast<float*>(kseg_s + TR);
+  float* delta_s = lse_s + TR;
+
+  const size_t k0 = static_cast<size_t>(b) * Sk + kt * TR;
+  const T* k_base = k + k0 * rs + h * dh;
+  const T* v_base = v + k0 * rs + h * dh;
+  if (tid < TR) kseg_s[tid] = tid < k_rows ? kseg[k0 + tid] : -1;
+  const int* kr = krange + (static_cast<size_t>(b) * nkt + kt) * 2;
+  const float* lse_bh = lse + (static_cast<size_t>(b) * H + h) * Sq;
+  const float* delta_bh = delta + (static_cast<size_t>(b) * H + h) * Sq;
+
+  float dka[RI][TL::NC], dva[RI][TL::NC];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+#pragma unroll
+    for (int c = 0; c < TL::NC; ++c) {
+      dka[i][c] = 0.f;
+      dva[i][c] = 0.f;
+    }
+  }
+
+  for (int qt = causal ? kt : 0; qt < nqt; ++qt) {
+    if (!tiles_live(qrange + (static_cast<size_t>(b) * nqt + qt) * 2, kr)) {
+      continue;
+    }
+    const size_t q0 = static_cast<size_t>(b) * Sq + qt * TR;
+    const T* q_base = q + q0 * rs + h * dh;
+    const T* do_base = dout + q0 * rs + h * dh;
+    const int q_rows = min(TR, Sq - qt * TR);
+    // transposed scores: row = key ty + 16 i, column = query tx + 16 j
+    float s[RI][RI], dp[RI][RI];
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+#pragma unroll
+      for (int j = 0; j < RI; ++j) s[i][j] = dp[i][j] = 0.f;
+    }
+    for (int c = 0; c < nch; ++c) {
+      const int w = min(WD, dh - c * WD);
+      __syncthreads();
+      load_tile<T, WD>(k_s, k_base + c * WD, rs, k_rows, w, tid);
+      load_tile<T, WD>(v_s, v_base + c * WD, rs, k_rows, w, tid);
+      load_tile<T, WD>(q_s, q_base + c * WD, rs, q_rows, w, tid);
+      load_tile<T, WD>(do_s, do_base + c * WD, rs, q_rows, w, tid);
+      __syncthreads();
+      tile_dot_nt_add<T, WD>(k_s, q_s, ty, tx, s);
+      tile_dot_nt_add<T, WD>(v_s, do_s, ty, tx, dp);
+    }
+    __syncthreads();
+    if (ch != nch - 1) {   // the last chunk's are loaded
+      load_tile<T, WD>(q_s, q_base + ch * WD, rs, q_rows, cw, tid);
+      load_tile<T, WD>(do_s, do_base + ch * WD, rs, q_rows, cw, tid);
+    }
+    if (tid < TR) {
+      const bool in = tid < q_rows;
+      qseg_s[tid] = in ? qseg[q0 + tid] : -1;
+      lse_s[tid] = in ? lse_bh[qt * TR + tid] : 0.f;
+      delta_s[tid] = in ? delta_bh[qt * TR + tid] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int r = ty + 16 * i;
+      const int kj = kt * TR + r;
+      const int ksg = kseg_s[r];
+#pragma unroll
+      for (int j = 0; j < RI; ++j) {
+        const int c = tx + 16 * j;
+        const bool live = c < q_rows && r < k_rows && qseg_s[c] == ksg &&
+                          (!causal || qt * TR + c >= kj);
+        const float p = live ? expf(s[i][j] * scale - lse_s[c]) : 0.f;
+        const float ds = p * (dp[i][j] - delta_s[c]) * scale;
+        p_s[r * TL::PS + c] = round_to<T>(p, pv_f32);
+        ds_s[r * TL::PS + c] = round_to<T>(ds, pv_f32);
+      }
+    }
+    __syncthreads();
+    tile_acc_nn<T, WD>(p_s, do_s, ty, tx, dva);
+    tile_acc_nn<T, WD>(ds_s, q_s, ty, tx, dka);
+  }
+
+  float one[RI];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) one[i] = 1.f;
+  store_rows<T, WD>(dk + k0 * rs + h * dh + ch * WD, rs, ty, tx, k_rows, cw,
+                    dka, one);
+  store_rows<T, WD>(dv + k0 * rs + h * dh + ch * WD, rs, ty, tx, k_rows, cw,
+                    dva, one);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS)
+flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         const int* __restrict__ qrange,
+                         const int* __restrict__ krange,
+                         const int* __restrict__ qseg,
+                         const int* __restrict__ kseg, T* __restrict__ dq,
+                         int Sq, int Sk, int H, int dh, int causal,
+                         int pv_f32, float scale) {
+  using TL = Tile<WD>;
+  constexpr int TR = TL::ROWS, RI = TL::RI;
+  const int nch = n_chunks(dh);
+  const int qt = blockIdx.x, h = blockIdx.y;
+  const int b = blockIdx.z / nch, ch = blockIdx.z % nch;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int nqt = n_tiles(Sq, TR), nkt = n_tiles(Sk, TR);
+  const size_t rs = static_cast<size_t>(H) * dh;
+  constexpr size_t TB = tile_bytes<T, WD>();
+  const int q_rows = min(TR, Sq - qt * TR);
+  const int cw = min(WD, dh - ch * WD);
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* q_s = reinterpret_cast<T*>(smem);
+  T* do_s = reinterpret_cast<T*>(smem + TB);
+  T* k_s = reinterpret_cast<T*>(smem + 2 * TB);
+  T* v_s = reinterpret_cast<T*>(smem + 3 * TB);
+  float* ds_s = reinterpret_cast<float*>(smem + 4 * TB);
+  int* qseg_s = reinterpret_cast<int*>(ds_s + TR * TL::PS);
+  int* kseg_s = qseg_s + TR;
+  float* lse_s = reinterpret_cast<float*>(kseg_s + TR);
+  float* delta_s = lse_s + TR;
+
+  const size_t q0 = static_cast<size_t>(b) * Sq + qt * TR;
+  const T* q_base = q + q0 * rs + h * dh;
+  const T* do_base = dout + q0 * rs + h * dh;
+  if (tid < TR) {
+    const size_t bh = (static_cast<size_t>(b) * H + h) * Sq + qt * TR;
+    const bool in = tid < q_rows;
+    qseg_s[tid] = in ? qseg[q0 + tid] : -1;
+    lse_s[tid] = in ? lse[bh + tid] : 0.f;
+    delta_s[tid] = in ? delta[bh + tid] : 0.f;
+  }
+  const int* qr = qrange + (static_cast<size_t>(b) * nqt + qt) * 2;
+
+  float dqa[RI][TL::NC];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+#pragma unroll
+    for (int c = 0; c < TL::NC; ++c) dqa[i][c] = 0.f;
+  }
+
+  const int kt_end = causal ? min(nkt, qt + 1) : nkt;
+  for (int kt = 0; kt < kt_end; ++kt) {
+    if (!tiles_live(qr, krange + (static_cast<size_t>(b) * nkt + kt) * 2)) {
+      continue;
+    }
+    const size_t k0 = static_cast<size_t>(b) * Sk + kt * TR;
+    const T* k_base = k + k0 * rs + h * dh;
+    const T* v_base = v + k0 * rs + h * dh;
+    const int k_rows = min(TR, Sk - kt * TR);
+    float s[RI][RI], dp[RI][RI];
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+#pragma unroll
+      for (int j = 0; j < RI; ++j) s[i][j] = dp[i][j] = 0.f;
+    }
+    for (int c = 0; c < nch; ++c) {
+      const int w = min(WD, dh - c * WD);
+      __syncthreads();
+      load_tile<T, WD>(q_s, q_base + c * WD, rs, q_rows, w, tid);
+      load_tile<T, WD>(do_s, do_base + c * WD, rs, q_rows, w, tid);
+      load_tile<T, WD>(k_s, k_base + c * WD, rs, k_rows, w, tid);
+      load_tile<T, WD>(v_s, v_base + c * WD, rs, k_rows, w, tid);
+      __syncthreads();
+      tile_dot_nt_add<T, WD>(q_s, k_s, ty, tx, s);
+      tile_dot_nt_add<T, WD>(do_s, v_s, ty, tx, dp);
+    }
+    __syncthreads();
+    if (ch != nch - 1) {   // the last chunk's is loaded
+      load_tile<T, WD>(k_s, k_base + ch * WD, rs, k_rows, cw, tid);
+    }
+    if (tid < TR) kseg_s[tid] = tid < k_rows ? kseg[k0 + tid] : -1;
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int r = ty + 16 * i;
+      const int qi = qt * TR + r;
+      const int qsg = qseg_s[r];
+#pragma unroll
+      for (int j = 0; j < RI; ++j) {
+        const int c = tx + 16 * j;
+        const bool live = r < q_rows && c < k_rows && qsg == kseg_s[c] &&
+                          (!causal || qi >= kt * TR + c);
+        const float p = live ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
+        const float ds = p * (dp[i][j] - delta_s[r]) * scale;
+        ds_s[r * TL::PS + c] = round_to<T>(ds, pv_f32);
+      }
+    }
+    __syncthreads();
+    tile_acc_nn<T, WD>(ds_s, k_s, ty, tx, dqa);
+  }
+
+  float one[RI];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) one[i] = 1.f;
+  store_rows<T, WD>(dq + q0 * rs + h * dh + ch * WD, rs, ty, tx, q_rows, cw,
+                    dqa, one);
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -721,6 +1104,68 @@ cudaError_t run(Which w, const Args& a) {
   return a.D == D ? run_as<T, D, true>(w, a) : run_as<T, D, false>(w, a);
 }
 
+// the wide kernels: one block per (tile, head, batch x chunk)
+template <typename T>
+cudaError_t run_wide(Which w, const Args& a) {
+  const int nch = n_chunks(a.D);
+  if (static_cast<long long>(a.B) * nch > 65535) return cudaErrorInvalidValue;
+  constexpr int TR = Tile<WD>::ROWS;
+  if (w == FWD) {
+    auto kernel = flash_fwd_wide_kernel<T>;
+    static bool attr_set = false;
+    if (!attr_set) {
+      const cudaError_t e = allow_smem(kernel, fwd_smem<T, WD>());
+      if (e != cudaSuccess) return e;
+      attr_set = true;
+    }
+    kernel<<<dim3(n_tiles(a.Sq, TR), a.H, a.B * nch), NTHREADS,
+             fwd_smem<T, WD>(), a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const int*>(a.qrange),
+        static_cast<const int*>(a.krange), static_cast<const int*>(a.qseg),
+        static_cast<const int*>(a.kseg), static_cast<T*>(a.o),
+        static_cast<float*>(a.lse), a.Sq, a.Sk, a.H, a.D, a.causal,
+        a.pv_f32, a.scale);
+  } else if (w == BWD_KV) {
+    auto kernel = flash_bwd_kv_wide_kernel<T>;
+    static bool attr_set = false;
+    if (!attr_set) {
+      const cudaError_t e = allow_smem(kernel, bwd_kv_smem<T, WD>());
+      if (e != cudaSuccess) return e;
+      attr_set = true;
+    }
+    kernel<<<dim3(n_tiles(a.Sk, TR), a.H, a.B * nch), NTHREADS,
+             bwd_kv_smem<T, WD>(), a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+        static_cast<const float*>(a.lse_in),
+        static_cast<const float*>(a.delta),
+        static_cast<const int*>(a.qrange), static_cast<const int*>(a.krange),
+        static_cast<const int*>(a.qseg), static_cast<const int*>(a.kseg),
+        static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.Sq, a.Sk, a.H, a.D,
+        a.causal, a.pv_f32, a.scale);
+  } else {
+    auto kernel = flash_bwd_dq_wide_kernel<T>;
+    static bool attr_set = false;
+    if (!attr_set) {
+      const cudaError_t e = allow_smem(kernel, bwd_dq_smem<T, WD>());
+      if (e != cudaSuccess) return e;
+      attr_set = true;
+    }
+    kernel<<<dim3(n_tiles(a.Sq, TR), a.H, a.B * nch), NTHREADS,
+             bwd_dq_smem<T, WD>(), a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+        static_cast<const float*>(a.lse_in),
+        static_cast<const float*>(a.delta),
+        static_cast<const int*>(a.qrange), static_cast<const int*>(a.krange),
+        static_cast<const int*>(a.qseg), static_cast<const int*>(a.kseg),
+        static_cast<T*>(a.dq), a.Sq, a.Sk, a.H, a.D, a.causal, a.pv_f32,
+        a.scale);
+  }
+  return cudaGetLastError();
+}
+
 // the kernel compiled at the least width DP >= the head dim
 template <typename T>
 cudaError_t run_head_dim(Which w, const Args& a) {
@@ -729,15 +1174,16 @@ cudaError_t run_head_dim(Which w, const Args& a) {
   if (a.D <= 64) return run<T, 64>(w, a);
   if (a.D <= 128) return run<T, 128>(w, a);
   if (a.D <= 256) return run<T, 256>(w, a);
-  return run<T, 512>(w, a);
+  if (a.D <= 512) return run<T, 512>(w, a);
+  return run_wide<T>(w, a);
 }
 
-// dtype: 0 = f32, 1 = bf16; head dim a multiple of 8 from 8 to 512; any
+// dtype: 0 = f32, 1 = bf16; head dim a multiple of 8 from 8 up; any
 // positive lengths.  The range arrays hold one [min, max] per tile of
 // Tile<DP>::ROWS rows (the Python wrappers compute them at that tile).
 cudaError_t dispatch(Which w, int dtype, const Args& a) {
   if (a.B <= 0 || a.H <= 0 || a.Sq <= 0 || a.Sk <= 0 || a.H > 65535 ||
-      a.B > 65535 || a.D < 8 || a.D > 512 || a.D % 8 != 0) {
+      a.B > 65535 || a.D < 8 || a.D % 8 != 0) {
     return cudaErrorInvalidValue;
   }
   if (dtype == 0) return run_head_dim<float>(w, a);

@@ -16,11 +16,12 @@
 //   - online softmax with (m, l, acc) in f32; bf16 pages round P to bf16
 //     before the PV product, as the TPU kernel's p.astype(vb.dtype) does;
 //   - a row with nothing live (kv_len 0, or a padded row) yields 0.
-// Every head dim d that is a multiple of 8 from 8 to 512; any page size (a
+// Every head dim d that is a multiple of 8 from 8 up; any page size (a
 // head dim that is not a multiple of 8 is served from a pool the port's
 // kv_cache allocates at the next one, its columns past d zero, with q
 // widened to match by the wrapper).  Head dims above 256 take the wide
-// kernel at the end of this file (ragged_attention_wide_kernel).
+// kernel at the end of this file (ragged_attention_wide_kernel), above
+// 512 in chunks of 512 output columns.
 // The other kernels are compiled at the widths DP = 16, 32, 64, 128 and 256
 // and the one at DP runs every d with DP / 2 < d <= DP (DP = 16 also d = 8):
 // rows of q, of the pages, of the output and of the partials are d
@@ -1399,30 +1400,44 @@ ragged_attention_merge_kernel(const Params p) {
 // Above head dim 256 the persistent kernels' Q tile and K/V ring no longer
 // fit a block's shared memory (at 512: 132 KB of Q and 264 KB of ring in
 // f32).  The wide kernel is the simple form of the same function: one block
-// per (query row, query head, span), 4 warps on the CUDA cores, no shared
-// K/V tiles.  It walks its span's live tokens in tiles of KT: warp w scores
-// tokens w, w + 4, ... of a tile (lanes across the row's columns, K read
-// through the page table once per query head), every thread takes the
-// tile's running maximum and the P of its 32 tokens (rounded to bf16 on
-// bf16 pages against that maximum, as the plain version's round_p_tile and
-// round_p_span do), and thread t accumulates columns t, t + 128, ... of the
-// PV product.  A row taking one span writes its output; a row taking more
-// writes its partial for the merge, as the other kernels do.  What bounds
-// it: every K and V row is read once per query head (G times under GQA)
-// with one multiply-add per element, so bytes; it makes no use of the
-// tensor cores and is not tuned: it serves head dims no model of the
-// repository uses.
+// per (query row, query head, span, chunk of WIDE_MAX_D output columns),
+// 4 warps on the CUDA cores, no shared K/V tiles.  It walks its span's live
+// tokens in tiles of KT: warp w scores tokens w, w + 4, ... of a tile
+// (lanes across the row's columns, K read through the page table once per
+// query head and chunk), every thread takes the tile's running maximum and
+// the P of its 32 tokens (rounded to bf16 on bf16 pages against that
+// maximum, as the plain version's round_p_tile and round_p_span do), and
+// thread t accumulates the chunk's columns t, t + 128, ... of the PV
+// product.  Up to WIDE_MAX_D the row of Q waits in shared memory and one
+// chunk covers every column; above it (any head dim, C4) each block scores
+// over the whole head dim with Q read from global memory, the same sums in
+// the same order, and writes its own chunk: the scores are computed once
+// per chunk.  A row taking one span writes its output; a row taking more
+// writes its partial for the merge (m and l from the first chunk's
+// blocks), as the other kernels do.  What bounds it: every K and V row is
+// read once per query head (G times under GQA, and K once per chunk) with
+// one multiply-add per element, so bytes; it makes no use of the tensor
+// cores and is not tuned: it serves head dims no model of the repository
+// uses.
 constexpr int WIDE_THREADS = 128;
 constexpr int WIDE_MAX_D = 512;
+
+__device__ __forceinline__ float q_at(const Params& p, size_t at) {
+  return p.q_bf16 ? ld1(static_cast<const bf16*>(p.q) + at)
+                  : static_cast<const float*>(p.q)[at];
+}
 
 template <typename T>
 __global__ void __launch_bounds__(WIDE_THREADS)
 ragged_attention_wide_kernel(const Params p) {
   __shared__ float q_s[WIDE_MAX_D];
   __shared__ float s_s[KT];
-  const int row = blockIdx.x, head = blockIdx.y, split = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int D = p.D;
+  const int nch = (D + WIDE_MAX_D - 1) / WIDE_MAX_D;
+  const int row = blockIdx.x, head = blockIdx.y;
+  const int split = blockIdx.z / nch, ch = blockIdx.z % nch;
+  const int c0 = ch * WIDE_MAX_D, cw = min(WIDE_MAX_D, D - c0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int seq = p.row_seq[(row / BLOCK_ROWS) * BLOCK_ROWS];
   const int n = row_tokens(p.qpos[row], p.kv_lens[seq], p.Pm * p.page);
   const int ns = (n + p.span - 1) / p.span;
@@ -1431,10 +1446,9 @@ ragged_attention_wide_kernel(const Params p) {
   const int kh = head / (p.H / p.KVH);
   const int* pt = p.page_table + static_cast<size_t>(seq) * p.Pm;
   const size_t rh = static_cast<size_t>(row) * p.H + head;
-  for (int c = tid; c < D; c += WIDE_THREADS) {
-    const size_t at = rh * D + c;
-    q_s[c] = p.q_bf16 ? ld1(static_cast<const bf16*>(p.q) + at)
-                      : static_cast<const float*>(p.q)[at];
+  const bool staged = nch == 1;
+  if (staged) {
+    for (int c = tid; c < D; c += WIDE_THREADS) q_s[c] = q_at(p, rh * D + c);
   }
   const T* kp = static_cast<const T*>(p.k_pages);
   const T* vp = static_cast<const T*>(p.v_pages);
@@ -1453,7 +1467,13 @@ ragged_attention_wide_kernel(const Params p) {
                            tok % p.page) * p.KVH + kh;
         const T* krow = kp + at * D;
         float dot = 0.f;
-        for (int c = lane; c < D; c += 32) dot += q_s[c] * ld1(krow + c);
+        if (staged) {
+          for (int c = lane; c < D; c += 32) dot += q_s[c] * ld1(krow + c);
+        } else {
+          for (int c = lane; c < D; c += 32) {
+            dot += q_at(p, rh * D + c) * ld1(krow + c);
+          }
+        }
         dot = warp_sum(dot);
         if (QUANT) dot *= p.k_scale[at];
         s = dot * p.sm_scale;
@@ -1474,12 +1494,12 @@ ragged_attention_wide_kernel(const Params p) {
       l += e;
       const size_t at = (static_cast<size_t>(pt[tok / p.page]) * p.page +
                          tok % p.page) * p.KVH + kh;
-      const T* vrow = vp + at * D;
+      const T* vrow = vp + at * D + c0;
       const float w = round_p<T>(e) * (QUANT ? p.v_scale[at] : 1.f);
 #pragma unroll
       for (int i = 0; i < WIDE_MAX_D / WIDE_THREADS; ++i) {
         const int c = tid + WIDE_THREADS * i;
-        if (c < D) acc[i] = fmaf(w, ld1(vrow + c), acc[i]);
+        if (c < cw) acc[i] = fmaf(w, ld1(vrow + c), acc[i]);
       }
     }
     m = m_new;
@@ -1491,16 +1511,17 @@ ragged_attention_wide_kernel(const Params p) {
 #pragma unroll
   for (int i = 0; i < WIDE_MAX_D / WIDE_THREADS; ++i) {
     const int c = tid + WIDE_THREADS * i;
-    if (c >= D) continue;
+    if (c >= cw) continue;
+    const size_t at = rh * D + c0 + c;
     if (!done) {
-      p.ws_acc[part * D + c] = acc[i];
+      p.ws_acc[part * D + c0 + c] = acc[i];
     } else if (p.q_bf16) {
-      static_cast<bf16*>(p.out)[rh * D + c] = __float2bfloat16(acc[i] * inv);
+      static_cast<bf16*>(p.out)[at] = __float2bfloat16(acc[i] * inv);
     } else {
-      static_cast<float*>(p.out)[rh * D + c] = acc[i] * inv;
+      static_cast<float*>(p.out)[at] = acc[i] * inv;
     }
   }
-  if (!done && tid == 0) p.ws_ml[part] = make_float2(m, l);
+  if (!done && ch == 0 && tid == 0) p.ws_ml[part] = make_float2(m, l);
 }
 
 // ---------------------------------------------------------------------------
@@ -1573,7 +1594,11 @@ cudaError_t run_head_dim(const Params& p, int page_dtype,
 
 cudaError_t run_wide(const Params& p, int page_dtype, cudaStream_t stream) {
   const int n_splits = (p.Pm * p.page + p.span - 1) / p.span;
-  const dim3 grid(p.T, p.H, n_splits);
+  const int nch = (p.D + WIDE_MAX_D - 1) / WIDE_MAX_D;
+  if (static_cast<long long>(n_splits) * nch > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  const dim3 grid(p.T, p.H, n_splits * nch);
   switch (page_dtype) {
     case 0:
       ragged_attention_wide_kernel<float><<<grid, WIDE_THREADS, 0, stream>>>(
@@ -1622,7 +1647,7 @@ int rpa_launch(const void* q, const void* k_pages, const void* v_pages,
                int max_items, int page_dtype, int q_dtype, float sm_scale,
                void* stream) {
   if (KVH <= 0 || H % KVH != 0 || T_rows <= 0 || T_rows % BLOCK_ROWS != 0 ||
-      D < 8 || D > WIDE_MAX_D || D % 8 != 0 ||
+      D < 8 || D % 8 != 0 ||
       page <= 0 || Pm <= 0 || span <= 0 || span % KT != 0 ||
       n_splits <= 0 || n_splits > MAX_SPLITS || H > 65535 ||
       max_items <= 0 ||

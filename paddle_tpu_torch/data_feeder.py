@@ -1,16 +1,20 @@
 """DataFeeder: sample batches -> tensors / SequenceBatch (the port of
-``paddle_tpu/data_feeder.py``: dense vectors, integer values and integer
-sequences so far).
+``paddle_tpu/data_feeder.py``: dense vectors, integer values, and
+sequences and nested sequences of either).
 
 A dense slot is one f32 row per sample, stacked to a [B, dim] tensor (a
 sample already shaped [H, W, C] or the like keeps its shape, as
-``paddle_tpu/data_feeder.py:55-60`` allows).  An integer value slot is one int32 per sample, a [B] tensor (a [B, n]
-one for rows of n > 1 values), as ``paddle_tpu/data_feeder.py:76-83``
-gives it.  Sequence slots are packed into the flat segment-id form with
-a bucketed capacity (the next power of two over the batch's token count,
-at least 64), as in the JAX package: the same batch gives the same
-capacity, the same segment ids and so the same attention masks in both
-packages.  The tensors go to the feeder's device, ``cuda`` unless asked.
+``paddle_tpu/data_feeder.py:55-60`` allows).  An integer value slot is
+one int32 per sample, a [B] tensor (a [B, n] one for rows of n > 1
+values), as ``paddle_tpu/data_feeder.py:76-83`` gives it.  Sequence slots
+are packed into the flat segment-id form with a bucketed capacity (the
+next power of two over the batch's token count, at least 64) and a
+bucketed ``max_len`` (at least 16), as in the JAX package: the same batch
+gives the same capacity, the same segment ids and so the same attention
+masks in both packages.  Integer tokens are a [capacity] tensor, dense
+ones [capacity, dim].  A sub-sequence slot takes a list of inner
+sequences per sample and adds their inner ids (``sub_segment_ids``, 0 on
+padding).  The tensors go to the feeder's device, ``cuda`` unless asked.
 """
 
 from __future__ import annotations
@@ -47,14 +51,11 @@ class DataFeeder:
         self.feeding = feeding
         self.device = resolve_device(device)
         for name, itype in data_types:
-            enforce_that((itype.slot == SlotKind.INDEX and
-                          itype.seq in (SeqKind.NO_SEQUENCE,
-                                        SeqKind.SEQUENCE)) or
-                         (itype.slot == SlotKind.DENSE and
-                          itype.seq == SeqKind.NO_SEQUENCE),
+            enforce_that(itype.slot in (SlotKind.INDEX, SlotKind.DENSE),
                          f"slot {name!r} is {itype}: the port feeds dense "
-                         "vectors, integer values and integer sequences "
-                         "only so far", context="feeder")
+                         "vectors and integer values (alone, in sequences "
+                         "and in nested sequences) only so far",
+                         context="feeder")
 
     def __call__(self, batch_data):
         return self.feed(batch_data)
@@ -65,7 +66,9 @@ class DataFeeder:
         for name, itype in self.data_types:
             col = [sample[self.feeding[name]] for sample in batch_data]
             if itype.seq == SeqKind.SEQUENCE:
-                out[name] = self._sequence(col)
+                out[name] = self._sequence(itype, col)
+            elif itype.seq == SeqKind.SUB_SEQUENCE:
+                out[name] = self._sub_sequence(itype, col)
             elif itype.slot == SlotKind.DENSE:
                 out[name] = self._dense(itype, name, col)
             else:
@@ -89,11 +92,39 @@ class DataFeeder:
             arr = arr[:, 0]
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
-    def _sequence(self, col) -> SequenceBatch:
-        seqs = [np.asarray(s, np.int32).reshape(-1) for s in col]
+    def _tokens(self, itype: InputType, seq) -> np.ndarray:
+        """One sequence's tokens: [n] int32 ids or [n, dim] f32 rows."""
+        if itype.slot == SlotKind.INDEX:
+            return np.asarray(seq, np.int32).reshape(-1)
+        rows = [np.asarray(t, np.float32).reshape(-1) for t in seq]
+        for r in rows:
+            enforce_that(r.size == itype.dim, f"dense sequence slot expects "
+                         f"dim {itype.dim}, got {r.size}", context="feeder")
+        return (np.stack(rows) if rows else
+                np.zeros((0, itype.dim), np.float32))
+
+    def _pack(self, itype: InputType, seqs) -> SequenceBatch:
         cap = _bucket(sum(s.shape[0] for s in seqs))
-        sb = SequenceBatch.from_list(seqs, dtype=np.int32, capacity=cap,
+        dtype = np.int32 if itype.slot == SlotKind.INDEX else np.float32
+        sb = SequenceBatch.from_list(seqs, dtype=dtype, capacity=cap,
                                      device=self.device)
         # bucket the host-side max_len as the JAX feeder does
         return dataclasses.replace(
             sb, max_len=min(cap, _bucket(sb.max_len or 1, minimum=16)))
+
+    def _sequence(self, itype: InputType, col) -> SequenceBatch:
+        return self._pack(itype, [self._tokens(itype, s) for s in col])
+
+    def _sub_sequence(self, itype: InputType, col) -> SequenceBatch:
+        flat, sub_ids = [], []
+        for sample in col:
+            inner = [self._tokens(itype, s) for s in sample]
+            for j, toks in enumerate(inner):
+                sub_ids.extend([j] * toks.shape[0])
+            flat.append(np.concatenate(inner, axis=0) if inner else
+                        self._tokens(itype, []))
+        sb = self._pack(itype, flat)
+        sub = np.zeros((sb.capacity,), np.int32)
+        sub[:len(sub_ids)] = sub_ids
+        return dataclasses.replace(
+            sb, sub_segment_ids=torch.from_numpy(sub).to(self.device))

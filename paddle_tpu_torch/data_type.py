@@ -45,3 +45,11 @@ def integer_value(value_range: int) -> InputType:
 
 def integer_value_sequence(value_range: int) -> InputType:
     return InputType(value_range, SlotKind.INDEX, SeqKind.SEQUENCE)
+
+
+def dense_vector_sub_sequence(dim: int) -> InputType:
+    return InputType(dim, SlotKind.DENSE, SeqKind.SUB_SEQUENCE)
+
+
+def integer_value_sub_sequence(value_range: int) -> InputType:
+    return InputType(value_range, SlotKind.INDEX, SeqKind.SUB_SEQUENCE)

@@ -3,13 +3,18 @@ subset ``data``, ``fc``, ``embedding``, ``layer_norm``, ``addto``,
 ``multi_head_attention`` and ``classification_cost``, the recurrent
 subset ``lstmemory``, ``grumemory``, ``pooling``, ``first_seq``,
 ``last_seq``, ``expand``, the Elman ``recurrent`` layer, the step layers
-``gru_step``/``lstm_step`` with ``recurrent_group``, ``memory`` and
-``StaticInput`` from ``recurrent.py``, the attention subset ``mixed``
-(with ``full_matrix_projection`` and ``identity_projection``),
-``dotmul``, ``dotmul_bcast`` and ``cross_entropy_cost``, the convnet
-subset ``img_conv``, ``img_pool``, ``batch_norm``, ``img_cmrnorm``,
-``dropout`` and ``concat``, and the CTR/GAN subset ``slope_intercept``
-and ``multi_binary_label_cross_entropy_cost``).
+``gru_step``/``lstm_step`` with ``recurrent_group``, ``memory``,
+``StaticInput`` and ``SubsequenceInput`` from ``recurrent.py``, ``mixed``
+with every projection (full matrix, transposed, identity, slice, dotmul,
+scaling, table, context) and operator (dotmul, conv), ``dotmul``,
+``dotmul_bcast`` and ``cross_entropy_cost``, the convnet subset
+``img_conv``, ``img_pool``, ``batch_norm``, ``img_cmrnorm``, ``dropout``
+and ``concat``, the CTR/GAN subset ``slope_intercept`` and
+``multi_binary_label_cross_entropy_cost``, the tagging subset ``crf`` and
+``crf_decoding``, the sequence layers ``seq_concat``, ``seq_reshape``,
+``seq_slice``, ``kmax_seq_score``, ``sub_nested_seq``, ``max_id`` and
+``get_output``, and the beam cost ``cross_entropy_over_beam`` with its
+``BeamInput``).
 
 Each function returns a ``LayerOutput`` graph node whose compute fn is
 plain PyTorch on tensors or :class:`SequenceBatch` values; the dtype
@@ -22,7 +27,8 @@ per-example (per-token) losses; the trainer reduces them.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -33,6 +39,7 @@ from paddle_tpu_torch.data_type import InputType, SeqKind
 from paddle_tpu_torch.initializer import Constant
 from paddle_tpu_torch.ops import attention as pattn
 from paddle_tpu_torch.ops import conv as pconv
+from paddle_tpu_torch.ops import crf as pcrf
 from paddle_tpu_torch.ops import losses as ploss
 from paddle_tpu_torch.ops import math as pmath
 from paddle_tpu_torch.ops import norm as pnorm
@@ -40,7 +47,7 @@ from paddle_tpu_torch.ops import pool as ppool
 from paddle_tpu_torch.ops import rnn as prnn
 from paddle_tpu_torch.ops import sequence_ops as pseq
 from paddle_tpu_torch.ops.embedding import embedding_lookup
-from paddle_tpu_torch.platform.enforce import enforce_that
+from paddle_tpu_torch.platform.enforce import EnforceError, enforce_that
 from paddle_tpu_torch.sequence import SequenceBatch
 from paddle_tpu_torch.topology import Context, LayerOutput, ParamSpec, \
     StateSpec, unique_name
@@ -53,7 +60,13 @@ __all__ = ["data", "fc", "embedding", "layer_norm", "addto", "concat",
            "first_seq", "last_seq", "expand", "recurrent",
            "cross_entropy_cost", "StaticInput", "memory", "recurrent_group",
            "gru_step", "lstm_step", "lstm_step_output", "lstm_step_state",
-           "slope_intercept", "multi_binary_label_cross_entropy_cost"]
+           "slope_intercept", "multi_binary_label_cross_entropy_cost",
+           "trans_full_matrix_projection", "slice_projection",
+           "dotmul_projection", "scaling_projection", "table_projection",
+           "context_projection", "dotmul_operator", "conv_operator", "crf",
+           "crf_decoding", "seq_concat", "seq_reshape", "seq_slice",
+           "kmax_seq_score", "sub_nested_seq", "max_id", "get_output",
+           "BeamInput", "cross_entropy_over_beam", "SubsequenceInput"]
 
 
 def _as_list(x) -> list:
@@ -347,13 +360,14 @@ class Projection:
 
 
 class _FullMatrixProjection(Projection):
-    def __init__(self, input, size, param_attr=None):
+    def __init__(self, input, size, param_attr=None, trans=False):
         super().__init__(input, size)
-        self.params["w"] = ParamSpec((input.size, size),
-                                     ParamAttr.to_attr(param_attr))
+        self.trans = trans
+        shape = (size, input.size) if trans else (input.size, size)
+        self.params["w"] = ParamSpec(shape, ParamAttr.to_attr(param_attr))
 
     def compute(self, p, value):
-        return pmath.matmul(_data_of(value), p["w"])
+        return pmath.matmul(_data_of(value), p["w"], trans_b=self.trans)
 
 
 class _IdentityProjection(Projection):
@@ -370,17 +384,194 @@ def full_matrix_projection(input, size: int, param_attr=None) -> Projection:
     return _FullMatrixProjection(input, size, param_attr)
 
 
+def trans_full_matrix_projection(input, size: int,
+                                 param_attr=None) -> Projection:
+    """``x W^T``, W [size, input.size]."""
+    return _FullMatrixProjection(input, size, param_attr, trans=True)
+
+
 def identity_projection(input, offset: int = 0,
                         size: int = None) -> Projection:
     """Columns ``offset:offset + size`` of the input (all by default)."""
     return _IdentityProjection(input, offset, size)
 
 
+class _SliceProjection(Projection):
+    def __init__(self, input, slices):
+        super().__init__(input, sum(e - b for b, e in slices))
+        self.slices = list(slices)
+
+    def compute(self, p, value):
+        d = _data_of(value)
+        return torch.cat([d[..., b:e] for b, e in self.slices], dim=-1)
+
+
+def slice_projection(input, slices: Sequence[Tuple[int, int]],
+                     **_kw) -> Projection:
+    """The input's column ranges ``[(begin, end), ...]`` side by side."""
+    return _SliceProjection(input, slices)
+
+
+class _DotMulProjection(Projection):
+    def __init__(self, input, param_attr=None):
+        super().__init__(input, input.size)
+        self.params["w"] = ParamSpec((input.size,),
+                                     ParamAttr.to_attr(param_attr))
+
+    def compute(self, p, value):
+        return _data_of(value) * p["w"]
+
+
+def dotmul_projection(input, param_attr=None) -> Projection:
+    """``x * w``, one weight a column."""
+    return _DotMulProjection(input, param_attr)
+
+
+class _ScalingProjection(Projection):
+    def __init__(self, input, param_attr=None):
+        super().__init__(input, input.size)
+        self.params["w"] = ParamSpec((1,), ParamAttr.to_attr(param_attr))
+
+    def compute(self, p, value):
+        return _data_of(value) * p["w"][0]
+
+
+def scaling_projection(input, param_attr=None) -> Projection:
+    """``x * w``, one learned scalar."""
+    return _ScalingProjection(input, param_attr)
+
+
+class _TableProjection(Projection):
+    def __init__(self, input, size, param_attr=None):
+        super().__init__(input, size)
+        self.params["w"] = ParamSpec((input.size, size),
+                                     ParamAttr.to_attr(param_attr))
+
+    def compute(self, p, value):
+        return embedding_lookup(p["w"], _data_of(value))
+
+
+def table_projection(input, size: int, param_attr=None) -> Projection:
+    """Rows of W [input.size, size] by the input's ids."""
+    return _TableProjection(input, size, param_attr)
+
+
+class _ContextProjection(Projection):
+    """Each token's window of ``context_len`` tokens starting
+    ``context_start`` away, side by side; positions outside the sequence
+    give zeros.  With ``trainable_padding`` it declares a ``pad``
+    parameter that, as in the JAX package, nothing reads (its gradient is
+    zero)."""
+
+    def __init__(self, input, context_len, context_start, param_attr=None,
+                 trainable_padding=False):
+        super().__init__(input, input.size * context_len)
+        self.context_len = context_len
+        self.context_start = context_start
+        if trainable_padding:
+            pad_rows = max(0, -context_start) + \
+                max(0, context_start + context_len - 1)
+            self.params["pad"] = ParamSpec((max(1, pad_rows), input.size),
+                                           ParamAttr.to_attr(param_attr))
+
+    def compute(self, p, value):
+        enforce_that(isinstance(value, SequenceBatch),
+                     "context projection needs sequence input",
+                     context="mixed")
+        padded, _ = value.to_padded()
+        T = padded.shape[1]
+        t = torch.arange(T, device=padded.device)[None, :]
+        cols = []
+        for k in range(self.context_len):
+            off = self.context_start + k
+            shifted = torch.roll(padded, -off, dims=1)
+            valid = (t + off >= 0) & (t + off < value.lengths[:, None])
+            cols.append(torch.where(valid[..., None], shifted,
+                                    torch.zeros_like(shifted)))
+        out = torch.cat(cols, dim=-1)
+        return SequenceBatch.from_padded(out, value.lengths,
+                                         capacity=value.capacity).data
+
+
+def context_projection(input, context_len: int, context_start: int = None,
+                       padding_attr=False, **_kw) -> Projection:
+    """The sliding window of :class:`_ContextProjection`, centred by
+    default (``context_start = -(context_len // 2)``)."""
+    start = context_start if context_start is not None \
+        else -(context_len // 2)
+    trainable = padding_attr is not False and padding_attr is not None
+    attr = None if padding_attr in (False, True, None) else padding_attr
+    return _ContextProjection(input, context_len, start, param_attr=attr,
+                              trainable_padding=trainable)
+
+
+class Operator:
+    """A :func:`mixed` component over several layers, without
+    parameters."""
+
+    def __init__(self, inputs: List[LayerOutput], size: Optional[int]):
+        self.inputs = inputs
+        self.size = size
+
+    def compute(self, values: list):
+        raise NotImplementedError
+
+
+class _DotMulOperator(Operator):
+    def __init__(self, a, b, scale):
+        super().__init__([a, b], a.size)
+        self.scale = scale
+
+    def compute(self, values):
+        return self.scale * _data_of(values[0]) * _data_of(values[1])
+
+
+def dotmul_operator(a: LayerOutput, b: LayerOutput,
+                    scale: float = 1.0) -> Operator:
+    """``scale * a * b``."""
+    return _DotMulOperator(a, b, scale)
+
+
+class _ConvOperator(Operator):
+    def __init__(self, img, filt, filter_size, num_filters, num_channels,
+                 stride, padding):
+        super().__init__([img, filt], None)
+        self.k, self.nf, self.c = filter_size, num_filters, num_channels
+        self.stride, self.padding = stride, padding
+
+    def compute(self, values):
+        x, f = _data_of(values[0]), _data_of(values[1])
+        B, k, nf, c = x.shape[0], self.k, self.nf, self.c
+        if x.dim() == 2:
+            # flat dense image rows are CHW-major, as every image layer's
+            h = int(round((x.shape[-1] // c) ** 0.5))
+            x = x.reshape(B, c, h, h).permute(0, 2, 3, 1)
+        # each sample convolved with its own filter: one grouped conv, the
+        # batch folded into the channels
+        _, h, w, _ = x.shape
+        xg = x.permute(1, 2, 0, 3).reshape(1, h, w, B * c)
+        wg = f.reshape(B, k, k, c, nf).permute(1, 2, 3, 0, 4).reshape(
+            k, k, c, B * nf)
+        y = pconv.conv2d(xg, wg, stride=self.stride, padding=self.padding,
+                         groups=B)
+        oh, ow = y.shape[1], y.shape[2]
+        return y.reshape(oh, ow, B, nf).permute(2, 0, 1, 3).reshape(B, -1)
+
+
+def conv_operator(img: LayerOutput, filter: LayerOutput, filter_size: int,
+                  num_filters: int, num_channels: int, stride: int = 1,
+                  padding: int = 0) -> Operator:
+    """A conv of each sample's image with the filter another layer gives
+    it ([k, k, C, num_filters] a row)."""
+    return _ConvOperator(img, filter, filter_size, num_filters,
+                         num_channels, stride, padding)
+
+
 def mixed(size: int = None, input=None, name: Optional[str] = None,
           act=None, bias_attr=False, layer_attr=None) -> LayerOutput:
-    """Sum of projections (a bare layer counts as its identity
-    projection), plus a bias, then the activation.  Component i's
-    parameters are ``p{i}_<name>``."""
+    """Sum of projections and operators (a bare layer counts as its
+    identity projection), plus a bias, then the activation.  Component
+    i's parameters are ``p{i}_<name>``."""
     name = name or unique_name("mixed")
     comps = _as_list(input)
     enforce_that(len(comps) > 0, "mixed needs at least one projection",
@@ -391,18 +582,25 @@ def mixed(size: int = None, input=None, name: Optional[str] = None,
         enforce_that(len(sizes) > 0, "mixed size cannot be inferred",
                      context="mixed")
         size = sizes[0]
-    projs = []
+    inputs: List[LayerOutput] = []
+    plan = []            # (component, its input indices, parameter prefix)
     params: Dict[str, ParamSpec] = {}
     for ci, comp in enumerate(comps):
         if isinstance(comp, LayerOutput):
             comp = identity_projection(comp)
-        enforce_that(isinstance(comp, Projection),
-                     f"bad mixed component {comp!r} (the port has the full "
-                     "matrix and identity projections so far)",
-                     context="mixed")
-        for pn, spec in comp.params.items():
-            params[f"p{ci}_{pn}"] = spec
-        projs.append((f"p{ci}_", comp))
+        if isinstance(comp, Projection):
+            for pn, spec in comp.params.items():
+                params[f"p{ci}_{pn}"] = spec
+            plan.append((comp, [len(inputs)], f"p{ci}_"))
+            inputs.append(comp.input)
+        elif isinstance(comp, Operator):
+            plan.append((comp, list(range(len(inputs),
+                                          len(inputs) + len(comp.inputs))),
+                         None))
+            inputs.extend(comp.inputs)
+        else:
+            raise EnforceError(f"bad mixed component {comp!r}",
+                               context="mixed")
     has_bias = bool(bias_attr)
     if has_bias:
         params["b"] = ParamSpec((size,), ParamAttr.to_attr(
@@ -410,17 +608,19 @@ def mixed(size: int = None, input=None, name: Optional[str] = None,
 
     def compute(ctx, p, ins):
         total = None
-        for (prefix, comp), v in zip(projs, ins):
-            local = {k[len(prefix):]: t for k, t in p.items()
-                     if k.startswith(prefix)}
-            y = comp.compute(local, v)
+        for comp, idx, prefix in plan:
+            if prefix is None:
+                y = comp.compute([ins[i] for i in idx])
+            else:
+                local = {k[len(prefix):]: t for k, t in p.items()
+                         if k.startswith(prefix)}
+                y = comp.compute(local, ins[idx[0]])
             total = y if total is None else total + y
         if has_bias:
             total = total + p["b"]
         out = _apply_act(activation, _like(ins[0], total))
         return _apply_extra(ctx, name, out, layer_attr)
 
-    inputs = [comp.input for _, comp in projs]
     return LayerOutput(name=name, layer_type="mixed", inputs=inputs,
                        fn=compute, params=params, size=size,
                        is_sequence=inputs[0].is_sequence)
@@ -914,11 +1114,226 @@ def multi_binary_label_cross_entropy_cost(input, label,
                        is_cost=True)
 
 
+def _crf_params(size: int, param_attr) -> Dict[str, ParamSpec]:
+    """The CRF's transitions, start and stop.  An explicit
+    ``ParamAttr.name`` is a prefix (``<name>.transitions`` and so on), so
+    a ``crf`` cost and its ``crf_decoding`` twin share them."""
+    attr = ParamAttr.to_attr(param_attr)
+
+    def per(pname):
+        if attr.name:
+            return dataclasses.replace(attr, name=f"{attr.name}.{pname}")
+        return attr
+
+    return {"transitions": ParamSpec((size, size), per("transitions")),
+            "start": ParamSpec((size,), per("start")),
+            "stop": ParamSpec((size,), per("stop"))}
+
+
+def _padded_labels(lb) -> torch.Tensor:
+    labels = lb.to_padded()[0] if isinstance(lb, SequenceBatch) else lb
+    return labels[..., 0] if labels.dim() == 3 else labels
+
+
+def crf(input, label, size: int = None, name: Optional[str] = None,
+        param_attr=None, **_kw) -> LayerOutput:
+    """Linear-chain CRF cost, the negative log-likelihood of the label
+    sequence per sequence (``ops/crf.crf_forward``)."""
+    _need_seq(input, "crf")
+    size = size or input.size
+    name = name or unique_name("crf")
+
+    def compute(ctx, p, ins):
+        emissions, mask = ins[0].to_padded()
+        return pcrf.crf_forward(emissions, mask, p["transitions"],
+                                p["start"], p["stop"],
+                                _padded_labels(ins[1]))
+
+    return LayerOutput(name=name, layer_type="crf", inputs=[input, label],
+                       fn=compute, params=_crf_params(size, param_attr),
+                       size=1, is_cost=True)
+
+
+def crf_decoding(input, size: int = None, label=None,
+                 name: Optional[str] = None, param_attr=None,
+                 **_kw) -> LayerOutput:
+    """Viterbi decode: the best path's ids as a sequence (int32 [capacity,
+    1]), or with ``label`` the per-token error (f32 1.0 where the path
+    differs)."""
+    _need_seq(input, "crf_decoding")
+    size = size or input.size
+    name = name or unique_name("crf_decoding")
+    inputs = [input] + ([label] if label is not None else [])
+
+    def compute(ctx, p, ins):
+        sb = ins[0]
+        emissions, mask = sb.to_padded()
+        path = pcrf.crf_viterbi(emissions, mask, p["transitions"],
+                                p["start"], p["stop"])
+        if label is not None:
+            labels = _padded_labels(ins[1]).to(path.dtype)
+            out = ((path != labels) & mask)[..., None].float()
+        else:
+            out = path[..., None]
+        return SequenceBatch.from_padded(out, sb.lengths,
+                                         capacity=sb.capacity)
+
+    return LayerOutput(name=name, layer_type="crf_decoding", inputs=inputs,
+                       fn=compute, params=_crf_params(size, param_attr),
+                       size=1, is_sequence=True)
+
+
+# ---------------------------------------------------------------------------
+# sequence surgery
+# ---------------------------------------------------------------------------
+
+
+def seq_concat(a, b, name: Optional[str] = None, **_kw) -> LayerOutput:
+    """Sequence i of ``a`` then sequence i of ``b``, along time."""
+    name = name or unique_name("seq_concat")
+    return LayerOutput(name=name, layer_type="seq_concat", inputs=[a, b],
+                       fn=lambda ctx, p, ins: pseq.seq_concat(ins[0],
+                                                              ins[1]),
+                       size=a.size, is_sequence=True)
+
+
+def seq_reshape(input, reshape_size: int, name: Optional[str] = None,
+                **_kw) -> LayerOutput:
+    """Each sequence's tokens re-cut to width ``reshape_size``."""
+    _need_seq(input, "seq_reshape")
+    name = name or unique_name("seq_reshape")
+    return LayerOutput(name=name, layer_type="seq_reshape", inputs=[input],
+                       fn=lambda ctx, p, ins: pseq.seq_reshape(
+                           ins[0], reshape_size),
+                       size=reshape_size, is_sequence=True)
+
+
+def seq_slice(input, starts=None, ends=None,
+              name: Optional[str] = None) -> LayerOutput:
+    """Positions [start, end) of each sequence; ``starts``/``ends`` are
+    layers of per-sequence positions, or None for 0 and the length."""
+    _need_seq(input, "seq_slice")
+    name = name or unique_name("seq_slice")
+    extra = [x for x in (starts, ends) if x is not None]
+
+    def compute(ctx, p, ins):
+        sb = ins[0]
+        rest = iter(ins[1:])
+        s = (_data_of(next(rest)).reshape(-1).to(torch.int32)
+             if starts is not None else
+             torch.zeros((sb.num_seqs,), dtype=torch.int32,
+                         device=sb.lengths.device))
+        e = (_data_of(next(rest)).reshape(-1).to(torch.int32)
+             if ends is not None else sb.lengths)
+        return pseq.seq_slice(sb, s, e)
+
+    return LayerOutput(name=name, layer_type="seq_slice",
+                       inputs=[input] + extra, fn=compute, size=input.size,
+                       is_sequence=True)
+
+
+def kmax_seq_score(input, beam_size: int,
+                   name: Optional[str] = None) -> LayerOutput:
+    """Positions of each sequence's ``beam_size`` best scores."""
+    _need_seq(input, "kmax_seq_score")
+    name = name or unique_name("kmax_seq_score")
+    return LayerOutput(name=name, layer_type="kmax_seq_score",
+                       inputs=[input],
+                       fn=lambda ctx, p, ins: pseq.kmax_seq_score(
+                           ins[0], beam_size),
+                       size=beam_size, is_sequence=False)
+
+
+def sub_nested_seq(input, selected_indices,
+                   name: Optional[str] = None) -> LayerOutput:
+    """The inner sequences of a nested sequence that ``selected_indices``
+    names."""
+    name = name or unique_name("sub_nested_seq")
+    return LayerOutput(name=name, layer_type="sub_nested_seq",
+                       inputs=[input, selected_indices],
+                       fn=lambda ctx, p, ins: pseq.sub_nested_seq(
+                           ins[0], _data_of(ins[1]).to(torch.int32)),
+                       size=input.size, is_sequence=True)
+
+
+def max_id(input, name: Optional[str] = None) -> LayerOutput:
+    """The argmax id of each row (token)."""
+    name = name or unique_name("max_id")
+    return LayerOutput(name=name, layer_type="max_id", inputs=[input],
+                       fn=lambda ctx, p, ins: _like(
+                           ins[0], pseq.max_id(_data_of(ins[0]))),
+                       size=1, is_sequence=input.is_sequence)
+
+
+def get_output(input, arg_name: str = "default",
+               name: Optional[str] = None) -> LayerOutput:
+    """A named output of a layer: an :func:`lstm_step`'s c_t for
+    ``arg_name`` "state" or "cell", else the layer's value under a new
+    name."""
+    if arg_name in ("state", "cell") and getattr(input, "lstm_size", None):
+        return lstm_step_state(input, name=name)
+    name = name or unique_name("get_output")
+    node = LayerOutput(name=name, layer_type="get_output", inputs=[input],
+                       fn=lambda ctx, p, ins: ins[0], size=input.size,
+                       is_sequence=input.is_sequence)
+    return _propagate_img_shape(node, input)
+
+
+class BeamInput:
+    """One beam expansion of :func:`cross_entropy_over_beam`: candidate
+    scores, the selected candidates' ids, the gold id and, optionally,
+    each candidate's parent slot in the previous expansion."""
+
+    def __init__(self, candidate_scores, selected_candidates, gold,
+                 prev_ids=None):
+        self.candidate_scores = candidate_scores
+        self.selected_candidates = selected_candidates
+        self.gold = gold
+        self.prev_ids = prev_ids
+
+
+def cross_entropy_over_beam(input, name: Optional[str] = None
+                            ) -> LayerOutput:
+    """The globally normalized beam cost (``ops/losses.
+    cross_entropy_over_beam``) over a list of :class:`BeamInput`."""
+    beams = [input] if isinstance(input, BeamInput) else list(input)
+    for b in beams:
+        enforce_that(isinstance(b, BeamInput),
+                     "cross_entropy_over_beam takes BeamInput(s)",
+                     context="cross_entropy_over_beam")
+    name = name or unique_name("cross_entropy_over_beam")
+    inputs, arity = [], []
+    for b in beams:
+        ins_b = [b.candidate_scores, b.selected_candidates, b.gold] + \
+            ([b.prev_ids] if b.prev_ids is not None else [])
+        arity.append(len(ins_b))
+        inputs += ins_b
+
+    def rows(x):
+        x = _data_of(x)
+        return x.reshape(1, -1) if x.dim() == 1 else x
+
+    def compute(ctx, p, ins):
+        entries, i = [], 0
+        for n in arity:
+            entry = [rows(ins[i]), rows(ins[i + 1]).long(),
+                     _data_of(ins[i + 2]).reshape(-1)]
+            if n == 4:
+                entry.append(rows(ins[i + 3]).long())
+            entries.append(tuple(entry))
+            i += n
+        return ploss.cross_entropy_over_beam(entries)
+
+    return LayerOutput(name=name, layer_type="cross_entropy_over_beam",
+                       inputs=inputs, fn=compute, size=1, is_cost=True)
+
+
 # ---------------------------------------------------------------------------
 # the recurrent group surface (recurrent.py) and its step layers
 # ---------------------------------------------------------------------------
 
-from paddle_tpu_torch.recurrent import (StaticInput, memory,  # noqa: E402
+from paddle_tpu_torch.recurrent import (StaticInput,  # noqa: E402
+                                        SubsequenceInput, memory,
                                         recurrent_group)
 
 

@@ -1,5 +1,5 @@
-"""Prebuilt network helpers (the port of ``paddle_tpu/networks.py:39-160``:
-``simple_img_conv_pool``, ``img_conv_group``, ``simple_lstm``,
+"""Prebuilt network helpers (the port of ``paddle_tpu/networks.py:21-160``:
+``sequence_conv_pool``, ``simple_img_conv_pool``, ``img_conv_group``, ``simple_lstm``,
 ``simple_gru``, ``bidirectional_lstm``, ``bidirectional_gru``,
 ``simple_attention`` and ``dot_product_attention``), with the JAX
 package's layer names."""
@@ -13,9 +13,25 @@ from paddle_tpu_torch import layer as L
 from paddle_tpu_torch import pooling as P
 from paddle_tpu_torch.topology import LayerOutput, unique_name
 
-__all__ = ["simple_img_conv_pool", "img_conv_group", "simple_lstm",
+__all__ = ["sequence_conv_pool", "simple_img_conv_pool", "img_conv_group", "simple_lstm",
            "simple_gru", "bidirectional_lstm", "bidirectional_gru",
            "simple_attention", "dot_product_attention"]
+
+
+def sequence_conv_pool(input, context_len: int, hidden_size: int,
+                       name: Optional[str] = None, context_start: int = None,
+                       pool_type=None, fc_act=None) -> LayerOutput:
+    """Text convolution: a context projection, an fc (tanh) and a
+    sequence pool (max): the quick_start cnn's tower."""
+    name = name or unique_name("seq_conv_pool")
+    ctx = L.mixed(size=input.size * context_len,
+                  input=[L.context_projection(input, context_len=context_len,
+                                              context_start=context_start)],
+                  name=f"{name}_ctx")
+    hidden = L.fc(input=ctx, size=hidden_size, act=fc_act or "tanh",
+                  name=f"{name}_fc")
+    return L.pooling(input=hidden, pooling_type=pool_type or P.MaxPooling(),
+                     name=name)
 
 
 def simple_img_conv_pool(input, filter_size: int, num_filters: int,

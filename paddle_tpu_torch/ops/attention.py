@@ -6,9 +6,10 @@ Two implementations of each of the module's three functions:
   :func:`flash_bwd_kv_kernel`, :func:`flash_bwd_dq_kernel`), the Hopper
   counterparts of the Pallas ``_flash_fwd_kernel``,
   ``_flash_bwd_kv_kernel`` and ``_flash_bwd_dq_kernel``, at every head
-  dim from 1 to 512 (:func:`kernel_width`; a head dim that is not a
-  multiple of 8 runs on copies of q, k, v and dO widened with zero
-  columns to :func:`padded_head_dim`) and any lengths.  bf16 at head dim
+  dim (a head dim that is not a multiple of 8 runs on copies of q, k, v
+  and dO widened with zero columns to :func:`padded_head_dim`; up to 512
+  on the kernels compiled at :func:`kernel_width`, above it on the wide
+  kernels, chunks of :data:`WIDE_CHUNK` columns) and any lengths.  bf16 at head dim
   64 or 128 on whole 64-row tiles runs on the tensor cores, all three as
   wgmma kernels fed by TMA (``csrc/flash_attention_sm90.cu``); every other
   shape, f32, and bf16 under ``attn_pv_f32`` run on the CUDA cores
@@ -53,16 +54,18 @@ from paddle_tpu_torch.platform.flags import FLAGS
 # uniform instead of NaN, exactly as in the JAX package
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
-# what the CUDA kernels take: head dims from 1 to 512, f32 or bf16 (one
-# type for q, k, v and dO), any lengths; the kernels run head dims that are
-# multiples of 8 (others on inputs widened with zero columns to the next
-# one), the CUDA-core ones compiled at KERNEL_WIDTHS, the one at the least
-# width >= the head dim running it, its columns past the head dim zero; the
-# wgmma kernels take bf16 with P and dS rounded at WGMMA_HEAD_DIMS on
-# lengths in whole KERNEL_TILE-row tiles
+# what the CUDA kernels take: every head dim, f32 or bf16 (one type for q,
+# k, v and dO), any lengths; the kernels run head dims that are multiples
+# of 8 (others on inputs widened with zero columns to the next one), the
+# CUDA-core ones compiled at KERNEL_WIDTHS, the one at the least width >=
+# the head dim running it, its columns past the head dim zero, and head
+# dims above the last width on the wide kernels, which stream the head dim
+# in chunks of WIDE_CHUNK columns; the wgmma kernels take bf16 with P and
+# dS rounded at WGMMA_HEAD_DIMS on lengths in whole KERNEL_TILE-row tiles
 KERNEL_TILE = 64
 KERNEL_WIDTHS = (16, 32, 64, 128, 256, 512)
-HEAD_DIM_LIMIT = "from 1 to 512"
+WIDE_CHUNK = 512
+HEAD_DIM_LIMIT = "of at least 1"
 WGMMA_HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -250,7 +253,7 @@ def kernel_shape_error(q_shape, k_shape, dtype) -> Optional[str]:
     b, sq, h, d = q_shape
     if dtype not in _DTYPE_CODE:
         return f"flash kernels take float32 or bfloat16, got {dtype}"
-    if kernel_width(d) is None:
+    if d < 1:
         return f"flash kernels take head_dim {HEAD_DIM_LIMIT}, got {d}"
     if k_shape[0] != b or k_shape[2] != h or k_shape[3] != d:
         return (f"k/v must be [B, Sk, H, D] matching q {tuple(q_shape)}, got "
@@ -289,7 +292,8 @@ def padded_head_dim(head_dim: int) -> int:
 def kernel_width(head_dim: int) -> Optional[int]:
     """The compiled width of the CUDA-core kernel that runs ``head_dim``
     (the least of :data:`KERNEL_WIDTHS` not below it), or None for a head
-    dim the kernels do not take (not :data:`HEAD_DIM_LIMIT`)."""
+    dim no compiled width takes: below 1, or above the last width, where
+    the wide kernels run it in chunks of :data:`WIDE_CHUNK` columns."""
     if not 1 <= head_dim <= KERNEL_WIDTHS[-1]:
         return None
     return next(w for w in KERNEL_WIDTHS if w >= head_dim)
@@ -298,8 +302,8 @@ def kernel_width(head_dim: int) -> Optional[int]:
 def kernel_tile(head_dim: int) -> int:
     """Rows of the kernels' query and key tiles at ``head_dim``: 64, 32
     above 128 and 16 above 256, where the CUDA-core kernels run at widths
-    256 and 512 (four f32 tiles of 256 columns fit shared memory at 32
-    rows, of 512 at 16).  The plain versions round P and dS at the
+    256 and 512 and the wide kernels in chunks of 512 (four f32 tiles of
+    256 columns fit shared memory at 32 rows, of 512 at 16).  The plain versions round P and dS at the
     kernels' running maxima with ``block_k`` set to it."""
     if head_dim > 256:
         return 16

@@ -1,6 +1,8 @@
 """Sequence ops on the flat segment-id form (the port of
-``paddle_tpu/ops/sequence_ops.py:24-101``: the pooling ops, ``seq_first``,
-``seq_last``, ``sequence_softmax`` and ``seq_expand``).
+``paddle_tpu/ops/sequence_ops.py``: the pooling ops, ``seq_first``,
+``seq_last``, ``sequence_softmax``, ``seq_expand``, ``seq_concat``,
+``seq_reshape``, ``seq_slice``, ``kmax_seq_score``, ``max_id`` and
+``sub_nested_seq``).
 
 Padding slots go to one trash segment (``num_seqs``) that is cut off the
 result, so no per-sequence loop is needed.  Sequences are packed in order
@@ -18,18 +20,39 @@ ordered one, and a run reproducible to the bit on the card:
   an H100 that took 73 of a 195 ms NMT training step's card time);
 - the per-segment maximum is ``scatter_reduce`` with ``"amax"``, exact in
   any order.
+
+``seq_slice`` and ``sub_nested_seq`` keep the JAX package's layout: the
+tokens they drop stay where they were, marked as padding, so a sequence
+may have holes.  The sums here run over :func:`_runs`, where a hole or
+padding slot joins the run before it with its value zeroed, so they stay
+ordered and leave the holes out.
 """
 
 from __future__ import annotations
 
 import torch
 
-from paddle_tpu_torch.sequence import SequenceBatch
+from paddle_tpu_torch.platform.enforce import enforce_that
+from paddle_tpu_torch.sequence import (SequenceBatch, lengths_to_segment_ids,
+                                       position_in_sequence)
 
 
 def _seg(sb: SequenceBatch) -> torch.Tensor:
     """Segment ids with pads mapped to the trash segment (= num_seqs)."""
     return torch.where(sb.valid_mask, sb.segment_ids, sb.num_seqs).long()
+
+
+def _runs(sb: SequenceBatch) -> torch.Tensor:
+    """Non-decreasing segment ids: a valid slot's own, any other slot the
+    last valid id before it (0 before the first).  The valid slots' ids
+    are non-decreasing in every batch the port builds, holes included."""
+    ids = torch.where(sb.valid_mask, sb.segment_ids.long(), -1)
+    return torch.clamp(torch.cummax(ids, 0).values, min=0)
+
+
+def _zero_invalid(sb: SequenceBatch, data: torch.Tensor) -> torch.Tensor:
+    valid = sb.valid_mask.reshape((-1,) + (1,) * (data.dim() - 1))
+    return torch.where(valid, data, torch.zeros_like(data))
 
 
 def segment_sum(data: torch.Tensor, seg: torch.Tensor,
@@ -70,7 +93,7 @@ def _rows(seg: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
 
 
 def seq_pool_sum(sb: SequenceBatch) -> torch.Tensor:
-    return segment_sum(sb.data, _seg(sb), sb.num_seqs)
+    return segment_sum(_zero_invalid(sb, sb.data), _runs(sb), sb.num_seqs)
 
 
 def seq_pool_avg(sb: SequenceBatch) -> torch.Tensor:
@@ -131,8 +154,9 @@ def sequence_softmax(sb: SequenceBatch) -> SequenceBatch:
     mx = torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
     ex = torch.where(valid, torch.exp(x - mx.index_select(0, seg)),
                      torch.zeros_like(x))
-    z = segment_sum(ex, seg, n)
-    out = ex / torch.clamp(gather_rows(z, seg), min=1e-30)
+    runs = _runs(sb)
+    z = segment_sum(ex, runs, sb.num_seqs)
+    out = ex / torch.clamp(gather_rows(z, runs), min=1e-30)
     if squeeze:
         out = out[..., None]
     return sb.with_data(out.to(sb.data.dtype))
@@ -143,7 +167,95 @@ def seq_expand(short, sb_long: SequenceBatch) -> SequenceBatch:
     or a SequenceBatch whose first tokens are taken) copied to every
     token of that sequence in ``sb_long``; padding slots are 0."""
     values = seq_first(short) if isinstance(short, SequenceBatch) else short
-    seg = torch.clamp(sb_long.segment_ids, 0, values.shape[0] - 1).long()
+    seg = torch.clamp(_runs(sb_long), max=values.shape[0] - 1)
     data = gather_rows(values, seg)
     mask = sb_long.valid_mask.reshape((-1,) + (1,) * (data.dim() - 1))
     return sb_long.with_data(torch.where(mask, data, torch.zeros_like(data)))
+
+
+def seq_concat(a: SequenceBatch, b: SequenceBatch) -> SequenceBatch:
+    """Sequence i of ``a`` followed by sequence i of ``b``, capacity the
+    sum of theirs."""
+    pa, _ = a.to_padded()
+    pb, mb = b.to_padded()
+    B, Ta, Tb = a.num_seqs, pa.shape[1], pb.shape[1]
+    # one more column takes b's padding slots, then is cut off
+    out = torch.cat([pa, pa.new_zeros((B, Tb + 1) + pa.shape[2:])], dim=1)
+    t_idx = torch.arange(Tb, device=pb.device)[None, :] + \
+        a.lengths.long()[:, None]
+    t_idx = torch.where(mb, t_idx, Ta + Tb)
+    rows = torch.arange(B, device=pb.device)[:, None].expand(B, Tb)
+    out = out.index_put((rows, t_idx), pb.to(out.dtype))[:, :Ta + Tb]
+    return SequenceBatch.from_padded(out, a.lengths + b.lengths,
+                                     capacity=a.capacity + b.capacity)
+
+
+def seq_reshape(sb: SequenceBatch, new_dim: int) -> SequenceBatch:
+    """Each sequence's [len, d] as [len d / new_dim, new_dim] (tokens
+    packed)."""
+    d = sb.data.shape[-1]
+    cap = sb.capacity * d // new_dim
+    lengths = (sb.lengths * d) // new_dim
+    new_max = None if sb.max_len is None else max(1, sb.max_len * d //
+                                                  new_dim)
+    return SequenceBatch(data=sb.data.reshape(cap, new_dim),
+                         segment_ids=lengths_to_segment_ids(lengths, cap),
+                         lengths=lengths.to(torch.int32), max_len=new_max)
+
+
+def seq_slice(sb: SequenceBatch, starts: torch.Tensor,
+              ends: torch.Tensor) -> SequenceBatch:
+    """Keep the tokens at positions [start, end) of each sequence, in
+    place (the dropped ones become padding); same capacity."""
+    pos = position_in_sequence(sb.segment_ids)
+    seg = torch.clamp(sb.segment_ids, 0, sb.num_seqs - 1).long()
+    keep = sb.valid_mask & (pos >= starts[seg]) & (pos < ends[seg])
+    lengths = torch.clamp(torch.minimum(ends, sb.lengths) - starts, min=0)
+    mask = keep.reshape((-1,) + (1,) * (sb.data.dim() - 1))
+    return SequenceBatch(
+        data=torch.where(mask, sb.data, torch.zeros_like(sb.data)),
+        segment_ids=torch.where(keep, sb.segment_ids,
+                                sb.num_seqs).to(torch.int32),
+        lengths=lengths.to(torch.int32), max_len=sb.max_len)
+
+
+def kmax_seq_score(sb: SequenceBatch, k: int) -> torch.Tensor:
+    """[num_seqs, k] int32 positions of each sequence's k best scores
+    (data [capacity] or [capacity, 1]), -1 past its length.  Equal scores
+    go to the lower position first, as ``lax.top_k`` orders them: a
+    stable descending sort, where ``torch.topk`` promises no order."""
+    data = sb.data[..., 0] if sb.data.dim() > 1 else sb.data
+    scores, mask = sb.with_data(data).to_padded()
+    scores = torch.where(mask, scores, torch.full_like(scores,
+                                                       float("-inf")))
+    idx = torch.sort(scores, dim=1, descending=True, stable=True)[1][:, :k]
+    valid = torch.gather(mask, 1, idx)
+    return torch.where(valid, idx, -1).to(torch.int32)
+
+
+def max_id(x: torch.Tensor) -> torch.Tensor:
+    """Argmax over the last axis (the first of equal maxima), int32."""
+    return torch.argmax(x, dim=-1).to(torch.int32)
+
+
+def sub_nested_seq(sb: SequenceBatch, selected: torch.Tensor
+                   ) -> SequenceBatch:
+    """Keep the inner sequences ``selected`` [num_seqs, k] names (-1 for
+    none) of a nested batch, in place; the result is a flat batch."""
+    enforce_that(sb.sub_segment_ids is not None,
+                 "sub_nested_seq requires a nested SequenceBatch",
+                 context="sub_nested_seq")
+    n = sb.num_seqs
+    seg = torch.clamp(sb.segment_ids, 0, n - 1).long()
+    sel = selected.long()[seg]                              # [capacity, k]
+    keep = (sel == sb.sub_segment_ids.long()[:, None]).any(-1) & \
+        sb.valid_mask
+    # an integer count: exact in any order
+    lengths = torch.zeros(n + 1, dtype=torch.int32,
+                          device=seg.device).index_add_(
+        0, torch.where(keep, seg, n), keep.to(torch.int32))[:n]
+    mask = keep.reshape((-1,) + (1,) * (sb.data.dim() - 1))
+    return SequenceBatch(
+        data=torch.where(mask, sb.data, torch.zeros_like(sb.data)),
+        segment_ids=torch.where(keep, sb.segment_ids, n).to(torch.int32),
+        lengths=lengths, max_len=sb.max_len)

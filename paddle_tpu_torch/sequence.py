@@ -1,5 +1,6 @@
 """Ragged sequences in flat, segment-id form (the port of
-``SequenceBatch``, ``paddle_tpu/sequence.py:27-160``).
+``SequenceBatch``, ``paddle_tpu/sequence.py:27-232``, nested batches
+included).
 
 A batch of variable-length sequences is one token buffer padded to a
 capacity, plus ``segment_ids`` mapping each slot to its sequence.  Padding
@@ -7,6 +8,12 @@ slots take the id ``num_seqs``, so they form one more segment of their
 own: attention never crosses a segment, and costs mask padding out with
 ``valid_mask``.  ``to_padded``/``from_padded`` give the [B, T, ...] view
 the recurrent scans take, with T the feeder's bucketed ``max_len``.
+
+A nested batch (sequences of sub-sequences, the reference's
+``subSequenceStartPositions``) carries a second level of ids,
+``sub_segment_ids``: each slot's inner-sequence index within its outer
+sequence.  :func:`nested_to_padded` and :func:`nested_from_padded` give
+and take its [B, S, W, ...] view.
 """
 
 from __future__ import annotations
@@ -25,12 +32,14 @@ from paddle_tpu_torch.platform.enforce import enforce_that
 class SequenceBatch:
     """data: [capacity, ...feature]; segment_ids: [capacity] int32 (>=
     num_seqs marks padding); lengths: [num_seqs] int32; max_len: a host-
-    side upper bound on the longest sequence."""
+    side upper bound on the longest sequence; sub_segment_ids: [capacity]
+    int32 inner-sequence ids of a nested batch, else None."""
 
     data: torch.Tensor
     segment_ids: torch.Tensor
     lengths: torch.Tensor
     max_len: Optional[int] = None
+    sub_segment_ids: Optional[torch.Tensor] = None
 
     @property
     def num_seqs(self) -> int:
@@ -46,7 +55,7 @@ class SequenceBatch:
 
     def with_data(self, data: torch.Tensor) -> "SequenceBatch":
         return SequenceBatch(data, self.segment_ids, self.lengths,
-                             self.max_len)
+                             self.max_len, self.sub_segment_ids)
 
     def to_padded(self, max_len: Optional[int] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -140,3 +149,80 @@ def position_in_sequence(segment_ids: torch.Tensor) -> torch.Tensor:
                           segment_ids[1:] != segment_ids[:-1]])
     start_idx = torch.where(is_start, idx, torch.zeros_like(idx))
     return idx - torch.cummax(start_idx, dim=0).values
+
+
+def lengths_to_segment_ids(lengths: torch.Tensor,
+                           capacity: int) -> torch.Tensor:
+    """[num_seqs] lengths -> [capacity] contiguous segment ids, padding
+    at ``num_seqs``."""
+    B = lengths.shape[0]
+    ends = torch.cumsum(lengths, 0)
+    slots = torch.arange(capacity, dtype=ends.dtype, device=lengths.device)
+    seg = torch.searchsorted(ends, slots, right=True).to(torch.int32)
+    return torch.where(slots < ends[-1], seg, B).to(torch.int32)
+
+
+def nested_to_padded(sb: SequenceBatch, max_inner: int, max_inner_len: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Dense view of a nested batch: ([B, S, W, ...feature] data, inner
+    lengths [B, S], inner-sequence counts [B]).  ``max_inner`` (S) and
+    ``max_inner_len`` (W) are host-side bounds; tokens past them are
+    dropped, as ``to_padded`` drops those past its ``max_len``."""
+    enforce_that(sb.sub_segment_ids is not None,
+                 "nested_to_padded needs a nested SequenceBatch "
+                 "(sub_segment_ids)", context="sequence")
+    B, S, W = sb.num_seqs, int(max_inner), int(max_inner_len)
+    seg = sb.segment_ids.long()
+    sub = sb.sub_segment_ids.long()
+    valid = sb.valid_mask & (sub < S)
+    # contiguous (outer, inner) runs give the position in the inner one
+    combined = torch.where(valid, seg * S + sub, B * S)
+    pos = position_in_sequence(combined).long()
+    valid = valid & (pos < W)
+    s_seg = torch.where(valid, seg, B)
+    s_sub = torch.where(valid, sub, 0)
+    s_pos = torch.where(valid, pos, 0)
+    feat = sb.data.shape[1:]
+    vals = torch.where(valid.reshape((-1,) + (1,) * len(feat)), sb.data,
+                       torch.zeros_like(sb.data))
+    out = sb.data.new_zeros((B + 1, S, W) + feat).index_put(
+        (s_seg, s_sub, s_pos), vals)
+    ones = valid.to(torch.int32)
+    # integer sums and maxima: exact in any order
+    inner_lens = torch.zeros((B + 1) * S, dtype=torch.int32,
+                             device=seg.device).index_add_(
+        0, s_seg * S + s_sub, ones).reshape(B + 1, S)
+    counts = torch.zeros(B + 1, dtype=torch.int32,
+                         device=seg.device).scatter_reduce(
+        0, torch.where(valid, seg, B), torch.where(valid, sub + 1, 0).to(
+            torch.int32), "amax", include_self=True)
+    return out[:B], inner_lens[:B], counts[:B]
+
+
+def nested_from_padded(data: torch.Tensor, inner_lens: torch.Tensor,
+                       counts: torch.Tensor, capacity: int
+                       ) -> SequenceBatch:
+    """Inverse of :func:`nested_to_padded`: [B, S, W, ...feature] + inner
+    lengths [B, S] + counts [B] -> a nested batch of ``min(capacity, B S
+    W)`` slots (the JAX package's size), tokens packed in (outer, inner,
+    position) order."""
+    B, S, W = data.shape[0], data.shape[1], data.shape[2]
+    dev = data.device
+    cap = int(capacity)
+    feat = data.shape[3:]
+    b_ix = torch.arange(B, device=dev).repeat_interleave(S * W)
+    s_ix = torch.arange(S, device=dev).repeat_interleave(W).repeat(B)
+    w_ix = torch.arange(W, device=dev).repeat(B * S)
+    valid = (s_ix < counts.long()[b_ix]) & \
+        (w_ix < inner_lens.long()[b_ix, s_ix])
+    order = torch.argsort((~valid).to(torch.int32), stable=True)[:cap]
+    flat = data.reshape((B * S * W,) + feat).index_select(0, order)
+    seg = torch.where(valid[order], b_ix[order], B).to(torch.int32)
+    sub = torch.where(valid[order], s_ix[order], 0).to(torch.int32)
+    live = torch.arange(S, device=dev)[None, :] < counts[:, None]
+    lengths = torch.where(live, inner_lens, torch.zeros_like(inner_lens)
+                          ).sum(1).to(torch.int32)
+    mask = (seg < B).reshape((-1,) + (1,) * len(feat))
+    return SequenceBatch(data=torch.where(mask, flat, torch.zeros_like(flat)),
+                         segment_ids=seg, lengths=lengths,
+                         max_len=min(cap, S * W), sub_segment_ids=sub)

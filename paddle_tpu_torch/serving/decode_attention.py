@@ -15,14 +15,15 @@ Two implementations of the same function:
 
 - :func:`ragged_paged_attention_kernel` launches the hand-written CUDA
   kernel ``csrc/ragged_paged_attention.cu`` (the Hopper counterpart of
-  the Pallas ``_ragged_kernel``) at every head dim from 1 to 512, any
-  group and page size, f32 or bf16 queries: a plan of work items,
+  the Pallas ``_ragged_kernel``) at every head dim, any group and page
+  size, f32 or bf16 queries: a plan of work items,
   persistent attention blocks over each sequence's tokens split into
   spans of :func:`kernel_split_tokens`, and a merge of the spans.  Head
   dims up to 256 run on kernels compiled at 16, 32, 64, 128 and 256, the
   columns past the head dim zero-filled as they are loaded; above 256 the
   attention blocks are the simple wide kernel, one block per row, head
-  and span.  The pool's rows are :func:`padded_head_dim` wide (the
+  and span (above 512 one per row, head, span and chunk of 512 output
+  columns).  The pool's rows are :func:`padded_head_dim` wide (the
   port's ``kv_cache`` allocates them so, the columns past the head dim
   zero), and a head dim that is not a multiple of 8 runs on q widened
   to that width: the pool is never copied.  It needs block-uniform
@@ -46,7 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.kernels import build
-# the head dims the CUDA kernel takes are the flash kernels': 1 to 512,
+# the head dims the CUDA kernel takes are the flash kernels': every one,
 # run at padded_head_dim (the next multiple of 8)
 from paddle_tpu_torch.ops.attention import (DEFAULT_MASK_VALUE,
                                             HEAD_DIM_LIMIT, KERNEL_WIDTHS,
@@ -84,7 +85,7 @@ def kernel_shape_error(head_dim: int, num_heads: int,
     """None when the CUDA kernel takes these shapes, else why not (with
     the limit).  Any page size and any group G = num_heads / num_kv_heads
     work."""
-    if kernel_width(head_dim) is None:
+    if head_dim < 1:
         return (f"ragged kernel takes head_dim {HEAD_DIM_LIMIT}, got "
                 f"{head_dim}")
     if num_kv_heads < 1 or num_heads % num_kv_heads != 0:

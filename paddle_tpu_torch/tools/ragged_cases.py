@@ -167,6 +167,14 @@ C4_CASES = {
                            ("bf16", "float32", "bfloat16"),
                            ("int8", "float32", "int8"),
                            ("bf16q_bf16", "bfloat16", "bfloat16"))}
+# head dims above 512, on the wide kernel in chunks of 512 columns: decode
+# and mixed steps on f32 and bf16 pages, and bf16 queries on bf16 pages
+C4_WIDE_CASES = {
+    f"c4_{seqs}_{name}_d{d}": (seqs, 4, 4, d, q, pages)
+    for d in (640, 1024) for seqs in ("decode", "mixed")
+    for name, q, pages in (("f32", "float32", "float32"),
+                           ("bf16", "float32", "bfloat16"),
+                           ("bf16q_bf16", "bfloat16", "bfloat16"))}
 
 
 def kernel_cases(dev, cases=None):

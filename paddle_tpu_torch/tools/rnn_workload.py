@@ -146,6 +146,11 @@ RNN_CASES = {
     # 16 rows take a partial 32-row block
     "nmt_gru_block_f32_b50_acts": ("gru_step", 50, 512, "float32", True),
     "nmt_gru_block_f32_b16": ("gru_step", 16, 512, "float32", False),
+    # B5 at the CRF taggers' and quick_start's shapes (tools/srl_workload,
+    # tools/quick_start_workload): SRL's eight LSTMs of 128 at batch 10,
+    # quick_start's LSTMs of 128 at batch 128, both training (acts saved)
+    "lstm_f32_h128_b10_acts": ("lstm_step", 10, 128, "float32", True),
+    "lstm_f32_h128_b128_acts": ("lstm_step", 128, 128, "float32", True),
 }
 # the main path's case of each kernel (the training calls save acts)
 MAIN_CASE = {"lstm_step": "lstm_f32_h512_acts",

@@ -75,10 +75,11 @@ def build_trainer(device, n_layers: int = MODEL["n_layers"],
 
 
 # multi_head_attention at the head dims the kernels run on zero columns
-# (12) and at their compiled width 512 (320): one block, vocab 1024, 2
-# sequences of 256 tokens, 3 Momentum steps
+# (12), at their compiled width 512 (320) and on the wide kernels (640):
+# one block, vocab 1024, 2 sequences of 256 tokens, 3 Momentum steps
 HEAD_DIM_MODELS = {12: dict(d_model=48, n_heads=4),
-                   320: dict(d_model=640, n_heads=2)}
+                   320: dict(d_model=640, n_heads=2),
+                   640: dict(d_model=1280, n_heads=2)}
 HEAD_DIM_BATCH, HEAD_DIM_SEQ, HEAD_DIM_VOCAB = 2, 256, 1024
 
 
@@ -210,11 +211,23 @@ C4_FLASH_CASES = {
     for d in (12, 100, 320) for dtype in ("float32", "bfloat16")}
 
 
+# head dims above 512, on the wide kernels (chunks of 512 columns), each
+# in f32 and bf16 over causal segments
+C4_WIDE_FLASH_CASES = {
+    f"c4_{dtype[:4]}_segments_causal_d{d}": (dtype, 512, 512, 4, d, True,
+                                             (150, 250, 100))
+    for d in (640, 1024) for dtype in ("float32", "bfloat16")}
+_TABLES = (FLASH_CASES, C4_FLASH_CASES, C4_WIDE_FLASH_CASES)
+
+
 def _case(name: str):
     """(the case's entry, the seed of its draws)."""
-    table = FLASH_CASES if name in FLASH_CASES else C4_FLASH_CASES
-    base = 0 if table is FLASH_CASES else len(FLASH_CASES)
-    return table[name], [SEED, base + sorted(table).index(name)]
+    base = 0
+    for table in _TABLES:
+        if name in table:
+            return table[name], [SEED, base + sorted(table).index(name)]
+        base += len(table)
+    raise KeyError(name)
 
 
 def case_segments(name: str):

@@ -197,14 +197,14 @@ def test_cpu_path_launches_no_kernel_and_kernel_limits():
     assert err((1, 8192, 16, 128), (1, 8192, 16, 128), torch.bfloat16) \
         is None
     assert err((1, 128, 2, 64), (1, 256, 2, 64), torch.float32) is None
-    # every head dim from 1 to 512 and lengths that end in a partial tile
-    # are taken; other head dims raise with the limit in the message
+    # every head dim from 1 up and lengths that end in a partial tile
+    # are taken; a head dim below 1 raises with the limit in the message
     for d in tattn.KERNEL_WIDTHS + (1, 8, 12, 48, 80, 96, 100, 112, 160,
-                                    192, 264, 320):
+                                    192, 264, 320, 513, 640):
         assert err((1, 96, 2, d), (1, 32, 2, d), torch.bfloat16) is None
     assert err((1, 100, 2, 128), (1, 100, 2, 128), torch.float32) is None
-    for d in (0, 513, 640):
-        assert f"head_dim from 1 to 512, got {d}" in err(
+    for d in (0, -8):
+        assert f"head_dim of at least 1, got {d}" in err(
             (1, 128, 2, d), (1, 128, 2, d), torch.float32)
     assert "float32 or bfloat16" in err((1, 64, 2, 128), (1, 64, 2, 128),
                                         torch.float16)

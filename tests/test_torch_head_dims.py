@@ -1,15 +1,18 @@
 """Head dims the CUDA kernels once refused (12, 100: not a multiple of 8;
-320: above 256), on the CPU: the plain versions of the flash kernels
-(B1-B3) and of the ragged kernel (B4) against the JAX package's at those
-head dims, the kernels' width and tile rules, the error above 512, the
-KV pool's padded rows, and a ``DecoderLM`` served at head_dim 12 and 100
-token for token against the JAX engine.
+320: above 256; 640 and 1024: above 512), on the CPU: the plain versions
+of the flash kernels (B1-B3) and of the ragged kernel (B4) against the
+JAX package's at those head dims, the kernels' width and tile rules, the
+head dims above 512 taken (only a head dim below 1 raises), the KV pool's
+padded rows, and a ``DecoderLM`` served at head_dim 12 and 100 token for
+token against the JAX engine.
 
 On the card a head dim that is not a multiple of 8 runs at the next
 multiple of 8 on zero columns (q, k, v widened by the flash wrappers; the
-pool allocated at that width by ``kv_cache``) and 320 at the flash
-kernels' compiled width 512 and in the ragged kernel's wide kernel: that
-is held against these plain versions by ``tests/test_torch_ctr_cuda.py``.
+pool allocated at that width by ``kv_cache``), 320 at the flash kernels'
+compiled width 512 and in the ragged kernel's wide kernel, and 640 and
+1024 on the wide flash kernels and the ragged wide kernel in chunks of
+512 columns: that is held against these plain versions by
+``tests/test_torch_ctr_cuda.py`` and ``tests/test_torch_seq_cuda.py``.
 
 Tolerances as in ``tests/test_torch_flash_attention.py`` and
 ``tests/test_torch_ragged_attention.py``: f32 2e-5 absolute; bf16 1e-2.
@@ -95,16 +98,70 @@ def test_kernel_width_and_tile_at_the_repaired_head_dims():
 
 @pytest.mark.parametrize("d", [513, 640, 0])
 def test_head_dims_above_512_raise_with_the_limit(d, monkeypatch):
+    """Head dims above 512 are taken (the wide kernels); only a head dim
+    below 1 still raises, with the limit in the message."""
     err = tattn.kernel_shape_error((1, 64, 2, d), (1, 64, 2, d),
                                    torch.float32)
-    assert err == f"flash kernels take head_dim from 1 to 512, got {d}"
-    assert tda.kernel_shape_error(d, 4, 4) == \
-        f"ragged kernel takes head_dim from 1 to 512, got {d}"
-    # the serving chooser on a CUDA device raises with it
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(EnforceError, match=f"from 1 to 512, got {d}"):
+    if d > 512:
+        assert err is None and tda.kernel_shape_error(d, 4, 4) is None
+        assert tda.attention_path(d, 8, num_heads=4, num_kv_heads=4,
+                                  device="cuda") == "kernel"
+        assert tattn.kernel_route((1, 64, 2, d), (1, 64, 2, d),
+                                  torch.bfloat16, False) == "flash_attention"
+        return
+    assert err == f"flash kernels take head_dim of at least 1, got {d}"
+    assert tda.kernel_shape_error(d, 4, 4) == \
+        f"ragged kernel takes head_dim of at least 1, got {d}"
+    # the serving chooser on a CUDA device raises with it
+    with pytest.raises(EnforceError, match=f"at least 1, got {d}"):
         tda.attention_path(d, 8, num_heads=4, num_kv_heads=4,
                            device="cuda")
+
+
+@pytest.mark.parametrize("d", [640, 1024])
+def test_plain_flash_matches_jax_above_512(d):
+    """B 1, S 64, 2 heads, f32: output and q/k/v gradients of causal
+    attention over packed segments, at the wide kernels' head dims."""
+    rs = np.random.RandomState(d)
+    b, s, h = 1, 64, 2
+    q, k, v = (rs.randn(b, s, h, d).astype(np.float32) for _ in range(3))
+    cot = rs.randn(b, s, h, d).astype(np.float32)
+    seg = _segments(b, s, (20, 41))
+
+    def jloss(*x):
+        return jnp.sum(jattn.flash_attention(
+            *x, segment_ids=jnp.asarray(seg), causal=True) * cot)
+
+    jin = [jnp.asarray(x) for x in (q, k, v)]
+    want = [jattn.flash_attention(*jin, segment_ids=jnp.asarray(seg),
+                                  causal=True)]
+    want += list(jax.grad(jloss, argnums=(0, 1, 2))(*jin))
+    tin = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    out = tattn.flash_attention(*tin, segment_ids=torch.from_numpy(seg),
+                                causal=True)
+    (out * torch.from_numpy(cot)).sum().backward()
+    for name, w, g in zip(("out", "dq", "dk", "dv"), want,
+                          [out] + [t.grad for t in tin]):
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w),
+                                   atol=F32_ATOL, rtol=0, err_msg=name)
+    assert tattn.kernel_width(d) is None and tattn.kernel_tile(d) == 16
+
+
+@pytest.mark.parametrize("d", [640, 1024])
+def test_plain_ragged_matches_jax_above_512(d):
+    """f32 pages, GQA 2, decode rows and an offset prefill chunk."""
+    rs = np.random.RandomState(d)
+    q, kp, vp, kpp, vpp, rest = _case(rs, d, 2, 4)
+    want = np.asarray(jda.ragged_paged_attention_reference(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        *map(jnp.asarray, rest)))
+    got = tda.ragged_paged_attention_reference(
+        torch.from_numpy(q), torch.from_numpy(kpp), torch.from_numpy(vpp),
+        *map(torch.from_numpy, rest)).numpy()
+    real = rest[3] >= 0
+    np.testing.assert_allclose(got[real], want[real], atol=F32_ATOL,
+                               rtol=F32_ATOL)
 
 
 # (kv_len, q_rows, q_start): decode rows and an offset prefill chunk

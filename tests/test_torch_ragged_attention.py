@@ -213,16 +213,17 @@ def test_attention_path_chooser(monkeypatch):
     with pytest.raises(EnforceError, match="use_kernel=False"):
         tda.attention_path(128, 128, num_heads=16, num_kv_heads=16,
                            device="cuda", use_kernel=False)
-    # every head dim from 1 to 512, and any group that divides the heads;
-    # other head dims raise with the limit
-    for d in (1, 8, 12, 40, 64, 80, 96, 100, 192, 256, 264, 320, 512):
+    # every head dim from 1 up, and any group that divides the heads; a
+    # head dim below 1 raises with the limit
+    for d in (1, 8, 12, 40, 64, 80, 96, 100, 192, 256, 264, 320, 512, 513,
+              640, 1024):
         assert tda.attention_path(d, 128, num_heads=16, num_kv_heads=16,
                                   device="cuda") == "kernel"
     assert tda.attention_path(128, 128, num_heads=12, num_kv_heads=4,
                               device="cuda") == "kernel"
-    for d in (0, 513, 640):
+    for d in (0, -8):
         with pytest.raises(EnforceError,
-                           match=f"head_dim from 1 to 512, got {d}"):
+                           match=f"head_dim of at least 1, got {d}"):
             tda.attention_path(d, 128, num_heads=16, num_kv_heads=16,
                                device="cuda")
     with pytest.raises(EnforceError, match="dividing num_heads"):

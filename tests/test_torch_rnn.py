@@ -494,7 +494,7 @@ def test_integer_value_slot_matches_jax():
                                device="cpu").feed([(a, b) for a, b in pairs])
     np.testing.assert_array_equal(trows["q"].numpy(), np.asarray(jrows["q"]))
     with pytest.raises(Exception, match="integer values"):
-        tfeeder.DataFeeder([("x", tdt.InputType(3, tdt.SlotKind.DENSE,
+        tfeeder.DataFeeder([("x", tdt.InputType(3, tdt.SlotKind.SPARSE_BINARY,
                                                 tdt.SeqKind.SEQUENCE))],
                            device="cpu")
 
