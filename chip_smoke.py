@@ -35,11 +35,15 @@ checkout of the repository).  Phases, each fatal on failure:
    cross-attention with Sq != Sk, causal with Sk > Sq (f32, and bf16 with
    Sq an odd number of 64-row tiles), bf16 causal segments at head dim
    64, and the CUDA-core route at head dims 32 and 256, at Sq 96, and at
-   head dims between its compiled widths (96 in bf16, 48 in f32);
-   with error, kernel time, plain time, the roofline bound, the
-   interior and boundary tile pairs and, on the training case,
+   head dims between its compiled widths (96 in bf16, 48 in f32), and the
+   translation model's three attentions at [1, 4096, 8, 64] bf16 over one
+   batch's packing (encoder segments, cross-attention of the targets'
+   packing against the sources', causal decoder segments); with error,
+   kernel time, plain time, the roofline bound, the interior and boundary
+   tile pairs and, on the training case,
    ``scaled_dot_product_attention`` forward, backward alone and both as
-   the library yardsticks; the kernels line carries ptxas's registers and
+   the library yardsticks (on the translation cases SDPA with the dense
+   [Sq, Sk] mask); the kernels line carries ptxas's registers and
    spills of each flash and RNN kernel;
 7. train: the full-width transformer LM (vocab 32768, d 2048, 8 layers,
    16 heads) with random weights from a seed, trained through the port's
@@ -50,6 +54,12 @@ checkout of the repository).  Phases, each fatal on failure:
 8. train_parity: a 2-layer model at the same width, batch 2 x 1024, 3
    steps through the kernels against the same steps through the plain
    flash versions on the card, with the same weights and feeds;
+8a. train_lm_levers: the same training with ``fused_head=True`` (the
+   blockwise ``lm_head_cost``), then with ``fused_head=True, remat=True,
+   dropout=0.1``, 6 steps each beside the unfused run: step ms, tokens/s,
+   peak memory, flash launches (B1 twice a block a step under remat);
+   the fused run's first 3 costs within the bf16 bound of the unfused
+   run's;
 9. rnn_kernels: the fused LSTM step (B5), the one-launch GRU step (B6)
    and the two-launch GRU step (B7 then B8) against their plain PyTorch
    versions on the same inputs: B5 at B 64 with H 512 and 1280, acts on
@@ -111,7 +121,8 @@ checkout of the repository).  Phases, each fatal on failure:
     (``tw.C4_WIDE_FLASH_CASES``), in f32 and bf16, and the ragged kernel
     (B4) at the same head dims on f32, bf16 (and, up to 320, int8) pages,
     decode and mixed (``rc.C4_CASES``, ``rc.C4_WIDE_CASES``) against
-    their plain versions, with error, card time, plain time and bound; a
+    their plain versions, with error, card time, plain time and bound
+    (and for B1-B3 SDPA with the dense mask as the library time); a
     ``DecoderLM`` at head_dim 100 (d_model 400, 4 heads, its pool rows
     padded to 104) serving 4 requests held to the greedy oracle;
     ``multi_head_attention`` at head dims 12, 320 and 640 trained 3 steps
@@ -159,7 +170,25 @@ checkout of the repository).  Phases, each fatal on failure:
     (``tools/nested_workload``, width 128, batch 16 through the
     sub-sequence slot), 3 Adam steps on the card against the CPU path;
     ``cross_entropy_over_beam`` on its cases, costs and gradients, card
-    against CPU.
+    against CPU;
+28. transformer_nmt_parity: ``transformer.build_seq2seq`` at d 64, 2 + 2
+    blocks, 4 heads, vocab 512, in f32, batch 16: 3 Adam steps on the
+    card against the CPU path, costs and every parameter;
+29. train_transformer_nmt: Transformer-base translation
+    (``tools/transformer_nmt_workload``: 6 + 6 blocks, d_model 512, 8
+    heads, dictionaries of 30000, batch 80 of lengths 10-80, Adam(0.9,
+    0.98, 1e-9) at 5e-4, the bf16 policy), a warm-up and 6 timed steps
+    through ``SGD.train``: finite, falling costs, B1-B3 launched 18 times
+    a step each; step ms, target tokens/s, peak memory, and one profiled
+    step (``tools/profile_transformer_nmt``): idle share, launches, card
+    time by group;
+30. generate_lm: the training headline's parameters (seed 0) decoded from
+    the parameter dict: greedy ``generate`` (64 tokens after 32),
+    ``beam_generate`` (beam 4, 32 tokens, a banned token, a stop after
+    step 24) and ``beam_generate_batch`` (8 prompts): ms a token,
+    tokens/s, launches a step, peak memory; the greedy tokens replayed on
+    the CPU path at full width, the beam run against the CPU path's, the
+    batch against per-prompt runs, two seeded temperature draws equal.
 
 Every line of output is one JSON object; the one before the last lists
 the kernels, the last is ``{"ok": true, "device": {...}}``.  The serve
@@ -177,10 +206,12 @@ paddle_tpu_torch.tools.profile_ctr``; the GAN, VAE and traffic
 forecaster in ``paddle_tpu_torch/tools/gan_vae_workload.py``; the CRF
 taggers in ``paddle_tpu_torch/tools/srl_workload.py``, quick_start in
 ``paddle_tpu_torch/tools/quick_start_workload.py`` and the nested groups
-in ``paddle_tpu_torch/tools/nested_workload.py``.  The image
-phases, 18-22, 25 and 27 run no hand-written kernel: no TPU kernel lies
-on those paths (the convs and batch norm are cuDNN's through PyTorch, the CTR and
-GAN products cuBLAS's).
+in ``paddle_tpu_torch/tools/nested_workload.py``; the translation
+transformer in ``paddle_tpu_torch/tools/transformer_nmt_workload.py``,
+shared with ``python -m paddle_tpu_torch.tools.profile_transformer_nmt``.
+The image phases, 18-22, 25 and 27 run no hand-written kernel: no TPU
+kernel lies on those paths (the convs and batch norm are cuDNN's through
+PyTorch, the CTR and GAN products cuBLAS's).
 """
 
 from __future__ import annotations
@@ -205,8 +236,10 @@ from paddle_tpu_torch.tools import quick_start_workload as qw
 from paddle_tpu_torch.tools import ragged_cases as rc
 from paddle_tpu_torch.tools import repro
 from paddle_tpu_torch.tools import rnn_workload as rw
+from paddle_tpu_torch.tools import profile_transformer_nmt as ptn
 from paddle_tpu_torch.tools import srl_workload as sw
 from paddle_tpu_torch.tools import train_workload as tw
+from paddle_tpu_torch.tools import transformer_nmt_workload as tnw
 from paddle_tpu_torch.tools.compare_flash import card_ms, sm_clock
 from paddle_tpu_torch.tools.serve_workload import (MODEL, NEW_TOKENS, NO_EOS,
                                                    PREFIX_LEN, Workload,
@@ -589,13 +622,63 @@ def sdpa_ms(case) -> dict:
             "library_out": fwd().transpose(1, 2).reshape(case.q.shape)}
 
 
+def dense_mask(case) -> torch.Tensor:
+    """The flash mask of ``case`` as a dense boolean [Sq, Sk] (batch 1):
+    same segment id and, under ``causal``, key index <= query index."""
+    mask = case.q_seg[0][:, None] == case.kv_seg[0][None, :]
+    if case.causal:
+        mask &= torch.ones(mask.shape, dtype=torch.bool,
+                           device=mask.device).tril()
+    return mask
+
+
+def sdpa_masked_ms(case, out, events: bool = False) -> dict:
+    """``scaled_dot_product_attention`` with :func:`dense_mask` on the
+    [B, H, S, D] views of ``case``: card time of the forward and of the
+    backward alone (through a saved forward), and its largest difference
+    from the kernel's output ``out`` over the rows with a key (SDPA gives
+    NaN on a row the mask empties, where the kernel gives 0).  With
+    ``events`` the calls are timed back to back between CUDA events
+    (:func:`time_ms`), not by the profiler.  Timed here only; the port
+    never calls it."""
+    import torch.nn.functional as F
+
+    mask = dense_mask(case)
+    q, k, v, do = (x.transpose(1, 2).contiguous()
+                   for x in (case.q, case.k, case.v, case.dout))
+    qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
+
+    def fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+    saved = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+
+    def bwd():
+        torch.autograd.grad(saved, (qg, kg, vg), do, retain_graph=True)
+
+    rows = mask.any(dim=1)
+    diff = (fwd().transpose(1, 2).float() - out.float())[:, rows]
+    if events:
+        fwd_ms, bwd_ms = time_ms(fwd, reps=10), time_ms(bwd, reps=10)
+    else:
+        fwd_ms = device_ms(fwd, what=f"{case.name} sdpa_fwd")
+        bwd_ms = device_ms(bwd, what=f"{case.name} sdpa_bwd")
+    return {"library_fwd_ms": fwd_ms, "library_bwd_ms": bwd_ms,
+            "library_timer": "events" if events else "profiler",
+            "library_out_max_abs_diff": float(diff.abs().max())}
+
+
 def run_flash_cases(dev, names=tuple(tw.FLASH_CASES),
                     phase: str = "flash_kernels",
-                    plain_events: bool = False) -> dict:
+                    plain_events: bool = False,
+                    library=tw.NMT_FLASH_CASES) -> dict:
     """Each flash kernel against its plain version on every case of
     ``names``; raises if any output is outside its tolerance.  Times are
     card time (:func:`device_ms`): the wrapper's kernel with its small
-    helper ops, the plain version's kernels, the library call's kernels.
+    helper ops, the plain version's kernels, the library call's kernels
+    (SDPA on the training case, and SDPA with the dense mask on the cases
+    of ``library``).
     With ``plain_events`` the plain version is timed once between CUDA
     events instead (:func:`time_ms`): late in the run the profiler loses
     the records of its hundreds of small kernels and retries three times.
@@ -658,6 +741,8 @@ def run_flash_cases(dev, names=tuple(tw.FLASH_CASES),
                 res[key] = lib[key]
             res["library_out_max_abs_diff"] = float(
                 (lib["library_out"].float() - o.float()).abs().max())
+        elif case.name in library:
+            res.update(sdpa_masked_ms(case, o, events=plain_events))
         ok = all(e["within_tolerance"] for e in errs.values())
         res["within_tolerance"] = ok
         emit(res)
@@ -1059,8 +1144,10 @@ def generate_nmt(dev, sgd, card: str) -> dict:
     runs (the bf16 policy) keep their beams each step, and the CPU path
     follows the first of them step by step from the same weights
     (``nw.replay``, within ``nw.BF16_ATOL``), and the second too unless
-    it is the first to the bit; then one run with the policy off, held
-    within ``nw.TIE_ATOL`` at every step."""
+    it is the first to the bit; then, at the target lengths, one run with
+    the policy off, held within ``nw.TIE_ATOL`` at every step (the
+    250-step worst case's bf16 run is replayed, not an f32 one: it took
+    ~38 s of the host's CPU)."""
     seed = nw.SEED + 4
     srcs = nw.sources(seed)
     frames = nw.source_frames(srcs)
@@ -1092,11 +1179,13 @@ def generate_nmt(dev, sgd, card: str) -> dict:
         checks = [dict(nw.replay(cpu_params, cpu_state, srcs, until, run,
                                  atol=nw.BF16_ATOL), run=i, policy="bf16")
                   for i, run in enumerate(runs[:1] if same else runs)]
-        with nw.f32_policy():              # a run held at TIE_ATOL
-            ban.clear()
-            run = ban.run(nw.generate(inf, srcs))
-            checks.append(dict(nw.replay(cpu_params, cpu_state, srcs, until,
-                                         run), run="f32", policy="f32"))
+        if variant == "target_lengths":
+            with nw.f32_policy():          # a run held at TIE_ATOL
+                ban.clear()
+                run = ban.run(nw.generate(inf, srcs))
+                checks.append(dict(nw.replay(cpu_params, cpu_state, srcs,
+                                             until, run), run="f32",
+                                   policy="f32"))
         replay_s = time.perf_counter() - t0
         tokens, lengths, scores = runs[-1][0]
         med = float(np.median(ms))
@@ -1378,9 +1467,9 @@ def head_dims(dev) -> dict:
         init_numpy_params
     from paddle_tpu_torch.serving import DecoderLM
 
-    flash = run_flash_cases(dev, tuple(tw.C4_FLASH_CASES) +
-                            tuple(tw.C4_WIDE_FLASH_CASES), "head_dims",
-                            plain_events=True)
+    c4 = tuple(tw.C4_FLASH_CASES) + tuple(tw.C4_WIDE_FLASH_CASES)
+    flash = run_flash_cases(dev, c4, "head_dims", plain_events=True,
+                            library=c4)
     ragged = run_kernel_cases(dev, {**rc.C4_CASES, **rc.C4_WIDE_CASES},
                               "head_dims")
 
@@ -1962,6 +2051,273 @@ def nested_groups(dev) -> dict:
     return {"groups": groups, "beams": beams}
 
 
+# ---------------------------------------------------------------------------
+# the transformer family: the LM's levers, translation, decoding (eighth
+# slice)
+# ---------------------------------------------------------------------------
+
+LEVERS = (("fused", dict(fused_head=True)),
+          ("fused_remat_dropout", dict(fused_head=True, remat=True,
+                                       dropout=0.1)))
+# the fused head's first costs against the unfused run's: the bf16
+# policy's bound for a training cost (tests/test_torch_train.py)
+LEVER_COST_RTOL = 2e-3
+TNMT_STEPS = 7           # the first is the untimed warm-up
+TNMT_PROFILED_STEPS = 1
+TNMT_PARITY_STEPS = 3
+# card against CPU, f32 with TF32 off, 3 Adam steps from the same weights:
+# the flash kernels and cuBLAS sum in other orders; costs within 1e-4
+# relative, every parameter within 1e-4 relative in norm
+TNMT_COST_RTOL, TNMT_PARAM_RTOL = 1e-4, 1e-4
+TEMPERATURE_TOKENS = 16
+
+
+def train_lm_levers(dev, card: str, unfused: dict) -> list:
+    """The training headline (``tw.MODEL``, 8 x 1024 tokens,
+    ``Momentum(0.9, 1e-3)``) with ``fused_head=True``, then with
+    ``fused_head=True, remat=True, dropout=0.1``, each for
+    :data:`TRAIN_STEPS` steps beside the unfused ``train`` run: step ms,
+    tokens/s, peak memory, flash launches (the recompute runs each
+    block's forward again: B1 twice a block a step under remat).  The
+    fused run's first 3 costs lie within :data:`LEVER_COST_RTOL` of the
+    unfused run's."""
+    samples = tw.lm_samples(tw.SEED + 1)
+    out = []
+    for name, levers in LEVERS:
+        sgd = tw.build_trainer(dev, **levers)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_flash_launches()
+        costs, step_ms = _train_costs(sgd, samples, TRAIN_STEPS)
+        launches = _flash_launches()
+        del sgd
+        torch.cuda.empty_cache()
+        med = float(np.median(step_ms[1:]))
+        n = tw.MODEL["n_layers"] * TRAIN_STEPS
+        expected = {"flash_fwd": n * (2 if levers.get("remat") else 1),
+                    "flash_bwd_kv": n, "flash_bwd_dq": n}
+        rel = [abs(a - b) / abs(b) for a, b in
+               zip(costs[:3], unfused["costs"][:3])]
+        res = {"phase": "train_lm_levers", "run": name, **levers,
+               "model": tw.MODEL, "batch": tw.BATCH, "seq": tw.SEQ,
+               "steps": TRAIN_STEPS, "costs": costs, "step_ms": step_ms,
+               "step_ms_median": med,
+               "tokens_per_s": tw.BATCH * tw.SEQ / (med / 1e3),
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+               "unfused": {k: unfused[k] for k in
+                           ("step_ms_median", "tokens_per_s",
+                            "peak_memory_gb")},
+               "first_costs_rel_diff_to_unfused": rel,
+               "kernel_launches": launches,
+               "launches_expected": expected, "nvidia_smi": card}
+        emit(res)
+        if not all(np.isfinite(costs)) or not costs[-1] < costs[0]:
+            raise AssertionError(f"{name}: did not learn: costs {costs}")
+        if launches != expected:
+            raise AssertionError(f"{name}: flash launches {launches}, "
+                                 f"expected {expected}")
+        if name == "fused" and max(rel) > LEVER_COST_RTOL:
+            raise AssertionError(f"the fused head's costs {costs[:3]} part "
+                                 f"from the unfused {unfused['costs'][:3]}")
+        out.append(res)
+    return out
+
+
+def transformer_nmt_parity(dev) -> dict:
+    """``build_seq2seq`` at ``tnw.PARITY`` (d 64, 2 + 2 blocks, 4 heads,
+    vocab 512) in f32, batch 16 of lengths 10-80: 3 Adam steps on the
+    card (B1-B3 on the CUDA-core route) against the same steps on the CPU
+    path, from the same weights: costs and every parameter."""
+    batch = tnw.samples(tnw.SEED + 3, bs=tnw.PARITY_BATCH,
+                        dict_size=tnw.PARITY["trg_vocab"])
+    runs = {}
+    with nw.f32_policy():
+        for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+            sgd = tnw.build_trainer(where, config=tnw.PARITY)
+            _reset_flash_launches()
+            runs[side] = (sgd, _cpu_steps(sgd, batch, TNMT_PARITY_STEPS,
+                                          tnw), _flash_launches())
+    (csgd, ccosts, launched), (psgd, pcosts, _) = runs["card"], runs["cpu"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(ccosts, pcosts)]
+    params = {k: _rel_norm(csgd.parameters[k].detach().cpu(), v.detach())
+              for k, v in psgd.parameters.as_dict().items()}
+    expected = tnw.flash_calls_per_step(tnw.PARITY) * TNMT_PARITY_STEPS
+    res = {"phase": "transformer_nmt_parity", "config": tnw.PARITY,
+           "batch": len(batch), "steps": TNMT_PARITY_STEPS,
+           "use_bf16": False, "card_costs": ccosts, "cpu_costs": pcosts,
+           "max_rel_diff": max(rel), "cost_rtol": TNMT_COST_RTOL,
+           "max_param_rel_diff": max(params.values()),
+           "worst_param": max(params, key=params.get),
+           "param_rtol": TNMT_PARAM_RTOL, "kernel_launches": launched,
+           "launches_expected": expected}
+    emit(res)
+    if max(rel) > TNMT_COST_RTOL or \
+            max(params.values()) > TNMT_PARAM_RTOL or \
+            any(n != expected for n in launched.values()):
+        raise AssertionError("the translation model: the card and the CPU "
+                             "path disagree")
+    return res
+
+
+def train_transformer_nmt(dev, card: str) -> dict:
+    """Transformer-base translation at its configuration
+    (``tnw.MODEL``, batch 80 of lengths 10-80, Adam as in the paper, the
+    bf16 policy) through ``SGD.train`` on one batch, a warm-up and 6
+    timed steps: finite, falling costs; each flash kernel launched 18
+    times a step; step ms, target tokens/s, peak memory; then one step
+    profiled (``tools/profile_transformer_nmt``): the idle share,
+    launches a step and the card time by group."""
+    t0 = time.perf_counter()
+    sgd = tnw.build_trainer(dev)
+    batch = tnw.samples(tnw.SEED + 1)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _reset_flash_launches()
+    costs, step_ms = _train_costs(sgd, batch, TNMT_STEPS, tnw)
+    launches = _flash_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = float(np.median(step_ms[1:]))
+    profile = ptn.profile_steps(sgd, tnw.feeds(sgd, batch),
+                                TNMT_PROFILED_STEPS, med)
+    expected = tnw.flash_calls_per_step() * TNMT_STEPS
+    res = {"phase": "train_transformer_nmt", "model": tnw.MODEL,
+           "batch": tnw.BATCH, "source_tokens": tnw.source_tokens(batch),
+           "target_tokens": tnw.target_tokens(batch),
+           "steps": TNMT_STEPS, "costs": costs, "step_ms": step_ms,
+           "step_ms_median": med,
+           "target_tokens_per_s": tnw.target_tokens(batch) / (med / 1e3),
+           "peak_memory_gb": peak, "flash_launches": launches,
+           "flash_launches_expected": expected,
+           "parameters": sum(p.numel() for p in
+                             sgd.parameters.as_dict().values()),
+           "setup_s": setup_s, "profiled_step": profile,
+           "nvidia_smi": card}
+    emit(res)
+    del sgd
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(costs)) or not costs[-1] < costs[0]:
+        raise AssertionError(f"the translation model did not learn: costs "
+                             f"{costs}")
+    if any(n != expected for n in launches.values()):
+        raise AssertionError(f"flash launches {launches}, expected "
+                             f"{expected} each")
+    return res
+
+
+def _wall(fn):
+    """(fn's result, its wall ms, the peak memory it reached in GB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, 1e3 * (time.perf_counter() - t0),
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _launches_per_step(fn, steps: int) -> float:
+    """CUDA kernel launches a decode step of ``fn`` (``steps`` steps)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(c for _, _, c in profile_image._kernels(prof)) / steps
+
+
+def generate_lm(dev, card: str) -> dict:
+    """The training headline's parameters (``tw.MODEL``, max_len 1024,
+    seed 0) decoded on the card from the parameter dict: greedy
+    ``generate`` of 64 tokens after a 32-token prompt, ``beam_generate``
+    at beam 4 over 32 tokens (eos 0, length penalty 1, one token banned by
+    ``candidate_adjust``, every beam stopped after step 24 by
+    ``stop_condition``) and ``beam_generate_batch`` over 8 prompts:
+    ms a token, tokens/s, launches a step, peak memory.  Checks: the
+    greedy tokens replayed on the CPU path at full width (argmax or a
+    near tie at each position), the beam run against the CPU path's
+    (equal, or parted after a near tie), the batch against per-prompt
+    runs on the card, and two temperature-1.0 runs from one seed the
+    same tokens."""
+    from paddle_tpu_torch.models import transformer as T
+
+    kw = tw.decode_kw()
+    params = tw.decode_params(dev)
+    prompt = tw.decode_prompts(tw.SEED + 7, 1)[0]
+    steps = tw.DECODE_PROMPT + tw.DECODE_NEW - 1
+    T.generate(params, prompt[:4], 4, **kw)              # warm-up
+    greedy, greedy_ms, greedy_gb = _wall(lambda: T.generate(
+        params, prompt, tw.DECODE_NEW, **kw))
+    greedy_launches = _launches_per_step(
+        lambda: T.generate(params, prompt[:8], 8, **kw), 15)
+    hooks = tw.BanAndStop(int(greedy[0]))
+    beam_kw = dict(kw, beam_size=tw.BEAM, eos_id=tw.BEAM_EOS,
+                   length_penalty=1.0)
+    T.beam_generate(params, prompt[:4], 4, **beam_kw, **hooks.hooks())
+    (btoks, bscore), beam_ms, beam_gb = _wall(lambda: T.beam_generate(
+        params, prompt, tw.BEAM_NEW, **beam_kw, **hooks.hooks()))
+    beam_launches = _launches_per_step(lambda: T.beam_generate(
+        params, prompt[:8], 8, **beam_kw, **hooks.hooks()), 15)
+    prompts = tw.decode_prompts(tw.SEED + 8, tw.BEAM_BATCH)
+    (ttoks, tscores), batch_ms, batch_gb = _wall(
+        lambda: T.beam_generate_batch(params, prompts, tw.BEAM_NEW,
+                                      **beam_kw, **hooks.hooks()))
+    batch_check = []
+    for i, pr in enumerate(prompts):
+        rec = tw.BanAndStop(hooks.banned, record=True)
+        single = T.beam_generate(params, pr, tw.BEAM_NEW, **beam_kw,
+                                 **rec.hooks())
+        batch_check.append(tw.beams_agree((ttoks[i], tscores[i]), single,
+                                          rec.gaps))
+    draws = [T.generate(params, prompt, TEMPERATURE_TOKENS, **kw,
+                        temperature=1.0, rng=tw.SEED + 9).tolist()
+             for _ in range(2)]
+    # the CPU path at full width, on a copy of the weights
+    t0 = time.perf_counter()
+    cpu = {k: v.detach().cpu() for k, v in params.items()}
+    del params
+    torch.cuda.empty_cache()
+    greedy_replay = tw.replay_greedy(cpu, prompt, greedy.tolist(), **kw)
+    rec = tw.BanAndStop(hooks.banned, record=True)
+    cpu_beam = T.beam_generate(cpu, prompt, tw.BEAM_NEW, **beam_kw,
+                               **rec.hooks(), device="cpu")
+    beam_check = tw.beams_agree((btoks, bscore), cpu_beam, rec.gaps)
+    cpu_s = time.perf_counter() - t0
+    stopped = btoks[hooks.stop_at + 1:]
+    res = {"phase": "generate_lm", "model": tw.MODEL,
+           "greedy": {"prompt": tw.DECODE_PROMPT, "new": tw.DECODE_NEW,
+                      "ms": greedy_ms, "ms_per_step": greedy_ms / steps,
+                      "ms_per_new_token": greedy_ms / tw.DECODE_NEW,
+                      "tokens_per_s": tw.DECODE_NEW / (greedy_ms / 1e3),
+                      "launches_per_step": greedy_launches,
+                      "peak_memory_gb": greedy_gb, "cpu_replay":
+                      greedy_replay},
+           "beam": {"beam": tw.BEAM, "new": tw.BEAM_NEW, "ms": beam_ms,
+                    "ms_per_new_token": beam_ms / tw.BEAM_NEW,
+                    "tokens_per_s": tw.BEAM_NEW / (beam_ms / 1e3),
+                    "launches_per_step": beam_launches,
+                    "peak_memory_gb": beam_gb, "score": bscore,
+                    "banned": hooks.banned, "cpu": beam_check},
+           "batch": {"prompts": tw.BEAM_BATCH, "ms": batch_ms,
+                     "ms_per_new_token": batch_ms / tw.BEAM_NEW,
+                     "tokens_per_s": tw.BEAM_BATCH * tw.BEAM_NEW /
+                     (batch_ms / 1e3), "peak_memory_gb": batch_gb,
+                     "against_single": batch_check},
+           "temperature_draws_equal": draws[0] == draws[1],
+           "cpu_replay_s": cpu_s, "nvidia_smi": card}
+    emit(res)
+    if not greedy_replay["ok"] or not beam_check["ok"]:
+        raise AssertionError("decoding: the card and the CPU path disagree")
+    if not all(c["ok"] for c in batch_check):
+        raise AssertionError("beam_generate_batch differs from "
+                             "beam_generate")
+    if hooks.banned in btoks.tolist() or (stopped != tw.BEAM_EOS).any():
+        raise AssertionError("the beam hooks were not honoured")
+    if draws[0] != draws[1]:
+        raise AssertionError("two draws from one seed differ")
+    return res
+
+
 def _cpu_steps(sgd, batch, steps, workload):
     from paddle_tpu_torch import event
 
@@ -2017,11 +2373,19 @@ def main() -> int:
     serve_small(dev)
     lap("kernel_and_serve")
 
-    flash = run_flash_cases(dev)
+    # the translation cases' plain versions (thousands of small kernels a
+    # call at S 4096) are timed once between CUDA events: profiling them
+    # cost ~15 s a case
+    flash = run_flash_cases(dev, tuple(
+        n for n in tw.FLASH_CASES if n not in tw.NMT_FLASH_CASES))
+    flash.update(run_flash_cases(dev, tw.NMT_FLASH_CASES,
+                                 plain_events=True))
     trained = train(dev)
     train_parity(dev)
     torch.cuda.empty_cache()
     lap("flash_and_train")
+    train_lm_levers(dev, card, trained)
+    lap("lm_levers")
 
     rnn_cases = run_rnn_cases(dev)
     trained_lstm = train_lstm(dev)
@@ -2071,6 +2435,12 @@ def main() -> int:
     lap("quick_start")
     nested_groups(dev)
     lap("nested")
+    transformer_nmt_parity(dev)
+    trained_tnmt = train_transformer_nmt(dev, card)
+    lap("transformer_nmt")
+    generate_lm(dev, card)
+    torch.cuda.empty_cache()
+    lap("generate_lm")
 
     main_case = next(c for c in cases if c["case"] == "mixed_f32")
     decode_case = next(c for c in cases if c["case"] == "decode_f32")
@@ -2112,7 +2482,21 @@ def main() -> int:
                            "forward" if name == "flash_fwd"
                            else "backward of a saved forward"),
             "ptxas": ptxas_of("flash_attention_sm90", FLASH_PTXAS[name]),
-            "case": "a_bf16_8x1024_causal"})
+            "case": "a_bf16_8x1024_causal",
+            "launches_transformer_nmt":
+                trained_tnmt["flash_launches"][name],
+            "transformer_nmt_cases": {
+                c: {"max_abs_err": flash[c][name]["max_abs_err"],
+                    **{k: flash[c][name][k] for k in
+                       ("ms", "plain_ms", "bound_ms", "bound_by")},
+                    "library_ms": (flash[c]["library_fwd_ms"]
+                                   if name == "flash_fwd"
+                                   else flash[c]["library_bwd_ms"]),
+                    "library": "scaled_dot_product_attention with the "
+                               "dense [Sq, Sk] mask, " + (
+                                   "forward" if name == "flash_fwd" else
+                                   "backward of a saved forward")}
+                for c in tw.NMT_FLASH_CASES}})
     kernels += rnn_kernel_lines(
         rnn_cases, trained_lstm, trained_gru,
         {"train_nmt": trained_nmt, "generate_nmt": generated_nmt},

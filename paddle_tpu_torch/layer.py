@@ -1,13 +1,14 @@
 """The layer DSL (the port of ``paddle_tpu/layer.py``: the transformer
 subset ``data``, ``fc``, ``embedding``, ``layer_norm``, ``addto``,
-``multi_head_attention`` and ``classification_cost``, the recurrent
-subset ``lstmemory``, ``grumemory``, ``pooling``, ``first_seq``,
-``last_seq``, ``expand``, the Elman ``recurrent`` layer, the step layers
-``gru_step``/``lstm_step`` with ``recurrent_group``, ``memory``,
-``StaticInput`` and ``SubsequenceInput`` from ``recurrent.py``, ``mixed``
-with every projection (full matrix, transposed, identity, slice, dotmul,
-scaling, table, context) and operator (dotmul, conv), ``dotmul``,
-``dotmul_bcast`` and ``cross_entropy_cost``, the convnet subset
+``multi_head_attention``, ``classification_cost`` and the fused
+``lm_head_cost``, the recurrent subset ``lstmemory``, ``grumemory``,
+``pooling``, ``first_seq``, ``last_seq``, ``expand``, the Elman
+``recurrent`` layer, the step layers ``gru_step``/``lstm_step`` with
+``recurrent_group``, ``memory``, ``StaticInput`` and ``SubsequenceInput``
+from ``recurrent.py``, ``mixed`` with every projection (full matrix,
+transposed, identity, slice, dotmul, scaling, table, context) and
+operator (dotmul, conv), ``dotmul``, ``dotmul_bcast`` and
+``cross_entropy_cost``, the convnet subset
 ``img_conv``, ``img_pool``, ``batch_norm``, ``img_cmrnorm``, ``dropout``
 and ``concat``, the CTR/GAN subset ``slope_intercept`` and
 ``multi_binary_label_cross_entropy_cost``, the tagging subset ``crf`` and
@@ -66,7 +67,8 @@ __all__ = ["data", "fc", "embedding", "layer_norm", "addto", "concat",
            "context_projection", "dotmul_operator", "conv_operator", "crf",
            "crf_decoding", "seq_concat", "seq_reshape", "seq_slice",
            "kmax_seq_score", "sub_nested_seq", "max_id", "get_output",
-           "BeamInput", "cross_entropy_over_beam", "SubsequenceInput"]
+           "BeamInput", "cross_entropy_over_beam", "SubsequenceInput",
+           "lm_head_cost"]
 
 
 def _as_list(x) -> list:
@@ -1070,6 +1072,36 @@ def classification_cost(input, label, name: Optional[str] = None,
     return LayerOutput(name=name, layer_type="classification_cost",
                        inputs=[input, label], fn=compute, size=1,
                        is_cost=True)
+
+
+def lm_head_cost(input, label, vocab_size: int, name: Optional[str] = None,
+                 param_attr=None, bias_attr=True,
+                 block_size: int = 4096) -> LayerOutput:
+    """Fused LM head and softmax cross-entropy over a large vocabulary,
+    per token: ``fc(vocab) -> classification_cost`` computed in vocabulary
+    blocks of ``block_size`` with an online logsumexp, so the [tokens,
+    vocab] logits never exist whole in either pass
+    (``ops/losses.lm_head_xent``).  Parameters ``w`` [size, vocab] and
+    ``b`` [vocab] (``bias_attr=False``: none)."""
+    name = name or unique_name("lm_head_cost")
+    params = {"w": ParamSpec((input.size, vocab_size),
+                             ParamAttr.to_attr(param_attr))}
+    has_bias = bool(bias_attr)
+    if has_bias:
+        params["b"] = ParamSpec((vocab_size,), ParamAttr.to_attr(
+            None if bias_attr is True else bias_attr))
+
+    def compute(ctx, p, ins):
+        def f(x, lb):
+            return ploss.lm_head_xent(x, p["w"], p.get("b"),
+                                      lb.reshape(x.shape[0]),
+                                      block_v=block_size)
+
+        return _per_example(f, ins[0], ins[1])
+
+    return LayerOutput(name=name, layer_type="lm_head_cost",
+                       inputs=[input, label], fn=compute, params=params,
+                       size=1, is_cost=True)
 
 
 def cross_entropy_cost(input, label, name: Optional[str] = None,

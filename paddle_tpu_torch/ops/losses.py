@@ -1,10 +1,13 @@
 """Losses (the port of ``paddle_tpu/ops/losses.py:23-55,142-219``:
 ``softmax_cross_entropy``, ``sigmoid_cross_entropy_with_logits``,
-``multi_binary_label_cross_entropy`` and ``cross_entropy_over_beam``)."""
+``multi_binary_label_cross_entropy`` and ``cross_entropy_over_beam``;
+the blockwise LM-head cross entropy ``lm_head_xent``, ``:227-360``)."""
 
 from __future__ import annotations
 
 import torch
+
+from paddle_tpu_torch.ops import math as pmath
 
 
 def softmax_cross_entropy(logits: torch.Tensor,
@@ -87,3 +90,108 @@ def cross_entropy_over_beam(beams) -> torch.Tensor:
     return softmax_cross_entropy(
         picked, torch.full((batch,), picked.shape[1] - 1, dtype=torch.long,
                            device=dev))
+
+
+# ---------------------------------------------------------------------------
+# blockwise LM-head cross entropy: the [N, V] logits never exist whole
+# ---------------------------------------------------------------------------
+
+_PAD_NEG = -1e30   # the padded columns' bias: exp() underflows to 0
+
+
+def _lm_blocks(v: int, block_v: int):
+    """(block_v, n_blocks): ``block_v <= 0`` or above ``v`` is one block;
+    the last block is padded to full width, not shrunk."""
+    if block_v <= 0 or block_v > v:
+        block_v = v
+    return block_v, -(-v // block_v)
+
+
+def _block_wb(w, b, j: int, bv: int):
+    """Block j's weight columns and bias, the columns past V zero and their
+    bias -1e30 (JAX's ``_padded_wb`` taken a block at a time)."""
+    wj, bj = w[:, j * bv:(j + 1) * bv], b[j * bv:(j + 1) * bv]
+    pad = bv - wj.shape[1]
+    if pad:
+        wj = torch.cat([wj, wj.new_zeros((wj.shape[0], pad))], dim=1)
+        bj = torch.cat([bj, bj.new_full((pad,), _PAD_NEG)])
+    return wj, bj
+
+
+def _block_logits(xc, w, b, j: int, bv: int):
+    """[N, bv] f32 logits of block j: ``xc`` is x in the compute dtype,
+    the product accumulates in f32 (``ops/math.matmul``)."""
+    wj, bj = _block_wb(w, b, j, bv)
+    return pmath.matmul(xc, wj) + bj.float()
+
+
+def _in_block(labels, j: int, bv: int):
+    """(labels inside block j, their column in it, clipped into range)."""
+    in_blk = (labels >= j * bv) & (labels < (j + 1) * bv)
+    return in_blk, torch.clamp(labels - j * bv, 0, bv - 1)
+
+
+class _LmHeadXent(torch.autograd.Function):
+    """JAX's ``custom_vjp``: the forward keeps the online logsumexp's
+    ``logz``; the backward recomputes each block's softmax from it."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, labels, block_v):
+        bv, nb = _lm_blocks(w.shape[1], block_v)
+        xc = x.to(pmath.compute_dtype(x))
+        n = x.shape[0]
+        m = torch.full((n,), float("-inf"), device=x.device)
+        s = torch.zeros((n,), device=x.device)
+        picked = torch.zeros((n,), device=x.device)
+        for j in range(nb):
+            lg = _block_logits(xc, w, b, j, bv)
+            new_m = torch.maximum(m, lg.max(dim=-1).values)
+            s = s * torch.exp(m - new_m) + \
+                torch.exp(lg - new_m[:, None]).sum(dim=-1)
+            m = new_m
+            in_blk, idx = _in_block(labels, j, bv)
+            pick = torch.gather(lg, 1, idx[:, None])[:, 0]
+            picked = torch.where(in_blk, pick, picked)
+        logz = m + torch.log(s)
+        ctx.save_for_backward(x, w, b, labels, logz)
+        ctx.block_v = block_v
+        return logz - picked
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, b, labels, logz = ctx.saved_tensors
+        v = w.shape[1]
+        bv, nb = _lm_blocks(v, ctx.block_v)
+        ct = pmath.compute_dtype(x)
+        xc = x.to(ct)
+        gf = g.float()
+        dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        dw = w.new_zeros((w.shape[0], nb * bv))
+        db = b.new_zeros((nb * bv,))
+        cols = torch.arange(bv, device=x.device)
+        for j in range(nb):
+            lg = _block_logits(xc, w, b, j, bv)
+            p = torch.exp(lg - logz[:, None])
+            in_blk, idx = _in_block(labels, j, bv)
+            onehot = (cols[None, :] == idx[:, None]) & in_blk[:, None]
+            dlg = (p - onehot.float()) * gf[:, None]
+            wj, _ = _block_wb(w, b, j, bv)
+            dx = dx + pmath.matmul(dlg.to(ct), wj.to(ct), trans_b=True)
+            dw[:, j * bv:(j + 1) * bv] = pmath.matmul(
+                xc, dlg.to(ct), trans_a=True).to(dw.dtype)
+            db[j * bv:(j + 1) * bv] = dlg.sum(dim=0).to(db.dtype)
+        # the pad columns' gradients are exactly 0: cut them
+        return dx.to(x.dtype), dw[:, :v], db[:v], None, None
+
+
+def lm_head_xent(x: torch.Tensor, w: torch.Tensor, b, labels: torch.Tensor,
+                 block_v: int = 4096) -> torch.Tensor:
+    """Per-token ``logsumexp(x W + b) - (x W + b)[label]`` in f32, computed
+    over vocabulary blocks of ``block_v`` columns with an online
+    logsumexp, so neither pass holds the [N, V] logits: the backward
+    recomputes each block from the saved ``logz``.  x: [N, D]; w: [D, V];
+    b: [V] or None; labels: [N] int.  The products follow the bf16
+    policy (``ops/math.matmul``); a label outside [0, V) picks 0."""
+    if b is None:
+        b = torch.zeros((w.shape[1],), dtype=torch.float32, device=w.device)
+    return _LmHeadXent.apply(x, w, b, labels.long(), int(block_v))

@@ -31,6 +31,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from paddle_tpu_torch.tools import transformer_nmt_workload as tnw
+
 MODEL = dict(vocab_size=32768, d_model=2048, n_layers=8, n_heads=16,
              max_len=1024)
 BATCH, SEQ = 8, 1024
@@ -58,15 +60,16 @@ def repeat_reader(samples, steps: int):
 
 
 def build_trainer(device, n_layers: int = MODEL["n_layers"],
-                  seed: int = SEED):
+                  seed: int = SEED, **levers):
     """``trainer.SGD`` over ``transformer.build`` at the workload's width
-    with ``n_layers`` blocks, weights from ``seed``, on ``device``."""
+    with ``n_layers`` blocks, weights from ``seed``, on ``device``;
+    ``levers``: ``build``'s ``fused_head``, ``remat`` and ``dropout``."""
     from paddle_tpu_torch import optimizer, topology, trainer
     from paddle_tpu_torch.models import transformer
     from paddle_tpu_torch.parameters import Parameters
 
     topology.reset_name_scope()
-    cfg = dict(MODEL, n_layers=n_layers)
+    cfg = dict(MODEL, n_layers=n_layers, **levers)
     *_, cost = transformer.build(**cfg)
     params = Parameters.from_topology(topology.Topology([cost]), seed=seed,
                                       device=device)
@@ -151,8 +154,13 @@ def packed_segments(lengths: Sequence[int], capacity: int) -> np.ndarray:
 # the feeder's packing of 8 ragged sequences (6561 tokens) into 8192 slots
 RAGGED_LENGTHS = (1000, 700, 1024, 513, 900, 1024, 800, 600)
 _S = BATCH * SEQ
-# name: (dtype, Sq, Sk, H, D, causal, packed lengths or None); None means
-# no segment ids (one segment)
+# one Transformer-base translation batch: 80 sources and 80 targets of
+# 10-81 tokens, each side packed into 4096 slots
+_NMT_SRC, _NMT_TRG = tnw.batch_lengths()
+# name: (dtype, Sq, Sk, H, D, causal, packed lengths or None[, the keys'
+# packed lengths]); None means no segment ids (one segment); without the
+# keys' own lengths, Sk == Sq shares the queries' ids and Sk != Sq is one
+# segment
 FLASH_CASES = {
     # (a) the training path: 8 causal segments of 1024 in 8192 slots
     "a_bf16_8x1024_causal": ("bfloat16", _S, _S, 16, 128, True,
@@ -199,7 +207,22 @@ FLASH_CASES = {
                                    (600, 1000, 300)),
     "m_f32_segments_causal_d48": ("float32", 2048, 2048, 8, 48, True,
                                   (600, 1000, 300)),
+    # (n, o, p) the translation model's three attentions at head dim 64:
+    # encoder self-attention over the sources' segments, cross-attention
+    # of the targets' packing against the sources' (segment i against
+    # segment i, each buffer's padding a segment of its own), and causal
+    # decoder self-attention over the targets' segments
+    "n_bf16_enc_segments": ("bfloat16", 4096, 4096, 8, 64, False,
+                            _NMT_SRC),
+    "o_bf16_cross": ("bfloat16", 4096, 4096, 8, 64, False, _NMT_TRG,
+                     _NMT_SRC),
+    "p_bf16_dec_causal_segments": ("bfloat16", 4096, 4096, 8, 64, True,
+                                   _NMT_TRG),
 }
+# the translation model's cases, and the training case whose times the
+# kernels line reports beside them
+NMT_FLASH_CASES = ("n_bf16_enc_segments", "o_bf16_cross",
+                   "p_bf16_dec_causal_segments")
 
 
 # head dims the kernels run on inputs widened with zero columns (12 and
@@ -232,16 +255,19 @@ def _case(name: str):
 
 def case_segments(name: str):
     """The named case's (q_seg [1, Sq], kv_seg [1, Sk]) int32 arrays."""
-    _, sq, sk, _, _, _, lengths = _case(name)[0]
+    _, sq, sk, _, _, _, lengths, *kv_lengths = _case(name)[0]
     q_seg = (np.zeros((1, sq), np.int32) if lengths is None
              else packed_segments(lengths, sq))
-    kv_seg = q_seg if sq == sk else np.zeros((1, sk), np.int32)
+    if kv_lengths:
+        kv_seg = packed_segments(kv_lengths[0], sk)
+    else:
+        kv_seg = q_seg if sq == sk else np.zeros((1, sk), np.int32)
     return q_seg, kv_seg
 
 
 def flash_case(name: str, device) -> FlashCase:
     """The named case's inputs on ``device``, drawn from a seed."""
-    (dtype, sq, sk, h, d, causal, _), seed = _case(name)
+    (dtype, sq, sk, h, d, causal, *_), seed = _case(name)
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(seed)
 
@@ -303,3 +329,127 @@ def live_pairs(q_seg: np.ndarray, kv_seg: np.ndarray, causal: bool) -> int:
             else:
                 total += len(qpos) * len(kpos)
     return total
+
+
+# ---------------------------------------------------------------------------
+# decoding the headline LM from the trainer's parameter dict
+# ---------------------------------------------------------------------------
+
+# greedy: 64 tokens after a 32-token prompt; beam 4 over 32 tokens, one
+# prompt and a batch of 8, eos 0, length penalty 1
+DECODE_PROMPT, DECODE_NEW = 32, 64
+BEAM, BEAM_NEW, BEAM_BATCH, BEAM_EOS = 4, 32, 8, 0
+BEAM_STOP_AT = 24        # the stop_condition ends every beam after step 24
+# a card token that is not the CPU's argmax passes as a near tie: the
+# CPU's top logit above the card token's by under 1e-3 of the top logit
+# (the serve phase's rule); a beam run whose tokens differ passes when a
+# step's k-th and (k+1)-th candidate totals lay within BEAM_TIE_ATOL
+# (f32 sums in another order move a 32-token total by ~1e-5)
+NEAR_TIE_RTOL, BEAM_TIE_ATOL, BEAM_SCORE_RTOL = 1e-3, 1e-3, 1e-5
+
+
+def decode_params(device, seed: int = SEED):
+    """``transformer.build`` parameters at the workload's width from
+    ``seed`` (drawn on the host), on ``device``, as a name -> tensor
+    dict."""
+    from paddle_tpu_torch import topology
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.parameters import Parameters
+
+    topology.reset_name_scope()
+    *_, cost = transformer.build(**MODEL)
+    return Parameters.from_topology(topology.Topology([cost]), seed=seed,
+                                    device=device).as_dict()
+
+
+def decode_prompts(seed: int, n: int, length: int = DECODE_PROMPT):
+    """``n`` prompts of ``length`` token ids drawn from ``seed``."""
+    rng = np.random.RandomState(seed)
+    return rng.randint(0, MODEL["vocab_size"], size=(n, length)).tolist()
+
+
+def decode_kw():
+    return dict(n_layers=MODEL["n_layers"], n_heads=MODEL["n_heads"],
+                max_len=MODEL["max_len"])
+
+
+class BanAndStop:
+    """The beam run's hooks: ``adjust`` bans token ``banned`` (None: no
+    token) from every live beam; ``stop`` ends every beam after step
+    ``stop_at``.  With
+    ``record`` on, ``adjust`` also keeps each step's selection margin
+    (:attr:`gaps`: the k-th best candidate total over the (k+1)-th, after
+    done beams are frozen to ``eos_id``), one device scalar a step."""
+
+    def __init__(self, banned: int, eos_id: int = BEAM_EOS,
+                 stop_at: int = BEAM_STOP_AT, record: bool = False):
+        self.banned, self.eos_id, self.stop_at = banned, eos_id, stop_at
+        self.record = record
+        self.gaps = []
+
+    def adjust(self, logp, beam):
+        if self.banned is not None:
+            logp = logp.clone()
+            logp[:, self.banned] = -1e30
+        if self.record:
+            k, v = logp.shape
+            eos_row = torch.full((v,), -1e30, device=logp.device)
+            eos_row[self.eos_id] = 0.0
+            cand = beam.scores[:, None] + torch.where(
+                beam.finished[:, None], eos_row, logp)
+            top = torch.topk(cand.reshape(-1), k + 1).values
+            self.gaps.append(top[k - 1] - top[k])
+        return logp
+
+    def stop(self, beam):
+        return beam.t >= self.stop_at
+
+    def hooks(self):
+        return dict(candidate_adjust=self.adjust, stop_condition=self.stop)
+
+
+def replay_greedy(params, prompt, tokens, *, n_layers: int, n_heads: int,
+                  **_decode) -> dict:
+    """The CPU path's logits over ``prompt + tokens`` in one pass (the
+    stack of ``transformer.block_apply``, f32), and at each generated
+    position whether ``tokens`` holds the argmax or a near tie
+    (:data:`NEAR_TIE_RTOL`).  ``params``: the model's tensors on the
+    CPU; the rest: :func:`decode_kw`."""
+    from paddle_tpu_torch.models import transformer
+
+    seq = torch.tensor(list(prompt) + list(tokens))
+    n = len(prompt)
+    with torch.no_grad():
+        x = params["tok_embed.w"][seq] + \
+            params["pos_embed.w"][torch.arange(len(seq))]
+        for stage in transformer.stage_params(params, n_layers):
+            x = transformer.block_apply(stage, x, n_heads=n_heads)
+        logits = transformer._logits(params, x)[n - 1:-1]
+    want = logits.argmax(dim=-1)
+    top = logits.max(dim=-1).values
+    picked = logits[torch.arange(len(tokens)), torch.tensor(tokens)]
+    gap = top - picked
+    diff = want != torch.tensor(tokens)
+    ties = diff & (gap < NEAR_TIE_RTOL * top.abs())
+    return {"positions": len(tokens), "argmax_equal": int((~diff).sum()),
+            "near_ties": int(ties.sum()),
+            "worst_gap_over_limit": float((gap / (NEAR_TIE_RTOL *
+                                                  top.abs())).max()),
+            "ok": bool((~diff | ties).all())}
+
+
+def beams_agree(got, want, gaps) -> dict:
+    """Two beam runs' (tokens, score) of one prompt: equal tokens and
+    scores within :data:`BEAM_SCORE_RTOL`, or tokens that part only after
+    a step whose selection margin (``gaps``, the reference run's) lay
+    within :data:`BEAM_TIE_ATOL`."""
+    (gt, gs), (wt, ws) = got, want
+    first = next((i for i, (a, b) in enumerate(zip(gt, wt)) if a != b),
+                 None)
+    margin = float(min(float(g) for g in gaps[:first + 1])) \
+        if first is not None else None
+    score_rel = abs(float(gs) - float(ws)) / max(abs(float(ws)), 1e-30)
+    ok = (score_rel <= BEAM_SCORE_RTOL if first is None
+          else margin < BEAM_TIE_ATOL)
+    return {"tokens_equal": first is None, "first_diff": first,
+            "margin_there": margin, "score_rel_diff": score_rel, "ok": ok}

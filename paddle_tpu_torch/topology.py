@@ -19,7 +19,10 @@ node's name.  A node that hosts a step graph (``recurrent_group``,
 graph as a sub-topology through :meth:`Topology.forward_with_state` with
 its own parameter dict, state and seed.
 
-Not yet ported: ``remat_scope`` (activation checkpointing).
+Nodes created inside a :class:`remat_scope` form a remat group that
+``forward`` runs as one ``torch.utils.checkpoint`` segment (the JAX
+package's ``jax.checkpoint``): the backward recomputes the segment's
+activations from its boundary inputs instead of keeping them.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from paddle_tpu_torch.attr import ParamAttr
 from paddle_tpu_torch.data_type import InputType
@@ -50,6 +54,36 @@ def unique_name(prefix: str) -> str:
 
 def reset_name_scope() -> None:
     _name_counters.clear()
+
+
+# ---------------------------------------------------------------------------
+# Remat (activation checkpointing) scopes
+# ---------------------------------------------------------------------------
+
+_remat_stack: List[str] = []
+
+
+class remat_scope:
+    """Tag every layer created inside with the remat group ``group``.
+    ``Topology.forward`` runs a group's nodes as one checkpointed segment:
+    the backward recomputes their activations from the segment's inputs,
+    with the same per-node random streams, and the model state the
+    forward wrote is kept (the recompute's is dropped)::
+
+        with topology.remat_scope("blk0"):
+            x = layer.fc(...)
+    """
+
+    def __init__(self, group: str):
+        self.group = group
+
+    def __enter__(self):
+        _remat_stack.append(self.group)
+        return self
+
+    def __exit__(self, *exc):
+        _remat_stack.pop()
+        return False
 
 
 @dataclass
@@ -134,9 +168,12 @@ class LayerOutput:
     height: Optional[int] = None        # data layers: image geometry
     width: Optional[int] = None
     img_shape: Optional[Tuple[int, int, int]] = None  # (H, W, C) of maps
+    remat_group: Optional[str] = None   # set by the enclosing remat_scope
 
     def __post_init__(self):
         enforce_that(self.name is not None, "layer needs a name")
+        if self.remat_group is None and _remat_stack and self.fn is not None:
+            self.remat_group = _remat_stack[-1]
 
     # graph sugar: l1 + l2 = addto
     def __add__(self, other: "LayerOutput") -> "LayerOutput":
@@ -281,6 +318,7 @@ class Topology:
             state = self.init_state(device) if self.state_specs() else {}
         ctx = Context(train=train, state=state, seed=seed, device=device)
         values: Dict[str, Any] = {}
+        done_groups: set = set()
         for node in order:
             if node.fn is None:  # data layers
                 if node.name not in feeds:
@@ -288,24 +326,90 @@ class Topology:
                                        f"{node.name!r}", context="forward")
                 values[node.name] = feeds[node.name]
                 continue
+            if node.remat_group is not None:
+                if node.remat_group not in done_groups:
+                    done_groups.add(node.remat_group)
+                    self._run_remat_group(node.remat_group, order, values,
+                                          params, ctx,
+                                          {w.name for w in wanted})
+                continue
             node_params = {p: params[self.param_key(node, p)]
                            for p in node.params}
             ins = [values[i.name] for i in node.inputs]
             ctx.current = node.name
-            try:
-                values[node.name] = node.fn(ctx, node_params, ins)
-            except Exception as e:
-                # name the failing layer so shape/dtype errors point at
-                # the config
-                e.add_note(
-                    f"[paddle_tpu_torch] while computing layer "
-                    f"{node.name!r} (type={node.layer_type}, "
-                    f"inputs={[i.name for i in node.inputs]})")
-                raise
+            values[node.name] = self._compute(node, ctx, node_params, ins)
         new_state = dict(state)
         for ns, slots in ctx.state_out.items():
             new_state[ns] = {**new_state.get(ns, {}), **slots}
         return [values[w.name] for w in wanted], new_state
+
+    @staticmethod
+    def _compute(node: LayerOutput, ctx: Context, node_params, ins,
+                 group: Optional[str] = None):
+        try:
+            return node.fn(ctx, node_params, ins)
+        except Exception as e:
+            # name the failing layer so shape/dtype errors point at the
+            # config
+            where = f", remat group {group!r}" if group is not None else ""
+            e.add_note(
+                f"[paddle_tpu_torch] while computing layer {node.name!r} "
+                f"(type={node.layer_type}{where}, "
+                f"inputs={[i.name for i in node.inputs]})")
+            raise
+
+    def _run_remat_group(self, group: str, order: List[LayerOutput],
+                         values: Dict[str, Any],
+                         params: Dict[str, torch.Tensor], ctx: Context,
+                         wanted_names: set) -> None:
+        """Run one remat group as a single checkpointed segment: a
+        function of the group's boundary inputs (its parameters are read
+        from ``params``) returning its boundary outputs and the state it
+        wrote.  The backward reruns it; each run builds its own
+        ``Context``, so the dropout generators ``rng_for`` makes are
+        seeded alike, and only the first run's state is kept."""
+        nodes = [n for n in order if n.remat_group == group]
+        in_group = {n.name for n in nodes}
+        ext_in: List[str] = []
+        for n in nodes:
+            for i in n.inputs:
+                if i.name not in in_group and i.name not in ext_in:
+                    ext_in.append(i.name)
+                    enforce_that(
+                        i.name in values,
+                        f"remat group {group!r} input {i.name!r} is not "
+                        f"available yet — the group is not a contiguous "
+                        f"segment of the graph", context="remat")
+        consumed_outside = set(wanted_names)
+        for n in order:
+            if n.remat_group != group:
+                consumed_outside.update(i.name for i in n.inputs)
+        ext_out = [n.name for n in nodes if n.name in consumed_outside]
+        enforce_that(ext_out,
+                     f"remat group {group!r} has no outputs used outside it",
+                     context="remat")
+
+        def segment(*ext_vals):
+            local = dict(zip(ext_in, ext_vals))
+            sub = Context(train=ctx.train, state=ctx.state_in,
+                          seed=ctx.seed, device=ctx.device)
+            for n in nodes:
+                node_params = {p: params[self.param_key(n, p)]
+                               for p in n.params}
+                sub.current = n.name
+                local[n.name] = self._compute(
+                    n, sub, node_params, [local[i.name] for i in n.inputs],
+                    group)
+            return [local[nm] for nm in ext_out], sub.state_out
+
+        # the segment draws its random numbers from its own generators,
+        # so the global RNG state needs no stashing
+        outs, state_out = checkpoint(
+            segment, *[values[nm] for nm in ext_in], use_reentrant=False,
+            preserve_rng_state=False)
+        values.update(zip(ext_out, outs))
+        for ns, slots in state_out.items():
+            ctx.state_out.setdefault(ns, {}).update(slots)
 
     def __repr__(self):
         return (f"Topology({len(self.nodes)} nodes, "

@@ -259,13 +259,15 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
     files = sorted((REPO / "paddle_tpu_torch").rglob("*.py")) + \
         [REPO / "chip_smoke.py"]
     assert len(files) > 10
-    # the sixth slice's modules, parallel/ among them, are walked too
+    # the sixth and eighth slices' modules, parallel/ among them, are
+    # walked too
     names = {str(f.relative_to(REPO)) for f in files}
     assert names >= {f"paddle_tpu_torch/{m}.py" for m in (
         "models/deepfm", "models/gan", "models/vae",
         "models/traffic_prediction", "parallel/sparse",
         "tools/ctr_workload", "tools/gan_vae_workload",
-        "tools/profile_ctr")}
+        "tools/profile_ctr", "models/transformer", "topology", "ops/losses",
+        "tools/transformer_nmt_workload", "tools/profile_transformer_nmt")}
     bad = {str(f.relative_to(REPO)): n for f in files
            for n in _imports(f) if _forbidden(n)}
     assert bad == {}
@@ -282,7 +284,10 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             " paddle_tpu_torch.tools.ctr_workload,"
             " paddle_tpu_torch.tools.gan_vae_workload,"
             " paddle_tpu_torch.tools.profile_ctr,"
-            " paddle_tpu_torch.tools.repro, chip_smoke; "
+            " paddle_tpu_torch.tools.repro,"
+            " paddle_tpu_torch.models.transformer,"
+            " paddle_tpu_torch.tools.transformer_nmt_workload,"
+            " paddle_tpu_torch.tools.profile_transformer_nmt, chip_smoke; "
             "print(sorted(m for m in sys.modules if m in ('jax', "
             "'paddle_tpu') or m.startswith(('jax.', 'paddle_tpu.'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
