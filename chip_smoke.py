@@ -160,8 +160,9 @@ checkout of the repository).  Phases, each fatal on failure:
     ``crf_decoding`` through ``Inference``: ms a batch, paths equal to
     the CPU path's;
 25. train_chunker: the CoNLL-2000 chunker (``models/sequence_tagging``,
-    23 tags), batch 64, Adam 1e-3, 6 steps, then its decode against the
-    CPU path's;
+    23 tags), batch 64, Adam 1e-3, 6 steps with ``evaluator.chunk`` (IOB,
+    11 chunk types) over its decoded tags as an extra layer (F1 a step, in
+    [0, 1]), then its decode against the CPU path's;
 26. train_quick_start: the seven quick_start classifiers
     (``tools/quick_start_workload``: dict 30000, embedding 128, batch 128
     of 10-100 tokens, Adam 2e-3), 4 steps each: finite, falling costs, B5
@@ -188,9 +189,44 @@ checkout of the repository).  Phases, each fatal on failure:
     step 24) and ``beam_generate_batch`` (8 prompts): ms a token,
     tokens/s, launches a step, peak memory; the greedy tokens replayed on
     the CPU path at full width, the beam run against the CPU path's, the
-    batch against per-prompt runs, two seeded temperature draws equal.
+    batch against per-prompt runs, two seeded temperature draws equal;
+31. v2_sentiment: IMDB sentiment through the whole v2 loop
+    (``tools/v2_loop_workload``: bench.py's text_lstm, embedding 128, 2 x
+    LSTM of 512, ``dataset.imdb.word_dict()``'s 5147 words, ``batch(
+    reader.shuffle(imdb.train(word_dict), 2048), 64)``, the book's
+    ``Adam(2e-3, L2Regularization(8e-4), ModelAverage(0.5))``,
+    ``classification_error`` and ``auc`` as extra layers): two passes at
+    prefetch 2 with ``imdb.test`` as the test reader, then ``test``; its
+    first 8 steps again from the same weights and shuffle at prefetch 0
+    with the same cost bits; falling costs, every metric in [0, 1], B5 launched 2 x
+    each batch's frames (training and test batches); ms a step and
+    sequences/s at prefetch 0 and 2, the test pass's ms, the launches L2
+    and model averaging add to Adam's update, a profiled step's idle
+    share;
+32. v2_resnet50: ResNet-50 (224 px, batch 128, bf16) fed flat CHW samples
+    through a reader: a pass of 4 batches at prefetch 0 and one at 2,
+    ``Momentum(0.9)`` at 0.01 with ``L2Regularization(1e-4)`` and a
+    ``discexp`` schedule, top-1 and top-5 errors as extra layers, ``test``
+    on 2 batches (batch norm on its moving statistics): images/s at both
+    prefetches beside 14's device-feed step, the card ms L2 adds to the
+    optimizer's range;
+33. v2_mnist: BASELINE #1, LeNet through ``batch(reader.shuffle(
+    dataset.mnist.train(), 8192), 128)`` with the book's
+    ``Momentum(0.1 / 128, 0.9, L2Regularization(0.0005 * 128))``, one
+    pass, ``test`` on ``mnist.test()`` (error below 0.5), ``infer`` on 16
+    test images against the CPU path;
+34. optimizers: the nine rules, each with every lever (L1L2, a global clip
+    that binds, a per-parameter clip, a static tensor, a rate multiplier,
+    a pruning hook, a ``manual`` schedule, ``ModelAverage``), 3 f32 steps
+    on LeNet, card against the CPU path: every parameter, slot, average
+    and scalar on the same gradients and on each side's own; a pruning
+    quantile on a tensor of 16,781,312 > 2^24 elements, card against CPU;
+35. evaluators: every case of ``v2_loop_workload.EVALUATOR_CASES``, card
+    against CPU: values, metrics, the printers' text.
 
-Every line of output is one JSON object; the one before the last lists
+The datasets (31, 33) are their seeded synthetic fallbacks: their
+downloads are refused (``v2_loop_workload.offline``), so no phase
+reaches the network.  Every line of output is one JSON object; the one before the last lists
 the kernels, the last is ``{"ok": true, "device": {...}}``.  The serve
 workload lives in ``paddle_tpu_torch/tools/serve_workload.py``, shared
 with the profiler ``python -m paddle_tpu_torch.tools.profile_serve``; the
@@ -208,9 +244,10 @@ taggers in ``paddle_tpu_torch/tools/srl_workload.py``, quick_start in
 ``paddle_tpu_torch/tools/quick_start_workload.py`` and the nested groups
 in ``paddle_tpu_torch/tools/nested_workload.py``; the translation
 transformer in ``paddle_tpu_torch/tools/transformer_nmt_workload.py``,
-shared with ``python -m paddle_tpu_torch.tools.profile_transformer_nmt``.
-The image phases, 18-22, 25 and 27 run no hand-written kernel: no TPU
-kernel lies on those paths (the convs and batch norm are cuDNN's through
+shared with ``python -m paddle_tpu_torch.tools.profile_transformer_nmt``;
+the v2 loop's in ``paddle_tpu_torch/tools/v2_loop_workload.py``.
+The image phases, 18-22, 25, 27 and 32-35 run no hand-written kernel:
+no TPU kernel lies on those paths (the convs and batch norm are cuDNN's through
 PyTorch, the CTR and GAN products cuBLAS's).
 """
 
@@ -781,11 +818,11 @@ def _reset_flash_launches() -> None:
         kern.launches = 0
 
 
-def _train_costs(sgd, samples, steps, workload=tw):
+def _train_costs(sgd, samples, steps, workload=tw, metrics=None):
     """Train ``steps`` steps on one batch through ``SGD.train``; per step
     the cost and the host time from BeginIteration to the cost on the
     host (feeding, forward, backward, update).  ``workload`` gives the
-    reader and the feeding."""
+    reader and the feeding; ``metrics``, a list, gets each step's."""
     from paddle_tpu_torch import event
 
     costs, step_ms, t = [], [], [0.0]
@@ -797,6 +834,8 @@ def _train_costs(sgd, samples, steps, workload=tw):
         elif isinstance(ev, event.EndIteration):
             costs.append(ev.cost)              # waits for the card
             step_ms.append(1e3 * (time.perf_counter() - t[0]))
+            if metrics is not None:
+                metrics.append(dict(ev.metrics))
 
     sgd.train(workload.repeat_reader(samples, steps), num_passes=1,
               event_handler=handler, feeding=workload.FEEDING)
@@ -1947,10 +1986,12 @@ def train_srl(dev, card: str) -> dict:
 
 def train_chunker(dev, card: str) -> dict:
     """The CoNLL-2000 chunker (23 tags), batch 64, Adam 1e-3, 6 steps on
-    one batch, then its decode against the CPU path's."""
-    sgd, decoded = sw.build_chunker(dev)
+    one batch with ``evaluator.chunk`` (IOB, 11 types) over its decoded
+    tags as an extra layer, then its decode against the CPU path's."""
+    sgd, decoded = sw.build_chunker(dev, chunk_f1=True)
     batch = sw.chunk_batch()
-    costs, step_ms = _train_costs(sgd, batch, TAGGER_STEPS, sw)
+    metrics = []
+    costs, step_ms = _train_costs(sgd, batch, TAGGER_STEPS, sw, metrics)
     got, want, dec_ms, _ = _decode_on_both(decoded, sgd, batch, dev)
     med = float(np.median(step_ms[1:]))
     res = {"phase": "train_chunker", "config": sw.CHUNK,
@@ -1959,11 +2000,13 @@ def train_chunker(dev, card: str) -> dict:
            "sentences_per_s": len(batch) / (med / 1e3),
            "decode_ms_median": float(np.median(dec_ms)),
            "decode_paths_equal_cpu": bool(np.array_equal(got, want)),
-           "nvidia_smi": card}
+           "chunk_f1": [m["chunk_f1"] for m in metrics],
+           "chunk_types": sw.CHUNK_TYPES, "nvidia_smi": card}
     emit(res)
     if not all(np.isfinite(costs)) or not costs[-1] < costs[0] or \
-            not res["decode_paths_equal_cpu"]:
-        raise AssertionError("chunker: costs or decoded paths wrong")
+            not res["decode_paths_equal_cpu"] or \
+            not all(0.0 <= f <= 1.0 for f in res["chunk_f1"]):
+        raise AssertionError("chunker: costs, decoded paths or F1 wrong")
     return res
 
 
@@ -2329,6 +2372,402 @@ def _cpu_steps(sgd, batch, steps, workload):
     return costs
 
 
+# ---------------------------------------------------------------------------
+# the v2 loop: readers, datasets, evaluators, optimizers, prefetch
+# ---------------------------------------------------------------------------
+
+class _PassClock:
+    """An event handler that keeps every EndIteration and EndPass event
+    (read after the run, so the loop never waits for the card) and times
+    each pass on the host clock: from BeginPass to the test reader's first
+    call (the card drained first), and the test pass from there to
+    EndPass."""
+
+    def __init__(self):
+        self.iters, self.passes, self.train_s, self.test_s = [], [], [], []
+        self._t = 0.0
+
+    def __call__(self, ev):
+        from paddle_tpu_torch import event
+
+        if isinstance(ev, event.BeginPass):
+            torch.cuda.synchronize()
+            self._t = time.perf_counter()
+        elif isinstance(ev, event.EndIteration):
+            self.iters.append(ev)
+        elif isinstance(ev, event.EndPass):
+            now = time.perf_counter()
+            if len(self.train_s) == len(self.passes):   # no test reader
+                self.train_s.append(now - self._t)
+            else:
+                self.test_s.append(now - self._t)
+            self.passes.append(ev)
+
+    def test_reader(self, reader):
+        def timed():
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            self.train_s.append(now - self._t)
+            self._t = now
+            return reader()
+        return timed
+
+    def costs(self):
+        return [ev.cost for ev in self.iters]
+
+
+def _in_unit(metrics: list) -> bool:
+    return all(0.0 <= v <= 1.0 for m in metrics for v in m.values())
+
+
+def _optimizer_range(sgd, feeds, steps: int = 2):
+    """({launches, card_ms} a step inside the optimizer's profiler range,
+    the profile) over ``steps`` ``SGD.step`` s after one unprofiled
+    step (``profile_ctr``'s range)."""
+    from paddle_tpu_torch.tools import profile_ctr
+
+    apply = sgd.optimizer.apply
+    profile_ctr.ranged_optimizer(sgd)
+    sgd.step(feeds)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        for _ in range(steps):
+            sgd.step(feeds)
+        torch.cuda.synchronize()
+    sgd.optimizer.apply = apply
+    inside = [us for us, chain in profile_ctr._launched(prof)
+              if profile_ctr.OPTIMIZER_RANGE in chain]
+    return {"launches": len(inside) / steps,
+            "card_ms": sum(inside) / 1e3 / steps}, prof
+
+
+def _levers_off(opt, **off):
+    """Set ``opt``'s attributes to ``off`` and return the old values."""
+    old = {k: getattr(opt, k) for k in off}
+    for k, v in off.items():
+        setattr(opt, k, v)
+    return old
+
+
+SENTIMENT_PLAIN_STEPS = 8
+
+
+def v2_sentiment(dev, card: str) -> dict:
+    """IMDB sentiment through the whole v2 loop (``tools/v2_loop_workload``)
+    at bench.py's text_lstm width: two passes at prefetch 2 with the test
+    reader, then ``test``; the first 8 steps again from the same weights
+    and shuffle at prefetch 0 (the same cost bits); B5's launches against
+    2 layers x each batch's frames; the launches L2 and model averaging
+    add to Adam's update; a profiled step's idle share."""
+    import random
+
+    from paddle_tpu_torch import reader
+    from paddle_tpu_torch.dataset import imdb
+    from paddle_tpu_torch.tools import profile_ctr
+    from paddle_tpu_torch.tools import v2_loop_workload as vw
+
+    t0 = time.perf_counter()
+    with vw.offline():
+        word_dict = imdb.word_dict()
+        train_reader, test_reader = vw.sentiment_readers(word_dict)
+        one_batch = next(iter(train_reader()))
+        runs = {}
+        # the main run, then the first SENTIMENT_PLAIN_STEPS steps again
+        # from the same weights and shuffle without prefetch
+        for prefetch, passes, reader_ in (
+                (2, vw.SENTIMENT_PASSES, train_reader),
+                (0, 1, reader.firstn(train_reader, SENTIMENT_PLAIN_STEPS))):
+            sgd = vw.sentiment_trainer(dev, len(word_dict))
+            frames, test_frames = vw.FrameLog(), vw.FrameLog()
+            clock = _PassClock()
+            random.seed(SEED)
+            torch.cuda.synchronize()
+            rw.reset_launches()
+            sgd.train(frames.wrap(reader_),
+                      num_passes=passes, event_handler=clock,
+                      feeding=vw.SENTIMENT_FEEDING, prefetch=prefetch,
+                      test_reader=clock.test_reader(
+                          test_frames.wrap(test_reader)))
+            result = sgd.test(test_frames.wrap(test_reader),
+                              feeding=vw.SENTIMENT_FEEDING)
+            torch.cuda.synchronize()
+            runs[prefetch] = dict(sgd=sgd, clock=clock, result=result,
+                                  launches=_lstm_launches(),
+                                  frames=frames.frames,
+                                  test_frames=test_frames.frames)
+    setup_s = time.perf_counter() - t0
+    main, plain = runs[2], runs[0]
+    costs, costs0 = main["clock"].costs(), plain["clock"].costs()
+    steps = len(costs) // vw.SENTIMENT_PASSES
+    expected = 2 * (sum(main["frames"]) + sum(main["test_frames"]))
+    sgd = main["sgd"]
+    feeds = sgd._make_feeder(vw.SENTIMENT_FEEDING).feed(one_batch)
+    wall = profile_ctr.step_wall_ms(sgd, feeds, 2)
+    levered, prof = _optimizer_range(sgd, feeds, steps=1)
+    busy = profile_ctr.breakdown(prof, 1, wall)
+    old = _levers_off(sgd.optimizer, regularization=None, model_average=None)
+    plain_adam, _ = _optimizer_range(sgd, feeds, steps=1)
+    _levers_off(sgd.optimizer, **old)
+    iter_metrics = [dict(ev.metrics) for ev in main["clock"].iters]
+    pass_metrics = [dict(ev.metrics) for ev in main["clock"].passes]
+
+    def per_step(run, p):
+        return 1e3 * run["clock"].train_s[p] / (
+            steps if run is main else len(costs0))
+
+    res = {"phase": "v2_sentiment", "model": vw.SENTIMENT,
+           "dict_size": len(word_dict), "batch": vw.SENTIMENT_BATCH,
+           "passes": vw.SENTIMENT_PASSES, "steps_a_pass": steps,
+           "costs_first_last": [costs[0], costs[-1]],
+           "pass_mean_costs": [float(np.mean(costs[i * steps:(i + 1) *
+                                                   steps]))
+                               for i in range(vw.SENTIMENT_PASSES)],
+           "end_pass_metrics": pass_metrics,
+           "test_result": {"cost": main["result"].cost,
+                           **main["result"].metrics},
+           "metrics_in_unit_interval": _in_unit(iter_metrics + pass_metrics
+                                                + [main["result"].metrics]),
+           "ms_a_step": {"prefetch_2": [per_step(main, p) for p in
+                                        range(vw.SENTIMENT_PASSES)],
+                         "prefetch_0": [per_step(plain, 0)]},
+           "sequences_per_s": {
+               "prefetch_2": vw.SENTIMENT_BATCH * 1e3 / per_step(main, -1),
+               "prefetch_0": vw.SENTIMENT_BATCH * 1e3 / per_step(plain, -1)},
+           "test_pass_ms": [1e3 * s for s in main["clock"].test_s],
+           "prefetch_0_same_cost_bits": costs0 == costs[:len(costs0)],
+           "b5_launches": main["launches"], "b5_expected": expected,
+           "frames_a_batch": sorted(set(main["frames"])),
+           "optimizer_range": {"adam_l2_model_average": levered,
+                               "adam": plain_adam},
+           "launches_added_by_l2_and_average":
+               levered["launches"] - plain_adam["launches"],
+           "step_wall_ms": wall, "idle_share": busy["idle_share"],
+           "device_busy_ms": busy["device_busy_ms"],
+           "kernel_launches_a_step": busy["kernel_launches"],
+           "setup_and_runs_s": setup_s, "nvidia_smi": card}
+    emit(res)
+    if not all(np.isfinite(costs)) or not \
+            np.mean(costs[-8:]) < np.mean(costs[:8]):
+        raise AssertionError("v2_sentiment did not learn: pass means "
+                             f"{res['pass_mean_costs']}")
+    if not res["metrics_in_unit_interval"]:
+        raise AssertionError("v2_sentiment: a metric outside [0, 1]")
+    if not res["prefetch_0_same_cost_bits"]:
+        raise AssertionError("v2_sentiment: prefetch 0 and 2 differ")
+    if main["launches"] != expected:
+        raise AssertionError(f"v2_sentiment: B5 launched {main['launches']}"
+                             f" times, expected {expected}")
+    return res
+
+
+
+def v2_resnet50(dev, card: str, device_feed: dict) -> dict:
+    """ResNet-50 through a reader of flat CHW samples: a pass of 4 batches
+    at prefetch 0 and one at 2, ``test`` on 2 batches (batch norm on its
+    moving statistics), top-1 and top-5 errors; the card ms L2 adds to the
+    optimizer's range; ``device_feed`` is train_resnet50's result (the
+    device-feed ``SGD.step`` images/s beside these)."""
+    from paddle_tpu_torch.tools import v2_loop_workload as vw
+
+    t0 = time.perf_counter()
+    sgd = vw.resnet_trainer(dev)
+    train_b = vw.resnet_batches(SEED + 40, vw.RESNET_TRAIN_BATCHES)
+    test_b = vw.resnet_batches(SEED + 50, vw.RESNET_TEST_BATCHES)
+    feeds = sgd._make_feeder(None).feed(train_b[0])
+    sgd.step(feeds)                       # warm-up: the L2 and schedule ops
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    passes = {}
+    for prefetch in (0, 2):
+        clock = _PassClock()
+        sgd.train(lambda: iter(train_b), num_passes=1, event_handler=clock,
+                  prefetch=prefetch)
+        passes[prefetch] = clock
+    result = sgd.test(lambda: iter(test_b))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with_l2, _ = _optimizer_range(sgd, feeds)
+    old = _levers_off(sgd.optimizer, regularization=None)
+    without, _ = _optimizer_range(sgd, feeds)
+    _levers_off(sgd.optimizer, **old)
+    batch = iw.MODELS[vw.RESNET]["batch"]
+    ips = {f"prefetch_{p}": batch * len(train_b) / c.train_s[0]
+           for p, c in passes.items()}
+    costs = passes[0].costs() + passes[2].costs()
+    iter_metrics = [dict(ev.metrics) for c in passes.values()
+                    for ev in c.iters]
+    res = {"phase": "v2_resnet50", "model": vw.RESNET, "batch": batch,
+           "train_batches": len(train_b), "test_batches": len(test_b),
+           "optimizer": {"momentum": vw.RESNET_MOMENTUM,
+                         "learning_rate": vw.RESNET_LR, "l2": vw.RESNET_L2,
+                         "discexp": [vw.DISCEXP_A, vw.DISCEXP_B]},
+           "costs": costs, "iteration_metrics": iter_metrics,
+           "images_per_s": ips,
+           "images_per_s_device_feed_step": device_feed["images_per_s"],
+           "ms_a_step": {p: 1e3 / (v / batch) for p, v in ips.items()},
+           "test_result": {"cost": result.cost, **result.metrics},
+           "optimizer_range": {"momentum_l2": with_l2, "momentum": without},
+           "card_ms_added_by_l2": with_l2["card_ms"] - without["card_ms"],
+           "peak_memory_gb": peak, "setup_s": setup_s, "nvidia_smi": card}
+    emit(res)
+    if not all(np.isfinite(costs + [result.cost])) or not _in_unit(
+            iter_metrics + [result.metrics]):
+        raise AssertionError("v2_resnet50: a cost not finite or a metric "
+                             "outside [0, 1]")
+    if not result.metrics["top5_error"] <= result.metrics["top1_error"]:
+        raise AssertionError("v2_resnet50: top-5 error above top-1")
+    return res
+
+
+def v2_mnist(dev, card: str) -> dict:
+    """BASELINE #1: LeNet through ``batch(reader.shuffle(mnist.train(),
+    8192), 128)``, the book's digits optimizer, one pass at prefetch 2,
+    ``test`` on ``mnist.test()`` (error below 0.5) and ``infer`` on 16
+    test images, held to the CPU path on a copy of the weights."""
+    import random
+
+    from paddle_tpu_torch.inference import infer
+    from paddle_tpu_torch.dataset import mnist
+    from paddle_tpu_torch.tools import v2_loop_workload as vw
+
+    random.seed(SEED)
+    with vw.offline():
+        sgd, logits = vw.mnist_trainer(dev)
+        train_reader, test_reader = vw.mnist_readers()
+        images = [(img,) for img, _ in
+                  list(mnist.test()())[:vw.MNIST_INFER]]
+    clock = _PassClock()
+    sgd.train(train_reader, num_passes=1, event_handler=clock, prefetch=2)
+    result = sgd.test(test_reader)
+    out = infer(output_layer=logits, parameters=sgd.parameters,
+                input=images, model_state=sgd.model_state, device=dev)
+    want = infer(output_layer=logits, parameters=_cpu_copy(sgd.parameters),
+                 input=images, device="cpu")
+    costs = clock.costs()
+    steps = len(costs)
+    res = {"phase": "v2_mnist", "model": "lenet", "batch": vw.MNIST_BATCH,
+           "optimizer": {"momentum": vw.MNIST_MOMENTUM,
+                         "learning_rate": vw.MNIST_LR, "l2": vw.MNIST_L2},
+           "steps": steps, "costs_first_last": [costs[0], costs[-1]],
+           "end_pass_metrics": dict(clock.passes[0].metrics),
+           "ms_a_step": 1e3 * clock.train_s[0] / steps,
+           "test_result": {"cost": result.cost, **result.metrics},
+           "infer_shape": list(out.shape),
+           "infer_max_abs_diff_cpu": float(np.abs(out - want).max()),
+           "infer_argmax_equal_cpu": bool(np.array_equal(
+               out.argmax(-1), want.argmax(-1))),
+           "nvidia_smi": card}
+    emit(res)
+    if not result.metrics["error"] < 0.5 or not np.isfinite(out).all() or \
+            out.shape != (vw.MNIST_INFER, 10):
+        raise AssertionError(f"v2_mnist: test error {result.metrics} or "
+                             f"infer {out.shape}")
+    return res
+
+
+# card against the CPU path, f32 with TF32 off, 3 steps from the same
+# weights on LeNet, each tensor's error in norm relative to its norm.
+# On the same gradients (the CPU optimizer applies the card's) the update's
+# arithmetic alone differs, held at 1e-5.  The run on each side's own
+# gradients is reported, not held: cuDNN's convolutions (their algorithm
+# picked by cudnn.benchmark each run) and cuBLAS's products sum in other
+# orders than the CPU's; a ReLU or max-pool input near a tie, or a weight
+# near 0 under L1's sign(p), that the two round to opposite sides moves a
+# gradient entry, and the Adagrad family and Adam then normalize that
+# entry to a full lr step (measured on an H100: 4.2e-7 to 0.114, the
+# worst a 500-entry bias under Adagrad, differing from run to run)
+OPT_TENSOR_RTOL = 1e-5
+
+
+def optimizers(dev, card: str) -> dict:
+    """Every rule with every lever on LeNet in f32, card against CPU: each
+    parameter, slot, average and scalar recursion after 3 steps on the
+    same gradients (held) and on each side's own (reported); the prune
+    masks equal; then a mask on one tensor above 2^24 elements."""
+    from paddle_tpu_torch.optimizer import quantile_f32
+    from paddle_tpu_torch.tools import v2_loop_workload as vw
+
+    rules = {}
+    with nw.f32_policy():
+        for rule in vw.RULES:
+            same = vw.state_errors(*vw.on_both(rule, dev))
+            full_card, full_cpu = vw.independent(rule, dev)
+            full = vw.state_errors(full_card, full_cpu)
+            worst, worst_full = max(same, key=same.get), \
+                max(full, key=full.get)
+            rules[rule] = {
+                "tensors": len(same), "same_grads_max_err": same[worst],
+                "same_grads_worst": worst,
+                "own_grads_max_err": full[worst_full],
+                "own_grads_worst": worst_full,
+                "avg_count": float(full_card.opt_state["avg_count"])}
+        sgd, feeds = vw.lever_trainer("Sgd", "cpu")
+        gnorm = vw.grad_norm(sgd, feeds)
+    rng = np.random.default_rng(SEED)
+    big = rng.standard_normal(vw.BIG_PRUNE_SHAPE, dtype=np.float32)
+    t = torch.from_numpy(big)
+    thresh_cpu = quantile_f32(t.abs(), 0.6)
+    thresh_card = quantile_f32(t.to(dev).abs(), 0.6)
+    kept_cpu = int((t.abs() >= thresh_cpu).sum())
+    kept_card = int((t.to(dev).abs() >= thresh_card).sum())
+    res = {"phase": "optimizers", "model": "lenet", "f32": True,
+           "steps": vw.OPT_STEPS, "learning_rate": vw.OPT_LR,
+           "levers": vw.LEVERS, "param_levers": vw.PARAM_LEVERS,
+           "first_grad_norm": gnorm, "rules": rules,
+           "rtol_same_grads": OPT_TENSOR_RTOL,
+           "big_prune": {"shape": list(vw.BIG_PRUNE_SHAPE),
+                         "elements": big.size,
+                         "threshold_bits_equal":
+                             thresh_cpu.numpy().tobytes() ==
+                             thresh_card.cpu().numpy().tobytes(),
+                         "kept_cpu": kept_cpu, "kept_card": kept_card},
+           "nvidia_smi": card}
+    emit(res)
+    bad = {r: v for r, v in rules.items()
+           if not v["same_grads_max_err"] <= OPT_TENSOR_RTOL
+           or not np.isfinite(v["own_grads_max_err"])}
+    if bad or not gnorm > vw.LEVERS["gradient_clipping_threshold"] or \
+            not res["big_prune"]["threshold_bits_equal"] or \
+            kept_cpu != kept_card:
+        raise AssertionError(f"optimizers: card against CPU {bad}, big "
+                             f"mask {res['big_prune']}")
+    return res
+
+
+# card against CPU on the same samples: f32, every value within 1e-6
+# relative (1e-7 absolute); counts, ranks and edit distances are exact
+EVAL_RTOL, EVAL_ATOL = 1e-6, 1e-7
+
+
+def evaluators(dev, card: str) -> dict:
+    """Every case of ``v2_loop_workload.EVALUATOR_CASES`` on the card
+    against the CPU path: values, the trainer's metric, the printers'
+    text."""
+    from paddle_tpu_torch.tools import v2_loop_workload as vw
+
+    cases, bad = {}, []
+    for name in sorted(vw.EVALUATOR_CASES):
+        got, metric, text = vw.evaluate(name, dev)
+        want, want_metric, want_text = vw.evaluate(name, "cpu")
+        ok = got.shape == want.shape and np.allclose(
+            got, want, rtol=EVAL_RTOL, atol=EVAL_ATOL) and np.isclose(
+            metric, want_metric, rtol=EVAL_RTOL, atol=EVAL_ATOL) and \
+            text == want_text
+        cases[name] = {"metric": metric, "max_abs_err": float(
+            np.abs(got.astype(np.float64) - want).max()) if got.size
+            else 0.0, "ok": bool(ok)}
+        if not ok:
+            bad.append(name)
+    res = {"phase": "evaluators", "cases": cases, "failed": bad,
+           "nvidia_smi": card}
+    emit(res)
+    if bad:
+        raise AssertionError(f"evaluators differ on the card: {bad}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script drives the port on "
@@ -2406,7 +2845,7 @@ def main() -> int:
 
     cudnn = iw.configure_cudnn()
     image_parity(dev)
-    train_resnet50(dev, card, cudnn)
+    trained_resnet = train_resnet50(dev, card, cudnn)
     torch.cuda.empty_cache()
     train_convnets(dev, card, cudnn)
     torch.cuda.empty_cache()
@@ -2441,6 +2880,16 @@ def main() -> int:
     generate_lm(dev, card)
     torch.cuda.empty_cache()
     lap("generate_lm")
+    sentiment = v2_sentiment(dev, card)
+    torch.cuda.empty_cache()
+    lap("v2_sentiment")
+    v2_resnet50(dev, card, trained_resnet)
+    torch.cuda.empty_cache()
+    v2_mnist(dev, card)
+    lap("v2_resnet50_mnist")
+    optimizers(dev, card)
+    evaluators(dev, card)
+    lap("optimizers_evaluators")
 
     main_case = next(c for c in cases if c["case"] == "mixed_f32")
     decode_case = next(c for c in cases if c["case"] == "decode_f32")
@@ -2501,7 +2950,8 @@ def main() -> int:
         rnn_cases, trained_lstm, trained_gru,
         {"train_nmt": trained_nmt, "generate_nmt": generated_nmt},
         {"srl": trained_srl["kernel_launches"]["lstm_step"],
-         "quick_start": sum(r["b5_launches"] for r in trained_qs)})
+         "quick_start": sum(r["b5_launches"] for r in trained_qs),
+         "v2_sentiment": sentiment["b5_launches"]})
     emit({"phase": "done", "seconds_total": time.perf_counter() - t_start,
           "seconds_by_phase": laps})
     emit({"kernels": kernels})

@@ -1,8 +1,12 @@
-"""Activation descriptors (the port of ``paddle_tpu/activation.py``, the
-seven the transformer, the recurrent layers and attention read).
+"""Activation descriptors (the port of ``paddle_tpu/activation.py``: all
+sixteen).
 
 GELU is the tanh approximation: ``jax.nn.gelu`` defaults to it, and the
-exact erf form would not match the JAX package.  ``SigmoidActivation.fn``
+exact erf form would not match the JAX package.  The clipped forms
+(``brelu``, ``softrelu``) clip through ``torch.maximum``/``torch.minimum``
+on tensor bounds, whose gradient splits a tie in half as ``jnp.clip``'s
+does (``torch.clamp`` passes it whole), and ``abs`` is a select whose
+gradient at 0 is 1, as ``jnp.abs``'s is.  ``SigmoidActivation.fn``
 is ``torch.sigmoid`` and ``TanhActivation.fn`` ``torch.tanh`` themselves:
 the recurrent scans recognise the default gate triple by identity, as
 JAX's ``_use_fused`` does.
@@ -37,9 +41,34 @@ class TanhActivation(BaseActivation):
     fn = staticmethod(torch.tanh)
 
 
+class STanhActivation(BaseActivation):
+    """Scaled tanh: 1.7159 * tanh(2x/3)."""
+
+    name = "stanh"
+    fn = staticmethod(lambda x: 1.7159 * torch.tanh(2.0 * x / 3.0))
+
+
 class ReluActivation(BaseActivation):
     name = "relu"
     fn = staticmethod(torch.relu)
+
+
+def _clip(x, lo: float, hi: float):
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
+class BReluActivation(BaseActivation):
+    """Bounded relu: min(max(x, 0), 24)."""
+
+    name = "brelu"
+    fn = staticmethod(lambda x: _clip(x, 0.0, 24.0))
+
+
+class SoftReluActivation(BaseActivation):
+    """log(1 + e^x), the input clipped to +-40 as in the reference."""
+
+    name = "softrelu"
+    fn = staticmethod(lambda x: torch.log1p(torch.exp(_clip(x, -40.0, 40.0))))
 
 
 class SoftmaxActivation(BaseActivation):
@@ -56,6 +85,36 @@ class SequenceSoftmaxActivation(BaseActivation):
     fn = None
 
 
+class AbsActivation(BaseActivation):
+    name = "abs"
+    fn = staticmethod(lambda x: torch.where(x >= 0, x, -x))
+
+
+class SquareActivation(BaseActivation):
+    name = "square"
+    fn = staticmethod(torch.square)
+
+
+class ExpActivation(BaseActivation):
+    name = "exponential"
+    fn = staticmethod(torch.exp)
+
+
+class ReciprocalActivation(BaseActivation):
+    name = "reciprocal"
+    fn = staticmethod(torch.reciprocal)
+
+
+class SqrtActivation(BaseActivation):
+    name = "sqrt"
+    fn = staticmethod(torch.sqrt)
+
+
+class LogActivation(BaseActivation):
+    name = "log"
+    fn = staticmethod(torch.log)
+
+
 class GeluActivation(BaseActivation):
     """GELU, tanh form (``jax.nn.gelu(approximate=True)``)."""
 
@@ -65,8 +124,11 @@ class GeluActivation(BaseActivation):
 
 _REGISTRY = {cls.name: cls for cls in
              (LinearActivation, SigmoidActivation, TanhActivation,
-              ReluActivation, SoftmaxActivation, SequenceSoftmaxActivation,
-              GeluActivation)}
+              STanhActivation, ReluActivation, BReluActivation,
+              SoftReluActivation, SoftmaxActivation,
+              SequenceSoftmaxActivation, AbsActivation, SquareActivation,
+              ExpActivation, ReciprocalActivation, SqrtActivation,
+              LogActivation, GeluActivation)}
 
 
 def get(name_or_act):
@@ -80,7 +142,6 @@ def get(name_or_act):
         return name_or_act()
     if isinstance(name_or_act, str):
         if name_or_act not in _REGISTRY:
-            raise KeyError(f"unknown activation {name_or_act!r} (the port "
-                           f"has {sorted(_REGISTRY)} so far)")
+            raise KeyError(f"unknown activation {name_or_act!r}")
         return _REGISTRY[name_or_act]()
     raise TypeError(f"cannot resolve activation from {name_or_act!r}")

@@ -1,8 +1,8 @@
-"""Trainer events (a copy of ``paddle_tpu/event.py``, trimmed to the four
-the training slice fires).
+"""Trainer events (a copy of ``paddle_tpu/event.py``).
 
-Costs arrive as 0-d device tensors so the trainer never waits for the
-card after a step; ``EndIteration.cost`` converts on first access.
+Costs and metrics arrive as 0-d device tensors so the trainer never
+waits for the card after a step; ``EndIteration.cost`` and every
+event's ``metrics`` convert on first access.
 """
 
 from __future__ import annotations
@@ -55,3 +55,9 @@ class EndIteration(WithMetric):
         if self._cost is None:
             self._cost = float(self._cost_raw)
         return self._cost
+
+
+class TestResult(WithMetric):
+    def __init__(self, cost: float, evaluator_result=None):
+        super().__init__(evaluator_result)
+        self.cost = cost

@@ -1,5 +1,4 @@
-"""Parameter initializers (the port of ``paddle_tpu/initializer.py``, the
-ones the transformer's parameters use).
+"""Parameter initializers (the port of ``paddle_tpu/initializer.py``).
 
 Each is ``(generator, shape, dtype) -> tensor`` with the JAX package's
 distribution, drawn on the host from a ``torch.Generator`` so a seed gives
@@ -42,6 +41,15 @@ class Constant(Initializer):
         return torch.full(tuple(shape), self.value, dtype=dtype)
 
 
+class Uniform(Initializer):
+    def __init__(self, low: float = -1.0, high: float = 1.0):
+        self.low, self.high = low, high
+
+    def __call__(self, generator, shape, dtype=torch.float32):
+        x = torch.rand(tuple(shape), generator=generator)
+        return (self.low + x * (self.high - self.low)).to(dtype)
+
+
 class Normal(Initializer):
     def __init__(self, mean: float = 0.0, std: float = 1.0):
         self.mean, self.std = mean, std
@@ -60,6 +68,16 @@ class XavierUniform(Initializer):
         limit = math.sqrt(6.0 / max(1, fan_in + fan_out))
         x = torch.rand(tuple(shape), generator=generator)
         return (x * (2.0 * limit) - limit).to(dtype)
+
+
+class FanInNormal(Initializer):
+    """N(0, 1/fan_in): the reference's std-based ``initial_smart``."""
+
+    def __call__(self, generator, shape, dtype=torch.float32):
+        fan_in, _ = _fan_in_out(shape)
+        std = 1.0 / math.sqrt(max(1, fan_in))
+        return (std * torch.randn(tuple(shape), generator=generator)).to(
+            dtype)
 
 
 def default_weight_init() -> Initializer:

@@ -115,13 +115,34 @@ def _act_then_cast(activation, value, dtype):
     return _apply_act(activation, _cast_value(value, dtype))
 
 
+class _ClipError(torch.autograd.Function):
+    """Identity forward, backward clipped to [-t, t]: the reference's
+    per-layer ``error_clipping_threshold`` (Layer.cpp backwardActivation
+    clips the output gradient before it propagates)."""
+
+    @staticmethod
+    def forward(ctx, x, threshold: float):
+        ctx.threshold = threshold
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.clamp(-ctx.threshold, ctx.threshold), None
+
+
 def _apply_extra(ctx: Context, name: str, value, layer_attr):
     """The layer's ``ExtraAttr``: dropout at ``drop_rate`` from the
-    node's random stream."""
-    rate = ExtraAttr.to_attr(layer_attr).drop_rate
-    if rate > 0.0:
-        value = _like(value, pmath.dropout(_data_of(value), rate,
+    node's random stream, then the error clip (last in the forward, so
+    first in the backward: the raw upstream gradient is clipped before
+    dropout's 1/(1-p) rescale, as in the JAX package).  ``sharding`` and
+    ``device`` need a mesh and are carried as data."""
+    attr = ExtraAttr.to_attr(layer_attr)
+    if attr.drop_rate > 0.0:
+        value = _like(value, pmath.dropout(_data_of(value), attr.drop_rate,
                                            ctx.rng_for(name), ctx.train))
+    if attr.error_clipping_threshold > 0.0:
+        value = _like(value, _ClipError.apply(
+            _data_of(value), float(attr.error_clipping_threshold)))
     return value
 
 

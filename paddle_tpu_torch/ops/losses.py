@@ -1,7 +1,8 @@
 """Losses (the port of ``paddle_tpu/ops/losses.py:23-55,142-219``:
 ``softmax_cross_entropy``, ``sigmoid_cross_entropy_with_logits``,
-``multi_binary_label_cross_entropy`` and ``cross_entropy_over_beam``;
-the blockwise LM-head cross entropy ``lm_head_xent``, ``:227-360``)."""
+``multi_binary_label_cross_entropy``, ``classification_error`` and
+``cross_entropy_over_beam``; the blockwise LM-head cross entropy
+``lm_head_xent``, ``:227-360``)."""
 
 from __future__ import annotations
 
@@ -32,6 +33,22 @@ def sigmoid_cross_entropy_with_logits(logits: torch.Tensor,
 def multi_binary_label_cross_entropy(logits: torch.Tensor,
                                      labels: torch.Tensor) -> torch.Tensor:
     return sigmoid_cross_entropy_with_logits(logits, labels)
+
+
+def classification_error(logits_or_probs: torch.Tensor,
+                         labels: torch.Tensor, top_k: int = 1
+                         ) -> torch.Tensor:
+    """0/1 error per example: the label is not the argmax (the first
+    maximum, as ``jnp.argmax``), or not among the ``top_k`` largest,
+    where a stable descending sort puts the lower index first among equal
+    values as ``lax.top_k`` does (``torch.topk`` gives no tie order)."""
+    if top_k == 1:
+        pred = torch.argmax(logits_or_probs, dim=-1)
+        return (pred != labels.to(pred.dtype)).to(torch.float32)
+    idx = torch.sort(logits_or_probs, dim=-1, descending=True,
+                     stable=True).indices[..., :top_k]
+    hit = (idx == labels[..., None].to(idx.dtype)).any(dim=-1)
+    return (~hit).to(torch.float32)
 
 
 def cross_entropy_over_beam(beams) -> torch.Tensor:

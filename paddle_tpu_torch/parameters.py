@@ -85,6 +85,9 @@ class Parameters:
     def keys(self):
         return self._values.keys()
 
+    def names(self):
+        return list(self._values.keys())
+
     def items(self):
         return self._values.items()
 

@@ -28,3 +28,69 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
                      "default — pass device='cpu' to run on the host",
                      context="device")
     return dev
+
+
+# ---------------------------------------------------------------------------
+# init: the single-device half of paddle_tpu/platform/device.py:34-140
+# ---------------------------------------------------------------------------
+
+_state = {"initialized": False, "devices": None}
+_CLUSTER_KEYS = ("coordinator_address", "num_processes", "process_id")
+_MESH_FLAGS = ("mesh_shape", "mesh_axes")
+_JAX_FLAGS = ("platform", "check_nan")
+
+
+def init(device: DeviceLike = None, **kwargs) -> None:
+    """``paddle.init(**flags)``: set flags (``platform.flags``) and find
+    the devices: every card on ``cuda`` (the default; raises without
+    CUDA), the host alone on ``device="cpu"``.  A device mesh and a
+    multi-host job (``mesh_shape``, ``mesh_axes``,
+    ``coordinator_address``, ``num_processes``, ``process_id``) come with
+    the parallel slice and raise; ``platform`` and ``check_nan`` configure
+    JAX and raise when set.  Safe to call more than once."""
+    from paddle_tpu_torch.platform.flags import FLAGS
+
+    for k in _CLUSTER_KEYS + _MESH_FLAGS:
+        enforce_that(k not in kwargs,
+                     f"init({k}=...) needs a device mesh or a multi-host "
+                     "job: they come with the parallel slice (A12)",
+                     context="init")
+    for k in _JAX_FLAGS:
+        enforce_that(not kwargs.get(k),
+                     f"init({k}=...) configures JAX, which the port does "
+                     "not use: the flag has no meaning here",
+                     context="init")
+    dev = resolve_device(device)
+    FLAGS.update(**kwargs)
+    if dev.type == "cuda":
+        devs = [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    else:
+        devs = [torch.device("cpu")]
+    _state["devices"] = devs
+    _state["initialized"] = True
+
+
+def is_initialized() -> bool:
+    return _state["initialized"]
+
+
+def _ensure_init() -> None:
+    if not _state["initialized"]:
+        init()
+
+
+def device_count() -> int:
+    _ensure_init()
+    return len(_state["devices"])
+
+
+def devices() -> list:
+    _ensure_init()
+    return list(_state["devices"])
+
+
+def platform_name() -> str:
+    """``gpu`` on the cards (JAX's name for CUDA devices), else ``cpu``."""
+    _ensure_init()
+    return "gpu" if _state["devices"][0].type == "cuda" else "cpu"

@@ -57,6 +57,10 @@ class _Flags:
             raise EnforceError(f"unknown flag {name!r}", context="flags")
         self._values[name] = value
 
+    def update(self, **kwargs) -> None:
+        for k, v in kwargs.items():
+            self.set(k, v)
+
     def to_dict(self) -> Dict[str, Any]:
         return dict(self._values)
 
@@ -109,6 +113,13 @@ FLAGS.define("serving_watchdog_ticks", 16,
 FLAGS.define("seed", 0,
              "global random seed: each training step draws its dropout "
              "masks from it and the step count")
+FLAGS.define("log_period", 100,
+             "log the mean cost and metrics of the last N batches every N "
+             "batches (one read of the card per window)")
+FLAGS.define("log_level", "INFO", "logging level of the port's logger")
+FLAGS.define("show_parameter_stats_period", 0,
+             "log each parameter's mean and max |gradient| every N "
+             "batches (0 = off)")
 FLAGS.define("use_pallas", True,
              "take the fused recurrent steps where the JAX package takes "
              "its Pallas kernels (the hand-written CUDA kernels on the "

@@ -95,13 +95,24 @@ def build_srl(device, dims=None, momentum: float = SRL_MOMENTUM,
     return sgd, decoded
 
 
-def build_chunker(device):
-    """(SGD over the chunker's CRF cost, the decoded node)."""
+# the chunker's tags: B-t and I-t for each of 11 chunk types, and O
+CHUNK_TYPES = (CHUNK["num_tags"] - 1) // 2
+
+
+def build_chunker(device, chunk_f1: bool = False):
+    """(SGD over the chunker's CRF cost, the decoded node); ``chunk_f1``
+    adds ``evaluator.chunk`` over the decoded tags (IOB, 11 types) as
+    the extra layer ``chunk_f1``."""
+    from paddle_tpu_torch import evaluator
+
     topology.reset_name_scope()
-    _, _, cost, decoded = sequence_tagging.build(**CHUNK)
+    _, label, cost, decoded = sequence_tagging.build(**CHUNK)
+    extra = [evaluator.chunk(input=decoded, label=label,
+                             num_chunk_types=CHUNK_TYPES, chunk_scheme="IOB",
+                             name="chunk_f1")] if chunk_f1 else None
     sgd = trainer.SGD(cost, _params(cost, device),
                       optimizer.Adam(learning_rate=CHUNK_LEARNING_RATE),
-                      device=device)
+                      extra_layers=extra, device=device)
     return sgd, decoded
 
 

@@ -259,19 +259,26 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
     files = sorted((REPO / "paddle_tpu_torch").rglob("*.py")) + \
         [REPO / "chip_smoke.py"]
     assert len(files) > 10
-    # the sixth and eighth slices' modules, parallel/ among them, are
-    # walked too
+    # the sixth, eighth and ninth slices' modules (parallel/, reader/ and
+    # dataset/ among them) are walked too
     names = {str(f.relative_to(REPO)) for f in files}
     assert names >= {f"paddle_tpu_torch/{m}.py" for m in (
         "models/deepfm", "models/gan", "models/vae",
         "models/traffic_prediction", "parallel/sparse",
         "tools/ctr_workload", "tools/gan_vae_workload",
         "tools/profile_ctr", "models/transformer", "topology", "ops/losses",
-        "tools/transformer_nmt_workload", "tools/profile_transformer_nmt")}
+        "tools/transformer_nmt_workload", "tools/profile_transformer_nmt",
+        "evaluator", "optimizer", "reader/__init__", "reader/decorator",
+        "reader/creator", "reader/prefetch", "dataset/__init__",
+        "dataset/common", "dataset/_synth", "dataset/mnist", "dataset/cifar",
+        "dataset/uci_housing", "dataset/imdb", "dataset/imikolov",
+        "dataset/sentiment", "dataset/wmt14", "dataset/conll05",
+        "dataset/movielens", "dataset/mq2007", "platform/plog",
+        "tools/v2_loop_workload")}
     bad = {str(f.relative_to(REPO)): n for f in files
            for n in _imports(f) if _forbidden(n)}
     assert bad == {}
-    code = ("import sys, paddle_tpu_torch.serving, paddle_tpu_torch.convert,"
+    code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, paddle_tpu_torch.convert,"
             " paddle_tpu_torch.kernels.build, paddle_tpu_torch.recurrent,"
             " paddle_tpu_torch.generation, paddle_tpu_torch.inference,"
             " paddle_tpu_torch.models.seq2seq,"
@@ -287,7 +294,11 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             " paddle_tpu_torch.tools.repro,"
             " paddle_tpu_torch.models.transformer,"
             " paddle_tpu_torch.tools.transformer_nmt_workload,"
-            " paddle_tpu_torch.tools.profile_transformer_nmt, chip_smoke; "
+            " paddle_tpu_torch.tools.profile_transformer_nmt,"
+            " paddle_tpu_torch.evaluator, paddle_tpu_torch.reader,"
+            " paddle_tpu_torch.reader.prefetch, paddle_tpu_torch.dataset,"
+            " paddle_tpu_torch.platform.plog,"
+            " paddle_tpu_torch.tools.v2_loop_workload, chip_smoke; "
             "print(sorted(m for m in sys.modules if m in ('jax', "
             "'paddle_tpu') or m.startswith(('jax.', 'paddle_tpu.'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
