@@ -222,7 +222,25 @@ checkout of the repository).  Phases, each fatal on failure:
     and scalar on the same gradients and on each side's own; a pruning
     quantile on a tensor of 16,781,312 > 2^24 elements, card against CPU;
 35. evaluators: every case of ``v2_loop_workload.EVALUATOR_CASES``, card
-    against CPU: values, metrics, the printers' text.
+    against CPU: values, metrics, the printers' text;
+36. layers_v2: every case of ``tools/layer_cases.py`` with a float output
+    (the tenth slice's layers at small widths) and ``nce`` (its draws made
+    equal), forward and gradients card against the CPU path in f32;
+37. detection: SSD300's VOC shapes (``tools/detection_workload.py``: 8732
+    priors, 21 classes, batch 32): ``multibox_loss`` forward and gradient,
+    ``detection_output`` (NMS 0.45, confidence 0.01, keep_top_k 200) and
+    ``detection_map``, card against the CPU path, and their card ms;
+38. vgg16: VGG-16 on Flowers-102's width (``tools/vgg_workload.py``: 224
+    px, batch 64, 102 classes, bf16, ``Momentum(0.9)`` at 1e-2 with
+    ``L2Regularization(5e-4)``): 6 timed ``SGD.step`` s on device feeds of
+    one batch (finite, falling costs), a pass of 20 batches through
+    ``SGD.train`` from ``batch(shuffle(map_readers(mapper, images), 128),
+    64)`` at prefetch 0 and at 2, ms a step (timed from the end of the
+    first batch) and images/s each way, peak memory, a profiled step's
+    idle share and card ms by group; then one f32 step at batch 2 on the
+    card against the CPU path, dropout masks made equal, cuDNN held to
+    its deterministic algorithms (beside it, the same check's reading of
+    the card's step with the algorithm search on, and of a bf16 step).
 
 The datasets (31, 33) are their seeded synthetic fallbacks: their
 downloads are refused (``v2_loop_workload.offline``), so no phase
@@ -245,8 +263,11 @@ taggers in ``paddle_tpu_torch/tools/srl_workload.py``, quick_start in
 in ``paddle_tpu_torch/tools/nested_workload.py``; the translation
 transformer in ``paddle_tpu_torch/tools/transformer_nmt_workload.py``,
 shared with ``python -m paddle_tpu_torch.tools.profile_transformer_nmt``;
-the v2 loop's in ``paddle_tpu_torch/tools/v2_loop_workload.py``.
-The image phases, 18-22, 25, 27 and 32-35 run no hand-written kernel:
+the v2 loop's in ``paddle_tpu_torch/tools/v2_loop_workload.py``;
+the tenth slice's layer cases, SSD300 and VGG-16 in
+``paddle_tpu_torch/tools/layer_cases.py``, ``detection_workload.py`` and
+``vgg_workload.py``.
+The image phases, 18-22, 25, 27 and 32-38 run no hand-written kernel:
 no TPU kernel lies on those paths (the convs and batch norm are cuDNN's through
 PyTorch, the CTR and GAN products cuBLAS's).
 """
@@ -268,7 +289,7 @@ from paddle_tpu_torch.tools import gan_vae_workload as gw
 from paddle_tpu_torch.tools import image_workload as iw
 from paddle_tpu_torch.tools import nested_workload as nestw
 from paddle_tpu_torch.tools import nmt_workload as nw
-from paddle_tpu_torch.tools import profile_image
+from paddle_tpu_torch.tools import profile_image, profiling
 from paddle_tpu_torch.tools import quick_start_workload as qw
 from paddle_tpu_torch.tools import ragged_cases as rc
 from paddle_tpu_torch.tools import repro
@@ -1650,10 +1671,11 @@ def train_deepfm(dev, card: str):
     costs, step_ms = _train_costs(sgd, samples, CTR_STEPS, cw)
     peak = torch.cuda.max_memory_allocated() / 2**30
     feeds = data.feeds(0)
-    wall = profile_ctr.step_wall_ms(sgd, feeds, 2)
-    profile_ctr.ranged_optimizer(sgd)
+    wall = profiling.step_wall_ms(sgd, feeds, 2)
+    profiling.ranged_optimizer(sgd)
     prof = profile_image.profile_steps(sgd, feeds, steps=2)
-    br = profile_ctr.breakdown(prof, 2, wall)
+    br = profiling.breakdown(prof, 2, wall, profile_ctr.group,
+                             profile_ctr.GROUPS)
     med = float(np.median(step_ms[1:]))
     res = {"phase": "train_deepfm", "vocab": cw.VOCAB, "fields": cw.FIELDS,
            "factor": cw.FACTOR, "deep": cw.DEEP, "batch": cw.BATCH,
@@ -1930,7 +1952,6 @@ def train_srl(dev, card: str) -> dict:
     costs; B5 launched 8 x frames a step), a profiled step (the card time
     by group, the idle share), then ``crf_decoding`` through
     ``Inference``: ms a batch, paths equal to the CPU path's."""
-    from paddle_tpu_torch.tools.profile_ctr import ranged_optimizer
 
     t0 = time.perf_counter()
     sgd, decoded = sw.build_srl(dev)
@@ -1948,7 +1969,7 @@ def train_srl(dev, card: str) -> dict:
                 for k in used}
     med = float(np.median(step_ms[1:]))
     peak = torch.cuda.max_memory_allocated() / 2**30
-    ranged_optimizer(sgd)
+    profiling.ranged_optimizer(sgd)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with sw.ranged_crf(), torch.profiler.profile(activities=acts,
@@ -2423,11 +2444,9 @@ def _in_unit(metrics: list) -> bool:
 def _optimizer_range(sgd, feeds, steps: int = 2):
     """({launches, card_ms} a step inside the optimizer's profiler range,
     the profile) over ``steps`` ``SGD.step`` s after one unprofiled
-    step (``profile_ctr``'s range)."""
-    from paddle_tpu_torch.tools import profile_ctr
-
+    step (``profiling.ranged_optimizer``'s range)."""
     apply = sgd.optimizer.apply
-    profile_ctr.ranged_optimizer(sgd)
+    profiling.ranged_optimizer(sgd)
     sgd.step(feeds)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -2437,8 +2456,8 @@ def _optimizer_range(sgd, feeds, steps: int = 2):
             sgd.step(feeds)
         torch.cuda.synchronize()
     sgd.optimizer.apply = apply
-    inside = [us for us, chain in profile_ctr._launched(prof)
-              if profile_ctr.OPTIMIZER_RANGE in chain]
+    inside = [us for us, chain in profiling.launched(prof)
+              if profiling.OPTIMIZER_RANGE in chain]
     return {"launches": len(inside) / steps,
             "card_ms": sum(inside) / 1e3 / steps}, prof
 
@@ -2504,9 +2523,10 @@ def v2_sentiment(dev, card: str) -> dict:
     expected = 2 * (sum(main["frames"]) + sum(main["test_frames"]))
     sgd = main["sgd"]
     feeds = sgd._make_feeder(vw.SENTIMENT_FEEDING).feed(one_batch)
-    wall = profile_ctr.step_wall_ms(sgd, feeds, 2)
+    wall = profiling.step_wall_ms(sgd, feeds, 2)
     levered, prof = _optimizer_range(sgd, feeds, steps=1)
-    busy = profile_ctr.breakdown(prof, 1, wall)
+    busy = profiling.breakdown(prof, 1, wall, profile_ctr.group,
+                               profile_ctr.GROUPS)
     old = _levers_off(sgd.optimizer, regularization=None, model_average=None)
     plain_adam, _ = _optimizer_range(sgd, feeds, steps=1)
     _levers_off(sgd.optimizer, **old)
@@ -2768,6 +2788,295 @@ def evaluators(dev, card: str) -> dict:
     return res
 
 
+# card against CPU at small widths in f32 (TF32 off): outputs and every
+# gradient within LAYERS_V2_TOL * (1 + |CPU value|) (``layer_cases.
+# max_err``; equal values, infinities included, count no error)
+LAYERS_V2_TOL = 1e-4
+
+
+def layers_v2(dev) -> dict:
+    """Every float-output case of ``tools/layer_cases.py`` and ``nce``:
+    the port's forward and gradients on the card against its CPU path."""
+    from paddle_tpu_torch.tools import layer_cases as lc
+
+    from paddle_tpu_torch.platform.flags import FLAGS
+
+    cases = dict(lc.CASES, nce=lc.NCE)
+    errs, skipped = {}, []
+    old = FLAGS.use_bf16
+    FLAGS.use_bf16 = False
+    try:
+        with lc.fixed_draws():
+            for name in sorted(cases):
+                want, wg = lc.run_port(*cases[name], "cpu")
+                if not np.issubdtype(want.dtype, np.floating):
+                    skipped.append(name)
+                    continue
+                got, gg = lc.run_port(*cases[name], dev)
+                worst = max([lc.max_err(got, want)] +
+                            [lc.max_err(gg[k], wg[k]) for k in wg])
+                errs[name] = {"max_err": worst, "grads": len(wg)}
+    finally:
+        FLAGS.use_bf16 = old
+    bad = [n for n, e in errs.items() if not e["max_err"] <= LAYERS_V2_TOL]
+    res = {"phase": "layers_v2", "cases": errs, "not_float": skipped,
+           "tol": LAYERS_V2_TOL, "failed": bad}
+    emit(res)
+    if bad:
+        raise AssertionError(f"layers_v2: card against CPU {bad}")
+    return res
+
+
+# SSD300 card against CPU (f32): the loss and its gradients within
+# DET_TOL in norm relative to the CPU's; detections on the first
+# DET_CPU_EXAMPLES examples (the CPU path's NMS at 8732 priors takes ~0.4 s
+# an example): every valid row's label and box and score within DET_TOL,
+# rows listed by (label, box) so an order swap of equal scores counts no
+# error; mAP within DET_TOL
+DET_TOL = 1e-5
+DET_CPU_EXAMPLES = 8
+
+
+def detection(dev, card: str) -> dict:
+    from paddle_tpu_torch.tools import detection_workload as dw
+
+    boxes, var = dw.priors()
+    loc, conf, gt = dw.inputs()
+    on = {d: (torch.from_numpy(boxes).to(d), torch.from_numpy(var).to(d))
+          for d in ("cpu", dev)}
+    grads, losses = {}, {}
+    for d in ("cpu", dev):
+        lt = torch.tensor(loc, device=d, requires_grad=True)
+        ct = torch.tensor(conf, device=d, requires_grad=True)
+        loss = dw.multibox(lt, ct, torch.from_numpy(gt).to(d), *on[d])
+        loss.sum().backward()
+        losses[d] = loss.detach().cpu()
+        grads[d] = (lt.grad.cpu(), ct.grad.cpu())
+    loss_err = _rel_norm(losses[dev], losses["cpu"])
+    grad_err = max(_rel_norm(a, b) for a, b in zip(grads[dev],
+                                                   grads["cpu"]))
+    lt, ct = torch.from_numpy(loc).to(dev), torch.from_numpy(conf).to(dev)
+    gt_dev = torch.from_numpy(gt).to(dev)
+    dets = dw.detections(lt, ct, *on[dev])
+    n = DET_CPU_EXAMPLES
+    want = dw.detections(torch.from_numpy(loc[:n]),
+                         torch.from_numpy(conf[:n]), *on["cpu"]).numpy()
+    got = dets[:n].cpu().numpy()
+    row_errs, count_diff = [], 0
+    for g, w in zip(got, want):
+        g, w = dw.sorted_rows(g), dw.sorted_rows(w)
+        if g.shape != w.shape:
+            count_diff += 1
+            continue
+        row_errs.append(float(np.abs(g - w).max()) if len(w) else 0.0)
+    topo = dw.map_topology()
+    map_card = dw.mean_ap(topo, dets, gt_dev)
+    map_cpu = dw.mean_ap(topo, torch.from_numpy(want),
+                         torch.from_numpy(gt[:n]))
+    map_card_n = dw.mean_ap(topo, dets[:n], gt_dev[:n])
+
+    def fwd_bwd():
+        lg = lt.clone().requires_grad_(True)
+        cg = ct.clone().requires_grad_(True)
+        dw.multibox(lg, cg, gt_dev, *on[dev]).sum().backward()
+
+    ms = {"multibox_loss_fwd_bwd": time_ms(fwd_bwd, reps=5, warmup=1),
+          "multibox_loss_fwd": time_ms(lambda: dw.multibox(
+              lt, ct, gt_dev, *on[dev]), reps=5, warmup=1),
+          "detection_output": time_ms(lambda: dw.detections(
+              lt, ct, *on[dev]), reps=3, warmup=1),
+          "detection_map": time_ms(lambda: dw.mean_ap(topo, dets, gt_dev),
+                                   reps=3, warmup=1)}
+    res = {"phase": "detection", "priors": int(boxes.shape[0]),
+           "classes": dw.CLASSES, "batch": dw.BATCH,
+           "max_boxes": dw.MAX_BOXES, "nms": dw.NMS,
+           "confidence": dw.CONFIDENCE, "keep_top_k": dw.KEEP_TOP_K,
+           "loss_mean": float(losses[dev].mean()),
+           "loss_rel_err": loss_err, "grad_rel_err": grad_err,
+           "detections_a_image": float((dets[..., 0] >= 0).sum(1)
+                                       .float().mean()),
+           "cpu_examples": n, "row_max_err": max(row_errs, default=0.0),
+           "examples_with_other_row_counts": count_diff,
+           "map_card": map_card, "map_card_first": map_card_n,
+           "map_cpu_first": map_cpu, "ms": ms, "tol": DET_TOL,
+           "nvidia_smi": card}
+    emit(res)
+    if not (loss_err <= DET_TOL and grad_err <= DET_TOL and count_diff == 0
+            and res["row_max_err"] <= DET_TOL
+            and abs(map_card_n - map_cpu) <= DET_TOL
+            and np.isfinite(map_card)):
+        raise AssertionError("detection: card against CPU")
+    return res
+
+
+# the f32 batch-2 step, card against CPU, TF32 off and cuDNN held to its
+# deterministic algorithms without the algorithm search: the cost within
+# VGG_COST_RTOL; each parameter's update within VGG_UPDATE_RTOL in norm.
+# At 224 px the early convolutions' gradients move by ~3e-3 between any
+# two runs that round apart, two float64 runs included
+# (``tools/vgg_grad_spread.py``); a bf16 step reads ~0.2 and must fail
+VGG_COST_RTOL, VGG_UPDATE_RTOL = 1e-5, 1e-2
+VGG_STEPS, VGG_PASS_BATCHES = 6, 20
+
+
+def _vgg16_step(d, batch, p0, masks):
+    """(cost, parameters after) of one ``SGD.step`` of VGG-16 at 224 px on
+    ``d`` from the weights ``p0``, the dropout masks drawn afresh by
+    ``masks``."""
+    from paddle_tpu_torch.tools import vgg_workload as vw
+
+    sgd = vw.trainer(d)
+    with torch.no_grad():
+        for k in sgd._names:
+            sgd.parameters[k].copy_(p0[k])
+    masks.reset()
+    cost = float(sgd.step(vw.device_feeds(batch, d)))
+    return cost, {k: sgd.parameters[k].detach().cpu() for k in sgd._names}
+
+
+def vgg16_parity(dev) -> dict:
+    """One f32 ``SGD.step`` of VGG-16 at 224 px, batch 2, on the card and
+    on the CPU from the same weights, feeds and dropout masks; beside it,
+    what the same check reads of the card's step with cuDNN's algorithm
+    search on (the phase's setting) and of a bf16 step."""
+    from paddle_tpu_torch.ops import math as pmath
+    from paddle_tpu_torch.platform.flags import FLAGS
+    from paddle_tpu_torch.tools import vgg_workload as vw
+
+    cudnn = torch.backends.cudnn
+    old = (FLAGS.use_bf16, pmath.dropout, cudnn.benchmark,
+           cudnn.deterministic)
+    masks = vw.SharedMasks()
+    pmath.dropout = masks
+    try:
+        samples = vw.raw_images(2, SEED + 70)
+        batch = [vw.mapper(SEED + 71)(s) for s in samples]
+        FLAGS.use_bf16 = False
+        cpu = vw.trainer(torch.device("cpu"))
+        p0 = {k: cpu.parameters[k].detach().clone() for k in cpu._names}
+        del cpu
+        t0 = time.perf_counter()
+        c_cpu, p_cpu = _vgg16_step(torch.device("cpu"), batch, p0, masks)
+        s_cpu = time.perf_counter() - t0
+        runs = {}
+        for name, bf16, bench, det in (("f32", False, False, True),
+                                       ("f32_searched", False, True, False),
+                                       ("bf16", True, True, False)):
+            FLAGS.use_bf16 = bf16
+            cudnn.benchmark, cudnn.deterministic = bench, det
+            runs[name] = _vgg16_step(dev, batch, p0, masks)
+    finally:
+        (FLAGS.use_bf16, pmath.dropout, cudnn.benchmark,
+         cudnn.deterministic) = old
+    res = {"cpu_cost": c_cpu, "cpu_step_s": s_cpu,
+           "cost_rtol": VGG_COST_RTOL, "update_rtol": VGG_UPDATE_RTOL}
+    for name, (cost, params) in runs.items():
+        updates = {k: _rel_norm(params[k] - p0[k], p_cpu[k] - p0[k])
+                   for k in p0}
+        worst = max(updates, key=updates.get)
+        res[name] = {"card_cost": cost,
+                     "cost_rel_diff": abs(cost - c_cpu) / abs(c_cpu),
+                     "update_max_rel_diff": updates[worst],
+                     "update_worst": worst,
+                     "update_median_rel_diff": float(np.median(list(
+                         updates.values())))}
+    f32 = res["f32"]
+    if not (f32["cost_rel_diff"] <= VGG_COST_RTOL and
+            f32["update_max_rel_diff"] <= VGG_UPDATE_RTOL and
+            np.isfinite(f32["card_cost"]) and
+            res["bf16"]["update_median_rel_diff"] > VGG_UPDATE_RTOL):
+        emit({"phase": "vgg16_parity", **res})
+        raise AssertionError("vgg16: the card's f32 step and the CPU's "
+                             "disagree, or the check passes a bf16 step")
+    return res
+
+
+def _decoder_rule() -> str:
+    """The decoder ``image.py`` finds here (OpenCV first, then Pillow);
+    with neither, ``load_image_bytes`` and ``resize_short`` must raise and
+    name both, not guess."""
+    from paddle_tpu_torch import image
+    from paddle_tpu_torch.platform.enforce import EnforceError
+
+    if image._cv2() is not None:
+        return "cv2"
+    if image._pil() is not None:
+        return "PIL"
+    for call in (lambda: image.load_image_bytes(b"\x89PNG"),
+                 lambda: image.resize_short(
+                     np.zeros((300, 400, 3), np.uint8), 256)):
+        try:
+            call()
+        except EnforceError as e:
+            if "cv2" not in str(e) or "PIL" not in str(e):
+                raise
+        else:
+            raise AssertionError("image.py decoded without a decoder")
+    return "none (load_image_bytes and resize_short raise)"
+
+
+def vgg16(dev, card: str) -> dict:
+    """VGG-16 at Flowers-102's width through the v2 loop (phase 38)."""
+    import random
+
+    from paddle_tpu_torch.tools import vgg_workload as vw
+
+    decoder = _decoder_rule()
+    t0 = time.perf_counter()
+    random.seed(SEED)
+    sgd = vw.trainer(dev)
+    profiling.ranged_optimizer(sgd)
+    n_images = vw.BATCH * VGG_PASS_BATCHES
+    samples = vw.raw_images(n_images, SEED + 60)
+    first = next(iter(vw.train_reader(samples, SEED + 61)()))
+    feeds = vw.device_feeds(first, dev)
+    costs, step_ms = iw.time_steps(sgd, feeds, VGG_STEPS)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    passes = {}
+    for prefetch in (0, 2):
+        clock = vw.StepClock()
+        sgd.train(vw.train_reader(samples, SEED + 62 + prefetch),
+                  num_passes=1, event_handler=clock, prefetch=prefetch)
+        passes[prefetch] = clock
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    wall = profiling.step_wall_ms(sgd, feeds, 2)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        sgd.step(feeds)
+        torch.cuda.synchronize()
+    busy = vw.breakdown(prof, 1, wall)
+    del sgd, feeds
+    torch.cuda.empty_cache()
+    parity = vgg16_parity(dev)
+    flops = vw.step_flops()
+    device_ms = float(np.median(step_ms))
+    ms = {"device_feed": device_ms,
+          **{f"prefetch_{p}": c.ms_a_step() for p, c in passes.items()}}
+    train_costs = [float(c) for p in (0, 2) for c in passes[p].costs()]
+    res = {"phase": "vgg16", "img": vw.IMG, "batch": vw.BATCH,
+           "classes": vw.CLASSES, "parameters": vw.parameter_count(),
+           "bf16": True, "optimizer": {"momentum": vw.MOMENTUM,
+                                       "learning_rate": vw.LEARNING_RATE,
+                                       "l2": vw.L2},
+           "step_tflop": flops / 1e12,
+           "bound_ms_bf16": 1e3 * flops / BF16_FLOPS_PER_S,
+           "costs_device_feed": costs, "costs_train": train_costs,
+           "pass_batches": VGG_PASS_BATCHES, "shuffle_buf": vw.SHUFFLE_BUF,
+           "timed_reader_steps": passes[0].steps, "ms_a_step": ms,
+           "images_per_s": {k: vw.BATCH * 1e3 / v for k, v in ms.items()},
+           "step_ms_each": step_ms, "peak_memory_gb": peak,
+           "profiled": busy, "f32_batch2_step": parity,
+           "image_decoder": decoder,
+           "setup_s": setup_s, "nvidia_smi": card}
+    emit(res)
+    if not (np.all(np.isfinite(costs + train_costs)) and
+            costs[-1] < costs[0]):
+        raise AssertionError(f"vgg16: costs {costs} not finite and falling")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script drives the port on "
@@ -2890,6 +3199,14 @@ def main() -> int:
     optimizers(dev, card)
     evaluators(dev, card)
     lap("optimizers_evaluators")
+    layers_v2(dev)
+    lap("layers_v2")
+    detection(dev, card)
+    torch.cuda.empty_cache()
+    lap("detection")
+    vgg16(dev, card)
+    torch.cuda.empty_cache()
+    lap("vgg16")
 
     main_case = next(c for c in cases if c["case"] == "mixed_f32")
     decode_case = next(c for c in cases if c["case"] == "decode_f32")

@@ -2,7 +2,11 @@
 
 Training weights: a JAX ``Parameters`` read as numpy (``as_dict()`` values,
 or its tar) becomes the port's with :func:`parameters_from_numpy`; the
-names are the same ``<layer>.<param>`` keys in both packages.  A JAX
+names are the same ``<layer>.<param>`` keys in both packages, and every
+layer keeps the JAX package's layout (HWIO convolutions, DHWIO 3-D ones,
+``[in, out]`` products, ``nce``/``hsigmoid``'s class rows, ``tensor``'s
+``[size, a, b]``, ``mdlstmemory``'s ``wx``/``wr``/``wc``/``b``), so each
+array crosses as it is.  A JAX
 trainer's ``model_state`` (``{layer: {"moving_mean", "moving_var"}}``)
 becomes the port's with :func:`state_from_numpy`.
 

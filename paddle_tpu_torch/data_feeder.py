@@ -1,12 +1,17 @@
 """DataFeeder: sample batches -> tensors / SequenceBatch (the port of
-``paddle_tpu/data_feeder.py``: dense vectors, integer values, and
-sequences and nested sequences of either).
+``paddle_tpu/data_feeder.py``: dense vectors, sparse binary and sparse
+float vectors, integer values, and sequences and nested sequences of
+each).
 
 A dense slot is one f32 row per sample, stacked to a [B, dim] tensor (a
 sample already shaped [H, W, C] or the like keeps its shape, as
 ``paddle_tpu/data_feeder.py:55-60`` allows).  An integer value slot is
 one int32 per sample, a [B] tensor (a [B, n] one for rows of n > 1
-values), as ``paddle_tpu/data_feeder.py:76-83`` gives it.  Sequence slots
+values), as ``paddle_tpu/data_feeder.py:76-83`` gives it.  A sparse
+binary sample (a list of ids) and a sparse float sample (a list of (id,
+value) pairs, the last pair of an id winning) become dense f32 rows of
+``dim`` (``paddle_tpu/data_feeder.py:64-71``), alone or as a sequence's
+tokens.  Sequence slots
 are packed into the flat segment-id form with a bucketed capacity (the
 next power of two over the batch's token count, at least 64) and a
 bucketed ``max_len`` (at least 16), as in the JAX package: the same batch
@@ -50,12 +55,6 @@ class DataFeeder:
             feeding = {name: i for i, name in enumerate(feeding)}
         self.feeding = feeding
         self.device = resolve_device(device)
-        for name, itype in data_types:
-            enforce_that(itype.slot in (SlotKind.INDEX, SlotKind.DENSE),
-                         f"slot {name!r} is {itype}: the port feeds dense "
-                         "vectors and integer values (alone, in sequences "
-                         "and in nested sequences) only so far",
-                         context="feeder")
 
     def __call__(self, batch_data):
         return self.feed(batch_data)
@@ -69,20 +68,32 @@ class DataFeeder:
                 out[name] = self._sequence(itype, col)
             elif itype.seq == SeqKind.SUB_SEQUENCE:
                 out[name] = self._sub_sequence(itype, col)
-            elif itype.slot == SlotKind.DENSE:
-                out[name] = self._dense(itype, name, col)
-            else:
+            elif itype.slot == SlotKind.INDEX:
                 out[name] = self._values(col)
+            else:
+                out[name] = self._dense(itype, name, col)
         return out
 
+    @staticmethod
+    def _row(itype: InputType, name: str, r) -> np.ndarray:
+        """One sample (or token) of a dense or sparse slot as f32."""
+        if itype.slot == SlotKind.SPARSE_BINARY:
+            row = np.zeros((itype.dim,), np.float32)
+            row[np.asarray(r, dtype=np.int64)] = 1.0
+            return row
+        if itype.slot == SlotKind.SPARSE_FLOAT:
+            row = np.zeros((itype.dim,), np.float32)
+            for idx, val in r:
+                row[idx] = val
+            return row
+        arr = np.asarray(r, dtype=np.float32)
+        enforce_that(arr.size == itype.dim or arr.ndim > 1,
+                     f"dense slot {name!r} expects dim {itype.dim}, got "
+                     f"shape {arr.shape}", context="feeder")
+        return arr.reshape(-1) if arr.ndim <= 1 else arr
+
     def _dense(self, itype: InputType, name: str, col) -> torch.Tensor:
-        rows = []
-        for r in col:
-            arr = np.asarray(r, dtype=np.float32)
-            enforce_that(arr.size == itype.dim or arr.ndim > 1,
-                         f"dense slot {name!r} expects dim {itype.dim}, got "
-                         f"shape {arr.shape}", context="feeder")
-            rows.append(arr.reshape(-1) if arr.ndim <= 1 else arr)
+        rows = [self._row(itype, name, r) for r in col]
         return torch.from_numpy(np.stack(rows)).to(self.device)
 
     def _values(self, col) -> torch.Tensor:
@@ -93,10 +104,11 @@ class DataFeeder:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
     def _tokens(self, itype: InputType, seq) -> np.ndarray:
-        """One sequence's tokens: [n] int32 ids or [n, dim] f32 rows."""
+        """One sequence's tokens: [n] int32 ids or [n, dim] f32 rows (a
+        sparse token made dense)."""
         if itype.slot == SlotKind.INDEX:
             return np.asarray(seq, np.int32).reshape(-1)
-        rows = [np.asarray(t, np.float32).reshape(-1) for t in seq]
+        rows = [self._row(itype, "token", t).reshape(-1) for t in seq]
         for r in rows:
             enforce_that(r.size == itype.dim, f"dense sequence slot expects "
                          f"dim {itype.dim}, got {r.size}", context="feeder")

@@ -1,5 +1,7 @@
 """Input type descriptors for data layers and the DataFeeder (a copy of
-``paddle_tpu/data_type.py`` trimmed to what the training slices read)."""
+``paddle_tpu/data_type.py``: dense vectors, sparse binary and sparse
+float vectors, integer values, and their sequence and nested-sequence
+forms)."""
 
 from __future__ import annotations
 
@@ -39,8 +41,24 @@ def dense_vector_sequence(dim: int) -> InputType:
     return InputType(dim, SlotKind.DENSE, SeqKind.SEQUENCE)
 
 
+def sparse_binary_vector(dim: int) -> InputType:
+    return InputType(dim, SlotKind.SPARSE_BINARY)
+
+
+def sparse_float_vector(dim: int) -> InputType:
+    return InputType(dim, SlotKind.SPARSE_FLOAT)
+
+
 def integer_value(value_range: int) -> InputType:
     return InputType(value_range, SlotKind.INDEX)
+
+
+def sparse_binary_vector_sequence(dim: int) -> InputType:
+    return InputType(dim, SlotKind.SPARSE_BINARY, SeqKind.SEQUENCE)
+
+
+def sparse_float_vector_sequence(dim: int) -> InputType:
+    return InputType(dim, SlotKind.SPARSE_FLOAT, SeqKind.SEQUENCE)
 
 
 def integer_value_sequence(value_range: int) -> InputType:

@@ -1,7 +1,7 @@
 """Datasets (a copy of ``paddle_tpu/dataset``: common, mnist, cifar,
-uci_housing, imdb, imikolov, movielens, conll05, wmt14, sentiment and
-mq2007; flowers and voc2012 read images through ``image.py`` and come
-with it).
+uci_housing, imdb, imikolov, movielens, conll05, wmt14, sentiment,
+mq2007, and flowers and voc2012, which read images through
+``image.py``).
 
 Each module downloads its data when it can, with an md5-checked cache
 under ``common.DATA_HOME`` (``$PADDLE_TPU_DATA_HOME``, default
@@ -23,6 +23,9 @@ from paddle_tpu_torch.dataset import conll05
 from paddle_tpu_torch.dataset import wmt14
 from paddle_tpu_torch.dataset import sentiment
 from paddle_tpu_torch.dataset import mq2007
+from paddle_tpu_torch.dataset import flowers
+from paddle_tpu_torch.dataset import voc2012
 
 __all__ = ["common", "mnist", "cifar", "uci_housing", "imdb", "imikolov",
-           "movielens", "conll05", "wmt14", "sentiment", "mq2007"]
+           "movielens", "conll05", "wmt14", "sentiment", "mq2007",
+           "flowers", "voc2012"]

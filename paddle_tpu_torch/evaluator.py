@@ -1,7 +1,5 @@
 """Evaluators: metric nodes the topology computes in the same forward as
-the cost (the port of ``paddle_tpu/evaluator.py``, every evaluator but
-``detection_map``, which needs ``ops/detection.py`` and comes with the
-next slice of the v2 surface).
+the cost (the port of ``paddle_tpu/evaluator.py``, every evaluator).
 
 Each evaluator returns a ``LayerOutput`` flagged ``is_metric``; pass them
 to ``trainer.SGD(..., extra_layers=[...])``.  The trainer reduces a
@@ -19,10 +17,11 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
+from paddle_tpu_torch.ops import detection as pdet
 from paddle_tpu_torch.ops import losses as ploss
-from paddle_tpu_torch.platform.enforce import EnforceError
 from paddle_tpu_torch.sequence import SequenceBatch
 from paddle_tpu_torch.topology import LayerOutput, unique_name
 
@@ -30,7 +29,8 @@ __all__ = ["classification_error", "sum", "column_sum", "auc",
            "precision_recall", "pnpair", "seq_classification_error",
            "value_printer", "maxid_printer", "rankauc", "chunk",
            "ctc_edit_distance", "gradient_printer", "max_frame_printer",
-           "seq_text_printer", "classification_error_printer"]
+           "seq_text_printer", "classification_error_printer",
+           "detection_map"]
 
 
 def _data_of(v):
@@ -381,10 +381,71 @@ def ctc_edit_distance(input, label, blank: Optional[int] = None,
                         compute)
 
 
-def detection_map(*args, **kwargs):
-    raise EnforceError("detection_map needs ops/detection.py, which comes "
-                       "with the next slice of the v2 surface (A9, with "
-                       "image.py)", context="evaluator")
+# recall points of the 11-point interpolated AP: jnp.linspace(0, 1, 11)'s
+# float32 values, i * float32(0.1)
+_AP_POINTS = np.arange(11, dtype=np.float32) * np.float32(0.1)
+
+
+def detection_map(detections, label, num_classes: int, keep_top_k: int,
+                  max_boxes: int = 16, overlap_threshold: float = 0.5,
+                  background_id: int = 0,
+                  name: Optional[str] = None) -> LayerOutput:
+    """11-point interpolated mAP over a batch.  ``detections`` is a
+    ``detection_output`` layer ([B, keep_top_k * 6] rows of label, score,
+    box); ``label`` the dense [B, max_boxes * 5] ground truth (class,
+    box), class < 0 padding.  Each example's detections, in their
+    (score-sorted) order, take the unused gt of their class they overlap
+    most (the first of equal overlaps) at IoU >= the threshold; then all
+    detections are ranked by score in a stable sort and each class's AP
+    is the mean over 11 recall points of the best precision at that
+    recall or above; classes without gt are left out of the mean."""
+    name = name or unique_name("detection_map_evaluator")
+
+    def compute(ctx, p, ins):
+        det = _data_of(ins[0]).reshape(-1, keep_top_k, 6)
+        B = det.shape[0]
+        gt = _data_of(ins[1]).reshape(B, max_boxes, 5)
+        iou = pdet.iou_matrix(det[..., 2:6], gt[..., 1:5])    # [B, K, G]
+        ok = (det[..., 0:1] == gt[:, None, :, 0]) & \
+            (gt[:, None, :, 0] >= 0)
+        cand = iou * torch.where(ok, 1.0, 0.0)
+        used = torch.zeros((B, max_boxes), dtype=torch.bool,
+                           device=det.device)
+        hits = []
+        for k in range(keep_top_k):
+            row = torch.where(used, torch.zeros_like(cand[:, k]), cand[:, k])
+            j = torch.argmax(row, dim=1, keepdim=True)
+            hit = (torch.gather(row, 1, j)[:, 0] >= overlap_threshold) & \
+                (det[:, k, 0] >= 0)
+            used = used | (torch.nn.functional.one_hot(
+                j[:, 0], max_boxes).bool() & hit[:, None])
+            hits.append(hit)
+        tp = torch.stack(hits, dim=1).reshape(-1).to(torch.float32)
+        scores = torch.where(det[..., 0] >= 0, det[..., 1],
+                             det.new_full((), -float("inf"))).reshape(-1)
+        order = torch.sort(scores, descending=True, stable=True).indices
+        tp_sorted = tp[order]
+        valid = torch.isfinite(scores[order])
+        cls_sorted = det[..., 0].reshape(-1)[order]
+        cls = torch.tensor([c for c in range(num_classes)
+                            if c != background_id], dtype=torch.float32,
+                           device=det.device)[:, None]          # [C', 1]
+        sel = (cls_sorted[None, :] == cls) & valid[None, :]
+        cum_tp = torch.cumsum(torch.where(sel, tp_sorted, 0.0), dim=1)
+        cum_n = torch.cumsum(sel.to(torch.float32), dim=1)
+        n_gt = (gt[None, :, :, 0] == cls[:, :, None]).to(
+            torch.float32).sum(dim=(1, 2))                      # [C']
+        prec = cum_tp / torch.clamp(cum_n, min=1.0)
+        rec = cum_tp / torch.clamp(n_gt, min=1.0)[:, None]
+        pts = torch.from_numpy(_AP_POINTS).to(det.device)
+        best = torch.where(rec[:, None, :] >= pts[None, :, None],
+                           prec[:, None, :], 0.0).amax(dim=2)   # [C', 11]
+        ap = torch.where(n_gt > 0, best.mean(dim=1),
+                         best.new_full((), float("nan")))
+        return torch.nanmean(ap).reshape(1)
+
+    return _metric_node(name, "detection_map_evaluator",
+                        [detections, label], compute)
 
 
 class _GradientProbe(torch.autograd.Function):

@@ -1,21 +1,20 @@
-"""The layer DSL (the port of ``paddle_tpu/layer.py``: the transformer
-subset ``data``, ``fc``, ``embedding``, ``layer_norm``, ``addto``,
-``multi_head_attention``, ``classification_cost`` and the fused
-``lm_head_cost``, the recurrent subset ``lstmemory``, ``grumemory``,
-``pooling``, ``first_seq``, ``last_seq``, ``expand``, the Elman
-``recurrent`` layer, the step layers ``gru_step``/``lstm_step`` with
-``recurrent_group``, ``memory``, ``StaticInput`` and ``SubsequenceInput``
-from ``recurrent.py``, ``mixed`` with every projection (full matrix,
-transposed, identity, slice, dotmul, scaling, table, context) and
-operator (dotmul, conv), ``dotmul``, ``dotmul_bcast`` and
-``cross_entropy_cost``, the convnet subset
-``img_conv``, ``img_pool``, ``batch_norm``, ``img_cmrnorm``, ``dropout``
-and ``concat``, the CTR/GAN subset ``slope_intercept`` and
-``multi_binary_label_cross_entropy_cost``, the tagging subset ``crf`` and
-``crf_decoding``, the sequence layers ``seq_concat``, ``seq_reshape``,
-``seq_slice``, ``kmax_seq_score``, ``sub_nested_seq``, ``max_id`` and
-``get_output``, and the beam cost ``cross_entropy_over_beam`` with its
-``BeamInput``).
+"""The layer DSL (the port of ``paddle_tpu/layer.py``, all of its 112
+names): data, fc, embedding, norms, addto, concat and dropout; ``mixed``
+with every projection and operator; the image layers (2-D and 3-D
+convolutions and pools, batch norm, cross-map norm, spp, maxout,
+bilinear resize, pad, crop, rotate, block expand, switch order); the
+recurrent layers, the step layers and ``recurrent_group``'s surface from
+``recurrent.py``, the 2-D ``mdlstmemory``; multi-head attention; the
+vector layers (interpolation, scaling, power, norms, cosines, clip,
+resize, prelu, scale-shift, data norm, trans, tensor, outer product,
+multiplex, conv shift, linear and convex combinations, row conv,
+featmap expand, print); the sequence layers; every cost (classification,
+cross entropies, square error and regression, the binary and soft
+binary ones, rank and lambda, huber, smooth L1, sum, nce, hsigmoid,
+ctc, the CRF, the beam cost, the fused LM head); sampling_id,
+selective_fc, eos; the SSD suite (priorbox, multibox_loss,
+detection_output).  ``moe_ffn`` raises: it comes with the parallel
+slice.
 
 Each function returns a ``LayerOutput`` graph node whose compute fn is
 plain PyTorch on tensors or :class:`SequenceBatch` values; the dtype
@@ -31,6 +30,7 @@ import math
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from paddle_tpu_torch import activation as act_mod
@@ -41,6 +41,7 @@ from paddle_tpu_torch.initializer import Constant
 from paddle_tpu_torch.ops import attention as pattn
 from paddle_tpu_torch.ops import conv as pconv
 from paddle_tpu_torch.ops import crf as pcrf
+from paddle_tpu_torch.ops import detection as pdet
 from paddle_tpu_torch.ops import losses as ploss
 from paddle_tpu_torch.ops import math as pmath
 from paddle_tpu_torch.ops import norm as pnorm
@@ -68,7 +69,23 @@ __all__ = ["data", "fc", "embedding", "layer_norm", "addto", "concat",
            "crf_decoding", "seq_concat", "seq_reshape", "seq_slice",
            "kmax_seq_score", "sub_nested_seq", "max_id", "get_output",
            "BeamInput", "cross_entropy_over_beam", "SubsequenceInput",
-           "lm_head_cost"]
+           "lm_head_cost",
+           # the rest of the v2 surface
+           "interpolation", "scaling", "power", "sum_to_one_norm",
+           "row_l2_norm", "cos_sim", "clip", "resize", "spp", "maxout",
+           "bilinear_interp", "pad", "crop", "rotate", "block_expand",
+           "sampling_id", "selective_fc", "nce", "hsigmoid", "ctc",
+           "warp_ctc", "cross_entropy_with_selfnorm_cost",
+           "square_error_cost", "regression_cost",
+           "soft_binary_class_cross_entropy_cost", "rank_cost",
+           "lambda_cost", "huber_regression_cost",
+           "huber_classification_cost", "smooth_l1_cost", "sum_cost",
+           "moe_ffn", "eos", "prelu", "scale_shift", "data_norm", "trans",
+           "switch_order", "tensor", "out_prod", "multiplex", "conv_shift",
+           "linear_comb", "convex_comb", "cos_vm", "row_conv", "subseq",
+           "featmap_expand", "print_layer", "img_conv3d", "img_pool3d",
+           "mdlstmemory", "priorbox", "multibox_loss", "detection_output",
+           "gated_recurrent"]
 
 
 def _as_list(x) -> list:
@@ -1469,3 +1486,1190 @@ def lstm_step_state(step_node, name: Optional[str] = None) -> LayerOutput:
                        layer_type="lstm_c", inputs=[step_node],
                        fn=lambda ctx, p, ins: _data_of(ins[0])[..., size:],
                        size=size, is_sequence=False)
+
+
+# ---------------------------------------------------------------------------
+# the rest of the v2 surface: vector layers
+# ---------------------------------------------------------------------------
+
+
+def _per_row(w: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-example scalar column [B, 1, ...] against ``like``."""
+    return w.reshape(w.shape[0], *([1] * (like.dim() - 1)))
+
+
+def interpolation(input, weight, name: Optional[str] = None) -> LayerOutput:
+    """``w a + (1 - w) b``, w a scalar an example; ``input`` is [a, b]."""
+    a, b = _as_list(input)
+    name = name or unique_name("interpolation")
+
+    def compute(ctx, p, ins):
+        va, vb, w = _data_of(ins[0]), _data_of(ins[1]), _data_of(ins[2])
+        w = _per_row(w, va)
+        return _like(ins[0], w * va + (1.0 - w) * vb)
+
+    return LayerOutput(name=name, layer_type="interpolation",
+                       inputs=[a, b, weight], fn=compute, size=a.size,
+                       is_sequence=a.is_sequence)
+
+
+def scaling(input, weight, name: Optional[str] = None) -> LayerOutput:
+    """Each row scaled by its example's scalar."""
+    name = name or unique_name("scaling")
+
+    def compute(ctx, p, ins):
+        v, w = _data_of(ins[0]), _data_of(ins[1])
+        return _like(ins[0], _per_row(w, v) * v)
+
+    return LayerOutput(name=name, layer_type="scaling", inputs=[input, weight],
+                       fn=compute, size=input.size,
+                       is_sequence=input.is_sequence)
+
+
+def power(input, weight, name: Optional[str] = None) -> LayerOutput:
+    """``x ** w`` elementwise, w a scalar an example."""
+    name = name or unique_name("power")
+
+    def compute(ctx, p, ins):
+        v, w = _data_of(ins[0]), _data_of(ins[1])
+        return _like(ins[0], torch.pow(v, _per_row(w, v)))
+
+    return LayerOutput(name=name, layer_type="power", inputs=[input, weight],
+                       fn=compute, size=input.size,
+                       is_sequence=input.is_sequence)
+
+
+def sum_to_one_norm(input, name: Optional[str] = None) -> LayerOutput:
+    """Each row over its sum."""
+    name = name or unique_name("sum_to_one_norm")
+    return LayerOutput(name=name, layer_type="sum_to_one_norm",
+                       inputs=[input],
+                       fn=lambda ctx, p, ins: _like(
+                           ins[0], pnorm.sum_to_one_norm(_data_of(ins[0]))),
+                       size=input.size, is_sequence=input.is_sequence)
+
+
+def row_l2_norm(input, name: Optional[str] = None) -> LayerOutput:
+    """Each row over its L2 norm."""
+    name = name or unique_name("row_l2_norm")
+    return LayerOutput(name=name, layer_type="row_l2_norm", inputs=[input],
+                       fn=lambda ctx, p, ins: _like(
+                           ins[0], pnorm.row_l2_norm(_data_of(ins[0]))),
+                       size=input.size, is_sequence=input.is_sequence)
+
+
+def cos_sim(a, b, scale: float = 1.0,
+            name: Optional[str] = None) -> LayerOutput:
+    """Cosine similarity of two layers' rows, times ``scale`` ([B, 1])."""
+    name = name or unique_name("cos_sim")
+
+    def compute(ctx, p, ins):
+        return ploss.cosine_similarity(_data_of(ins[0]), _data_of(ins[1]),
+                                       scale)[..., None]
+
+    return LayerOutput(name=name, layer_type="cos_sim", inputs=[a, b],
+                       fn=compute, size=1, is_sequence=a.is_sequence)
+
+
+def clip(input, min: float, max: float,
+         name: Optional[str] = None) -> LayerOutput:
+    """Elementwise clip to [min, max]; a value on a bound passes half its
+    gradient, as ``jnp.clip`` does."""
+    name = name or unique_name("clip")
+    lo, hi = min, max
+
+    def compute(ctx, p, ins):
+        return _like(ins[0], ploss.clip(_data_of(ins[0]), lo, hi))
+
+    return LayerOutput(name=name, layer_type="clip", inputs=[input],
+                       fn=compute, size=input.size,
+                       is_sequence=input.is_sequence)
+
+
+def resize(input, size: int, name: Optional[str] = None) -> LayerOutput:
+    """The batch matrix re-cut to rows of ``size`` (B * input.size / size
+    rows); a sequence takes ``seq_reshape``."""
+    name = name or unique_name("resize")
+    enforce_that(not input.is_sequence,
+                 "resize reshapes the dense batch matrix; use seq_reshape "
+                 "for sequences", context="resize")
+    return LayerOutput(name=name, layer_type="resize", inputs=[input],
+                       fn=lambda ctx, p, ins: _data_of(ins[0]).reshape(
+                           -1, size),
+                       size=size, is_sequence=False)
+
+
+def prelu(input, partial_sum: int = 1, param_attr=None,
+          name: Optional[str] = None) -> LayerOutput:
+    """Parametric ReLU, one slope ``w`` a group of ``partial_sum``
+    features."""
+    name = name or unique_name("prelu")
+    enforce_that(input.size % partial_sum == 0,
+                 "prelu partial_sum must divide input size", context="prelu")
+    n_slopes = input.size // partial_sum
+    params = {"w": ParamSpec((n_slopes,), ParamAttr.to_attr(param_attr))}
+
+    def compute(ctx, p, ins):
+        x = _data_of(ins[0])
+        flat = x.reshape(x.shape[0], n_slopes, partial_sum)
+        slope = p["w"].reshape(1, n_slopes, 1)
+        y = torch.where(flat >= 0, flat, slope * flat).reshape(x.shape)
+        return _like(ins[0], y)
+
+    node = LayerOutput(name=name, layer_type="prelu", inputs=[input],
+                       fn=compute, params=params, size=input.size,
+                       is_sequence=input.is_sequence)
+    return _propagate_img_shape(node, input)
+
+
+def scale_shift(input, param_attr=None, bias_attr=True,
+                name: Optional[str] = None) -> LayerOutput:
+    """``w x + b``, w and b learned scalars."""
+    name = name or unique_name("scale_shift")
+    params = {"w": ParamSpec((1,), ParamAttr.to_attr(param_attr))}
+    has_bias = bool(bias_attr)
+    if has_bias:
+        params["b"] = ParamSpec((1,), ParamAttr.to_attr(
+            None if bias_attr is True else bias_attr))
+
+    def compute(ctx, p, ins):
+        y = _data_of(ins[0]) * p["w"][0]
+        if has_bias:
+            y = y + p["b"][0]
+        return _like(ins[0], y)
+
+    return LayerOutput(name=name, layer_type="scale_shift", inputs=[input],
+                       fn=compute, params=params, size=input.size,
+                       is_sequence=input.is_sequence)
+
+
+def data_norm(input, mean=None, std=None, mode: str = "z-score",
+              name: Optional[str] = None) -> LayerOutput:
+    """Normalization by fixed statistics: ``z-score`` and ``min-max``
+    compute ``(x - mean) / max(std, 1e-8)`` (min-max reads them as the
+    minimum and the range), ``decimal-scaling`` ``x / 10 **
+    ceil(log10(std))``."""
+    name = name or unique_name("data_norm")
+    enforce_that(mode in ("z-score", "min-max", "decimal-scaling"),
+                 f"bad data_norm mode {mode}", context="data_norm")
+    mean_a = torch.as_tensor(0.0 if mean is None else mean,
+                             dtype=torch.float32)
+    std_a = torch.as_tensor(1.0 if std is None else std, dtype=torch.float32)
+
+    def compute(ctx, p, ins):
+        x = _data_of(ins[0])
+        m, s = mean_a.to(x.device), torch.clamp(std_a.to(x.device),
+                                                min=1e-8)
+        if mode == "decimal-scaling":
+            y = x / torch.pow(10.0, torch.ceil(torch.log10(s)))
+        else:
+            y = (x - m) / s
+        return _like(ins[0], y)
+
+    return LayerOutput(name=name, layer_type="data_norm", inputs=[input],
+                       fn=compute, size=input.size,
+                       is_sequence=input.is_sequence)
+
+
+def trans(input, name: Optional[str] = None) -> LayerOutput:
+    """The [B, size] batch matrix transposed."""
+    name = name or unique_name("trans")
+    return LayerOutput(name=name, layer_type="trans", inputs=[input],
+                       fn=lambda ctx, p, ins: _data_of(ins[0]).t(),
+                       size=None, is_sequence=False)
+
+
+def switch_order(input, reshape_to=("h", "w", "c"),
+                 name: Optional[str] = None) -> LayerOutput:
+    """Flat image rows switched between CHW and HWC order (to HWC by
+    default)."""
+    name = name or unique_name("switch_order")
+    in_shape = _img_shape_of(input)
+    enforce_that(in_shape is not None, "switch_order needs image shape",
+                 context="switch_order")
+    h, w, c = in_shape
+    to_hwc = tuple(reshape_to) == ("h", "w", "c")
+
+    def compute(ctx, p, ins):
+        x = _data_of(ins[0])
+        n = x.shape[0]
+        if to_hwc:
+            y = x.reshape(n, c, h, w).permute(0, 2, 3, 1)
+        else:
+            y = x.reshape(n, h, w, c).permute(0, 3, 1, 2)
+        return y.reshape(n, -1)
+
+    node = LayerOutput(name=name, layer_type="switch_order", inputs=[input],
+                       fn=compute, size=input.size)
+    node.img_shape = (h, w, c)
+    return node
+
+
+def tensor(a, b, size: int, act=None, param_attr=None,
+           name: Optional[str] = None) -> LayerOutput:
+    """Bilinear product ``out[k] = a W_k b^T``, W [size, a.size, b.size]."""
+    name = name or unique_name("tensor")
+    activation = act_mod.get(act)
+    params = {"w": ParamSpec((size, a.size, b.size),
+                             ParamAttr.to_attr(param_attr))}
+
+    def compute(ctx, p, ins):
+        x, y = _data_of(ins[0]), _data_of(ins[1])
+        return _apply_act(activation,
+                          torch.einsum("bi,kij,bj->bk", x, p["w"], y))
+
+    return LayerOutput(name=name, layer_type="tensor", inputs=[a, b],
+                       fn=compute, params=params, size=size)
+
+
+def out_prod(a, b, name: Optional[str] = None) -> LayerOutput:
+    """Each example's outer product of its two rows, flattened."""
+    name = name or unique_name("out_prod")
+
+    def compute(ctx, p, ins):
+        x, y = _data_of(ins[0]), _data_of(ins[1])
+        return (x[:, :, None] * y[:, None, :]).reshape(x.shape[0], -1)
+
+    return LayerOutput(name=name, layer_type="out_prod", inputs=[a, b],
+                       fn=compute, size=a.size * b.size)
+
+
+def multiplex(index, inputs, name: Optional[str] = None) -> LayerOutput:
+    """Row i from the candidate layer ``index[i]`` names."""
+    cands = _as_list(inputs)
+    name = name or unique_name("multiplex")
+
+    def compute(ctx, p, ins):
+        idx = _data_of(ins[0]).reshape(-1).long()
+        stack = torch.stack([_data_of(v) for v in ins[1:]], dim=0)
+        sel = idx[None, :, None].expand(1, -1, stack.shape[2])
+        return torch.gather(stack, 0, sel)[0]
+
+    return LayerOutput(name=name, layer_type="multiplex",
+                       inputs=[index] + cands, fn=compute,
+                       size=cands[0].size)
+
+
+def conv_shift(a, b, name: Optional[str] = None) -> LayerOutput:
+    """Circular convolution of each row of ``a`` with its row of ``b``
+    (an odd-width kernel centred on the row's position)."""
+    name = name or unique_name("conv_shift")
+    enforce_that(b.size % 2 == 1, "conv_shift kernel width must be odd",
+                 context="conv_shift")
+    half = b.size // 2
+
+    def compute(ctx, p, ins):
+        x, k = _data_of(ins[0]), _data_of(ins[1])
+        stack = torch.stack([torch.roll(x, half - j, dims=1)
+                             for j in range(k.shape[1])], dim=-1)
+        return torch.einsum("bmk,bk->bm", stack, k)
+
+    return LayerOutput(name=name, layer_type="conv_shift", inputs=[a, b],
+                       fn=compute, size=a.size)
+
+
+def linear_comb(weights, vectors, size: int,
+                name: Optional[str] = None) -> LayerOutput:
+    """``sum_m w[:, m] x[:, m, :]`` over the M sub-vectors of ``vectors``
+    [B, M * size]."""
+    name = name or unique_name("linear_comb")
+
+    def compute(ctx, p, ins):
+        w, x = _data_of(ins[0]), _data_of(ins[1])
+        return torch.einsum("bm,bmd->bd", w,
+                            x.reshape(x.shape[0], w.shape[1], size))
+
+    return LayerOutput(name=name, layer_type="linear_comb",
+                       inputs=[weights, vectors], fn=compute, size=size)
+
+
+def convex_comb(weights, vectors, size: int,
+                name: Optional[str] = None) -> LayerOutput:
+    """:func:`linear_comb` under its other registered name."""
+    return linear_comb(weights, vectors, size, name=name)
+
+
+def cos_vm(a, b, size: int, scale: float = 1.0,
+           name: Optional[str] = None) -> LayerOutput:
+    """Cosine similarity of ``a`` [B, D] against each of the M rows packed
+    in ``b`` [B, M * D], times ``scale``."""
+    name = name or unique_name("cos_vm")
+
+    def compute(ctx, p, ins):
+        x, y = _data_of(ins[0]), _data_of(ins[1])
+        m = y.shape[1] // x.shape[1]
+        ym = y.reshape(y.shape[0], m, x.shape[1])
+        num = torch.einsum("bd,bmd->bm", x, ym)
+        den = torch.linalg.norm(x, dim=1, keepdim=True) * \
+            torch.linalg.norm(ym, dim=2)
+        return scale * num / torch.clamp(den, min=1e-8)
+
+    return LayerOutput(name=name, layer_type="cos_vm", inputs=[a, b],
+                       fn=compute, size=size)
+
+
+def row_conv(input, context_len: int, act=None, param_attr=None,
+             name: Optional[str] = None) -> LayerOutput:
+    """Lookahead convolution over each sequence's next ``context_len``
+    frames (``w`` [context_len, size]); frames past a sequence's end
+    count zero."""
+    _need_seq(input, "row_conv")
+    name = name or unique_name("row_conv")
+    activation = act_mod.get(act)
+    params = {"w": ParamSpec((context_len, input.size),
+                             ParamAttr.to_attr(param_attr))}
+
+    def compute(ctx, p, ins):
+        sb = ins[0]
+        x, seg = sb.data, sb.segment_ids
+        total = torch.zeros_like(x)
+        for j in range(context_len):
+            shifted = torch.cat([x[j:], x.new_zeros((j,) + x.shape[1:])])
+            seg_sh = torch.cat([seg[j:], seg.new_full((j,), -1)])
+            ok = (seg_sh == seg)[:, None]
+            total = total + torch.where(ok, shifted * p["w"][j][None, :],
+                                        torch.zeros_like(x))
+        return sb.with_data(_apply_act(activation, total))
+
+    return LayerOutput(name=name, layer_type="row_conv", inputs=[input],
+                       fn=compute, params=params, size=input.size,
+                       is_sequence=True)
+
+
+def subseq(input, offsets, sizes, name: Optional[str] = None) -> LayerOutput:
+    """Positions [offset, offset + size) of each sequence; ``offsets`` and
+    ``sizes`` are layers of one integer a sequence."""
+    _need_seq(input, "subseq")
+    name = name or unique_name("subseq")
+
+    def compute(ctx, p, ins):
+        s = _data_of(ins[1]).reshape(-1).to(torch.int32)
+        n = _data_of(ins[2]).reshape(-1).to(torch.int32)
+        return pseq.seq_slice(ins[0], s, s + n)
+
+    return LayerOutput(name=name, layer_type="subseq",
+                       inputs=[input, offsets, sizes], fn=compute,
+                       size=input.size, is_sequence=True)
+
+
+def featmap_expand(input, num_filters: int, as_row_vector: bool = True,
+                   name: Optional[str] = None) -> LayerOutput:
+    """Each row tiled ``num_filters`` times (``as_row_vector=False``:
+    each element repeated ``num_filters`` times)."""
+    name = name or unique_name("featmap_expand")
+
+    def compute(ctx, p, ins):
+        x = _data_of(ins[0])
+        y = x.repeat(1, num_filters) if as_row_vector else \
+            torch.repeat_interleave(x, num_filters, dim=1)
+        return _like(ins[0], y)
+
+    return LayerOutput(name=name, layer_type="featmap_expand",
+                       inputs=[input], fn=compute,
+                       size=input.size * num_filters,
+                       is_sequence=input.is_sequence)
+
+
+def print_layer(input, format: Optional[str] = None,
+                name: Optional[str] = None) -> LayerOutput:
+    """Prints its input at each forward (``format`` with ``{x}``, the
+    value as numpy prints it) and passes it on unchanged."""
+    name = name or unique_name("print")
+    fmt = format or (name + ": {x}")
+
+    def compute(ctx, p, ins):
+        v = ins[0]
+        print(fmt.format(x=_data_of(v).detach().cpu().numpy()))
+        return v
+
+    node = LayerOutput(name=name, layer_type="print", inputs=[input],
+                       fn=compute, size=input.size,
+                       is_sequence=input.is_sequence)
+    return _propagate_img_shape(node, input)
+
+
+def eos(input, eos_id: int, name: Optional[str] = None) -> LayerOutput:
+    """Each sequence cut before its first ``eos_id`` token."""
+    _need_seq(input, "eos")
+    name = name or unique_name("eos")
+
+    def compute(ctx, p, ins):
+        sb: SequenceBatch = ins[0]
+        ids, mask = sb.to_padded()
+        tok = ids[..., 0] if ids.dim() == 3 else ids
+        is_eos = (tok == eos_id) & mask
+        first = torch.argmax(is_eos.to(torch.int32), dim=1)
+        new_len = torch.where(is_eos.any(dim=1), first,
+                              sb.lengths.long()).to(torch.int32)
+        return pseq.seq_slice(sb, torch.zeros_like(new_len), new_len)
+
+    return LayerOutput(name=name, layer_type="eos", inputs=[input],
+                       fn=compute, size=input.size, is_sequence=True)
+
+
+def moe_ffn(input, num_experts: int = 0, expert_hidden: int = 0, **_kw):
+    """The mixture-of-experts FFN comes with the parallel slice."""
+    raise EnforceError("moe_ffn comes with the parallel slice (A12: the "
+                       "expert mesh, parallel/moe.py); the port has no "
+                       "expert routing yet", context="moe_ffn")
+
+
+# ---------------------------------------------------------------------------
+# the rest of the v2 surface: image layers
+# ---------------------------------------------------------------------------
+
+
+def spp(input, pyramid_height: int, num_channels: int = None, pool_type=None,
+        name: Optional[str] = None) -> LayerOutput:
+    """Spatial pyramid pooling (``ops/pool.spatial_pyramid_pool``)."""
+    name = name or unique_name("spp")
+    in_shape = _img_shape_of(input)
+    enforce_that(in_shape is not None, "spp needs image shape", context="spp")
+    ptype = pooling_mod.get(pool_type)
+    out_size = sum(4 ** lv for lv in range(pyramid_height)) * in_shape[2]
+
+    def compute(ctx, p, ins):
+        x = _to_nhwc(_data_of(ins[0]), in_shape)
+        return ppool.spatial_pyramid_pool(
+            x, pyramid_height,
+            "max" if isinstance(ptype, pooling_mod.MaxPooling) else "avg")
+
+    return LayerOutput(name=name, layer_type="spp", inputs=[input],
+                       fn=compute, size=out_size)
+
+
+def maxout(input, groups: int, num_channels: int = None,
+           name: Optional[str] = None) -> LayerOutput:
+    """Max over channel groups (``ops/pool.maxout``)."""
+    name = name or unique_name("maxout")
+    in_shape = _img_shape_of(input)
+    enforce_that(in_shape is not None, "maxout needs image shape",
+                 context="maxout")
+    h, w, c = in_shape
+    oc = c // groups
+
+    def compute(ctx, p, ins):
+        return ppool.maxout(_to_nhwc(_data_of(ins[0]), in_shape), groups)
+
+    node = LayerOutput(name=name, layer_type="maxout", inputs=[input],
+                       fn=compute, size=h * w * oc)
+    node.img_shape = (h, w, oc)
+    return node
+
+
+def bilinear_interp(input, out_size_x: int, out_size_y: int,
+                    name: Optional[str] = None) -> LayerOutput:
+    """Bilinear resize to (out_size_y, out_size_x): half-pixel centres,
+    antialiased when shrinking, as ``jax.image.resize(..., "bilinear")``
+    (``F.interpolate(..., antialias=True)``)."""
+    name = name or unique_name("bilinear_interp")
+    in_shape = _img_shape_of(input)
+    enforce_that(in_shape is not None, "bilinear_interp needs image shape",
+                 context="bilinear_interp")
+    c = in_shape[2]
+
+    def compute(ctx, p, ins):
+        x = _to_nhwc(_data_of(ins[0]), in_shape).permute(0, 3, 1, 2)
+        y = torch.nn.functional.interpolate(
+            x, size=(out_size_y, out_size_x), mode="bilinear",
+            align_corners=False, antialias=True)
+        return y.permute(0, 2, 3, 1)
+
+    node = LayerOutput(name=name, layer_type="bilinear_interp",
+                       inputs=[input], fn=compute,
+                       size=out_size_x * out_size_y * c)
+    node.img_shape = (out_size_y, out_size_x, c)
+    return node
+
+
+def pad(input, pad_c=(0, 0), pad_h=(0, 0), pad_w=(0, 0),
+        name: Optional[str] = None) -> LayerOutput:
+    """Zeros added around the channels, rows and columns of image maps."""
+    name = name or unique_name("pad")
+    in_shape = _img_shape_of(input)
+    enforce_that(in_shape is not None, "pad needs image shape", context="pad")
+    h, w, c = in_shape
+    oshape = (h + sum(pad_h), w + sum(pad_w), c + sum(pad_c))
+
+    def compute(ctx, p, ins):
+        x = _to_nhwc(_data_of(ins[0]), in_shape)
+        return torch.nn.functional.pad(
+            x, tuple(pad_c) + tuple(pad_w) + tuple(pad_h))
+
+    node = LayerOutput(name=name, layer_type="pad", inputs=[input],
+                       fn=compute, size=oshape[0] * oshape[1] * oshape[2])
+    node.img_shape = oshape
+    return node
+
+
+def crop(input, offset_h: int = 0, offset_w: int = 0, crop_h: int = None,
+         crop_w: int = None, name: Optional[str] = None) -> LayerOutput:
+    """A window of image maps (to the far edges by default)."""
+    name = name or unique_name("crop")
+    in_shape = _img_shape_of(input)
+    enforce_that(in_shape is not None, "crop needs image shape",
+                 context="crop")
+    h, w, c = in_shape
+    ch = crop_h or h - offset_h
+    cw = crop_w or w - offset_w
+
+    def compute(ctx, p, ins):
+        x = _to_nhwc(_data_of(ins[0]), in_shape)
+        return x[:, offset_h:offset_h + ch, offset_w:offset_w + cw, :]
+
+    node = LayerOutput(name=name, layer_type="crop", inputs=[input],
+                       fn=compute, size=ch * cw * c)
+    node.img_shape = (ch, cw, c)
+    return node
+
+
+def rotate(input, name: Optional[str] = None) -> LayerOutput:
+    """Image maps turned 90 degrees counter-clockwise."""
+    name = name or unique_name("rotate")
+    in_shape = _img_shape_of(input)
+    enforce_that(in_shape is not None, "rotate needs image shape",
+                 context="rotate")
+    h, w, c = in_shape
+
+    def compute(ctx, p, ins):
+        return torch.rot90(_to_nhwc(_data_of(ins[0]), in_shape), 1,
+                           dims=(1, 2))
+
+    node = LayerOutput(name=name, layer_type="rotate", inputs=[input],
+                       fn=compute, size=input.size)
+    node.img_shape = (w, h, c)
+    return node
+
+
+def block_expand(input, block_x: int, block_y: int, stride_x: int = 1,
+                 stride_y: int = 1, padding_x: int = 0, padding_y: int = 0,
+                 num_channels: int = None,
+                 name: Optional[str] = None) -> LayerOutput:
+    """im2col: each block of image maps a row (``ops/conv.block_expand``)."""
+    name = name or unique_name("block_expand")
+    in_shape = _img_shape_of(input)
+    enforce_that(in_shape is not None, "block_expand needs image shape",
+                 context="block_expand")
+    c = in_shape[2]
+
+    def compute(ctx, p, ins):
+        x = _to_nhwc(_data_of(ins[0]), in_shape)
+        return pconv.block_expand(x, (block_y, block_x), (stride_y, stride_x),
+                                  (padding_y, padding_x))
+
+    return LayerOutput(name=name, layer_type="block_expand", inputs=[input],
+                       fn=compute, size=block_x * block_y * c)
+
+
+def _vol_shape_of(node: LayerOutput):
+    """(D, H, W, C) of a node's volumes."""
+    return getattr(node, "vol_shape", None)
+
+
+def img_conv3d(input, filter_size, num_filters: int, num_channels=None,
+               stride: int = 1, padding: int = 0, act=None,
+               bias_attr=True, param_attr=None, trans: bool = False,
+               depth: int = None, height: int = None, width: int = None,
+               name: Optional[str] = None) -> LayerOutput:
+    """3-D convolution (``trans=True``: transposed) of flat DHWC volumes;
+    weights ``[kd, kh, kw, C, num_filters]`` (``[kd, kh, kw, num_filters,
+    C]`` transposed), the JAX package's layout.  The forward conv takes
+    ``ops/conv.conv3d`` (cuDNN, channels-last), the transposed one
+    ``F.conv_transpose3d`` in the input's dtype, as the JAX package runs
+    its ``lax`` conv."""
+    name = name or unique_name("conv3d")
+    activation = act_mod.get(act)
+    vol = _vol_shape_of(input)
+    if vol is None:
+        enforce_that(None not in (depth, height, width, num_channels),
+                     "img_conv3d needs vol shape metadata or "
+                     "depth/height/width/num_channels", context="conv3d")
+        vol = (depth, height, width, num_channels)
+    d, h, w, c = vol
+    k = (filter_size,) * 3 if isinstance(filter_size, int) \
+        else tuple(filter_size)
+    if trans:
+        od, oh, ow = ((n - 1) * stride + kk - 2 * padding
+                      for n, kk in zip((d, h, w), k))
+    else:
+        od, oh, ow = (_conv_out_dim(n, kk, padding, stride)
+                      for n, kk in zip((d, h, w), k))
+    wshape = k + ((num_filters, c) if trans else (c, num_filters))
+    params = {"w": ParamSpec(wshape, ParamAttr.to_attr(param_attr))}
+    has_bias = bool(bias_attr)
+    if has_bias:
+        params["b"] = ParamSpec((num_filters,), ParamAttr.to_attr(
+            None if bias_attr is True else bias_attr))
+
+    def compute(ctx, p, ins):
+        x = _data_of(ins[0]).reshape(-1, d, h, w, c)
+        if trans:
+            wt = p["w"].permute(4, 3, 0, 1, 2).to(x.dtype)
+            y = torch.nn.functional.conv_transpose3d(
+                x.permute(0, 4, 1, 2, 3), wt, stride=stride,
+                padding=padding).permute(0, 2, 3, 4, 1)
+        else:
+            y = pconv.conv3d(x, p["w"], stride=stride, padding=padding)
+        if has_bias:
+            y = y + p["b"]
+        y = _apply_act(activation, y)
+        return y.reshape(y.shape[0], -1)
+
+    node = LayerOutput(name=name, layer_type="conv3d", inputs=[input],
+                       fn=compute, params=params,
+                       size=od * oh * ow * num_filters)
+    node.vol_shape = (od, oh, ow, num_filters)
+    return node
+
+
+def img_pool3d(input, pool_size, pool_type=None, stride: int = None,
+               padding: int = 0, name: Optional[str] = None,
+               **_kw) -> LayerOutput:
+    """Max (default) or average 3-D pooling of flat DHWC volumes; the
+    average divides by the whole window, padding included."""
+    name = name or unique_name("pool3d")
+    ptype = pooling_mod.get(pool_type)
+    stride = stride if stride is not None else pool_size
+    vol = _vol_shape_of(input)
+    enforce_that(vol is not None, "img_pool3d needs vol shape",
+                 context="pool3d")
+    d, h, w, c = vol
+    k = (pool_size,) * 3 if isinstance(pool_size, int) else tuple(pool_size)
+    od, oh, ow = (_conv_out_dim(n, kk, padding, stride)
+                  for n, kk in zip((d, h, w), k))
+    is_max = isinstance(ptype, pooling_mod.MaxPooling)
+
+    def compute(ctx, p, ins):
+        x = _data_of(ins[0]).reshape(-1, d, h, w, c).permute(0, 4, 1, 2, 3)
+        if padding:
+            # padded explicitly (-inf for max, zeros counted for avg, as
+            # JAX's reduce_window): torch pads at most half a window
+            x = torch.nn.functional.pad(
+                x, (padding,) * 6, value=-float("inf") if is_max else 0.0)
+        if is_max:
+            y = torch.nn.functional.max_pool3d(x, k, stride)
+        else:
+            y = torch.nn.functional.avg_pool3d(x, k, stride)
+        return y.permute(0, 2, 3, 4, 1).reshape(y.shape[0], -1)
+
+    node = LayerOutput(name=name, layer_type="pool3d", inputs=[input],
+                       fn=compute, size=od * oh * ow * c)
+    node.vol_shape = (od, oh, ow, c)
+    return node
+
+
+# ---------------------------------------------------------------------------
+# the rest of the v2 surface: sampling, selective and tree costs, CTC
+# ---------------------------------------------------------------------------
+
+
+def _draw_ids(gen: torch.Generator, probs: torch.Tensor) -> torch.Tensor:
+    """One id a row drawn from the row's distribution (probabilities
+    clipped to [1e-20, 1], unnormalized), from ``gen``."""
+    p = torch.clamp(probs.float(), 1e-20, 1.0)
+    return torch.multinomial(p, 1, generator=gen)[:, 0]
+
+
+def sampling_id(input, name: Optional[str] = None) -> LayerOutput:
+    """An id drawn from each row's distribution (int32), from the step's
+    stream of this node.  The JAX package draws from ``jax.random``,
+    which torch cannot replay: the law is the same, the draws are not."""
+    name = name or unique_name("sampling_id")
+
+    def compute(ctx, p, ins):
+        v = ins[0]
+        ids = _draw_ids(ctx.rng_for(name), _data_of(v))
+        return _like(v, ids.to(torch.int32))
+
+    return LayerOutput(name=name, layer_type="sampling_id", inputs=[input],
+                       fn=compute, size=1, is_sequence=input.is_sequence)
+
+
+def selective_fc(input, size: int, select=None, act=None,
+                 name: Optional[str] = None, param_attr=None,
+                 bias_attr=True, **_kw) -> LayerOutput:
+    """An fc whose output columns outside ``select`` (a [B, size] 0/1
+    layer, sparse binary rows) are 0; the whole product is computed."""
+    inputs = [input] + ([select] if select is not None else [])
+    name = name or unique_name("selective_fc")
+    activation = act_mod.get(act)
+    params = {"w": ParamSpec((input.size, size),
+                             ParamAttr.to_attr(param_attr))}
+    has_bias = bool(bias_attr)
+    if has_bias:
+        params["b"] = ParamSpec((size,), ParamAttr.to_attr(
+            None if bias_attr is True else bias_attr))
+
+    def compute(ctx, p, ins):
+        y = pmath.fc(_data_of(ins[0]), p["w"], p.get("b"))
+        if select is not None:
+            y = torch.where(_data_of(ins[1]) > 0, y, torch.zeros_like(y))
+        return _apply_act(activation, _like(ins[0], y))
+
+    return LayerOutput(name=name, layer_type="selective_fc", inputs=inputs,
+                       fn=compute, params=params, size=size,
+                       is_sequence=input.is_sequence)
+
+
+def _nce_negatives(gen: torch.Generator, batch: int, k: int,
+                   num_classes: int, dist, device) -> torch.Tensor:
+    """[batch, k] negative class ids: uniform, or from ``dist``."""
+    if dist is None:
+        return torch.randint(0, num_classes, (batch, k), generator=gen,
+                             device=device)
+    d = torch.clamp(torch.as_tensor(dist, dtype=torch.float32,
+                                    device=device), 1e-20, 1.0)
+    return torch.multinomial(d.expand(batch, -1), k, replacement=True,
+                             generator=gen)
+
+
+def nce(input, label, num_classes: int, num_neg_samples: int = 10,
+        name: Optional[str] = None, param_attr=None, bias_attr=True,
+        neg_distribution=None) -> LayerOutput:
+    """Noise-contrastive estimation cost per example: logistic loss of
+    the label's logit (target 1) and of ``num_neg_samples`` noise
+    classes' (target 0), drawn uniformly or from ``neg_distribution``
+    from the step's stream of this node.  ``w`` [num_classes, size]."""
+    name = name or unique_name("nce")
+    params = {"w": ParamSpec((num_classes, input.size),
+                             ParamAttr.to_attr(param_attr))}
+    has_bias = bool(bias_attr)
+    if has_bias:
+        params["b"] = ParamSpec((num_classes,), ParamAttr.to_attr(
+            None if bias_attr is True else bias_attr))
+
+    def compute(ctx, p, ins):
+        x = _data_of(ins[0])
+        y = _data_of(ins[1]).reshape(-1).long()
+        B = x.shape[0]
+        neg = _nce_negatives(ctx.rng_for(name), B, num_neg_samples,
+                             num_classes, neg_distribution, x.device)
+        ids = torch.cat([y[:, None], neg.long()], dim=1)      # [B, 1 + k]
+        rows = p["w"][ids]                                    # [B, 1 + k, D]
+        logits = torch.einsum("bd,bkd->bk", x, rows)
+        if has_bias:
+            logits = logits + p["b"][ids]
+        labels01 = torch.cat([logits.new_ones((B, 1)),
+                              logits.new_zeros((B, num_neg_samples))], 1)
+        return ploss.sigmoid_cross_entropy_with_logits(logits, labels01)
+
+    return LayerOutput(name=name, layer_type="nce", inputs=[input, label],
+                       fn=compute, params=params, size=1, is_cost=True)
+
+
+def hsigmoid(input, label, num_classes: int, name: Optional[str] = None,
+             param_attr=None, bias_attr=True) -> LayerOutput:
+    """Hierarchical sigmoid cost over a complete binary tree of
+    ``num_classes`` leaves: the sum of the logistic losses of the nodes
+    on the label's path (a node's target 1 when the path turns left),
+    ``w`` [num_classes - 1, size]."""
+    name = name or unique_name("hsigmoid")
+    num_nodes = num_classes - 1
+    code_len = max(1, int(math.ceil(math.log2(max(2, num_classes)))))
+    params = {"w": ParamSpec((num_nodes, input.size),
+                             ParamAttr.to_attr(param_attr))}
+    has_bias = bool(bias_attr)
+    if has_bias:
+        params["b"] = ParamSpec((num_nodes,), ParamAttr.to_attr(
+            None if bias_attr is True else bias_attr))
+
+    def compute(ctx, p, ins):
+        x = _data_of(ins[0])
+        node = _data_of(ins[1]).reshape(-1).long() + num_nodes + 1
+        losses = x.new_zeros((x.shape[0],))
+        for _ in range(code_len):
+            parent = node >> 1
+            t = 1.0 - (node & 1).to(x.dtype)        # left child: target 1
+            idx = torch.clamp(parent - 1, 0, num_nodes - 1)
+            logit = (x * p["w"][idx]).sum(-1)
+            if has_bias:
+                logit = logit + p["b"][idx]
+            step = torch.maximum(logit, logit.new_zeros(())) - logit * t + \
+                torch.log1p(torch.exp(-logit.abs()))
+            losses = losses + torch.where(parent >= 1, step,
+                                          torch.zeros_like(step))
+            node = parent
+        return losses
+
+    return LayerOutput(name=name, layer_type="hsigmoid",
+                       inputs=[input, label], fn=compute, params=params,
+                       size=1, is_cost=True)
+
+
+def ctc(input, label, size: int = None, blank: int = 0,
+        norm_by_times: bool = False,
+        name: Optional[str] = None) -> LayerOutput:
+    """CTC cost per sequence on unnormalized logits (``ops/losses.
+    ctc_loss``, ``optax.ctc_loss``'s recursion); ``norm_by_times``
+    divides by the input's length."""
+    _need_seq(input, "ctc")
+    name = name or unique_name("ctc")
+
+    def compute(ctx, p, ins):
+        sb, lb = ins[0], ins[1]
+        logits, mask = sb.to_padded()
+        labels, lab_mask = lb.to_padded()
+        if labels.dim() == 3:
+            labels = labels[..., 0]
+        loss = ploss.ctc_loss(logits, 1.0 - mask.to(torch.float32),
+                              labels.to(torch.int32),
+                              1.0 - lab_mask.to(torch.float32),
+                              blank_id=blank)
+        if norm_by_times:
+            loss = loss / torch.clamp(sb.lengths.to(loss.dtype), min=1.0)
+        return loss
+
+    return LayerOutput(name=name, layer_type="ctc", inputs=[input, label],
+                       fn=compute, size=1, is_cost=True)
+
+
+def warp_ctc(input, label, size: int = None, blank: int = 0,
+             norm_by_times: bool = False,
+             name: Optional[str] = None) -> LayerOutput:
+    """:func:`ctc` under the reference's warp-ctc name."""
+    return ctc(input, label, size=size, blank=blank,
+               norm_by_times=norm_by_times,
+               name=name or unique_name("warp_ctc"))
+
+
+# ---------------------------------------------------------------------------
+# the rest of the v2 surface: cost layers
+# ---------------------------------------------------------------------------
+
+
+def _cost_node(name, ltype, inputs, fn) -> LayerOutput:
+    return LayerOutput(name=name, layer_type=ltype, inputs=inputs, fn=fn,
+                       size=1, is_cost=True)
+
+
+def cross_entropy_with_selfnorm_cost(input, label,
+                                     softmax_selfnorm_alpha: float = 0.1,
+                                     name: Optional[str] = None
+                                     ) -> LayerOutput:
+    """Softmax cross entropy plus ``alpha logZ^2`` per example."""
+    name = name or unique_name("cross_entropy_with_selfnorm")
+
+    def compute(ctx, p, ins):
+        return _per_example(
+            lambda lg, lb: ploss.cross_entropy_with_selfnorm(
+                lg, lb.reshape(lb.shape[0]), softmax_selfnorm_alpha),
+            ins[0], ins[1])
+
+    return _cost_node(name, "cross_entropy_with_selfnorm", [input, label],
+                      compute)
+
+
+def square_error_cost(input, label, name: Optional[str] = None,
+                      **_kw) -> LayerOutput:
+    """``0.5 ||p - t||^2`` per example."""
+    name = name or unique_name("square_error")
+
+    def compute(ctx, p, ins):
+        return _per_example(lambda a, b: ploss.square_error(
+            a, b.reshape(a.shape)), ins[0], ins[1])
+
+    return _cost_node(name, "square_error", [input, label], compute)
+
+
+regression_cost = square_error_cost
+
+
+def soft_binary_class_cross_entropy_cost(input, label,
+                                         name: Optional[str] = None
+                                         ) -> LayerOutput:
+    """Binary cross entropy on probabilities (clipped to [1e-7, 1 -
+    1e-7]) against soft labels, summed over the features."""
+    name = name or unique_name("soft_binary_xent")
+
+    def f(pr, lb):
+        pr = ploss.clip(pr, 1e-7, 1 - 1e-7)
+        return -(lb * torch.log(pr) + (1 - lb) * torch.log(1 - pr)).sum(-1)
+
+    return _cost_node(name, "soft_binary_xent", [input, label],
+                      lambda ctx, p, ins: _per_example(f, ins[0], ins[1]))
+
+
+def rank_cost(left, right, label, weight=None,
+              name: Optional[str] = None) -> LayerOutput:
+    """Pairwise ranking cost (``ops/losses.rank_cost``)."""
+    name = name or unique_name("rank_cost")
+    inputs = [left, right, label] + ([weight] if weight is not None else [])
+
+    def compute(ctx, p, ins):
+        w = _data_of(ins[3]) if weight is not None else None
+        return ploss.rank_cost(_data_of(ins[0]), _data_of(ins[1]),
+                               _data_of(ins[2]), w)
+
+    return _cost_node(name, "rank_cost", inputs, compute)
+
+
+def lambda_cost(input, score, NDCG_num: int = 5, max_sort_size: int = -1,
+                name: Optional[str] = None) -> LayerOutput:
+    """LambdaRank-style cost of each query (a sequence of document
+    scores, ``score`` their relevances): the mean logistic loss over the
+    pairs a more relevant document should win, over the ideal DCG of the
+    top ``NDCG_num`` relevances (at least 1)."""
+    name = name or unique_name("lambda_cost")
+    _need_seq(input, "lambda_cost")
+
+    def compute(ctx, p, ins):
+        pred, mask = ins[0].to_padded()
+        rel, _ = ins[1].to_padded()
+        pred = pred[..., 0] if pred.dim() == 3 else pred
+        rel = rel[..., 0] if rel.dim() == 3 else rel
+        T = pred.shape[1]
+        neg_inf = rel.new_full((), -float("inf"))
+        # stable, as JAX's sort: tied relevances pass their gradients to
+        # the same positions
+        sorted_rel = torch.sort(torch.where(mask, rel, neg_inf), dim=1,
+                                descending=True, stable=True).values
+        k = torch.arange(T, device=pred.device, dtype=rel.dtype)
+        disc = 1.0 / torch.log2(k + 2.0)
+        topk = (k < NDCG_num)[None, :]
+        finite = torch.isfinite(sorted_rel)
+        gains = torch.pow(2.0, torch.where(finite, sorted_rel,
+                                           torch.zeros_like(rel))) - 1.0
+        idcg = (gains * disc * topk * finite).sum(dim=1)
+        sdiff = pred[:, :, None] - pred[:, None, :]
+        rdiff = rel[:, :, None] - rel[:, None, :]
+        pair = mask[:, :, None] & mask[:, None, :] & (rdiff > 0)
+        logistic = torch.log1p(torch.exp(-sdiff))
+        loss = torch.where(pair, logistic,
+                           torch.zeros_like(logistic)).sum(dim=(1, 2))
+        denom = torch.clamp(pair.sum(dim=(1, 2)), min=1)
+        return loss / denom / torch.clamp(idcg, min=1.0)
+
+    return _cost_node(name, "lambda_cost", [input, score], compute)
+
+
+def huber_regression_cost(input, label, delta: float = 1.0,
+                          name: Optional[str] = None) -> LayerOutput:
+    """Huber loss at ``delta`` per example."""
+    name = name or unique_name("huber_regression")
+
+    def compute(ctx, p, ins):
+        return _per_example(lambda a, b: ploss.huber_regression(
+            a, b.reshape(a.shape), delta), ins[0], ins[1])
+
+    return _cost_node(name, "huber_regression", [input, label], compute)
+
+
+def huber_classification_cost(input, label,
+                              name: Optional[str] = None) -> LayerOutput:
+    """Two-class huber loss per example on 0/1 labels."""
+    name = name or unique_name("huber_classification")
+    return _cost_node(name, "huber_classification", [input, label],
+                      lambda ctx, p, ins: _per_example(
+                          ploss.huber_classification, ins[0], ins[1]))
+
+
+def smooth_l1_cost(input, label, name: Optional[str] = None) -> LayerOutput:
+    """Smooth L1 per example."""
+    name = name or unique_name("smooth_l1")
+
+    def compute(ctx, p, ins):
+        return _per_example(lambda a, b: ploss.smooth_l1(
+            a, b.reshape(a.shape)), ins[0], ins[1])
+
+    return _cost_node(name, "smooth_l1", [input, label], compute)
+
+
+def sum_cost(input, name: Optional[str] = None) -> LayerOutput:
+    """The input summed as a cost: per example, or per sequence (its
+    tokens summed in order)."""
+    name = name or unique_name("sum_cost")
+
+    def compute(ctx, p, ins):
+        v = ins[0]
+        d = _data_of(v)
+        out = d.sum(dim=tuple(range(1, d.dim()))) if d.dim() > 1 else d
+        if isinstance(v, SequenceBatch):
+            return pseq.seq_pool_sum(v.with_data(out))
+        return out
+
+    return _cost_node(name, "sum_cost", [input], compute)
+
+
+# ---------------------------------------------------------------------------
+# the rest of the v2 surface: the 2-D LSTM
+# ---------------------------------------------------------------------------
+
+
+def mdlstmemory(input, size: int, height: int, width: int,
+                param_attr=None, bias_attr=True,
+                name: Optional[str] = None) -> LayerOutput:
+    """2-D LSTM over [B, H * W * C] images: cell (i, j) reads the states
+    of (i - 1, j) and (i, j - 1); gates input, forget a direction, output
+    and candidate (``wx`` [C, 5 size], ``wr``/``wc`` [size, 5 size],
+    ``b``).  Output [B, H * W * size].
+
+    The JAX package scans rows, then columns in a row (H x W steps).  The
+    cells of one anti-diagonal i + j = d depend only on diagonal d - 1,
+    so here each of the H + W - 1 diagonals is one batched step over its
+    cells, the same arithmetic a cell."""
+    name = name or unique_name("mdlstm")
+    enforce_that(input.size % (height * width) == 0,
+                 "mdlstm input size must be H*W*C", context="mdlstm")
+    c_in = input.size // (height * width)
+    attr = ParamAttr.to_attr(param_attr)
+    params = {"wx": ParamSpec((c_in, 5 * size), attr),
+              "wr": ParamSpec((size, 5 * size), attr),
+              "wc": ParamSpec((size, 5 * size), attr)}
+    has_bias = bool(bias_attr)
+    if has_bias:
+        params["b"] = ParamSpec((5 * size,), ParamAttr.to_attr(
+            None if bias_attr is True else bias_attr))
+    diags = [[(i, d - i) for i in range(max(0, d - width + 1),
+                                        min(d, height - 1) + 1)]
+             for d in range(height + width - 1)]
+    # row-major cell (i, j) -> its slot in the diagonals' concatenation
+    slot = {cell: n for n, cell in
+            enumerate(cell for diag in diags for cell in diag)}
+    order = torch.tensor([slot[(i, j)] for i in range(height)
+                          for j in range(width)])
+
+    def compute(ctx, p, ins):
+        x = _data_of(ins[0])
+        b = x.shape[0]
+        grid = x.reshape(b, height * width, c_in)
+        xs = torch.einsum("bnc,cg->nbg", grid, p["wx"])    # [H W, B, 5s]
+        if has_bias:
+            xs = xs + p["b"]
+        zeros = x.new_zeros((1, b, size))
+        hs, h_prev, c_prev, lo_prev = [], None, None, 0
+        for diag in diags:
+            lo, n = diag[0][0], len(diag)
+            pre = xs[torch.tensor([i * width + j for i, j in diag],
+                                  device=x.device)]
+            if h_prev is None:
+                h_up = c_up = h_left = c_left = zeros.expand(n, -1, -1)
+            else:
+                hp = torch.cat([zeros, h_prev, zeros])
+                cp = torch.cat([zeros, c_prev, zeros])
+                a = lo - lo_prev
+                h_up, c_up = hp[a:a + n], cp[a:a + n]
+                h_left, c_left = hp[a + 1:a + 1 + n], cp[a + 1:a + 1 + n]
+            z = pre + h_up @ p["wr"] + h_left @ p["wc"]
+            i_g, f_r, f_c, o_g, g = torch.chunk(z, 5, dim=-1)
+            c_new = torch.sigmoid(f_r) * c_up + torch.sigmoid(f_c) * c_left \
+                + torch.sigmoid(i_g) * torch.tanh(g)
+            h_new = torch.sigmoid(o_g) * torch.tanh(c_new)
+            hs.append(h_new)
+            h_prev, c_prev, lo_prev = h_new, c_new, lo
+        cells = torch.cat(hs).index_select(0, order.to(x.device))
+        return cells.permute(1, 0, 2).reshape(b, -1)
+
+    node = LayerOutput(name=name, layer_type="mdlstm", inputs=[input],
+                       fn=compute, params=params,
+                       size=height * width * size)
+    node.img_shape = (height, width, size)
+    return node
+
+
+gated_recurrent = grumemory
+
+
+# ---------------------------------------------------------------------------
+# the rest of the v2 surface: the SSD detection suite
+# ---------------------------------------------------------------------------
+
+
+def priorbox(input, image_size, min_size, max_size=(), aspect_ratio=(2.0,),
+             variance=(0.1, 0.1, 0.2, 0.2),
+             name: Optional[str] = None) -> LayerOutput:
+    """The prior boxes of a feature map as one row [1, P * 8]: the boxes,
+    then their variances (``ops/detection.prior_boxes``)."""
+    name = name or unique_name("priorbox")
+    in_shape = _img_shape_of(input)
+    enforce_that(in_shape is not None, "priorbox needs image shape",
+                 context="priorbox")
+    fh, fw, _ = in_shape
+    ih, iw = (image_size, image_size) if isinstance(image_size, int) \
+        else tuple(image_size)
+    min_sizes = [min_size] if isinstance(min_size, (int, float)) \
+        else list(min_size)
+    max_sizes = [max_size] if isinstance(max_size, (int, float)) \
+        else list(max_size)
+    boxes_np, var_np = pdet.prior_boxes(fh, fw, ih, iw, min_sizes,
+                                        max_sizes, list(aspect_ratio),
+                                        list(variance))
+    flat = torch.from_numpy(np.concatenate([boxes_np.reshape(-1),
+                                            var_np.reshape(-1)]))[None, :]
+
+    def compute(ctx, p, ins):
+        return flat.to(_data_of(ins[0]).device)
+
+    node = LayerOutput(name=name, layer_type="priorbox", inputs=[input],
+                       fn=compute, size=boxes_np.shape[0] * 8)
+    node.num_priors = boxes_np.shape[0]
+    return node
+
+
+def _gather_ssd_preds(ins, k, num_classes):
+    """The feature maps' location and confidence predictions side by side
+    ([B, P, 4], [B, P, C]) and the prior row: one packing for the loss
+    and the detection output."""
+    loc = torch.cat([_data_of(v).reshape(_data_of(v).shape[0], -1, 4)
+                     for v in ins[:k]], dim=1)
+    conf = torch.cat([_data_of(v).reshape(_data_of(v).shape[0], -1,
+                                          num_classes)
+                      for v in ins[k:2 * k]], dim=1)
+    return loc, conf, _data_of(ins[2 * k])[0]
+
+
+def _split_priors(pb_flat, num_p):
+    return pb_flat[:num_p * 4].reshape(num_p, 4), \
+        pb_flat[num_p * 4:].reshape(num_p, 4)
+
+
+def multibox_loss(input_loc, input_conf, priorbox, label, num_classes: int,
+                  overlap_threshold: float = 0.5, neg_pos_ratio: float = 3.0,
+                  background_id: int = 0, max_boxes: int = 16,
+                  name: Optional[str] = None) -> LayerOutput:
+    """SSD loss per example ([B, 1]); ``label`` is a dense [B, max_boxes *
+    5] layer of (class, xmin, ymin, xmax, ymax) rows, class < 0 padding
+    (``ops/detection.multibox_loss``)."""
+    locs, confs = _as_list(input_loc), _as_list(input_conf)
+    name = name or unique_name("multibox_loss")
+    num_p = priorbox.num_priors
+
+    def compute(ctx, p, ins):
+        k = len(locs)
+        loc, conf, pb = _gather_ssd_preds(ins, k, num_classes)
+        gt = _data_of(ins[2 * k + 1]).reshape(loc.shape[0], max_boxes, 5)
+        boxes, var = _split_priors(pb, num_p)
+        return pdet.multibox_loss(
+            loc, conf, boxes, var, gt[..., 1:5],
+            torch.clamp(gt[..., 0], min=0).to(torch.int32), gt[..., 0] >= 0,
+            num_classes, overlap_threshold, neg_pos_ratio,
+            background_id)[:, None]
+
+    return LayerOutput(name=name, layer_type="multibox_loss",
+                       inputs=locs + confs + [priorbox, label], fn=compute,
+                       size=1, is_cost=True)
+
+
+def detection_output(input_loc, input_conf, priorbox, num_classes: int,
+                     nms_threshold: float = 0.45,
+                     confidence_threshold: float = 0.01,
+                     keep_top_k: int = 100, background_id: int = 0,
+                     name: Optional[str] = None) -> LayerOutput:
+    """Decoded boxes after each class's NMS: [B, keep_top_k * 6] rows of
+    (label, score, xmin, ymin, xmax, ymax), label -1 an empty row
+    (``ops/detection.detection_output``)."""
+    locs, confs = _as_list(input_loc), _as_list(input_conf)
+    name = name or unique_name("detection_output")
+    num_p = priorbox.num_priors
+
+    def compute(ctx, p, ins):
+        k = len(locs)
+        loc, conf, pb = _gather_ssd_preds(ins, k, num_classes)
+        boxes, var = _split_priors(pb, num_p)
+        return pdet.detection_output(
+            loc, conf, boxes, var, num_classes, nms_threshold,
+            confidence_threshold, keep_top_k, background_id
+        ).reshape(loc.shape[0], -1)
+
+    return LayerOutput(name=name, layer_type="detection_output",
+                       inputs=locs + confs + [priorbox], fn=compute,
+                       size=keep_top_k * 6)

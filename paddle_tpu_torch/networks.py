@@ -1,5 +1,6 @@
 """Prebuilt network helpers (the port of ``paddle_tpu/networks.py:21-160``:
-``sequence_conv_pool``, ``simple_img_conv_pool``, ``img_conv_group``, ``simple_lstm``,
+``sequence_conv_pool``, ``simple_img_conv_pool``, ``img_conv_group``,
+``vgg_16_network``, ``simple_lstm``,
 ``simple_gru``, ``bidirectional_lstm``, ``bidirectional_gru``,
 ``simple_attention`` and ``dot_product_attention``), with the JAX
 package's layer names."""
@@ -13,7 +14,8 @@ from paddle_tpu_torch import layer as L
 from paddle_tpu_torch import pooling as P
 from paddle_tpu_torch.topology import LayerOutput, unique_name
 
-__all__ = ["sequence_conv_pool", "simple_img_conv_pool", "img_conv_group", "simple_lstm",
+__all__ = ["sequence_conv_pool", "simple_img_conv_pool", "img_conv_group",
+           "vgg_16_network", "simple_lstm",
            "simple_gru", "bidirectional_lstm", "bidirectional_gru",
            "simple_attention", "dot_product_attention"]
 
@@ -67,6 +69,24 @@ def img_conv_group(input, conv_num_filter: Sequence[int],
             tmp = L.batch_norm(input=tmp, act=conv_act or "relu")
     return L.img_pool(input=tmp, pool_size=pool_size, stride=pool_stride,
                       pool_type=pool_type)
+
+
+def vgg_16_network(input_image, num_channels: int, num_classes: int = 1000
+                   ) -> LayerOutput:
+    """VGG-16: five groups of 3 x 3 convolutions (64 x 2, 128 x 2,
+    256 x 3, 512 x 3, 512 x 3, ReLU), each closed by a 2 x 2 max pool;
+    fc 4096, dropout 0.5, fc 4096, dropout 0.5, fc ``num_classes``
+    (softmax)."""
+    tmp = input_image
+    for filters, n in [(64, 2), (128, 2), (256, 3), (512, 3), (512, 3)]:
+        tmp = img_conv_group(tmp, [filters] * n, conv_act="relu",
+                             num_channels=num_channels if filters == 64
+                             else None)
+    tmp = L.fc(input=tmp, size=4096, act="relu")
+    tmp = L.dropout(tmp, 0.5)
+    tmp = L.fc(input=tmp, size=4096, act="relu")
+    tmp = L.dropout(tmp, 0.5)
+    return L.fc(input=tmp, size=num_classes, act="softmax")
 
 
 def simple_lstm(input, size: int, reverse: bool = False, act=None,

@@ -1,10 +1,18 @@
-"""Losses (the port of ``paddle_tpu/ops/losses.py:23-55,142-219``:
-``softmax_cross_entropy``, ``sigmoid_cross_entropy_with_logits``,
-``multi_binary_label_cross_entropy``, ``classification_error`` and
-``cross_entropy_over_beam``; the blockwise LM-head cross entropy
-``lm_head_xent``, ``:227-360``)."""
+"""Losses (the port of ``paddle_tpu/ops/losses.py``: the per-example
+costs ``softmax_cross_entropy``, ``soft_cross_entropy``,
+``sigmoid_cross_entropy_with_logits``,
+``multi_binary_label_cross_entropy``, ``square_error``,
+``squared_l2_distance``, ``huber_regression``, ``huber_classification``,
+``smooth_l1``, ``rank_cost``, ``margin_rank_loss``,
+``cosine_similarity``, ``classification_error``,
+``cross_entropy_with_selfnorm`` and ``cross_entropy_over_beam``; the CTC
+loss of ``optax.ctc_loss``, which the JAX package's ``ctc`` layer calls;
+the
+blockwise LM-head cross entropy ``lm_head_xent``)."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -21,6 +29,25 @@ def softmax_cross_entropy(logits: torch.Tensor,
     return logz - picked
 
 
+def soft_cross_entropy(probs_or_logits: torch.Tensor,
+                       soft_labels: torch.Tensor, *,
+                       from_logits: bool = True) -> torch.Tensor:
+    """``-sum(labels * log p)`` a row, p the softmax of logits or the
+    given probabilities clipped to [1e-10, 1]."""
+    if from_logits:
+        logp = torch.log_softmax(probs_or_logits, dim=-1)
+    else:
+        logp = torch.log(clip(probs_or_logits, 1e-10, 1.0))
+    return -(soft_labels * logp).sum(dim=-1)
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip``: a value on a bound passes half its gradient, as the
+    max/min pair JAX differentiates splits a tie."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)),
+                         x.new_tensor(hi))
+
+
 def sigmoid_cross_entropy_with_logits(logits: torch.Tensor,
                                       labels: torch.Tensor) -> torch.Tensor:
     """Elementwise ``max(x, 0) - x y + log1p(exp(-|x|))`` (the stable
@@ -33,6 +60,137 @@ def sigmoid_cross_entropy_with_logits(logits: torch.Tensor,
 def multi_binary_label_cross_entropy(logits: torch.Tensor,
                                      labels: torch.Tensor) -> torch.Tensor:
     return sigmoid_cross_entropy_with_logits(logits, labels)
+
+
+def square_error(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """``0.5 ||p - t||^2`` over every axis but the first."""
+    d = pred - target
+    return 0.5 * d.square().sum(dim=tuple(range(1, d.dim())))
+
+
+def squared_l2_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a - b).square().sum(dim=-1)
+
+
+def huber_regression(pred: torch.Tensor, target: torch.Tensor,
+                     delta: float = 1.0) -> torch.Tensor:
+    """Quadratic within ``delta`` of the target, linear beyond, summed
+    over the last axis."""
+    d = (pred - target).abs()
+    quad = 0.5 * d.square()
+    lin = delta * (d - 0.5 * delta)
+    return torch.where(d <= delta, quad, lin).sum(dim=-1)
+
+
+def huber_classification(pred: torch.Tensor,
+                         label01: torch.Tensor) -> torch.Tensor:
+    """Two-class huber on y = 2 label - 1: -4 z below z = -1, (1 - z)^2
+    up to 1, 0 above, z = y pred."""
+    y = 2.0 * label01.to(pred.dtype) - 1.0
+    z = y * pred[..., 0] if pred.dim() > label01.dim() else y * pred
+    return torch.where(z < -1.0, -4.0 * z,
+                       torch.where(z < 1.0, (1.0 - z).square(),
+                                   torch.zeros_like(z)))
+
+
+def smooth_l1(pred: torch.Tensor, target: torch.Tensor,
+              sigma: float = 1.0) -> torch.Tensor:
+    """Smooth L1 at ``sigma``, summed over every axis but the first."""
+    s2 = sigma * sigma
+    d = (pred - target).abs()
+    loss = torch.where(d < 1.0 / s2, 0.5 * s2 * d.square(), d - 0.5 / s2)
+    return loss.sum(dim=tuple(range(1, loss.dim())))
+
+
+def rank_cost(left: torch.Tensor, right: torch.Tensor, label: torch.Tensor,
+              weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Pairwise ranking cost ``log(1 + e^o) - t o``, o = left - right,
+    in its stable form; optionally weighted per pair.  ``torch.maximum``
+    splits a tie's gradient as ``jnp.maximum`` does."""
+    o = (left - right).reshape(left.shape[0])
+    t = label.reshape(label.shape[0]).to(o.dtype)
+    c = torch.log1p(torch.exp(-o.abs())) + torch.maximum(o, o.new_zeros(())) \
+        - t * o
+    if weight is not None:
+        c = c * weight.reshape(weight.shape[0])
+    return c
+
+
+def margin_rank_loss(left: torch.Tensor, right: torch.Tensor,
+                     label: torch.Tensor,
+                     margin: float = 0.0) -> torch.Tensor:
+    """``max(0, -y (left - right) + margin)``."""
+    y = label.reshape(label.shape[0]).to(left.dtype)
+    o = (left - right).reshape(left.shape[0])
+    h = -y * o + margin
+    return torch.maximum(h, h.new_zeros(()))
+
+
+def cosine_similarity(a: torch.Tensor, b: torch.Tensor, scale: float = 1.0,
+                      eps: float = 1e-8) -> torch.Tensor:
+    """``scale a.b / sqrt(|a|^2 |b|^2 + eps)`` over the last axis."""
+    num = (a * b).sum(dim=-1)
+    den = torch.sqrt((a * a).sum(-1) * (b * b).sum(-1) + eps)
+    return scale * num / den
+
+
+def cross_entropy_with_selfnorm(logits: torch.Tensor, labels: torch.Tensor,
+                                alpha: float = 0.1) -> torch.Tensor:
+    """Softmax cross entropy plus ``alpha logZ^2`` (self-normalization)."""
+    logz = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return (logz - picked) + alpha * logz.square()
+
+
+def _logaddexp_tail(phi: torch.Tensor, added: torch.Tensor) -> torch.Tensor:
+    """``phi[:, 1:]`` log-added ``added``, ``phi[:, :1]`` kept."""
+    return torch.cat([phi[:, :1], torch.logaddexp(phi[:, 1:], added)], dim=-1)
+
+
+def ctc_loss(logits: torch.Tensor, logit_paddings: torch.Tensor,
+             labels: torch.Tensor, label_paddings: torch.Tensor,
+             blank_id: int = 0, log_epsilon: float = -1e5) -> torch.Tensor:
+    """CTC negative log-likelihood per sequence [B] (``optax.ctc_loss``,
+    the JAX package's CTC): logits [B, T, K] unnormalized, paddings 1.0
+    on padded frames [B, T] and labels [B, N] (labels right-padded).  The
+    alpha recursion over blank and label states runs a frame at a time
+    in log space, ``log_epsilon`` standing for log 0, so an alignment that
+    cannot exist (a label longer than its input) gives a large finite
+    loss, not ``inf``.  Each label's log-probability is picked by a
+    one-hot product (exact, and its gradient a plain sum: no scattered
+    adds whose order could vary)."""
+    B, T, K = logits.shape
+    N = labels.shape[1]
+    logprobs = torch.log_softmax(logits, dim=-1)
+    labellens = N - label_paddings.sum(dim=1).to(torch.int64)
+    repeat = (labels[:, :-1] == labels[:, 1:]).to(logprobs.dtype)
+    repeat = torch.cat([repeat, repeat.new_zeros((B, 1))], dim=1)
+    logprobs_phi = logprobs[:, :, blank_id:blank_id + 1].transpose(0, 1)
+    one_hot = torch.nn.functional.one_hot(labels.long(), K).to(
+        logprobs.dtype)                                        # [B, N, K]
+    logprobs_emit = (logprobs[:, :, None, :] * one_hot[:, None]).sum(-1)
+    logprobs_emit = logprobs_emit.transpose(0, 1)              # [T, B, N]
+    phi = torch.full((B, N + 1), log_epsilon, dtype=logprobs.dtype,
+                     device=logits.device)
+    phi = torch.cat([torch.zeros_like(phi[:, :1]), phi[:, 1:]], dim=1)
+    emit = torch.full((B, N), log_epsilon, dtype=logprobs.dtype,
+                      device=logits.device)
+    pads = logit_paddings.transpose(0, 1).to(logprobs.dtype)
+    for t in range(T):
+        prev_phi_orig = phi
+        prev_phi = _logaddexp_tail(phi, emit + log_epsilon * repeat)
+        lp_emit, lp_phi = logprobs_emit[t], logprobs_phi[t]
+        next_emit = torch.logaddexp(prev_phi[:, :-1] + lp_emit,
+                                    emit + lp_emit)
+        next_phi = prev_phi + lp_phi
+        next_phi = _logaddexp_tail(
+            next_phi, emit + lp_phi + log_epsilon * (1.0 - repeat))
+        pad = pads[t][:, None]
+        emit = pad * emit + (1.0 - pad) * next_emit
+        phi = pad * prev_phi_orig + (1.0 - pad) * next_phi
+    last = _logaddexp_tail(phi, emit)
+    pick = torch.nn.functional.one_hot(labellens, N + 1).to(last.dtype)
+    return -(last * pick).sum(-1)
 
 
 def classification_error(logits_or_probs: torch.Tensor,

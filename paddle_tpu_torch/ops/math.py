@@ -1,5 +1,7 @@
 """Dense math under the bf16 policy and dropout (the port of
-``paddle_tpu/ops/math.py:20-48,65-71``).
+``paddle_tpu/ops/math.py``: ``compute_dtype``, ``matmul``,
+``dense_activation_dtype``, ``fc``, ``outer_product_update`` and
+``dropout``).
 
 The JAX package multiplies bf16 inputs with f32 accumulation
 (``preferred_element_type``) and returns the f32 accumulator unrounded.  A
@@ -18,6 +20,8 @@ bf16 ``torch.matmul`` would round its result to bf16, so:
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -82,6 +86,20 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
     else:
         y = torch.matmul(a, b)
     return y.to(out_dtype)
+
+
+def fc(x: torch.Tensor, w: torch.Tensor,
+       b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x @ w (+ b)`` under the policy, the f32 accumulator returned."""
+    y = matmul(x, w)
+    if b is not None:
+        y = y + b
+    return y
+
+
+def outer_product_update(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x^T y``: the sum over rows of the rows' outer products."""
+    return matmul(x, y, trans_a=True)
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,

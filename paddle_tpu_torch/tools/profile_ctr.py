@@ -33,12 +33,13 @@ import torch
 from paddle_tpu_torch import event
 from paddle_tpu_torch.tools import ctr_workload as cw
 from paddle_tpu_torch.tools.compare_flash import sm_clock
-from paddle_tpu_torch.tools.profile_image import _kernels
+from paddle_tpu_torch.tools.profiling import (OPTIMIZER_RANGE, breakdown,
+                                              ranged_optimizer,
+                                              step_wall_ms)
 
 STEPS = 3
 GROUPS = ("optimizer", "lookup_backward", "gradient_sums", "matmul",
           "other")
-OPTIMIZER_RANGE = "optimizer_update"
 
 
 def group(ops) -> str:
@@ -57,64 +58,6 @@ def group(ops) -> str:
            for op in low):
         return "matmul"
     return "other"
-
-
-def _launched(prof):
-    """(device us, the launching op and its callers' names) of every
-    kernel the profiler ties to the CPU op that launched it."""
-    from torch.autograd import DeviceType
-
-    def chain(e):
-        while e is not None:
-            yield e.name
-            e = e.cpu_parent
-
-    return [(float(k.duration), list(chain(e))) for e in prof.events()
-            if e.device_type == DeviceType.CPU for k in e.kernels]
-
-
-def ranged_optimizer(sgd) -> None:
-    """Run ``sgd``'s optimizer update inside a profiler range."""
-    apply = sgd.optimizer.apply
-
-    def ranged(*a, **k):
-        with torch.profiler.record_function(OPTIMIZER_RANGE):
-            return apply(*a, **k)
-
-    sgd.optimizer.apply = ranged
-
-
-def step_wall_ms(sgd, feeds, steps: int) -> float:
-    """Mean wall ms of ``steps`` ``SGD.step`` s, the last cost on the
-    host."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        cost = sgd.step(feeds)
-    float(cost)
-    return 1e3 * (time.perf_counter() - t0) / steps
-
-
-def breakdown(prof, steps: int, wall_ms: float) -> dict:
-    """Busy ms, idle share and the groups of a profile of ``steps``
-    steps against a step's ``wall_ms``."""
-    # the optimizer's range is listed beside the kernels with the device
-    # time it spans: left out, as it is no kernel
-    kernels = [k for k in _kernels(prof) if k[0] != OPTIMIZER_RANGE]
-    busy = sum(us for _, us, _ in kernels) / 1e3 / steps
-    ms = dict.fromkeys(GROUPS, 0.0)
-    launches = dict.fromkeys(GROUPS, 0.0)
-    for us, ops in _launched(prof):
-        g = group(ops)
-        ms[g] += us / 1e3 / steps
-        launches[g] += 1 / steps
-    top = sorted(kernels, key=lambda k: -k[1])[:12]
-    return {"wall_ms": wall_ms, "device_busy_ms": busy,
-            "idle_share": 1.0 - busy / wall_ms,
-            "device_ms_by_group": ms, "launches_by_group": launches,
-            "kernel_launches": sum(c for _, _, c in kernels) / steps,
-            "top_kernels": [{"name": n[:100], "ms": us / 1e3 / steps,
-                             "count": c / steps} for n, us, c in top]}
 
 
 def main() -> int:
@@ -153,7 +96,7 @@ def main() -> int:
         "factor": cw.FACTOR, "deep": cw.DEEP, "batch": cw.BATCH,
         "steps": STEPS, "train_ms": train_ms,
         "examples_per_s": cw.BATCH / (wall / 1e3),
-        **breakdown(prof, STEPS, wall),
+        **breakdown(prof, STEPS, wall, group, GROUPS),
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
         "sm_clock_after_profile": sm_clock(),
         "device": torch.cuda.get_device_name(0), "nvidia_smi": card}),

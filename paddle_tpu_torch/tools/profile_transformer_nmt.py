@@ -33,9 +33,9 @@ import torch
 from paddle_tpu_torch import event
 from paddle_tpu_torch.tools import transformer_nmt_workload as tnw
 from paddle_tpu_torch.tools.compare_flash import sm_clock
-from paddle_tpu_torch.tools.profile_ctr import (OPTIMIZER_RANGE,
-                                                ranged_optimizer,
-                                                step_wall_ms)
+from paddle_tpu_torch.tools.profiling import (OPTIMIZER_RANGE,
+                                              ranged_optimizer,
+                                              step_wall_ms)
 from paddle_tpu_torch.tools.profile_image import _kernels
 
 STEPS = 3

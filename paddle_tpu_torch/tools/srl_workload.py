@@ -149,7 +149,7 @@ GROUPS = ("lstm_step", "crf_forward", "embedding_backward", "matmul",
 
 def group(ops) -> str:
     """A kernel's group, from its launching op and that op's callers."""
-    from paddle_tpu_torch.tools.profile_ctr import OPTIMIZER_RANGE
+    from paddle_tpu_torch.tools.profiling import OPTIMIZER_RANGE
 
     low = [op.lower() for op in ops]
     if OPTIMIZER_RANGE in low:
@@ -190,7 +190,7 @@ def breakdown(prof, steps: int, wall_ms: float, lstm_kernel_name: str
     ties to no op counts as "other")."""
     from torch.autograd import DeviceType
 
-    from paddle_tpu_torch.tools.profile_ctr import OPTIMIZER_RANGE
+    from paddle_tpu_torch.tools.profiling import OPTIMIZER_RANGE
     from paddle_tpu_torch.tools.profile_image import _kernels
 
     def chain(e):

@@ -580,6 +580,43 @@ def _case_printer(pkg, name, kind):
                                                     for i in range(5)]
 
 
+def _case_detection_map(pkg, name):
+    """Six examples of up to 4 gt boxes of 3 classes (padded rows class
+    -1) and 12 detections: jittered copies of the gts (some of the wrong
+    class, some twice), random boxes and empty rows, scores on 4 levels
+    (many ties)."""
+    rng = _rng(name)
+    L, dt = pkg.layer, pkg.data_type
+    K, G, classes = 12, 4, 4
+    det = L.data(name="det", type=dt.dense_vector(K * 6))
+    gt = L.data(name="gt", type=dt.dense_vector(G * 5))
+    node = pkg.evaluator.detection_map(detections=det, label=gt,
+                                       num_classes=classes, keep_top_k=K,
+                                       max_boxes=G, name=name)
+    samples = []
+    for _ in range(6):
+        lo = rng.rand(G, 2) * 0.6
+        boxes = np.concatenate([lo, lo + 0.1 + 0.3 * rng.rand(G, 2)], 1)
+        cls = rng.randint(1, classes, G).astype(np.float32)
+        cls[rng.rand(G) < 0.25] = -1.0
+        gts = np.concatenate([cls[:, None], boxes], 1).astype(np.float32)
+        rows = []
+        for k in range(K):
+            kind = rng.randint(4)
+            g = rng.randint(G)
+            if kind == 3:
+                rows.append([-1.0] * 6)
+                continue
+            box = boxes[g] + 0.03 * rng.randn(4) if kind < 2 else \
+                np.sort(rng.rand(2, 2), axis=0).reshape(-1)[[0, 2, 1, 3]]
+            label = cls[g] if kind == 0 and cls[g] >= 0 else \
+                float(rng.randint(1, classes))
+            rows.append([label, rng.randint(1, 5) / 4.0] + list(box))
+        samples.append((np.asarray(rows, np.float32).reshape(-1),
+                        gts.reshape(-1)))
+    return node, samples
+
+
 EVALUATOR_CASES: Dict[str, Callable] = {
     "error_top1": lambda pkg, n: _case_error(pkg, n),
     "error_top5": lambda pkg, n: _case_error(pkg, n, top_k=5),
@@ -605,6 +642,7 @@ EVALUATOR_CASES: Dict[str, Callable] = {
         lambda pkg, n: _case_printer(pkg, n, "seq_text_printer"),
     "classification_error_printer":
         lambda pkg, n: _case_printer(pkg, n, "classification_error_printer"),
+    "voc_detection_map": _case_detection_map,
 }
 # the evaluator each case exercises (the CPU tests' breadth gate)
 CASE_EVALUATOR = {
@@ -621,6 +659,7 @@ CASE_EVALUATOR = {
     "max_frame_printer": "max_frame_printer",
     "seq_text_printer": "seq_text_printer",
     "classification_error_printer": "classification_error_printer",
+    "voc_detection_map": "detection_map",
 }
 
 

@@ -259,8 +259,8 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
     files = sorted((REPO / "paddle_tpu_torch").rglob("*.py")) + \
         [REPO / "chip_smoke.py"]
     assert len(files) > 10
-    # the sixth, eighth and ninth slices' modules (parallel/, reader/ and
-    # dataset/ among them) are walked too
+    # the sixth, eighth, ninth and tenth slices' modules (parallel/,
+    # reader/, dataset/ and image.py among them) are walked too
     names = {str(f.relative_to(REPO)) for f in files}
     assert names >= {f"paddle_tpu_torch/{m}.py" for m in (
         "models/deepfm", "models/gan", "models/vae",
@@ -274,7 +274,13 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
         "dataset/uci_housing", "dataset/imdb", "dataset/imikolov",
         "dataset/sentiment", "dataset/wmt14", "dataset/conll05",
         "dataset/movielens", "dataset/mq2007", "platform/plog",
-        "tools/v2_loop_workload")}
+        "tools/v2_loop_workload", "image", "dataset/flowers",
+        "dataset/voc2012", "ops/detection", "platform/stats", "plot",
+        "tools/layer_cases", "tools/detection_workload",
+        "tools/vgg_workload", "tools/profile_vgg_reader",
+        "tools/profiling", "tools/vgg_grad_spread", "layer",
+        "networks", "data_type",
+        "data_feeder")}
     bad = {str(f.relative_to(REPO)): n for f in files
            for n in _imports(f) if _forbidden(n)}
     assert bad == {}
@@ -298,7 +304,17 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             " paddle_tpu_torch.evaluator, paddle_tpu_torch.reader,"
             " paddle_tpu_torch.reader.prefetch, paddle_tpu_torch.dataset,"
             " paddle_tpu_torch.platform.plog,"
-            " paddle_tpu_torch.tools.v2_loop_workload, chip_smoke; "
+            " paddle_tpu_torch.tools.v2_loop_workload,"
+            " paddle_tpu_torch.image, paddle_tpu_torch.dataset.flowers,"
+            " paddle_tpu_torch.dataset.voc2012,"
+            " paddle_tpu_torch.ops.detection,"
+            " paddle_tpu_torch.platform.stats, paddle_tpu_torch.plot,"
+            " paddle_tpu_torch.tools.layer_cases,"
+            " paddle_tpu_torch.tools.detection_workload,"
+            " paddle_tpu_torch.tools.vgg_workload,"
+            " paddle_tpu_torch.tools.profile_vgg_reader,"
+            " paddle_tpu_torch.tools.profiling,"
+            " paddle_tpu_torch.tools.vgg_grad_spread, chip_smoke; "
             "print(sorted(m for m in sys.modules if m in ('jax', "
             "'paddle_tpu') or m.startswith(('jax.', 'paddle_tpu.'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -493,10 +493,16 @@ def test_integer_value_slot_matches_jax():
                                 ("q", tdt.integer_value(9))],
                                device="cpu").feed([(a, b) for a, b in pairs])
     np.testing.assert_array_equal(trows["q"].numpy(), np.asarray(jrows["q"]))
-    with pytest.raises(Exception, match="integer values"):
-        tfeeder.DataFeeder([("x", tdt.InputType(3, tdt.SlotKind.SPARSE_BINARY,
-                                                tdt.SeqKind.SEQUENCE))],
-                           device="cpu")
+    # sparse slots are fed since the tenth slice: a sparse binary sequence
+    # becomes dense rows as JAX's feeder makes them
+    sparse = [([[0, 2], [1]],), ([[2]],)]
+    jsp = jfeeder.DataFeeder([("x", jdt.sparse_binary_vector_sequence(3))]
+                             ).feed(sparse)["x"]
+    tsp = tfeeder.DataFeeder([("x", tdt.InputType(3, tdt.SlotKind.SPARSE_BINARY,
+                                                  tdt.SeqKind.SEQUENCE))],
+                             device="cpu").feed(sparse)["x"]
+    np.testing.assert_array_equal(tsp.data.numpy(), np.asarray(jsp.data))
+    np.testing.assert_array_equal(tsp.lengths.numpy(), np.asarray(jsp.lengths))
 
 
 def _layer_graph(L, N, P, dt, cell, reverse, pool):
