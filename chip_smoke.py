@@ -27,6 +27,31 @@ checkout of the repository).  Phases, each fatal on failure:
    then ``DecoderLM`` at its defaults (2 layers, 2 heads of head_dim 16)
    and its bf16 version, each served briefly and held to the greedy
    oracle;
+5a. the serving engine's upper tier (``tools/spec_workload.py``) on the
+   same full-width model: verify_kernel, the ragged kernel on the
+   widened step of speculation (8 slots of 1 + spec_k rows, spec_k 1, 4
+   and 7, rows straddling page boundaries, f32/bf16/int8 pages, bf16
+   queries, head dims 128 and 16; ``rc.VERIFY_CASES``) against its plain
+   version; serve_spec_ngram, the serve phase's 8 prompts and 4
+   repeated-motif prompts without speculation and with n-gram
+   speculation (k 4, n 3): every stream token-identical (a difference
+   only after a near tie), pages conserved, proposed and accepted
+   non-zero, B4 once a layer a step; serve_spec_draft, a 2-layer d-1024
+   draft with its own seeded weights and pool, then the target as its
+   own draft (acceptance above 0.9), the draft pool conserved, B4 once a
+   layer a step of both models; serve_sampled_spec, temperature 0.8 and
+   top-p 0.95 with a seed a request, two runs bit-identical;
+   obs_trace, the n-gram drive with a ``Tracer``, its events saved,
+   read back by ``obs.load_events`` and exported as a Chrome trace, the
+   spans present, the registry's exposition holding the spec and
+   host-tier series; serve_host_tier, a 12-usable-page pool under a
+   32-page host tier, 'stored' (bit-identical K/V, tokens equal to a cold
+   re-prefill), 'int8' (K/V within half a quantization step) and one byte
+   flipped on the host (caught, a miss, the cold tokens);
+5b. cli: ``python -m paddle_tpu_torch train`` on a small config for one
+   pass on the card, then ``train --job=test`` over its tar,
+   ``dump_config``, ``version`` (exit 0) and a config without a reader
+   (exit 2);
 6. flash_kernels: the flash-attention forward, dK/dV and dQ kernels
    against their plain PyTorch versions on the same inputs: the training
    path's q/k/v [1, 8192, 16, 128] bf16 with 8 causal segments of 1024,
@@ -294,6 +319,7 @@ from paddle_tpu_torch.tools import quick_start_workload as qw
 from paddle_tpu_torch.tools import ragged_cases as rc
 from paddle_tpu_torch.tools import repro
 from paddle_tpu_torch.tools import rnn_workload as rw
+from paddle_tpu_torch.tools import spec_workload as spw
 from paddle_tpu_torch.tools import profile_transformer_nmt as ptn
 from paddle_tpu_torch.tools import srl_workload as sw
 from paddle_tpu_torch.tools import train_workload as tw
@@ -351,16 +377,18 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 # kernel cases
 # ---------------------------------------------------------------------------
 
-def run_kernel_cases(dev, cases=None, phase: str = "kernel"):
+def run_kernel_cases(dev, cases=None, phase: str = "kernel",
+                     profiled: bool = True):
     """Every case of ``ragged_cases`` (``cases``, default its ``CASES``)
     through the kernel and the plain version on the card; raises if any
     case is outside its tolerance.
     ``ms`` is card time (:func:`device_ms`: the kernel's plan, attention
-    and merge launches); ``host_ms`` is the call back to back between CUDA
-    events (:func:`time_ms`), which also holds the wrapper's host work
-    where that outlasts the card's; ``plain_ms`` is the plain version's,
-    between CUDA events (milliseconds of card work, outlasting its host
-    work)."""
+    and merge launches; with ``profiled`` False, the call back to back
+    between CUDA events, as ``timer`` says); ``host_ms`` is the call back
+    to back between CUDA events (:func:`time_ms`), which also holds the
+    wrapper's host work where that outlasts the card's; ``plain_ms`` is
+    the plain version's, between CUDA events (milliseconds of card work,
+    outlasting its host work)."""
     from paddle_tpu_torch.serving.decode_attention import (
         ragged_paged_attention_kernel, ragged_paged_attention_reference)
 
@@ -370,6 +398,7 @@ def run_kernel_cases(dev, cases=None, phase: str = "kernel"):
         got = ragged_paged_attention_kernel(*args, **kw)
         torch.cuda.synchronize()
         real = case["qpos"] >= 0
+        host_ms = time_ms(lambda: ragged_paged_attention_kernel(*args, **kw))
         res = {"phase": phase, "case": name,
                "q": str(case["q"].dtype).replace("torch.", ""),
                "pages": str(case["k_pages"].dtype).replace("torch.", ""),
@@ -380,9 +409,10 @@ def run_kernel_cases(dev, cases=None, phase: str = "kernel"):
                "head_dim": int(case["q"].shape[2]),
                **rc.check(case, got),
                "ms": device_ms(lambda: ragged_paged_attention_kernel(
-                   *args, **kw), reps=30, what=f"{name} kernel"),
-               "host_ms": time_ms(lambda: ragged_paged_attention_kernel(
-                   *args, **kw)),
+                   *args, **kw), reps=30, what=f"{name} kernel")
+               if profiled else host_ms,
+               "timer": "profiler" if profiled else "events",
+               "host_ms": host_ms,
                "plain_ms": time_ms(
                    lambda: ragged_paged_attention_reference(*args, **kw),
                    reps=3, warmup=1),
@@ -579,6 +609,374 @@ def serve_small(dev) -> list:
         out.append(serve_checked(model, dev, prompts, phase="serve_small",
                                  dtype=str(dtype).replace("torch.", "")))
     return out
+
+
+# ---------------------------------------------------------------------------
+# the serving engine's upper tier: speculation, the host tier, obs, cli
+# ---------------------------------------------------------------------------
+
+def same_streams(model, prompts, got, want, what: str) -> int:
+    """``got`` token-identical to ``want`` (the same engine without
+    speculation); a stream may differ only after a near tie: the
+    oracle's top-two gap at the first differing position under 1e-3 of
+    its top logit (f32 sums taken in another order can flip such a
+    tie).  Returns the number of near-tie streams."""
+    from paddle_tpu_torch.serving import reference_logits
+
+    ties = 0
+    for i, (prompt, g, w) in enumerate(zip(prompts, got, want)):
+        j = spw.first_difference(g, w)
+        if j is None:
+            continue
+        top2 = np.sort(reference_logits(model, prompt + w[:j]))[-2:]
+        gap, top = float(top2[1] - top2[0]), float(top2[1])
+        near = gap < 1e-3 * abs(top)
+        emit({"phase": what, "request": i, "first_diff": j,
+              "top_logit": top, "top2_gap": gap, "near_tie": near})
+        if not near:
+            raise AssertionError(f"{what}: request {i} differs from the "
+                                 f"engine without speculation at token {j}")
+        ties += 1
+    return ties
+
+
+def _spec_line(phase: str, r: dict, off: dict, **extra) -> dict:
+    snap = r["snapshot"]
+    return {"phase": phase, "requests": len(r["outputs"]),
+            "completed": r["completed"], "ticks": r["ticks"],
+            "ticks_spec_off": off["ticks"], "steps": r["steps"],
+            "tokens_per_s": r["tokens_per_s"],
+            "tokens_per_s_spec_off": off["tokens_per_s"],
+            "wall_s": r["wall_s"], "wall_s_spec_off": off["wall_s"],
+            "proposed": snap["spec_tokens_proposed"],
+            "accepted": snap["spec_tokens_accepted"],
+            "acceptance_rate": snap["spec_acceptance_rate"],
+            "rollbacks": snap["spec_rollbacks"],
+            "suspended": snap["spec_suspended"],
+            "kernel_launches": r["launches"], **extra}
+
+
+def serve_spec_ngram(model, dev) -> dict:
+    """The spec traffic without speculation, then with n-gram speculation
+    (k 4, n 3): token-identical streams, pages conserved, proposed and
+    accepted non-zero, B4 launched once a layer a step."""
+    prompts = spw.spec_prompts()
+    off = spw.drive(make_engine(model, dev), prompts)
+    eng = make_engine(model, dev, spec_mode="ngram", spec_k=spw.SPEC_K,
+                      spec_ngram=spw.SPEC_NGRAM)
+    r = spw.drive(eng, prompts)
+    eng.check_page_conservation()
+    ties = same_streams(model, prompts, r["outputs"], off["outputs"],
+                        "serve_spec_ngram")
+    res = _spec_line("serve_spec_ngram", r, off, near_ties=ties,
+                     launches_expected=MODEL["num_layers"] * r["steps"],
+                     conservation=eng.healthz()["ok"])
+    emit(res)
+    if not (r["completed"] and off["completed"] and res["conservation"]):
+        raise AssertionError("serve_spec_ngram did not drain cleanly")
+    if res["proposed"] == 0 or res["accepted"] == 0:
+        raise AssertionError("serve_spec_ngram: nothing proposed or "
+                             "accepted")
+    if r["launches"] != res["launches_expected"]:
+        raise AssertionError(f"serve_spec_ngram: {r['launches']} launches "
+                             f"!= layers x steps {res['launches_expected']}")
+    return {"off": off, "ngram": r, "prompts": prompts}
+
+
+def serve_spec_draft(model, dev, spec: dict) -> list:
+    """Draft-model speculation (k 4): the 2-layer d-1024 draft with its own
+    seeded weights and pool, then the target itself as the draft.  Gates
+    as n-gram's, and the draft pool conserved; B4 launched once a layer a
+    step of the target and of the draft."""
+    prompts, off = spec["prompts"], spec["off"]
+    draft, draft_params = spw.build_draft(dev)
+    out = []
+    for name, dm, dp in (("own_weights", draft, draft_params),
+                         ("target_weights", model, model)):
+        eng = make_engine(model, dev, spec_mode="draft", spec_k=spw.SPEC_K,
+                          draft_model=dm, draft_params=dp)
+        r = spw.drive(eng, prompts)
+        eng.check_page_conservation()        # the draft pool's too
+        ties = same_streams(model, prompts, r["outputs"], off["outputs"],
+                            "serve_spec_draft")
+        prop = eng._proposer
+        expected = (MODEL["num_layers"] * r["steps"] +
+                    dm.num_layers * prop.steps)
+        res = _spec_line("serve_spec_draft", r, off, draft=name,
+                         draft_layers=dm.num_layers,
+                         draft_d=dm.embed_dim, draft_steps=prop.steps,
+                         draft_step_time_s=prop.step_time_s,
+                         draft_pool_refs=prop.pool.total_refs,
+                         near_ties=ties, launches_expected=expected,
+                         conservation=eng.healthz()["ok"])
+        emit(res)
+        if not (r["completed"] and res["conservation"]) or \
+                prop.pool.total_refs != 0:
+            raise AssertionError(f"serve_spec_draft ({name}) did not "
+                                 "drain cleanly")
+        if res["proposed"] == 0 or r["launches"] != expected:
+            raise AssertionError(f"serve_spec_draft ({name}): proposed "
+                                 f"{res['proposed']}, launches "
+                                 f"{r['launches']} != {expected}")
+        # random, independent weights agree on a token about once in
+        # 32768; the target as its own draft accepts what it drafts
+        if name == "target_weights" and res["acceptance_rate"] < 0.9:
+            raise AssertionError("the target as its own draft accepted "
+                                 f"{res['acceptance_rate']}")
+        del eng
+        out.append(res)
+    return out
+
+
+def serve_sampled_spec(model, dev, spec: dict) -> dict:
+    """Sampled decoding (temperature 0.8, top-p 0.95, a seed a request)
+    with n-gram speculation, twice: the same tokens bit for bit
+    (``spw.SAMPLED_TOKENS`` a request: each emission warps 32768 logits
+    on the host in float64)."""
+    from paddle_tpu_torch.serving import SamplingParams
+
+    prompts = spec["prompts"]
+
+    def sampling(i):
+        return SamplingParams(seed=1000 + i, **spw.SAMPLING)
+
+    runs = [spw.drive(make_engine(model, dev, spec_mode="ngram",
+                                  spec_k=spw.SPEC_K,
+                                  spec_ngram=spw.SPEC_NGRAM),
+                      prompts, spw.SAMPLED_TOKENS, sampling)
+            for _ in range(2)]
+    res = _spec_line("serve_sampled_spec", runs[0], spec["off"],
+                     replays_identical=runs[0]["outputs"] ==
+                     runs[1]["outputs"],
+                     differs_from_greedy=[o[:spw.SAMPLED_TOKENS] for o in
+                                          runs[0]["outputs"]] !=
+                     [o[:spw.SAMPLED_TOKENS] for o in
+                      spec["ngram"]["outputs"]],
+                     wall_s_replay=runs[1]["wall_s"])
+    emit(res)
+    if not (res["replays_identical"] and res["differs_from_greedy"] and
+            all(r["completed"] for r in runs)):
+        raise AssertionError("serve_sampled_spec: replays differ, or the "
+                             "draws were not sampled")
+    return res
+
+
+def obs_trace(model, dev, spec: dict) -> dict:
+    """The n-gram drive again with a Tracer and a registry: the same
+    tokens; its Chrome trace written through ``obs.export`` and its
+    events read back by ``load_events``; the expected spans present; the
+    registry's exposition holds the spec and host-tier series."""
+    import os
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import obs
+
+    reg = obs.MetricsRegistry()
+    tracer = obs.Tracer(registry=reg)
+    eng = make_engine(model, dev, spec_mode="ngram", spec_k=spw.SPEC_K,
+                      spec_ngram=spw.SPEC_NGRAM, tracer=tracer,
+                      registry=reg)
+    r = spw.drive(eng, spec["prompts"])
+    hz = eng.healthz()
+    tmp = tempfile.mkdtemp(prefix="obs_trace_")
+    try:
+        raw = tracer.save(os.path.join(tmp, "events.jsonl"))
+        back = obs.load_events(raw)
+        chrome = os.path.join(tmp, "trace.json")
+        obs.save_chrome_trace(back, chrome)
+        with open(chrome) as f:
+            trace = json.load(f)
+        chrome_bytes = os.path.getsize(chrome)
+    finally:
+        shutil.rmtree(tmp)
+    names = {e.name for e in back}
+    text = reg.to_text()
+    res = {"phase": "obs_trace", "events": len(tracer.events),
+           "events_read_back": len(back),
+           "chrome_events": len(trace["traceEvents"]),
+           "chrome_bytes": chrome_bytes,
+           "missing_names": sorted(set(spw.TRACE_NAMES) - names),
+           "same_tokens": r["outputs"] == spec["ngram"]["outputs"],
+           "wall_s": r["wall_s"],
+           "wall_s_untraced": spec["ngram"]["wall_s"],
+           "exposition_lines": len(text.splitlines()),
+           "series": {k: hz["metrics"].get(k) for k in (
+               "serving_spec_tokens_proposed",
+               "serving_spec_tokens_accepted", "serving_host_swap_ins",
+               "serving_pages_host")}}
+    emit(res)
+    if res["missing_names"] or len(back) != len(tracer.events) or \
+            not res["same_tokens"] or not hz["ok"] or \
+            not all(f"serving_{k}" in text for k in (
+                "spec_tokens_proposed", "spec_acceptance_rate",
+                "host_swap_ins", "host_corrupt")):
+        raise AssertionError(f"obs_trace failed: {res}")
+    return res
+
+
+def serve_host_tier(model, dev) -> list:
+    """A 12-usable-page pool whose prefix pages are evicted to a host tier
+    of 32 pages (512 MiB at this width), under 'stored' and 'int8', and
+    once with one byte of the first prefix block flipped on the host after
+    its commit: swap-ins > 0, 'stored' token-identical to a cold
+    re-prefill and bit-identical K/V, 'int8' K/V within half a
+    quantization step of the evicted pages, the corrupted page caught and
+    served as a miss with the cold tokens; the tier's ledger clean."""
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.serving.decode_attention import \
+        ragged_paged_attention_kernel as kernel
+
+    first, fillers, sharer = spw.host_prompts(MODEL["vocab_size"])
+
+    def engine(**kw):
+        return ServingEngine(model, eos_id=NO_EOS,
+                             num_pages=spw.HOST_POOL_PAGES,
+                             max_pages_per_seq=8, max_slots=2,
+                             use_kernel=True, device=dev, **kw)
+
+    cold = engine(prefix_cache=False)
+    rc_ = cold.submit(sharer, max_tokens=spw.HOST_NEW_TOKENS)
+    cold.run()
+    want = cold.result(rc_)
+    page_bytes = cold.kv_cfg.bytes_per_page()
+    del cold
+    out = []
+    for fmt, corrupt in (("stored", False), ("int8", False),
+                         ("stored", True)):
+        eng = engine(host_tier_bytes=spw.HOST_PAGES * page_bytes,
+                     host_kv_dtype=fmt)
+        kernel.launches = 0
+        t0 = time.perf_counter()
+        r = spw.host_tier_drive(eng, first, fillers, sharer,
+                                corrupt=corrupt)
+        torch.cuda.synchronize()
+        snap = r["snapshot"]
+        eng.host_tier.check()
+        res = {"phase": "serve_host_tier", "host_kv_dtype": fmt,
+               "corrupted": corrupt,
+               "host_tier_bytes": spw.HOST_PAGES * page_bytes,
+               "page_bytes": page_bytes, **snap,
+               "host_hits": r["host_hits"],
+               "swapped_pages": r["swapped_pages"],
+               "same_tokens_as_cold": r["sharer"] == want,
+               "kernel_launches": kernel.launches,
+               "launches_expected": MODEL["num_layers"] *
+               eng.metrics.step_dispatches,
+               "wall_s": time.perf_counter() - t0}
+        if r["after"] is not None and fmt == "stored":
+            res["kv_bit_identical"] = all(
+                torch.equal(a, b) for a, b in zip(r["before"], r["after"])
+                if a is not None)
+        elif r["after"] is not None:
+            res.update(spw.int8_page_error(r["before"], r["after"]))
+        emit(res)
+        if res["kernel_launches"] != res["launches_expected"]:
+            raise AssertionError("serve_host_tier: launches")
+        if corrupt:
+            ok = snap["host_corrupt"] >= 1 and res["same_tokens_as_cold"] \
+                and r["swapped_pages"] == 0
+        elif fmt == "stored":
+            ok = snap["host_swap_ins"] > 0 and res["same_tokens_as_cold"] \
+                and res.get("kv_bit_identical", False)
+        else:
+            ok = snap["host_swap_ins"] > 0 and \
+                res.get("max_err_in_steps", 1.0) <= spw.INT8_STEP_BOUND
+        if not ok:
+            raise AssertionError(f"serve_host_tier failed: {res}")
+        del eng
+        out.append(res)
+    return out
+
+
+CLI_CONFIG = """
+import numpy as np
+import paddle_tpu_torch as paddle
+from paddle_tpu_torch import layer, optimizer
+
+x = layer.data(name="x", type=paddle.data_type.dense_vector(8))
+y = layer.data(name="y", type=paddle.data_type.integer_value(3))
+hidden = layer.fc(x, size=16, act="relu", name="hidden")
+logits = layer.fc(hidden, size=3, name="logits")
+cost = layer.classification_cost(input=logits, label=y)
+optimizer = optimizer.Sgd(learning_rate=0.1)
+batch_size = 16
+
+_rng = np.random.RandomState(0)
+_data = []
+for _ in range(64):
+    _y = int(_rng.randint(0, 3))
+    _x = (_rng.randn(8) * 0.2).astype(np.float32)
+    _x[_y * 2] += 1.0
+    _data.append((_x, _y))
+
+
+def reader():
+    return iter(_data)
+"""
+
+
+def cli_phase() -> dict:
+    """``python -m paddle_tpu_torch train`` on a small config for one pass
+    on the card (its parameters written to a tar), then in this process
+    ``train --job=test`` over that tar, ``dump_config`` and ``version``:
+    exit codes 0, and 2 for a config without a reader."""
+    import contextlib
+    import io
+    import os
+    import pathlib
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import cli
+
+    tmp = tempfile.mkdtemp(prefix="cli_")
+    root = str(pathlib.Path(__file__).resolve().parent)
+    try:
+        conf = os.path.join(tmp, "conf.py")
+        with open(conf, "w") as f:
+            f.write(CLI_CONFIG)
+        noreader = os.path.join(tmp, "noreader.py")
+        with open(noreader, "w") as f:
+            f.write(CLI_CONFIG.replace("def reader():", "def _unused():"))
+        tar = os.path.join(tmp, "model.tar")
+        t0 = time.perf_counter()
+        env = dict(os.environ,
+                   PYTHONPATH=root + os.pathsep +
+                   os.environ.get("PYTHONPATH", ""))
+        proc = subprocess.run(
+            [sys.executable, "-m", "paddle_tpu_torch", "train", "--config",
+             conf, "--num_passes", "1", "--model_tar", tar],
+            cwd=root, env=env, capture_output=True, text=True, timeout=300)
+        train_s = time.perf_counter() - t0
+        codes = {"train": proc.returncode}
+        outs = {}
+        for name, argv in (
+                ("test", ["train", "--config", conf, "--job", "test",
+                          "--init_model_tar", tar]),
+                ("dump_config", ["dump_config", "--config", conf]),
+                ("version", ["version"]),
+                ("no_reader", ["train", "--config", noreader])):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf), \
+                    contextlib.redirect_stderr(io.StringIO()):
+                codes[name] = cli.main(argv)
+            outs[name] = buf.getvalue()
+    finally:
+        shutil.rmtree(tmp)
+    res = {"phase": "cli", "exit_codes": codes, "train_s": train_s,
+           "test": outs["test"].strip(), "version": outs["version"].strip(),
+           "dump_config_layers": len(json.loads(outs["dump_config"])
+                                     ["layers"]),
+           "train_stderr_tail": proc.stderr[-400:] if proc.returncode
+           else ""}
+    emit(res)
+    want = {"train": 0, "test": 0, "dump_config": 0, "version": 0,
+            "no_reader": 2}
+    if codes != want or "Test cost=" not in res["test"] or \
+            "CUDA" not in res["version"]:
+        raise AssertionError(f"cli failed: {res}")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -3116,10 +3514,25 @@ def main() -> int:
     model = build_model(dev)
     served = serve(model, dev)
     serve_int8(model, dev)
-    del model
-    torch.cuda.empty_cache()
     serve_small(dev)
     lap("kernel_and_serve")
+
+    # the verify cases are timed between CUDA events (the profiler's
+    # windows cost ~1.5 s a case)
+    verify = run_kernel_cases(dev, rc.VERIFY_CASES, phase="verify_kernel",
+                              profiled=False)
+    spec = serve_spec_ngram(model, dev)
+    drafts = serve_spec_draft(model, dev, spec)
+    serve_sampled_spec(model, dev, spec)
+    obs_trace(model, dev, spec)
+    launches_spec = {"ngram": spec["ngram"]["launches"],
+                     **{f"draft_{d['draft']}": d["kernel_launches"]
+                        for d in drafts}}
+    serve_host_tier(model, dev)
+    del model, spec
+    torch.cuda.empty_cache()
+    cli_phase()
+    lap("upper_tier")
 
     # the translation cases' plain versions (thousands of small kernels a
     # call at S 4096) are timed once between CUDA events: profiling them
@@ -3222,7 +3635,18 @@ def main() -> int:
         "bound_by": main_case["bound_by"], "library_ms": None,
         "case": "mixed_f32",
         "decode_f32": {k: decode_case[k] for k in
-                       ("ms", "plain_ms", "bound_ms", "bound_by")}}]
+                       ("ms", "plain_ms", "bound_ms", "bound_by")},
+        # the widened verify step of speculative decoding: launches on
+        # the spec drives, and the verify blocks held against the plain
+        # version (ms: calls back to back between CUDA events)
+        "launches_spec": launches_spec,
+        "verify": {c["case"]: {"max_abs_err": c["max_abs_err"],
+                               "ms": c["ms"], "timer": c["timer"],
+                               "plain_ms": c["plain_ms"],
+                               "bound_ms": c["bound_ms"],
+                               "bound_by": c["bound_by"],
+                               "real_rows": c["real_rows"]}
+                   for c in verify}}]
     flash_main = flash["a_bf16_8x1024_causal"]
     replaces = {"flash_fwd": "paddle_tpu/ops/attention.py:142",
                 "flash_bwd_kv": "paddle_tpu/ops/attention.py:289",

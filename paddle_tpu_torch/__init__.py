@@ -44,6 +44,8 @@ from paddle_tpu_torch.platform.device import init
 from paddle_tpu_torch.platform.flags import FLAGS
 from paddle_tpu_torch.sequence import SequenceBatch
 
+__version__ = "0.1.0"   # the JAX package's version: the port tracks it
+
 __all__ = ["init", "batch", "infer", "layer", "networks", "optimizer",
            "evaluator", "trainer", "event", "parameters", "topology",
            "reader", "dataset", "minibatch", "activation", "attr",

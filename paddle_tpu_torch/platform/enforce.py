@@ -18,3 +18,12 @@ def enforce_that(cond: bool, message: str = "enforce failed", *,
                  context: str | None = None) -> None:
     if not cond:
         raise EnforceError(message, context=context)
+
+
+def refuse_unported(where: str, context: str, **given) -> None:
+    """Raise for an argument of a slice not ported yet (``given``: name ->
+    (value passed, its no-op default, the slice))."""
+    for name, (value, default, part) in given.items():
+        enforce_that(value is default or value == default,
+                     f"{where}({name}=...) is not ported yet: it comes with "
+                     f"{part}", context=context)

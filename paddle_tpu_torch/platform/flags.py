@@ -10,6 +10,7 @@ the same geometry in both packages.
 from __future__ import annotations
 
 import os
+import tempfile
 from dataclasses import dataclass
 from typing import Any, Callable, Dict
 
@@ -146,3 +147,59 @@ FLAGS.define("attn_pv_f32", False,
              "keep the flash-attention P and dS operands in f32 instead of "
              "rounding them to the inputs' dtype before the PV, dV, dK and "
              "dQ products")
+
+# the serving engine's upper tier: speculation and the host page tier
+FLAGS.define("serving_spec_mode", "off",
+             "speculative decoding: off | ngram | draft. 'ngram' drafts "
+             "by prompt lookup over a slot's own history; 'draft' runs a "
+             "small draft DecoderLM (ServingEngine(draft_model=, "
+             "draft_params=)) over its own paged pool. One widened step "
+             "verifies all k+1 positions per slot, the longest agreeing "
+             "prefix is accepted, and greedy output stays token-identical "
+             "to decoding without speculation")
+FLAGS.define("serving_spec_k", 4,
+             "speculation depth: drafted tokens per slot per tick "
+             "(lookahead pages are charged opportunistically, never by "
+             "preemption)", parser=int)
+FLAGS.define("serving_spec_ngram", 3,
+             "n-gram size of the prompt-lookup proposer (falls back to "
+             "shorter suffixes down to 1)", parser=int)
+FLAGS.define("serving_host_tier_bytes", 0,
+             "byte budget of the host-RAM spill tier under the device "
+             "page pool: evicted reclaimable pages demote to pinned host "
+             "memory, checksummed, and a prefix lookup that runs off the "
+             "device index swaps the verified continuation back in. "
+             "0 disables", parser=int)
+FLAGS.define("serving_swap_in_budget", 8,
+             "host-tier pages promoted back to the device pool per tick "
+             "for the head-of-queue request; 0 = spill only", parser=int)
+FLAGS.define("serving_host_kv_dtype", "stored",
+             "host-tier format: 'stored' keeps the pool's bytes verbatim "
+             "(swap-in is bit-identical); 'int8' transcodes float pages "
+             "to int8 + per-token f32 scales on spill")
+
+# obs: tracing and the metrics registry
+FLAGS.define("obs_trace", False,
+             "request-scoped span tracing (paddle_tpu_torch.obs), read "
+             "when an engine is built: on = a real Tracer on the engine's "
+             "clock; off = the shared NULL_TRACER, a no-op")
+FLAGS.define("obs_keep_all", True,
+             "flag-built tracers keep the full event list for export; off "
+             "keeps only the bounded flight-recorder ring")
+FLAGS.define("obs_ring_size", 4096,
+             "flight-recorder depth: the most recent events kept in a "
+             "bounded ring and dumped when a conservation check trips",
+             parser=int)
+FLAGS.define("obs_dump_dir",
+             os.path.join(tempfile.gettempdir(), "paddle_tpu_torch_obs"),
+             "directory for flight-recorder postmortem dumps")
+
+# the v2 flags that no module reads (kept so configs that set them load)
+FLAGS.define("test_period", 0,
+             "run the tester every N batches (0 = per pass)", parser=int)
+FLAGS.define("show_layer_stat", False,
+             "print per-layer output stats each log period")
+FLAGS.define("save_dir", "./output", "default checkpoint output directory")
+FLAGS.define("prealloc_mem", False,
+             "kept for configs that set it; it has no effect on torch's "
+             "caching allocator, which grows its pool on demand")

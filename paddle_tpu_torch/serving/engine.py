@@ -27,44 +27,107 @@ fails only the poisoned slot, a progress watchdog, and free-list
 conservation after every drain.  Greedy choice runs on host numpy
 (``np.argmax``), so ties break as in the JAX package.
 
-Not ported yet (see ROADMAP.md): tensor parallelism, speculative
-decoding, the fault plan and its step retry, the host-RAM tier, page
-migration, tracing and the compiled-path auditors.
+Speculative decoding (``spec_mode="ngram"|"draft"``): a proposer drafts
+up to ``spec_k`` tokens per running slot, the SAME unified step verifies
+all ``1 + spec_k`` positions of a slot (one kernel block of rows at
+consecutive positions), the longest agreeing prefix is accepted and
+rejected lookahead pages roll back; a verify that would write into a
+shared page forks it first.  The host tier (``host_tier_bytes``):
+evicted cached pages demote to pinned host memory, checksummed, and the
+head-of-queue request's lookup swaps a verified continuation back in.
+``tracer``/``registry`` put every lifecycle edge on one obs timeline and
+the metrics on one scrape surface.
+
+Not ported yet (see ROADMAP.md): tensor parallelism (``mesh``,
+``tp_axis``: A12), the fault plan and its step retry (``faults``,
+``decode_retries``, ``transient_errors``: A11), fleet roles, drain and
+page migration (A10b), and the compiled-path auditors' budgets
+(``xla_*``: A13).  Passing one of those raises, naming its slice.
 """
 
 from __future__ import annotations
 
 import time
 from collections import deque
-from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
+from typing import (Callable, Deque, Dict, List, Optional, Protocol,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from paddle_tpu_torch.convert import decoder_lm_from_numpy
+from paddle_tpu_torch.obs.registry import MetricsRegistry
+from paddle_tpu_torch.obs.trace import NULL_TRACER, tracer_for
 from paddle_tpu_torch.ops.attention import mha_reference
 from paddle_tpu_torch.platform.device import DeviceLike, resolve_device
-from paddle_tpu_torch.platform.enforce import enforce_that
+from paddle_tpu_torch.platform.enforce import (enforce_that,
+                                              refuse_unported)
 from paddle_tpu_torch.platform.flags import FLAGS
 from paddle_tpu_torch.serving.decode_attention import (
     BLOCK_ROWS, _ragged_reference_blocked, attention_path,
     expand_decode_rows, ragged_paged_attention)
 from paddle_tpu_torch.serving.faults import PageLeakError
-from paddle_tpu_torch.serving.kv_cache import (NULL_PAGE, KVPages,
+from paddle_tpu_torch.serving.kv_cache import (NULL_PAGE, _CHAIN_SEED,
+                                               HostPageTier, KVPages,
                                                PagedKVConfig, PagePool,
                                                PrefixCache, append_token,
-                                               fork_page, init_kv_pages,
-                                               resolve_kv_dtype, zero_pages)
+                                               dequantize_kv, fork_page,
+                                               init_kv_pages,
+                                               pages_for_budget,
+                                               pages_spanned, read_pages,
+                                               resolve_kv_dtype, write_pages,
+                                               zero_pages)
 from paddle_tpu_torch.serving.metrics import ServingMetrics
 from paddle_tpu_torch.serving.scheduler import (ContinuousBatchingScheduler,
                                                 Request, RequestStatus,
                                                 SchedulerConfig, bucket_for,
                                                 pack_prefill_chunks)
-from paddle_tpu_torch.serving.speculate import SamplingParams, next_token
+from paddle_tpu_torch.serving.speculate import (DraftProposer,
+                                                NGramProposer,
+                                                SamplingParams,
+                                                accept_tokens, next_token)
 
-__all__ = ["DecoderLM", "ServingEngine", "greedy_decode_reference",
-           "reference_logits"]
+__all__ = ["DecodeModel", "DecoderLM", "ServingEngine",
+           "greedy_decode_reference", "reference_logits"]
+
+_SPEC_MODES = ("off", "ngram", "draft")
+
+
+class DecodeModel(Protocol):
+    """The structural contract the engine drives (the JAX package's
+    ``DecodeModel``, with the parameters held by the module).  Methods
+    are shape-polymorphic over leading dims:
+
+    - ``num_layers``, ``num_heads``, ``head_dim``, ``vocab_size``,
+      ``num_kv_heads`` (GQA: K/V carry this many heads, dividing
+      ``num_heads``) and ``device``;
+    - ``embed(tokens, positions) -> [..., E]``;
+    - ``qkv(layer, x) -> (q, k, v)`` — q ``[..., H, D]``, k/v
+      ``[..., H_kv, D]``;
+    - ``attn_out(layer, ctx, x) -> [..., E]`` — attention output
+      combined with the residual stream;
+    - ``logits(x) -> [..., vocab_size]``.
+
+    :class:`DecoderLM` is the built-in implementation."""
+
+    num_layers: int
+    num_heads: int
+    head_dim: int
+    vocab_size: int
+    num_kv_heads: int
+
+    @property
+    def device(self) -> torch.device: ...
+
+    def embed(self, tokens, positions): ...
+
+    def qkv(self, layer: int, x): ...
+
+    def attn_out(self, layer: int, ctx, x): ...
+
+    def logits(self, x): ...
 
 
 def _rms(x, eps: float = 1e-6):
@@ -190,12 +253,14 @@ def greedy_decode_reference(model: DecoderLM, prompt: List[int],
     return out
 
 
-# terminal requests kept for status()/result() before the oldest go
-_MAX_RETAINED = 10000
-
-
 def _parse_buckets(spec: str) -> Tuple[int, ...]:
     return tuple(sorted(int(t) for t in spec.split(",") if t.strip()))
+
+
+_A10B = "the fleet slice (A10b)"
+_A11 = "the resilience slice (A11)"
+_A12 = "the parallel slice (A12)"
+_A13 = "the tail slice (A13)"
 
 
 class ServingEngine:
@@ -205,20 +270,56 @@ class ServingEngine:
     ``use_kernel`` picks the row packing through ``attention_path``: on
     CUDA the kernel's packing always (``False`` raises); on the CPU the
     compact packing unless ``use_kernel=True``, which runs the kernel's
-    packing with the plain attention standing in for the kernel."""
+    packing with the plain attention standing in for the kernel.
+    ``draft_params`` is the draft's numpy dict (loaded into
+    ``draft_model``) or a built model, whose weights are used as they
+    are."""
 
-    def __init__(self, model: DecoderLM, *, eos_id: int,
+    def __init__(self, model: DecodeModel, *, eos_id: int,
                  page_size: Optional[int] = None,
                  num_pages: Optional[int] = None,
                  max_pages_per_seq: Optional[int] = None,
                  max_slots: Optional[int] = None,
                  buckets: Optional[Sequence[int]] = None,
-                 kv_dtype=None,
+                 max_queue: Optional[int] = None,
+                 dtype=None, kv_dtype=None,
+                 pool_bytes: Optional[int] = None,
+                 fuse_tick: bool = True,
                  use_kernel: Optional[bool] = None,
+                 queue_deadline_s: Optional[float] = None,
+                 preempt_budget: Optional[int] = None,
                  watchdog_ticks: Optional[int] = None,
+                 decode_retries: Optional[int] = None,
+                 transient_errors: Optional[Tuple[type, ...]] = None,
+                 max_retained: int = 10000,
+                 prefix_cache: Optional[bool] = None,
                  prefill_chunk: Optional[int] = None,
+                 faults=None,
                  time_fn: Optional[Callable[[], float]] = None,
+                 tracer=None, registry: Optional[MetricsRegistry] = None,
+                 mesh=None, tp_axis: Optional[str] = None,
+                 spec_mode: Optional[str] = None,
+                 spec_k: Optional[int] = None,
+                 spec_ngram: Optional[int] = None,
+                 draft_model=None, draft_params=None,
+                 draft_pool_pages: Optional[int] = None,
+                 xla_peak_bytes: Optional[int] = None,
+                 xla_flops: Optional[float] = None,
+                 xla_comm_bytes: Optional[float] = None,
+                 role: str = "unified",
+                 host_tier_bytes: Optional[int] = None,
+                 swap_in_budget: Optional[int] = None,
+                 host_kv_dtype: Optional[str] = None,
                  device: DeviceLike = None):
+        refuse_unported(
+            "ServingEngine", "serving", faults=(faults, None, _A11),
+            decode_retries=(decode_retries, None, _A11),
+            transient_errors=(transient_errors, None, _A11),
+            mesh=(mesh, None, _A12), tp_axis=(tp_axis, None, _A12),
+            role=(role, "unified", _A10B),
+            xla_peak_bytes=(xla_peak_bytes, None, _A13),
+            xla_flops=(xla_flops, None, _A13),
+            xla_comm_bytes=(xla_comm_bytes, None, _A13))
         self.device = resolve_device(device)
         enforce_that(model.device.type == self.device.type,
                      f"model is on {model.device}, engine on {self.device}",
@@ -227,19 +328,30 @@ class ServingEngine:
         self.model = model
         page_size = int(page_size or FLAGS.serving_page_size)
         max_slots = int(max_slots or FLAGS.serving_max_slots)
-        kv_dtype = resolve_kv_dtype(kv_dtype if kv_dtype is not None
-                                    else FLAGS.serving_kv_dtype)
+        # KV storage dtype: kv_dtype > the older dtype argument > flag
+        if kv_dtype is None:
+            kv_dtype = dtype if dtype is not None else FLAGS.serving_kv_dtype
+        kv_dtype = resolve_kv_dtype(kv_dtype)
         num_kv_heads = int(model.num_kv_heads)
+        if num_pages is None and pool_bytes is not None:
+            # size the pool by BYTES: int8 pages admit ~4x the f32 pages
+            num_pages = pages_for_budget(
+                pool_bytes, model.num_layers, model.num_heads,
+                model.head_dim, page_size, kv_dtype,
+                num_kv_heads=num_kv_heads)
         num_pages = int(num_pages or FLAGS.serving_max_pages)
         if max_pages_per_seq is None:
             # default: one sequence may claim up to half the usable pool
             max_pages_per_seq = max(1, (num_pages - 1) // 2)
-        preempt_budget = int(FLAGS.serving_preempt_budget)
+        if queue_deadline_s is None:
+            queue_deadline_s = float(FLAGS.serving_queue_deadline_s)
+        if preempt_budget is None:
+            preempt_budget = int(FLAGS.serving_preempt_budget)
         if watchdog_ticks is None:
             watchdog_ticks = int(FLAGS.serving_watchdog_ticks)
-        # 0 = disabled, for both
-        self.queue_deadline_s = float(FLAGS.serving_queue_deadline_s) or None
-        self.watchdog_ticks = int(watchdog_ticks)
+        self.queue_deadline_s = queue_deadline_s or None   # 0 = disabled
+        self.watchdog_ticks = int(watchdog_ticks)          # 0 = disabled
+        self.max_retained = max(1, int(max_retained))
         self._time = time_fn or time.monotonic
         self.kv_cfg = PagedKVConfig(
             num_layers=model.num_layers, num_heads=model.num_heads,
@@ -248,20 +360,51 @@ class ServingEngine:
             dtype=kv_dtype, num_kv_heads=num_kv_heads)
         self._kv: KVPages = init_kv_pages(self.kv_cfg, device=self.device)
         self.pool = PagePool(num_pages)
+        if prefix_cache is None:
+            prefix_cache = bool(FLAGS.serving_prefix_cache)
         if prefill_chunk is None:
             prefill_chunk = int(FLAGS.serving_prefill_chunk)
         self._prefill_chunk = max(0, int(prefill_chunk))
         self.cache: Optional[PrefixCache] = None
-        if FLAGS.serving_prefix_cache:
+        if prefix_cache:
             self.cache = PrefixCache(self.pool, page_size)
+        # the host tier: evicted reclaimable pages demote to pinned host
+        # memory (checksummed) instead of being destroyed; lookups that
+        # run off the device index swap the continuation back in.  Off
+        # unless a byte budget is set
+        self.host_tier: Optional[HostPageTier] = None
+        self._swap_in_budget = int(
+            swap_in_budget if swap_in_budget is not None
+            else FLAGS.serving_swap_in_budget)
+        self._host_hits = 0   # swap-in events that promoted >= 1 page
+        host_bytes = int(host_tier_bytes if host_tier_bytes is not None
+                         else FLAGS.serving_host_tier_bytes)
+        if self.cache is not None and host_bytes > 0:
+            self.host_tier = HostPageTier(
+                host_bytes, dtype=str(host_kv_dtype if host_kv_dtype
+                                      is not None
+                                      else FLAGS.serving_host_kv_dtype))
+            self.cache.host_tier = self.host_tier
+            self.cache.page_reader = \
+                lambda pages: read_pages(self._kv, pages)
         self.scheduler = ContinuousBatchingScheduler(
             self.pool, SchedulerConfig(
                 max_slots=max_slots, page_size=page_size,
                 max_pages_per_seq=int(max_pages_per_seq),
+                max_queue=max_queue,
                 preempt_budget=preempt_budget if preempt_budget > 0
                 else None),
             cache=self.cache, time_fn=self._time)
         self.metrics = ServingMetrics(pool_pages=self.pool.num_usable)
+        # obs: the tracer (FLAGS.obs_trace read here, at construction)
+        # and the registry the stage histograms and healthz publish into
+        self.registry = registry if registry is not None \
+            else MetricsRegistry()
+        self._reg_labels: Dict[str, str] = {}
+        self._tracer = NULL_TRACER
+        self._postmortems_dumped: set = set()
+        self.set_tracer(tracer if tracer is not None
+                        else tracer_for(self._time, registry=self.registry))
         # row packing, decided ONCE through the single chooser
         self._ragged_kernel = attention_path(
             model.head_dim, page_size, num_heads=model.num_heads,
@@ -270,6 +413,7 @@ class ServingEngine:
         self._buckets = tuple(sorted(int(b) for b in buckets)) if buckets \
             else _parse_buckets(FLAGS.serving_prefill_buckets)
         self._max_slots = max_slots
+        self._fuse_tick = bool(fuse_tick)
         # prefill-row packing: the kernel needs each sequence's rows
         # padded to whole BLOCK_ROWS blocks
         self._row_align = BLOCK_ROWS if self._ragged_kernel else 1
@@ -279,24 +423,103 @@ class ServingEngine:
             else self.kv_cfg.max_seq_len
         chunk_rows = -(-chunk_rows // self._row_align) * self._row_align
         self._prefill_budget = max(top, chunk_rows)
+        # speculative decoding: a proposer drafts up to spec_k tokens per
+        # running slot per tick and ONE widened step verifies all k+1
+        # positions of each slot
+        self.spec_mode = str(spec_mode if spec_mode is not None
+                             else FLAGS.serving_spec_mode)
+        enforce_that(self.spec_mode in _SPEC_MODES,
+                     f"spec_mode must be one of {_SPEC_MODES}, got "
+                     f"{self.spec_mode!r}", context="serving-spec")
+        self.spec_k = int(spec_k if spec_k is not None
+                          else FLAGS.serving_spec_k)
+        enforce_that(self.spec_mode == "off" or self.spec_k >= 1,
+                     "spec_k must be >= 1 when speculation is on",
+                     context="serving-spec")
+        self._proposer = None
+        if self.spec_mode == "ngram":
+            self._proposer = NGramProposer(n=spec_ngram)
+        elif self.spec_mode == "draft":
+            enforce_that(
+                draft_model is not None and draft_params is not None,
+                "spec_mode='draft' needs ServingEngine(draft_model=, "
+                "draft_params=) — a small DecoderLM sharing the target's "
+                "vocabulary, and its numpy weights (or a built model)",
+                context="serving-spec")
+            if isinstance(draft_params, nn.Module):
+                draft_model = draft_params
+            else:
+                decoder_lm_from_numpy(draft_params, draft_model)
+            enforce_that(
+                int(draft_model.vocab_size) == int(model.vocab_size),
+                f"draft vocab ({draft_model.vocab_size}) must equal the "
+                f"target vocab ({model.vocab_size})",
+                context="serving-spec")
+            enforce_that(draft_model.device.type == self.device.type,
+                         f"draft model is on {draft_model.device}, engine "
+                         f"on {self.device}", context="serving-spec")
+            self._proposer = DraftProposer(
+                draft_model, page_size=page_size,
+                num_pages=int(draft_pool_pages or num_pages),
+                max_pages_per_seq=int(max_pages_per_seq),
+                max_slots=max_slots, use_kernel=use_kernel)
+        # verify rows per decode slot: 1 (plain decode) + spec_k drafts
+        self._k1 = 1 + (self.spec_k if self._proposer is not None else 0)
         self._results: Dict[int, List[int]] = {}
         self._requests: Dict[int, Request] = {}
         # terminal rids in retirement order; oldest evicted past
-        # _MAX_RETAINED so a long-running engine's memory stays bounded
+        # max_retained so a long-running engine's memory stays bounded
         self._retired: Deque[int] = deque()
         self._tick = 0
         self._last_tick_at: Optional[float] = None
         self._prev_tick_busy = False
         self._tick_dur_ema = 0.0      # drives the unmeetable-deadline shed
 
+    # ---- observability wiring -------------------------------------------
+
+    def set_tracer(self, tracer) -> None:
+        """(Re)bind the engine's span tracer.  The pool, scheduler, prefix
+        cache and host tier get the raw hook (None when tracing is off,
+        so their hot paths pay one is-None check)."""
+        self._tracer = tracer if tracer is not None else NULL_TRACER
+        hook = self._tracer if self._tracer.enabled else None
+        self.pool.tracer = hook
+        self.scheduler.tracer = hook
+        if self.cache is not None:
+            self.cache.tracer = hook
+        if self.host_tier is not None:
+            self.host_tier.tracer = hook
+
+    def set_registry(self, registry: MetricsRegistry, **labels) -> None:
+        """(Re)bind the metrics registry; later stage observations and
+        healthz publishes land there, under ``labels``."""
+        self.registry = registry
+        self._reg_labels = {k: str(v) for k, v in labels.items()}
+
+    def _observe_stage(self, stage: str, seconds: float) -> None:
+        """Per-stage latency (queue / prefill / decode) on the engine's
+        clock, into the registry."""
+        self.registry.histogram(
+            "serving_stage_seconds",
+            "request time per lifecycle stage").labels(
+            stage=stage, **self._reg_labels).observe(max(0.0, seconds))
+
+    def _dump_postmortem(self, reason: str) -> None:
+        """Flight-recorder dump on a tripped conservation check — once
+        per reason per engine."""
+        if reason not in self._postmortems_dumped:
+            self._postmortems_dumped.add(reason)
+            self._tracer.dump_postmortem(reason)
+
     # ---- the unified device step -----------------------------------------
 
-    def _attend(self, layer: int, q, table, att_lens, row_seq, qpos):
+    def _attend(self, layer: int, q, table, att_lens, row_seq, qpos,
+                k1: int = 1):
         """One ragged paged attention over the tick's mixed row stack.
-        The compact packing feeds ``[B + pb]`` rows as-is; the kernel
-        packing expands each slot's decode row to a whole BLOCK_ROWS
-        block (prefill rows are already block-aligned by the packer) and
-        slices the context back out."""
+        The compact packing feeds ``[B * k1 + pb]`` rows as they are; the
+        kernel packing expands each slot's ``k1`` decode/verify rows to
+        whole BLOCK_ROWS blocks (prefill rows are already block-aligned
+        by the packer) and slices the context back out."""
         kv = self._kv
         ks = kv.k_scale[layer] if kv.quantized else None
         vs = kv.v_scale[layer] if kv.quantized else None
@@ -305,41 +528,51 @@ class ServingEngine:
                 q, kv.k[layer], kv.v[layer], table, att_lens, row_seq,
                 qpos, k_scale=ks, v_scale=vs)
         b = self._max_slots
+        bd = b * k1                           # compact decode/verify rows
+        rbk = -(-k1 // BLOCK_ROWS) * BLOCK_ROWS   # padded rows per slot
         h, d = q.shape[1], q.shape[2]
-        qd, rsd, qpd = expand_decode_rows(q[:b], qpos[:b])
+        qd, rsd, qpd = expand_decode_rows(q[:bd], qpos[:bd],
+                                          rows_per_seq=k1)
         ctx = ragged_paged_attention(
-            torch.cat([qd, q[b:]]), kv.k[layer], kv.v[layer], table,
-            att_lens, torch.cat([rsd, row_seq[b:]]),
-            torch.cat([qpd, qpos[b:]]), k_scale=ks, v_scale=vs)
-        cd = ctx[:b * BLOCK_ROWS].reshape(b, BLOCK_ROWS, h, d)[:, 0]
-        return torch.cat([cd, ctx[b * BLOCK_ROWS:]])
+            torch.cat([qd, q[bd:]]), kv.k[layer], kv.v[layer], table,
+            att_lens, torch.cat([rsd, row_seq[bd:]]),
+            torch.cat([qpd, qpos[bd:]]), k_scale=ks, v_scale=vs)
+        cd = ctx[:b * rbk].reshape(b, rbk, h, d)[:, :k1].reshape(bd, h, d)
+        return torch.cat([cd, ctx[b * rbk:]])
 
     @torch.inference_mode()
     def _step(self, d_tokens, d_pos, d_valid, p_tokens, p_qpos, p_seq,
               p_last, table, att_lens) -> Tuple[np.ndarray, np.ndarray]:
-        """The unified per-tick step.  d_*: [B] — slot ``s``'s decode
-        token, its position, and whether the slot decodes; p_*: [pb] —
-        packed prefill rows (qpos -1 = padding; padding keeps the owning
-        slot so kernel blocks stay sequence-uniform); p_last: [B] — row
-        of each slot's chunk-final row in the packed stack; table:
-        [B, Pm]; att_lens: [B] — valid KV per slot AFTER this step's
-        writes.  Masked rows write ZEROS to the null page.  Returns host
-        logits for the B decode rows and each slot's chunk-final row."""
+        """The unified per-tick step.  d_*: [B, k1] — slot ``s``'s row 0
+        is its plain decode token, rows 1.. its drafted lookahead
+        (invalid rows write the null page); p_*: [pb] — packed prefill
+        rows (qpos -1 = padding; padding keeps the owning slot so kernel
+        blocks stay sequence-uniform); p_last: [B] — row of each slot's
+        chunk-final row in the packed stack; table: [B, Pm]; att_lens:
+        [B] — valid KV per slot AFTER this step's writes.  Prior context,
+        in-chunk causality and in-verify causality (draft ``i`` sees
+        drafts ``< i``) all come from the one ``token <= position`` mask.
+        Returns host logits ``[B, k1, V]`` for the decode/verify rows and
+        ``[B, V]`` for each slot's chunk-final row."""
         model, page, b = self.model, self.kv_cfg.page_size, self._max_slots
-        d_seq = np.arange(b)
+        k1 = d_tokens.shape[1]
+        bd = b * k1
+        d_seq = np.repeat(np.arange(b), k1)
+        dt, dp, dv = (d_tokens.reshape(bd), d_pos.reshape(bd),
+                      d_valid.reshape(bd))
         p_act = p_qpos >= 0
         pq = np.maximum(p_qpos, 0)
         pages = np.concatenate([
-            np.where(d_valid, table[d_seq, d_pos // page], NULL_PAGE),
+            np.where(dv, table[d_seq, dp // page], NULL_PAGE),
             np.where(p_act, table[p_seq, pq // page], NULL_PAGE)])
-        host = [np.concatenate([d_tokens, p_tokens]),          # tokens
-                np.concatenate([d_pos, pq]),                   # positions
+        host = [np.concatenate([dt, p_tokens]),                # tokens
+                np.concatenate([dp, pq]),                      # positions
                 pages,
-                np.concatenate([d_pos % page, pq % page]),     # offsets
-                np.concatenate([d_valid, p_act]),              # write mask
+                np.concatenate([dp % page, pq % page]),        # offsets
+                np.concatenate([dv, p_act]),                   # write mask
                 np.concatenate([d_seq, p_seq]),                # row_seq
-                np.concatenate([np.where(d_valid, d_pos, -1), p_qpos]),
-                np.concatenate([d_seq, p_last]),               # logit rows
+                np.concatenate([np.where(dv, dp, -1), p_qpos]),
+                np.concatenate([np.arange(bd), p_last]),       # logit rows
                 att_lens, table.reshape(-1)]
         # ONE host->device copy for the step's index arrays
         packed = torch.from_numpy(
@@ -353,11 +586,11 @@ class ServingEngine:
             q, k, v = model.qkv(l, x)
             append_token(self._kv, l, torch.where(wmask, k, 0.0),
                          torch.where(wmask, v, 0.0), pages, offs)
-            ctx = self._attend(l, q, table, att_lens, row_seq, qpos)
+            ctx = self._attend(l, q, table, att_lens, row_seq, qpos, k1)
             x = model.attn_out(l, ctx, x)
         # the step's one sync; bf16 logits widen exactly to f32
         logits = model.logits(x[sel]).float().cpu().numpy()
-        return logits[:b], logits[b:]
+        return logits[:bd].reshape(b, k1, -1), logits[bd:]
 
     # ---- user surface ----------------------------------------------------
 
@@ -385,6 +618,8 @@ class ServingEngine:
         ok = self.scheduler.submit(req, now=t)
         self.metrics.on_submit(t, ok)
         self._requests[req.rid] = req
+        self._tracer.instant("submit", rid=req.rid, tokens=len(req.prompt),
+                             max_tokens=req.max_tokens, accepted=ok)
         if not ok:
             self._retire(req)
         return req.rid
@@ -401,6 +636,10 @@ class ServingEngine:
             suspect = [p for p in req.pages if not self.pool.is_cached(p)]
             if suspect:
                 zero_pages(self._kv, suspect)
+        if self._proposer is not None:
+            # drop any draft-model cache state (its pages return to the
+            # draft pool); a no-op for the n-gram proposer
+            self._proposer.release(req.rid)
         if req.slot is not None:
             self.scheduler.release(req, status)
         else:
@@ -413,11 +652,17 @@ class ServingEngine:
             RequestStatus.FAILED: self.metrics.on_fail,
         }[status]
         hook()
+        if shed or status is RequestStatus.TIMED_OUT:
+            self.metrics.on_tenant_miss(req.tenant)
+        if req.first_token_at is not None:
+            self._observe_stage("decode", now - req.first_token_at)
+        self._tracer.instant("terminal", rid=req.rid, status=str(status),
+                             shed=shed, tokens=len(req.generated))
         self._retire(req)
 
     def _retire(self, req: Request) -> None:
         self._retired.append(req.rid)
-        while len(self._retired) > _MAX_RETAINED:
+        while len(self._retired) > self.max_retained:
             old = self._retired.popleft()
             self._requests.pop(old, None)
             self._results.pop(old, None)
@@ -442,9 +687,10 @@ class ServingEngine:
 
     def step(self, now: Optional[float] = None) -> bool:
         """One engine tick: shed expired/unmeetable work, grow/preempt,
-        admit, then one unified step over every running slot and the
-        selected prefill chunks; then the watchdog.  Returns True if any
-        work remains."""
+        advance the host tier, admit, draft, then one unified step over
+        every running slot (widened to its verify rows) and the selected
+        prefill chunks; then the watchdog.  Returns True if any work
+        remains."""
         tick, sched, m = self._tick, self.scheduler, self.metrics
         now = self._time() if now is None else now
         # the shed estimator learns tick duration only from ticks that
@@ -458,15 +704,29 @@ class ServingEngine:
         self._enforce_deadlines(now)
         # growth/preemption BEFORE admission: a tick must not pay for a
         # new request's prefill and then preempt it to grow older ones
-        m.on_preempt(len(sched.ensure_decode_pages()))
+        preempted = sched.ensure_decode_pages()
+        m.on_preempt(len(preempted))
+        if self._proposer is not None:
+            for req in preempted:
+                # a preempted request re-prefills later; its draft cache
+                # would only pin draft-pool pages meanwhile
+                self._proposer.release(req.rid)
+        # host tier BEFORE admission: commit the staged spill and swap in
+        # verified host pages for the head of the queue, so the
+        # admission lookup below sees them as ordinary device hits
+        self._pump_host_tier(tick)
         admitted = sched.admit()
         for req in admitted:
             if req.admitted_at is None:
                 wait = now - (req.submitted_at
                               if req.submitted_at is not None else now)
                 m.on_admit(wait)
+                m.on_tenant_admit(req.tenant, wait)
+                self._observe_stage("queue", wait)
                 req.admitted_at = now
             req.last_progress_tick = tick
+            self._tracer.instant("admit", rid=req.rid, slot=req.slot,
+                                 cached=req.cached_len, tick=tick)
             self._begin_prefill(req)
         # oldest-progress-first, so a chunk crowded out by the row
         # budget is first in line next tick
@@ -480,21 +740,39 @@ class ServingEngine:
         running = [r for r in sched.running_requests()
                    if r.status is RequestStatus.RUNNING
                    and not r.prefilling and r.generated]
+        drafts = self._propose_drafts(running,
+                                      under_pressure=bool(preempted))
         if running or chunks:
-            self._do_step(running, chunks, total_rows)
+            for req, start, n, _ in chunks:
+                self._tracer.instant("prefill_chunk", rid=req.rid,
+                                     slot=req.slot, start=start, n=n,
+                                     tick=tick)
+            with self._tracer.span("decode_tick", tick=tick,
+                                   n=len(running),
+                                   prefill_rows=total_rows):
+                if self._fuse_tick or not (running and chunks):
+                    self._do_step(running, chunks, total_rows, drafts)
+                else:
+                    # fuse_tick=False: prefill and decode as separate
+                    # steps (same math, token-identical)
+                    self._do_step([], chunks, total_rows, {})
+                    self._do_step(running, [], 0, drafts)
         self._prev_tick_busy = (bool(running) or bool(admitted) or
                                 bool(prefilling))
         self._watchdog_sweep(tick)
         m.on_tick(sched.queue_depth, self.pool.num_live,
                   self.pool.num_cached,
                   self.cache.evictions if self.cache is not None else 0)
+        if self.host_tier is not None:
+            m.on_host_tier(self.host_tier.snapshot(), self._host_hits)
         self._tick = tick + 1
         return self.has_work
 
     def run(self, max_ticks: Optional[int] = None) -> Dict[int, List[int]]:
         """Tick until drained (or ``max_ticks``); returns {rid: generated
-        tokens} for everything completed so far.  A full drain asserts
-        free-list conservation (:class:`PageLeakError`)."""
+        tokens} for everything completed so far.  A full drain commits
+        the host tier's staged spill and asserts conservation
+        (:class:`PageLeakError`)."""
         ticks = 0
         while self.has_work:
             self.step()
@@ -502,6 +780,8 @@ class ServingEngine:
             if max_ticks is not None and ticks >= max_ticks:
                 break
         if not self.has_work:
+            if self.host_tier is not None:
+                self.host_tier.flush()
             self.check_page_conservation()
         return dict(self._results)
 
@@ -518,9 +798,11 @@ class ServingEngine:
         """``PAGE-LEAK``: every usable page is free or tracked in use.
         ``REF-LEAK``: the pool's total refcount equals the references
         actually held — one per page-table entry of every running or
-        queued request, plus an admission-time COW pin."""
+        queued request, plus an admission-time COW pin.  The draft pool
+        and the host tier (``HOSTTIER-LEAK``) balance too."""
         pool = self.pool
         if pool.num_free + pool.num_in_use != pool.num_usable:
+            self._dump_postmortem("PAGE-LEAK")
             raise PageLeakError(
                 f"PAGE-LEAK: free={pool.num_free} in_use={pool.num_in_use} "
                 f"usable={pool.num_usable}")
@@ -529,13 +811,23 @@ class ServingEngine:
         held = sum(len(r.pages) for r in live)
         held += sum(1 for r in live if r.cow_src is not None)
         if held != pool.total_refs:
+            self._dump_postmortem("REF-LEAK")
             raise PageLeakError(
                 f"REF-LEAK: held={held} refs={pool.total_refs} "
                 f"cached={pool.num_cached} free={pool.num_free} "
                 f"usable={pool.num_usable}")
+        if self._proposer is not None:
+            self._proposer.check_conservation()
+        if self.host_tier is not None:
+            try:
+                self.host_tier.check()
+            except PageLeakError:
+                self._dump_postmortem("HOSTTIER-LEAK")
+                raise
 
     def healthz(self) -> Dict[str, object]:
-        """Liveness snapshot: pool state, conservation, metrics."""
+        """Liveness snapshot: pool state, conservation, and the metrics
+        published into the registry (its flat snapshot)."""
         m = self.metrics
         counts: Dict[str, int] = {}
         for key, val in (("completed", m.completed),
@@ -553,9 +845,13 @@ class ServingEngine:
             leak = False
         except PageLeakError:
             leak = True
+        tier = self.host_tier
+        if tier is not None:
+            m.on_host_tier(tier.snapshot(), self._host_hits)
+        m.publish(self.registry, **self._reg_labels)
         return {
             "ok": not leak,
-            "metrics": m.snapshot(),
+            "metrics": self.registry.snapshot(),
             "tick": self._tick,
             "queue_depth": self.scheduler.queue_depth,
             "running": len(self.scheduler.running),
@@ -569,10 +865,113 @@ class ServingEngine:
             "cache_hits": self.cache.hits if self.cache is not None else 0,
             "cache_misses": (self.cache.misses
                              if self.cache is not None else 0),
+            "pages_host": len(tier) if tier is not None else 0,
+            "host_swap_ins": tier.swap_ins if tier is not None else 0,
+            "host_swap_outs": tier.spills if tier is not None else 0,
+            "host_hits": self._host_hits,
+            "host_corrupt": tier.corrupt if tier is not None else 0,
+            "spill_stall_ticks": (tier.spill_stall_ticks
+                                  if tier is not None else 0),
             "page_leak": leak,
             "status_counts": counts,
             "deadline_miss_rate": round(m.deadline_miss_rate(), 4),
         }
+
+    # ---- the host tier ---------------------------------------------------
+
+    def _pump_host_tier(self, tick: int) -> None:
+        """One tick of host-tier work, before admission: advance the
+        depth-one spill writer, then — for the head-of-queue request
+        only — walk the host index past the device index's longest hit
+        and promote up to ``swap_in_budget`` verified pages back into the
+        pool.  Promoted pages are inserted into the device index and
+        parked reclaimable, so the admission lookup right after treats
+        them like any other cached prefix.  A checksum mismatch counts
+        HOSTTIER-CORRUPT and ends the swap-in there: corruption degrades
+        to a shorter hit, never to wrong K/V."""
+        tier, cache, sched = self.host_tier, self.cache, self.scheduler
+        if tier is None or cache is None:
+            return
+        tier.pump(tick)
+        if self._swap_in_budget <= 0 or not sched.queue:
+            return
+        req = sched.queue[0]
+        toks = req.cache_tokens
+        page = self.kv_cfg.page_size
+        nblocks = len(toks) // page
+        if nblocks == 0 or len(tier) == 0:
+            return
+        _, hit_len = cache.lookup(toks)       # pure probe, no LRU churn
+        j = hit_len // page
+        if j >= nblocks:
+            return
+        keys = cache.chain_keys(toks)
+        h = _CHAIN_SEED if j == 0 else keys[j - 1]
+        probe: List[Tuple[int, int, Tuple[int, ...]]] = []
+        jj, hh = j, h
+        while jj < nblocks and len(probe) < self._swap_in_budget:
+            block = tuple(toks[jj * page:(jj + 1) * page])
+            if tier.peek(keys[jj], hh, block) is None:
+                break
+            probe.append((keys[jj], hh, block))
+            hh = keys[jj]
+            jj += 1
+        if not probe:
+            return
+        # device pages first (the ladder may evict-and-spill to make
+        # room); under pressure the records stay host-resident
+        new = sched.alloc_pages(len(probe))
+        if new is None:
+            return
+        got = []
+        for key, prev, block in probe:
+            rec = tier.take_verified(key, prev, block)
+            if rec is None:
+                break                  # HOSTTIER-CORRUPT: chain ends here
+            got.append(rec)
+        used, unused = new[:len(got)], new[len(got):]
+        if got:
+            self._swap_in(used, got)
+            # pages[] is indexed by block: blocks < j are device-resident
+            # already (NULL_PAGE padding keeps the indices aligned)
+            cache.insert(toks, [NULL_PAGE] * j + used,
+                         upto=(j + len(got)) * page, from_block=j,
+                         prev_hash=h, tenant=req.tenant)
+            self._host_hits += 1
+            self._tracer.instant("host_swap_in", rid=req.rid,
+                                 n=len(got), tick=tick)
+        if used:
+            # park the promoted pages reclaimable (insert registered them
+            # cached; dropping our alloc ref leaves refcount 0)
+            self.pool.free(used)
+        if unused:
+            self.pool.free(unused)
+
+    def _swap_in(self, page_ids: List[int], recs) -> None:
+        """Upload host records into device pages: one pinned staging
+        buffer per array and ``non_blocking`` copies on the current
+        stream; int8 host records under a float pool are dequantized on
+        the card with the pool's own rule."""
+        pin = self.device.type == "cuda"
+
+        def stack(xs):
+            shape = (xs[0].shape[0], len(xs)) + tuple(xs[0].shape[2:])
+            return torch.cat(xs, dim=1, out=torch.empty(
+                shape, dtype=xs[0].dtype, pin_memory=pin))
+
+        k, v = stack([r.k for r in recs]), stack([r.v for r in recs])
+        ks = vs = None
+        if recs[0].k_scale is not None:
+            ks = stack([r.k_scale for r in recs])
+            vs = stack([r.v_scale for r in recs])
+        if not self.kv_cfg.quantized and ks is not None:
+            dev = self.device
+            k = dequantize_kv(k.to(dev, non_blocking=True),
+                              ks.to(dev, non_blocking=True))
+            v = dequantize_kv(v.to(dev, non_blocking=True),
+                              vs.to(dev, non_blocking=True))
+            ks = vs = None
+        write_pages(self._kv, page_ids, k, v, ks, vs)
 
     # ---- internals -------------------------------------------------------
 
@@ -599,6 +998,75 @@ class ServingEngine:
                     > req.deadline_at):
                 self._finish(req, RequestStatus.REJECTED, now, shed=True)
 
+    def _propose_drafts(self, running: List[Request],
+                        under_pressure: bool) -> Dict[int, Tuple]:
+        """Per-tick speculation: ask the proposer for up to ``spec_k``
+        drafts per running slot, charge lookahead pages (opportunistic —
+        never by preemption) and privatize any shared page the verify
+        would write (:meth:`_cow_guard`).  Under page pressure (a
+        preemption ran this tick, or the pool is dry) speculation is
+        suspended: the tick degrades to plain 1-row decode.  Returns
+        ``{rid: (draft tokens, warped proposal probs or None)}``."""
+        if self._proposer is None or not running:
+            return {}
+        m = self.metrics
+        if under_pressure or self.pool.num_free == 0:
+            m.on_spec_suspend(len(running))
+            return {}
+        caps = {req.rid: max(0, min(self.spec_k,
+                                    req.tokens_remaining - 1,
+                                    self.kv_cfg.max_seq_len
+                                    - req.cache_len - 1))
+                for req in running}
+        eligible = [r for r in running if caps[r.rid] > 0]
+        proposals = self._proposer.propose(eligible,
+                                           lambda r: caps[r.rid]) \
+            if eligible else {}
+        drafts: Dict[int, Tuple] = {}
+        for req in running:
+            got = proposals.get(req.rid, ((), None))
+            toks, probs = list(got[0])[:caps[req.rid]], got[1]
+            if toks:
+                granted = self.scheduler.grant_lookahead(req, len(toks))
+                if granted < len(toks):
+                    m.on_spec_suspend()       # page-pressure shrink
+                    toks = toks[:granted]
+            # the guard covers the base decode row too (toks may be
+            # empty): a speculating engine never writes a verify row
+            # into a cached or shared page un-forked
+            toks = self._cow_guard(req, toks)
+            if toks:
+                drafts[req.rid] = (
+                    toks, None if probs is None else probs[:len(toks)])
+        if isinstance(self._proposer, DraftProposer):
+            m.on_draft(self._proposer.steps, self._proposer.step_time_s)
+        return drafts
+
+    def _cow_guard(self, req: Request, toks: List[int]) -> List[int]:
+        """Copy-on-write guard for the verify's multi-token write: every
+        page the ``len(toks) + 1`` rows would touch that is cached or
+        shared is forked into a private copy first (table entry swapped,
+        our reference moved), so a rejected branch never dirties K/V
+        another holder reads.  If no page is free for the fork, the
+        lookahead stops short of the shared page."""
+        page = self.kv_cfg.page_size
+        for idx in pages_spanned(req.cache_len, len(toks) + 1, page):
+            src = req.pages[idx]
+            if not self.pool.is_cached(src) and \
+                    self.pool.refcount(src) <= 1:
+                continue
+            got = self.scheduler.alloc_pages(1)
+            if got is None:
+                self.metrics.on_spec_suspend()
+                return toks[:max(0, idx * page - 1 - req.cache_len)]
+            fork_page(self._kv, src, got[0])
+            self.pool.free([src])     # drop OUR ref; sharers keep theirs
+            req.pages[idx] = got[0]
+            self.metrics.on_spec_cow()
+            self._tracer.instant("spec_cow", rid=req.rid, src=src,
+                                 dst=got[0])
+        return toks
+
     def _watchdog_sweep(self, tick: int) -> None:
         if self.watchdog_ticks <= 0:
             return
@@ -624,22 +1092,28 @@ class ServingEngine:
             self.metrics.on_cow()
 
     def _do_step(self, running: List[Request], chunks,
-                 total_rows: int) -> None:
+                 total_rows: int, drafts: Dict[int, Tuple]) -> None:
         """Assemble and run ONE unified step, then walk its results:
         chunk bookkeeping first (cache inserts, finite guard, final-chunk
-        first token), decode emissions second."""
-        b, cfg = self._max_slots, self.kv_cfg
-        d_tokens = np.zeros((b,), np.int32)
-        d_pos = np.zeros((b,), np.int32)
-        d_valid = np.zeros((b,), bool)
+        first token), decode/verify emissions second.  With speculation
+        slot ``s`` ships ``1 + len(drafts[s])`` rows; the accept walk
+        emits the longest agreeing prefix plus one bonus/corrected token,
+        and a partial acceptance rolls the lookahead pages back."""
+        b, k1, cfg = self._max_slots, self._k1, self.kv_cfg
+        d_tokens = np.zeros((b, k1), np.int32)
+        d_pos = np.zeros((b, k1), np.int32)
+        d_valid = np.zeros((b, k1), bool)
         att_lens = np.zeros((b,), np.int32)
         table = np.full((b, cfg.max_pages_per_seq), NULL_PAGE, np.int32)
         for req in running:
             s = req.slot
-            d_tokens[s] = req.generated[-1]
-            d_pos[s] = req.cache_len
-            d_valid[s] = True
-            att_lens[s] = req.cache_len + 1
+            dr = drafts.get(req.rid, ((), None))[0]
+            n = 1 + len(dr)
+            d_tokens[s, 0] = req.generated[-1]
+            d_tokens[s, 1:n] = dr
+            d_pos[s, :n] = req.cache_len + np.arange(n)
+            d_valid[s, :n] = True
+            att_lens[s] = req.cache_len + n
             table[s, :len(req.pages)] = req.pages
         pb = 0
         if chunks:
@@ -659,17 +1133,19 @@ class ServingEngine:
             # padding rows keep the owning slot so each kernel block
             # stays sequence-uniform (their qpos -1 masks them out)
             p_seq[off:off + rows] = s
-            # absolute row in the step's stack (behind the B decode rows)
-            p_last[s] = b + off + n - 1
+            # absolute row in the step's stack (behind the B*k1
+            # decode/verify rows)
+            p_last[s] = b * k1 + off + n - 1
             att_lens[s] = start + n
             table[s, :len(req.pages)] = req.pages
             off += rows
         d_logits, p_logits = self._step(d_tokens, d_pos, d_valid, p_tokens,
                                         p_qpos, p_seq, p_last, table,
                                         att_lens)
-        self.metrics.on_step(len(running), total_rows,
-                             pb - sum(c[2] for c in chunks),
-                             n_slots=len(running))
+        self.metrics.on_step(
+            sum(1 + len(drafts.get(r.rid, ((),))[0]) for r in running),
+            total_rows, pb - sum(c[2] for c in chunks),
+            n_slots=len(running))
         # stamp AFTER the sync so TTFT includes the step compute
         now = self._time()
         for req, start, n, _rows in chunks:
@@ -679,15 +1155,38 @@ class ServingEngine:
         for req in running:
             if req.status is not RequestStatus.RUNNING:
                 continue    # cancelled from another slot's on_token
-            row = d_logits[req.slot]
-            if not np.isfinite(row).all():
-                # poisoned slot: fail ONLY this request — its uncached
-                # pages are scrubbed by _finish, the batch keeps going
+            dr, dprobs = drafts.get(req.rid, ((), None))
+            rows = d_logits[req.slot, :1 + len(dr)]
+            if not np.isfinite(rows).all():
+                # poisoned slot (possibly mid-verify): fail ONLY this
+                # request — its uncached pages are scrubbed by _finish
                 self._finish(req, RequestStatus.FAILED, now)
                 continue
-            req.cache_len += 1
-            self._emit(req, next_token(row, req.sampling,
-                                       len(req.generated)), now)
+            emitted, accepted = accept_tokens(
+                rows, dr, dprobs, req.sampling, len(req.generated),
+                self.eos_id)
+            req.cache_len += accepted + 1
+            if dr:
+                req.spec_proposed += len(dr)
+                req.spec_accepted += accepted
+                self.metrics.on_spec(len(dr), accepted)
+                self._tracer.instant("spec_accept", rid=req.rid,
+                                     proposed=len(dr), accepted=accepted)
+                if accepted < len(dr):
+                    # rejected branch: return the lookahead pages past
+                    # the accepted length (the rolled-back rows' K/V is
+                    # masked junk the next real tokens overwrite)
+                    self.scheduler.rollback_pages(req)
+                    self._tracer.instant("spec_rollback", rid=req.rid,
+                                         rejected=len(dr) - accepted)
+            for tok in emitted:
+                self._emit(req, tok, now)
+                if req.finished:
+                    break
+            if not req.finished and self._proposer is not None:
+                # accepted history is now truth: the draft proposer
+                # rolls its own cache back to it (no-op for n-gram)
+                self._proposer.commit(req)
 
     def _finish_chunk(self, req: Request, start: int, n: int, logits,
                       now: float) -> None:
@@ -713,7 +1212,8 @@ class ServingEngine:
             # hittable immediately; the chain cursor keeps it O(chunk)
             req.chain_hash, req.chain_blocks = self.cache.insert(
                 toks, req.pages, req.cache_len,
-                from_block=req.chain_blocks, prev_hash=req.chain_hash)
+                from_block=req.chain_blocks, prev_hash=req.chain_hash,
+                tenant=req.tenant)
         if req.cache_len < len(toks):
             return                            # more chunks, later ticks
         req.prefilling = False
@@ -728,6 +1228,9 @@ class ServingEngine:
             req.first_token_at = now
             ttft = max(0.0, now - (req.submitted_at
                                    if req.submitted_at is not None else now))
+            self._observe_stage("prefill", now - (
+                req.admitted_at if req.admitted_at is not None else now))
+            self._tracer.instant("first_token", rid=req.rid, slot=req.slot)
         self.metrics.on_token(now, ttft)
         if req.on_token is not None:
             req.on_token(tok)

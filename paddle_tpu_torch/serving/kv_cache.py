@@ -1,6 +1,6 @@
 """Block-paged KV cache for the serving engine (the port of
-``paddle_tpu/serving/kv_cache.py`` minus the host-RAM tier and the page
-migration plane).
+``paddle_tpu/serving/kv_cache.py``; its standalone ``check`` gate waits
+for the fleet and fault slices).
 
 K/V live in a preallocated pool of fixed-size pages ``[L, num_pages,
 page_size, H_kv, D]``; each sequence owns an ordered list of page ids —
@@ -15,7 +15,10 @@ donation, and an out-of-place update would copy the whole pool per tick.
 
 Host side: :class:`PagePool` is the refcounted free list and
 :class:`PrefixCache` the chained-hash index over full pages, both pure
-Python and copied close to verbatim.
+Python and copied close to verbatim.  :class:`HostPageTier` is the
+host-RAM spill tier under the pool: evicted reclaimable pages demote to
+pinned CPU memory (``read_pages``, checksummed) and come back through
+``write_pages`` when a prefix lookup continues past the device index.
 
 Page 0 is reserved as the null page: masked writes are steered to it
 (always with zero payloads), and no live sequence is ever granted it.
@@ -23,11 +26,13 @@ Page 0 is reserved as the null page: masked writes are steered to it
 
 from __future__ import annotations
 
+import zlib
 from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
                     Set, Tuple)
 
+import numpy as np
 import torch
 
 from paddle_tpu_torch.ops.attention import padded_head_dim, widen_head_dim
@@ -242,6 +247,75 @@ def fork_page(kv: KVPages, src: int, dst: int) -> KVPages:
     return kv
 
 
+def read_pages(kv: KVPages, page_ids: Sequence[int]):
+    """Pull whole pages to the host as STORED values — the spill half of
+    the host tier.
+
+    page_ids: n page ids.  Returns ``(k, v, k_scale, v_scale)`` CPU
+    tensors, k/v shaped [L, n, page, H_kv, pool_head_dim] in the pool
+    dtype and the scales [L, n, page, H_kv] f32 (None for float pools).
+    int8 pages are NOT dequantized.  From a CUDA pool the tensors are
+    pinned and filled by ``non_blocking`` copies on the current stream,
+    which this call waits for before it returns."""
+    ids = torch.as_tensor(list(page_ids), dtype=torch.long,
+                          device=kv.k.device)
+    src = [kv.k[:, ids], kv.v[:, ids]]
+    if kv.quantized:
+        src += [kv.k_scale[:, ids], kv.v_scale[:, ids]]
+    if kv.k.device.type != "cuda":
+        out = [t.clone() for t in src]
+    else:
+        out = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+               .copy_(t, non_blocking=True) for t in src]
+        torch.cuda.current_stream(kv.k.device).synchronize()
+    if not kv.quantized:
+        out += [None, None]
+    return tuple(out)
+
+
+def write_pages(kv: KVPages, page_ids, k, v, k_scale=None,
+                v_scale=None) -> KVPages:
+    """Splice whole pages into the pool, IN PLACE — the swap-in half of
+    the host tier, shape-compatible with :func:`read_pages` output
+    (numpy arrays or CPU tensors, pinned for an asynchronous upload).
+    Stored values go in verbatim, so an int8 page arrives bit-identical,
+    scales included.  Host sources reach a CUDA pool through
+    ``non_blocking`` copies ordered on the current stream."""
+    dev = kv.k.device
+    ids = torch.as_tensor(list(page_ids) if not torch.is_tensor(page_ids)
+                          else page_ids, dtype=torch.long, device=dev)
+
+    def up(x, dtype):
+        x = torch.as_tensor(x)
+        return x.to(device=dev, dtype=dtype, non_blocking=True)
+
+    kv.k.index_copy_(1, ids, up(k, kv.k.dtype))
+    kv.v.index_copy_(1, ids, up(v, kv.v.dtype))
+    if kv.quantized:
+        kv.k_scale.index_copy_(1, ids, up(k_scale, torch.float32))
+        kv.v_scale.index_copy_(1, ids, up(v_scale, torch.float32))
+    return kv
+
+
+def gather_kv(kv: KVPages, layer: int, page_table: torch.Tensor):
+    """Linearize page tables into contiguous K/V.
+
+    page_table: [B, max_pages_per_seq].  Returns (k, v) each [B,
+    max_pages_per_seq * page_size, H_kv, pool_head_dim] — positions past
+    a sequence's length hold whatever the pages contain (callers mask by
+    length).  Quantized pools are dequantized with :func:`dequantize_kv`,
+    the rule the kernel uses."""
+    kl, vl = kv.k[layer], kv.v[layer]
+    b, pm = page_table.shape
+    _, page, h, d = kl.shape
+    pt = page_table.long()
+    k, v = kl[pt], vl[pt]
+    if kv.quantized:
+        k = dequantize_kv(k, kv.k_scale[layer][pt])
+        v = dequantize_kv(v, kv.v_scale[layer][pt])
+    return k.reshape(b, pm * page, h, d), v.reshape(b, pm * page, h, d)
+
+
 @dataclass
 class PagePool:
     """Host-side refcounted allocator over page ids 1..num_pages-1 (0 is
@@ -258,6 +332,10 @@ class PagePool:
     _free_set: Set[int] = field(default_factory=set)
     _refs: Dict[int, int] = field(default_factory=dict)
     _cached: Set[int] = field(default_factory=set)
+    # obs hook: the engine binds its (enabled) tracer here; None (tracing
+    # off) costs one is-None check per alloc/ref/free
+    tracer: Optional[object] = field(default=None, repr=False,
+                                     compare=False)
 
     def __post_init__(self):
         enforce_that(self.num_pages >= 2, "pool needs >= 2 pages",
@@ -311,6 +389,9 @@ class PagePool:
         for p in got:
             self._free_set.discard(p)
             self._refs[p] = 1
+        if self.tracer is not None and got:
+            self.tracer.instant("page_alloc", cat="pages", n=len(got),
+                                pages=tuple(got))
         return got
 
     def ref(self, pages: Sequence[int]) -> None:
@@ -318,6 +399,9 @@ class PagePool:
             enforce_that(p in self._refs, f"ref of free page {p}",
                          context="serving")
             self._refs[p] += 1
+        if self.tracer is not None and pages:
+            self.tracer.instant("page_ref", cat="pages", n=len(pages),
+                                pages=tuple(pages))
 
     def free(self, pages: Sequence[int]) -> None:
         """Drop one holder per page."""
@@ -333,6 +417,9 @@ class PagePool:
                 del self._refs[p]
                 self._free.append(p)
                 self._free_set.add(p)
+        if self.tracer is not None and pages:
+            self.tracer.instant("page_free", cat="pages", n=len(pages),
+                                pages=tuple(pages))
 
     def mark_cached(self, p: int) -> None:
         enforce_that(p in self._refs, f"cannot cache free page {p}",
@@ -361,6 +448,8 @@ class PagePool:
         del self._refs[p]
         self._free.append(p)
         self._free_set.add(p)
+        if self.tracer is not None:
+            self.tracer.instant("page_evict", cat="pages", page=p)
 
 
 _CHAIN_SEED = 0x9E3779B9   # any fixed non-zero start for the hash chain
@@ -392,6 +481,7 @@ class _CacheEntry:
     page: int                 # the page holding this block's K/V
     tokens: Tuple[int, ...]   # the block itself (collision verification)
     prev: int                 # parent link hash (chain verification)
+    tenant: Optional[str] = None   # who prefilled it (host-tier billing)
 
 
 class PrefixCache:
@@ -400,8 +490,9 @@ class PrefixCache:
     Only full pages are indexed; keys are chained so a hit on page j
     implies the whole prefix matched; every hit is verified against the
     stored tokens and parent link; entries are LRU-ordered and
-    :meth:`evict` frees refcount-0 pages oldest-first.  The cache holds
-    no refcounts of its own."""
+    :meth:`evict` frees refcount-0 pages oldest-first — or, with a
+    :class:`HostPageTier` and a page reader bound, demotes them to host
+    memory first.  The cache holds no refcounts of its own."""
 
     def __init__(self, pool: PagePool, page_size: int,
                  hash_fn: Optional[Callable[[int, Tuple[int, ...]], int]]
@@ -411,13 +502,25 @@ class PrefixCache:
         self.pool = pool
         self.page_size = int(page_size)
         self._hash = hash_fn or _chain_hash
+        self.tracer = None     # obs hook, bound by the engine (see pool)
         self._index: "OrderedDict[int, _CacheEntry]" = OrderedDict()
         self.hits = 0          # lookups that matched >= 1 page
         self.misses = 0        # lookups that matched none
         self.evictions = 0     # pages evicted
+        # the host tier: with a HostPageTier and a page reader (device
+        # pages -> stored host bytes) bound by the engine, eviction
+        # DEMOTES the victim into the tier instead of destroying it
+        self.host_tier: Optional["HostPageTier"] = None
+        self.page_reader: Optional[Callable[[Sequence[int]], tuple]] = None
 
     def __len__(self) -> int:
         return len(self._index)
+
+    def chain_keys(self, tokens: Sequence[int]) -> List[int]:
+        """Every full block's chained key under this cache's hash — what
+        the host-tier swap-in walks to continue a lookup past the device
+        index."""
+        return prefix_chain_hashes(tokens, self.page_size, self._hash)
 
     def lookup(self, tokens: Sequence[int],
                touch: bool = False) -> Tuple[List[int], int]:
@@ -447,7 +550,8 @@ class PrefixCache:
 
     def insert(self, tokens: Sequence[int], pages: Sequence[int],
                upto: int, from_block: int = 0,
-               prev_hash: Optional[int] = None) -> Tuple[int, int]:
+               prev_hash: Optional[int] = None,
+               tenant: Optional[str] = None) -> Tuple[int, int]:
         """Index the full pages covering ``tokens[:upto]`` (idempotent; an
         existing entry wins).  ``from_block``/``prev_hash`` resume the
         chain so chunked prefill indexes each chunk in O(chunk).  Returns
@@ -460,7 +564,8 @@ class PrefixCache:
             key = self._hash(h, block)
             if key not in self._index:
                 self._index[key] = _CacheEntry(page=int(pages[j]),
-                                               tokens=block, prev=h)
+                                               tokens=block, prev=h,
+                                               tenant=tenant)
                 self.pool.mark_cached(int(pages[j]))
             h = key
         return h, max(from_block, nblocks)
@@ -477,21 +582,313 @@ class PrefixCache:
         return dropped
 
     def evict(self, n: int) -> int:
-        """Evict up to ``n`` refcount-0 cached pages, LRU first."""
+        """Evict up to ``n`` refcount-0 cached pages, LRU first; with a
+        host tier bound each victim's stored bytes are staged into it
+        before the device page is reclaimed."""
         if n <= 0:
             return 0
         freed = 0
+        spill = (self.host_tier is not None and
+                 self.page_reader is not None)
         for key in list(self._index):
             if freed >= n:
                 break
             e = self._index[key]
             if self.pool.refcount(e.page) == 0:
+                if spill:
+                    self.host_tier.spill(key, e.prev, e.tokens,
+                                         self.page_reader([e.page]),
+                                         tenant=e.tenant)
                 del self._index[key]
                 self.pool.release_cached(e.page)
                 self.evictions += 1
                 freed += 1
+        if self.tracer is not None and freed:
+            self.tracer.instant("cache_evict", cat="pages", n=freed)
         return freed
 
     def flush(self) -> int:
         """Evict every reclaimable page."""
         return self.evict(len(self._index))
+
+
+# ---------------------------------------------------------------------------
+# The host tier: spilled pages live in host RAM, checksummed, until a
+# prefix hit swaps them back in
+# ---------------------------------------------------------------------------
+
+
+def _host_bytes(x) -> np.ndarray:
+    """The stored bytes of a host array (numpy or CPU tensor) as a flat
+    uint8 view — no copy for contiguous inputs."""
+    if torch.is_tensor(x):
+        return x.detach().contiguous().reshape(-1).view(torch.uint8).numpy()
+    return np.ascontiguousarray(x).reshape(-1).view(np.uint8)
+
+
+def page_checksum(k, v, k_scale=None, v_scale=None) -> int:
+    """CRC32 chained over a page's STORED bytes plus its scale arrays —
+    the one integrity rule the spill writer and the swap-in verifier
+    share.  Computed over the bytes the writer INTENDED to store, so a
+    torn commit or a flipped bit can never verify."""
+    c = zlib.crc32(_host_bytes(k))
+    c = zlib.crc32(_host_bytes(v), c)
+    if k_scale is not None:
+        c = zlib.crc32(_host_bytes(k_scale), c)
+        c = zlib.crc32(_host_bytes(v_scale), c)
+    return c
+
+
+def _nbytes(x) -> int:
+    return x.numel() * x.element_size() if torch.is_tensor(x) \
+        else int(x.nbytes)
+
+
+@dataclass
+class _HostPage:
+    """One spilled page: the prefix-cache chain identity (key / prev /
+    tokens, so the host index continues the device index's chain) plus
+    the stored payload (CPU tensors) and its checksum."""
+
+    key: int
+    prev: int
+    tokens: Tuple[int, ...]
+    k: torch.Tensor                    # [L, 1, page, H_kv, D] stored dtype
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor]    # [L, 1, page, H_kv] f32, or None
+    v_scale: Optional[torch.Tensor]
+    checksum: int
+    nbytes: int
+    seq: int                           # spill sequence (fault addressing)
+    tenant: Optional[str] = None
+
+
+class HostPageTier:
+    """The host-RAM spill tier under the device :class:`PagePool`.
+
+    Evicted RECLAIMABLE pages demote here instead of being destroyed
+    (``PrefixCache.evict`` stages them), keyed by the SAME chained block
+    hash the device index uses — so a later lookup that runs off the
+    end of its device hits can continue the walk in host memory and swap
+    the continuation back in, verified, instead of re-prefilling it.
+
+    Write path — a depth-one writer, tick-deterministic (no threads, no
+    wall clock): ``spill`` first commits the previously staged page,
+    then stages the new one; the engine's per-tick ``pump`` commits the
+    staged page unless the fault hooks declare host I/O stalled for that
+    tick (counted as ``spill_stall_ticks``); ``flush`` commits
+    unconditionally (drain).  The fault hooks (``faults``: any object
+    with ``spill_is_torn(seq)``, ``spill_bitflip_offset(seq, nbytes)``
+    and ``host_io_stalled(tick)``; the fault plan that drives them comes
+    with the resilience slice) mutate the payload AT COMMIT — after the
+    checksum was taken over the intended bytes — so a torn write or a
+    flipped bit is exactly what the verifier later catches.
+
+    Capacity is a byte budget.  With ``dtype='int8'`` float payloads are
+    transcoded to int8 + per-token scales on spill (~4x the f32 pages
+    for the same bytes, at quantization fidelity); with the default
+    ``'stored'`` the pool's bytes are kept verbatim, so swap-in is
+    bit-identical.  Past the budget the tier LRU-drops.
+
+    Conservation (``HOSTTIER-LEAK``): every page that ever entered the
+    tier ends in exactly one state —
+
+        spills == resident + swap_ins + dropped + corrupt + pending
+
+    checked by :meth:`check`, which the engine folds into
+    ``check_page_conservation``.  A warm restart's ``adopt`` and a
+    migration's ``forget`` come with the fleet slice (A10b)."""
+
+    def __init__(self, capacity_bytes: int, dtype: str = "stored",
+                 faults=None, tracer=None):
+        enforce_that(dtype in ("stored", "int8"),
+                     "serving_host_kv_dtype must be 'stored' or 'int8', "
+                     f"got {dtype!r}", context="serving")
+        self.capacity_bytes = int(capacity_bytes)
+        self.dtype = dtype
+        self.faults = faults
+        self.tracer = tracer
+        # single-threaded by design: the engine's tick loop is the only
+        # writer (spill/pump/flush/swap-in)
+        self._index: "OrderedDict[int, _HostPage]" = OrderedDict()
+        self._pending: Optional[_HostPage] = None
+        self._seq = 0
+        self.resident_bytes = 0
+        self.resident_by_tenant: Dict[str, int] = {}
+        # ledger counters (see the class docstring for the invariant)
+        self.spills = 0            # pages ever staged (swap_outs gauge)
+        self.swap_ins = 0          # verified pages promoted back to device
+        self.dropped = 0           # LRU-dropped / forgotten / displaced
+        self.corrupt = 0           # checksum failures (NEVER served)
+        self.spill_stall_ticks = 0  # pump ticks lost to slow host I/O
+
+    def __len__(self) -> int:
+        return len(self._index)
+
+    # ---- write path (depth one) ------------------------------------------
+
+    def spill(self, key: int, prev: int, tokens: Sequence[int], payload,
+              tenant: Optional[str] = None) -> None:
+        """Stage one evicted page (``payload`` is :func:`read_pages`
+        output for a single page, which the tier then owns).  Commits
+        any previously staged page first — at most one spill is ever in
+        flight."""
+        if self._pending is not None:
+            self._commit(self._pending)
+            self._pending = None
+        k, v, ks, vs = (None if x is None else torch.as_tensor(x)
+                        for x in payload)
+        if self.dtype == "int8" and ks is None:
+            # transcode-on-spill: int8 + f32 scales; swap-in dequantizes
+            k, ks = quantize_kv(k)
+            v, vs = quantize_kv(v)
+        nbytes = _nbytes(k) + _nbytes(v)
+        if ks is not None:
+            ks, vs = ks.float(), vs.float()
+            nbytes += _nbytes(ks) + _nbytes(vs)
+        seq = self._seq       # 0-based: the fault hooks' Nth spill is N
+        self._seq += 1
+        self.spills += 1
+        self._pending = _HostPage(
+            key=int(key), prev=int(prev), tokens=tuple(tokens),
+            k=k, v=v, k_scale=ks, v_scale=vs,
+            checksum=page_checksum(k, v, ks, vs),
+            nbytes=int(nbytes), seq=seq, tenant=tenant)
+        if self.tracer is not None:
+            self.tracer.instant("host_spill", cat="pages", seq=seq)
+
+    def pump(self, tick: int) -> int:
+        """Per-tick writer advance: commit the staged page, unless host
+        I/O is stalled this tick (the spill then waits for the window to
+        end — decode never waits on it)."""
+        if self._pending is None:
+            return 0
+        if self.faults is not None and self.faults.host_io_stalled(tick):
+            self.spill_stall_ticks += 1
+            return 0
+        self._commit(self._pending)
+        self._pending = None
+        return 1
+
+    def flush(self) -> None:
+        """Commit unconditionally (the drain barrier)."""
+        if self._pending is not None:
+            self._commit(self._pending)
+            self._pending = None
+
+    def _commit(self, rec: _HostPage) -> None:
+        f = self.faults
+        if f is not None:
+            if f.spill_is_torn(rec.seq):
+                # torn commit: the tail half of V never lands
+                flat = _host_bytes(rec.v)
+                flat[flat.size // 2:] = 0
+            off = f.spill_bitflip_offset(rec.seq, _nbytes(rec.k))
+            if off is not None:
+                flat = _host_bytes(rec.k)
+                flat[off % flat.size] ^= 0x40
+        self._insert(rec)
+
+    def _insert(self, rec: _HostPage) -> bool:
+        if rec.key in self._index:
+            # an existing entry wins (the device index's idempotence
+            # rule); the duplicate is accounted as dropped
+            self.dropped += 1
+            return False
+        if rec.nbytes > self.capacity_bytes:
+            self.dropped += 1
+            return False
+        while self.resident_bytes + rec.nbytes > self.capacity_bytes:
+            self._pop_lru()
+        self._index[rec.key] = rec
+        self.resident_bytes += rec.nbytes
+        if rec.tenant is not None:
+            self.resident_by_tenant[rec.tenant] = \
+                self.resident_by_tenant.get(rec.tenant, 0) + 1
+        return True
+
+    def _pop(self, key: int) -> _HostPage:
+        rec = self._index.pop(key)
+        self.resident_bytes -= rec.nbytes
+        if rec.tenant is not None:
+            n = self.resident_by_tenant.get(rec.tenant, 0) - 1
+            if n > 0:
+                self.resident_by_tenant[rec.tenant] = n
+            else:
+                self.resident_by_tenant.pop(rec.tenant, None)
+        return rec
+
+    def _pop_lru(self) -> None:
+        key = next(iter(self._index))
+        self._pop(key)
+        self.dropped += 1
+        if self.tracer is not None:
+            self.tracer.instant("host_drop", cat="pages", key=key)
+
+    # ---- read path (verified swap-in) ------------------------------------
+
+    def peek(self, key: int, prev: int,
+             block: Sequence[int]) -> Optional[_HostPage]:
+        """Pure probe: the record for ``key`` if present AND its chain
+        identity matches (a collision is a miss).  No checksum work, no
+        removal."""
+        rec = self._index.get(key)
+        if rec is None or rec.prev != int(prev) or \
+                rec.tokens != tuple(block):
+            return None
+        return rec
+
+    def take_verified(self, key: int, prev: int,
+                      block: Sequence[int]) -> Optional[_HostPage]:
+        """Remove-and-return the record for ``key`` iff its chain
+        identity matches AND its checksum verifies.  A mismatch pops the
+        record, counts ``corrupt`` (HOSTTIER-CORRUPT) and returns None:
+        corruption degrades to a miss, never to a wrong-KV hit."""
+        if self.peek(key, prev, block) is None:
+            return None
+        rec = self._pop(int(key))
+        if page_checksum(rec.k, rec.v, rec.k_scale,
+                         rec.v_scale) != rec.checksum:
+            self.corrupt += 1
+            if self.tracer is not None:
+                self.tracer.instant("HOSTTIER-CORRUPT", cat="pages",
+                                    key=int(key))
+            return None
+        self.swap_ins += 1
+        return rec
+
+    # ---- conservation + scrape -------------------------------------------
+
+    def check(self) -> None:
+        """The HOSTTIER-LEAK invariant (valid at any tick): every page
+        that entered the tier is in exactly one of resident / swapped-in
+        / dropped / corrupt / pending, and the resident bytes match the
+        index under the budget."""
+        from paddle_tpu_torch.serving.faults import PageLeakError
+
+        pend = 1 if self._pending is not None else 0
+        rhs = (len(self._index) + self.swap_ins + self.dropped +
+               self.corrupt + pend)
+        if self.spills != rhs:
+            raise PageLeakError(
+                f"HOSTTIER-LEAK: spills({self.spills}) != "
+                f"resident({len(self._index)}) + swap_ins({self.swap_ins})"
+                f" + dropped({self.dropped}) + corrupt({self.corrupt}) + "
+                f"pending({pend})")
+        nb = sum(r.nbytes for r in self._index.values())
+        if nb != self.resident_bytes or nb > self.capacity_bytes:
+            raise PageLeakError(
+                f"HOSTTIER-LEAK: resident bytes ledger {self.resident_bytes}"
+                f" vs actual {nb} (capacity {self.capacity_bytes})")
+
+    def snapshot(self) -> Dict[str, int]:
+        """Host-tier gauges, merged into the engine's scrape surface."""
+        return {
+            "pages_host": len(self._index),
+            "host_swap_ins": self.swap_ins,
+            "host_swap_outs": self.spills,
+            "host_corrupt": self.corrupt,
+            "host_dropped": self.dropped,
+            "host_resident_bytes": self.resident_bytes,
+            "spill_stall_ticks": self.spill_stall_ticks,
+        }

@@ -1,6 +1,6 @@
 """Continuous-batching scheduler: the host-side policy of the serving
 engine (a copy of ``paddle_tpu/serving/scheduler.py``, which is pure
-Python; only the imports and the trace hook differ).
+Python; only the imports differ).
 
 The reference served generation through ``SequenceGenerator``
 (paddle/api/SequenceGenerator.cpp:38-96) — one request at a time, one
@@ -161,6 +161,9 @@ class ContinuousBatchingScheduler:
         self.pool = pool
         self.cfg = cfg
         self.cache = cache          # prefix cache; None = caching off
+        self.tracer = None          # obs hook, bound by the engine; None
+        #                             (tracing off) costs one is-None
+        #                             check on the preempt edge
         # injectable clock (engine passes its own — possibly a
         # ManualClock); only the submit(now=None) fallback reads it
         self._time = time_fn
@@ -427,6 +430,9 @@ class ContinuousBatchingScheduler:
                                          r.rid))
 
     def _preempt(self, req: Request) -> None:
+        if self.tracer is not None:
+            self.tracer.instant("preempt", rid=req.rid, slot=req.slot,
+                                preemptions=req.preemptions + 1)
         self._release_slot_and_pages(req)
         old_len = req.cache_len
         req.cache_len = 0

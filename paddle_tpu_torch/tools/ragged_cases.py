@@ -8,7 +8,9 @@ heads of head_dim 128, page 128, 8 pages a sequence, a 129-page pool.
 ``decode_f32`` is 8 decode rows over cached lengths 0-1024; ``mixed_f32``
 is the unified step's shape: one 256-row prefill chunk at offset 512 plus
 7 decode rows.  The other cases take the same sequences at the other head
-dims, groups, query and page types the kernel serves.
+dims, groups, query and page types the kernel serves.  ``VERIFY_CASES``
+are the widened step of speculative decoding: 8 slots of ``1 + spec_k``
+rows each.
 
 Usage::
 
@@ -154,7 +156,35 @@ CASES = {
     "mixed_f32_d96": ("mixed", 16, 16, 96, "float32", "float32"),
     "mixed_int8_d80": ("mixed", 16, 16, 80, "float32", "int8"),
 }
-SEQS = {"decode": DECODE_SEQS, "mixed": MIXED_SEQS}
+
+
+def verify_seqs(k1: int):
+    """The speculative verify step's shape: 8 slots, each one block of
+    ``k1 = 1 + spec_k`` rows at consecutive positions after its cached
+    length (qpos -1 padding after the live rows), the cached lengths
+    chosen so that verify rows straddle page boundaries (124, 126, 127,
+    254 at page 128) and one slot ends at the table's last token."""
+    return [(c + k1, k1, c) for c in (5, 124, 126, 127, 254, 500, 765,
+                                      1024 - k1)]
+
+
+SEQS = {"decode": DECODE_SEQS, "mixed": MIXED_SEQS,
+        **{f"verify_k{k}": verify_seqs(1 + k) for k in (1, 4, 7)}}
+
+# the verify blocks of speculative decoding at the headline shapes: spec_k
+# 1, 4 and 7 (2, 5 and 8 live rows a block) on f32 pages; spec_k 4 on
+# bf16 and int8 pages, with bf16 queries on bf16 pages, and at head dim
+# 16 (the CPU tests' width)
+VERIFY_CASES = {
+    "verify_k1_f32": ("verify_k1", 16, 16, 128, "float32", "float32"),
+    "verify_k4_f32": ("verify_k4", 16, 16, 128, "float32", "float32"),
+    "verify_k7_f32": ("verify_k7", 16, 16, 128, "float32", "float32"),
+    "verify_k4_bf16": ("verify_k4", 16, 16, 128, "float32", "bfloat16"),
+    "verify_k4_int8": ("verify_k4", 16, 16, 128, "float32", "int8"),
+    "verify_k4_bf16q_bf16": ("verify_k4", 16, 16, 128, "bfloat16",
+                             "bfloat16"),
+    "verify_k4_f32_d16": ("verify_k4", 16, 16, 16, "float32", "float32"),
+}
 
 # head dims served from pools padded to the next multiple of 8 (12 and 100,
 # rows of 16 and 104) and by the wide kernel above 256 (320): decode and

@@ -29,8 +29,11 @@ Not yet ported: meshes and data parallelism (``mesh``, ``zero``,
 ``zero_axis``, ``pipeline``, also the multi-task trainer's ``mesh``:
 A12), the bad-step guard, fault plans and checkpointing (``guard``,
 ``faults``, ``save_dir`` and the other checkpoint arguments: A11), the
-elastic master (``master``: A13) and the obs tracer (``tracer``: A10).
-Passing one raises, naming its slice.
+elastic master (``master``: A13).  Passing one raises, naming its slice.
+``tracer`` is kept for the guard and checkpoint edges that the JAX
+package traces (they come with A11); each pass publishes the timer table
+into the obs registry, and ``obs.trainer_event_bridge`` puts passes and
+iterations on a trace timeline.
 """
 
 from __future__ import annotations
@@ -44,9 +47,12 @@ from paddle_tpu_torch import event as v2_event
 from paddle_tpu_torch.data_feeder import DataFeeder
 from paddle_tpu_torch.optimizer import Optimizer
 from paddle_tpu_torch.parameters import Parameters
-from paddle_tpu_torch.platform import plog
+from paddle_tpu_torch.obs.registry import default_registry
+from paddle_tpu_torch.obs.trace import NULL_TRACER
+from paddle_tpu_torch.platform import plog, stats
 from paddle_tpu_torch.platform.device import DeviceLike, resolve_device
-from paddle_tpu_torch.platform.enforce import enforce_that
+from paddle_tpu_torch.platform.enforce import (enforce_that,
+                                              refuse_unported)
 from paddle_tpu_torch.platform.flags import FLAGS
 from paddle_tpu_torch.sequence import SequenceBatch
 from paddle_tpu_torch.topology import LayerOutput, Topology
@@ -75,17 +81,9 @@ def _metric_scalar(value) -> torch.Tensor:
     return value.mean()
 
 
-def _refuse(where: str, **given) -> None:
-    """Raise for an argument of a slice not ported yet (``given``: name ->
-    (value passed, its no-op default, the slice))."""
-    for name, (value, default, part) in given.items():
-        enforce_that(value is default or value == default,
-                     f"{where}({name}=...) is not ported yet: it comes with "
-                     f"{part}", context="trainer")
-
-
 _A11 = "the resilience slice (A11)"
 _A12 = "the parallel slice (A12)"
+_A13 = "the tail slice (A13)"
 
 
 def _on_device(t: torch.Tensor, dev: torch.device) -> bool:
@@ -133,11 +131,13 @@ class SGD:
                  zero_axis: Optional[str] = None, zero: Optional[int] = None,
                  pipeline=None, faults=None, guard=None, tracer=None,
                  device: DeviceLike = None):
-        _refuse("SGD", mesh=(mesh, None, _A12),
-                zero_axis=(zero_axis, None, _A12), zero=(zero, None, _A12),
-                pipeline=(pipeline, None, _A12),
-                faults=(faults, None, _A11), guard=(guard, None, _A11),
-                tracer=(tracer, None, "the obs slice (A10)"))
+        refuse_unported("SGD", "trainer", mesh=(mesh, None, _A12),
+                        zero_axis=(zero_axis, None, _A12),
+                        zero=(zero, None, _A12),
+                        pipeline=(pipeline, None, _A12),
+                        faults=(faults, None, _A11),
+                        guard=(guard, None, _A11))
+        self._tracer = tracer if tracer is not None else NULL_TRACER
         costs = [cost] if isinstance(cost, LayerOutput) else list(cost)
         self.metrics = dict(metrics or {})
         for n in (extra_layers or []):
@@ -205,15 +205,15 @@ class SGD:
         runs :meth:`test` at each pass's end; ``prefetch > 0`` keeps that
         many batches fed and copied ahead on a producer thread
         (:func:`paddle_tpu_torch.reader.prefetch.device_prefetch`)."""
-        _refuse("train", save_dir=(save_dir, None, _A11),
-                start_pass=(start_pass, 0, _A11),
-                save_period_steps=(save_period_steps, 0, _A11),
-                resume=(resume, False, _A11),
-                async_save=(async_save, None, _A11), keep=(keep, None, _A11),
-                master=(master, None, "the tail slice (A13)"),
-                record_parser=(record_parser, None, "the tail slice (A13)"),
-                heartbeat_ttl_s=(heartbeat_ttl_s, None,
-                                 "the tail slice (A13)"))
+        refuse_unported(
+            "train", "trainer", save_dir=(save_dir, None, _A11),
+            start_pass=(start_pass, 0, _A11),
+            save_period_steps=(save_period_steps, 0, _A11),
+            resume=(resume, False, _A11),
+            async_save=(async_save, None, _A11), keep=(keep, None, _A11),
+            master=(master, None, _A13),
+            record_parser=(record_parser, None, _A13),
+            heartbeat_ttl_s=(heartbeat_ttl_s, None, _A13))
         enforce_that(reader is not None, "train() needs a reader",
                      context="trainer")
         handler = event_handler or _default_event_handler
@@ -281,6 +281,10 @@ class SGD:
                     pass_id, {k: float(np.mean(v)) if v else 0.0
                               for k, v in pass_metrics.items()},
                     self.parameters))
+            # the per-batch timers land next to the serving metrics on
+            # one scrape surface
+            stats.timer_stats().publish(default_registry(),
+                                        prefix="trainer_")
 
     def test(self, reader, feeding=None) -> v2_event.TestResult:
         """Costs and metrics of every batch of ``reader`` in inference

@@ -259,8 +259,9 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
     files = sorted((REPO / "paddle_tpu_torch").rglob("*.py")) + \
         [REPO / "chip_smoke.py"]
     assert len(files) > 10
-    # the sixth, eighth, ninth and tenth slices' modules (parallel/,
-    # reader/, dataset/ and image.py among them) are walked too
+    # the sixth, eighth, ninth, tenth and eleventh slices' modules
+    # (parallel/, reader/, dataset/, image.py, obs/, cli.py and utils.py
+    # among them) are walked too
     names = {str(f.relative_to(REPO)) for f in files}
     assert names >= {f"paddle_tpu_torch/{m}.py" for m in (
         "models/deepfm", "models/gan", "models/vae",
@@ -280,7 +281,10 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
         "tools/vgg_workload", "tools/profile_vgg_reader",
         "tools/profiling", "tools/vgg_grad_spread", "layer",
         "networks", "data_type",
-        "data_feeder")}
+        "data_feeder", "obs/__init__", "obs/__main__", "obs/trace",
+        "obs/registry", "obs/export", "obs/bridge", "obs/cli", "cli",
+        "utils", "__main__", "serving/speculate", "serving/kv_cache",
+        "serving/metrics", "tools/spec_workload")}
     bad = {str(f.relative_to(REPO)): n for f in files
            for n in _imports(f) if _forbidden(n)}
     assert bad == {}
@@ -314,7 +318,10 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             " paddle_tpu_torch.tools.vgg_workload,"
             " paddle_tpu_torch.tools.profile_vgg_reader,"
             " paddle_tpu_torch.tools.profiling,"
-            " paddle_tpu_torch.tools.vgg_grad_spread, chip_smoke; "
+            " paddle_tpu_torch.tools.vgg_grad_spread,"
+            " paddle_tpu_torch.obs, paddle_tpu_torch.obs.cli,"
+            " paddle_tpu_torch.cli, paddle_tpu_torch.utils,"
+            " paddle_tpu_torch.tools.spec_workload, chip_smoke; "
             "print(sorted(m for m in sys.modules if m in ('jax', "
             "'paddle_tpu') or m.startswith(('jax.', 'paddle_tpu.'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
