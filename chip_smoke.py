@@ -48,7 +48,26 @@ checkout of the repository).  Phases, each fatal on failure:
    32-page host tier, 'stored' (bit-identical K/V, tokens equal to a cold
    re-prefill), 'int8' (K/V within half a quantization step) and one byte
    flipped on the host (caught, a miss, the cold tokens);
-5b. cli: ``python -m paddle_tpu_torch train`` on a small config for one
+5b. the fleet (``tools/fleet_workload.py``) on the same full-width model,
+   shared by every replica: serve_fleet, 24 requests of 6 tenants'
+   512-token system prompts at 50/s over 4 replicas (41-page f32 pools,
+   8 pages a sequence, 4 slots) with replica 0 killed at tick 25, routed
+   by prefix affinity and by round robin: every request completed, no
+   duplicate completion, conservation on every pool, dead pools
+   released, B4 once a layer a step of every replica, each stream equal
+   to its result and the two policies' outputs equal (a difference only
+   at a near tie of the oracle), affinity's prefix hit rate at least
+   round robin's; serve_disagg, 24 requests (70% on one hot 512-token
+   prompt) over 4 unified replicas, then 2 prefill + 2 decode replicas
+   (chain migrations applied, the migration ledger balanced, outputs
+   equal to the unified fleet's), on int8 pools (migration bytes a
+   request at most 0.35 of f32's) and with decode replica 3 killed
+   (resubmits re-adopt prefix pages); migrate_kernel, one chain moved
+   between two engines on f32, bf16 and int8 pools, B4 over the imported
+   pages right after the import against its plain version, the pages
+   bit-identical to the blob's; fleet_checks, the fleet, migrate,
+   control and kv_cache gates and ``obs.cli.seeded_chaos`` on the card;
+5c. cli: ``python -m paddle_tpu_torch train`` on a small config for one
    pass on the card, then ``train --job=test`` over its tar,
    ``dump_config``, ``version`` (exit 0) and a config without a reader
    (exit 2);
@@ -120,11 +139,12 @@ checkout of the repository).  Phases, each fatal on failure:
     sources, with ``<e>`` banned by a ``candidate_adjust`` until each
     source's drawn target length (outputs of 10-80 words, as the data's)
     and, as the worst case, until step 250: ms a batch, steps taken,
-    sentences/s, B6 launched 2 x the source frames a batch; every step of
-    the timed runs against the CPU path with the same weights, made to
-    follow the card's beams (``nmt_workload.Replay``): the same choices,
-    or others only at a near tie, the same log-probabilities, the same
-    paths and scores at the end;
+    sentences/s, B6 launched 2 x the source frames a batch; at the target
+    lengths every step of the timed runs against the CPU path with the
+    same weights, made to follow the card's beams
+    (``nmt_workload.Replay``): the same choices, or others only at a near
+    tie, the same log-probabilities, the same paths and scores at the
+    end; the worst case's two card runs the same bits;
 13. image_parity: ResNet-18 at 64 px, batch 8, in f32 (TF32 off): 3
     ``Momentum(0.9, 0.01)`` steps through the port's plain CPU path, and
     before each the same step on the card (cuDNN, channels-last maps) from
@@ -310,6 +330,7 @@ import torch
 # the port must come from this checkout; outside it this import fails
 from paddle_tpu_torch.convert import parameters_from_numpy, state_from_numpy
 from paddle_tpu_torch.tools import ctr_workload as cw
+from paddle_tpu_torch.tools import fleet_workload as fw
 from paddle_tpu_torch.tools import gan_vae_workload as gw
 from paddle_tpu_torch.tools import image_workload as iw
 from paddle_tpu_torch.tools import nested_workload as nestw
@@ -431,7 +452,8 @@ def run_kernel_cases(dev, cases=None, phase: str = "kernel",
 # ---------------------------------------------------------------------------
 
 def check_against_reference(model, prompts, outputs,
-                            new_tokens: int = NEW_TOKENS) -> list:
+                            new_tokens: int = NEW_TOKENS,
+                            what: str = "serve") -> list:
     """Every request's tokens against the port's non-paged greedy oracle
     on the card.  A mismatch passes only as a near tie: the oracle's
     top-two logit gap at the first differing position under 1e-3 of its
@@ -449,7 +471,7 @@ def check_against_reference(model, prompts, outputs,
         logits = reference_logits(model, prompt + want[:j])
         top2 = np.sort(logits)[-2:]
         gap, top = float(top2[1] - top2[0]), float(top2[1])
-        tie = {"phase": "serve", "request": i, "first_diff": j,
+        tie = {"phase": what, "request": i, "first_diff": j,
                "top_logit": top, "top2_gap": gap,
                "near_tie": gap < 1e-3 * abs(top)}
         emit(tie)
@@ -886,6 +908,291 @@ def serve_host_tier(model, dev) -> list:
             raise AssertionError(f"serve_host_tier failed: {res}")
         del eng
         out.append(res)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the fleet: routing, kills, the page-migration plane, the gates
+# ---------------------------------------------------------------------------
+
+def _fleet_run(model, dev, traffic, phase: str, drive: str, **kw) -> dict:
+    """One drive of ``traffic`` through a fleet of ``fw.REPLICAS``
+    engines sharing ``model`` (``fw.build_fleet(**kw)``): every request
+    terminal, no duplicate completion, conservation on every pool (the
+    drain's check), every dead replica's pool released, B4 once a layer a
+    step of every replica, and the drive's ledger (ticks, steps, TTFT p95
+    on the injected clock, routing, kill and migration counters) equal to
+    ``fw.LEDGERS[drive]``, which the CPU drive holds too.  Each
+    ``on_token`` stream is held to its result under the near-tie rule (a
+    kill's replay may stitch onto prefix pages cached on the survivor
+    where the first attempt prefilled whole)."""
+    from paddle_tpu_torch.serving.decode_attention import \
+        ragged_paged_attention_kernel as kernel
+
+    fleet = fw.build_fleet(model, dev, **kw)
+    torch.cuda.synchronize()
+    kernel.launches = 0
+    out = fw.run(fleet, traffic)
+    torch.cuda.synchronize()
+    launches = kernel.launches
+    steps = sum(r.engine.metrics.step_dispatches for r in fleet.replicas)
+    snap = out["snapshot"]
+    dead = [r.idx for r in fleet.replicas if str(r.state) == "dead"]
+    res = {"phase": phase, "drive": drive,
+           **{k: v for k, v in kw.items() if k != "kill_at"},
+           "kill_at": {str(t): i for t, i in (kw.get("kill_at") or {}
+                                              ).items()},
+           "requests": len(traffic), "ticks": out["ticks"],
+           "wall_s": out["wall_s"], "tokens": out["tokens"],
+           "tokens_per_s_host": out["tokens"] / out["wall_s"],
+           "ttft_ms_p95_clock": 1e3 * float(np.percentile(out["ttft_s"],
+                                                           95)),
+           "ttft_ms_mean_clock": 1e3 * float(np.mean(out["ttft_s"])),
+           "statuses": sorted(set(out["status"])),
+           "dead_pools_released": all(fleet.replicas[i].engine._kv is None
+                                      for i in dead),
+           "kernel_launches": launches,
+           "launches_expected": MODEL["num_layers"] * steps,
+           **{k.replace("fleet_", ""): snap[k] for k in (
+               "fleet_completed", "fleet_resubmits",
+               "fleet_duplicate_completions", "fleet_prefix_hit_rate",
+               "fleet_affinity_hits", "fleet_replicas_dead",
+               "fleet_migrations_started", "fleet_migrations_applied",
+               "fleet_migration_fallbacks", "fleet_migrations_aborted",
+               "fleet_pages_migrated", "fleet_migration_bytes",
+               "fleet_cross_replica_seeds", "fleet_migration_resubmits")}}
+    if fleet._disagg:
+        from paddle_tpu_torch.serving import check_migration_conservation
+
+        check_migration_conservation(fleet)
+        res["migration_conservation"] = True
+    res["stream_near_ties"] = same_streams(
+        model, out["prompts"], out["streams"], out["results"],
+        f"{phase}_stream")
+    res["ledger"] = out["ledger"]
+    res["ledger_as_expected"] = out["ledger"] == fw.LEDGERS[drive]
+    emit(res)
+    if res["statuses"] != ["completed"] or res["completed"] != len(traffic) \
+            or res["duplicate_completions"] or not res["dead_pools_released"]:
+        raise AssertionError(f"{phase}: {res}")
+    if not res["ledger_as_expected"]:
+        raise AssertionError(f"{phase} {drive}: ledger {out['ledger']}, "
+                             f"expected {fw.LEDGERS[drive]}")
+    if launches == 0 or launches != res["launches_expected"]:
+        raise AssertionError(f"{phase}: B4 launched {launches} times, "
+                             f"layers x steps {res['launches_expected']}")
+    res["outputs"], res["prompts"] = out["results"], out["prompts"]
+    res["resubmitted"] = [i for i, f in enumerate(out["frids"])
+                          if fleet._requests[f].resubmits]
+    del fleet
+    torch.cuda.empty_cache()
+    return res
+
+
+def _line(res: dict) -> dict:
+    return {k: v for k, v in res.items()
+            if k not in ("outputs", "prompts", "resubmitted")}
+
+
+def serve_fleet(model, dev) -> dict:
+    """``fw.fleet_traffic`` (6 tenants' 512-token system prompts, 24
+    requests at 50/s on the fleet clock) over 4 replicas with replica 0
+    killed at tick 25, routed by prefix affinity and by round robin:
+    each drive as :func:`_fleet_run`, the completed outputs equal across
+    the two policies under the near-tie rule, affinity's prefix hit rate
+    at least round robin's; and a sample of affinity's outputs (every
+    request the kill resubmitted, and every sixth) held against the
+    non-paged greedy oracle under the same rule."""
+    runs = {r: _fleet_run(model, dev, fw.fleet_traffic(), "serve_fleet",
+                          f"fleet_{r}", routing=r, kill_at=fw.KILL_AT)
+            for r in ("affinity", "round_robin")}
+    a, b = runs["affinity"], runs["round_robin"]
+    ties = same_streams(model, a["prompts"], a["outputs"], b["outputs"],
+                        "serve_fleet_policies")
+    sample = sorted(set(a["resubmitted"]) | set(range(0, len(a["outputs"]),
+                                                      6)))
+    oracle = check_against_reference(
+        model, [a["prompts"][i] for i in sample],
+        [a["outputs"][i] for i in sample], fw.NEW_TOKENS,
+        "serve_fleet_oracle")
+    res = {"phase": "serve_fleet_summary", "policy_near_ties": ties,
+           "oracle_requests": sample, "oracle_near_ties": len(oracle),
+           "prefix_hit_rate": {k: v["prefix_hit_rate"]
+                               for k, v in runs.items()},
+           "launches": sum(v["kernel_launches"] for v in runs.values())}
+    emit(res)
+    if a["prefix_hit_rate"] < b["prefix_hit_rate"] or \
+            not a["resubmitted"]:
+        raise AssertionError(f"serve_fleet: {res}")
+    return {**res, "runs": {k: _line(v) for k, v in runs.items()}}
+
+
+def serve_disagg(model, dev) -> dict:
+    """``fw.disagg_traffic`` (70% on one hot 512-token prompt, 24
+    requests at 60/s) over 4 unified replicas, then over 2 prefill + 2
+    decode replicas with ``migrate_budget`` 16: chain migrations applied,
+    the migration ledger balanced, outputs equal to the unified fleet's
+    under the near-tie rule; then the disaggregated drive on int8 pools
+    (migration bytes a request at most 0.35 of f32's: (D + 4) / 4D =
+    0.2578 at D 128) and with decode replica 3 killed at tick 13 (death
+    resubmits re-adopt prefix pages from a surviving replica), whose
+    outputs are held to the unified fleet's under the near-tie rule."""
+    tr = fw.disagg_traffic()
+    uni = _fleet_run(model, dev, tr, "serve_disagg", "disagg_unified",
+                     routing="affinity")
+    dis = _fleet_run(model, dev, tr, "serve_disagg", "disagg_roles",
+                     roles=fw.ROLES)
+    ties = same_streams(model, uni["prompts"], dis["outputs"],
+                        uni["outputs"], "serve_disagg_vs_unified")
+    i8 = _fleet_run(model, dev, tr, "serve_disagg", "disagg_int8",
+                    roles=fw.ROLES, kv_dtype="int8")
+    kill = _fleet_run(model, dev, tr, "serve_disagg", "disagg_kill",
+                      roles=fw.ROLES, kill_at=fw.DISAGG_KILL_AT)
+    kill_ties = same_streams(model, uni["prompts"], kill["outputs"],
+                             uni["outputs"], "serve_disagg_kill_vs_unified")
+    def per_request(r):
+        return r["migration_bytes"] / max(1, r["migrations_applied"])
+
+    ratio = per_request(i8) / per_request(dis)
+    d = MODEL["head_dim"]
+    res = {"phase": "serve_disagg_summary", "unified_near_ties": ties,
+           "kill_near_ties": kill_ties,
+           "migrations_applied": dis["migrations_applied"],
+           "int8_bytes_ratio": ratio,
+           "int8_bytes_ratio_expected": (d + 4) / (4 * d),
+           "kill_migration_resubmits": kill["migration_resubmits"],
+           "launches": sum(r["kernel_launches"]
+                           for r in (uni, dis, i8, kill))}
+    emit(res)
+    if dis["migrations_applied"] == 0 or ratio > 0.35 or \
+            kill["migration_resubmits"] == 0:
+        raise AssertionError(f"serve_disagg: {res}")
+    return {**res, "runs": [_line(r) for r in (uni, dis, i8, kill)]}
+
+
+def _raw_bytes(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(-1).view(torch.uint8)
+
+
+def migrate_kernel(model, dev) -> dict:
+    """One live chain exported from a CUDA engine and imported into a
+    second, for f32, bf16 and int8 pools: B4 launched over the imported
+    pages right after the import (no synchronize between: the uploads
+    are ordered on the stream), held against the plain version on the
+    same inputs (``ragged_cases.check``) and timed between CUDA events;
+    the pages read back bit-identical to the blob's; the destination
+    then finishes the request with pages conserved."""
+    from paddle_tpu_torch.serving import (BLOCK_ROWS, ServingEngine,
+                                          export_chain, import_chain)
+    from paddle_tpu_torch.serving.decode_attention import (
+        ragged_paged_attention_kernel as kernel,
+        ragged_paged_attention_reference as plain)
+    from paddle_tpu_torch.serving.kv_cache import NULL_PAGE, read_pages
+
+    rng = np.random.default_rng(SEED + 72)
+    prompt = rng.integers(2, MODEL["vocab_size"], 700).tolist()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 72)
+    out = {}
+    for kv in ("float32", "bfloat16", "int8"):
+        def engine():
+            return ServingEngine(model, eos_id=NO_EOS, num_pages=17,
+                                 max_pages_per_seq=8, max_slots=2,
+                                 kv_dtype=kv, use_kernel=True, device=dev)
+        src, dst = engine(), engine()
+        rid = src.submit(prompt, max_tokens=12)
+        while rid not in src.migratable_rids():
+            src.step()
+        src.step()
+        blob = export_chain(src, rid)
+        src.cancel(rid)
+        rid2 = import_chain(dst, blob)
+        req = dst._requests[rid2]
+        n = req.cache_len
+        table = torch.full((1, 8), NULL_PAGE, dtype=torch.int32)
+        table[0, :len(req.pages)] = torch.tensor(req.pages)
+        case = {"q": torch.randn((BLOCK_ROWS, MODEL["num_heads"],
+                                  MODEL["head_dim"]), generator=gen,
+                                 device=dev),
+                "k_pages": dst._kv.k[0], "v_pages": dst._kv.v[0],
+                "page_table": table.to(dev),
+                "kv_lens": torch.tensor([n], dtype=torch.int32, device=dev),
+                "row_seq": torch.zeros(BLOCK_ROWS, dtype=torch.int32,
+                                       device=dev),
+                "qpos": torch.arange(n - BLOCK_ROWS, n, dtype=torch.int32,
+                                     device=dev)}
+        if dst._kv.quantized:
+            case["k_scale"], case["v_scale"] = (dst._kv.k_scale[0],
+                                                dst._kv.v_scale[0])
+        got = kernel(*rc.args(case), **rc.scales(case))   # right after
+        torch.cuda.synchronize()
+        res = {"phase": "migrate_kernel", "kv_dtype": kv,
+               "pages": blob.num_pages, "tokens": n,
+               "blob_bytes": blob.nbytes,
+               "pool_head_dim": blob.pool_head_dim,
+               **rc.check(case, got), **rc.roofline(case),
+               "ms": time_ms(lambda: kernel(*rc.args(case),
+                                            **rc.scales(case))),
+               "timer": "events",
+               "plain_ms": time_ms(lambda: plain(*rc.args(case),
+                                                 **rc.scales(case)),
+                                   reps=3, warmup=1)}
+        back = read_pages(dst._kv, req.pages[:blob.num_pages])
+        res["pages_bit_identical"] = all(
+            torch.equal(_raw_bytes(a), _raw_bytes(b))
+            for a, b in zip(back, (blob.k, blob.v, blob.k_scale,
+                                   blob.v_scale)) if b is not None)
+        dst.run()
+        src.run()
+        res["drained"] = dst.result(rid2) is not None and \
+            len(dst.result(rid2)) == 12 and dst.healthz()["ok"] and \
+            src.healthz()["ok"]
+        emit(res)
+        if not (res["within_tolerance"] and res["pages_bit_identical"]
+                and res["drained"]):
+            raise AssertionError(f"migrate_kernel {kv}: {res}")
+        out[kv] = res
+        del src, dst, case, got, blob
+    torch.cuda.empty_cache()
+    return out
+
+
+def fleet_checks(dev) -> list:
+    """The fleet slice's standalone gates on the card at the JAX
+    package's widths (vocab 64, one layer, two heads of 8, page 4): the
+    fleet, migrate, control and kv_cache ``main(["check"])`` and
+    ``obs.cli.seeded_chaos``; each exits 0."""
+    import contextlib
+    import io
+
+    from paddle_tpu_torch.obs.cli import seeded_chaos
+    from paddle_tpu_torch.serving import control, fleet, kv_cache, migrate
+
+    out = []
+    for mod in (fleet, migrate, control, kv_cache):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc_ = mod.main(["check", "--device", torch.device(dev).type])
+        res = {"phase": "fleet_checks", "gate": mod.__name__, "exit": rc_,
+               "output": buf.getvalue().strip(),
+               "seconds": time.perf_counter() - t0}
+        emit(res)
+        if rc_ != 0:
+            raise AssertionError(f"{mod.__name__} check: {res}")
+        out.append(res)
+    t0 = time.perf_counter()
+    tracer, fl, frids = seeded_chaos(device=dev)
+    snap = fl.snapshot()
+    res = {"phase": "fleet_checks", "gate": "obs.cli.seeded_chaos",
+           "events": len(tracer.events),
+           "completed": snap["fleet_completed"], "requests": len(frids),
+           "resubmits": snap["fleet_resubmits"],
+           "replicas_dead": snap["fleet_replicas_dead"],
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    if res["completed"] != len(frids) or snap["fleet_duplicate_completions"]:
+        raise AssertionError(f"seeded_chaos: {res}")
+    out.append(res)
     return out
 
 
@@ -1599,13 +1906,13 @@ def train_nmt(dev, card: str):
 def generate_nmt(dev, sgd, card: str) -> dict:
     """Each of ``nw.GENERATIONS`` (``<e>`` banned until each source's
     target length, and until step 250): its result, by name.  The timed
-    runs (the bf16 policy) keep their beams each step, and the CPU path
-    follows the first of them step by step from the same weights
-    (``nw.replay``, within ``nw.BF16_ATOL``), and the second too unless
-    it is the first to the bit; then, at the target lengths, one run with
-    the policy off, held within ``nw.TIE_ATOL`` at every step (the
-    250-step worst case's bf16 run is replayed, not an f32 one: it took
-    ~38 s of the host's CPU)."""
+    runs (the bf16 policy) keep their beams each step; at the target
+    lengths the CPU path follows the first of them step by step from the
+    same weights (``nw.replay``, within ``nw.BF16_ATOL``), and the second
+    too unless it is the first to the bit, then one run with the policy
+    off, held within ``nw.TIE_ATOL`` at every step.  The 250-step worst
+    case is not replayed on the CPU (it took ~38 s of the host's CPU):
+    its two card runs must be the same bits."""
     seed = nw.SEED + 4
     srcs = nw.sources(seed)
     frames = nw.source_frames(srcs)
@@ -1634,9 +1941,14 @@ def generate_nmt(dev, sgd, card: str) -> dict:
         b6 = rw.launches()["gru_step"]
         same = nw.runs_equal(runs[0], runs[1])
         t0 = time.perf_counter()
+        # the worst case is not replayed on the CPU (~38 s of the host):
+        # its two card runs must be the same bits instead (C5)
+        replayed = runs[:1] if same else runs
+        if variant == "eos_banned":
+            replayed = []
         checks = [dict(nw.replay(cpu_params, cpu_state, srcs, until, run,
                                  atol=nw.BF16_ATOL), run=i, policy="bf16")
-                  for i, run in enumerate(runs[:1] if same else runs)]
+                  for i, run in enumerate(replayed)]
         if variant == "target_lengths":
             with nw.f32_policy():          # a run held at TIE_ATOL
                 ban.clear()
@@ -1662,6 +1974,9 @@ def generate_nmt(dev, sgd, card: str) -> dict:
                "card_runs_equal": same, "cpu_replay": checks,
                "replay_s": replay_s, "nvidia_smi": card}
         emit(res)
+        if variant == "eos_banned" and not same:
+            raise AssertionError("NMT generation eos_banned: the two card "
+                                 "runs differ")
         if not (res["finite_scores"] and all(c["ok"] for c in checks) and
                 tokens.shape == (len(srcs), nw.BEAM, nw.MAX_LENGTH) and
                 ((tokens >= 0) &
@@ -3445,7 +3760,13 @@ def vgg16(dev, card: str) -> dict:
         sgd.step(feeds)
         torch.cuda.synchronize()
     busy = vw.breakdown(prof, 1, wall)
-    del sgd, feeds
+    del sgd
+    torch.cuda.empty_cache()
+    # the fall gate: a fresh trainer's trajectory under fixed dropout
+    # masks (vw.fall_costs), not the timed steps (their 7th cost rises
+    # after the 6th by a run-to-run amount at the workload's rate)
+    fall = vw.fall_costs(dev, feeds)
+    del feeds
     torch.cuda.empty_cache()
     parity = vgg16_parity(dev)
     flops = vw.step_flops()
@@ -3461,6 +3782,9 @@ def vgg16(dev, card: str) -> dict:
            "step_tflop": flops / 1e12,
            "bound_ms_bf16": 1e3 * flops / BF16_FLOPS_PER_S,
            "costs_device_feed": costs, "costs_train": train_costs,
+           "fall": {"learning_rate": vw.FALL_LR,
+                    "momentum": vw.FALL_MOMENTUM, "costs": fall,
+                    "min_drop": min(a - b for a, b in zip(fall, fall[1:]))},
            "pass_batches": VGG_PASS_BATCHES, "shuffle_buf": vw.SHUFFLE_BUF,
            "timed_reader_steps": passes[0].steps, "ms_a_step": ms,
            "images_per_s": {k: vw.BATCH * 1e3 / v for k, v in ms.items()},
@@ -3469,9 +3793,10 @@ def vgg16(dev, card: str) -> dict:
            "image_decoder": decoder,
            "setup_s": setup_s, "nvidia_smi": card}
     emit(res)
-    if not (np.all(np.isfinite(costs + train_costs)) and
-            costs[-1] < costs[0]):
-        raise AssertionError(f"vgg16: costs {costs} not finite and falling")
+    if not (np.all(np.isfinite(costs + train_costs + fall)) and
+            all(b < a for a, b in zip(fall, fall[1:]))):
+        raise AssertionError(f"vgg16: costs {costs} not finite, or the "
+                             f"fall trajectory {fall} not falling")
     return res
 
 
@@ -3529,10 +3854,17 @@ def main() -> int:
                      **{f"draft_{d['draft']}": d["kernel_launches"]
                         for d in drafts}}
     serve_host_tier(model, dev)
+    lap("upper_tier")
+
+    fleet_served = serve_fleet(model, dev)
+    disagg = serve_disagg(model, dev)
+    migrated = migrate_kernel(model, dev)
+    fleet_checks(dev)
     del model, spec
     torch.cuda.empty_cache()
+    lap("fleet")
     cli_phase()
-    lap("upper_tier")
+    lap("cli")
 
     # the translation cases' plain versions (thousands of small kernels a
     # call at S 4096) are timed once between CUDA events: profiling them
@@ -3646,7 +3978,16 @@ def main() -> int:
                                "bound_ms": c["bound_ms"],
                                "bound_by": c["bound_by"],
                                "real_rows": c["real_rows"]}
-                   for c in verify}}]
+                   for c in verify},
+        # the fleet: B4 on every replica's steps (launches on the main
+        # path's fleet drives), and one call over pages a migration
+        # imported into a second engine, held against the plain version
+        "launches_fleet": {"serve_fleet": fleet_served["launches"],
+                           "serve_disagg": disagg["launches"]},
+        "migrate_kernel": {kv: {k: r[k] for k in (
+            "max_abs_err", "ms", "timer", "plain_ms", "bound_ms",
+            "bound_by", "pages", "pages_bit_identical")}
+            for kv, r in migrated.items()}}]
     flash_main = flash["a_bf16_8x1024_causal"]
     replaces = {"flash_fwd": "paddle_tpu/ops/attention.py:142",
                 "flash_bwd_kv": "paddle_tpu/ops/attention.py:289",

@@ -178,6 +178,85 @@ FLAGS.define("serving_host_kv_dtype", "stored",
              "(swap-in is bit-identical); 'int8' transcodes float pages "
              "to int8 + per-token f32 scales on spill")
 
+# the fleet: replicas, leases, roles, migration and the tenant control
+# plane (serving/fleet.py, migrate.py, control.py)
+FLAGS.define("serving_fleet_replicas", 4,
+             "default replica count for FleetRouter: N ServingEngine "
+             "replicas behind one prefix-affinity front-door. Traffic "
+             "routes by chained prompt-block hash (the PrefixCache key "
+             "chain) with healthz-driven load balancing as tiebreak and "
+             "overflow; a dead replica's in-flight requests resubmit to "
+             "survivors.", parser=int)
+FLAGS.define("serving_fleet_heartbeat_s", 1.0,
+             "fleet replica lease scale on the fleet's (possibly "
+             "injected) clock: the lease TTL is 3x this. Leases renew "
+             "every fleet tick (renewal is a cheap host op; only a "
+             "heartbeat-partition fault blocks it), so a replica dies "
+             "when its renewals stop for the TTL — then its token is "
+             "dropped (a zombie can never ack after its slot is "
+             "reclaimed) and its in-flight requests resubmit. On a "
+             "wall clock set this above the worst-case single tick "
+             "(first-compile spikes), since a tick longer than the TTL "
+             "lapses every lease mid-tick.", parser=float)
+FLAGS.define("serving_fleet_resubmit_budget", 2,
+             "max death-driven resubmits per fleet request. A request "
+             "whose replica dies is resubmitted to a survivor with its "
+             "ORIGINAL absolute deadline at most this many times, then "
+             "FAILED — bounded recovery, never an infinite "
+             "kill->resubmit loop. 0 = fail on the first death.",
+             parser=int)
+FLAGS.define("serving_fleet_roles", "",
+             "comma-separated replica role list for a disaggregated "
+             "fleet ('prefill,prefill,decode,decode'); shorter lists "
+             "pad with 'unified', empty = every replica unified (the "
+             "classic fleet). Prompts route to prefill/unified "
+             "replicas; a prefill-class replica hands each request off "
+             "to the least-loaded decode-class replica after its first "
+             "token via the page-migration plane (export_chain/"
+             "import_chain), so long prefills never steal verify-row "
+             "budget from chatty decoders.")
+FLAGS.define("serving_migrate_budget", 16,
+             "page-migration admission budget: KV pages a DESTINATION "
+             "replica accepts per fleet tick across in-flight "
+             "migrations (chain handoffs and cross-replica prefix "
+             "seeds). Charged like chunked prefill — a blob of n pages "
+             "waits ceil(n/budget) ticks in the destination's transfer "
+             "queue and never blocks its decode tick. 0 disables "
+             "migration (prefill-class replicas then decode their own "
+             "requests to completion).", parser=int)
+FLAGS.define("serving_tenant_classes", "",
+             "multi-tenant SLO registry for the fleet control plane "
+             "(serving/control.py): a comma list of 'name:class' pairs "
+             "('alice:interactive,bulk:batch'; a bare name means "
+             "standard). Classes bind latency-tier deadlines "
+             "(interactive 0.5s / standard 2s / batch none), WFQ "
+             "weights (4/2/1) and preemption precedence (batch slots "
+             "are victimized first). Empty = no registry: submits keep "
+             "their explicit deadlines, quotas and precedence are off. "
+             "Unknown tenants auto-register as standard on first "
+             "touch.")
+FLAGS.define("serving_wfq", False,
+             "weighted fair queuing at the FleetRouter: submits buffer "
+             "in per-tenant virtual-time queues (prompt-token-weighted "
+             "service, weights from the tenant registry) and release "
+             "to dispatch each tick bounded by the READY replicas' "
+             "admission slack — one tenant's 10x prompt storm backlogs "
+             "only its own queue while other tenants keep their "
+             "deadline SLO. Off = the classic submit->dispatch FIFO.")
+FLAGS.define("serving_autoscale", False,
+             "fleet autoscaler policy loop (serving/control.py "
+             "Autoscaler) on the fleet's injected clock: joins a "
+             "replica when any pressure signal breaches its hi "
+             "threshold (queue_wait_ms_p95, live-page fraction, "
+             "prefill backlog, WFQ backlog, fresh deadline misses) and "
+             "drains the newest idle replica when the fleet is "
+             "provably idle — never the last prefill-capable replica "
+             "of a disaggregated fleet. Hysteresis via "
+             "serving_autoscale_cooldown.")
+FLAGS.define("serving_autoscale_cooldown", 10,
+             "autoscaler hysteresis: fleet ticks with NO scaling "
+             "action after any join/drain, so one pressure spike "
+             "cannot flap the fleet size tick-over-tick.", parser=int)
 # obs: tracing and the metrics registry
 FLAGS.define("obs_trace", False,
              "request-scoped span tracing (paddle_tpu_torch.obs), read "

@@ -2,8 +2,11 @@
 PyTorch/CUDA: block-paged KV storage (``kv_cache``), the ragged paged
 attention kernel and its plain version (``decode_attention``), the
 continuous-batching scheduler (``scheduler``), token choice
-and speculation (``speculate``), the metrics (``metrics``) and the
-user-facing :class:`ServingEngine` (``engine``).
+and speculation (``speculate``), the metrics (``metrics``), the
+user-facing :class:`ServingEngine` (``engine``), the fault plans
+(``faults``), and the fleet: :class:`FleetRouter` (``fleet``), the
+page-migration plane (``migrate``) and the tenant control plane
+(``control``).
 """
 
 from paddle_tpu_torch.serving.decode_attention import (
@@ -11,12 +14,21 @@ from paddle_tpu_torch.serving.decode_attention import (
     expand_decode_rows, paged_decode_attention, quant_parity_error,
     ragged_paged_attention, ragged_paged_attention_kernel,
     ragged_paged_attention_reference)
+from paddle_tpu_torch.serving.control import (DEFAULT_CLASSES,
+                                              AdmissionLedger, Autoscaler,
+                                              AutoscalePolicy, TenantClass,
+                                              TenantRegistry, TenantSpec,
+                                              WeightedFairQueue,
+                                              check_control_conservation)
 from paddle_tpu_torch.serving.engine import (DecodeModel, DecoderLM,
                                              ServingEngine,
                                              greedy_decode_reference,
                                              reference_logits)
-from paddle_tpu_torch.serving.faults import (InjectedDeviceError,
+from paddle_tpu_torch.serving.faults import (FaultPlan, FleetFaultPlan,
+                                             InjectedDeviceError,
                                              ManualClock, PageLeakError)
+from paddle_tpu_torch.serving.fleet import (FleetRouter, Replica,
+                                            ReplicaState)
 from paddle_tpu_torch.serving.kv_cache import (NULL_PAGE, HostPageTier,
                                                KVPages, PagedKVConfig,
                                                PagePool, PrefixCache,
@@ -31,7 +43,11 @@ from paddle_tpu_torch.serving.kv_cache import (NULL_PAGE, HostPageTier,
                                                resolve_kv_dtype,
                                                write_pages, write_prompt,
                                                zero_pages)
-from paddle_tpu_torch.serving.metrics import ServingMetrics
+from paddle_tpu_torch.serving.metrics import FleetMetrics, ServingMetrics
+from paddle_tpu_torch.serving.migrate import (MigrationBlob,
+                                              check_migration_conservation,
+                                              export_chain, export_prefix,
+                                              import_chain, import_prefix)
 from paddle_tpu_torch.serving.scheduler import (ContinuousBatchingScheduler,
                                                 Request, RequestStatus,
                                                 SchedulerConfig, bucket_for,
@@ -57,7 +73,14 @@ __all__ = [
     "HostPageTier",
     "ContinuousBatchingScheduler", "Request", "RequestStatus",
     "SchedulerConfig", "bucket_for", "pack_prefill_chunks",
-    "ServingMetrics", "InjectedDeviceError", "ManualClock",
-    "PageLeakError", "SamplingParams", "accept_tokens", "next_token",
+    "ServingMetrics", "FleetMetrics",
+    "FaultPlan", "FleetFaultPlan", "InjectedDeviceError", "ManualClock",
+    "PageLeakError",
+    "FleetRouter", "Replica", "ReplicaState",
+    "MigrationBlob", "export_chain", "import_chain", "export_prefix",
+    "import_prefix", "check_migration_conservation",
+    "TenantClass", "TenantSpec", "TenantRegistry", "DEFAULT_CLASSES",
+    "AdmissionLedger", "WeightedFairQueue", "AutoscalePolicy", "Autoscaler",
+    "check_control_conservation", "SamplingParams", "accept_tokens", "next_token",
     "warp_probs", "Proposer", "NGramProposer", "DraftProposer",
 ]

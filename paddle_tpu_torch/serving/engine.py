@@ -38,11 +38,19 @@ head-of-queue request's lookup swaps a verified continuation back in.
 ``tracer``/``registry`` put every lifecycle edge on one obs timeline and
 the metrics on one scrape surface.
 
+Robustness: every failure path is driven deterministically by a
+:class:`~paddle_tpu_torch.serving.faults.FaultPlan` (``faults``: an
+injected clock, decode-step errors absorbed by the step retry
+(``decode_retries``, ``transient_errors``), NaN logits, page pressure,
+prefix-hash collisions, cache storms, torn and flipped host spills).
+The fleet reads ``role`` (prefill/decode/unified), ``drain()``,
+``load()`` and ``tenant_counts()``, and moves live requests between
+engines through ``migratable_rids()`` and ``apply_imported_pages()``
+(``serving/migrate.py``).
+
 Not ported yet (see ROADMAP.md): tensor parallelism (``mesh``,
-``tp_axis``: A12), the fault plan and its step retry (``faults``,
-``decode_retries``, ``transient_errors``: A11), fleet roles, drain and
-page migration (A10b), and the compiled-path auditors' budgets
-(``xla_*``: A13).  Passing one of those raises, naming its slice.
+``tp_axis``: A12) and the compiled-path auditors' budgets (``xla_*``:
+A13).  Passing one of those raises, naming its slice.
 """
 
 from __future__ import annotations
@@ -68,7 +76,9 @@ from paddle_tpu_torch.platform.flags import FLAGS
 from paddle_tpu_torch.serving.decode_attention import (
     BLOCK_ROWS, _ragged_reference_blocked, attention_path,
     expand_decode_rows, ragged_paged_attention)
-from paddle_tpu_torch.serving.faults import PageLeakError
+from paddle_tpu_torch.serving.faults import (FaultPlan,
+                                             InjectedDeviceError,
+                                             PageLeakError)
 from paddle_tpu_torch.serving.kv_cache import (NULL_PAGE, _CHAIN_SEED,
                                                HostPageTier, KVPages,
                                                PagedKVConfig, PagePool,
@@ -257,8 +267,6 @@ def _parse_buckets(spec: str) -> Tuple[int, ...]:
     return tuple(sorted(int(t) for t in spec.split(",") if t.strip()))
 
 
-_A10B = "the fleet slice (A10b)"
-_A11 = "the resilience slice (A11)"
 _A12 = "the parallel slice (A12)"
 _A13 = "the tail slice (A13)"
 
@@ -289,12 +297,12 @@ class ServingEngine:
                  queue_deadline_s: Optional[float] = None,
                  preempt_budget: Optional[int] = None,
                  watchdog_ticks: Optional[int] = None,
-                 decode_retries: Optional[int] = None,
-                 transient_errors: Optional[Tuple[type, ...]] = None,
+                 decode_retries: int = 2,
+                 transient_errors: Tuple[type, ...] = (InjectedDeviceError,),
                  max_retained: int = 10000,
                  prefix_cache: Optional[bool] = None,
                  prefill_chunk: Optional[int] = None,
-                 faults=None,
+                 faults: Optional[FaultPlan] = None,
                  time_fn: Optional[Callable[[], float]] = None,
                  tracer=None, registry: Optional[MetricsRegistry] = None,
                  mesh=None, tp_axis: Optional[str] = None,
@@ -312,11 +320,8 @@ class ServingEngine:
                  host_kv_dtype: Optional[str] = None,
                  device: DeviceLike = None):
         refuse_unported(
-            "ServingEngine", "serving", faults=(faults, None, _A11),
-            decode_retries=(decode_retries, None, _A11),
-            transient_errors=(transient_errors, None, _A11),
+            "ServingEngine", "serving",
             mesh=(mesh, None, _A12), tp_axis=(tp_axis, None, _A12),
-            role=(role, "unified", _A10B),
             xla_peak_bytes=(xla_peak_bytes, None, _A13),
             xla_flops=(xla_flops, None, _A13),
             xla_comm_bytes=(xla_comm_bytes, None, _A13))
@@ -325,6 +330,14 @@ class ServingEngine:
                      f"model is on {model.device}, engine on {self.device}",
                      context="serving")
         self.eos_id = int(eos_id)
+        # fleet class: "prefill" replicas hand requests off to "decode"
+        # replicas after the first token through the page-migration plane
+        # (serving/migrate.py); "unified" runs both phases.  The engine
+        # treats every role alike — the FleetRouter reads it to route
+        self.role = str(role)
+        enforce_that(self.role in ("prefill", "decode", "unified"),
+                     f"role must be prefill/decode/unified, got {role!r}",
+                     context="serving")
         self.model = model
         page_size = int(page_size or FLAGS.serving_page_size)
         max_slots = int(max_slots or FLAGS.serving_max_slots)
@@ -351,8 +364,20 @@ class ServingEngine:
             watchdog_ticks = int(FLAGS.serving_watchdog_ticks)
         self.queue_deadline_s = queue_deadline_s or None   # 0 = disabled
         self.watchdog_ticks = int(watchdog_ticks)          # 0 = disabled
+        self.decode_retries = max(0, int(decode_retries))
+        # the exceptions the step retry treats as transient.  Default:
+        # only the fault plan's injected error, raised BEFORE the step
+        # runs; a real failure mid-step may have written part of the
+        # tick's K/V in place, so widening the set to device errors
+        # would need a pool snapshot this engine does not take
+        self.transient_errors = tuple(transient_errors)
         self.max_retained = max(1, int(max_retained))
-        self._time = time_fn or time.monotonic
+        self.faults = faults
+        # clock precedence: fault-plan clock > explicit time_fn > monotonic
+        if faults is not None and faults.clock is not None:
+            self._time = faults.clock
+        else:
+            self._time = time_fn or time.monotonic
         self.kv_cfg = PagedKVConfig(
             num_layers=model.num_layers, num_heads=model.num_heads,
             head_dim=model.head_dim, page_size=page_size,
@@ -367,7 +392,8 @@ class ServingEngine:
         self._prefill_chunk = max(0, int(prefill_chunk))
         self.cache: Optional[PrefixCache] = None
         if prefix_cache:
-            self.cache = PrefixCache(self.pool, page_size)
+            hash_fn = faults.cache_hash_fn() if faults is not None else None
+            self.cache = PrefixCache(self.pool, page_size, hash_fn=hash_fn)
         # the host tier: evicted reclaimable pages demote to pinned host
         # memory (checksummed) instead of being destroyed; lookups that
         # run off the device index swap the continuation back in.  Off
@@ -383,7 +409,8 @@ class ServingEngine:
             self.host_tier = HostPageTier(
                 host_bytes, dtype=str(host_kv_dtype if host_kv_dtype
                                       is not None
-                                      else FLAGS.serving_host_kv_dtype))
+                                      else FLAGS.serving_host_kv_dtype),
+                faults=faults)
             self.cache.host_tier = self.host_tier
             self.cache.page_reader = \
                 lambda pages: read_pages(self._kv, pages)
@@ -474,6 +501,7 @@ class ServingEngine:
         self._last_tick_at: Optional[float] = None
         self._prev_tick_busy = False
         self._tick_dur_ema = 0.0      # drives the unmeetable-deadline shed
+        self._draining = False        # drain(): REJECT new submits
 
     # ---- observability wiring -------------------------------------------
 
@@ -599,15 +627,17 @@ class ServingEngine:
                now: Optional[float] = None,
                queue_deadline_s: Optional[float] = None,
                deadline_s: Optional[float] = None,
-               sampling: Optional[SamplingParams] = None) -> int:
+               sampling: Optional[SamplingParams] = None,
+               tenant: str = "default") -> int:
         """Queue a request and return its rid — always, even when it is
         refused (status ``REJECTED``).  ``queue_deadline_s`` bounds the
         wait for admission, ``deadline_s`` submit-to-last-token; either
         lapsing marks it ``TIMED_OUT``.  ``sampling`` None (or
-        temperature 0) is greedy argmax."""
+        temperature 0) is greedy argmax.  ``tenant`` is the billing
+        identity the per-tenant counters split by."""
         req = Request(prompt=list(int(t) for t in prompt),
                       max_tokens=int(max_tokens), on_token=on_token,
-                      sampling=sampling)
+                      sampling=sampling, tenant=str(tenant))
         t = self._time() if now is None else now
         if queue_deadline_s is None:
             queue_deadline_s = self.queue_deadline_s
@@ -615,7 +645,15 @@ class ServingEngine:
             req.queue_deadline_at = t + float(queue_deadline_s)
         if deadline_s is not None:
             req.deadline_at = t + float(deadline_s)
-        ok = self.scheduler.submit(req, now=t)
+        if self._draining:
+            # drain mode: admission is closed.  Queued and running work
+            # keeps going; new demand is REJECTED (the fleet router reads
+            # that as "route elsewhere")
+            req.submitted_at = t
+            req.status = RequestStatus.REJECTED
+            ok = False
+        else:
+            ok = self.scheduler.submit(req, now=t)
         self.metrics.on_submit(t, ok)
         self._requests[req.rid] = req
         self._tracer.instant("submit", rid=req.rid, tokens=len(req.prompt),
@@ -681,6 +719,17 @@ class ServingEngine:
     def status(self, rid: int) -> RequestStatus:
         return self._requests[rid].status
 
+    def drain(self, on: bool = True) -> None:
+        """Toggle drain mode: while draining every new ``submit`` is
+        REJECTED, but requests already queued or running finish (the
+        drain stops new demand, not accepted work).  ``drain(False)``
+        reopens admission."""
+        self._draining = bool(on)
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
     @property
     def has_work(self) -> bool:
         return self.scheduler.has_work
@@ -691,7 +740,14 @@ class ServingEngine:
         every running slot (widened to its verify rows) and the selected
         prefill chunks; then the watchdog.  Returns True if any work
         remains."""
+        enforce_that(self._kv is not None,
+                     "this engine's pool was released (release_pool)",
+                     context="serving")
         tick, sched, m = self._tick, self.scheduler, self.metrics
+        if self.faults is not None:
+            self.faults.tick_begin(tick)
+            self.faults.apply_page_pressure(tick, self.pool)
+            self.faults.apply_cache_storm(tick, self.cache)
         now = self._time() if now is None else now
         # the shed estimator learns tick duration only from ticks that
         # followed a BUSY tick (idle polling gaps would inflate it)
@@ -740,6 +796,8 @@ class ServingEngine:
         running = [r for r in sched.running_requests()
                    if r.status is RequestStatus.RUNNING
                    and not r.prefilling and r.generated]
+        # drafting mutates proposer state: it runs once a tick, before
+        # the retry loop
         drafts = self._propose_drafts(running,
                                       under_pressure=bool(preempted))
         if running or chunks:
@@ -751,12 +809,13 @@ class ServingEngine:
                                    n=len(running),
                                    prefill_rows=total_rows):
                 if self._fuse_tick or not (running and chunks):
-                    self._do_step(running, chunks, total_rows, drafts)
+                    self._step_with_retry(running, chunks, total_rows,
+                                          tick, drafts)
                 else:
                     # fuse_tick=False: prefill and decode as separate
                     # steps (same math, token-identical)
-                    self._do_step([], chunks, total_rows, {})
-                    self._do_step(running, [], 0, drafts)
+                    self._step_with_retry([], chunks, total_rows, tick, {})
+                    self._step_with_retry(running, [], 0, tick, drafts)
         self._prev_tick_busy = (bool(running) or bool(admitted) or
                                 bool(prefilling))
         self._watchdog_sweep(tick)
@@ -770,9 +829,9 @@ class ServingEngine:
 
     def run(self, max_ticks: Optional[int] = None) -> Dict[int, List[int]]:
         """Tick until drained (or ``max_ticks``); returns {rid: generated
-        tokens} for everything completed so far.  A full drain commits
-        the host tier's staged spill and asserts conservation
-        (:class:`PageLeakError`)."""
+        tokens} for everything completed so far.  A full drain releases
+        any fault-plan page pressure, commits the host tier's staged spill
+        and asserts conservation (:class:`PageLeakError`)."""
         ticks = 0
         while self.has_work:
             self.step()
@@ -780,6 +839,8 @@ class ServingEngine:
             if max_ticks is not None and ticks >= max_ticks:
                 break
         if not self.has_work:
+            if self.faults is not None:
+                self.faults.release_pressure(self.pool)
             if self.host_tier is not None:
                 self.host_tier.flush()
             self.check_page_conservation()
@@ -798,8 +859,9 @@ class ServingEngine:
         """``PAGE-LEAK``: every usable page is free or tracked in use.
         ``REF-LEAK``: the pool's total refcount equals the references
         actually held — one per page-table entry of every running or
-        queued request, plus an admission-time COW pin.  The draft pool
-        and the host tier (``HOSTTIER-LEAK``) balance too."""
+        queued request, plus an admission-time COW pin, plus one per
+        fault-plan pressure page.  The draft pool and the host tier
+        (``HOSTTIER-LEAK``) balance too."""
         pool = self.pool
         if pool.num_free + pool.num_in_use != pool.num_usable:
             self._dump_postmortem("PAGE-LEAK")
@@ -810,6 +872,8 @@ class ServingEngine:
                 list(self.scheduler.queue))
         held = sum(len(r.pages) for r in live)
         held += sum(1 for r in live if r.cow_src is not None)
+        if self.faults is not None:
+            held += len(self.faults.held_pages)
         if held != pool.total_refs:
             self._dump_postmortem("REF-LEAK")
             raise PageLeakError(
@@ -855,7 +919,9 @@ class ServingEngine:
             "tick": self._tick,
             "queue_depth": self.scheduler.queue_depth,
             "running": len(self.scheduler.running),
+            "draining": self._draining,
             "free_pages": self.pool.num_free,
+            "pages_free": self.pool.num_free,
             "pages_in_use": self.pool.num_live,
             "pages_cached": self.pool.num_cached,
             "pages_reclaimable": self.pool.num_reclaimable,
@@ -875,7 +941,92 @@ class ServingEngine:
             "page_leak": leak,
             "status_counts": counts,
             "deadline_miss_rate": round(m.deadline_miss_rate(), 4),
+            "prefill_backlog_tokens":
+                self.scheduler.prefill_backlog_tokens,
+            "role": self.role,
+            "tenants": self.tenant_counts(),
         }
+
+    def load(self) -> Dict[str, object]:
+        """Cheap load probe: the queue_depth / running / free_pages
+        numbers ``healthz`` reports, without its conservation scan — the
+        fleet router reads this once per candidate replica per submit.
+        Also the prompt tokens still owed a prefill, the role, the drain
+        state, the host tier's depth and the per-tenant split."""
+        return {"queue_depth": self.scheduler.queue_depth,
+                "running": len(self.scheduler.running),
+                "free_pages": self.pool.num_free,
+                "prefill_backlog_tokens":
+                    self.scheduler.prefill_backlog_tokens,
+                "role": self.role,
+                "draining": self._draining,
+                "pages_host": (len(self.host_tier)
+                               if self.host_tier is not None else 0),
+                "tenants": self.tenant_counts()}
+
+    def tenant_counts(self) -> Dict[str, Dict[str, int]]:
+        """Per-tenant split: running, queued and pages_in_use from the
+        live scans, pages_host from the host tier, deadline_misses from
+        the metrics counter.  A tenant appears once it has been live,
+        admitted or missed a deadline ("default" covers callers that
+        never pass ``tenant=``)."""
+        out: Dict[str, Dict[str, int]] = {}
+
+        def _slot(t: str) -> Dict[str, int]:
+            return out.setdefault(t, {"running": 0, "queued": 0,
+                                      "pages_in_use": 0,
+                                      "pages_host": 0,
+                                      "deadline_misses": 0})
+
+        for req in self.scheduler.running.values():
+            s = _slot(req.tenant)
+            s["running"] += 1
+            s["pages_in_use"] += len(req.pages)
+        for req in self.scheduler.queued_requests():
+            _slot(req.tenant)["queued"] += 1
+        for t, n in self.metrics.tenant_deadline_misses.items():
+            _slot(t)["deadline_misses"] = n
+        if self.host_tier is not None:
+            for t, n in self.host_tier.resident_by_tenant.items():
+                _slot(t)["pages_host"] = n
+        # tenants whose work all completed still report a zero-miss row
+        for t in self.metrics.tenant_queue_wait_s:
+            _slot(t)
+        return out
+
+    # ---- the page-migration plane ------------------------------------------
+
+    def migratable_rids(self) -> List[int]:
+        """Requests eligible for a chain handoff to a decode replica:
+        RUNNING, prefill fully materialized, first token emitted (so the
+        destination starts from a decodable state)."""
+        return [r.rid for r in self.scheduler.running_requests()
+                if r.status is RequestStatus.RUNNING and not r.prefilling
+                and r.generated]
+
+    def release_pool(self) -> None:
+        """Drop the device pool (and a draft model's) of an engine that
+        will not step again — a fleet replica fenced dead and reaped — so
+        its memory returns to the allocator for the rest of the run.  The
+        host-side bookkeeping (free list, scheduler, host tier) stays, so
+        the conservation checks still read it."""
+        enforce_that(not self.has_work,
+                     "release_pool on an engine with work in flight",
+                     context="serving")
+        self._kv = None
+        if isinstance(self._proposer, DraftProposer):
+            self._proposer._kv = None
+
+    def apply_imported_pages(self, page_ids: Sequence[int], k, v,
+                             k_scale=None, v_scale=None) -> None:
+        """Splice host page payloads (STORED values from ``read_pages``
+        on the source engine, numpy arrays or CPU tensors) into this
+        engine's pool at ``page_ids``, in place (:func:`write_pages`).
+        The uploads are ordered on the current stream ahead of the next
+        step's attention, which reads the pages on that same stream."""
+        if len(page_ids) == 0:
+            return
+        write_pages(self._kv, list(page_ids), k, v, k_scale, v_scale)
 
     # ---- the host tier ---------------------------------------------------
 
@@ -1067,6 +1218,28 @@ class ServingEngine:
                                  dst=got[0])
         return toks
 
+    def _step_with_retry(self, running: List[Request], chunks, total_rows,
+                         tick: int, drafts: Dict[int, Tuple]) -> None:
+        """One unified step; an error of ``transient_errors`` (the fault
+        plan's injected one, raised before the step runs) re-runs the
+        whole step, up to ``decode_retries`` times — a retried tick gives
+        the tokens of one that did not fail.  Past the budget the tick is
+        lost and the watchdog counts the stall."""
+        attempt = 0
+        while True:
+            try:
+                if self.faults is not None and \
+                        self.faults.decode_should_fail(tick, attempt):
+                    raise InjectedDeviceError(f"injected @ tick {tick} "
+                                              f"attempt {attempt}")
+                self._do_step(running, chunks, total_rows, drafts)
+                return
+            except self.transient_errors:
+                attempt += 1
+                if attempt > self.decode_retries:
+                    return
+                self.metrics.on_retry()
+
     def _watchdog_sweep(self, tick: int) -> None:
         if self.watchdog_ticks <= 0:
             return
@@ -1152,6 +1325,13 @@ class ServingEngine:
             if req.status is not RequestStatus.RUNNING:
                 continue    # cancelled from an earlier chunk's on_token
             self._finish_chunk(req, start, n, p_logits[req.slot], now)
+        if self.faults is not None and self.faults.nan_rids:
+            poisoned = [r for r in running
+                        if r.rid in self.faults.nan_rids]
+            if poisoned:              # only then pay for a writable copy
+                d_logits = d_logits.copy()
+                for req in poisoned:
+                    d_logits[req.slot] = np.nan
         for req in running:
             if req.status is not RequestStatus.RUNNING:
                 continue    # cancelled from another slot's on_token

@@ -1,6 +1,7 @@
 """Block-paged KV cache for the serving engine (the port of
-``paddle_tpu/serving/kv_cache.py``; its standalone ``check`` gate waits
-for the fleet and fault slices).
+``paddle_tpu/serving/kv_cache.py``, with its standalone ``check`` gate:
+``python -c "from paddle_tpu_torch.serving.kv_cache import main;
+main(['check'])"``).
 
 K/V live in a preallocated pool of fixed-size pages ``[L, num_pages,
 page_size, H_kv, D]``; each sequence owns an ordered list of page ids —
@@ -19,6 +20,8 @@ Python and copied close to verbatim.  :class:`HostPageTier` is the
 host-RAM spill tier under the pool: evicted reclaimable pages demote to
 pinned CPU memory (``read_pages``, checksummed) and come back through
 ``write_pages`` when a prefix lookup continues past the device index.
+A warm restart's successor engine ``adopt``s a dead engine's tier, and a
+migrated chain's host copies are ``forget``-ed on the source.
 
 Page 0 is reserved as the null page: masked writes are steered to it
 (always with zero payloads), and no live sequence is ever granted it.
@@ -677,10 +680,10 @@ class HostPageTier:
     then stages the new one; the engine's per-tick ``pump`` commits the
     staged page unless the fault hooks declare host I/O stalled for that
     tick (counted as ``spill_stall_ticks``); ``flush`` commits
-    unconditionally (drain).  The fault hooks (``faults``: any object
-    with ``spill_is_torn(seq)``, ``spill_bitflip_offset(seq, nbytes)``
-    and ``host_io_stalled(tick)``; the fault plan that drives them comes
-    with the resilience slice) mutate the payload AT COMMIT — after the
+    unconditionally (drain, handoff).  The fault hooks (``faults``, a
+    :class:`~paddle_tpu_torch.serving.faults.FaultPlan`:
+    ``spill_is_torn(seq)``, ``spill_bitflip_offset(seq, nbytes)`` and
+    ``host_io_stalled(tick)``) mutate the payload AT COMMIT — after the
     checksum was taken over the intended bytes — so a torn write or a
     flipped bit is exactly what the verifier later catches.
 
@@ -693,11 +696,11 @@ class HostPageTier:
     Conservation (``HOSTTIER-LEAK``): every page that ever entered the
     tier ends in exactly one state —
 
-        spills == resident + swap_ins + dropped + corrupt + pending
+        spills + adopted == resident + swap_ins + dropped + corrupt
+                            + handed_off + pending
 
     checked by :meth:`check`, which the engine folds into
-    ``check_page_conservation``.  A warm restart's ``adopt`` and a
-    migration's ``forget`` come with the fleet slice (A10b)."""
+    ``check_page_conservation``."""
 
     def __init__(self, capacity_bytes: int, dtype: str = "stored",
                  faults=None, tracer=None):
@@ -709,7 +712,8 @@ class HostPageTier:
         self.faults = faults
         self.tracer = tracer
         # single-threaded by design: the engine's tick loop is the only
-        # writer (spill/pump/flush/swap-in)
+        # writer (spill/pump/flush/swap-in), and a warm restart's adopt()
+        # runs before the successor engine starts ticking
         self._index: "OrderedDict[int, _HostPage]" = OrderedDict()
         self._pending: Optional[_HostPage] = None
         self._seq = 0
@@ -720,6 +724,9 @@ class HostPageTier:
         self.swap_ins = 0          # verified pages promoted back to device
         self.dropped = 0           # LRU-dropped / forgotten / displaced
         self.corrupt = 0           # checksum failures (NEVER served)
+        self.handed_off = 0        # adopted away by a successor tier
+        self.adopted = 0           # records taken FROM predecessors
+        self.restored = 0          # of those, verified + resident here
         self.spill_stall_ticks = 0  # pump ticks lost to slow host I/O
 
     def __len__(self) -> int:
@@ -857,24 +864,73 @@ class HostPageTier:
         self.swap_ins += 1
         return rec
 
+    def forget(self, keys: Sequence[int]) -> int:
+        """Drop records (and a matching staged spill) by chain key — the
+        no-double-adopt rule: when a chain migrates to another replica,
+        the source's host copies are forgotten so the pages can never be
+        re-adopted from two places."""
+        n = 0
+        for key in list(keys):
+            key = int(key)
+            if self._pending is not None and self._pending.key == key:
+                self._pending = None
+                self.dropped += 1
+                n += 1
+            if key in self._index:
+                self._pop(key)
+                self.dropped += 1
+                n += 1
+        return n
+
+    # ---- crash-warm restart ----------------------------------------------
+
+    def adopt(self, other: "HostPageTier") -> int:
+        """Take every record from a predecessor tier (warm restart: the
+        host tier outlives the engine).  Each record is re-verified
+        against its checksum before it becomes hittable here — a record
+        corrupted while orphaned counts ``corrupt`` on THIS tier and is
+        never served.  The source ledger stays balanced through
+        ``handed_off``.  Returns how many records were restored."""
+        other.flush()
+        restored = 0
+        # the predecessor's engine is stopped at handoff: its tier has no
+        # other owner left
+        for key in list(other._index):
+            rec = other._pop(key)
+            other.handed_off += 1
+            self.adopted += 1
+            if page_checksum(rec.k, rec.v, rec.k_scale,
+                             rec.v_scale) != rec.checksum:
+                self.corrupt += 1
+                if self.tracer is not None:
+                    self.tracer.instant("HOSTTIER-CORRUPT", cat="pages",
+                                        key=int(key))
+                continue
+            if self._insert(rec):
+                self.restored += 1
+                restored += 1
+        return restored
+
     # ---- conservation + scrape -------------------------------------------
 
     def check(self) -> None:
         """The HOSTTIER-LEAK invariant (valid at any tick): every page
         that entered the tier is in exactly one of resident / swapped-in
-        / dropped / corrupt / pending, and the resident bytes match the
-        index under the budget."""
+        / dropped / corrupt / handed-off / pending, and the resident bytes
+        match the index under the budget."""
         from paddle_tpu_torch.serving.faults import PageLeakError
 
         pend = 1 if self._pending is not None else 0
+        lhs = self.spills + self.adopted
         rhs = (len(self._index) + self.swap_ins + self.dropped +
-               self.corrupt + pend)
-        if self.spills != rhs:
+               self.corrupt + self.handed_off + pend)
+        if lhs != rhs:
             raise PageLeakError(
-                f"HOSTTIER-LEAK: spills({self.spills}) != "
-                f"resident({len(self._index)}) + swap_ins({self.swap_ins})"
-                f" + dropped({self.dropped}) + corrupt({self.corrupt}) + "
-                f"pending({pend})")
+                f"HOSTTIER-LEAK: spills({self.spills}) + "
+                f"adopted({self.adopted}) != resident({len(self._index)})"
+                f" + swap_ins({self.swap_ins}) + dropped({self.dropped})"
+                f" + corrupt({self.corrupt}) + "
+                f"handed_off({self.handed_off}) + pending({pend})")
         nb = sum(r.nbytes for r in self._index.values())
         if nb != self.resident_bytes or nb > self.capacity_bytes:
             raise PageLeakError(
@@ -889,6 +945,150 @@ class HostPageTier:
             "host_swap_outs": self.spills,
             "host_corrupt": self.corrupt,
             "host_dropped": self.dropped,
+            "host_restored": self.restored,
             "host_resident_bytes": self.resident_bytes,
             "spill_stall_ticks": self.spill_stall_ticks,
         }
+
+
+# ---------------------------------------------------------------------------
+# standalone gate: main(["check"])
+# ---------------------------------------------------------------------------
+
+
+def _selfcheck(device: DeviceLike = None) -> int:
+    """Replay the seeded hierarchical-tier trace of the JAX package's
+    gate, on ``device`` (default ``cuda``).  Two phases:
+
+    1. single engine: a clean spill/swap-in round trip must be
+       token-identical to a cold re-prefill, and an injected torn spill
+       and a seeded bit flip must BOTH be caught by the checksum at
+       swap-in (degrading to a miss) — a corrupt page served would show
+       up as a parity break;
+    2. small fleet: kill a replica whose host tier holds spilled pages,
+       ``restart_replica`` it, and the warm successor must re-adopt
+       >= 1 verified page and serve the same prompt token-identically
+       with zero duplicate completions.
+
+    Returns 0 (clean) or 1 (findings); a crash propagates as 2."""
+    from paddle_tpu_torch.serving._gate import gate_model
+    from paddle_tpu_torch.serving.engine import ServingEngine
+    from paddle_tpu_torch.serving.faults import (FaultPlan, FleetFaultPlan,
+                                                 ManualClock)
+    from paddle_tpu_torch.serving.fleet import FleetRouter
+
+    model = gate_model(device)
+    rng = np.random.RandomState(0)
+    prompt = rng.randint(2, 64, size=16).tolist()   # 4 full pages
+    problems = []
+
+    def mk_engine(**faults_kw):
+        plan = FaultPlan(seed=0, clock=ManualClock(tick_s=0.01),
+                         **faults_kw)
+        return ServingEngine(model, eos_id=1, page_size=4, num_pages=16,
+                             max_pages_per_seq=8, max_slots=2,
+                             buckets=(8, 16), faults=plan,
+                             host_tier_bytes=1 << 20, swap_in_budget=4,
+                             device=device)
+
+    def roundtrip(eng):
+        """cold serve -> flush (spill) -> warm serve; returns (cold,
+        warm) token lists from the SAME engine."""
+        r1 = eng.submit(list(prompt), max_tokens=6)
+        eng.run()
+        cold = eng.result(r1)
+        eng.cache.flush()
+        r2 = eng.submit(list(prompt), max_tokens=6)
+        eng.run()
+        return cold, eng.result(r2)
+
+    # phase 1a: clean round trip — the tier must actually serve
+    eng = mk_engine()
+    cold, warm = roundtrip(eng)
+    snap = eng.host_tier.snapshot()
+    if warm != cold:
+        problems.append(f"clean swap-in parity break: {warm} != {cold}")
+    if snap["host_swap_ins"] < 1 or eng._host_hits < 1:
+        problems.append(f"clean round trip never hit the host tier: {snap}")
+    clean_swapins = snap["host_swap_ins"]
+    eng.check_page_conservation()
+
+    # phase 1b/1c: torn spill, then a seeded bit flip — each must be
+    # caught at swap-in (miss + HOSTTIER-CORRUPT), never served
+    for kw, name in (({"torn_spill_at": {0}}, "torn"),
+                     ({"bitflip_spill_at": {0}}, "bitflip")):
+        eng = mk_engine(**kw)
+        cold, warm = roundtrip(eng)
+        snap = eng.host_tier.snapshot()
+        if warm != cold:
+            problems.append(f"{name}: corrupt page SERVED "
+                            f"(parity break {warm} != {cold})")
+        if snap["host_corrupt"] < 1:
+            problems.append(f"{name}: checksum missed the corruption "
+                            f"({snap})")
+        eng.check_page_conservation()
+
+    # phase 2: crash-warm restart in a fleet
+    plan = FleetFaultPlan(seed=0, clock=ManualClock(tick_s=0.01))
+
+    def mk(i, time_fn):
+        return ServingEngine(model, eos_id=1, page_size=4, num_pages=32,
+                             max_pages_per_seq=8, max_slots=4,
+                             buckets=(8, 16), time_fn=time_fn,
+                             host_tier_bytes=1 << 20, swap_in_budget=4,
+                             device=device)
+
+    fleet = FleetRouter(mk, 2, heartbeat_s=0.05, resubmit_budget=2,
+                        faults=plan)
+    f1 = fleet.submit(list(prompt), max_tokens=6)
+    fleet.run(max_ticks=200)
+    cold = fleet.result(f1)
+    victim = next(r.idx for r in fleet.replicas
+                  if r.engine.cache is not None and len(r.engine.cache))
+    fleet.replicas[victim].engine.cache.flush()
+    fleet.kill_replica(victim)
+    fleet.restart_replica(victim)
+    fleet.drain_replica(1 - victim)
+    for _ in range(5):
+        fleet.step()
+    f2 = fleet.submit(list(prompt), max_tokens=6)
+    fleet.run(max_ticks=200)
+    warm = fleet.result(f2)
+    restored = fleet.metrics.pages_restored
+    if warm != cold:
+        problems.append(f"warm-restart parity break: {warm} != {cold}")
+    if restored < 1:
+        problems.append("warm restart adopted 0 pages")
+    if fleet.metrics.duplicate_completions:
+        problems.append(f"{fleet.metrics.duplicate_completions} duplicate "
+                        "completions after warm restart")
+    fleet.check_fleet_conservation()
+
+    if problems:
+        print("HOSTTIER: " + "; ".join(problems))
+        return 1
+    print(f"kv-cache check ok: clean swap-in x{clean_swapins} "
+          "token-identical to cold prefill, torn + bit-flip spills both "
+          f"caught at swap-in (0 corrupt pages served), warm restart "
+          f"re-adopted {restored} page(s) with 0 duplicate completions, "
+          "0 leaks")
+    return 0
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    """``check [--device D]``: the HOSTTIER gate (exit 0 clean, 1
+    findings, 2 a crash).  Importable, so callers run it through
+    ``python -c "...kv_cache.main(['check'])"`` rather than
+    ``python -m``, which would execute a second copy of this module
+    beside the one ``paddle_tpu_torch.serving`` imported."""
+    from paddle_tpu_torch.serving._gate import run_gate
+
+    return run_gate(argv, "kv-cache",
+                    "python -m paddle_tpu_torch.serving.kv_cache check "
+                    "[--device cpu|cuda]", _selfcheck)
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main())

@@ -1,6 +1,6 @@
 """Serving metrics: the counters the bench (and any scraper) reads (a
-copy of ``ServingMetrics`` from ``paddle_tpu/serving/metrics.py``, which
-is pure Python; ``FleetMetrics`` comes with the fleet slice).
+copy of ``ServingMetrics`` and ``FleetMetrics`` from
+``paddle_tpu/serving/metrics.py``, which is pure Python).
 
 Kept deliberately flat — ``snapshot()`` returns one JSON-able dict so
 a bench and an external exporter see the same numbers.  Time
@@ -340,4 +340,192 @@ class ServingMetrics:
             "page_occupancy": round(self.pages_in_use / self.pool_pages, 4),
             "page_occupancy_peak": round(
                 self.peak_pages_in_use / self.pool_pages, 4),
+        }
+
+
+class FleetMetrics:
+    """Fleet-level counters (round 11): what the fleet bench and an
+    external scraper read about the WHOLE deployment, as opposed to the
+    per-replica :class:`ServingMetrics` each engine keeps.
+
+    The load-bearing invariants live here as plain counters so the
+    conservation check can assert them:
+
+    - ``duplicate_completions`` MUST stay 0 — one fleet rid completes at
+      most once, no matter how many replicas died under it;
+    - ``resubmits`` counts death-driven re-dispatches (budgeted by the
+      router; exhaustion ends in FAILED, never an infinite loop);
+    - ``fleet_tokens_per_s`` runs over EMITTED tokens — the exactly-once
+      stream the router forwards — so a request replayed on a survivor
+      after a kill counts each token once, not once per attempt.
+    """
+
+    def __init__(self):
+        self.submitted = 0
+        self.completed = 0
+        self.timed_out = 0
+        self.cancelled = 0
+        self.failed = 0
+        self.rejected = 0            # refused at (re-)dispatch: no capacity
+        self.shed = 0                # engine-judged unmeetable deadline
+        self.resubmits = 0           # death-driven re-dispatches
+        self.duplicate_completions = 0   # idempotence violation: MUST be 0
+        self.routed = 0              # successful dispatches (incl. resubmit)
+        self.affinity_hits = 0       # of those, routed to the prefix owner
+        self.tokens_emitted = 0      # exactly-once stream, all requests
+        self.replicas_joined = 0
+        self.replicas_dead = 0       # killed / lease-expired
+        self.replicas_drained = 0    # clean DRAINING -> DEAD retirements
+        # page-migration plane (round 16).  The conservation invariant:
+        # every started migration ends exactly one way —
+        #   migrations_started == applied + fallbacks + aborted
+        # (applied = chain spliced into the destination; fallback = blob
+        # dropped in flight, destination re-prefills; aborted = the
+        # source request reached a terminal status before the transfer
+        # cleared admission).
+        self.migrations_started = 0
+        self.migrations_applied = 0
+        self.migration_fallbacks = 0
+        self.migrations_aborted = 0
+        self.pages_migrated = 0      # pages spliced by applied handoffs
+        self.migration_bytes = 0     # host-blob payload bytes, applied only
+        self.cross_replica_seeds = 0  # prefix exports that warmed a peer
+        self.seed_pages = 0
+        self.seed_bytes = 0
+        self.migration_resubmits = 0  # death resubmits that re-adopted pages
+        # crash-warm restart (round 21): a dead replica's host tier
+        # outlives its engine; restart_replica re-verifies and re-adopts
+        # it instead of starting cold
+        self.warm_restarts = 0        # restart_replica calls that adopted
+        self.pages_restored = 0       # host pages verified + re-adopted
+        # multi-tenant split (round 17): exactly-once emitted tokens by
+        # tenant — same stream as ``tokens_emitted``, partitioned so the
+        # scrape surface can bill goodput per tenant
+        self.tenant_tokens: Dict[str, int] = {}
+        self._first_event_at: Optional[float] = None
+        self._last_token_at: Optional[float] = None
+
+    # ---- event hooks (called by the FleetRouter) --------------------------
+
+    def on_submit(self, now: float) -> None:
+        self.submitted += 1
+        if self._first_event_at is None:
+            self._first_event_at = now
+
+    def on_route(self, affinity: bool) -> None:
+        self.routed += 1
+        if affinity:
+            self.affinity_hits += 1
+
+    def on_resubmit(self) -> None:
+        self.resubmits += 1
+
+    def on_migration_start(self) -> None:
+        self.migrations_started += 1
+
+    def on_migration_applied(self, pages: int, nbytes: int) -> None:
+        self.migrations_applied += 1
+        self.pages_migrated += int(pages)
+        self.migration_bytes += int(nbytes)
+
+    def on_migration_fallback(self) -> None:
+        self.migration_fallbacks += 1
+
+    def on_migration_aborted(self) -> None:
+        self.migrations_aborted += 1
+
+    def on_seed(self, pages: int, nbytes: int) -> None:
+        self.cross_replica_seeds += 1
+        self.seed_pages += int(pages)
+        self.seed_bytes += int(nbytes)
+
+    def on_migration_resubmit(self) -> None:
+        self.migration_resubmits += 1
+
+    def on_warm_restart(self, pages: int) -> None:
+        self.warm_restarts += 1
+        self.pages_restored += int(pages)
+
+    def on_token(self, now: float, tenant: Optional[str] = None) -> None:
+        self.tokens_emitted += 1
+        if tenant is not None:
+            self.tenant_tokens[tenant] = self.tenant_tokens.get(tenant, 0) + 1
+        self._last_token_at = now
+
+    def on_terminal(self, status, shed: bool = False) -> None:
+        if shed:
+            self.shed += 1
+            return
+        key = {"completed": "completed", "timed_out": "timed_out",
+               "cancelled": "cancelled", "failed": "failed",
+               "rejected": "rejected"}[str(status)]
+        setattr(self, key, getattr(self, key) + 1)
+
+    # ---- scrape ----------------------------------------------------------
+
+    def fleet_tokens_per_s(self) -> float:
+        if (self._first_event_at is None or self._last_token_at is None or
+                self._last_token_at <= self._first_event_at):
+            return 0.0
+        return self.tokens_emitted / (self._last_token_at -
+                                      self._first_event_at)
+
+    def deadline_miss_rate(self) -> float:
+        """Of the demand that wanted completion, the fraction that
+        missed — same definition as the per-engine metric, but over
+        fleet terminal statuses.  An engine-side TIMED_OUT is harvested
+        as fleet-terminal even on a dying replica (deadlines carry over
+        as absolute times, so the resubmit could never make it): it
+        counts as a miss, never as timeout-then-recover."""
+        demand = self.completed + self.timed_out + self.shed
+        if demand == 0:
+            return 0.0
+        return (self.timed_out + self.shed) / demand
+
+    def publish(self, registry, **labels) -> None:
+        """Publish every :meth:`snapshot` value (already
+        ``fleet_``-prefixed) into an obs registry as gauges — the
+        fleet-level half of the one-scrape-surface contract."""
+        for k, v in self.snapshot().items():
+            registry.gauge(k).labels(**labels).set(v)
+        # tenant-labeled goodput (round 17): the exactly-once token
+        # stream split by tenant, one labeled gauge per tenant on the
+        # same registry (idempotent re-publish, like every fleet gauge)
+        for t, n in self.tenant_tokens.items():
+            registry.gauge(
+                "fleet_tokens_total",
+                "exactly-once emitted tokens by tenant"
+            ).labels(tenant=t, **labels).set(n)
+
+    def snapshot(self) -> Dict[str, float]:
+        return {
+            "fleet_tokens_per_s": round(self.fleet_tokens_per_s(), 2),
+            "fleet_tokens_emitted": self.tokens_emitted,
+            "fleet_submitted": self.submitted,
+            "fleet_completed": self.completed,
+            "fleet_timed_out": self.timed_out,
+            "fleet_cancelled": self.cancelled,
+            "fleet_failed": self.failed,
+            "fleet_rejected": self.rejected,
+            "fleet_shed": self.shed,
+            "fleet_deadline_miss_rate": round(self.deadline_miss_rate(), 4),
+            "fleet_resubmits": self.resubmits,
+            "fleet_duplicate_completions": self.duplicate_completions,
+            "fleet_routed": self.routed,
+            "fleet_affinity_hits": self.affinity_hits,
+            "fleet_replicas_joined": self.replicas_joined,
+            "fleet_replicas_dead": self.replicas_dead,
+            "fleet_replicas_drained": self.replicas_drained,
+            "fleet_migrations_started": self.migrations_started,
+            "fleet_migrations_applied": self.migrations_applied,
+            "fleet_migration_fallbacks": self.migration_fallbacks,
+            "fleet_migrations_aborted": self.migrations_aborted,
+            "fleet_pages_migrated": self.pages_migrated,
+            "fleet_migration_bytes": self.migration_bytes,
+            "fleet_cross_replica_seeds": self.cross_replica_seeds,
+            "fleet_seed_pages": self.seed_pages,
+            "fleet_seed_bytes": self.seed_bytes,
+            "fleet_migration_resubmits": self.migration_resubmits,
+            "fleet_warm_restarts": self.warm_restarts,
+            "fleet_pages_restored": self.pages_restored,
         }

@@ -62,15 +62,18 @@ def build(img: int = IMG, classes: int = CLASSES):
     return image, label, probs, cost
 
 
-def optimizer():
+def optimizer(learning_rate: float = LEARNING_RATE,
+              momentum: float = MOMENTUM):
     from paddle_tpu_torch import optimizer as opt
 
-    return opt.Momentum(momentum=MOMENTUM, learning_rate=LEARNING_RATE,
+    return opt.Momentum(momentum=momentum, learning_rate=learning_rate,
                         regularization=opt.L2Regularization(L2))
 
 
 def trainer(device, seed: int = SEED, img: int = IMG,
-            classes: int = CLASSES):
+            classes: int = CLASSES,
+            learning_rate: float = LEARNING_RATE,
+            momentum: float = MOMENTUM):
     """``trainer.SGD`` over VGG-16 (top-1 error as an extra layer),
     weights from ``seed``, on ``device``."""
     from paddle_tpu_torch import evaluator, topology
@@ -83,8 +86,39 @@ def trainer(device, seed: int = SEED, img: int = IMG,
                                          name="top1_error")
     params = Parameters.from_topology(topology.Topology([cost]), seed=seed,
                                       device=device)
-    return tr.SGD(cost, params, optimizer(), extra_layers=[err],
-                  device=device)
+    return tr.SGD(cost, params, optimizer(learning_rate, momentum),
+                  extra_layers=[err], device=device)
+
+
+# the fall gate's trajectory: a fresh trainer's FALL_STEPS costs on one
+# repeated batch with the SAME dropout masks at every step and plain SGD
+# (no momentum to overshoot), so the steps descend one fixed function.
+# Fresh masks move a step's cost by up to ~0.1 on their own (a copy at
+# learning rate 0 read 4.73-4.85); Momentum 0.9 at LEARNING_RATE, or at
+# 2e-3, overshoots at the 7th step by a run-to-run amount; under fixed
+# masks the batch is memorized fast, and at 5e-3 the costs fell below 1
+# by the 5th step, where two runs parted (one rose back to 2.0), so the
+# rate keeps all 7 steps in the smooth first stretch of the descent
+FALL_MOMENTUM, FALL_LR, FALL_STEPS = 0.0, 1e-3, 7
+
+
+def fall_costs(device, feeds) -> List[float]:
+    """A fresh trainer's ``FALL_STEPS`` costs on ``feeds`` at ``FALL_LR``
+    and ``FALL_MOMENTUM``, one step each, every step under the same
+    dropout masks (:class:`SharedMasks` reseeded before each)."""
+    from paddle_tpu_torch.ops import math as pmath
+
+    sgd = trainer(device, learning_rate=FALL_LR, momentum=FALL_MOMENTUM)
+    masks, saved = SharedMasks(), pmath.dropout
+    pmath.dropout = masks
+    try:
+        costs = []
+        for _ in range(FALL_STEPS):
+            masks.reset()
+            costs.append(float(sgd.step(feeds)))
+    finally:
+        pmath.dropout = saved
+    return costs
 
 
 def raw_images(n: int, seed: int, edge: int = SHORT_EDGE,

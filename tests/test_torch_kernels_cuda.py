@@ -183,12 +183,19 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(EnforceError, match="BLOCK_ROWS"):
         tda.ragged_paged_attention_kernel(args[0][:-1], *args[1:5],
                                           args[5][:-1], args[6][:-1])
-    with pytest.raises(EnforceError, match="f32 or bf16 queries"):
-        tda.ragged_paged_attention_kernel(args[0].double(), *args[1:])
+    for bad in (args[0].double(), args[0].half()):
+        with pytest.raises(EnforceError, match="f32 or bf16 queries"):
+            tda.ragged_paged_attention_kernel(bad, *args[1:])
+    # C4's contract: every head dim of at least 1 runs, on pages at its
+    # padded width; pages at the unpadded width of 100 and a head dim of
+    # 0 are refused
     c100 = _case(cuda, SEQS, 16, 16, d=100)
     with pytest.raises(EnforceError,
-                       match="head_dim a multiple of 8 from 8 to 256"):
+                       match="head_dim 100 padded to a multiple of 8"):
         tda.ragged_paged_attention_kernel(*[c100[k] for k in _ARGS])
+    c0 = _case(cuda, SEQS, 16, 16, d=0)
+    with pytest.raises(EnforceError, match="head_dim of at least 1, got 0"):
+        tda.ragged_paged_attention_kernel(*[c0[k] for k in _ARGS])
     with pytest.raises(EnforceError, match="use_kernel=False"):
         tda.attention_path(D, PAGE, num_heads=16, num_kv_heads=16,
                            device=cuda, use_kernel=False)
@@ -410,18 +417,18 @@ def test_flash_attention_launches_each_kernel_once(cuda):
 
 def test_flash_kernels_refuse_what_they_do_not_take(cuda):
     seg = torch.zeros((1, 128), dtype=torch.int32, device=cuda)
-    for shape, dtype, match in (((1, 128, 2, 100), torch.float32,
-                                 "head_dim a multiple of 8 from 8 to 256, "
-                                 "got 100"),
-                                ((1, 128, 2, 264), torch.float32,
-                                 "head_dim a multiple of 8 from 8 to 256, "
-                                 "got 264"),
+    # C4's contract: every head dim of at least 1 runs (widened to a
+    # multiple of 8; the wide kernels above 512), so only a head dim of 0
+    # and an fp16 input are refused
+    for shape, dtype, match in (((1, 128, 2, 0), torch.float32,
+                                 "head_dim of at least 1, got 0"),
                                 ((1, 128, 2, 128), torch.float16,
                                  "float32 or bfloat16")):
         x = torch.zeros(shape, dtype=dtype, device=cuda)
         s = seg[:, :shape[1]].contiguous()
         with pytest.raises(EnforceError, match=match):
-            tattn.flash_attention(x, x, x, segment_ids=s, causal=True)
+            tattn.flash_attention(x, x, x, segment_ids=s, causal=True,
+                                  sm_scale=1.0)
     q = torch.zeros((1, 64, 4, 64), device=cuda)
     kv = torch.zeros((1, 64, 2, 64), device=cuda)
     with pytest.raises(EnforceError, match="no GQA"):

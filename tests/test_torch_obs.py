@@ -4,10 +4,15 @@
   chunked prefill, n-gram speculation) gives the same event list in both
   packages — rids compared by first appearance, since both packages
   count rids process-wide — and byte-identical Chrome JSON;
-- the registry's text exposition after ``healthz()`` is identical;
+- the registry's text exposition after ``healthz()`` is identical (the
+  JAX drive runs with the process-global retrace auditor emptied,
+  ``torch_serving_util.no_retrace_sites``: an earlier JAX test with
+  ``FLAGS.jit_audit`` on would otherwise add its sites to the JAX
+  side's exposition);
 - ``trainer_event_bridge`` over ``SGD.train`` gives the same spans;
-- the obs CLI's ``export`` exit codes, and ``chaos`` exits 2 naming the
-  fleet slice (A10b);
+- the obs CLI's ``export`` exit codes, and ``chaos`` replaying the seeded
+  fleet trace on the CPU (its parity with JAX's replay is held in
+  ``test_torch_fleet.py``);
 - the tracer's ring, postmortem and the null tracer.
 """
 
@@ -28,10 +33,11 @@ import paddle_tpu_torch as tpaddle
 import paddle_tpu_torch.obs as tobs
 from paddle_tpu_torch.convert import decoder_lm_from_numpy
 from paddle_tpu_torch.obs.cli import main as obs_main
-from paddle_tpu_torch.platform.enforce import EnforceError
 from paddle_tpu_torch.platform.flags import FLAGS
 from paddle_tpu_torch.serving import (DecoderLM, ManualClock,
                                       ServingEngine)
+
+from torch_serving_util import no_retrace_sites
 
 CFG = dict(vocab_size=64, num_layers=1, num_heads=2, head_dim=8,
            max_positions=128)
@@ -99,7 +105,8 @@ def drives(weights):
     for name, mk, clk, obs in (("port", port, ManualClock(), tobs),
                                ("jax", jax_, JaxClock(), jobs)):
         tracer = obs.Tracer(time_fn=clk, registry=obs.MetricsRegistry())
-        eng, hz = _drive(mk, clk, tracer)
+        with no_retrace_sites():
+            eng, hz = _drive(mk, clk, tracer)
         out[name] = (tracer, eng, hz)
     return out
 
@@ -215,10 +222,11 @@ def test_cli_export_exit_codes_and_chaos_names_the_fleet_slice(tmp_path,
     assert obs_main(["export"]) == 2
     assert obs_main([]) == 2
     assert obs_main(["nope"]) == 2
-    assert obs_main(["chaos"]) == 2
-    assert "A10b" in capsys.readouterr().out
-    with pytest.raises(EnforceError, match="A10b"):
-        tobs.cli.seeded_chaos()
+    capsys.readouterr()
+    out = str(tmp_path / "chaos.json")
+    assert obs_main(["chaos", "-o", out, "--device", "cpu"]) == 0
+    assert "10/10 completed" in capsys.readouterr().out
+    assert json.loads(open(out).read())["traceEvents"]
 
 
 def test_ring_postmortem_and_null_tracer(tmp_path):

@@ -251,13 +251,10 @@ def test_preemption_releases_draft_state(models):
 
 def test_engine_arguments_of_later_slices_raise(models):
     _, params, tm = models
-    for kw, part in ((dict(faults=object()), "A11"),
-                     (dict(decode_retries=2), "A11"),
-                     (dict(transient_errors=(RuntimeError,)), "A11"),
-                     (dict(mesh=object()), "A12"),
+    for kw, part in ((dict(mesh=object()), "A12"),
                      (dict(tp_axis="model"), "A12"),
-                     (dict(role="decode"), "A10b"),
-                     (dict(xla_flops=1e9), "A13")):
+                     (dict(xla_flops=1e9), "A13"),
+                     (dict(role="router"), "prefill/decode/unified")):
         with pytest.raises(EnforceError, match=part):
             _port(tm, **kw)
     with pytest.raises(EnforceError, match="draft_model"):

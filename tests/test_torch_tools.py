@@ -1,6 +1,8 @@
 """The port's measurement tooling on the CPU: the shared serve workload of
 ``chip_smoke.py`` and ``profile_serve`` (at a narrow width, same prompts,
-same engine settings), ``chip_smoke``'s roofline bounds (the ragged
+same engine settings), the fleet workload's drives (the same traffic and
+engine geometry at a narrow width: their ledgers are the card's),
+``chip_smoke``'s roofline bounds (the ragged
 kernel's, and the flash kernels' over the live pairs of the training
 workload's cases) and its choice of each kernel's ptxas entry, and the
 comparison tools' choice of an earlier tree's entries and of B5's
@@ -47,6 +49,63 @@ def test_serve_workload_drains_with_prefix_hit():
     assert eng.cache.hits >= 1
     assert eng.metrics.prefill_tokens_saved >= sw.PREFIX_LEN
     eng.check_page_conservation()
+
+
+@pytest.fixture(scope="module")
+def narrow_lm():
+    """The serve workload's vocabulary and positions on a one-layer model
+    32 wide, so the CPU runs stay short."""
+    model = DecoderLM(vocab_size=sw.MODEL["vocab_size"], num_layers=1,
+                      num_heads=2, head_dim=16,
+                      max_positions=sw.MODEL["max_positions"], device="cpu")
+    return decoder_lm_from_numpy(init_numpy_params(model, sw.SEED), model)
+
+
+# with no EOS every request runs its full length, so the fleet's ledger
+# follows from the traffic alone: fw.LEDGERS holds the card's counts too,
+# and chip_smoke's fleet phases gate on the same entries
+@pytest.mark.parametrize("drive", ["fleet", "disagg"])
+def test_fleet_workload_ledgers(narrow_lm, drive):
+    from paddle_tpu_torch.serving import check_migration_conservation
+    from paddle_tpu_torch.tools import fleet_workload as fw
+
+    def go(name, traffic, **kw):
+        fleet = fw.build_fleet(narrow_lm, "cpu", **kw)
+        out = fw.run(fleet, traffic)
+        assert out["status"] == ["completed"] * fw.N_REQUESTS
+        assert out["streams"] == out["results"]
+        assert all(len(r) == fw.NEW_TOKENS for r in out["results"])
+        snap = out["snapshot"]
+        assert snap["fleet_duplicate_completions"] == 0
+        if fleet._disagg:
+            check_migration_conservation(fleet)
+        for i, rep in enumerate(fleet.replicas):
+            assert rep.engine.pool.total_refs == 0
+            assert (rep.engine._kv is None) == (str(rep.state) == "dead")
+        assert out["ledger"] == fw.LEDGERS[name]
+        return out, snap
+
+    if drive == "fleet":
+        tr = fw.fleet_traffic()
+        assert sorted({len(p) - fw.SYSTEM_LEN for _, p, _ in tr})[0] >= 16
+        (aff, a), (rr, b) = (go(f"fleet_{r}", tr, routing=r,
+                                kill_at=fw.KILL_AT)
+                             for r in ("affinity", "round_robin"))
+        assert a["fleet_prefix_hit_rate"] > b["fleet_prefix_hit_rate"]
+        assert aff["results"] == rr["results"]
+    else:
+        tr = fw.disagg_traffic()
+        assert sum(t == "hot" for _, _, t in tr) >= 0.5 * fw.N_REQUESTS
+        uni, u = go("disagg_unified", tr)
+        dis, d = go("disagg_roles", tr, roles=fw.ROLES)
+        assert dis["results"] == uni["results"]
+        _, i8 = go("disagg_int8", tr, roles=fw.ROLES, kv_dtype="int8")
+        hd = narrow_lm.head_dim
+        assert i8["fleet_migration_bytes"] / d["fleet_migration_bytes"] \
+            == (hd + 4) / (4 * hd)
+        kill, _ = go("disagg_kill", tr, roles=fw.ROLES,
+                     kill_at=fw.DISAGG_KILL_AT)
+        assert kill["results"] == uni["results"]
 
 
 def _tiny_case(page_dtype, q_dtype=torch.float32):
