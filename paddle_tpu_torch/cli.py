@@ -10,11 +10,13 @@ defines at module level:
 - ``optimizer``  — a paddle_tpu_torch.optimizer.Optimizer (default Adam)
 - ``batch_size`` — int (default 32)
 
-``train`` runs on ``cuda`` unless ``--device cpu``.  Resuming from
-``--save_dir`` needs the checkpointer of the resilience slice (A11);
-``merge_model`` needs it and the exporter of the tail slice (A13);
-``master`` needs the elastic master of the tail slice (A13).  Those
-raise, naming their slice."""
+``train`` runs on ``cuda`` unless ``--device cpu``; ``--save_dir``
+checkpoints every ``--saving_period`` passes and ``--start_pass``
+resumes from one (``paddle_tpu_torch.checkpoint``), and ``--job=test``
+evaluates a checkpoint from ``--save_dir`` or a tar from
+``--init_model_tar``.  ``master`` serves the elastic-input master
+(``paddle_tpu_torch.master``).  ``merge_model`` needs the model exporter
+of the tail slice (A13) and raises, naming it."""
 
 from __future__ import annotations
 
@@ -23,7 +25,6 @@ import runpy
 import sys
 from typing import Optional
 
-_A11 = "the resilience slice (A11)"
 _A13 = "the tail slice (A13)"
 
 
@@ -62,8 +63,6 @@ def cmd_train(args) -> int:
     from paddle_tpu_torch import trainer
     from paddle_tpu_torch.platform.device import resolve_device
 
-    if args.save_dir:
-        raise _not_ported("train --save_dir (checkpoints and resume)", _A11)
     cfg = _load_config(args.config)
     cost = cfg["cost"]
     optimizer = cfg.get("optimizer") or opt_mod.Adam(learning_rate=1e-3)
@@ -87,20 +86,35 @@ def cmd_train(args) -> int:
             print("config must define test_reader()/reader() for "
                   "--job=test", file=sys.stderr)
             return 2
-        if not args.init_model_tar:
-            print("--job=test needs --init_model_tar", file=sys.stderr)
-            return 2
-        try:
-            with open(args.init_model_tar, "rb") as f:
-                loaded = paddle.Parameters.from_tar(f, device=dev)
-        except _load_errors() as e:   # a config mistake, not a crash
-            print(f"cannot load model tar {args.init_model_tar}: {e}",
+        if args.init_model_tar:
+            try:
+                with open(args.init_model_tar, "rb") as f:
+                    loaded = paddle.Parameters.from_tar(f, device=dev)
+            except _load_errors() as e:   # a config mistake, not a crash
+                print(f"cannot load model tar {args.init_model_tar}: {e}",
+                      file=sys.stderr)
+                return 2
+            with torch.no_grad():
+                for name, value in loaded.items():
+                    if name in sgd.parameters:
+                        sgd.parameters[name].copy_(value)
+        elif args.save_dir:
+            # the resume path: restores the optimizer and model state
+            # too.  Only the disk read is guarded; apply_checkpoint
+            # failures keep their traceback.
+            from paddle_tpu_torch import checkpoint as ckpt
+
+            try:
+                loaded = ckpt.load_checkpoint(args.save_dir, device="cpu")
+            except _load_errors() as e:
+                print(f"cannot load checkpoint from {args.save_dir}: {e}",
+                      file=sys.stderr)
+                return 2
+            sgd.apply_checkpoint(loaded)
+        else:
+            print("--job=test needs --save_dir or --init_model_tar",
                   file=sys.stderr)
             return 2
-        with torch.no_grad():
-            for name, value in loaded.items():
-                if name in sgd.parameters:
-                    sgd.parameters[name].copy_(value)
         result = sgd.test(paddle.batch(reader, batch_size))
         metrics = " ".join(f"{k}={v:.6g}" for k, v in
                            sorted(result.metrics.items()))
@@ -109,7 +123,8 @@ def cmd_train(args) -> int:
         return 0
 
     sgd.train(paddle.batch(cfg["reader"], batch_size),
-              num_passes=args.num_passes, start_pass=args.start_pass)
+              num_passes=args.num_passes, save_dir=args.save_dir,
+              start_pass=args.start_pass, saving_period=args.saving_period)
     if args.model_tar:
         with open(args.model_tar, "wb") as f:
             sgd.parameters.to_tar(f)
@@ -130,12 +145,25 @@ def cmd_dump_config(args) -> int:
 
 
 def cmd_merge_model(args) -> int:
-    raise _not_ported("merge_model (a checkpoint loader and the model "
-                      "exporter)", f"{_A11} and {_A13}")
+    raise _not_ported("merge_model (the model exporter)", _A13)
 
 
 def cmd_master(args) -> int:
-    raise _not_ported("master (the elastic-input master)", _A13)
+    import time
+
+    from paddle_tpu_torch.master.server import MasterServer
+
+    srv = MasterServer(host=args.host, port=args.port)
+    srv.start()
+    print(f"master serving on {srv.address}", flush=True)
+    if args.dataset:
+        srv.service.set_dataset(args.dataset)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        srv.stop()
+    return 0
 
 
 def cmd_version(args) -> int:
@@ -163,7 +191,8 @@ def main(argv: Optional[list] = None) -> int:
                    help="test = evaluate a saved model")
     t.add_argument("--num_passes", type=int, default=1)
     t.add_argument("--save_dir", default=None,
-                   help="checkpoint directory (resilience slice, A11)")
+                   help="checkpoint directory (train: written every "
+                        "--saving_period passes; --job=test: evaluated)")
     t.add_argument("--init_model_tar", default=None,
                    help="parameter tar to evaluate with --job=test")
     t.add_argument("--model_tar", default=None,

@@ -8,7 +8,11 @@ layer keeps the JAX package's layout (HWIO convolutions, DHWIO 3-D ones,
 ``[size, a, b]``, ``mdlstmemory``'s ``wx``/``wr``/``wc``/``b``), so each
 array crosses as it is.  A JAX
 trainer's ``model_state`` (``{layer: {"moving_mean", "moving_var"}}``)
-becomes the port's with :func:`state_from_numpy`.
+becomes the port's with :func:`state_from_numpy`, and a JAX optimizer
+state (``{"step": int32[], "slots": {slot: {name: array}}, ...}``) the
+port's with :func:`opt_state_from_numpy` (``"step"`` a Python int there);
+:func:`opt_state_to_numpy` and :func:`state_to_numpy` go the other way,
+into the numpy trees a checkpoint's ``state.pkl`` holds.
 
 Serving weights: the JAX package's ``DecoderLM.init_params`` returns a
 flat dict — ``emb`` [V, E], ``pos`` [P, E], per layer ``l{i}.wq``/``wk``/
@@ -107,3 +111,62 @@ def init_numpy_params(model, seed: int) -> Dict[str, np.ndarray]:
         p[f"l{i}.w2"] = mat((f, e), f ** -0.5)
     p["out"] = mat((e, v), e ** -0.5)
     return p
+
+
+def map_tree(fn, tree, path=()):
+    """``fn(leaf, path)`` over the leaves of a tree of dicts, lists and
+    tuples (``path``: the keys from the root)."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tree(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(tree, path)
+
+
+def check_saveable(t: torch.Tensor, what: str) -> None:
+    """Refuse a tensor the JAX package's checkpoint format cannot hold."""
+    enforce_that(t.dtype != torch.bfloat16,
+                 f"{what}: a bfloat16 tensor cannot be saved — the "
+                 "checkpoint holds numpy arrays and numpy has no bfloat16; "
+                 "the port saves float32 weights, slots and state only",
+                 context="convert")
+
+
+def _leaf_to_numpy(leaf, path):
+    if isinstance(leaf, torch.Tensor):
+        check_saveable(leaf, "/".join(map(str, path)))
+        return leaf.detach().to("cpu", copy=True).numpy()
+    if path == ("step",):
+        return np.asarray(leaf, np.int32)
+    return leaf if leaf is None else np.asarray(leaf)
+
+
+def opt_state_to_numpy(state):
+    """The port's optimizer state (``{"step": int, "slots": {slot: {name:
+    tensor}}, ...}``) as the JAX package's numpy tree: the same keys,
+    ``"step"`` an int32 0-d array, every tensor a host copy."""
+    return None if state is None else map_tree(_leaf_to_numpy, state)
+
+
+def opt_state_from_numpy(state, device: DeviceLike = None):
+    """The JAX package's optimizer state tree (numpy or JAX arrays) as the
+    port's: ``"step"`` a Python int, every other array a tensor (a copy) on
+    ``device`` (``cuda`` unless asked)."""
+    if state is None:
+        return None
+    dev = resolve_device(device)
+
+    def leaf(v, path):
+        if path == ("step",):
+            return int(np.asarray(v))
+        if v is None:
+            return None
+        return torch.from_numpy(np.array(v, copy=True)).to(dev)
+
+    return map_tree(leaf, state)
+
+
+def state_to_numpy(state):
+    """A port model state (``{layer: {slot: tensor}}``) as host copies."""
+    return None if state is None else map_tree(_leaf_to_numpy, state)

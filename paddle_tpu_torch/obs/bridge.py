@@ -91,9 +91,11 @@ def publish_resilience(registry, checkpointer=None, report=None) -> None:
     by the trainer/supervisor as they happen; this call adds the
     end-of-run aggregates.
 
-    It only reads the attributes named above, so any objects carrying
-    them work; the port's checkpointer and supervisor come with the
-    resilience slice (A11)."""
+    It only reads the attributes named above: the port's
+    :class:`~paddle_tpu_torch.resilience.AsyncCheckpointer` and
+    :class:`~paddle_tpu_torch.resilience.RunReport` (as
+    ``resilience.chaos.seeded_chaos`` passes them), or any objects
+    carrying them."""
     # gauges, so the names deliberately avoid the Prometheus counter
     # `_total` suffix — rate()/increase() tooling keys on that spelling
     if checkpointer is not None:

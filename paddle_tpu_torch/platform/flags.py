@@ -257,6 +257,44 @@ FLAGS.define("serving_autoscale_cooldown", 10,
              "autoscaler hysteresis: fleet ticks with NO scaling "
              "action after any join/drain, so one pressure spike "
              "cannot flap the fleet size tick-over-tick.", parser=int)
+# resilience: the bad-step guard and step-granular checkpoints
+FLAGS.define("train_bad_step_policy", "off",
+             "default bad-step guard for trainer.SGD (per-trainer "
+             "override: SGD(guard=BadStepGuard(...))): 'off' = the "
+             "classic unguarded step; 'skip' = screen the gradients with "
+             "one global-norm + finiteness reduction after the backward "
+             "and skip bad steps (params, optimizer slots, the step "
+             "counter and model state untouched; the verdict is read to "
+             "the host once a step); 'rollback' = skip, plus K "
+             "consecutive bad steps (train_bad_step_window) dump a "
+             "flight-recorder postmortem and raise BadStepRollback so "
+             "the resilience supervisor restarts from the last verified "
+             "checkpoint.")
+FLAGS.define("train_bad_step_max_norm", 0.0,
+             "bad-step guard: global gradient-norm ceiling — a FINITE "
+             "step whose grad norm exceeds this is also skipped "
+             "(0 = finiteness check only). Unlike "
+             "gradient_clipping_threshold this does not rescale; it "
+             "refuses the step.", parser=float)
+FLAGS.define("train_bad_step_window", 3,
+             "bad-step guard hysteresis: under policy 'rollback', this "
+             "many CONSECUTIVE bad steps trigger the rollback. Also the "
+             "default cadence of the rollback check "
+             "(BadStepGuard.check_every).", parser=int)
+FLAGS.define("train_ckpt_async", False,
+             "write training checkpoints on a background thread "
+             "(resilience.AsyncCheckpointer): the train loop stalls "
+             "only for the device->host snapshot, never the "
+             "tar/pkl/md5/meta disk commit. Depth-one pipelined — a new "
+             "save first waits out the previous write, and the elastic "
+             "trainer acks master tasks only past that durability "
+             "barrier. Per-call override: train(async_save=...).")
+FLAGS.define("train_ckpt_keep", 2,
+             "checkpoint prune budget for step-granular training saves: "
+             "keep this many newest VERIFIED checkpoints (corrupt dirs "
+             "never count toward the budget, so torn young saves cannot "
+             "reap the only good artifact). 0 disables pruning. "
+             "Per-call override: train(keep=...).", parser=int)
 # obs: tracing and the metrics registry
 FLAGS.define("obs_trace", False,
              "request-scoped span tracing (paddle_tpu_torch.obs), read "

@@ -1,6 +1,6 @@
 """Reader creators (a copy of ``paddle_tpu/reader/creator.py``: np_array,
-text_file, recordio; ``cloud_reader`` needs the elastic master and raises
-until it is ported)."""
+text_file, recordio and ``cloud_reader`` over the port's elastic master,
+:mod:`paddle_tpu_torch.master`)."""
 
 from __future__ import annotations
 
@@ -33,7 +33,7 @@ def text_file(path: str):
 def recordio(paths, buf_size: int = 100):
     """Reader over simple length-prefixed record files (our recordio analog:
     8-byte little-endian length + payload per record; see
-    paddle_tpu.master.recordio_write)."""
+    paddle_tpu_torch.master.recordio_write)."""
     if isinstance(paths, str):
         paths = paths.split(",")
 
@@ -54,9 +54,26 @@ def recordio(paths, buf_size: int = 100):
 
 def cloud_reader(paths, etcd_endpoints=None, timeout_sec: int = 5,
                  buf_size: int = 64):
-    """Task-dispatched reader backed by the elastic input master."""
-    from paddle_tpu_torch.platform.enforce import EnforceError
+    """Task-dispatched reader backed by the elastic input master
+    (reference: cloud_reader via go master client, creator.py:91-112).
 
-    raise EnforceError("cloud_reader needs the elastic master (master/), "
-                       "which comes with the tail slice (A13)",
-                       context="reader")
+    Here the master is the in-repo task-queue service
+    (paddle_tpu_torch.master.MasterClient); etcd is replaced by its
+    address (None: an in-process master)."""
+
+    def reader():
+        from paddle_tpu_torch.master import MasterClient
+
+        client = MasterClient(etcd_endpoints)
+        try:
+            client.set_dataset(paths)
+            client.begin_pass()  # recycle tasks if a prior pass finished
+            while True:
+                rec = client.next_record()
+                if rec is None:
+                    break
+                yield rec
+        finally:
+            client.close()
+
+    return reader

@@ -59,10 +59,30 @@ def repeat_reader(samples, steps: int):
     return lambda: iter([samples] * steps)
 
 
+def flash_launches() -> dict:
+    """The flash kernels' (B1-B3) launch counts."""
+    from paddle_tpu_torch.ops import attention as A
+
+    return {"flash_fwd": A.flash_fwd_kernel.launches,
+            "flash_bwd_kv": A.flash_bwd_kv_kernel.launches,
+            "flash_bwd_dq": A.flash_bwd_dq_kernel.launches}
+
+
+def reset_flash_launches() -> None:
+    from paddle_tpu_torch.ops import attention as A
+
+    for kern in (A.flash_fwd_kernel, A.flash_bwd_kv_kernel,
+                 A.flash_bwd_dq_kernel):
+        kern.launches = 0
+
+
 def build_trainer(device, n_layers: int = MODEL["n_layers"],
-                  seed: int = SEED, **levers):
+                  seed: int = SEED, weights=None, faults=None, guard=None,
+                  **levers):
     """``trainer.SGD`` over ``transformer.build`` at the workload's width
-    with ``n_layers`` blocks, weights from ``seed``, on ``device``;
+    with ``n_layers`` blocks, weights from ``seed`` (or copies of
+    ``weights``, name -> tensor, when given: a fresh trainer from weights
+    drawn once), on ``device``; ``faults`` and ``guard`` go to ``SGD``;
     ``levers``: ``build``'s ``fused_head``, ``remat`` and ``dropout``."""
     from paddle_tpu_torch import optimizer, topology, trainer
     from paddle_tpu_torch.models import transformer
@@ -71,10 +91,16 @@ def build_trainer(device, n_layers: int = MODEL["n_layers"],
     topology.reset_name_scope()
     cfg = dict(MODEL, n_layers=n_layers, **levers)
     *_, cost = transformer.build(**cfg)
-    params = Parameters.from_topology(topology.Topology([cost]), seed=seed,
-                                      device=device)
+    if weights is None:
+        params = Parameters.from_topology(topology.Topology([cost]),
+                                          seed=seed, device=device)
+    else:
+        params = Parameters()
+        for name, value in weights.items():
+            params[name] = value.detach().clone()
     return trainer.SGD(cost, params, optimizer.Momentum(
-        momentum=MOMENTUM, learning_rate=LEARNING_RATE), device=device)
+        momentum=MOMENTUM, learning_rate=LEARNING_RATE), faults=faults,
+        guard=guard, device=device)
 
 
 # multi_head_attention at the head dims the kernels run on zero columns

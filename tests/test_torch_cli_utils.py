@@ -16,6 +16,7 @@ once for each package.
 
 import io
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -238,13 +239,21 @@ def test_main_exit_codes(configs, tmp_path, capsys):
     assert "reader" in capsys.readouterr().err
     assert tcli.main(["version"]) == 0
     assert "paddle_tpu_torch 0.1.0 (torch" in capsys.readouterr().out
-    with pytest.raises(EnforceError, match="A11"):
-        tcli.main(["train", "--config", conf, "--save_dir",
-                   str(tmp_path / "ck")])
+    # --save_dir: a checkpoint a pass, evaluated by --job=test
+    ck = str(tmp_path / "ck")
+    assert tcli.main(["train", "--config", conf, "--device", "cpu",
+                      "--num_passes", "2", "--save_dir", ck]) == 0
+    assert sorted(os.listdir(ck)) == ["pass-00000", "pass-00001"]
+    capsys.readouterr()
+    assert tcli.main(["train", "--config", conf, "--device", "cpu",
+                      "--job", "test", "--save_dir", ck]) == 0
+    assert "Test cost=" in capsys.readouterr().out
+    assert tcli.main(["train", "--config", conf, "--device", "cpu",
+                      "--job", "test", "--save_dir",
+                      str(tmp_path / "empty")]) == 2
+    assert "cannot load checkpoint" in capsys.readouterr().err
     with pytest.raises(EnforceError, match="A13"):
         tcli.main(["merge_model", "--config", conf, "--output", "x"])
-    with pytest.raises(EnforceError, match="A13"):
-        tcli.main(["master"])
 
 
 def test_python_dash_m_version():

@@ -259,10 +259,10 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
     files = sorted((REPO / "paddle_tpu_torch").rglob("*.py")) + \
         [REPO / "chip_smoke.py"]
     assert len(files) > 10
-    # the sixth, eighth, ninth, tenth, eleventh and twelfth slices'
-    # modules (parallel/, reader/, dataset/, image.py, obs/, cli.py,
-    # utils.py, the fleet, analysis/ and master/ among them) are walked
-    # too
+    # the sixth, eighth, ninth, tenth, eleventh, twelfth and thirteenth
+    # slices' modules (parallel/, reader/, dataset/, image.py, obs/,
+    # cli.py, utils.py, the fleet, analysis/, master/, checkpoint.py and
+    # resilience/ among them) are walked too
     names = {str(f.relative_to(REPO)) for f in files}
     assert names >= {f"paddle_tpu_torch/{m}.py" for m in (
         "models/deepfm", "models/gan", "models/vae",
@@ -289,7 +289,13 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
         "serving/migrate", "serving/control", "serving/faults",
         "serving/_gate", "analysis/__init__", "analysis/concurrency/__init__",
         "analysis/concurrency/lifecycle", "master/__init__",
-        "master/service", "tools/fleet_workload")}
+        "master/service", "tools/fleet_workload", "checkpoint",
+        "convert", "trainer", "parameters", "platform/flags",
+        "resilience/__init__", "resilience/__main__", "resilience/faults",
+        "resilience/guard", "resilience/checkpointer",
+        "resilience/supervisor", "resilience/chaos", "resilience/cli",
+        "master/recordio", "master/server", "master/client",
+        "tools/resilience_workload", "tools/train_workload")}
     bad = {str(f.relative_to(REPO)): n for f in files
            for n in _imports(f) if _forbidden(n)}
     assert bad == {}
@@ -331,7 +337,14 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             " paddle_tpu_torch.serving.control, paddle_tpu_torch.serving.faults,"
             " paddle_tpu_torch.analysis.concurrency.lifecycle,"
             " paddle_tpu_torch.master.service,"
-            " paddle_tpu_torch.tools.fleet_workload, chip_smoke; "
+            " paddle_tpu_torch.tools.fleet_workload,"
+            " paddle_tpu_torch.checkpoint, paddle_tpu_torch.resilience,"
+            " paddle_tpu_torch.resilience.chaos,"
+            " paddle_tpu_torch.resilience.cli,"
+            " paddle_tpu_torch.master.recordio,"
+            " paddle_tpu_torch.master.server,"
+            " paddle_tpu_torch.master.client,"
+            " paddle_tpu_torch.tools.resilience_workload, chip_smoke; "
             "print(sorted(m for m in sys.modules if m in ('jax', "
             "'paddle_tpu') or m.startswith(('jax.', 'paddle_tpu.'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -435,13 +435,22 @@ def test_log_period_lines_report_cost_and_metrics(caplog):
                     r"top3=[0-9.]+", lines[0])
 
 
-@pytest.mark.parametrize("kw", [{"save_dir": "x"}, {"resume": True},
-                                {"master": object()}, {"keep": 2}])
+@pytest.mark.parametrize("kw", [
+    ({"save_period_steps": 2}, "save_period_steps needs save_dir"),
+    ({"resume": True}, "resume=True needs save_dir"),
+    ({"master": object()}, "needs record_parser"),
+    ({"resume": True, "start_pass": 1, "save_dir": "x"}, "exclusive")])
 def test_train_refuses_the_later_slices_arguments(kw):
+    """The resilience slice's arguments are ported; their misuses raise
+    as the JAX package's do (and a mesh, A12's, still raises)."""
+    kw, match = kw
     _, cost, _ = _mlp(tpaddle)
     params = tpaddle.Parameters.from_topology(
         tpaddle.topology.Topology([cost]), device="cpu")
     sgd = tpaddle.trainer.SGD(cost, params, tpaddle.optimizer.Sgd(),
                               device="cpu")
-    with pytest.raises(Exception, match="A1[13]"):
+    with pytest.raises(Exception, match=match):
         sgd.train(lambda: iter([]), **kw)
+    with pytest.raises(Exception, match="A12"):
+        tpaddle.trainer.SGD(cost, params, tpaddle.optimizer.Sgd(),
+                            mesh=object(), device="cpu")
