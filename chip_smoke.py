@@ -125,6 +125,23 @@ checkout of the repository).  Phases, each fatal on failure:
    params ``torch.equal`` to a straight run's, every task acked once,
    nothing pending, one ``MasterClient`` round trip over a
    ``MasterServer`` on localhost;
+8c. train_moe (``tools/parallel_workload.py``): bench.py's MoE LM
+   (vocab 32768, d 1024, 8 layers, 16 heads, 8 experts, top-1, batch 4 x
+   1024) through ``SGD`` without a mesh (the dense dispatch), bf16
+   policy, Momentum 0.9 at 1e-3: a warm-up and 5 timed steps, finite
+   costs, B1-B3 launched 8 x 6 times each; its dense twin at the same
+   width; tokens/s, ms a step, the MoE/dense step ratio, peak memory;
+   then a 2-layer, d 128, 4-expert copy's f32 step on the card against
+   the CPU path (cost 1e-4 relative, each weight's update 1e-3);
+8d. parallel_world1: a one-rank NCCL process group; the headline
+   transformer from one set of weights, 3 steps without a mesh, under
+   ``SGD(mesh=data_parallel_mesh(), zero=1)`` (equal to the bit) and
+   under ``SGD(pipeline=PipelineConfig(microbatches=4))`` (the GPipe
+   schedule's padded microbatches: costs 1e-3 relative, the weights
+   within 2e-2 of the no-mesh update in norm, bf16 attention inputs
+   tiled otherwise), B1-B3 launched 8 x 3 and 8 x 4 x 3 times; the MoE
+   layer on an ``expert`` axis of one rank (its all-to-alls on NCCL)
+   against the dense path at d 1024, 4096 tokens, f32 (1e-5);
 9. rnn_kernels: the fused LSTM step (B5), the one-launch GRU step (B6)
    and the two-launch GRU step (B7 then B8) against their plain PyTorch
    versions on the same inputs: B5 at B 64 with H 512 and 1280, acts on
@@ -357,6 +374,7 @@ from paddle_tpu_torch.tools import gan_vae_workload as gw
 from paddle_tpu_torch.tools import image_workload as iw
 from paddle_tpu_torch.tools import nested_workload as nestw
 from paddle_tpu_torch.tools import nmt_workload as nw
+from paddle_tpu_torch.tools import parallel_workload as pw
 from paddle_tpu_torch.tools import profile_image, profiling
 from paddle_tpu_torch.tools import quick_start_workload as qw
 from paddle_tpu_torch.tools import ragged_cases as rc
@@ -1626,6 +1644,110 @@ def train_parity(dev) -> dict:
     if max(rel) > PARITY_RTOL or any(
             n != PARITY_LAYERS * PARITY_STEPS for n in used.values()):
         raise AssertionError("kernel path and plain path disagree")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the parallel slice on one card
+# ---------------------------------------------------------------------------
+
+MOE_STEPS = 6            # the first is the untimed warm-up
+MOE_PARITY_COST_RTOL, MOE_PARITY_UPDATE_RTOL = 1e-4, 1e-3
+WORLD1_COST_RTOL, WORLD1_PARAM_RTOL = 1e-3, 2e-2
+MOE_LAYER_RTOL = 1e-5
+
+
+def _lm_steps(sgd, samples, steps):
+    """(costs, step ms) of ``steps`` steps through ``SGD.train``; the
+    flash launches they made."""
+    torch.cuda.reset_peak_memory_stats()
+    tw.reset_flash_launches()
+    costs, step_ms = _train_costs(sgd, samples, steps)
+    return costs, step_ms, tw.flash_launches()
+
+
+def train_moe(dev, card: str) -> dict:
+    """bench.py's MoE LM and its dense twin through ``SGD.train``."""
+    t0 = time.perf_counter()
+    samples = pw.moe_samples(tw.SEED + 1)
+    out = {}
+    for name, experts in (("moe", pw.MOE_EXPERTS), ("dense", 0)):
+        sgd = pw.moe_trainer(dev, moe_experts=experts)
+        costs, step_ms, launches = _lm_steps(sgd, samples, MOE_STEPS)
+        timed = float(np.median(step_ms[1:]))
+        out[name] = {
+            "costs": costs, "step_ms": step_ms, "step_ms_median": timed,
+            "tokens_per_s": pw.MOE_BATCH * pw.MOE_SEQ / (timed / 1e3),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "parameters": sum(p.numel() for p in
+                              sgd.parameters.as_dict().values()),
+            "kernel_launches": launches}
+        del sgd
+        torch.cuda.empty_cache()
+    parity = pw.moe_parity_step(dev)
+    moe = out["moe"]
+    res = {"phase": "train_moe", "model": pw.MOE_MODEL,
+           "experts": pw.MOE_EXPERTS, "top_k": pw.MOE_TOP_K,
+           "batch": pw.MOE_BATCH, "seq": pw.MOE_SEQ, "steps": MOE_STEPS,
+           **{k: moe[k] for k in ("costs", "step_ms", "step_ms_median",
+                                  "tokens_per_s", "peak_memory_gb",
+                                  "parameters", "kernel_launches")},
+           "launches_expected": pw.MOE_MODEL["n_layers"] * MOE_STEPS,
+           "dense_twin": out["dense"],
+           "moe_vs_dense_step_ratio": moe["step_ms_median"]
+           / out["dense"]["step_ms_median"],
+           "parity": {**parity, "cost_rtol": MOE_PARITY_COST_RTOL,
+                      "update_rtol": MOE_PARITY_UPDATE_RTOL},
+           "seconds": time.perf_counter() - t0, "nvidia_smi": card}
+    emit(res)
+    problems = []
+    if not all(np.isfinite(moe["costs"])):
+        problems.append(f"costs {moe['costs']}")
+    for k, n in moe["kernel_launches"].items():
+        if n != res["launches_expected"]:
+            problems.append(f"{k} launched {n} times")
+    if parity["cost_rel_diff"] > MOE_PARITY_COST_RTOL or \
+            parity["update_rel_diff_max"] > MOE_PARITY_UPDATE_RTOL:
+        problems.append(f"card vs CPU: {parity}")
+    if problems:
+        raise AssertionError(f"train_moe: {problems}")
+    return res
+
+
+def parallel_world1(dev, card: str) -> dict:
+    """One-rank NCCL: the headline under DP + ZeRO-1 and under the
+    pipeline against its no-mesh run; the MoE layer on an expert axis of
+    one against the dense path."""
+    t0 = time.perf_counter()
+    with pw.nccl_world1():
+        runs = pw.headline_runs(dev)
+        layer = pw.moe_layer_world1(dev)
+    n = tw.MODEL["n_layers"] * pw.WORLD1_STEPS
+    expected = {"no_mesh": n, "dp_zero1": n,
+                "pipeline": n * pw.WORLD1_MICROBATCHES}
+    res = {"phase": "parallel_world1", "model": tw.MODEL,
+           "steps": pw.WORLD1_STEPS,
+           "microbatches": pw.WORLD1_MICROBATCHES, **runs,
+           "launches_expected": expected, "moe_layer": layer,
+           "cost_rtol": WORLD1_COST_RTOL, "param_rtol": WORLD1_PARAM_RTOL,
+           "moe_layer_rtol": MOE_LAYER_RTOL,
+           "seconds": time.perf_counter() - t0, "nvidia_smi": card}
+    emit(res)
+    problems = []
+    if runs["dp_zero1"]["costs"] != runs["no_mesh"]["costs"] or \
+            runs["dp_zero1"]["param_rel_diff_max"] != 0.0:
+        problems.append("DP + ZeRO-1 on one rank is not the no-mesh run")
+    if runs["pipeline"]["cost_rel_diff"] > WORLD1_COST_RTOL or \
+            runs["pipeline"]["param_rel_diff_max"] > WORLD1_PARAM_RTOL:
+        problems.append("the pipeline run parts from the no-mesh run")
+    for name, want in expected.items():
+        for k, got in runs[name]["launches"].items():
+            if got != want:
+                problems.append(f"{name}: {k} launched {got} times")
+    if layer["max_rel_err"] > MOE_LAYER_RTOL:
+        problems.append(f"expert axis of one vs dense: {layer}")
+    if problems:
+        raise AssertionError(f"parallel_world1: {problems}")
     return res
 
 
@@ -3941,6 +4063,10 @@ def main() -> int:
     lap("flash_and_train")
     train_lm_levers(dev, card, trained)
     lap("lm_levers")
+    moe_trained = train_moe(dev, card)
+    world1 = parallel_world1(dev, card)
+    torch.cuda.empty_cache()
+    lap("parallel")
     resumed = train_resume(dev, card)
     resilience_chaos(dev, card)
     elastic = train_elastic(dev, card)
@@ -4085,6 +4211,10 @@ def main() -> int:
                 trained_tnmt["flash_launches"][name],
             "launches_train_resume": resumed["kernel_launches"][name],
             "launches_train_elastic": elastic["kernel_launches"][name],
+            "launches_train_moe": moe_trained["kernel_launches"][name],
+            "launches_parallel_world1": {
+                run: world1[run]["launches"][name]
+                for run in ("no_mesh", "dp_zero1", "pipeline")},
             "transformer_nmt_cases": {
                 c: {"max_abs_err": flash[c][name]["max_abs_err"],
                     **{k: flash[c][name][k] for k in

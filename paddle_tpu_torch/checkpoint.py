@@ -51,8 +51,15 @@ key and ignores one on read.
 The disk phases time themselves into the ``platform.stats`` timers
 ``checkpoint_write`` (the two blobs), ``checkpoint_md5`` (hashing them
 after a write), ``checkpoint_verify`` (the md5 read-back of a verify)
-and ``checkpoint_read`` (a load's reads).  ZeRO-1 ``shard_plan`` needs a device mesh and raises, naming the parallel
-slice (A12).
+and ``checkpoint_read`` (a load's reads).
+
+``shard_plan`` (a :class:`~paddle_tpu_torch.parallel.zero.ZeroPlan`):
+the snapshot all-gathers ZeRO-1's flat slot chunks back to whole
+parameter shapes (a collective: every rank of the plan's axis takes the
+snapshot), so the file is the same whatever the layout and a run saved
+on N ranks resumes on M; the plan's ``shard_state`` cuts a loaded state
+again.  The trainer gathers the other split weights itself and writes
+from the mesh's first rank only.
 """
 
 from __future__ import annotations
@@ -82,12 +89,6 @@ _PASS_RE = re.compile(r"^pass-(\d{5})$")
 # a fault plan killing at "meta" simulates the classic torn save: both
 # blobs durable, meta missing, previous checkpoint still latest
 COMMIT_PHASES = ("params", "state", "meta", "done")
-
-def _refuse_shard_plan(shard_plan) -> None:
-    enforce_that(shard_plan is None,
-                 "a ZeRO-1 shard_plan needs a device mesh: it comes with "
-                 "the parallel slice (A12)", context="checkpoint")
-
 
 def _md5(path: str) -> str:
     h = hashlib.md5()
@@ -197,8 +198,13 @@ def snapshot_checkpoint(parameters, opt_state: Any = None,
     """Device -> host copy of the full training state (the only phase of
     an async save that stalls the train loop).  Each copy has landed when
     this returns.  ``buffers``: pinned buffers to copy device tensors
-    into, reused across snapshots (see :class:`HostBuffers`)."""
-    _refuse_shard_plan(shard_plan)
+    into, reused across snapshots (see :class:`HostBuffers`).
+    ``shard_plan``: ZeRO-1 slot chunks are gathered to whole tensors."""
+    if shard_plan is not None and opt_state is not None:
+        enforce_that(hasattr(shard_plan, "gather_state"),
+                     "shard_plan takes a parallel.zero.ZeroPlan, got "
+                     f"{type(shard_plan).__name__}", context="checkpoint")
+        opt_state = shard_plan.gather_state(opt_state)
     params = parameters.as_dict() if hasattr(parameters, "as_dict") \
         else dict(parameters)
     return HostCheckpoint(params=_host_tree(params, "params", buffers),

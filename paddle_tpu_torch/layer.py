@@ -13,8 +13,10 @@ cross entropies, square error and regression, the binary and soft
 binary ones, rank and lambda, huber, smooth L1, sum, nce, hsigmoid,
 ctc, the CRF, the beam cost, the fused LM head); sampling_id,
 selective_fc, eos; the SSD suite (priorbox, multibox_loss,
-detection_output).  ``moe_ffn`` raises: it comes with the parallel
-slice.
+detection_output); the mixture-of-experts ``moe_ffn``, dense or
+expert-parallel on a mesh.  An fc whose weight declares a split over an
+axis of the context's mesh is tensor-parallel (its collectives are
+explicit: ``_tp_matmul``).
 
 Each function returns a ``LayerOutput`` graph node whose compute fn is
 plain PyTorch on tensors or :class:`SequenceBatch` values; the dtype
@@ -250,6 +252,8 @@ def fc(input, size: int, act=None, name: Optional[str] = None,
     if has_bias:
         params["b"] = ParamSpec((size,), ParamAttr.to_attr(
             None if bias_attr is True else bias_attr))
+    splits = [_tp_split(params[f"w{i}"].attr, inp)
+              for i, inp in enumerate(inputs)]
 
     def compute(ctx: Context, p, ins):
         total = None
@@ -257,7 +261,7 @@ def fc(input, size: int, act=None, name: Optional[str] = None,
             d = _data_of(v)
             if not isinstance(v, SequenceBatch) and d.dim() > 2:
                 d = d.reshape(d.shape[0], -1)
-            y = pmath.matmul(d, p[f"w{i}"])
+            y = _tp_matmul(ctx, d, p[f"w{i}"], *splits[i])
             total = y if total is None else total + y
         if has_bias:
             total = total + p["b"]
@@ -266,9 +270,61 @@ def fc(input, size: int, act=None, name: Optional[str] = None,
                              pmath.dense_activation_dtype())
         return _apply_extra(ctx, name, out, layer_attr)
 
+    la = ExtraAttr.to_attr(layer_attr)
     return LayerOutput(name=name, layer_type="fc", inputs=inputs, fn=compute,
                        params=params, size=size,
-                       is_sequence=inputs[0].is_sequence)
+                       is_sequence=inputs[0].is_sequence,
+                       out_sharding=(tuple(la.sharding)
+                                     if la.sharding is not None else None))
+
+
+def _tp_split(attr, inp: LayerOutput):
+    """(row axis, col axis, input already split) of an fc weight's
+    declared sharding: rows split over an axis = the input features,
+    columns = the output features."""
+    sh = tuple(attr.sharding) if attr.sharding is not None else (None, None)
+    row, col = sh[0], sh[1]
+    split_in = (row is not None and inp.out_sharding is not None
+                and inp.out_sharding[-1] == row)
+    return row, col, split_in
+
+
+def _tp_matmul(ctx: Context, d, w, row, col, split_in):
+    """``d @ w`` with the weight split over the context mesh's axes (the
+    explicit collectives of tensor parallelism, see
+    :mod:`paddle_tpu_torch.parallel.placement`): a column split lets the
+    whole input into the split region; a row split takes the input's
+    feature slice (cut here when the input is whole) and all-reduces the
+    partial products.  Off a mesh (or on an axis it lacks) a plain
+    product."""
+    mesh = getattr(ctx, "mesh", None)
+    if mesh is None:
+        return pmath.matmul(d, w)
+    from paddle_tpu_torch.parallel import comm
+
+    rg = comm.axis_group(mesh, row)
+    cg = comm.axis_group(mesh, col)
+    if cg is not None:
+        d = comm.enter_sharded(d, cg)
+    if rg is not None and not split_in:
+        d = comm.scatter_replicated(d, d.dim() - 1, rg)
+    y = pmath.matmul(d, w)
+    if rg is not None:
+        y = comm.reduce_replicated(y, rg)
+    return y
+
+
+def _refuse_split_batch_stats(ctx: Context, what: str) -> None:
+    """A layer whose statistics span the batch refuses a mesh whose
+    ``data`` axis splits the batch: each rank would see its own rows,
+    where the JAX package's statistics are the global batch's."""
+    mesh = getattr(ctx, "mesh", None)
+    n = int(mesh.shape.get("data", 1)) if mesh is not None else 1
+    enforce_that(n == 1,
+                 f"{what} on a mesh whose 'data' axis splits the batch "
+                 f"over {n} ranks is not ported: its statistics would be "
+                 "each rank's, not the global batch's (ROADMAP.md A12b "
+                 "pools them)", context=what)
 
 
 def embedding(input, size: int, name: Optional[str] = None,
@@ -808,7 +864,9 @@ def batch_norm(input, act=None, name: Optional[str] = None,
                **_kw) -> LayerOutput:
     """Batch normalization over the channels of image maps (or the
     features of rows), its moving statistics in the state slots
-    ``moving_mean`` (0) and ``moving_var`` (1)."""
+    ``moving_mean`` (0) and ``moving_var`` (1).  Training on batch
+    statistics refuses a mesh whose ``data`` axis splits the batch until
+    they are pooled (A12b)."""
     inp = input
     name = name or unique_name("batch_norm")
     activation = act_mod.get(act)
@@ -826,6 +884,8 @@ def batch_norm(input, act=None, name: Optional[str] = None,
     def compute(ctx, p, ins):
         v = ins[0]
         x = _data_of(v)
+        if ctx.train and not use_global_stats:
+            _refuse_split_batch_stats(ctx, "batch_norm")
         if in_shape is not None:
             x = _to_nhwc(x, in_shape)
         y, nm, nv = pnorm.batch_norm(
@@ -1907,11 +1967,94 @@ def eos(input, eos_id: int, name: Optional[str] = None) -> LayerOutput:
                        fn=compute, size=input.size, is_sequence=True)
 
 
-def moe_ffn(input, num_experts: int = 0, expert_hidden: int = 0, **_kw):
-    """The mixture-of-experts FFN comes with the parallel slice."""
-    raise EnforceError("moe_ffn comes with the parallel slice (A12: the "
-                       "expert mesh, parallel/moe.py); the port has no "
-                       "expert routing yet", context="moe_ffn")
+def moe_ffn(input, num_experts: int = 0, expert_hidden: int = 0,
+            capacity_factor: float = 1.25, aux_weight: float = 0.01,
+            top_k: int = 1, config=None, name: Optional[str] = None,
+            param_attr=None):
+    """Mixture-of-experts FFN (:mod:`paddle_tpu_torch.parallel.moe`):
+    top-1 (Switch) or top-2 (GShard) routing into per-expert two-layer
+    GELU FFNs.  Returns ``(out, aux_cost)``: add ``aux_cost`` to the
+    trainer's cost list (its value is ``aux_weight`` times the Switch
+    balance loss).  ``config=`` takes a ``MoEConfig`` in place of the
+    scalar arguments (explicit ones win).
+
+    The expert weights declare their leading dim split over the config's
+    ``expert`` axis: under a mesh with that axis each rank holds its E/N
+    experts and dispatch rides two all-to-alls; otherwise the dense
+    formulation runs.  Over-capacity tokens come out as zeros; a packed
+    SequenceBatch's padding slots route too and are zeroed.  Capacity and
+    the balance loss are the batch's statistics: a mesh whose ``data``
+    axis splits the batch is refused until they are pooled (A12b)."""
+    from paddle_tpu_torch.parallel import moe as pmoe
+
+    inp = input
+    axis = "expert"
+    if config is not None:
+        num_experts = int(num_experts or config.num_experts)
+        expert_hidden = int(expert_hidden or config.expert_hidden)
+        capacity_factor = float(config.capacity_factor)
+        top_k = int(config.top_k)
+        aux_weight = float(config.aux_weight)
+        axis = str(config.axis)
+        if expert_hidden <= 0:
+            expert_hidden = 4 * int(inp.size)
+    if num_experts <= 0 or expert_hidden <= 0:
+        raise ValueError("moe_ffn needs num_experts/expert_hidden > 0 "
+                         "(directly or via config=MoEConfig(...))")
+    name = name or unique_name("moe_ffn")
+    attr = ParamAttr.to_attr(param_attr)
+
+    def _expert(base, ndim):
+        if base.sharding is not None:
+            return base
+        return dataclasses.replace(
+            base, sharding=(axis,) + (None,) * (ndim - 1))
+
+    d = inp.size
+    params = {
+        "router": ParamSpec((d, num_experts), attr),
+        "w1": ParamSpec((num_experts, d, expert_hidden), _expert(attr, 3)),
+        "b1": ParamSpec((num_experts, expert_hidden),
+                        _expert(ParamAttr.to_attr(None), 2)),
+        "w2": ParamSpec((num_experts, expert_hidden, d), _expert(attr, 3)),
+        "b2": ParamSpec((num_experts, d),
+                        _expert(ParamAttr.to_attr(None), 2)),
+    }
+
+    def compute(ctx, p, ins):
+        v = ins[0]
+        x = _data_of(v)
+        mp = pmoe.MoEParams(p["router"], p["w1"], p["b1"], p["w2"], p["b2"])
+        _refuse_split_batch_stats(ctx, "moe_ffn")
+        mesh = getattr(ctx, "mesh", None)
+        if mesh is not None and axis in mesh.axis_names:
+            y, aux = pmoe.moe_ffn(mesh, x, mp, axis=axis,
+                                  capacity_factor=capacity_factor,
+                                  top_k=top_k)
+        else:
+            y, aux = pmoe.moe_ffn_reference(
+                x, mp, capacity_factor=capacity_factor, top_k=top_k)
+        if isinstance(v, SequenceBatch):
+            y = torch.where(v.valid_mask[:, None], y, torch.zeros_like(y))
+        out = _like(v, y.to(pmath.dense_activation_dtype()))
+        return (out, aux * aux_weight)
+
+    core = LayerOutput(name=name, layer_type="moe_ffn", inputs=[inp],
+                       fn=compute, params=params, size=d,
+                       is_sequence=inp.is_sequence)
+
+    def pick_out(ctx, p, ins):
+        return ins[0][0]
+
+    def pick_aux(ctx, p, ins):
+        return torch.reshape(ins[0][1], (1,))
+
+    out_node = LayerOutput(name=f"{name}_out", layer_type="moe_out",
+                           inputs=[core], fn=pick_out, size=d,
+                           is_sequence=inp.is_sequence)
+    aux_node = LayerOutput(name=f"{name}_aux", layer_type="moe_aux",
+                           inputs=[core], fn=pick_aux, size=1, is_cost=True)
+    return out_node, aux_node
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,9 @@ caches, with the functional block ``block_apply`` and ``stage_params``.
 Parameter names are the JAX package's (``blk0_attn.wq``,
 ``blk0_ffn_up.w0``, ``lm_head.b``, ``dec0_cross.wq`` ...), so a JAX
 ``Parameters`` tar loads into the port's topology as it is.  Mixture-of-
-experts blocks (``moe_experts > 0``) are not ported: they need
-``layer.moe_ffn`` and the parallel layer, and asking for them raises.
+experts blocks (``moe_experts > 0``) swap each block's FFN for
+``layer.moe_ffn`` and make the cost a list: the cross-entropy, then one
+load-balance aux cost a block.
 
 Decoding runs a Python loop over the steps, one token a step (the JAX
 package's ``lax.scan``): the prompt is fed one token at a time, as the
@@ -36,7 +37,8 @@ from paddle_tpu_torch import data_type, layer
 from paddle_tpu_torch import topology as _topo
 from paddle_tpu_torch.attr import ParamAttr
 from paddle_tpu_torch.generation import BeamState, _top_k_stable
-from paddle_tpu_torch.ops.attention import mha_reference
+from paddle_tpu_torch.ops import math as pmath
+from paddle_tpu_torch.ops.attention import flash_attention
 from paddle_tpu_torch.ops.norm import layer_norm
 from paddle_tpu_torch.platform.device import DeviceLike, resolve_device
 from paddle_tpu_torch.platform.enforce import enforce_that
@@ -51,8 +53,9 @@ def block(x, *, n_heads: int, ffn_mult: int = 4, name: str,
     memory)) when ``memory`` is given]; x + drop(FFN(LN(x))), FFN =
     fc(gelu) then fc.  ``causal=False`` is the encoder block; ``memory``
     adds the cross-attention sub-block of ``build_seq2seq``'s decoder
-    (its norm and residual take index 2, the FFN's 3)."""
-    _refuse_moe(moe_experts)
+    (its norm and residual take index 2, the FFN's 3).  With
+    ``moe_experts > 0`` the FFN is ``layer.moe_ffn`` (expert width
+    ``ffn_mult`` times the model's) and the block returns ``(out, aux)``."""
     idx = 1
     a = layer.layer_norm(x, name=f"{name}_ln{idx}")
     a = layer.multi_head_attention(a, num_heads=n_heads, causal=causal,
@@ -70,20 +73,19 @@ def block(x, *, n_heads: int, ffn_mult: int = 4, name: str,
         x = layer.addto(input=[x, c], name=f"{name}_res{idx}")
     idx += 1
     f = layer.layer_norm(x, name=f"{name}_ln{idx}")
-    f = layer.fc(input=f, size=x.size * ffn_mult, act="gelu",
-                 name=f"{name}_ffn_up")
-    f = layer.fc(input=f, size=x.size, name=f"{name}_ffn_down")
+    aux = None
+    if moe_experts > 0:
+        f, aux = layer.moe_ffn(f, num_experts=moe_experts,
+                               expert_hidden=x.size * ffn_mult,
+                               top_k=moe_top_k, name=f"{name}_moe")
+    else:
+        f = layer.fc(input=f, size=x.size * ffn_mult, act="gelu",
+                     name=f"{name}_ffn_up")
+        f = layer.fc(input=f, size=x.size, name=f"{name}_ffn_down")
     if dropout > 0.0:
         f = layer.dropout(f, dropout, name=f"{name}_ffn_drop")
-    return layer.addto(input=[x, f], name=f"{name}_res{idx}")
-
-
-def _refuse_moe(moe_experts: int) -> None:
-    enforce_that(moe_experts <= 0,
-                 "moe_experts (mixture-of-experts blocks) is not ported "
-                 "yet: it needs layer.moe_ffn and parallel/moe.py, which "
-                 "come with the parallel layer (ROADMAP.md A12)",
-                 context="transformer")
+    out = layer.addto(input=[x, f], name=f"{name}_res{idx}")
+    return (out, aux) if moe_experts > 0 else out
 
 
 def build(vocab_size: int = 32768, d_model: int = 512, n_layers: int = 6,
@@ -101,8 +103,10 @@ def build(vocab_size: int = 32768, d_model: int = 512, n_layers: int = 6,
     ``lm_head.w0``/``lm_head.b``, and the returned ``logits`` node still
     computes the logits for decoding.  ``remat=True`` runs each block as
     one ``topology.remat_scope`` segment: the backward recomputes its
-    activations from the block's input (dropout masks included)."""
-    _refuse_moe(moe_experts)
+    activations from the block's input (dropout masks included).
+    ``moe_experts > 0`` builds mixture-of-experts blocks (``moe_top_k``
+    1 or 2) and returns the cost as ``[xent] + one aux cost a block``:
+    pass the list to ``SGD(cost=...)``."""
     tokens = layer.data(name="tokens",
                         type=data_type.integer_value_sequence(vocab_size))
     pos = layer.data(name="pos",
@@ -112,12 +116,19 @@ def build(vocab_size: int = 32768, d_model: int = 512, n_layers: int = 6,
     tok_emb = layer.embedding(input=tokens, size=d_model, name="tok_embed")
     pos_emb = layer.embedding(input=pos, size=d_model, name="pos_embed")
     x = layer.addto(input=[tok_emb, pos_emb], name="embed_sum")
+    aux_nodes = []
     for i in range(n_layers):
         scope = (_topo.remat_scope(f"blk{i}") if remat
                  else contextlib.nullcontext())
         with scope:
-            x = block(x, n_heads=n_heads, ffn_mult=ffn_mult, name=f"blk{i}",
-                      dropout=dropout)
+            if moe_experts > 0:
+                x, aux = block(x, n_heads=n_heads, ffn_mult=ffn_mult,
+                               name=f"blk{i}", dropout=dropout,
+                               moe_experts=moe_experts, moe_top_k=moe_top_k)
+                aux_nodes.append(aux)
+            else:
+                x = block(x, n_heads=n_heads, ffn_mult=ffn_mult,
+                          name=f"blk{i}", dropout=dropout)
     x = layer.layer_norm(x, name="final_ln")
     logits = layer.fc(input=x, size=vocab_size, name="lm_head")
     if fused_head:
@@ -127,6 +138,8 @@ def build(vocab_size: int = 32768, d_model: int = 512, n_layers: int = 6,
                                   name="lm_head_fused")
     else:
         cost = layer.classification_cost(input=logits, label=target)
+    if moe_experts > 0:
+        cost = [cost] + aux_nodes
     return tokens, pos, target, logits, cost
 
 
@@ -325,23 +338,32 @@ def generate(params, prompt_ids, max_new_tokens: int, *, n_layers: int,
 
 
 def block_apply(p_block, x, *, n_heads: int):
-    """Functional full-sequence decoder block: x [S, d] -> [S, d], the
-    layer graph's ``block`` (causal self-attention, pre-LN, tanh-GELU
-    FFN) as a pure function of the block-local parameter names
+    """Functional full-sequence decoder block: x [..., S, d] -> [..., S,
+    d], the layer graph's ``block`` (causal self-attention, pre-LN,
+    tanh-GELU FFN) as a pure function of the block-local parameter names
     (``ln1.gamma``, ``attn.wq``, ``ffn_up.w0`` ...); a stack of them is
-    the trained model's body."""
-    s, d = x.shape
-    n_hd = d // n_heads
+    the trained model's body, and a pipeline stage's.  Each leading row
+    is one sequence; padding after a row's tokens never reaches them.
+    The same ops and dtype policy as the layer graph: products through
+    ``ops.math.matmul``, attention by ``flash_attention`` (B1-B3 on the
+    card, their plain versions on the CPU)."""
+    shape = x.shape
+    s, d = shape[-2:]
+    x = x.reshape(-1, s, d)
+    b = x.shape[0]
+    dt = pmath.dense_activation_dtype()
     a_in = _ln(x, p_block["ln1.gamma"], p_block["ln1.beta"])
-    q = (a_in @ p_block["attn.wq"]).reshape(1, s, n_heads, n_hd)
-    k = (a_in @ p_block["attn.wk"]).reshape(1, s, n_heads, n_hd)
-    v = (a_in @ p_block["attn.wv"]).reshape(1, s, n_heads, n_hd)
-    out = mha_reference(q, k, v, causal=True)[0].reshape(s, d)
-    x = x + out.to(x.dtype) @ p_block["attn.wo"]
+    qkv_t = pmath.compute_dtype(a_in)
+    q, k, v = (pmath.matmul(a_in, p_block[f"attn.{w}"]).to(qkv_t).reshape(
+        b, s, n_heads, d // n_heads) for w in ("wq", "wk", "wv"))
+    o = flash_attention(q, k, v, causal=True)
+    x = x + pmath.matmul(o.reshape(b, s, d), p_block["attn.wo"]).to(dt)
     f_in = _ln(x, p_block["ln2.gamma"], p_block["ln2.beta"])
-    h = F.gelu(f_in @ p_block["ffn_up.w0"] + p_block["ffn_up.b"],
-               approximate="tanh")
-    return x + (h @ p_block["ffn_down.w0"] + p_block["ffn_down.b"])
+    h = F.gelu((pmath.matmul(f_in, p_block["ffn_up.w0"])
+                + p_block["ffn_up.b"]).to(dt), approximate="tanh")
+    x = x + (pmath.matmul(h, p_block["ffn_down.w0"])
+             + p_block["ffn_down.b"]).to(dt)
+    return x.reshape(shape)
 
 
 def stage_params(params, n_layers: int) -> List[Dict]:

@@ -151,6 +151,7 @@ class Optimizer:
         self.global_clip = float(gradient_clipping_threshold or 0.0)
         self.model_average = model_average
         self._specs: Dict[str, ParamSpec] = {}
+        self._zero_plan = None
 
     # -- wiring ------------------------------------------------------------
 
@@ -162,9 +163,13 @@ class Optimizer:
         return spec.attr if spec is not None else None
 
     def set_zero_plan(self, plan) -> None:
-        raise EnforceError("ZeRO-1 optimizer-state sharding needs a device "
-                           "mesh: it comes with the parallel slice (A12)",
-                           context="optimizer")
+        """ZeRO-1 (:mod:`paddle_tpu_torch.parallel.zero`): slots are
+        allocated and updated as this rank's flat 1/N chunks; ``apply``
+        then takes each rank's own (unreduced) gradients, reduce-scatters
+        them through the plan and all-gathers the updated weights.  One
+        wrapper for every rule: the elementwise ``_update`` runs on the
+        chunks unchanged.  ``None`` turns it off."""
+        self._zero_plan = plan
 
     # -- slots -------------------------------------------------------------
 
@@ -176,6 +181,12 @@ class Optimizer:
         ``prune_masks`` for hooked parameters and ``avg``/``avg_count``
         under ``ModelAverage``."""
         masks = self._make_prune_masks(params)
+        plan = self._zero_plan
+        if plan is not None:
+            # slots are born as this rank's chunks (the quantile of a
+            # prune mask is taken on the whole tensor first)
+            params = {k: plan.local_view(k, v) for k, v in params.items()}
+            masks = {k: plan.local_view(k, v) for k, v in masks.items()}
         state = self._init_state(params)
         if masks:
             state["prune_masks"] = masks
@@ -263,21 +274,49 @@ class Optimizer:
               grads: Dict[str, Optional[torch.Tensor]],
               state: Dict[str, Any]) -> None:
         """One update of every parameter, in place; a missing gradient
-        (a parameter the cost does not reach) counts as zero."""
+        (a parameter the cost does not reach) counts as zero.  Under a
+        ZeRO plan ``grads`` are this rank's own, summed over the data
+        axis here."""
+        plan = self._zero_plan
+        gs = {}
+        for name, p in params.items():
+            g = grads.get(name)
+            gs[name] = torch.zeros_like(p) if g is None else g
+        if plan is None:
+            self._apply(params, gs, state, None)
+            return
+        local = {k: plan.local_view(k, p) for k, p in params.items()}
+        shards = {k: plan.shard_view(k, g) for k, g in gs.items()}
+        self._apply(local, shards, state, plan)
+        for k, p in params.items():
+            if plan.is_sharded(k):
+                p.copy_(plan.gather_view(k, local[k]))
+
+    def _apply(self, params, gs, state, plan) -> None:
         step = state["step"]
         device = _device_of(params)
         base_lr = self._base_lr(step, device)
         aux = self._pre_update(state, base_lr)
         self._aux = aux
-        gs = {}
-        for name, p in params.items():
-            g = grads.get(name)
-            gs[name] = torch.zeros_like(p) if g is None else g
         if self.global_clip > 0.0:
             total = None
-            for g in gs.values():
+            whole = None
+            for k, g in gs.items():
                 s = torch.sum(torch.square(g))
-                total = s if total is None else total + s
+                if plan is not None and not plan.is_sharded(k):
+                    whole = s if whole is None else whole + s
+                else:
+                    total = s if total is None else total + s
+            if plan is not None:
+                # the chunks' squares summed over the axis, then the
+                # whole tensors' once
+                from paddle_tpu_torch.parallel import comm
+
+                total = comm.all_reduce_(
+                    total if total is not None
+                    else torch.zeros((), device=device), plan.group)
+                if whole is not None:
+                    total = total + whole
             gnorm = torch.sqrt(total)
             scale = torch.clamp(
                 self.global_clip / torch.clamp(gnorm, min=1e-12), max=1.0)

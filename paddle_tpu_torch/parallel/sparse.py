@@ -131,7 +131,9 @@ class SparseEmbeddingUpdater:
         enforce_that(mesh is None,
                      "SparseEmbeddingUpdater takes no mesh yet: the "
                      "row-sharded tables and updates of parallel/sparse.py "
-                     "are not ported", context="sparse")
+                     "are not ported: they come with the next parallel "
+                     "slice (A12b)",
+                     context="sparse")
         self.sparse = set(sparse_params)
 
     @torch.no_grad()

@@ -73,6 +73,16 @@ class Parameters:
                          context="parameters")
         self._values[name] = value
 
+    def place(self, name: str, value: torch.Tensor) -> None:
+        """Store a rank's part of a parameter split over a mesh (its
+        shape is not the declared whole shape)."""
+        self._values[name] = value
+
+    def pop(self, name: str) -> torch.Tensor:
+        """Remove a parameter (and its spec); returns its tensor."""
+        self._specs.pop(name, None)
+        return self._values.pop(name)
+
     def __contains__(self, name: str) -> bool:
         return name in self._values
 

@@ -111,6 +111,28 @@ FLAGS.define("serving_watchdog_ticks", 16,
              "ticks is FAILED; 0 disables", parser=int)
 
 # training slices (the JAX defaults of paddle_tpu/platform/flags.py)
+FLAGS.define("mesh_shape", "",
+             "comma dims of the default device mesh, e.g. '8' or '2,4' "
+             "(a mesh's devices are the job's ranks); empty = one axis "
+             "over every rank")
+FLAGS.define("mesh_axes", "data", "comma axis names matching mesh_shape")
+FLAGS.define("zero_stage", 0,
+             "cross-replica sharded weight update (arXiv 2004.13336): "
+             "0 = replicated optimizer state (default), 1 = ZeRO-1 — "
+             "reduce-scatter grads, update a 1/N optimizer-state shard "
+             "per replica over the 'data' mesh axis, all-gather updated "
+             "weights. Per-trainer override: SGD(zero=...).")
+FLAGS.define("pipeline_stages", 0,
+             "pipeline-parallel stage count S for SGD(pipeline=...). 0 = "
+             "derive: the PipelineConfig's num_stages, else the mesh's "
+             "'stage' axis size, else every rank. The model's layer "
+             "count must divide by S (each stage holds L/S consecutive "
+             "blocks).", parser=int)
+FLAGS.define("pipeline_microbatches", 8,
+             "GPipe microbatch count M per pipeline-parallel train step "
+             "(PipelineConfig(microbatches=0) reads this). The batch "
+             "must divide by M; bubble fraction is (S-1)/(M+S-1).",
+             parser=int)
 FLAGS.define("seed", 0,
              "global random seed: each training step draws its dropout "
              "masks from it and the step count")

@@ -49,7 +49,7 @@ engines through ``migratable_rids()`` and ``apply_imported_pages()``
 (``serving/migrate.py``).
 
 Not ported yet (see ROADMAP.md): tensor parallelism (``mesh``,
-``tp_axis``: A12) and the compiled-path auditors' budgets (``xla_*``:
+``tp_axis``: A12b) and the compiled-path auditors' budgets (``xla_*``:
 A13).  Passing one of those raises, naming its slice.
 """
 
@@ -267,7 +267,7 @@ def _parse_buckets(spec: str) -> Tuple[int, ...]:
     return tuple(sorted(int(t) for t in spec.split(",") if t.strip()))
 
 
-_A12 = "the parallel slice (A12)"
+_A12 = "the tensor-parallel half of the parallel slice (A12b)"
 _A13 = "the tail slice (A13)"
 
 

@@ -64,8 +64,8 @@ replica's pool — dead ones included — holds zero live refs.  Violations
 raise :class:`~paddle_tpu_torch.serving.faults.PageLeakError` tagged
 ``FLEET-LEAK``, and ``main(["check"])`` replays a seeded kill-chaos
 trace as a standalone gate.  ``FleetRouter.over_mesh_slices`` (a
-replica per tensor-parallel mesh slice) waits for the parallel slice
-(A12).
+replica per tensor-parallel mesh slice) waits for the tensor-parallel
+half of the parallel slice (A12b).
 """
 
 from __future__ import annotations
@@ -340,10 +340,10 @@ class FleetRouter:
                          ) -> "FleetRouter":
         """A fleet whose replica unit is a tensor-parallel mesh slice.
         Not ported yet: it needs the engine's ``mesh``, which comes with
-        the parallel slice (A12)."""
+        the tensor-parallel half of the parallel slice (A12b)."""
         raise EnforceError("FleetRouter.over_mesh_slices is not ported "
-                           "yet: it comes with the parallel slice (A12)",
-                           context="serving")
+                           "yet: it comes with the tensor-parallel half of "
+                           "the parallel slice (A12b)", context="serving")
 
     # ---- replica lifecycle ------------------------------------------------
 

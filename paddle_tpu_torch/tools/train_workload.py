@@ -437,15 +437,17 @@ class BanAndStop:
 def replay_greedy(params, prompt, tokens, *, n_layers: int, n_heads: int,
                   **_decode) -> dict:
     """The CPU path's logits over ``prompt + tokens`` in one pass (the
-    stack of ``transformer.block_apply``, f32), and at each generated
+    stack of ``transformer.block_apply`` under the f32 policy, as the
+    decoders compute), and at each generated
     position whether ``tokens`` holds the argmax or a near tie
     (:data:`NEAR_TIE_RTOL`).  ``params``: the model's tensors on the
     CPU; the rest: :func:`decode_kw`."""
     from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.tools.nmt_workload import f32_policy
 
     seq = torch.tensor(list(prompt) + list(tokens))
     n = len(prompt)
-    with torch.no_grad():
+    with torch.no_grad(), f32_policy():
         x = params["tok_embed.w"][seq] + \
             params["pos_embed.w"][torch.arange(len(seq))]
         for stage in transformer.stage_params(params, n_layers):

@@ -110,11 +110,14 @@ State = Dict[str, Dict[str, torch.Tensor]]
 class Context:
     """Per-forward execution context handed to each node's compute fn:
     the mode, the state read (``state_in``) and written (``state_out``),
-    and the step's seed and device for the nodes' random streams."""
+    and the step's seed and device for the nodes' random streams.  ``mesh``
+    (a :class:`paddle_tpu_torch.parallel.mesh.Mesh`) turns on the layers'
+    parallel paths: tensor-parallel fc, expert-parallel ``moe_ffn``."""
 
     def __init__(self, train: bool, state: State, seed: int = 0,
-                 device: torch.device = torch.device("cpu")):
+                 device: torch.device = torch.device("cpu"), mesh=None):
         self.train = train
+        self.mesh = mesh
         self.state_in = state
         self.state_out: State = {}
         self.seed = int(seed)
@@ -169,6 +172,9 @@ class LayerOutput:
     width: Optional[int] = None
     img_shape: Optional[Tuple[int, int, int]] = None  # (H, W, C) of maps
     remat_group: Optional[str] = None   # set by the enclosing remat_scope
+    # tensor parallelism: the per-dim mesh axes the value is split over
+    # (a column-split fc's output features); None = whole on every rank
+    out_sharding: Optional[Tuple[Optional[str], ...]] = None
 
     def __post_init__(self):
         enforce_that(self.name is not None, "layer needs a name")
@@ -294,20 +300,22 @@ class Topology:
     def forward(self, params: Dict[str, torch.Tensor],
                 feeds: Dict[str, Any], *, train: bool = False,
                 outputs: Optional[Sequence[LayerOutput]] = None,
-                state: Optional[State] = None, seed: int = 0) -> List[Any]:
+                state: Optional[State] = None, seed: int = 0,
+                mesh=None) -> List[Any]:
         """Run the graph on ``feeds`` (data layer name -> value) and return
         the values of ``outputs`` (default: the topology's outputs).
         ``state`` defaults to :meth:`init_state` on the parameters'
         device; the updated slots are dropped (see
         :meth:`forward_with_state`)."""
         return self.forward_with_state(params, state, feeds, train=train,
-                                       outputs=outputs, seed=seed)[0]
+                                       outputs=outputs, seed=seed,
+                                       mesh=mesh)[0]
 
     def forward_with_state(self, params: Dict[str, torch.Tensor],
                            state: Optional[State], feeds: Dict[str, Any],
                            *, train: bool = False, seed: int = 0,
-                           outputs: Optional[Sequence[LayerOutput]] = None
-                           ) -> Tuple[List[Any], State]:
+                           outputs: Optional[Sequence[LayerOutput]] = None,
+                           mesh=None) -> Tuple[List[Any], State]:
         """(values of ``outputs``, new state): the new state is ``state``
         with the slots the nodes set replaced; ``state`` itself is not
         changed.  ``seed`` seeds the nodes' random streams."""
@@ -316,7 +324,8 @@ class Topology:
         device = _device_of(params, feeds)
         if state is None:
             state = self.init_state(device) if self.state_specs() else {}
-        ctx = Context(train=train, state=state, seed=seed, device=device)
+        ctx = Context(train=train, state=state, seed=seed, device=device,
+                      mesh=mesh)
         values: Dict[str, Any] = {}
         done_groups: set = set()
         for node in order:
@@ -392,7 +401,7 @@ class Topology:
         def segment(*ext_vals):
             local = dict(zip(ext_in, ext_vals))
             sub = Context(train=ctx.train, state=ctx.state_in,
-                          seed=ctx.seed, device=ctx.device)
+                          seed=ctx.seed, device=ctx.device, mesh=ctx.mesh)
             for n in nodes:
                 node_params = {p: params[self.param_key(n, p)]
                                for p in n.params}

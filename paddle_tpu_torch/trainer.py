@@ -41,9 +41,24 @@ With ``master=`` it trains from an elastic task queue
 (:mod:`paddle_tpu_torch.master`): one step a task, each task acked only
 after a durable checkpoint covers it.
 
-Not yet ported: meshes and data parallelism (``mesh``, ``zero``,
-``zero_axis``, ``pipeline``, also the multi-task trainer's ``mesh``:
-A12).  Passing one raises, naming its slice.  ``tracer`` puts the
+Parallel training (the parallel slice, :mod:`paddle_tpu_torch.parallel`):
+``mesh=`` (a :class:`~paddle_tpu_torch.parallel.mesh.Mesh` over the job's
+ranks) makes each rank train on its rows of the global batch over the
+``data`` axis, with its loss scaled to 1/N of the global one and the
+gradients summed over ``data`` (the psum GSPMD inserts in JAX); weights
+with a declared split (expert, model, stage) are cut to the rank's part
+and the layers run their parallel paths.  ``zero=1`` (or the
+``zero_stage`` flag) shards the optimizer state over ``data`` (ZeRO-1,
+:mod:`~paddle_tpu_torch.parallel.zero`); ``zero_axis`` splits each
+weight's largest dim over an axis and gathers it for the forward.
+``pipeline=PipelineConfig(...)`` repacks the zoo transformer's
+``blk{i}_*`` weights into ``pipe_body.*`` [L, ...] stacks split over
+``stage`` and trains through the GPipe schedule
+(:mod:`~paddle_tpu_torch.parallel.pipeline`).  Checkpoints hold whole
+tensors: split parts and ZeRO chunks are gathered on save (the mesh's
+first rank writes) and cut on load, so a run saved on N ranks resumes on
+M.  ``MultiTaskTrainer(mesh=)`` is data-parallel the same way.
+``tracer`` puts the
 guard and checkpoint edges on an obs timeline; each pass publishes the
 timer table into the obs registry, and ``obs.trainer_event_bridge`` puts
 passes and iterations on a trace timeline.
@@ -65,8 +80,7 @@ from paddle_tpu_torch.obs.registry import default_registry
 from paddle_tpu_torch.obs.trace import NULL_TRACER
 from paddle_tpu_torch.platform import plog, stats
 from paddle_tpu_torch.platform.device import DeviceLike, resolve_device
-from paddle_tpu_torch.platform.enforce import (enforce_that,
-                                              refuse_unported)
+from paddle_tpu_torch.platform.enforce import enforce_that
 from paddle_tpu_torch.resilience.guard import (guard_init, guard_outputs,
                                                screen_grads, select_good)
 from paddle_tpu_torch.platform.flags import FLAGS
@@ -97,7 +111,44 @@ def _metric_scalar(value) -> torch.Tensor:
     return value.mean()
 
 
-_A12 = "the parallel slice (A12)"
+def _check_mesh(mesh) -> None:
+    if mesh is None:
+        return
+    from paddle_tpu_torch.parallel.mesh import Mesh
+
+    enforce_that(isinstance(mesh, Mesh),
+                 "mesh= takes a paddle_tpu_torch.parallel.Mesh (make_mesh, "
+                 f"data_parallel_mesh ...), got {type(mesh).__name__}",
+                 context="trainer")
+    enforce_that(mesh.member, f"rank {mesh.rank} is not in {mesh!r}",
+                 context="trainer")
+
+
+def _pipe_embed(fp, mb):
+    """The pipeline's first-stage hook: token + position embeddings of a
+    padded microbatch (the ``embedding`` layers and their ``addto``)."""
+    from paddle_tpu_torch.ops import math as pmath
+    from paddle_tpu_torch.ops.embedding import embedding_lookup
+
+    dt = pmath.dense_activation_dtype()
+    return (embedding_lookup(fp["tok_embed.w"], mb["tokens"]).to(dt)
+            + embedding_lookup(fp["pos_embed.w"], mb["pos"]).to(dt))
+
+
+def _pipe_head(lp, y, mb):
+    """The pipeline's last-stage hook: final norm, the vocab head and the
+    cross-entropy summed over the microbatch's valid tokens."""
+    from paddle_tpu_torch.ops import math as pmath
+    from paddle_tpu_torch.ops.losses import softmax_cross_entropy
+    from paddle_tpu_torch.ops.norm import layer_norm
+
+    h = layer_norm(y, lp["final_ln.gamma"], lp["final_ln.beta"], eps=1e-5)
+    logits = (pmath.matmul(h, lp["lm_head.w0"]) + lp["lm_head.b"]).to(
+        pmath.dense_activation_dtype())
+    xe = softmax_cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               mb["target"].reshape(-1))
+    xe = xe.reshape(mb["target"].shape)
+    return torch.where(mb["mask"], xe, torch.zeros_like(xe)).sum()
 
 
 def _on_device(t: torch.Tensor, dev: torch.device) -> bool:
@@ -145,10 +196,6 @@ class SGD:
                  zero_axis: Optional[str] = None, zero: Optional[int] = None,
                  pipeline=None, faults=None, guard=None, tracer=None,
                  device: DeviceLike = None):
-        refuse_unported("SGD", "trainer", mesh=(mesh, None, _A12),
-                        zero_axis=(zero_axis, None, _A12),
-                        zero=(zero, None, _A12),
-                        pipeline=(pipeline, None, _A12))
         self._tracer = tracer if tracer is not None else NULL_TRACER
         costs = [cost] if isinstance(cost, LayerOutput) else list(cost)
         self.metrics = dict(metrics or {})
@@ -161,8 +208,51 @@ class SGD:
         specs = self.topology.param_specs()
         _check_parameters(specs, parameters, self.device)
         self._names = sorted(specs)
+        self._pipeline = None
+        self._pipe_specs: Dict[str, Any] = {}
+        if pipeline is not None:
+            mesh = self._setup_pipeline(pipeline, mesh)
+            self._names = sorted(parameters.names())
+        _check_mesh(mesh)
+        self.mesh = mesh
+        self._zero_axis = zero_axis
+        self._placement = None
+        if mesh is not None:
+            from paddle_tpu_torch.parallel.api import MeshPlacement
+
+            self._placement = MeshPlacement(
+                mesh, {k: parameters[k] for k in self._names},
+                specs=self._param_specs(), zero_axis=zero_axis)
+        self._zero_plan = None
+        stage = int(FLAGS.zero_stage if zero is None else zero)
+        if stage:
+            enforce_that(stage == 1, f"zero_stage={stage} not implemented "
+                         "(0 = off, 1 = optimizer-state sharding)",
+                         context="trainer")
+            usable = mesh is not None and "data" in mesh.axis_names
+            # an explicit zero= that cannot take effect is an error; the
+            # process-wide flag stays permissive for meshless tools
+            enforce_that(usable or zero is None,
+                         "zero=1 needs mesh= with a 'data' axis (got "
+                         + ("no mesh" if mesh is None else
+                            f"axes {tuple(mesh.axis_names)}") + ")",
+                         context="trainer")
+            if usable:
+                from paddle_tpu_torch.parallel.zero import build_zero_plan
+
+                # planned on the whole shapes, as JAX's global arrays
+                self._zero_plan = build_zero_plan(
+                    mesh, {k: parameters[k] for k in self._names},
+                    specs=self._param_specs(), zero_axis=zero_axis)
+        if self._placement is not None:
+            # commit the weights to the mesh (split ones cut to this
+            # rank's part) before the optimizer makes its slots from them
+            self._placement.place(parameters)
         self.optimizer = update_equation
         self.optimizer.set_param_specs(specs)
+        # unconditional: a reused optimizer must not keep an earlier
+        # trainer's plan
+        self.optimizer.set_zero_plan(self._zero_plan)
         self.opt_state = self.optimizer.init_state(
             {k: parameters[k] for k in self._names})
         self.model_state = self.topology.init_state(self.device)
@@ -199,32 +289,191 @@ class SGD:
         self.verdict_reads = 0     # guarded steps' host reads of `good`
         self._async_ckpt = None
 
+    # ------------------------------------------------------------------
+    # pipeline parallelism (stage x data)
+    # ------------------------------------------------------------------
+
+    def _param_specs(self):
+        """The topology's specs with the pipeline plan's: the one spec
+        dict the placement and the ZeRO plan read."""
+        specs = dict(self.topology.param_specs())
+        specs.update(self._pipe_specs)
+        return specs
+
+    def _setup_pipeline(self, cfg, mesh):
+        """Resolve the pipeline geometry, build (or check) the (data,
+        stage) mesh, and repack the body's ``blk{i}_<suffix>`` weights
+        into ``pipe_body.<suffix>`` [L, ...] stacks, whose plan splits
+        the layer dim over ``stage``.  The stacks are whole in a
+        checkpoint, so it reloads into any stage count dividing L."""
+        import re
+
+        from paddle_tpu_torch.parallel import placement
+        from paddle_tpu_torch.parallel.mesh import make_mesh, world_size
+        from paddle_tpu_torch.parallel.pipeline import PipelineConfig
+
+        enforce_that(isinstance(cfg, PipelineConfig),
+                     "pipeline= takes a parallel.PipelineConfig, got "
+                     f"{type(cfg).__name__}", context="trainer")
+        enforce_that(not self.metrics and self._n_costs == 1,
+                     "pipeline= supports a single cost and no metric "
+                     "layers (the loss rides the last-stage boundary "
+                     "hook, not topology.forward)", context="trainer")
+        axis = str(cfg.axis)
+        pat = re.compile(r"^blk(\d+)_(.+)$")
+        groups: Dict[str, Dict[int, str]] = {}
+        for name in self.parameters.names():
+            mt = pat.match(name)
+            if mt:
+                groups.setdefault(mt.group(2), {})[int(mt.group(1))] = name
+        enforce_that(bool(groups),
+                     "pipeline= found no blk{i}_* body parameters — the "
+                     "pipeline trainer partitions the model-zoo "
+                     "transformer naming convention "
+                     "(models/transformer.build)", context="trainer")
+        n_layers = int(cfg.n_layers) or (
+            max(i for d in groups.values() for i in d) + 1)
+        for suffix, d in groups.items():
+            enforce_that(sorted(d) == list(range(n_layers)),
+                         f"blk*_{suffix} layer ids {sorted(d)} do not "
+                         f"cover 0..{n_layers - 1}", context="trainer")
+        s = int(cfg.num_stages) or int(FLAGS.pipeline_stages)
+        if not s:
+            s = (int(mesh.shape[axis])
+                 if mesh is not None and axis in mesh.axis_names
+                 else world_size())
+        m = int(cfg.microbatches) or int(FLAGS.pipeline_microbatches)
+        enforce_that(m >= 1, f"pipeline_microbatches={m} must be >= 1",
+                     context="trainer")
+        enforce_that(n_layers % s == 0,
+                     f"n_layers={n_layers} does not divide into "
+                     f"num_stages={s}", context="trainer")
+        if mesh is None:
+            ndev = world_size()
+            enforce_that(ndev % s == 0,
+                         f"{ndev} devices do not divide into "
+                         f"num_stages={s}", context="trainer")
+            mesh = make_mesh((ndev // s, s), ("data", axis))
+        enforce_that(axis in mesh.axis_names
+                     and int(mesh.shape[axis]) == s,
+                     f"mesh axes {dict(mesh.shape)} lack {axis!r}={s}",
+                     context="trainer")
+        stacked = {}
+        for suffix, d in sorted(groups.items()):
+            vals = [self.parameters.pop(d[i]) for i in range(n_layers)]
+            stacked[f"pipe_body.{suffix}"] = torch.stack(vals)
+        for k, v in stacked.items():
+            self.parameters.place(k, v)
+        self._pipe_specs = placement.pipeline_param_attrs(stacked, axis=axis)
+        self._pipeline = cfg
+        self._pipe_geom = dict(axis=axis, s=s, m=m, layers=n_layers,
+                               heads=int(cfg.n_heads),
+                               remat=bool(cfg.remat))
+        return mesh
+
+    def _pipeline_loss(self, params, feeds) -> torch.Tensor:
+        """The topology's cost through the GPipe schedule: the padded
+        feeds split into M microbatches, the embedding on the first stage,
+        final norm + head + cross-entropy (the sum over valid tokens) on
+        the last; divided by the rank's sequence count, as
+        ``_reduce_cost`` divides a sequence cost."""
+        from paddle_tpu_torch.models.transformer import block_apply
+        from paddle_tpu_torch.parallel.pipeline import pipeline_apply
+
+        g = self._pipe_geom
+        m, per_stage = g["m"], g["layers"] // g["s"]
+        n_heads = g["heads"]
+
+        def padded(name):
+            v, mask = feeds[name].to_padded()
+            return (v[..., 0] if v.dim() == 3 else v), mask
+
+        tok, mask = padded("tokens")
+        pos, _ = padded("pos")
+        tgt, _ = padded("target")
+        b = int(tok.shape[0])
+        enforce_that(b % m == 0,
+                     f"batch of {b} sequences does not divide into "
+                     f"pipeline_microbatches={m}", context="trainer")
+
+        def split(a):
+            return a.reshape((m, b // m) + tuple(a.shape[1:]))
+
+        mbs = {"tokens": split(tok), "pos": split(pos),
+               "target": split(tgt), "mask": split(mask)}
+        stk = {k[len("pipe_body."):]: v.reshape((1, per_stage)
+                                                 + tuple(v.shape[1:]))
+               for k, v in params.items() if k.startswith("pipe_body.")}
+
+        def stage_fn(blocks, x):
+            for j in range(per_stage):
+                x = block_apply({k: v[j] for k, v in blocks.items()}, x,
+                                n_heads=n_heads)
+            return x
+
+        first_p = {k: params[k] for k in ("tok_embed.w", "pos_embed.w")}
+        last_p = {k: params[k] for k in ("final_ln.gamma", "final_ln.beta",
+                                         "lm_head.w0", "lm_head.b")}
+        sums = pipeline_apply(self.mesh, stage_fn, stk, mbs,
+                              axis=g["axis"], first_fn=_pipe_embed,
+                              first_params=first_p, last_fn=_pipe_head,
+                              last_params=last_p, remat=g["remat"])
+        return sums.sum() / b
+
     def _step(self, feeds: Dict[str, object], gstate=None):
         """(cost, {metric: value}) of one forward, backward and update,
         every value a 0-d device tensor; ``__param_stats__`` holds each
         gradient's mean and max |g| when the stats flag is on.  With a
         guard state (``gstate``, see :func:`resilience.guard.guard_init`)
         the gradients take its ``inject`` and are screened; a bad step
-        runs no update and keeps the old model state."""
+        runs no update and keeps the old model state.  On a mesh the
+        rank steps on its rows of the global batch; the cost and metrics
+        returned are the global means."""
+        mp = self._placement
+        if mp is not None:
+            feeds = mp.shard_feeds(feeds)
         params = {k: self.parameters[k].requires_grad_(True)
                   for k in self._names}
         step = self.opt_state["step"]
-        outs, new_state = self.topology.forward_with_state(
-            params, self.model_state, feeds, train=True,
-            seed=(FLAGS.seed or 0) * 1_000_003 + step)
-        total = _reduce_cost(outs[0])
-        for o in outs[1:self._n_costs]:
-            total = total + _reduce_cost(o)
-        grads = torch.autograd.grad(total, [params[k] for k in self._names],
+        outs: List[Any] = []
+        new_state = self.model_state
+        if self._pipeline is not None:
+            total = self._pipeline_loss(params, feeds)
+        else:
+            fwd = mp.forward_params(params) if mp is not None else params
+            outs, new_state = self.topology.forward_with_state(
+                fwd, self.model_state, feeds, train=True,
+                seed=(FLAGS.seed or 0) * 1_000_003 + step, mesh=self.mesh)
+            total = _reduce_cost(outs[0])
+            for o in outs[1:self._n_costs]:
+                total = total + _reduce_cost(o)
+        dp_n = mp.dp_n if mp is not None else 1
+        # each rank's loss is 1/N of the global batch's: its gradients,
+        # summed over 'data', are the global loss's
+        grads = torch.autograd.grad(total / dp_n if dp_n > 1 else total,
+                                    [params[k] for k in self._names],
                                     allow_unused=True)
         grads = dict(zip(self._names, grads))
+        if mp is not None and self._zero_plan is None:
+            mp.reduce_grads(grads)
         if gstate is not None:
             grads, good_t, _ = screen_grads(grads, gstate["inject"],
                                             self._guard.max_norm)
+            if self._zero_plan is not None and dp_n > 1:
+                # ZeRO sums the gradients inside the update: each rank
+                # screened its own, so a step is good only where all are
+                from paddle_tpu_torch.parallel.comm import all_reduce_
+
+                good_t = all_reduce_(good_t.to(torch.float32),
+                                     mp.dp_group,
+                                     torch.distributed.ReduceOp.MIN) > 0
         with torch.no_grad():
             metric_vals: Dict[str, Any] = {
                 name: _metric_scalar(o) for name, o in
                 zip(self.metrics, outs[self._n_costs:])}
+            if mp is not None:
+                metric_vals = {k: mp.mean_over_data(v)
+                               for k, v in metric_vals.items()}
             if self._stats_period:
                 zero = torch.zeros((), device=self.device)
                 metric_vals["__param_stats__"] = {
@@ -239,7 +488,9 @@ class SGD:
         if good:
             self.optimizer.apply(params, grads, self.opt_state)
         self.model_state = select_good(good, new_state, self.model_state)
-        return total.detach(), metric_vals
+        cost = mp.mean_over_data(total) if mp is not None \
+            else total.detach()
+        return cost, metric_vals
 
     def step(self, feeds: Dict[str, object]) -> torch.Tensor:
         """One forward, backward and update on converted ``feeds`` (under
@@ -602,20 +853,47 @@ class SGD:
 
         hook = self._faults.save_hook(ck_id) \
             if self._faults is not None else None
+        params, opt = self._ckpt_view()
+        plan = self._zero_plan
         with self._tracer.span("checkpoint_save", cat="train", ck=ck_id,
                                step=self._global_step):
-            if self._async_ckpt is not None:
+            if not self._ckpt_writer():
+                # the gathers are collectives; the first rank writes
+                ckpt.snapshot_checkpoint(params, opt_state=opt,
+                                         shard_plan=plan)
+            elif self._async_ckpt is not None:
                 self._async_ckpt.save(
-                    root, ck_id, self.parameters, opt_state=self.opt_state,
+                    root, ck_id, params, opt_state=opt,
                     model_state=self.model_state, extra_meta=extra_meta,
-                    commit_hook=hook)
+                    shard_plan=plan, commit_hook=hook)
             else:
                 ckpt.save_checkpoint(
-                    root, ck_id, self.parameters, opt_state=self.opt_state,
+                    root, ck_id, params, opt_state=opt,
                     model_state=self.model_state, extra_meta=extra_meta,
-                    commit_hook=hook)
+                    shard_plan=plan, commit_hook=hook)
                 if keep > 0:
                     ckpt.prune_checkpoints(root, keep=keep)
+            self._ckpt_barrier()
+
+    def _ckpt_view(self):
+        """(params, opt_state) with every split weight and its slots
+        gathered whole (collectives on a mesh; ZeRO's flat chunks are
+        left to the checkpoint's ``shard_plan``)."""
+        mp = self._placement
+        if mp is None:
+            return self.parameters, self.opt_state
+        return (mp.whole_params(self.parameters.as_dict()),
+                mp.whole_state(self.opt_state))
+
+    def _ckpt_writer(self) -> bool:
+        return self._placement is None or self._placement.writer
+
+    def _ckpt_barrier(self) -> None:
+        """On a mesh of several ranks nobody reads a checkpoint before
+        the writer has committed it (sync saves)."""
+        if self.mesh is not None and self.mesh.size > 1 \
+                and self._async_ckpt is None:
+            torch.distributed.barrier(group=self.mesh.whole_group)
 
     def _save_with_cursor(self, root: str, ck_id: int, pass_id: int,
                           step_in_pass: int, keep: int) -> None:
@@ -886,23 +1164,38 @@ class SGD:
     def test(self, reader, feeding=None) -> v2_event.TestResult:
         """Costs and metrics of every batch of ``reader`` in inference
         mode (batch norm on its moving statistics, no dropout), averaged
-        over the batches."""
+        over the batches (on a mesh: each rank tests its rows, the means
+        are global)."""
+        enforce_that(self._pipeline is None,
+                     "test() is not supported under pipeline= (the "
+                     "repacked body has no topology.forward view) — "
+                     "evaluate with a sequential trainer sharing the "
+                     "checkpoint", context="trainer")
         feeder = self._make_feeder(feeding)
+        mp = self._placement
         params = {k: self.parameters[k] for k in self._names}
         costs: List[torch.Tensor] = []
         metrics: Dict[str, List[torch.Tensor]] = {n: [] for n in
                                                    self.metrics}
         with torch.no_grad():
+            if mp is not None:
+                params = mp.forward_params(params)
             for data_batch in reader():
+                feeds = feeder.feed(data_batch)
+                if mp is not None:
+                    feeds = mp.shard_feeds(feeds)
                 outs, _ = self.topology.forward_with_state(
-                    params, self.model_state, feeder.feed(data_batch),
-                    train=False)
+                    params, self.model_state, feeds, train=False,
+                    mesh=self.mesh)
                 total = _reduce_cost(outs[0])
                 for o in outs[1:self._n_costs]:
                     total = total + _reduce_cost(o)
-                costs.append(total)
+                costs.append(mp.mean_over_data(total) if mp is not None
+                             else total)
                 for name, o in zip(self.metrics, outs[self._n_costs:]):
-                    metrics[name].append(_metric_scalar(o))
+                    v = _metric_scalar(o)
+                    metrics[name].append(mp.mean_over_data(v)
+                                         if mp is not None else v)
         cost_vals = _host_floats(costs)
         result = {k: float(np.mean(v)) if v else 0.0
                   for k, v in ((k, _host_floats(b))
@@ -918,11 +1211,22 @@ class SGD:
     # ------------------------------------------------------------------
 
     def save_checkpoint(self, root: str, pass_id: int) -> str:
+        """A checkpoint of the whole state under ``root`` (on a mesh:
+        gathered from every rank, written by the first)."""
         from paddle_tpu_torch import checkpoint as ckpt
 
-        return ckpt.save_checkpoint(root, pass_id, self.parameters,
-                                    opt_state=self.opt_state,
-                                    model_state=self.model_state)
+        params, opt = self._ckpt_view()
+        if self._ckpt_writer():
+            path = ckpt.save_checkpoint(root, pass_id, params,
+                                        opt_state=opt,
+                                        model_state=self.model_state,
+                                        shard_plan=self._zero_plan)
+        else:
+            ckpt.snapshot_checkpoint(params, opt_state=opt,
+                                     shard_plan=self._zero_plan)
+            path = ckpt.pass_dir(root, pass_id)
+        self._ckpt_barrier()
+        return path
 
     def load_checkpoint(self, root: str,
                         pass_id: Optional[int] = None) -> None:
@@ -945,6 +1249,14 @@ class SGD:
         from paddle_tpu_torch.convert import state_from_numpy
 
         params, opt_state, model_state, meta = loaded
+        mp = self._placement
+        if mp is not None:
+            # whole tensors from the file -> this rank's parts
+            params = mp.local_params(params)
+            if opt_state is not None:
+                if self._zero_plan is not None:
+                    opt_state = self._zero_plan.shard_state(opt_state)
+                opt_state = mp.local_state(opt_state)
         with torch.no_grad():
             for name, value in params.items():
                 enforce_that(name in self.parameters,
@@ -1044,7 +1356,10 @@ class MultiTaskTrainer:
     parameters enter the graph detached, are read and never updated.
     Every step draws a fresh seed; model-state slots a step updates are
     copied into the other tasks' state maps by node name.  Runs on
-    ``device`` (``cuda`` unless asked), where ``parameters`` live::
+    ``device`` (``cuda`` unless asked), where ``parameters`` live.  With
+    ``mesh=`` a step is data-parallel: each rank takes its rows of the
+    feeds over ``data`` and the gradients are summed over it (the cost
+    returned is the global mean)::
 
         t = MultiTaskTrainer([
             TaskSpec("d", d_cost, Adam(learning_rate=2e-4), trainable="dis_"),
@@ -1054,12 +1369,24 @@ class MultiTaskTrainer:
     """
 
     def __init__(self, tasks: Sequence[TaskSpec], parameters: Parameters,
-                 device: DeviceLike = None):
+                 mesh=None, device: DeviceLike = None):
         enforce_that(len(tasks) > 0, "need at least one task",
                      context="MultiTaskTrainer")
         self.device = resolve_device(device)
         self.tasks = {t.name: t for t in tasks}
         self.parameters = parameters
+        _check_mesh(mesh)
+        self.mesh = mesh
+        self._placement = None
+        if mesh is not None:
+            from paddle_tpu_torch.parallel.api import MeshPlacement
+
+            specs: Dict[str, Any] = {}
+            for t in tasks:
+                specs.update(Topology([t.cost]).param_specs())
+            self._placement = MeshPlacement(mesh, parameters.as_dict(),
+                                            specs=specs)
+            self._placement.place(parameters)
         self._topos: Dict[str, Topology] = {}
         self._trainable: Dict[str, list] = {}
         self._opt_states: Dict[str, Any] = {}
@@ -1092,6 +1419,9 @@ class MultiTaskTrainer:
         feeds = {k: torch.as_tensor(v, device=self.device)
                  if isinstance(v, np.ndarray) else v
                  for k, v in feeds.items()}
+        mp = self._placement
+        if mp is not None:
+            feeds = mp.shard_feeds(feeds)
         task = self.tasks[name]
         topo = self._topos[name]
         names = self._trainable[name]
@@ -1099,13 +1429,21 @@ class MultiTaskTrainer:
         params = {k: (self.parameters[k].requires_grad_(True)
                       if k in train_set else self.parameters[k].detach())
                   for k in topo.param_specs()}
+        if mp is not None:
+            params = mp.forward_params(params)
         seed = (FLAGS.seed or 0) * 1_000_003 + self._steps
         outs, new_state = topo.forward_with_state(
-            params, self._model_states[name], feeds, train=True, seed=seed)
+            params, self._model_states[name], feeds, train=True, seed=seed,
+            mesh=self.mesh)
         total = _reduce_cost(outs[0])
+        dp_n = mp.dp_n if mp is not None else 1
         wrt = [k for k in names if k in params]
         grads = dict(zip(wrt, torch.autograd.grad(
-            total, [params[k] for k in wrt], allow_unused=True)))
+            total / dp_n if dp_n > 1 else total,
+            [params[k] for k in wrt], allow_unused=True)))
+        if mp is not None:
+            mp.reduce_grads(grads)
+            total = mp.mean_over_data(total)
         task.optimizer.apply({k: self.parameters[k] for k in names}, grads,
                              self._opt_states[name])
         self._model_states[name] = new_state

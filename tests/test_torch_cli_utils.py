@@ -14,6 +14,8 @@ once for each package.
   version``.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import io
 import json
 import os

@@ -19,6 +19,8 @@ control plane, on the CPU, with the same numpy weights and
 - ``control.main(["check", "--device=cpu"])`` prints JAX's ledger.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import numpy as np
 import pytest
 

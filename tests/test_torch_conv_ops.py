@@ -23,6 +23,8 @@ sigma, kept values scaled by 1 / keep, the identity when off, the same
 mask from the same seed.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import contextlib
 
 import jax

@@ -68,6 +68,8 @@ Tolerances, the measured worst case in brackets:
   its weights move by 1e-7
   (``test_resnet50_bf16_cost_moves_by_percents_under_a_1e_7_change``).
 """
+
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
 import contextlib
 import functools
 import io

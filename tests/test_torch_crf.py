@@ -18,6 +18,8 @@ package, on the CPU.
   JAX step compiles once.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import contextlib
 import itertools
 

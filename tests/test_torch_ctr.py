@@ -24,6 +24,8 @@ packages in float64 (``tests/torch_float64.py``), where the tie has one
 answer, at the same bounds.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import contextlib
 
 import jax.numpy as jnp

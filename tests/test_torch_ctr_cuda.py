@@ -20,6 +20,8 @@ over 3 Adam steps: costs within 1e-5 relative, every parameter within
 bit-identical.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import numpy as np
 import pytest
 import torch

@@ -14,6 +14,8 @@ kept indices and labels exact; the JAX functions run one example at a
 time under ``vmap`` as the JAX layers do.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

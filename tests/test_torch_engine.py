@@ -16,6 +16,8 @@
   nor ``paddle_tpu``.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import ast
 import pathlib
 import subprocess
@@ -259,10 +261,11 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
     files = sorted((REPO / "paddle_tpu_torch").rglob("*.py")) + \
         [REPO / "chip_smoke.py"]
     assert len(files) > 10
-    # the sixth, eighth, ninth, tenth, eleventh, twelfth and thirteenth
-    # slices' modules (parallel/, reader/, dataset/, image.py, obs/,
-    # cli.py, utils.py, the fleet, analysis/, master/, checkpoint.py and
-    # resilience/ among them) are walked too
+    # the sixth, eighth, ninth, tenth, eleventh, twelfth, thirteenth and
+    # fourteenth slices' modules (parallel/, reader/, dataset/, image.py,
+    # obs/, cli.py, utils.py, the fleet, analysis/, master/,
+    # checkpoint.py, resilience/ and platform/virtual.py among them) are
+    # walked too
     names = {str(f.relative_to(REPO)) for f in files}
     assert names >= {f"paddle_tpu_torch/{m}.py" for m in (
         "models/deepfm", "models/gan", "models/vae",
@@ -295,7 +298,12 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
         "resilience/guard", "resilience/checkpointer",
         "resilience/supervisor", "resilience/chaos", "resilience/cli",
         "master/recordio", "master/server", "master/client",
-        "tools/resilience_workload", "tools/train_workload")}
+        "tools/resilience_workload", "tools/train_workload",
+        "parallel/__init__", "parallel/compat", "parallel/comm",
+        "parallel/mesh", "parallel/api", "parallel/placement",
+        "parallel/zero", "parallel/moe", "parallel/pipeline",
+        "parallel/ring", "platform/virtual", "platform/device",
+        "tools/parallel_workload")}
     bad = {str(f.relative_to(REPO)): n for f in files
            for n in _imports(f) if _forbidden(n)}
     assert bad == {}
@@ -344,7 +352,16 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             " paddle_tpu_torch.master.recordio,"
             " paddle_tpu_torch.master.server,"
             " paddle_tpu_torch.master.client,"
-            " paddle_tpu_torch.tools.resilience_workload, chip_smoke; "
+            " paddle_tpu_torch.tools.resilience_workload,"
+            " paddle_tpu_torch.parallel, paddle_tpu_torch.parallel.compat,"
+            " paddle_tpu_torch.parallel.comm,"
+            " paddle_tpu_torch.parallel.mesh, paddle_tpu_torch.parallel.api,"
+            " paddle_tpu_torch.parallel.placement,"
+            " paddle_tpu_torch.parallel.zero, paddle_tpu_torch.parallel.moe,"
+            " paddle_tpu_torch.parallel.pipeline,"
+            " paddle_tpu_torch.parallel.ring,"
+            " paddle_tpu_torch.platform.virtual,"
+            " paddle_tpu_torch.tools.parallel_workload, chip_smoke; "
             "print(sorted(m for m in sys.modules if m in ('jax', "
             "'paddle_tpu') or m.startswith(('jax.', 'paddle_tpu.'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

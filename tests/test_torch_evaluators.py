@@ -13,6 +13,8 @@ has a case, and that list is JAX's (``detection_map`` included since the
 tenth slice: the ``voc_detection_map`` case, scores tied on 4 levels).
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import contextlib
 import io
 

@@ -21,6 +21,8 @@ order lands on the other side of a bf16 rounding step (of the rounded P,
 or of the bf16 output).
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import subprocess
 import sys
 

@@ -8,6 +8,8 @@ the reading of ptxas's register and spill report; and the ablation
 tool's variants of the kernel source.  No JAX here: these are
 the port's own contracts."""
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import re
 
 import numpy as np

@@ -22,6 +22,8 @@ Also: the fleet gate (``fleet.main(["check", "--device=cpu"])``) and
 package's seed-0 draw, and ``over_mesh_slices`` raises naming A12.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import json
 
 import numpy as np

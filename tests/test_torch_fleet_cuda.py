@@ -24,6 +24,8 @@ CPU mode).  The file imports neither ``jax`` nor ``paddle_tpu``::
     python -m pytest tests/test_torch_fleet_cuda.py -q --noconftest
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import numpy as np
 import pytest
 import torch

@@ -16,6 +16,8 @@ parameters within 1e-4 relative in norm; a task's step leaves every
 parameter outside its ``trainable`` set bit-identical.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import contextlib
 import hashlib
 

@@ -9,6 +9,8 @@ another order), with each of the four hooks, with forced ties, and where
 the port's loop stops early against JAX's full ``max_length`` scan.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

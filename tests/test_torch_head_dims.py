@@ -18,6 +18,8 @@ Tolerances as in ``tests/test_torch_flash_attention.py`` and
 ``tests/test_torch_ragged_attention.py``: f32 2e-5 absolute; bf16 1e-2.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

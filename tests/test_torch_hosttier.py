@@ -14,6 +14,8 @@ package, on the CPU.
   f32 and int8 pools (exact: they only move stored values).
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import numpy as np
 import jax
 import jax.numpy as jnp

@@ -15,6 +15,8 @@ VOC's tar with a segmentation set), each package on its own copy.  The
 plotter's text fallback and the timers' report read the same.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import io
 import os
 import pickle

@@ -21,6 +21,8 @@ and gradient to bf16, and an f32 sum in another order can cross a
 rounding step).
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import numpy as np
 import pytest
 import torch

@@ -42,6 +42,8 @@ of its magnitude (``rnn_workload.rnn_error``); recurrent training costs
 within 1e-4 relative.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import numpy as np
 import pytest
 import torch

@@ -10,6 +10,8 @@ f32 pages bit for bit).  The port updates the pool in place where the
 JAX functions return a new pool.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import numpy as np
 import jax.numpy as jnp
 import pytest

@@ -16,12 +16,15 @@ package; their cases hand JAX's draws to the port's draw functions
 test of their own checks the port's draws on their law.
 
 Sparse slots (binary and float, alone and as sequences) go through both
-feeders; ``moe_ffn`` raises naming the parallel slice.  The breadth gate:
+feeders; ``moe_ffn``'s dense path (the parallel slice) against JAX's.
+The breadth gate:
 every layer the JAX package exports is in the port's ``layer.__all__``,
 and each of the slice's new layers has a case here or in
 ``tests/test_torch_detection.py`` (``priorbox``, ``multibox_loss``,
 ``detection_output``).
 """
+
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
 
 import jax
 import jax.numpy as jnp
@@ -345,9 +348,15 @@ def test_fc_over_sparse_rows_matches_jax():
 
 
 def test_moe_ffn_names_the_parallel_slice():
-    ttopo.reset_name_scope()
-    with pytest.raises(Exception, match="A12"):
-        tlayer.moe_ffn(_x(tlayer, tdt), num_experts=2, expert_hidden=4)
+    """``moe_ffn`` came with the parallel slice: its dense path (top-2,
+    a capacity that drops) against JAX's, output and gradients."""
+    def build(L, dt):
+        return L.moe_ffn(L.fc(_x(L, dt), size=4, name="h"), num_experts=4,
+                         expert_hidden=5, top_k=2, capacity_factor=1.0,
+                         name="moe")[0]
+
+    check(*run_both(build, [("x", "dense_vector", D)],
+                    dense(("d", D, -1, 1), n=8)))
 
 
 DETECTION_LAYERS = {"priorbox", "multibox_loss", "detection_output"}

@@ -21,6 +21,8 @@ Tolerances:
   parameter within 1e-4 relative (1e-6 absolute).
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import jax
 import numpy as np
 import pytest
@@ -178,7 +180,22 @@ def test_lm_head_cost_without_a_bias():
 
 
 def test_mixture_of_experts_blocks_still_raise_naming_their_queue():
+    """Mixture-of-experts blocks came with the parallel slice: the cost is
+    the cross-entropy plus one aux cost a block, and the parameters are
+    JAX's names (each block's FFN replaced by ``blk{i}_moe``)."""
+    from paddle_tpu.models import transformer as jtransformer
+    from paddle_tpu import topology as jtopo
+
     ttopo.reset_name_scope()
-    with pytest.raises(Exception, match="A12"):
-        ttransformer.build(vocab_size=97, d_model=16, n_layers=1, n_heads=2,
-                           max_len=32, moe_experts=2)
+    *_, costs = ttransformer.build(vocab_size=97, d_model=16, n_layers=2,
+                                   n_heads=2, max_len=32, moe_experts=2)
+    jtopo.reset_name_scope()
+    *_, jcosts = jtransformer.build(vocab_size=97, d_model=16, n_layers=2,
+                                    n_heads=2, max_len=32, moe_experts=2)
+    assert isinstance(costs, list) and len(costs) == 3
+    assert [c.name for c in costs] == [c.name for c in jcosts]
+    tspecs = ttopo.Topology(costs).param_specs()
+    jspecs = jtopo.Topology(jcosts).param_specs()
+    assert {k: tuple(v.shape) for k, v in tspecs.items()} == \
+        {k: tuple(v.shape) for k, v in jspecs.items()}
+    assert "blk1_moe.w1" in tspecs and "blk1_ffn_up.w0" not in tspecs

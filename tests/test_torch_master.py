@@ -21,6 +21,8 @@ decorrelated jitter, reconnect through a flaky server, and a clear
 error when the retry budget runs out (all with an injected sleep_fn —
 no wall-clock sleeping)."""
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import os
 import socket
 import threading

@@ -18,6 +18,8 @@ migration plane, on the CPU, with the same numpy weights.
 - ``migrate.main(["check", "--device=cpu"])`` prints JAX's ledger.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import numpy as np
 import pytest
 import torch

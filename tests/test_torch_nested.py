@@ -22,6 +22,8 @@ surgery and beam cost against the JAX package, on the CPU.
   cancels to ~1e-8).
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

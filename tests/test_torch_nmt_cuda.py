@@ -25,6 +25,8 @@ generator: it follows the run at every step with no choice apart, and it
 flags a run whose recorded choice the model would not make.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import numpy as np
 import pytest
 import torch

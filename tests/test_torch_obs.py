@@ -16,6 +16,8 @@
 - the tracer's ring, postmortem and the null tracer.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import io
 import json
 

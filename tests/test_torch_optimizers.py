@@ -16,6 +16,8 @@ by a few parts in 1e5.  The global-norm clip sums the per-tensor sums in
 the same order.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import numpy as np
 import pytest
 import torch
@@ -360,5 +362,27 @@ def test_no_lever_keeps_the_earlier_bits(rule):
 
 
 def test_zero_plan_names_the_parallel_slice():
-    with pytest.raises(Exception, match="A12"):
-        topt.Momentum().set_zero_plan(object())
+    """ZeRO-1 came with the parallel slice: a plan over a mesh of one
+    rank shards nothing, and Adam with a global clip through it updates
+    exactly as without one."""
+    from paddle_tpu_torch.parallel import build_zero_plan, make_mesh
+
+    rs = np.random.RandomState(3)
+    p0 = {"a": rs.randn(5, 3).astype(np.float32),
+          "b": rs.randn(7).astype(np.float32)}
+    g = {k: torch.from_numpy(rs.randn(*v.shape).astype(np.float32))
+         for k, v in p0.items()}
+    outs = []
+    for planned in (False, True):
+        opt = topt.Adam(learning_rate=0.1, gradient_clipping_threshold=0.5)
+        p = {k: torch.from_numpy(v.copy()) for k, v in p0.items()}
+        if planned:
+            plan = build_zero_plan(make_mesh((1,), ("data",)), p)
+            assert not any(e.sharded for e in plan.entries.values())
+            opt.set_zero_plan(plan)
+        state = opt.init_state(p)
+        for _ in range(2):
+            opt.apply(p, {k: v.clone() for k, v in g.items()}, state)
+        outs.append(p)
+    for k in p0:
+        assert torch.equal(outs[0][k], outs[1][k]), k

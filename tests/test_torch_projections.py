@@ -10,6 +10,8 @@ runs at starts -2, 0 and +1, with and without ``padding_attr``: the
 gradient is zero in both.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -12,6 +12,8 @@ changed).  Every batch packs to capacity 64 and ``max_len`` bucket 16, so
 the JAX step compiles once.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import contextlib
 
 import numpy as np

@@ -20,6 +20,8 @@ The CUDA kernel itself runs only on the card: its tests are in
 ``tests/test_torch_kernels_cuda.py``.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import numpy as np
 import jax.numpy as jnp
 import pytest

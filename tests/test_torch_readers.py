@@ -11,6 +11,8 @@ its producer when the consumer stops early.  ``common.download`` refuses
 in both packages, so no test reaches the network.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import gzip
 import io
 import os

@@ -13,6 +13,8 @@ Gradients at 1e-4 relative (1e-6 absolute near zero): a backward through
 a few frames of tanh and sigmoid compounds those rounding differences.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import contextlib
 import dataclasses
 import types

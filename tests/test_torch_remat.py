@@ -18,6 +18,8 @@ Tolerances:
   recompute), and JAX's within 1e-5.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import contextlib
 
 import jax

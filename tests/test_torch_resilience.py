@@ -29,6 +29,8 @@ policy), parameters, slots, batch norm's statistics and costs within
 deaths and the fault plan's decisions are equal.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import os
 import subprocess
 import sys

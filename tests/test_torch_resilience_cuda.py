@@ -16,6 +16,8 @@ have no CPU mode).  The file imports neither ``jax`` nor
     python -m pytest tests/test_torch_resilience_cuda.py -q --noconftest
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import pytest
 import torch
 

@@ -16,6 +16,8 @@ chained), and the H = 1280 cases 1e-5 on values, 1e-4 on gradients (as
 held to one bf16 step of its magnitude, 2**-7, plus 1e-5.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import contextlib
 import io
 

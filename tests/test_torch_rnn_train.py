@@ -25,6 +25,8 @@ Tolerances (costs per step; parameters after the five steps):
   policy.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import contextlib
 import io
 

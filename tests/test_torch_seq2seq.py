@@ -26,6 +26,8 @@ Tolerances:
   generator's tokens and lengths, scores within 1e-4.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import contextlib
 import io
 

@@ -19,6 +19,8 @@ relative, every parameter within 1e-4 relative in norm; decoded paths
 equal.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import numpy as np
 import pytest
 import torch

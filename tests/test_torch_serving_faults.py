@@ -20,6 +20,8 @@ on both packages, and ``kv_cache.main(["check", "--device=cpu"])``
 printing JAX's ledger.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import numpy as np
 import pytest
 

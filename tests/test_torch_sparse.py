@@ -9,6 +9,8 @@ The port updates tables in place, so each port call takes a copy.
 Tolerance: 1e-6 absolute (f32); untouched rows bit-identical.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -22,6 +22,8 @@ does.  The tests of the JAX package that need its ``FaultPlan`` or its
 fleet wait for those slices (ROADMAP.md).
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import numpy as np
 import jax
 import pytest

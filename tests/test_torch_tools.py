@@ -11,6 +11,8 @@ are the scripts' own contracts (the workload drains with a prefix-cache
 hit; the bound counts real rows only and prices each product at its
 operand type's rate)."""
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import sys
 import pathlib
 

@@ -24,6 +24,8 @@ Tolerances (costs per step; parameters after the five steps):
   lr step the other way.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import contextlib
 import io
 

@@ -20,6 +20,8 @@ absolute) in f32, the gradients within ``flash_error``'s bf16 bound under
 the bf16 policy.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import numpy as np
 import pytest
 import torch

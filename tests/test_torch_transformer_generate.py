@@ -9,6 +9,9 @@ decode length (6), so that JAX compiles each of its scans once.  Neither
 package's decode step takes the bf16 policy: products in f32, attention
 in f32.
 
+``block_apply`` follows the dtype policy as the layer graph does, and is
+held under the f32 policy.
+
 Tolerances: the step's hidden state and the beam scores within 1e-5
 relative (the same f32 products summed in another order); tokens equal.
 The forced ties (every logit equal: a zero head) are broken the same way
@@ -16,6 +19,8 @@ in both, by the lower index.  A temperature draw cannot replay
 ``jax.random.categorical``'s stream: it is held to the vocabulary and to
 its own replay from one seed.
 """
+
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
 
 import jax
 import jax.numpy as jnp
@@ -263,8 +268,9 @@ def test_block_apply_matches_jax_and_the_layer_graph(params):
     xj, xt = jnp.asarray(x), torch.tensor(x)
     for sj, st in zip(stages_j, stages_t):
         xj = jax.jit(lambda p, v: jt.block_apply(p, v, n_heads=HEADS))(sj, xj)
-        xt = tt.block_apply({k: torch.tensor(v) for k, v in st.items()}, xt,
-                            n_heads=HEADS)
+        with policy(False):
+            xt = tt.block_apply({k: torch.tensor(v) for k, v in st.items()},
+                                xt, n_heads=HEADS)
         np.testing.assert_allclose(xt.numpy(), np.asarray(xj), rtol=1e-5,
                                    atol=1e-5)
     # the stack, the final norm and the head are the layer graph's logits

@@ -23,6 +23,8 @@ Tolerances:
   bf16 costs 2.3e-4, parameters 9.4e-3 (``dec0_ln2.beta``).
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import jax
 import numpy as np
 import pytest

@@ -20,6 +20,8 @@ run is reported by ``chip_smoke.py`` and not held); every evaluator value
 within 1e-6 relative; prefetch's costs bit for bit.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import random
 
 import numpy as np

@@ -21,6 +21,8 @@ included, so ``chip_smoke.py``'s ``VGG_UPDATE_RTOL`` there is 1e-2:
 ``tools/vgg_grad_spread.py``).
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import numpy as np
 import pytest
 import torch

@@ -18,6 +18,8 @@ steps both packages' ``dropout`` is patched to the identity at run time
 one compiled step each.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
