@@ -67,6 +67,23 @@ checkout of the repository).  Phases, each fatal on failure:
    pages right after the import against its plain version, the pages
    bit-identical to the blob's; fleet_checks, the fleet, migrate,
    control and kv_cache gates and ``obs.cli.seeded_chaos`` on the card;
+5b'. serve_tp (``tools/tp_workload.py``): the serve phase's model and
+   requests through ``ServingEngine(mesh=make_mesh((2,), ("model",)))``
+   in two processes on this card joined by gloo (NCCL takes one rank a
+   card; gloo's ``all_reduce`` takes CUDA tensors through host copies),
+   each rank building only its shard (8 heads, 4096 FFN columns, a
+   [8, 129, 128, 8, 128] f32 K and V pool shard) from the numpy weights:
+   the ranks' tokens equal, equal to the serve phase's one-process
+   tokens (a parting only at a near tie of the one-process reference,
+   replayed and printed), B4 launched 8 x steps on each rank and each
+   rank's B4 at step 2 held against its plain version on the shard, 2 x 8
+   all-reduces a step with their bytes equal to ``tp_step_comm_bytes``,
+   pages conserved; wall time, tokens/s and the all-reduces' share of
+   the wall as what they are (two ranks time-sharing one card, the card
+   synchronized around each all-reduce); serve_tp_world1: the
+   tensor-parallel engine on a one-rank NCCL 'model' mesh against the
+   engine without a mesh, every step's logits and every token equal to
+   the bit;
 5c. cli: ``python -m paddle_tpu_torch train`` on a small config for one
    pass on the card, then ``train --job=test`` over its tar,
    ``dump_config``, ``version`` (exit 0) and a config without a reader
@@ -141,7 +158,14 @@ checkout of the repository).  Phases, each fatal on failure:
    within 2e-2 of the no-mesh update in norm, bf16 attention inputs
    tiled otherwise), B1-B3 launched 8 x 3 and 8 x 4 x 3 times; the MoE
    layer on an ``expert`` axis of one rank (its all-to-alls on NCCL)
-   against the dense path at d 1024, 4096 tokens, f32 (1e-5);
+   against the dense path at d 1024, 4096 tokens, f32 (1e-5); DeepFM's
+   33.76 M x 10 factor table through ``sharded_lookup``,
+   ``alltoall_lookup`` and ``sharded_row_update`` on a 'model' axis of
+   one against the plain gather and ``sgd_update_rows`` (equal to the
+   bit); ``LocalSGD(sync_period=1)`` against plain SGD (to the bit); batch
+   norm's sums and the MoE dispatch's counts pooled over a 'data' axis of
+   one against their unpooled runs (batch norm to the bit, the MoE layer
+   and its gradients 1e-5);
 9. rnn_kernels: the fused LSTM step (B5), the one-launch GRU step (B6)
    and the two-launch GRU step (B7 then B8) against their plain PyTorch
    versions on the same inputs: B5 at B 64 with H 512 and 1280, acts on
@@ -385,6 +409,7 @@ from paddle_tpu_torch.tools import spec_workload as spw
 from paddle_tpu_torch.tools import profile_transformer_nmt as ptn
 from paddle_tpu_torch.tools import srl_workload as sw
 from paddle_tpu_torch.tools import train_workload as tw
+from paddle_tpu_torch.tools import tp_workload as tpw
 from paddle_tpu_torch.tools import transformer_nmt_workload as tnw
 from paddle_tpu_torch.tools.compare_flash import card_ms, sm_clock
 from paddle_tpu_torch.tools.serve_workload import (MODEL, NEW_TOKENS, NO_EOS,
@@ -577,7 +602,8 @@ def serve(model, dev) -> dict:
     emit({"phase": "serve_reference", "requests": len(wl.prompts),
           "identical": len(wl.prompts) - len(ties), "near_ties": len(ties),
           "seconds": time.perf_counter() - t1})
-    return res
+    # the one-process tokens the tensor-parallel serve is held against
+    return dict(res, outputs=outputs, prompts=list(wl.prompts))
 
 
 def serve_int8(model, dev) -> dict:
@@ -1714,14 +1740,166 @@ def train_moe(dev, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# tensor-parallel serving
+# ---------------------------------------------------------------------------
+
+# a parting of the tensor-parallel tokens from the one-process engine's
+# passes only at a near tie of the one-process reference: its top-2 logit
+# gap under this share of its top logit (f32 sums split over two ranks
+# and taken in another order), the two picks its top two
+TP_TIE_RTOL = 1e-3
+
+
+def serve_tp(dev, card: str, served: dict) -> dict:
+    """The serve workload at tp 2: two processes on this card joined by
+    gloo (``tools/tp_workload.py``), each serving with its shard; gated on
+    equal tokens across the ranks, tokens equal to the one-process
+    engine's (each parting replayed, a near tie), B4 launched 8 layers x
+    steps on each rank and each rank's B4 at one step held against its
+    plain version, 2 x 8 all-reduces a step with their bytes equal to
+    ``tp_step_comm_bytes``, pages conserved."""
+    from paddle_tpu_torch.platform.virtual import start_ranks
+
+    t0 = time.perf_counter()
+    ranks = start_ranks("paddle_tpu_torch.tools.tp_workload:serve_tp_rank",
+                        tpw.TP, device="cuda",
+                        timeout=600).wait()
+    seconds = time.perf_counter() - t0
+    problems, partings = [], []
+    want = served["outputs"]
+    model = None
+    for i, got in enumerate(ranks[0]["outputs"]):
+        if got == want[i]:
+            continue
+        if model is None:
+            model = build_model(dev)
+        rep = tpw.replay_parting(model, served["prompts"][i], got, want[i])
+        rep.update(request=i, near_tie=rep["picks_are_top2"] and
+                   rep["top2_gap"] < TP_TIE_RTOL * abs(rep["top_logit"]))
+        emit({"phase": "serve_tp_parting", **rep})
+        partings.append(rep)
+        if not rep["near_tie"]:
+            problems.append(f"request {i} parts from the one-process "
+                            f"engine at token {rep['first_diff']}")
+    del model
+    keep = ("kernel_launches", "launches_expected", "steps", "tp",
+            "allreduce_link_bytes", "tp_step_comm_bytes",
+            "comm_matches_closed_form", "conservation", "drained",
+            "kv_bytes_per_rank", "pool_shard", "wq_shard", "load_s",
+            "wall_s", "tokens_per_s", "allreduce_s", "allreduce_share",
+            "kernel_check")
+    res = {"phase": "serve_tp", "route": ranks[0]["route"],
+           "model": MODEL, "ranks": [{k: r[k] for k in keep} for r in ranks],
+           "allreduce_calls_per_step": sorted(set(
+               c for r in ranks for c in r["allreduce_calls"])),
+           "ranks_equal": ranks[0]["outputs"] == ranks[1]["outputs"],
+           "identical": sum(a == b for a, b in
+                            zip(ranks[0]["outputs"], want)),
+           "near_ties": len(partings), "tie_rtol": TP_TIE_RTOL,
+           "timing": "two ranks time-sharing one card, all-reduces "
+                     "through gloo over host copies, the card "
+                     "synchronized around each: not a tensor-parallel "
+                     "speed",
+           "seconds": seconds, "nvidia_smi": card}
+    emit(res)
+    if not res["ranks_equal"]:
+        problems.append("the two ranks' tokens differ")
+    for r in ranks:
+        if r["kernel_launches"] != r["launches_expected"] or \
+                r["kernel_launches"] == 0:
+            problems.append(f"rank {r['rank']}: B4 launched "
+                            f"{r['kernel_launches']} times, want "
+                            f"{r['launches_expected']}")
+        if r["recorded_steps"] != r["steps"]:
+            problems.append(f"rank {r['rank']}: {r['recorded_steps']} of "
+                            f"{r['steps']} steps recorded")
+        if not r["comm_matches_closed_form"]:
+            problems.append(f"rank {r['rank']}: all-reduces "
+                            f"{sorted(set(r['allreduce_calls']))} a step "
+                            "or their bytes off tp_step_comm_bytes")
+        if not (r["conservation"] and r["drained"]):
+            problems.append(f"rank {r['rank']}: pages not conserved")
+        if not r["kernel_check"]["within_tolerance"]:
+            problems.append(f"rank {r['rank']}: B4 on the shard off its "
+                            "plain version")
+    if problems:
+        raise AssertionError(f"serve_tp: {problems}")
+    return res
+
+
+def serve_tp_world1(dev, card: str) -> dict:
+    """The tensor-parallel engine on a one-rank NCCL 'model' mesh against
+    the engine without a mesh, on the serve workload from the same
+    weights: every step's logits and every token equal to the bit, B4
+    launched 8 x steps, 2 x 8 all-reduces a step (identities on one
+    rank)."""
+    from paddle_tpu_torch.parallel import make_mesh
+    from paddle_tpu_torch.serving.decode_attention import \
+        ragged_paged_attention_kernel as kernel
+
+    t0 = time.perf_counter()
+    model = build_model(dev)
+    runs = {}
+    with pw.nccl_world1():
+        mesh = make_mesh((1,), ("model",))
+        for name, kw in (("no_mesh", {}), ("tp1", {"mesh": mesh})):
+            eng = make_engine(model, dev, **kw)
+            logits = []
+            step = eng._step
+
+            def keep(*a, step=step, logits=logits):
+                out = step(*a)
+                logits.append(out)
+                return out
+
+            eng._step = keep
+            kernel.launches = 0
+            wl = Workload(eng)
+            while not wl.done:
+                wl.step()
+            runs[name] = {"outputs": [eng.result(r) for r in wl.rids],
+                          "logits": logits, "launches": kernel.launches,
+                          "steps": eng.metrics.step_dispatches,
+                          "allreduce_calls": eng.model.allreduce_calls,
+                          "conservation": eng.healthz()["ok"]}
+            del eng
+    a, b = runs["no_mesh"], runs["tp1"]
+    same_logits = len(a["logits"]) == len(b["logits"]) and all(
+        np.array_equal(x, y) for sa, sb in zip(a["logits"], b["logits"])
+        for x, y in zip(sa, sb))
+    res = {"phase": "serve_tp_world1", "steps": b["steps"],
+           "tokens_equal": a["outputs"] == b["outputs"],
+           "logits_equal": same_logits, "kernel_launches": b["launches"],
+           "launches_expected": MODEL["num_layers"] * b["steps"],
+           "allreduce_calls": b["allreduce_calls"],
+           "allreduce_expected": 2 * MODEL["num_layers"] * b["steps"],
+           "conservation": b["conservation"],
+           "seconds": time.perf_counter() - t0, "nvidia_smi": card}
+    emit(res)
+    del model
+    torch.cuda.empty_cache()
+    if not (res["tokens_equal"] and res["logits_equal"]
+            and res["conservation"]
+            and res["kernel_launches"] == res["launches_expected"]
+            and res["allreduce_calls"] == res["allreduce_expected"]):
+        raise AssertionError(f"serve_tp_world1: {res}")
+    return res
+
+
 def parallel_world1(dev, card: str) -> dict:
     """One-rank NCCL: the headline under DP + ZeRO-1 and under the
     pipeline against its no-mesh run; the MoE layer on an expert axis of
-    one against the dense path."""
+    one against the dense path; DeepFM's table through the row-sharded
+    lookups and update, LocalSGD and the pooled statistics against their
+    meshless runs."""
     t0 = time.perf_counter()
     with pw.nccl_world1():
         runs = pw.headline_runs(dev)
         layer = pw.moe_layer_world1(dev)
+        sparse = pw.sparse_world1(dev)
+        local_sgd = pw.local_sgd_world1(dev)
+        pooled = pw.pooled_stats_world1(dev)
     n = tw.MODEL["n_layers"] * pw.WORLD1_STEPS
     expected = {"no_mesh": n, "dp_zero1": n,
                 "pipeline": n * pw.WORLD1_MICROBATCHES}
@@ -1729,6 +1907,7 @@ def parallel_world1(dev, card: str) -> dict:
            "steps": pw.WORLD1_STEPS,
            "microbatches": pw.WORLD1_MICROBATCHES, **runs,
            "launches_expected": expected, "moe_layer": layer,
+           "sparse": sparse, "local_sgd": local_sgd, "pooled": pooled,
            "cost_rtol": WORLD1_COST_RTOL, "param_rtol": WORLD1_PARAM_RTOL,
            "moe_layer_rtol": MOE_LAYER_RTOL,
            "seconds": time.perf_counter() - t0, "nvidia_smi": card}
@@ -1746,6 +1925,14 @@ def parallel_world1(dev, card: str) -> dict:
                 problems.append(f"{name}: {k} launched {got} times")
     if layer["max_rel_err"] > MOE_LAYER_RTOL:
         problems.append(f"expert axis of one vs dense: {layer}")
+    if not all(sparse[k] for k in ("lookup_equal", "alltoall_equal",
+                                   "row_update_equal")):
+        problems.append(f"sharded tables on one rank: {sparse}")
+    if not local_sgd["equal"]:
+        problems.append(f"LocalSGD at sync_period 1: {local_sgd}")
+    if not pooled["bn"]["equal"] or \
+            pooled["moe"]["max_rel_err"] > MOE_LAYER_RTOL:
+        problems.append(f"pooled statistics on one rank: {pooled}")
     if problems:
         raise AssertionError(f"parallel_world1: {problems}")
     return res
@@ -4047,6 +4234,9 @@ def main() -> int:
     del model, spec
     torch.cuda.empty_cache()
     lap("fleet")
+    served_tp = serve_tp(dev, card, served)
+    serve_tp_world1(dev, card)
+    lap("serve_tp")
     cli_phase()
     lap("cli")
 
@@ -4177,6 +4367,14 @@ def main() -> int:
         # imported into a second engine, held against the plain version
         "launches_fleet": {"serve_fleet": fleet_served["launches"],
                            "serve_disagg": disagg["launches"]},
+        # tensor-parallel serving: each rank's launches on its head
+        # shard, and its call at one step held against the plain version
+        # (the shard's bytes for the bound)
+        "launches_serve_tp": [r["kernel_launches"]
+                              for r in served_tp["ranks"]],
+        "serve_tp_kernel": [{k: r["kernel_check"][k] for k in (
+            "q", "pages", "real_rows", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by")} for r in served_tp["ranks"]],
         "migrate_kernel": {kv: {k: r[k] for k in (
             "max_abs_err", "ms", "timer", "plain_ms", "bound_ms",
             "bound_by", "pages", "pages_bit_identical")}

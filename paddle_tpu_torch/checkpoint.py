@@ -59,7 +59,11 @@ parameter shapes (a collective: every rank of the plan's axis takes the
 snapshot), so the file is the same whatever the layout and a run saved
 on N ranks resumes on M; the plan's ``shard_state`` cuts a loaded state
 again.  The trainer gathers the other split weights itself and writes
-from the mesh's first rank only.
+from the mesh's first rank only, sync or async: an async write runs on
+that rank's writer thread, and every rank of the mesh meets the writer
+at a barrier once it has waited the write out, when ``train()`` returns
+and before a resume reads, so no rank reads a checkpoint before it is
+committed.
 """
 
 from __future__ import annotations

@@ -60,7 +60,8 @@ def state_from_numpy(state: Dict[str, Dict[str, np.ndarray]],
             for layer, slots in state.items()}
 
 
-def _targets(model) -> Dict[str, torch.Tensor]:
+def decoder_lm_state(model) -> Dict[str, torch.Tensor]:
+    """A ``DecoderLM``'s parameters under the JAX package's keys."""
     out = {"emb": model.emb, "pos": model.pos, "out": model.out}
     for i, blk in enumerate(model.layers):
         for key in _LAYER_KEYS:
@@ -72,14 +73,23 @@ def _targets(model) -> Dict[str, torch.Tensor]:
 def decoder_lm_from_numpy(params: Dict[str, np.ndarray], model):
     """Copy a JAX-layout ``DecoderLM`` param dict into ``model`` (on the
     model's device and dtype); every key must be present with its exact
-    shape.  Returns ``model``."""
-    targets = _targets(model)
+    whole shape.  A tensor-parallel shard (``DecoderLM(tp_mesh=)``) takes
+    its own part of each whole weight, as its ``shard_plan`` places it,
+    so only the shard reaches its device.  Returns ``model``."""
+    from paddle_tpu_torch.serving.engine import tp_slice
+
+    targets = decoder_lm_state(model)
     enforce_that(set(params) == set(targets),
                  f"param keys differ: missing {sorted(set(targets) - set(params))}, "
                  f"unexpected {sorted(set(params) - set(targets))}",
                  context="convert")
+    plan = model.shard_plan(model._tp_axis) if model.tp > 1 else {}
     for name, dst in targets.items():
-        src = np.ascontiguousarray(params[name])
+        src = params[name]
+        if plan:
+            src = tp_slice(src, plan[name], model._tp_axis, model.tp,
+                           model.tp_rank)
+        src = np.ascontiguousarray(src)
         enforce_that(tuple(src.shape) == tuple(dst.shape),
                      f"{name}: shape {tuple(src.shape)} != "
                      f"{tuple(dst.shape)}", context="convert")

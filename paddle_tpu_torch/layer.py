@@ -314,17 +314,14 @@ def _tp_matmul(ctx: Context, d, w, row, col, split_in):
     return y
 
 
-def _refuse_split_batch_stats(ctx: Context, what: str) -> None:
-    """A layer whose statistics span the batch refuses a mesh whose
-    ``data`` axis splits the batch: each rank would see its own rows,
-    where the JAX package's statistics are the global batch's."""
+def _data_group(ctx: Context):
+    """The process group of the mesh's ``data`` axis when it splits the
+    batch over several ranks (a statistic of the batch is then pooled
+    over it), else None."""
     mesh = getattr(ctx, "mesh", None)
-    n = int(mesh.shape.get("data", 1)) if mesh is not None else 1
-    enforce_that(n == 1,
-                 f"{what} on a mesh whose 'data' axis splits the batch "
-                 f"over {n} ranks is not ported: its statistics would be "
-                 "each rank's, not the global batch's (ROADMAP.md A12b "
-                 "pools them)", context=what)
+    if mesh is None or int(mesh.shape.get("data", 1)) == 1:
+        return None
+    return mesh.group("data")
 
 
 def embedding(input, size: int, name: Optional[str] = None,
@@ -864,9 +861,10 @@ def batch_norm(input, act=None, name: Optional[str] = None,
                **_kw) -> LayerOutput:
     """Batch normalization over the channels of image maps (or the
     features of rows), its moving statistics in the state slots
-    ``moving_mean`` (0) and ``moving_var`` (1).  Training on batch
-    statistics refuses a mesh whose ``data`` axis splits the batch until
-    they are pooled (A12b)."""
+    ``moving_mean`` (0) and ``moving_var`` (1).  Training on a mesh
+    whose ``data`` axis splits the batch pools the statistics' sums over
+    that axis, so they and the moving statistics are the global
+    batch's."""
     inp = input
     name = name or unique_name("batch_norm")
     activation = act_mod.get(act)
@@ -884,15 +882,15 @@ def batch_norm(input, act=None, name: Optional[str] = None,
     def compute(ctx, p, ins):
         v = ins[0]
         x = _data_of(v)
-        if ctx.train and not use_global_stats:
-            _refuse_split_batch_stats(ctx, "batch_norm")
+        group = _data_group(ctx) if ctx.train and not use_global_stats \
+            else None
         if in_shape is not None:
             x = _to_nhwc(x, in_shape)
         y, nm, nv = pnorm.batch_norm(
             x, p["gamma"], p["beta"], ctx.get_state(name, "moving_mean"),
             ctx.get_state(name, "moving_var"), train=ctx.train,
             momentum=moving_average_fraction,
-            use_global_stats=use_global_stats)
+            use_global_stats=use_global_stats, group=group)
         ctx.set_state(name, "moving_mean", nm)
         ctx.set_state(name, "moving_var", nv)
         y = _apply_extra(ctx, name, _apply_act(activation, y), layer_attr)
@@ -1982,9 +1980,12 @@ def moe_ffn(input, num_experts: int = 0, expert_hidden: int = 0,
     ``expert`` axis: under a mesh with that axis each rank holds its E/N
     experts and dispatch rides two all-to-alls; otherwise the dense
     formulation runs.  Over-capacity tokens come out as zeros; a packed
-    SequenceBatch's padding slots route too and are zeroed.  Capacity and
-    the balance loss are the batch's statistics: a mesh whose ``data``
-    axis splits the batch is refused until they are pooled (A12b)."""
+    SequenceBatch's padding slots route too and are zeroed.  Capacity,
+    drops and the balance loss are the batch's statistics: on a mesh
+    whose ``data`` axis splits the batch the expert counts and routing
+    sums are pooled over that axis (``moe_ffn_reference(group=)``), so
+    they are the global batch's.  A mesh that splits the batch over
+    ``data`` and the experts over their axis at once is refused."""
     from paddle_tpu_torch.parallel import moe as pmoe
 
     inp = input
@@ -2025,15 +2026,23 @@ def moe_ffn(input, num_experts: int = 0, expert_hidden: int = 0,
         v = ins[0]
         x = _data_of(v)
         mp = pmoe.MoEParams(p["router"], p["w1"], p["b1"], p["w2"], p["b2"])
-        _refuse_split_batch_stats(ctx, "moe_ffn")
         mesh = getattr(ctx, "mesh", None)
+        group = _data_group(ctx)
         if mesh is not None and axis in mesh.axis_names:
+            enforce_that(group is None or mesh.shape[axis] == 1,
+                         f"moe_ffn over the {axis!r} axis takes the whole "
+                         "batch on every rank of it; this mesh also splits "
+                         f"the batch over 'data' ({dict(mesh.shape)}): "
+                         "give the experts a mesh without a split 'data' "
+                         "axis, or drop the expert axis to pool the dense "
+                         "dispatch over 'data'", context="moe_ffn")
             y, aux = pmoe.moe_ffn(mesh, x, mp, axis=axis,
                                   capacity_factor=capacity_factor,
                                   top_k=top_k)
         else:
             y, aux = pmoe.moe_ffn_reference(
-                x, mp, capacity_factor=capacity_factor, top_k=top_k)
+                x, mp, capacity_factor=capacity_factor, top_k=top_k,
+                group=group)
         if isinstance(v, SequenceBatch):
             y = torch.where(v.valid_mask[:, None], y, torch.zeros_like(y))
         out = _like(v, y.to(pmath.dense_activation_dtype()))

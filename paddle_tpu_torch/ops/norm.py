@@ -26,16 +26,19 @@ def _channels_first(x: torch.Tensor) -> torch.Tensor:
 def batch_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                moving_mean: torch.Tensor, moving_var: torch.Tensor, *,
                train: bool, momentum: float = 0.9, eps: float = 1e-5,
-               use_global_stats: Optional[bool] = None
+               use_global_stats: Optional[bool] = None, group=None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Normalize over every axis but the last (channel) one; [N, C] or
     [N, H, W, C].  Batch statistics in f32, the biased variance to
     normalize and the unbiased one (n / (n - 1)) for the moving update
-    ``new = momentum * old + (1 - momentum) * batch``; y in x's dtype."""
-    if not x.is_cuda:
+    ``new = momentum * old + (1 - momentum) * batch``; y in x's dtype.
+    ``group``: the data-parallel group whose ranks hold the batch's rows;
+    the statistics are then the global batch's (the sums pooled)."""
+    if not x.is_cuda or group is not None:
         return batch_norm_reference(x, gamma, beta, moving_mean, moving_var,
                                     train=train, momentum=momentum, eps=eps,
-                                    use_global_stats=use_global_stats)
+                                    use_global_stats=use_global_stats,
+                                    group=group)
     use_batch_stats = train and not (use_global_stats or False)
     new_mean, new_var = moving_mean.clone(), moving_var.clone()
     # torch's momentum weighs the batch: 1 - the JAX package's fraction
@@ -51,10 +54,12 @@ def batch_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 def batch_norm_reference(x, gamma, beta, moving_mean, moving_var, *,
                          train: bool, momentum: float = 0.9,
                          eps: float = 1e-5,
-                         use_global_stats: Optional[bool] = None):
+                         use_global_stats: Optional[bool] = None,
+                         group=None):
     """The JAX package's batch norm (``ops/norm.py:21-72``): one pass of
     f32 sums about the moving mean as a pilot, the affine folded into a
-    per-channel f32 scale and bias."""
+    per-channel f32 scale and bias.  With a data-parallel ``group`` the
+    two sums and the row count are pooled over its ranks."""
     reduce_dims = tuple(range(x.dim() - 1))
     use_batch_stats = train and not (use_global_stats or False)
     n = x.numel() // x.shape[-1]
@@ -63,6 +68,14 @@ def batch_norm_reference(x, gamma, beta, moving_mean, moving_var, *,
         d = x.float() - pilot
         s1 = d.sum(reduce_dims)
         s2 = d.square().sum(reduce_dims)
+        if group is not None:
+            from paddle_tpu_torch.parallel import comm
+
+            # one all-reduce of both sums and the row count
+            packed = comm.pooled_sum(torch.cat([
+                s1, s2, s1.new_full((1,), float(n))]), group)
+            c = s1.shape[0]
+            s1, s2, n = packed[:c], packed[c:2 * c], int(packed[-1])
         mean = pilot + s1 / n
         var = torch.clamp(s2 / n - (s1 / n).square(), min=0.0)
         unbiased = var * (n / max(1, n - 1))

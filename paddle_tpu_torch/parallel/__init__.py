@@ -1,9 +1,9 @@
 """The parallel layer of the port (``paddle_tpu/parallel/``): meshes over
 ``torch.distributed`` ranks, batch and weight placement, ZeRO-1, the
 mixture-of-experts dispatch, the GPipe pipeline, ring and Ulysses
-attention, and the single-device half of ``sparse.py``.  The sharded half
-of ``sparse.py``, local SGD and the tensor-parallel serving path come
-with the next slice (A12b)."""
+attention, the row-sharded sparse tables (``sparse.py``) and local SGD.
+Tensor-parallel serving lives with the engine
+(``ServingEngine(mesh=, tp_axis=)``, ``FleetRouter.over_mesh_slices``)."""
 
 from paddle_tpu_torch.parallel.mesh import (Mesh, make_mesh,
                                             data_parallel_mesh, hybrid_mesh,
@@ -22,3 +22,4 @@ from paddle_tpu_torch.parallel.moe import (MoEConfig, MoEParams,
 from paddle_tpu_torch.parallel.zero import (ZeroPlan, build_zero_plan,
                                             opt_state_bytes_per_device)
 from paddle_tpu_torch.parallel.ring import ring_attention, ulysses_attention
+from paddle_tpu_torch.parallel.local_sgd import LocalSGD

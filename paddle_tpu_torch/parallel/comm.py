@@ -26,7 +26,10 @@ boundaries, in the Megatron-LM convention:
 A data-parallel axis is different: each rank's loss is a part of the
 global loss, so its gradients are summed (:func:`all_reduce_`) by the
 trainer, not by these boundaries; a weight split over that axis is
-gathered by :func:`gather_parts`, whose backward reduce-scatters.
+gathered by :func:`gather_parts`, whose backward reduce-scatters.  A
+statistic of the global batch (batch norm's sums, a mixture of experts'
+routing means) is :func:`pooled_sum`: all-reduce forward, and all-reduce
+backward, since every rank's part of the loss reads the pooled value.
 """
 
 from __future__ import annotations
@@ -195,6 +198,20 @@ class _GatherParts(torch.autograd.Function):
         return part.movedim(0, ctx.dim).contiguous(), None, None
 
 
+class _PooledSum(torch.autograd.Function):
+    """All-reduce forward and backward: a sum over the ranks' rows of a
+    batch whose loss is split over the same ranks."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.contiguous().clone(), ctx.group), None
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -233,6 +250,12 @@ def enter_sharded(x: torch.Tensor, group) -> torch.Tensor:
 
 def reduce_replicated(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _ReduceReplicated.apply(x, group)
+
+
+def pooled_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over a data-parallel group of per-rank partial sums, on
+    every rank; its gradient is the sum of every rank's gradient."""
+    return x if group is None else _PooledSum.apply(x, group)
 
 
 def mean_replicated(x: torch.Tensor, group) -> torch.Tensor:

@@ -158,13 +158,28 @@ def aux_load_balance_loss(probs, expert):
     return probs.shape[-1] * torch.sum(fraction * mean_prob)
 
 
-def _dispatch_mask_topk(experts, num_experts: int, capacity: int):
+def _dispatch_mask_topk(experts, num_experts: int, capacity: int,
+                        group=None):
     """[T, k, E, C] dispatch tensor: slot = rank of the (token, choice)
-    within its expert, choice-major; past capacity -> dropped."""
+    within its expert, choice-major; past capacity -> dropped.  With a
+    data-parallel ``group`` the tokens are this rank's rows of a global
+    batch ordered by rank: the per-rank counts are all-gathered, and each
+    slot is the (token, choice)'s rank in the global batch."""
     t, k = experts.shape
     onehot = F.one_hot(experts, num_experts).to(torch.int32)   # [T,k,E]
-    flat = onehot.transpose(0, 1).reshape(k * t, num_experts)
-    pos = (torch.cumsum(flat, dim=0) - 1).reshape(k, t, num_experts)
+    if group is None:
+        flat = onehot.transpose(0, 1).reshape(k * t, num_experts)
+        pos = (torch.cumsum(flat, dim=0) - 1).reshape(k, t, num_experts)
+    else:
+        # each choice's local ranks, then every rank's earlier choices
+        # and the earlier ranks' same choice ahead of them
+        me = comm.group_rank(group)
+        pos = torch.cumsum(onehot.transpose(0, 1), dim=1) - 1  # [k,T,E]
+        every = comm.all_gather_flat(onehot.sum(dim=0)[None],
+                                     group)                    # [N,k,E]
+        total = every.sum(dim=0)
+        before = torch.cumsum(total, dim=0) - total
+        pos = pos + (before + every[:me].sum(dim=0))[:, None, :]
     pos = pos.transpose(0, 1)                                  # [T,k,E]
     keep = (pos < capacity) & (onehot > 0)
     slot = torch.clamp(pos, 0, capacity - 1).long()
@@ -190,23 +205,44 @@ def _capacity(t: int, e: int, capacity_factor: float) -> int:
 
 def moe_ffn_reference(x: torch.Tensor, params: MoEParams,
                       capacity_factor: float = 1.25, act=_gelu,
-                      top_k: int = 1, return_stats: bool = False):
+                      top_k: int = 1, return_stats: bool = False,
+                      group=None):
     """Dense formulation: x [T, D] -> (y [T, D], aux loss), plus a
-    ``{"drop_rate", "expert_fraction"}`` dict with ``return_stats``."""
+    ``{"drop_rate", "expert_fraction"}`` dict with ``return_stats``.
+
+    ``group``: a data-parallel group whose ranks each hold their rows of
+    one global batch (rank r's after rank r-1's).  Capacity, slots, drops
+    and the aux loss are then the global batch's, as the JAX package's
+    GSPMD computes them: the per-rank expert counts are all-gathered for
+    the global slots, and the routing sums pooled (:func:`comm.pooled_sum`,
+    whose backward sums every rank's gradient).  Each rank returns its
+    rows' outputs and the global aux loss."""
     t, _ = x.shape
     e = params.router.shape[1]
-    cap = _capacity(t, e, capacity_factor)
+    n_all = t
+    if group is not None:
+        n_all = int(comm.all_reduce_(torch.tensor(
+            [t], dtype=torch.int64, device=x.device), group)[0])
+    cap = _capacity(n_all, e, capacity_factor)
     experts, gates, probs = _route_topk(x, params.router, top_k)
-    disp = _dispatch_mask_topk(experts, e, cap)
+    disp = _dispatch_mask_topk(experts, e, cap, group)
     buf = torch.einsum("tkec,td->ecd", disp, x.float())
     out = _expert_ffn(buf, params.w1, params.b1, params.w2, params.b2, act)
     wdisp = disp * gates[:, :, None, None]
     y = torch.einsum("tkec,ecd->td", wdisp, out)
-    aux = aux_load_balance_loss(probs, experts[:, 0])
+    if group is None:
+        fraction, mean_prob = _aux_stats(probs, experts[:, 0])
+        drop = _drop_rate(disp, t, top_k) if return_stats else None
+    else:
+        onehot = F.one_hot(experts[:, 0], e).float()
+        fraction = comm.all_reduce_(onehot.sum(dim=0), group) / n_all
+        mean_prob = comm.pooled_sum(probs.sum(dim=0), group) / n_all
+        drop = (1.0 - comm.all_reduce_(disp.sum().detach(), group)
+                / float(n_all * top_k)) if return_stats else None
+    aux = e * torch.sum(fraction * mean_prob)
     if not return_stats:
         return y.to(x.dtype), aux
-    fraction, _ = _aux_stats(probs, experts[:, 0])
-    return y.to(x.dtype), aux, {"drop_rate": _drop_rate(disp, t, top_k),
+    return y.to(x.dtype), aux, {"drop_rate": drop,
                                 "expert_fraction": fraction}
 
 

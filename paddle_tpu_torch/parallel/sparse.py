@@ -16,9 +16,18 @@ adds with atomics in no fixed order on the card.  The combine keeps the
 JAX shape discipline, n slots for n ids, the unused slots padded with id
 -1 and masked to zero rows, so no call waits for the host.
 
-The row-sharded tables, lookups and updates (``shard_table``,
-``sharded_lookup``, ``sharded_row_update``, ``alltoall_lookup``) are not
-ported yet: a mesh raises.
+The row-sharded half (the pserver block partition): a table sharded
+over a mesh axis of N ranks is each rank's contiguous ``vocab / N`` rows
+(:func:`shard_table`).  :func:`sharded_lookup` serves every id from its
+owner (each rank gathers the ids it owns, zeros for the rest, and one
+all-reduce over the axis assembles the rows everywhere; each rank
+passes its own ids, so a batch split over a data axis is looked up
+slice by slice — JAX's ``batch_axis``), :func:`alltoall_lookup`
+takes ids split over the axis (an all-gather of the queries, owners
+compute, a reduce-scatter hands each rank its rows back), and
+:func:`sharded_row_update` applies an SGD row update to the rows each
+rank owns, with no traffic.  ``SparseEmbeddingUpdater(mesh=)`` takes
+that update for its marked tables, each held as this rank's shard.
 """
 
 from __future__ import annotations
@@ -117,6 +126,88 @@ def adagrad_update_rows(table: torch.Tensor, accum: torch.Tensor,
     return table, accum
 
 
+# ---------------------------------------------------------------------------
+# mesh-sharded table + lookup
+# ---------------------------------------------------------------------------
+
+
+def _shard_rows(mesh, axis: str, vocab: int) -> Tuple[int, int]:
+    """(first row, rows) of this rank's shard of a ``vocab``-row table."""
+    n = mesh.axis_size(axis)
+    enforce_that(vocab % n == 0,
+                 f"vocab {vocab} must divide over {n} '{axis}' shards",
+                 context="sparse")
+    per = vocab // n
+    return mesh.coord(axis) * per, per
+
+
+def shard_table(mesh, table: torch.Tensor, axis: str = "model"
+                ) -> torch.Tensor:
+    """This rank's contiguous ``vocab / N`` rows of a [vocab, dim] table
+    row-sharded over ``axis`` (a copy: the whole table may be freed)."""
+    lo, per = _shard_rows(mesh, axis, table.shape[0])
+    return table[lo:lo + per].clone()
+
+
+def _owned_rows(shard: torch.Tensor, ids: torch.Tensor, lo: int):
+    """The shard's rows for the ids it owns, zeros for the others."""
+    per = shard.shape[0]
+    rel = ids.long() - lo
+    mine = (rel >= 0) & (rel < per)
+    rows = shard.index_select(0, rel.clamp(0, per - 1).reshape(-1))
+    rows = rows.reshape(tuple(ids.shape) + (shard.shape[-1],))
+    return torch.where(mine[..., None], rows, torch.zeros_like(rows))
+
+
+def sharded_lookup(mesh, shard: torch.Tensor, ids: torch.Tensor,
+                   axis: str = "model") -> torch.Tensor:
+    """Rows of a row-sharded table for ``ids``: owner computes, then one
+    all-reduce over ``axis`` gives every rank of it the whole rows.
+    ``shard`` is this rank's :func:`shard_table`; ``ids`` the ids this
+    rank asks for.  The ranks of one ``axis`` group may ask for
+    different ids: where a batch is split over a data axis (JAX's
+    ``batch_axis``), each passes its own slice and gets that slice's
+    rows."""
+    from paddle_tpu_torch.parallel import comm
+
+    n = mesh.axis_size(axis)
+    lo, _ = _shard_rows(mesh, axis, shard.shape[0] * n)
+    rows = _owned_rows(shard, ids, lo)
+    return comm.all_reduce_(rows, mesh.group(axis))
+
+
+@torch.no_grad()
+def sharded_row_update(mesh, shard: torch.Tensor, grad: SelectedRows,
+                       lr: float, axis: str = "model") -> torch.Tensor:
+    """SGD row update of a row-sharded table, in place on this rank's
+    ``shard``: each rank adds ``-lr * rows`` to the rows it owns
+    (duplicates summed first) and moves no gradient; returns ``shard``."""
+    n = mesh.axis_size(axis)
+    lo, per = _shard_rows(mesh, axis, shard.shape[0] * n)
+    uniq, combined = _combine(grad.ids, grad.rows)
+    rel = uniq - lo
+    mine = ((uniq >= 0) & (rel >= 0) & (rel < per))[:, None]
+    delta = torch.where(mine, -lr * combined, torch.zeros_like(combined))
+    return shard.index_add_(0, rel.clamp(0, per - 1),
+                            delta.to(shard.dtype))
+
+
+def alltoall_lookup(mesh, shard: torch.Tensor, ids: torch.Tensor,
+                    axis: str = "model") -> torch.Tensor:
+    """Lookup for ids split over ``axis`` (``ids``: this rank's [b / N]
+    queries of a global [b]): an all-gather of the queries, each owner
+    serves its rows, and a reduce-scatter hands every rank the rows of
+    its own queries."""
+    from paddle_tpu_torch.parallel import comm
+
+    n = mesh.axis_size(axis)
+    lo, _ = _shard_rows(mesh, axis, shard.shape[0] * n)
+    group = mesh.group(axis)
+    every = comm.all_gather_flat(ids.reshape(-1), group)        # [b]
+    rows = _owned_rows(shard, every, lo)
+    return comm.reduce_scatter_flat(rows, group)
+
+
 class SparseEmbeddingUpdater:
     """Row-sparse updates for marked embedding parameters inside a
     training loop (the ``sparse_update=True`` path of the reference).
@@ -125,15 +216,18 @@ class SparseEmbeddingUpdater:
     only on the rows named by that step's ids, from the rows of its dense
     gradient (duplicate ids counted once); unmarked parameters, and marked
     ones without ids, take the dense SGD step ``p -= lr * g``.  Updates
-    are in place; returns ``params``."""
+    are in place; returns ``params``.
 
-    def __init__(self, mesh=None, sparse_params: Tuple[str, ...] = ()):
-        enforce_that(mesh is None,
-                     "SparseEmbeddingUpdater takes no mesh yet: the "
-                     "row-sharded tables and updates of parallel/sparse.py "
-                     "are not ported: they come with the next parallel "
-                     "slice (A12b)",
-                     context="sparse")
+    With a ``mesh``, a marked parameter is this rank's shard of a table
+    row-sharded over ``axis`` (:func:`shard_table`) and its gradient the
+    whole table's; the marked rows take :func:`sharded_row_update`."""
+
+    def __init__(self, mesh=None, sparse_params: Tuple[str, ...] = (),
+                 axis: str = "model"):
+        if mesh is not None:
+            mesh.axis_size(axis)
+        self.mesh = mesh
+        self.axis = axis
         self.sparse = set(sparse_params)
 
     @torch.no_grad()
@@ -149,9 +243,13 @@ class SparseEmbeddingUpdater:
             if k in self.sparse and k in ids:
                 _, _, uniq = _unique(ids[k])
                 pad = (uniq < 0)[:, None]
-                safe = uniq.clamp(0, p.shape[0] - 1)
+                safe = uniq.clamp(0, g.shape[0] - 1)
                 rows = torch.where(pad, 0.0, g.index_select(0, safe))
-                sgd_update_rows(p, SelectedRows(safe, rows, p.shape[0]), lr)
+                sel = SelectedRows(safe, rows, g.shape[0])
+                if self.mesh is not None:
+                    sharded_row_update(self.mesh, p, sel, lr, self.axis)
+                else:
+                    sgd_update_rows(p, sel, lr)
             else:
                 p.sub_(lr * g)
         return params

@@ -1,4 +1,4 @@
-"""A launcher for N CPU ranks joined by gloo: the port's counterpart of
+"""A launcher for N ranks on one host: the port's counterpart of
 ``paddle_tpu/platform/virtual.py``.
 
 The JAX package tests its meshes on 8 virtual CPU devices inside one
@@ -17,6 +17,11 @@ import.  A rank that raises or exits ends the run: the others are
 killed (they would wait on a collective forever) and the error carries
 the failing rank's output.
 
+``device="cuda"`` starts the ranks on the host's card instead, every
+rank on card 0 and still joined by gloo: the ranks share one card, and
+NCCL refuses two ranks on one device, while gloo's ``all_reduce`` and
+``broadcast`` take CUDA tensors (copying them through host memory).
+
 Run as ``python -m paddle_tpu_torch.platform.virtual <dir> <rank>``
 only by :func:`start_ranks` itself.
 """
@@ -33,7 +38,7 @@ import tempfile
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
-from paddle_tpu_torch.platform.enforce import EnforceError
+from paddle_tpu_torch.platform.enforce import EnforceError, enforce_that
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -69,7 +74,8 @@ class RankRun:
     :meth:`wait` returns the ranks' results, rank 0 first."""
 
     def __init__(self, target: str, world: int, kwargs: Optional[Dict],
-                 timeout: float, paths: Sequence[str]):
+                 timeout: float, paths: Sequence[str],
+                 device: str = "cpu"):
         self.target, self.world, self.timeout = target, int(world), timeout
         self._tmp = tempfile.mkdtemp(prefix="ptt_ranks_")
         self._procs: List[subprocess.Popen] = []
@@ -78,7 +84,7 @@ class RankRun:
             with open(os.path.join(self._tmp, "spec.pkl"), "wb") as f:
                 pickle.dump({"target": target, "world": self.world,
                              "port": free_port(), "kwargs": kwargs or {},
-                             "paths": list(paths)}, f)
+                             "paths": list(paths), "device": device}, f)
             env = dict(os.environ)
             env["OMP_NUM_THREADS"] = "1"
             env["MKL_NUM_THREADS"] = "1"
@@ -154,11 +160,15 @@ class RankRun:
 
 
 def start_ranks(target: str, world: int, kwargs: Optional[Dict] = None,
-                timeout: float = 300.0, paths: Sequence[str] = ()
-                ) -> RankRun:
-    """Start ``target`` in ``world`` gloo ranks and return at once (the
-    caller may work meanwhile); ``.wait()`` collects the results."""
-    return RankRun(target, world, kwargs, timeout, paths)
+                timeout: float = 300.0, paths: Sequence[str] = (),
+                device: str = "cpu") -> RankRun:
+    """Start ``target`` in ``world`` gloo ranks and return at once (the caller may work meanwhile); ``.wait()`` collects
+    the results.  ``device="cuda"`` puts every rank on card 0 (module
+    doc)."""
+    enforce_that(device in ("cpu", "cuda"),
+                 f"device must be 'cpu' or 'cuda', got {device!r}",
+                 context="run_ranks")
+    return RankRun(target, world, kwargs, timeout, paths, device)
 
 
 def _rank_main(tmp: str, rank: int) -> None:
@@ -173,6 +183,8 @@ def _rank_main(tmp: str, rank: int) -> None:
     for p in reversed(spec["paths"]):
         sys.path.insert(0, p)
     world = spec["world"]
+    if spec.get("device") == "cuda":
+        torch.cuda.set_device(0)
     dist.init_process_group("gloo",
                             init_method=f"tcp://127.0.0.1:{spec['port']}",
                             world_size=world, rank=rank)

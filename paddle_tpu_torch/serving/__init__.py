@@ -13,7 +13,7 @@ from paddle_tpu_torch.serving.decode_attention import (
     BLOCK_ROWS, QUANT_DRIFT_BOUND, attention_path, check_quant_drift,
     expand_decode_rows, paged_decode_attention, quant_parity_error,
     ragged_paged_attention, ragged_paged_attention_kernel,
-    ragged_paged_attention_reference)
+    ragged_paged_attention_reference, ragged_paged_attention_tp)
 from paddle_tpu_torch.serving.control import (DEFAULT_CLASSES,
                                               AdmissionLedger, Autoscaler,
                                               AutoscalePolicy, TenantClass,
@@ -23,7 +23,7 @@ from paddle_tpu_torch.serving.control import (DEFAULT_CLASSES,
 from paddle_tpu_torch.serving.engine import (DecodeModel, DecoderLM,
                                              ServingEngine,
                                              greedy_decode_reference,
-                                             reference_logits)
+                                             reference_logits, validate_tp)
 from paddle_tpu_torch.serving.faults import (FaultPlan, FleetFaultPlan,
                                              InjectedDeviceError,
                                              ManualClock, PageLeakError)
@@ -35,6 +35,8 @@ from paddle_tpu_torch.serving.kv_cache import (NULL_PAGE, HostPageTier,
                                                append_token, dequantize_kv,
                                                fork_page, gather_kv,
                                                init_kv_pages,
+                                               kv_pool_sharding,
+                                               kv_pool_specs,
                                                page_checksum,
                                                pages_for_budget,
                                                pages_spanned,
@@ -60,8 +62,9 @@ from paddle_tpu_torch.serving.speculate import (DraftProposer,
 
 __all__ = [
     "ServingEngine", "DecodeModel", "DecoderLM", "greedy_decode_reference",
-    "reference_logits",
+    "reference_logits", "validate_tp",
     "ragged_paged_attention", "ragged_paged_attention_kernel",
+    "ragged_paged_attention_tp", "kv_pool_specs", "kv_pool_sharding",
     "ragged_paged_attention_reference", "paged_decode_attention",
     "attention_path", "expand_decode_rows", "BLOCK_ROWS",
     "QUANT_DRIFT_BOUND", "quant_parity_error", "check_quant_drift",

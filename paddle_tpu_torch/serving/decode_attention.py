@@ -386,6 +386,40 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, kv_lens,
         k_scale=k_scale, v_scale=v_scale, sm_scale=sm_scale)
 
 
+def ragged_paged_attention_tp(mesh, axis, q, k_pages, v_pages, page_table,
+                              kv_lens, row_seq, qpos, *, k_scale=None,
+                              v_scale=None, sm_scale: Optional[float] = None,
+                              use_kernel: Optional[bool] = None):
+    """Tensor-parallel ragged attention over ``axis`` of ``mesh``: this
+    rank's head shard — q ``[T, H/tp, D]`` against its pool shard ``[P,
+    page, H_kv/tp, D]`` (scales with it) — through the unchanged kernel.
+    Heads are independent in attention, so no collective crosses it (the
+    all-reduce comes after the row-split output product), and the GQA
+    group is the same on a shard (``(H/tp) / (H_kv/tp) == H / H_kv``).
+
+    The path chooser takes the shard's head counts.  A CUDA tensor
+    launches the kernel, which needs whole :data:`BLOCK_ROWS` blocks of
+    rows (the engine's packing always gives them), or raises; a CPU
+    tensor takes the plain version."""
+    tp = mesh.axis_size(axis)
+    enforce_that(mesh.member, f"rank {mesh.rank} holds no shard of "
+                 f"{mesh!r}", context="serving-tp")
+    path = attention_path(q.shape[-1], k_pages.shape[1],
+                          num_heads=q.shape[1], num_kv_heads=k_pages.shape[2],
+                          device=q.device, use_kernel=use_kernel)
+    if q.is_cuda:
+        enforce_that(path == "kernel" and q.shape[0] % BLOCK_ROWS == 0,
+                     f"tensor-parallel ragged attention over {axis}={tp} "
+                     f"needs whole blocks of {BLOCK_ROWS} rows on CUDA, got "
+                     f"{q.shape[0]} rows", context="serving-tp")
+        return ragged_paged_attention_kernel(
+            q, k_pages, v_pages, page_table, kv_lens, row_seq, qpos,
+            k_scale=k_scale, v_scale=v_scale, sm_scale=sm_scale)
+    return _ragged_reference_blocked(
+        q, k_pages, v_pages, page_table, kv_lens, row_seq, qpos,
+        k_scale=k_scale, v_scale=v_scale, sm_scale=sm_scale)
+
+
 def quant_parity_error(q, k_pages, v_pages, page_table, kv_lens, row_seq,
                        qpos, *, sm_scale: Optional[float] = None) -> float:
     """Max relative error int8 quantization adds to ragged attention

@@ -48,9 +48,27 @@ The fleet reads ``role`` (prefill/decode/unified), ``drain()``,
 engines through ``migratable_rids()`` and ``apply_imported_pages()``
 (``serving/migrate.py``).
 
-Not ported yet (see ROADMAP.md): tensor parallelism (``mesh``,
-``tp_axis``: A12b) and the compiled-path auditors' budgets (``xla_*``:
-A13).  Passing one of those raises, naming its slice.
+Tensor-parallel serving (``ServingEngine(mesh=, tp_axis=)``): the model
+is placed megatron-style over a ``model`` mesh axis of ``tp`` ranks — the
+Q/K/V and FFN-up projections split by columns (whole query heads, KV
+heads and FFN columns per rank), the attention-output and FFN-down
+projections by rows, each followed by exactly one all-reduce over the
+axis — with :meth:`DecoderLM.shard_plan` the one source of the placement.
+The paged pool is split on its KV-head dim the same way (``[L, P, page,
+H_kv / tp, D]`` per rank, int8 scales with their heads), so every pool
+byte count is per rank, and each rank launches the ragged kernel on its
+own head shard (:func:`ragged_paged_attention_tp`); no collective crosses
+attention.  Every rank of the axis runs the same host scheduling: the
+logits are the same on every rank after the last reduction, so every
+rank picks the same token.  Prefix caching and its copy-on-write fork,
+chunked prefill, int8 pools and the fault plans all run on the split
+layout.  Every rank of the mesh builds the engine; a rank outside it
+holds none (:meth:`FleetRouter.over_mesh_slices
+<paddle_tpu_torch.serving.fleet.FleetRouter.over_mesh_slices>` keeps a
+proxy of the replica there).
+
+Not ported yet (see ROADMAP.md): the compiled-path auditors' budgets
+(``xla_*``: A13).  Passing one of those raises, naming its slice.
 """
 
 from __future__ import annotations
@@ -75,7 +93,7 @@ from paddle_tpu_torch.platform.enforce import (enforce_that,
 from paddle_tpu_torch.platform.flags import FLAGS
 from paddle_tpu_torch.serving.decode_attention import (
     BLOCK_ROWS, _ragged_reference_blocked, attention_path,
-    expand_decode_rows, ragged_paged_attention)
+    expand_decode_rows, ragged_paged_attention, ragged_paged_attention_tp)
 from paddle_tpu_torch.serving.faults import (FaultPlan,
                                              InjectedDeviceError,
                                              PageLeakError)
@@ -100,7 +118,7 @@ from paddle_tpu_torch.serving.speculate import (DraftProposer,
                                                 accept_tokens, next_token)
 
 __all__ = ["DecodeModel", "DecoderLM", "ServingEngine",
-           "greedy_decode_reference", "reference_logits"]
+           "greedy_decode_reference", "reference_logits", "validate_tp"]
 
 _SPEC_MODES = ("off", "ngram", "draft")
 
@@ -140,15 +158,70 @@ class DecodeModel(Protocol):
     def logits(self, x): ...
 
 
+def validate_tp(model, tp: int, axis: str = "model") -> None:
+    """Fail fast, with a fix in the message, on a model whose geometry
+    cannot split ``tp`` ways over ``axis``: attention sharding moves whole
+    query and KV heads per rank and FFN sharding whole columns, so each of
+    those counts must divide.  Checked by ``ServingEngine(mesh=)`` and by
+    :meth:`DecoderLM.shard_plan` both."""
+    tp = int(tp)
+    enforce_that(tp >= 1, f"tensor-parallel degree must be >= 1, got {tp}",
+                 context="serving-tp")
+    if tp == 1:
+        return
+    h = int(model.num_heads)
+    kvh = int(getattr(model, "num_kv_heads", 0) or h)
+    enforce_that(
+        h % tp == 0,
+        f"num_heads ({h}) is not divisible by the {axis!r} mesh axis "
+        f"size ({tp}): tensor parallelism places whole attention heads "
+        f"per chip — pick a tp that divides {h}, or resize the model",
+        context="serving-tp")
+    enforce_that(
+        tp <= kvh,
+        f"GQA corner: tp={tp} exceeds num_kv_heads ({kvh}) — a KV head "
+        "cannot split below one per chip and this engine does not "
+        f"replicate KV heads across the {axis!r} axis; lower tp to at "
+        f"most {kvh}, or serve a model with more KV heads",
+        context="serving-tp")
+    enforce_that(
+        kvh % tp == 0,
+        f"num_kv_heads ({kvh}) is not divisible by the {axis!r} mesh "
+        f"axis size ({tp}): the paged KV pool shards whole KV heads per "
+        f"chip — pick a tp that divides {kvh}", context="serving-tp")
+    ffn = int(getattr(model, "ffn_dim", 0) or 0)
+    if ffn:
+        enforce_that(
+            ffn % tp == 0,
+            f"FFN width ({ffn}) is not divisible by the {axis!r} mesh "
+            f"axis size ({tp}): the column-parallel up projection places "
+            f"whole FFN columns per chip — pick a tp that divides {ffn}",
+            context="serving-tp")
+
+
+def tp_slice(x, spec: Tuple, axis: str, tp: int, rank: int):
+    """Rank ``rank``'s part of a whole weight ``x`` (a tensor or a numpy
+    array) under its :meth:`DecoderLM.shard_plan` spec: the chunk of the
+    dim named ``axis``, or ``x`` itself for a replicated weight."""
+    for dim, a in enumerate(spec):
+        if a == axis and tp > 1:
+            per = x.shape[dim] // tp
+            idx = [slice(None)] * len(x.shape)
+            idx[dim] = slice(rank * per, (rank + 1) * per)
+            return x[tuple(idx)]
+    return x
+
+
 def _rms(x, eps: float = 1e-6):
     return x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + eps)
 
 
 class _Block(nn.Module):
     """One decoder layer's projections, in the JAX package's x @ W
-    layout (``[in, out]``)."""
+    layout (``[in, out]``); ``q``, ``kv`` and ``f`` are this rank's query,
+    KV and FFN columns (the whole widths off a mesh)."""
 
-    def __init__(self, e: int, kv: int, f: int, device, dtype):
+    def __init__(self, e: int, q: int, kv: int, f: int, device, dtype):
         super().__init__()
 
         def p(*shape):
@@ -156,8 +229,8 @@ class _Block(nn.Module):
                                             dtype=dtype),
                                 requires_grad=False)
 
-        self.wq, self.wk, self.wv = p(e, e), p(e, kv), p(e, kv)
-        self.wo, self.w1, self.w2 = p(e, e), p(e, f), p(f, e)
+        self.wq, self.wk, self.wv = p(e, q), p(e, kv), p(e, kv)
+        self.wo, self.w1, self.w2 = p(q, e), p(e, f), p(f, e)
 
 
 class DecoderLM(nn.Module):
@@ -171,13 +244,22 @@ class DecoderLM(nn.Module):
     load weights with :func:`paddle_tpu_torch.convert.decoder_lm_from_numpy`.
     The methods mirror the JAX model's ``DecodeModel`` contract with the
     parameters held by the module: ``embed``, ``qkv``, ``attn_out``,
-    ``logits``, each shape-polymorphic over leading dims."""
+    ``logits``, each shape-polymorphic over leading dims.
+
+    ``tp_mesh`` (with ``tp_axis``) builds this rank's tensor-parallel
+    shard directly (:meth:`shard_plan`: its columns of ``wq/wk/wv/w1``,
+    its rows of ``wo/w2``, ``emb/pos/out`` whole), so a rank never holds
+    the whole model; :meth:`bind_tp` cuts one out of a whole model.  The
+    shard's ``qkv`` returns its heads and ``attn_out`` takes them, each
+    row-split product followed by one all-reduce over the axis
+    (``allreduce_calls`` and ``allreduce_bytes`` count them)."""
 
     def __init__(self, vocab_size: int, num_layers: int = 2,
                  num_heads: int = 2, head_dim: int = 16,
                  ffn_mult: int = 4, max_positions: int = 1024,
                  num_kv_heads: Optional[int] = None, *,
-                 device: DeviceLike = None, dtype=torch.float32):
+                 device: DeviceLike = None, dtype=torch.float32,
+                 tp_mesh=None, tp_axis: str = "model"):
         super().__init__()
         self.vocab_size = vocab_size
         self.num_layers = num_layers
@@ -191,15 +273,29 @@ class DecoderLM(nn.Module):
         self.kv_dim = self.num_kv_heads * head_dim
         self.ffn_dim = ffn_mult * self.embed_dim
         self.max_positions = max_positions
+        # tensor-parallel binding (tp 1 and no group off a mesh)
+        self.tp, self.tp_rank = 1, 0
+        self._tp_mesh, self._tp_axis, self._tp_group = None, None, None
+        self.allreduce_calls = 0
+        self.allreduce_bytes = 0
+        if tp_mesh is not None:
+            self.tp = tp_mesh.axis_size(tp_axis)
+            validate_tp(self, self.tp, tp_axis)
+            enforce_that(tp_mesh.member, f"rank {tp_mesh.rank} holds no "
+                         f"shard of {tp_mesh!r}", context="serving-tp")
+            self.tp_rank = tp_mesh.coord(tp_axis)
+            self._tp_mesh, self._tp_axis = tp_mesh, tp_axis
+            self._tp_group = tp_mesh.group(tp_axis)
         dev = resolve_device(device)
-        e, v = self.embed_dim, vocab_size
+        e, v, n = self.embed_dim, vocab_size, self.tp
         self.emb = nn.Parameter(torch.zeros(v, e, device=dev, dtype=dtype),
                                 requires_grad=False)
         self.pos = nn.Parameter(torch.zeros(max_positions, e, device=dev,
                                             dtype=dtype),
                                 requires_grad=False)
         self.layers = nn.ModuleList(
-            _Block(e, self.kv_dim, self.ffn_dim, dev, dtype)
+            _Block(e, e // n, self.kv_dim // n, self.ffn_dim // n, dev,
+                   dtype)
             for _ in range(num_layers))
         self.out = nn.Parameter(torch.zeros(e, v, device=dev, dtype=dtype),
                                 requires_grad=False)
@@ -208,12 +304,67 @@ class DecoderLM(nn.Module):
     def device(self) -> torch.device:
         return self.emb.device
 
+    # ---- tensor-parallel placement (the megatron plan) -------------------
+
+    def shard_plan(self, axis: str = "model",
+                   tp: Optional[int] = None) -> Dict[str, Tuple]:
+        """Megatron placement over ``axis``: ``{param name: per-dim spec}``
+        — Q/K/V and FFN-up column-parallel (output features split), the
+        attention-output and FFN-down row-parallel (input features split,
+        one all-reduce after each), embeddings, positions and the vocab
+        head replicated.  ``tp`` (when given) validates divisibility."""
+        if tp is not None:
+            validate_tp(self, tp, axis)
+        plan: Dict[str, Tuple] = {"emb": (), "pos": (), "out": ()}
+        for l in range(self.num_layers):
+            plan[f"l{l}.wq"] = (None, axis)
+            plan[f"l{l}.wk"] = (None, axis)
+            plan[f"l{l}.wv"] = (None, axis)
+            plan[f"l{l}.wo"] = (axis, None)
+            plan[f"l{l}.w1"] = (None, axis)
+            plan[f"l{l}.w2"] = (axis, None)
+        return plan
+
+    @torch.no_grad()
+    def bind_tp(self, mesh, axis: str = "model") -> "DecoderLM":
+        """A new module holding this rank's shard of this (whole) model
+        over ``axis`` of ``mesh`` (:meth:`shard_plan`); ``self`` is not
+        changed, so it can go on backing an engine without a mesh."""
+        from paddle_tpu_torch.convert import decoder_lm_state
+
+        enforce_that(self.tp == 1, "bind_tp takes a whole model; this "
+                     f"one is already a {self.tp}-way shard",
+                     context="serving-tp")
+        m = DecoderLM(self.vocab_size, self.num_layers, self.num_heads,
+                      self.head_dim, self.ffn_dim // self.embed_dim,
+                      self.max_positions, self.num_kv_heads,
+                      device=self.device, dtype=self.emb.dtype,
+                      tp_mesh=mesh, tp_axis=axis)
+        plan = m.shard_plan(axis)
+        whole = decoder_lm_state(self)
+        for name, dst in decoder_lm_state(m).items():
+            dst.copy_(tp_slice(whole[name], plan[name], axis, m.tp,
+                               m.tp_rank))
+        return m
+
+    def _tp_psum(self, x):
+        """The megatron ``g`` after a row-split product: the partial sums
+        all-reduced over the tensor-parallel axis (nothing off a mesh)."""
+        if self._tp_group is None:
+            return x
+        from paddle_tpu_torch.parallel.comm import all_reduce_
+
+        self.allreduce_calls += 1
+        self.allreduce_bytes += x.numel() * x.element_size()
+        return all_reduce_(x.contiguous(), self._tp_group)
+
     def embed(self, tokens, positions):
         return self.emb[tokens] + self.pos[positions]
 
     def qkv(self, layer: int, x):
         blk = self.layers[layer]
-        h, kvh, d = self.num_heads, self.num_kv_heads, self.head_dim
+        n, d = self.tp, self.head_dim
+        h, kvh = self.num_heads // n, self.num_kv_heads // n
         xn = _rms(x)
         q = (xn @ blk.wq).reshape(x.shape[:-1] + (h, d))
         k = (xn @ blk.wk).reshape(x.shape[:-1] + (kvh, d))
@@ -222,11 +373,11 @@ class DecoderLM(nn.Module):
 
     def attn_out(self, layer: int, ctx, x):
         blk = self.layers[layer]
-        flat = ctx.reshape(x.shape[:-1] + (self.embed_dim,))
-        a = x + flat @ blk.wo
+        flat = ctx.reshape(x.shape[:-1] + (self.embed_dim // self.tp,))
+        a = x + self._tp_psum(flat @ blk.wo)
         up = _rms(a) @ blk.w1
         # jax.nn.gelu's default is the tanh approximation
-        return a + F.gelu(up, approximate="tanh") @ blk.w2
+        return a + self._tp_psum(F.gelu(up, approximate="tanh") @ blk.w2)
 
     def logits(self, x):
         return _rms(x) @ self.out
@@ -267,7 +418,6 @@ def _parse_buckets(spec: str) -> Tuple[int, ...]:
     return tuple(sorted(int(t) for t in spec.split(",") if t.strip()))
 
 
-_A12 = "the tensor-parallel half of the parallel slice (A12b)"
 _A13 = "the tail slice (A13)"
 
 
@@ -281,7 +431,13 @@ class ServingEngine:
     packing with the plain attention standing in for the kernel.
     ``draft_params`` is the draft's numpy dict (loaded into
     ``draft_model``) or a built model, whose weights are used as they
-    are."""
+    are.
+
+    ``mesh`` with a ``tp_axis`` axis of ``tp`` ranks serves tensor-
+    parallel (module doc): ``model`` is a whole ``DecoderLM``, bound to
+    this rank's shard here (:meth:`DecoderLM.bind_tp`), or already a
+    shard built over the same mesh (``DecoderLM(tp_mesh=)``).  Only the
+    mesh's ranks build it."""
 
     def __init__(self, model: DecodeModel, *, eos_id: int,
                  page_size: Optional[int] = None,
@@ -305,7 +461,7 @@ class ServingEngine:
                  faults: Optional[FaultPlan] = None,
                  time_fn: Optional[Callable[[], float]] = None,
                  tracer=None, registry: Optional[MetricsRegistry] = None,
-                 mesh=None, tp_axis: Optional[str] = None,
+                 mesh=None, tp_axis: str = "model",
                  spec_mode: Optional[str] = None,
                  spec_k: Optional[int] = None,
                  spec_ngram: Optional[int] = None,
@@ -321,7 +477,6 @@ class ServingEngine:
                  device: DeviceLike = None):
         refuse_unported(
             "ServingEngine", "serving",
-            mesh=(mesh, None, _A12), tp_axis=(tp_axis, None, _A12),
             xla_peak_bytes=(xla_peak_bytes, None, _A13),
             xla_flops=(xla_flops, None, _A13),
             xla_comm_bytes=(xla_comm_bytes, None, _A13))
@@ -338,6 +493,51 @@ class ServingEngine:
         enforce_that(self.role in ("prefill", "decode", "unified"),
                      f"role must be prefill/decode/unified, got {role!r}",
                      context="serving")
+        # tensor-parallel placement: with a mesh the megatron shard_plan
+        # places heads and FFN columns over the tp axis and the pool
+        # splits its KV-head dim the same way; every byte count below is
+        # per rank
+        self.mesh = mesh
+        self.tp_axis = str(tp_axis)
+        self.tp = 1
+        enforce_that(mesh is not None or int(getattr(model, "tp", 1)) == 1,
+                     f"the model is a {getattr(model, 'tp', 1)}-way "
+                     "tensor-parallel shard: serve it with "
+                     "ServingEngine(mesh=) over its mesh",
+                     context="serving-tp")
+        if mesh is not None:
+            from paddle_tpu_torch.parallel.mesh import Mesh
+
+            enforce_that(isinstance(mesh, Mesh),
+                         "mesh= takes a paddle_tpu_torch.parallel.Mesh "
+                         "(make_mesh((tp,), ('model',)) ...), got "
+                         f"{type(mesh).__name__}", context="serving-tp")
+            enforce_that(
+                self.tp_axis in mesh.axis_names,
+                f"mesh has no {self.tp_axis!r} axis (axes: "
+                f"{tuple(mesh.axis_names)}) — build one with "
+                "make_mesh((tp,), ('model',))", context="serving-tp")
+            self.tp = int(mesh.shape[self.tp_axis])
+            validate_tp(model, self.tp, self.tp_axis)
+            enforce_that(
+                hasattr(model, "shard_plan"),
+                "ServingEngine(mesh=...) needs the model to expose "
+                "shard_plan(axis, tp) (see the DecodeModel contract); "
+                f"{type(model).__name__} does not", context="serving-tp")
+            enforce_that(mesh.member,
+                         f"this rank is outside the engine's mesh {mesh!r}:"
+                         " only the mesh's ranks build the engine",
+                         context="serving-tp")
+            bound = int(getattr(model, "tp", 1))
+            if bound == 1:
+                model = model.bind_tp(mesh, self.tp_axis)
+            else:
+                enforce_that(
+                    bound == self.tp and list(model._tp_mesh.axis_ranks(
+                        model._tp_axis)) == mesh.axis_ranks(self.tp_axis),
+                    f"the model is a {bound}-way shard over "
+                    f"{getattr(model, '_tp_mesh', None)!r}; this engine's "
+                    f"mesh is {mesh!r}", context="serving-tp")
         self.model = model
         page_size = int(page_size or FLAGS.serving_page_size)
         max_slots = int(max_slots or FLAGS.serving_max_slots)
@@ -351,7 +551,7 @@ class ServingEngine:
             num_pages = pages_for_budget(
                 pool_bytes, model.num_layers, model.num_heads,
                 model.head_dim, page_size, kv_dtype,
-                num_kv_heads=num_kv_heads)
+                num_kv_heads=num_kv_heads, tp=self.tp)
         num_pages = int(num_pages or FLAGS.serving_max_pages)
         if max_pages_per_seq is None:
             # default: one sequence may claim up to half the usable pool
@@ -382,8 +582,9 @@ class ServingEngine:
             num_layers=model.num_layers, num_heads=model.num_heads,
             head_dim=model.head_dim, page_size=page_size,
             num_pages=num_pages, max_pages_per_seq=int(max_pages_per_seq),
-            dtype=kv_dtype, num_kv_heads=num_kv_heads)
-        self._kv: KVPages = init_kv_pages(self.kv_cfg, device=self.device)
+            dtype=kv_dtype, num_kv_heads=num_kv_heads, tp=self.tp)
+        self._kv: KVPages = init_kv_pages(self.kv_cfg, device=self.device,
+                                          mesh=mesh, axis=self.tp_axis)
         self.pool = PagePool(num_pages)
         if prefix_cache is None:
             prefix_cache = bool(FLAGS.serving_prefix_cache)
@@ -434,8 +635,8 @@ class ServingEngine:
                         else tracer_for(self._time, registry=self.registry))
         # row packing, decided ONCE through the single chooser
         self._ragged_kernel = attention_path(
-            model.head_dim, page_size, num_heads=model.num_heads,
-            num_kv_heads=num_kv_heads, device=self.device,
+            model.head_dim, page_size, num_heads=model.num_heads // self.tp,
+            num_kv_heads=self.kv_cfg.local_kv_heads, device=self.device,
             use_kernel=use_kernel) == "kernel"
         self._buckets = tuple(sorted(int(b) for b in buckets)) if buckets \
             else _parse_buckets(FLAGS.serving_prefill_buckets)
@@ -561,10 +762,15 @@ class ServingEngine:
         h, d = q.shape[1], q.shape[2]
         qd, rsd, qpd = expand_decode_rows(q[:bd], qpos[:bd],
                                           rows_per_seq=k1)
-        ctx = ragged_paged_attention(
-            torch.cat([qd, q[bd:]]), kv.k[layer], kv.v[layer], table,
-            att_lens, torch.cat([rsd, row_seq[bd:]]),
-            torch.cat([qpd, qpos[bd:]]), k_scale=ks, v_scale=vs)
+        args = (torch.cat([qd, q[bd:]]), kv.k[layer], kv.v[layer], table,
+                att_lens, torch.cat([rsd, row_seq[bd:]]),
+                torch.cat([qpd, qpos[bd:]]))
+        if self.mesh is not None:
+            # this rank's head shard against its pool shard
+            ctx = ragged_paged_attention_tp(self.mesh, self.tp_axis, *args,
+                                            k_scale=ks, v_scale=vs)
+        else:
+            ctx = ragged_paged_attention(*args, k_scale=ks, v_scale=vs)
         cd = ctx[:b * rbk].reshape(b, rbk, h, d)[:, :k1].reshape(bd, h, d)
         return torch.cat([cd, ctx[b * rbk:]])
 
@@ -619,6 +825,21 @@ class ServingEngine:
         # the step's one sync; bf16 logits widen exactly to f32
         logits = model.logits(x[sel]).float().cpu().numpy()
         return logits[:bd].reshape(b, k1, -1), logits[bd:]
+
+    def tp_step_comm_bytes(self, rows: int) -> float:
+        """Closed-form collective bytes of one step under ``tp``-way
+        tensor parallelism: each layer pays exactly two row-parallel
+        all-reduces (the attention-output and FFN-down products), each
+        moving ``2 * b * (N-1)/N`` bytes over the axis for the ``[rows,
+        E]`` f32 activation of ``b = 4 * rows * E`` bytes.  Attention is
+        head-local and the pool ops are per-rank, so nothing else crosses
+        the axis."""
+        if self.tp <= 1:
+            return 0.0
+        e = int(getattr(self.model, "embed_dim", 0)
+                or self.model.num_heads * self.model.head_dim)
+        psum = 2.0 * (4.0 * rows * e) * (self.tp - 1) / self.tp
+        return float(self.model.num_layers * 2 * psum)
 
     # ---- user surface ----------------------------------------------------
 
@@ -927,7 +1148,10 @@ class ServingEngine:
             "pages_reclaimable": self.pool.num_reclaimable,
             "pages_total": self.pool.num_usable,
             "kv_dtype": str(self.kv_cfg.dtype).replace("torch.", ""),
+            # per-rank pool bytes: under TP each rank holds 1/tp of every
+            # page's KV heads (scales with them)
             "kv_bytes": self.kv_cfg.kv_bytes(),
+            "tp": self.tp,
             "cache_hits": self.cache.hits if self.cache is not None else 0,
             "cache_misses": (self.cache.misses
                              if self.cache is not None else 0),

@@ -63,9 +63,25 @@ EXACTLY one terminal status, no rid completed twice, and every
 replica's pool — dead ones included — holds zero live refs.  Violations
 raise :class:`~paddle_tpu_torch.serving.faults.PageLeakError` tagged
 ``FLEET-LEAK``, and ``main(["check"])`` replays a seeded kill-chaos
-trace as a standalone gate.  ``FleetRouter.over_mesh_slices`` (a
-replica per tensor-parallel mesh slice) waits for the tensor-parallel
-half of the parallel slice (A12b).
+trace as a standalone gate.
+
+``FleetRouter.over_mesh_slices`` makes the replica unit a tensor-parallel
+mesh slice (``parallel.mesh.mesh_slices``): replica i is a
+``ServingEngine(mesh=slice i)``.  JAX runs one controller; here every
+rank of the job runs the same router on the same clock, and each replica
+is one engine on its slice's ranks and a :class:`SliceProxy` on every
+other rank.  After each call that changes a replica (submit, step,
+cancel, drain) the slice's first rank broadcasts the outcome over a CPU
+(gloo) group of every rank: the statuses of the requests the router
+tracks there, the results of the completed ones, the tokens streamed,
+``load()`` and ``healthz()``.  The proxies take it as their state, and
+every rank then runs the fleet's stream callbacks over those tokens, so
+a callback runs after its replica's call on every rank.  So every rank's
+router and ``snapshot()`` are equal, and a kill fences and reaps a slice
+as one unit on every rank.  A fleet over several ranks needs an injected
+clock every rank shares (a fault plan's or ``time_fn``), and keeps to
+unified replicas without the autoscaler (the page-migration plane moves
+pages inside one process).
 """
 
 from __future__ import annotations
@@ -78,13 +94,15 @@ from enum import Enum
 from typing import (Callable, Deque, Dict, List, Optional, Sequence, Set,
                     Tuple)
 
+import torch.distributed as dist
+
 from paddle_tpu_torch.analysis.concurrency.lifecycle import \
     record_transition
 from paddle_tpu_torch.master.service import LeaseTable
 from paddle_tpu_torch.obs.registry import MetricsRegistry
 from paddle_tpu_torch.obs.trace import tracer_for
 from paddle_tpu_torch.platform.device import DeviceLike
-from paddle_tpu_torch.platform.enforce import EnforceError, enforce_that
+from paddle_tpu_torch.platform.enforce import enforce_that
 from paddle_tpu_torch.platform.flags import FLAGS
 from paddle_tpu_torch.serving.control import (AdmissionLedger, Autoscaler,
                                               AutoscalePolicy,
@@ -98,7 +116,7 @@ from paddle_tpu_torch.serving.migrate import (export_chain, export_prefix,
                                               import_chain, import_prefix)
 from paddle_tpu_torch.serving.scheduler import RequestStatus
 
-__all__ = ["FleetRouter", "Replica", "ReplicaState"]
+__all__ = ["FleetRouter", "Replica", "ReplicaState", "SliceProxy"]
 
 _frid_counter = itertools.count()
 
@@ -159,6 +177,9 @@ class Replica:
         self.last_hb: Optional[float] = None
         self.rid_map: Dict[int, int] = {}     # engine rid -> fleet rid
         self.dead_reason: Optional[str] = None
+        # (fleet rid, token) streamed since the last outcome broadcast,
+        # in a fleet over mesh slices on several ranks
+        self.outbox: List[Tuple[int, int]] = []
 
     def load_key(self) -> Tuple[int, int, int]:
         """Balancing key: fewer queued+running first, more free pages as
@@ -180,6 +201,102 @@ class Replica:
         return (ld["prefill_backlog_tokens"],
                 ld["queue_depth"] + ld["running"], -ld["free_pages"],
                 self.idx)
+
+
+def _broadcast_view(engine, plane, rids=(), erid: Optional[int] = None,
+                    tokens=()) -> Dict[str, object]:
+    """One outcome broadcast of a replica over ``plane`` (CPU group, the
+    slice's first rank): that rank sends what the router reads of its
+    engine — the statuses of ``rids`` and ``erid``, the completed ones'
+    results, the ``tokens`` streamed — and a :class:`SliceProxy` takes
+    it as its state."""
+    group, src = plane
+    view = None
+    if dist.get_rank() == src:
+        ids = set(rids) | ({erid} if erid is not None else set())
+        status = {e: engine.status(e) for e in ids}
+        view = {"erid": erid, "status": status,
+                "results": {e: engine.result(e) for e, st in status.items()
+                            if st is RequestStatus.COMPLETED},
+                "tokens": list(tokens), "has_work": engine.has_work,
+                "load": engine.load(), "healthz": engine.healthz(),
+                "role": engine.role, "tp": engine.tp,
+                "kv_cfg": engine.kv_cfg, "max_slots": engine._max_slots,
+                "metrics": engine.metrics, "pool": engine.pool}
+    box = [view]
+    dist.broadcast_object_list(box, src=src, group=group)
+    if isinstance(engine, SliceProxy):
+        engine.apply(box[0])
+    return box[0]
+
+
+class SliceProxy:
+    """A replica's stand-in on a rank outside its mesh slice, in a fleet
+    over mesh slices on several ranks (module doc).  It runs nothing:
+    the calls that change the replica return None here, and the slice's
+    first rank broadcasts their outcome, which :meth:`apply` takes as
+    this proxy's state.  It holds no pages: its conservation check reads
+    the leak bit the slice's own ranks report."""
+
+    host_tier = None
+    cache = None
+
+    def __init__(self) -> None:
+        self._status: Dict[int, RequestStatus] = {}
+        self._view: Dict[str, object] = {}
+
+    def apply(self, view: Dict[str, object]) -> None:
+        # terminal statuses leave once the router stops asking for them
+        # (a view lists every rid the router tracks on the replica)
+        self._status = {e: st for e, st in self._status.items()
+                        if not st.terminal}
+        self._status.update(view["status"])
+        self._view = view
+        self.role, self.tp = view["role"], view["tp"]
+        self.kv_cfg, self._max_slots = view["kv_cfg"], view["max_slots"]
+        self.metrics, self.pool = view["metrics"], view["pool"]
+
+    def submit(self, *args, **kwargs) -> None:
+        return None
+
+    def step(self, now: Optional[float] = None) -> None:
+        return None
+
+    def cancel(self, rid: int, now: Optional[float] = None) -> None:
+        return None
+
+    def drain(self, on: bool = True) -> None:
+        return None
+
+    def release_pool(self) -> None:
+        return None
+
+    def set_tracer(self, tracer) -> None:
+        return None
+
+    def set_registry(self, registry, **labels) -> None:
+        return None
+
+    def status(self, rid: int) -> RequestStatus:
+        return self._status[rid]
+
+    def result(self, rid: int) -> Optional[List[int]]:
+        return self._view["results"].get(rid)
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self._view["has_work"])
+
+    def load(self) -> Dict[str, object]:
+        return self._view["load"]
+
+    def healthz(self) -> Dict[str, object]:
+        return self._view["healthz"]
+
+    def check_page_conservation(self) -> None:
+        if self._view["healthz"]["page_leak"]:
+            raise PageLeakError("the slice's ranks report a page leak "
+                                "(their own check names it)")
 
 
 @dataclass
@@ -294,6 +411,9 @@ class FleetRouter:
         # prompt forever.  Eviction only degrades affinity to a load-
         # balanced pick — correctness never depends on this map.
         self._prefix_owner: "OrderedDict[int, int]" = OrderedDict()
+        # replica idx -> (CPU group, slice's first rank): the outcome
+        # plane of a fleet over mesh slices on several ranks
+        self._planes: Dict[int, Tuple[object, int]] = {}
         self._rr_next = 0
         self._tick = 0
         # page-migration plane: pending transfers FIFO per
@@ -338,12 +458,58 @@ class FleetRouter:
                          axis: str = "model", devices=None,
                          num_replicas: Optional[int] = None, **kwargs
                          ) -> "FleetRouter":
-        """A fleet whose replica unit is a tensor-parallel mesh slice.
-        Not ported yet: it needs the engine's ``mesh``, which comes with
-        the tensor-parallel half of the parallel slice (A12b)."""
-        raise EnforceError("FleetRouter.over_mesh_slices is not ported "
-                           "yet: it comes with the tensor-parallel half of "
-                           "the parallel slice (A12b)", context="serving")
+        """A fleet whose replica unit is a MESH SLICE, not a chip: the
+        ranks are partitioned into ``tp``-rank slices
+        (:func:`~paddle_tpu_torch.parallel.mesh.mesh_slices`) and
+        ``make_engine(idx, time_fn, mesh)`` must return a
+        ``ServingEngine(mesh=mesh, ...)`` on its slice (``mesh`` is None
+        when ``tp == 1``: plain replicas).  Routing, leases, death
+        fencing and resubmission are unchanged: a slice dies and rejoins
+        as one unit.  ``num_replicas`` caps the slice count (default:
+        every full slice the ranks afford).  Every rank of the job calls
+        this, with the same arguments (module doc)."""
+        if tp <= 1:
+            slices = None
+            n = num_replicas
+        else:
+            from paddle_tpu_torch.parallel.mesh import mesh_slices
+
+            slices = mesh_slices(tp, axis=axis, devices=devices,
+                                 max_slices=num_replicas)
+            n = len(slices)
+        plane, planes = None, {}
+        if slices is not None and dist.is_initialized() \
+                and dist.get_world_size() > 1:
+            faults = kwargs.get("faults")
+            enforce_that(
+                kwargs.get("time_fn") is not None or (
+                    faults is not None and faults.clock is not None),
+                "a fleet over mesh slices on several ranks runs one router "
+                "on every rank: give it an injected clock every rank "
+                "shares (faults=FleetFaultPlan(clock=ManualClock(...)) or "
+                "time_fn=)", context="serving")
+            enforce_that(not kwargs.get("roles") and not kwargs.get(
+                "autoscale"), "a fleet over mesh slices on several ranks "
+                "keeps to unified replicas without the autoscaler (the "
+                "page-migration plane moves pages inside one process)",
+                context="serving")
+            # the outcome plane: every rank of the job, on the CPU
+            plane = dist.new_group(list(range(dist.get_world_size())),
+                                   backend="gloo")
+
+        def mk(i: int, time_fn):
+            mesh = slices[i] if slices is not None else None
+            if plane is None:
+                return make_engine(i, time_fn, mesh)
+            planes[i] = (plane, int(mesh.devices.flat[0]))
+            engine = make_engine(i, time_fn, mesh) if mesh.member \
+                else SliceProxy()
+            _broadcast_view(engine, planes[i])
+            return engine
+
+        fleet = cls(mk, n, **kwargs)
+        fleet._planes = planes    # filled on: a warm restart adds one
+        return fleet
 
     # ---- replica lifecycle ------------------------------------------------
 
@@ -378,7 +544,7 @@ class FleetRouter:
                 self._roles[idx] = role
             self._disagg = any(r != "unified" for r in self._roles)
         engine.role = role
-        if self.tenants is not None:
+        if self.tenants is not None and not isinstance(engine, SliceProxy):
             # preemption precedence: batch-class slots are victimized
             # before interactive ones, on EVERY replica incl. late joins
             engine.scheduler.precedence_fn = self.tenants.precedence
@@ -424,6 +590,7 @@ class FleetRouter:
                           registry=self.registry)
         rep.state = ReplicaState.DRAINING
         rep.engine.drain()
+        self._share(rep)
         self._forget_owner(idx)
         self.tracer.instant("replica_drain", cat="fleet", replica=idx)
 
@@ -586,6 +753,7 @@ class FleetRouter:
             # provable over ALL replicas
             if not rep.engine.status(erid).terminal:
                 rep.engine.cancel(erid, now=now)
+                self._share(rep, erid)
             if freq.finished:
                 continue
             freq.replica = None
@@ -772,6 +940,7 @@ class FleetRouter:
             rep.rid_map.pop(freq.erid, None)
             if not rep.engine.status(freq.erid).terminal:
                 rep.engine.cancel(freq.erid, now=now)
+                self._share(rep, freq.erid)
         self._finish(freq, RequestStatus.CANCELLED, now)
         return True
 
@@ -868,6 +1037,7 @@ class FleetRouter:
                 continue                      # slow replica: off tick
             if rep.engine.has_work:
                 rep.engine.step()
+                self._share(rep)
             self._harvest(rep, self._time())
             if rep.state is ReplicaState.DRAINING and \
                     not rep.engine.has_work:
@@ -926,17 +1096,37 @@ class FleetRouter:
     # ---- dispatch / harvest ------------------------------------------------
 
     def _wrap_on_token(self, freq: _FleetRequest):
+        return lambda tok: self._stream(freq, tok)
+
+    def _stream(self, freq: _FleetRequest, tok: int) -> None:
         """Exactly-once stream fence: forward only tokens beyond the
         high-water mark, so a resubmitted (deterministically replayed)
         request never double-delivers."""
-        def cb(tok: int) -> None:
-            freq.attempt_tokens += 1
-            if freq.attempt_tokens > freq.emitted:
-                freq.emitted += 1
-                self.metrics.on_token(self._time(), tenant=freq.tenant)
-                if freq.on_token is not None:
-                    freq.on_token(tok)
-        return cb
+        freq.attempt_tokens += 1
+        if freq.attempt_tokens > freq.emitted:
+            freq.emitted += 1
+            self.metrics.on_token(self._time(), tenant=freq.tenant)
+            if freq.on_token is not None:
+                freq.on_token(tok)
+
+    def _share(self, rep: Replica, erid: Optional[int] = None):
+        """After a call that changed replica ``rep``, in a fleet over
+        mesh slices on several ranks: broadcast the outcome from the
+        slice's first rank (``erid``, the rid the call was about, joins
+        the statuses it carries), let a proxy take it, and stream its
+        tokens on every rank.  Returns ``erid``, on a proxy the first
+        rank's (engine rids count per process, so a proxy keys the
+        replica's requests by the first rank's).  A no-op in one
+        process."""
+        plane = self._planes.get(rep.idx)
+        if plane is None:
+            return erid
+        view = _broadcast_view(rep.engine, plane, rep.rid_map, erid,
+                               rep.outbox)
+        rep.outbox = []
+        for frid, tok in view["tokens"]:
+            self._stream(self._requests[frid], tok)
+        return view["erid"] if isinstance(rep.engine, SliceProxy) else erid
 
     def _dispatch(self, freq: _FleetRequest, now: float) -> bool:
         """Route and submit; on engine-side REJECT (backpressure, drain
@@ -955,10 +1145,15 @@ class FleetRouter:
             if freq.deadline_at is not None:
                 remaining = freq.deadline_at - now   # may be <= 0: the
                 #                     engine times it out on its next tick
-            erid = rep.engine.submit(freq.prompt, freq.max_tokens,
-                                     on_token=self._wrap_on_token(freq),
-                                     deadline_s=remaining, now=now,
-                                     tenant=freq.tenant)
+            if rep.idx in self._planes:
+                # the stream runs on every rank from the broadcast
+                on_token = (lambda tok, f=freq.frid:
+                            rep.outbox.append((f, tok)))
+            else:
+                on_token = self._wrap_on_token(freq)
+            erid = self._share(rep, rep.engine.submit(
+                freq.prompt, freq.max_tokens, on_token=on_token,
+                deadline_s=remaining, now=now, tenant=freq.tenant))
             if rep.engine.status(erid) is RequestStatus.REJECTED:
                 tried.add(idx)
                 continue

@@ -68,7 +68,14 @@ class PagedKVConfig:
 
     ``num_kv_heads`` (None = ``num_heads``) is the GQA knob;
     ``dtype=torch.int8`` turns on quantized pages with per-token,
-    per-kv-head f32 scales."""
+    per-kv-head f32 scales.
+
+    ``tp`` (default 1) is the tensor-parallel degree: the pool's KV-head
+    dim is split over the ``model`` mesh axis, each rank holding
+    ``kv_heads / tp`` heads of every page, so every byte count here
+    (:meth:`bytes_per_page`, :meth:`kv_bytes`, hence
+    :func:`pages_for_budget`) is per rank; int8 scales are split with
+    their heads."""
 
     num_layers: int
     num_heads: int
@@ -78,6 +85,7 @@ class PagedKVConfig:
     max_pages_per_seq: int   # page-table width
     dtype: torch.dtype = torch.float32
     num_kv_heads: Optional[int] = None   # None = MHA (== num_heads)
+    tp: int = 1              # model-axis shards of the KV-head dim
 
     def __post_init__(self):
         enforce_that(self.num_pages >= 2,
@@ -89,10 +97,23 @@ class PagedKVConfig:
         enforce_that(self.num_heads % self.kv_heads == 0,
                      f"num_kv_heads ({self.kv_heads}) must divide "
                      f"num_heads ({self.num_heads})", context="serving")
+        enforce_that(self.tp >= 1, "tp must be >= 1", context="serving")
+        enforce_that(self.kv_heads % self.tp == 0,
+                     f"tensor parallelism tp={self.tp} must divide "
+                     f"num_kv_heads ({self.kv_heads}): the paged pool "
+                     "shards whole KV heads over the model axis, so each "
+                     "chip must own an integer number of them — pick a "
+                     f"tp that divides {self.kv_heads}, or a model with "
+                     "more KV heads", context="serving")
 
     @property
     def kv_heads(self) -> int:
         return self.num_kv_heads if self.num_kv_heads else self.num_heads
+
+    @property
+    def local_kv_heads(self) -> int:
+        """KV heads of every page that one rank holds."""
+        return self.kv_heads // self.tp
 
     @property
     def quantized(self) -> bool:
@@ -109,28 +130,35 @@ class PagedKVConfig:
         return padded_head_dim(self.head_dim)
 
     def bytes_per_page(self) -> int:
-        """K + V bytes one page costs across all layers, scales included."""
+        """K + V bytes one page costs one rank across all layers, scales
+        included: under tensor parallelism each rank holds
+        ``kv_heads / tp`` heads of every page."""
         itemsize = torch.empty((), dtype=self.dtype).element_size()
-        per = (self.num_layers * self.page_size * self.kv_heads *
+        heads = self.local_kv_heads
+        per = (self.num_layers * self.page_size * heads *
                self.pool_head_dim * itemsize)
         if self.quantized:
-            per += self.num_layers * self.page_size * self.kv_heads * 4
+            per += self.num_layers * self.page_size * heads * 4
         return 2 * per
 
     def kv_bytes(self) -> int:
+        """Whole-pool bytes per rank (times ``tp`` for the global pool)."""
         return self.num_pages * self.bytes_per_page()
 
 
 def pages_for_budget(pool_bytes: int, num_layers: int, num_heads: int,
                      head_dim: int, page_size: int, dtype,
-                     num_kv_heads: Optional[int] = None) -> int:
-    """Total ``num_pages`` (null page included) that fit in a pool byte
-    budget: int8 pages admit ~4x the f32 pages for the same bytes."""
+                     num_kv_heads: Optional[int] = None,
+                     tp: int = 1) -> int:
+    """Total ``num_pages`` (null page included) that fit in a per-rank
+    pool byte budget: int8 pages admit ~4x the f32 pages for the same
+    bytes, and ``tp``-way tensor parallelism ``tp`` x the pages again
+    (each rank stores 1/tp of every page's KV heads)."""
     probe = PagedKVConfig(num_layers=num_layers, num_heads=num_heads,
                           head_dim=head_dim, page_size=page_size,
                           num_pages=2, max_pages_per_seq=1,
                           dtype=resolve_kv_dtype(dtype),
-                          num_kv_heads=num_kv_heads)
+                          num_kv_heads=num_kv_heads, tp=int(tp))
     return max(2, int(pool_bytes) // probe.bytes_per_page())
 
 
@@ -150,11 +178,44 @@ class KVPages(NamedTuple):
         return self.k_scale is not None
 
 
-def init_kv_pages(cfg: PagedKVConfig, device: DeviceLike = None) -> KVPages:
-    """Allocate a zeroed pool on ``device`` (default ``cuda``)."""
+def kv_pool_specs(axis: str = "model") -> Tuple[Optional[str], ...]:
+    """The pool's layout as a leading-dims spec covering every
+    :class:`KVPages` leaf: the KV-head dim (position 3 of ``k``/``v`` and
+    of the scales) split over ``axis``, every other dim whole."""
+    return (None, None, None, axis)
+
+
+def kv_pool_sharding(mesh, axis: str, kv_heads: int) -> Tuple[slice, ...]:
+    """This rank's part of a whole pool leaf in :func:`kv_pool_specs`'
+    layout, as an index (``leaf[idx]`` is the shard): the rank at
+    coordinate ``i`` of ``axis`` (``n`` ranks) holds the KV heads
+    ``i * kv_heads / n`` up to ``(i + 1) * kv_heads / n``, the heads whose
+    K and V columns :meth:`DecoderLM.shard_plan
+    <paddle_tpu_torch.serving.engine.DecoderLM.shard_plan>` gives it."""
+    n, i = mesh.axis_size(axis), mesh.coord(axis)
+    enforce_that(kv_heads % n == 0, f"{kv_heads} KV heads do not split "
+                 f"over {axis}={n}", context="serving")
+    per = kv_heads // n
+    return tuple(slice(i * per, (i + 1) * per) if a == axis
+                 else slice(None) for a in kv_pool_specs(axis))
+
+
+def init_kv_pages(cfg: PagedKVConfig, device: DeviceLike = None,
+                  mesh=None, axis: str = "model") -> KVPages:
+    """Allocate a zeroed pool on ``device`` (default ``cuda``).  With a
+    ``mesh`` this rank's shard (:func:`kv_pool_sharding`): ``[L, P, page,
+    H_kv / tp, D]`` (scales ``[L, P, page, H_kv / tp]``), ``tp`` the size
+    of ``axis``."""
     dev = resolve_device(device)
     shape = (cfg.num_layers, cfg.num_pages, cfg.page_size, cfg.kv_heads,
              cfg.pool_head_dim)
+    if mesh is not None:
+        enforce_that(mesh.axis_size(axis) == cfg.tp,
+                     f"the pool is configured for tp={cfg.tp}, the mesh's "
+                     f"{axis!r} axis has {mesh.axis_size(axis)} ranks",
+                     context="serving")
+        shape = tuple(torch.empty(shape, device="meta")[
+            kv_pool_sharding(mesh, axis, cfg.kv_heads)].shape)
     if cfg.quantized:
         return KVPages(torch.zeros(shape, dtype=torch.int8, device=dev),
                        torch.zeros(shape, dtype=torch.int8, device=dev),

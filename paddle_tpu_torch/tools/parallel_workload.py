@@ -15,9 +15,15 @@ and ``tests/test_torch_parallel_cuda.py``.
   ``SGD(pipeline=PipelineConfig(microbatches=4))`` against its no-mesh
   run from the same weights (:func:`headline_runs`), and the MoE layer on
   an ``expert`` axis of one rank against the dense path
-  (:func:`moe_layer_world1`).  NCCL refuses two ranks on one device, so
-  a one-card run stops at one rank; several ranks are the CPU gloo
-  tests' (``tests/test_torch_parallel_*.py``).
+  (:func:`moe_layer_world1`); DeepFM's full-width factor table through
+  the row-sharded lookups and update on a 'model' axis of one
+  (:func:`sparse_world1`), ``LocalSGD`` at ``sync_period`` 1 against
+  plain SGD (:func:`local_sgd_world1`), and batch norm's and the MoE
+  dispatch's statistics pooled over a 'data' axis of one against their
+  unpooled runs (:func:`pooled_stats_world1`).  NCCL refuses two ranks
+  on one device, so a one-card run stops at one rank; several ranks are
+  the CPU gloo tests' (``tests/test_torch_parallel_*.py``,
+  ``tests/test_torch_local_sgd.py``).
 """
 
 from __future__ import annotations
@@ -247,3 +253,144 @@ def moe_layer_world1(device, tokens: int = 4096,
             "names": ["y", "aux", "dx", "drouter", "dw1", "db1", "dw2",
                       "db2"], "rel_errs": errs}
 
+
+def events_ms(fn, reps: int = 10) -> float:
+    """Card ms of one call: ``reps`` calls back to back between two CUDA
+    events, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def sparse_world1(device) -> dict:
+    """DeepFM's factor table at Criteo's width (``ctr_workload``: 33.76 M
+    rows x 10, f32) row-sharded over a 'model' axis of one rank:
+    ``sharded_lookup`` and ``alltoall_lookup`` of one batch's ids (4096 x
+    39) against the plain gather, ``sharded_row_update`` against
+    ``sgd_update_rows`` (each must equal to the bit: the all-reduce and
+    the reduce-scatter of one rank are identities), and the card ms of
+    each (call inside :func:`nccl_world1`)."""
+    from paddle_tpu_torch.parallel import make_mesh
+    from paddle_tpu_torch.parallel import sparse as sp
+    from paddle_tpu_torch.tools import ctr_workload as cw
+
+    mesh = make_mesh((1,), ("model",))
+    gen = torch.Generator(device=device).manual_seed(tw.SEED + 7)
+    table = torch.randn((cw.VOCAB, cw.FACTOR), generator=gen,
+                        device=device)
+    ids = torch.randint(0, cw.VOCAB, (cw.BATCH * cw.FIELDS,),
+                        generator=gen, device=device)
+    rows = torch.randn((ids.numel(), cw.FACTOR), generator=gen,
+                       device=device)
+    grad = sp.SelectedRows(ids, rows, cw.VOCAB)
+    shard = sp.shard_table(mesh, table)
+    want = table.index_select(0, ids)
+    res = {"rows": cw.VOCAB, "dim": cw.FACTOR, "ids": ids.numel()}
+    res["lookup_equal"] = bool(torch.equal(
+        sp.sharded_lookup(mesh, shard, ids), want))
+    res["alltoall_equal"] = bool(torch.equal(
+        sp.alltoall_lookup(mesh, shard, ids), want))
+    got = sp.sharded_row_update(mesh, shard.clone(), grad, 0.05)
+    res["row_update_equal"] = bool(torch.equal(
+        got, sp.sgd_update_rows(table.clone(), grad, 0.05)))
+    del got
+    res["lookup_ms"] = events_ms(lambda: sp.sharded_lookup(mesh, shard,
+                                                            ids))
+    res["alltoall_ms"] = events_ms(lambda: sp.alltoall_lookup(mesh, shard,
+                                                               ids))
+    res["row_update_ms"] = events_ms(lambda: sp.sharded_row_update(
+        mesh, shard, grad, 0.05))
+    res["plain_gather_ms"] = events_ms(lambda: table.index_select(0, ids))
+    del table, shard
+    torch.cuda.empty_cache()
+    return res
+
+
+def local_sgd_world1(device, steps: int = 6) -> dict:
+    """``LocalSGD(sync_period=1)`` over a 'data' axis of one rank against
+    plain SGD on the same quadratic problem on the card (must equal to
+    the bit: the averaging all-reduce of one rank is an identity and the
+    mean divides by 1)."""
+    from paddle_tpu_torch.parallel import LocalSGD, make_mesh
+
+    mesh = make_mesh((1,), ("data",))
+    gen = torch.Generator(device=device).manual_seed(tw.SEED + 8)
+    true_w = torch.randn((256, 1), generator=gen, device=device)
+    batches = []
+    for _ in range(steps):
+        x = torch.randn((4096, 256), generator=gen, device=device)
+        batches.append((x, x @ true_w))
+
+    def grad_fn(params, feeds):
+        w = params["w"].detach().requires_grad_(True)
+        loss = torch.mean((feeds["x"] @ w - feeds["y"]) ** 2)
+        g, = torch.autograd.grad(loss, w)
+        return loss.detach(), {"w": g}
+
+    w = torch.zeros((256, 1), device=device)
+    for x, y in batches:
+        w = w - 0.1 * grad_fn({"w": w}, {"x": x, "y": y})[1]["w"]
+    ls = LocalSGD(mesh, sync_period=1, learning_rate=0.1)
+    params = ls.replicate({"w": torch.zeros((256, 1), device=device)})
+    step = ls.make_step(grad_fn)
+    for i, (x, y) in enumerate(batches):
+        params, _ = step(params, i, {"x": x, "y": y})
+    got = ls.average(params)["w"]
+    return {"steps": steps, "equal": bool(torch.equal(got, w)),
+            "max_abs_diff": float((got - w).abs().max())}
+
+
+def pooled_stats_world1(device, tokens: int = 4096,
+                        d: int = MOE_MODEL["d_model"]) -> dict:
+    """Batch norm's and the MoE dispatch's statistics pooled over a
+    'data' axis of one rank (``group=`` the axis's NCCL group) against
+    their unpooled runs on the same inputs: batch norm's plain version at
+    [4096, 1024] (must equal to the bit) and its cuDNN path (error), the
+    MoE LM's layer (8 experts, top-1, f32) with its gradients (relative
+    error, from the global means' other rounding)."""
+    from paddle_tpu_torch.ops import norm as pnorm
+    from paddle_tpu_torch.parallel import make_mesh
+    from paddle_tpu_torch.parallel.moe import (MoEParams, init_moe_params,
+                                               moe_ffn_reference)
+
+    mesh = make_mesh((1,), ("data",))
+    group = mesh.group("data")
+    gen = torch.Generator(device=device).manual_seed(tw.SEED + 9)
+    x = torch.randn((tokens, d), generator=gen, device=device) * 3 + 1
+    gamma = torch.rand((d,), generator=gen, device=device) + 0.5
+    beta = torch.randn((d,), generator=gen, device=device)
+    mm, mv = torch.zeros(d, device=device), torch.ones(d, device=device)
+    kw = dict(train=True, momentum=0.9)
+    pooled = pnorm.batch_norm_reference(x, gamma, beta, mm, mv, group=group,
+                                        **kw)
+    plain = pnorm.batch_norm_reference(x, gamma, beta, mm, mv, **kw)
+    cudnn = pnorm.batch_norm(x, gamma, beta, mm, mv, **kw)
+    res = {"bn": {"shape": [tokens, d],
+                  "equal": all(bool(torch.equal(a, b))
+                               for a, b in zip(pooled, plain)),
+                  "vs_cudnn_max_abs": max(float((a - b).abs().max())
+                                          for a, b in zip(pooled, cudnn))}}
+    base = init_moe_params(tw.SEED, d, 4 * d, MOE_EXPERTS, device=device)
+    dy = torch.randn((tokens, d), generator=gen, device=device)
+    outs = {}
+    for name, g in (("pooled", group), ("plain", None)):
+        xi = x.clone().requires_grad_(True)
+        p = MoEParams(*(t.clone().requires_grad_(True) for t in base))
+        y, aux, st = moe_ffn_reference(xi, p, return_stats=True, group=g)
+        ((y * dy).sum() + aux).backward()
+        outs[name] = [y.detach(), aux.detach(), st["drop_rate"], xi.grad] \
+            + [t.grad for t in p]
+    errs = [float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+            for a, b in zip(outs["pooled"], outs["plain"])]
+    res["moe"] = {"tokens": tokens, "d_model": d, "experts": MOE_EXPERTS,
+                  "names": ["y", "aux", "drop_rate", "dx", "drouter", "dw1",
+                            "db1", "dw2", "db2"], "rel_errs": errs,
+                  "max_rel_err": max(errs)}
+    return res

@@ -602,6 +602,10 @@ class SGD:
 
         resume_pass, resume_step = start_pass, 0
         if resume:
+            # an earlier call's async write may still be in flight on the
+            # writer: every rank reads only once it has committed
+            self._drain_async_writer("resuming")
+            self._mesh_barrier()
             loaded = ckpt.load_latest(save_dir, device="cpu")
             if loaded is not None:
                 self.apply_checkpoint(loaded)
@@ -769,8 +773,14 @@ class SGD:
             raise
         if self._async_ckpt is not None:
             # durability barrier: train() returning means the newest
-            # checkpoint is committed (writer errors surface here)
-            self._async_ckpt.wait()
+            # checkpoint is committed (writer errors surface here, on the
+            # writer); on a mesh no rank returns before the writer has
+            # waited, so none reads a checkpoint that is still being
+            # written
+            try:
+                self._async_ckpt.wait()
+            finally:
+                self._mesh_barrier()
 
     # ------------------------------------------------------------------
     # bad-step guard + cursor-checkpoint plumbing
@@ -890,9 +900,15 @@ class SGD:
 
     def _ckpt_barrier(self) -> None:
         """On a mesh of several ranks nobody reads a checkpoint before
-        the writer has committed it (sync saves)."""
-        if self.mesh is not None and self.mesh.size > 1 \
-                and self._async_ckpt is None:
+        the writer has committed it (sync saves; an async save keeps its
+        depth-one pipelining, and its ranks meet in :meth:`_mesh_barrier`
+        when train() returns or resumes)."""
+        if self._async_ckpt is None:
+            self._mesh_barrier()
+
+    def _mesh_barrier(self) -> None:
+        """Every rank of a mesh of several waits here for the others."""
+        if self.mesh is not None and self.mesh.size > 1:
             torch.distributed.barrier(group=self.mesh.whole_group)
 
     def _save_with_cursor(self, root: str, ck_id: int, pass_id: int,

@@ -261,10 +261,11 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
     files = sorted((REPO / "paddle_tpu_torch").rglob("*.py")) + \
         [REPO / "chip_smoke.py"]
     assert len(files) > 10
-    # the sixth, eighth, ninth, tenth, eleventh, twelfth, thirteenth and
-    # fourteenth slices' modules (parallel/, reader/, dataset/, image.py,
-    # obs/, cli.py, utils.py, the fleet, analysis/, master/,
-    # checkpoint.py, resilience/ and platform/virtual.py among them) are
+    # the sixth, eighth, ninth, tenth, eleventh, twelfth, thirteenth,
+    # fourteenth and fifteenth slices' modules (parallel/, reader/,
+    # dataset/, image.py, obs/, cli.py, utils.py, the fleet, analysis/,
+    # master/, checkpoint.py, resilience/, platform/virtual.py,
+    # parallel/local_sgd.py and tools/tp_workload.py among them) are
     # walked too
     names = {str(f.relative_to(REPO)) for f in files}
     assert names >= {f"paddle_tpu_torch/{m}.py" for m in (
@@ -303,7 +304,8 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
         "parallel/mesh", "parallel/api", "parallel/placement",
         "parallel/zero", "parallel/moe", "parallel/pipeline",
         "parallel/ring", "platform/virtual", "platform/device",
-        "tools/parallel_workload")}
+        "tools/parallel_workload", "parallel/local_sgd",
+        "tools/tp_workload", "serving/engine", "serving/decode_attention")}
     bad = {str(f.relative_to(REPO)): n for f in files
            for n in _imports(f) if _forbidden(n)}
     assert bad == {}
@@ -361,7 +363,9 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             " paddle_tpu_torch.parallel.pipeline,"
             " paddle_tpu_torch.parallel.ring,"
             " paddle_tpu_torch.platform.virtual,"
-            " paddle_tpu_torch.tools.parallel_workload, chip_smoke; "
+            " paddle_tpu_torch.tools.parallel_workload,"
+            " paddle_tpu_torch.parallel.local_sgd,"
+            " paddle_tpu_torch.tools.tp_workload, chip_smoke; "
             "print(sorted(m for m in sys.modules if m in ('jax', "
             "'paddle_tpu') or m.startswith(('jax.', 'paddle_tpu.'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -19,7 +19,8 @@ a kill while the slots speculate.
 Also: the fleet gate (``fleet.main(["check", "--device=cpu"])``) and
 ``obs.cli.seeded_chaos`` print the same ledgers as the JAX package's
 (its events and Chrome JSON too), the gates' weights file holds the JAX
-package's seed-0 draw, and ``over_mesh_slices`` raises naming A12.
+package's seed-0 draw, and ``over_mesh_slices`` at tp 1 equals JAX's
+(a tp the ranks cannot host raises in JAX's words).
 """
 
 import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
@@ -370,9 +371,36 @@ def test_seeded_chaos_matches_jax(tmp_path, capsys):
     assert json.loads(open(out).read())["traceEvents"]
 
 
-def test_over_mesh_slices_names_the_parallel_slice():
-    from paddle_tpu_torch.platform.enforce import EnforceError
-    from paddle_tpu_torch.serving import FleetRouter
+def test_over_mesh_slices_names_the_parallel_slice(weights):
+    """``over_mesh_slices`` is ported (its multi-rank run is
+    ``tests/test_torch_serving_tp.py``): at tp 1 it is a fleet of plain
+    replicas equal to JAX's, and a tp the ranks cannot host raises in
+    JAX's words."""
+    import jax
 
-    with pytest.raises(EnforceError, match="A12"):
-        FleetRouter.over_mesh_slices(lambda i, t, m: None, tp=2)
+    from paddle_tpu.platform.enforce import EnforceError as JEnforceError
+    from paddle_tpu_torch.platform.enforce import EnforceError
+
+    def scenario(side):
+        plan = side.FleetFaultPlan(clock=side.ManualClock(tick_s=0.01),
+                                   kill_at={4: 0})
+        mk = side.maker(**ENGINE)
+        fl = side.FleetRouter.over_mesh_slices(
+            lambda i, t, mesh: mk(i, t), tp=1, num_replicas=2,
+            heartbeat_s=0.05, resubmit_budget=2, faults=plan)
+        frids, streams = _submit_all(
+            fl, prompts(np.random.RandomState(6), 4, shared=PAGE), 6)
+        fl.run(max_ticks=400)
+        return _drained(side, fl, observe(fl, frids, streams))
+
+    assert_same(run_both(weights, scenario))
+    msgs = []
+    for side, err, kw in (("port", EnforceError, {}),
+                          ("jax", JEnforceError,
+                           {"devices": jax.devices()[:1]})):
+        with pytest.raises(err) as e:
+            Side(side, weights).FleetRouter.over_mesh_slices(
+                lambda i, t, m: None, tp=2, **kw)
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
+    assert "cannot host even one 2-chip slice" in msgs[0]

@@ -20,9 +20,9 @@ CPU (the port's side in 4 gloo ranks started once for the file).
   holding half of every weight;
 - the GAN through ``MultiTaskTrainer(mesh=)`` over 2 data ranks, two
   alternating Adam pairs: costs and weights against JAX's trainer;
-- batch norm and ``moe_ffn`` refuse to train on those 2 data ranks
-  (their batch statistics would be each rank's, JAX's the global
-  batch's).
+- batch norm and ``moe_ffn`` train on those 2 data ranks with their
+  batch statistics pooled over them: one Sgd step equals JAX's on the
+  global batch.
 """
 
 import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
@@ -270,12 +270,55 @@ def test_multitask_trainer_on_a_data_mesh_matches_jax(ranks, jax_runs):
             assert _rel(res["gan_params"][k], v) <= PARAM_RTOL, k
 
 
+def _jbatch_stat_step(layer_name, init, rows):
+    """JAX's one Sgd step of the layer's graph on the whole batch (its
+    GSPMD counts the statistics over the global batch): (cost, weights
+    after)."""
+    from paddle_tpu import layer
+    from paddle_tpu.models import transformer as jtransformer
+
+    jpaddle.topology.reset_name_scope()
+    if layer_name == "batch_norm":
+        x = layer.data(name="x", type=jpaddle.data_type.dense_vector(4))
+        y = layer.data(name="y", type=jpaddle.data_type.integer_value(2))
+        h = layer.batch_norm(input=layer.fc(input=x, size=8))
+        cost = layer.classification_cost(input=layer.fc(input=h, size=2),
+                                         label=y)
+    else:
+        *_, cost = jtransformer.build(**dict(R.LM, n_layers=1,
+                                             moe_experts=2))
+    costs = cost if isinstance(cost, list) else [cost]
+    params = jpaddle.Parameters.from_topology(
+        jpaddle.topology.Topology(costs), seed=0)
+    for k, v in init.items():
+        params[k] = v
+    sgd = jtrainer.SGD(cost=cost, parameters=params,
+                       update_equation=jopt.Sgd(learning_rate=0.1))
+    got = []
+    sgd.train(lambda: iter([[tuple(r) for r in rows]]), num_passes=1,
+              event_handler=lambda ev: got.append(float(ev.cost))
+              if type(ev).__name__ == "EndIteration" else None)
+    return got[0], {k: np.asarray(params[k]) for k in params.names()}
+
+
 @pytest.mark.parametrize("layer_name", ["batch_norm", "moe_ffn"])
 def test_batch_statistics_refuse_a_split_data_axis(ranks, layer_name):
+    """Once refused on a split data axis, both layers now pool their
+    statistics over it: the 2-rank step equals JAX's on the whole
+    batch."""
+    res0 = ranks[0]["refusals"][layer_name]
+    with f32_policy():
+        cost, after = _jbatch_stat_step(layer_name, res0["init"],
+                                        res0["rows"])
     for res in ranks[:2]:
-        msg = res["refusals"][layer_name]
-        assert "'data' axis splits the batch over 2 ranks" in msg, msg
-        assert "A12b" in msg, msg
+        got = res["refusals"][layer_name]
+        assert got["error"] == "no error", got["error"]
+        np.testing.assert_allclose(got["cost"], cost, rtol=COST_RTOL)
+        # Sgd, not Adam: the bias before batch norm has a zero gradient,
+        # whose rounding noise Adam would scale up to a full step
+        for k, v in after.items():
+            np.testing.assert_allclose(got["after"][k], v, rtol=PARAM_RTOL,
+                                       atol=1e-6, err_msg=k)
 
 
 def test_mesh_argument_is_checked():

@@ -3,7 +3,8 @@
 ``parallel/sparse.py``, on the CPU: the single-device cases of
 ``tests/test_compare_sparse.py`` (SelectedRows gradient and SGD row
 update, row-sparse Adagrad, the sparse embedding updater), with duplicate
-ids and the pad slots of the fixed-size combine.
+ids and the pad slots of the fixed-size combine, and the sharded half on
+a mesh axis of one.
 
 The port updates tables in place, so each port call takes a copy.
 Tolerance: 1e-6 absolute (f32); untouched rows bit-identical.
@@ -142,5 +143,44 @@ def test_sparse_training_matches_dense_training():
 
 
 def test_a_mesh_raises_until_the_sharded_half_is_ported():
-    with pytest.raises(EnforceError, match="not ported"):
-        tsp.SparseEmbeddingUpdater(mesh=object(), sparse_params=("emb",))
+    """The sharded half is ported: on a 'model' axis of one (no process
+    group) the meshed updater, ``sharded_lookup``, ``alltoall_lookup``
+    and ``sharded_row_update`` equal JAX's on a one-device mesh (the
+    multi-rank cases are ``tests/test_torch_parallel_sparse.py``); an
+    axis the mesh lacks raises."""
+    from paddle_tpu.parallel import make_mesh as jmake_mesh
+    from paddle_tpu_torch.parallel import make_mesh
+
+    rs = np.random.RandomState(5)
+    p = rs.randn(12, 3).astype(np.float32)
+    g = np.zeros((12, 3), np.float32)
+    g[[2, 5]] = 1.0
+    ids = np.array([2, 5, 2], np.int32)
+    jm, tm = jmake_mesh((1,), ("model",), jax.devices()[:1]), \
+        make_mesh((1,), ("model",))
+    want = jsp.SparseEmbeddingUpdater(mesh=jm, sparse_params=("emb",)).apply(
+        {"emb": jsp.shard_table(jm, jnp.asarray(p))},
+        {"emb": jnp.asarray(g)}, lr=0.1, ids={"emb": jnp.asarray(ids)})
+    got = tsp.SparseEmbeddingUpdater(mesh=tm, sparse_params=("emb",)).apply(
+        {"emb": tsp.shard_table(tm, _t(p))}, {"emb": _t(g)}, lr=0.1,
+        ids={"emb": _t(ids)})
+    np.testing.assert_allclose(got["emb"].numpy(), np.asarray(want["emb"]),
+                               atol=ATOL)
+    table = jsp.shard_table(jm, jnp.asarray(p))
+    np.testing.assert_allclose(
+        tsp.sharded_lookup(tm, _t(p), _t(ids)).numpy(),
+        np.asarray(jsp.sharded_lookup(jm, table, jnp.asarray(ids))),
+        atol=ATOL)
+    np.testing.assert_allclose(
+        tsp.alltoall_lookup(tm, _t(p), _t(ids)).numpy(),
+        np.asarray(jsp.alltoall_lookup(jm, table, jnp.asarray(ids))),
+        atol=ATOL)
+    rows = rs.randn(3, 3).astype(np.float32)
+    np.testing.assert_allclose(
+        tsp.sharded_row_update(tm, _t(p), tsp.SelectedRows(
+            _t(ids), _t(rows), 12), 0.5).numpy(),
+        np.asarray(jsp.sharded_row_update(jm, table, jsp.SelectedRows(
+            jnp.asarray(ids), jnp.asarray(rows), 12), 0.5)), atol=ATOL)
+    with pytest.raises(EnforceError, match="no axis 'model'"):
+        tsp.SparseEmbeddingUpdater(mesh=make_mesh((1,), ("data",)),
+                                   sparse_params=("emb",))

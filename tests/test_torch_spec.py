@@ -252,13 +252,21 @@ def test_preemption_releases_draft_state(models):
 
 
 def test_engine_arguments_of_later_slices_raise(models):
+    """The compiled-path budgets (A13) still raise; ``mesh``/``tp_axis``
+    are ported (``tests/test_torch_serving_tp.py`` holds them against
+    JAX): a mesh that is not a ``Mesh`` or lacks the axis raises, and
+    ``tp_axis`` alone is JAX's default."""
+    from paddle_tpu_torch.parallel import make_mesh
+
     _, params, tm = models
-    for kw, part in ((dict(mesh=object()), "A12"),
-                     (dict(tp_axis="model"), "A12"),
+    for kw, part in ((dict(mesh=object()), "parallel.Mesh"),
+                     (dict(mesh=make_mesh((1,), ("data",))),
+                      "no 'model' axis"),
                      (dict(xla_flops=1e9), "A13"),
                      (dict(role="router"), "prefill/decode/unified")):
         with pytest.raises(EnforceError, match=part):
             _port(tm, **kw)
+    assert _port(tm, tp_axis="model").tp == 1
     with pytest.raises(EnforceError, match="draft_model"):
         _port(tm, spec_mode="draft")
     small = DecoderLM(**dict(CFG, vocab_size=32), device="cpu")

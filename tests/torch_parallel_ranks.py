@@ -465,9 +465,10 @@ def mesh_cases(rank, world, tp_params, tp_batches, gan_params, gan_feeds):
 
 
 def _batch_stat_refusals(mesh):
-    """One SGD step of batch norm's and the MoE LM's training graphs on
-    a split data axis: each must refuse (its statistics would be each
-    rank's); {layer: the error's text}."""
+    """One Sgd step of batch norm's and the MoE LM's training graphs on
+    a split data axis, their statistics pooled over it: {layer: {"error":
+    the error's text or "no error", "rows": the global batch, "init" and
+    "after": the weights, "cost": the global cost}}."""
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch import layer, optimizer, topology, trainer
     from paddle_tpu_torch.models import transformer
@@ -480,11 +481,15 @@ def _batch_stat_refusals(mesh):
         h = layer.batch_norm(input=layer.fc(input=x, size=8))
         return layer.classification_cost(input=layer.fc(input=h, size=2),
                                          label=y), \
-            [(np.full(4, i, np.float32), i % 2) for i in range(4)]
+            [(np.arange(4, dtype=np.float32) * (i + 1) - i, i % 2)
+             for i in range(4)]
 
     def moe_cost():
         *_, cost = transformer.build(**dict(LM, n_layers=1, moe_experts=2))
-        return cost, [([1, 2, 3], [0, 1, 2], [2, 3, 4])] * 4
+        return cost, [([1, 2, 3], [0, 1, 2], [2, 3, 4]),
+                      ([4, 5, 6], [0, 1, 2], [5, 6, 7]),
+                      ([7, 1, 9], [0, 1, 2], [1, 9, 2]),
+                      ([3, 3, 8], [0, 1, 2], [3, 8, 4])]
 
     out = {}
     for name, build in (("batch_norm", bn_cost), ("moe_ffn", moe_cost)):
@@ -493,12 +498,386 @@ def _batch_stat_refusals(mesh):
         costs = cost if isinstance(cost, list) else [cost]
         params = Parameters.from_topology(topology.Topology(costs), seed=0,
                                           device="cpu")
+        res = {"rows": rows, "init": {k: params.get(k).copy()
+                                      for k in params.names()}}
         sgd = trainer.SGD(cost=cost, parameters=params,
-                          update_equation=optimizer.Adam(learning_rate=1e-2),
+                          update_equation=optimizer.Sgd(learning_rate=0.1),
                           mesh=mesh, device="cpu")
         try:
-            sgd.step(sgd._make_feeder(None).feed(rows))
-            out[name] = "no error"
+            res["cost"] = float(sgd.step(sgd._make_feeder(None).feed(rows)))
+            res["error"] = "no error"
         except EnforceError as e:
-            out[name] = str(e)
+            res["error"] = str(e)
+        res["after"] = {k: params.get(k) for k in params.names()}
+        out[name] = res
     return out
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving: the engine, its attention and the fleet over
+# mesh slices
+# ---------------------------------------------------------------------------
+
+TP_ENGINE = dict(eos_id=1, page_size=4, num_pages=64, max_pages_per_seq=12,
+                 max_slots=4, buckets=(4, 8, 16), prefill_chunk=8)
+
+
+def _serving_model(params, cfg):
+    from paddle_tpu_torch.convert import decoder_lm_from_numpy
+    from paddle_tpu_torch.serving import DecoderLM
+
+    return decoder_lm_from_numpy(params, DecoderLM(**cfg, device="cpu"))
+
+
+def _drained(eng):
+    assert eng.pool.total_refs == 0
+    assert eng.pool.num_free + eng.pool.num_reclaimable == \
+        eng.pool.num_usable
+    eng.check_page_conservation()
+
+
+def _tp_engine(model, mesh, **kw):
+    from paddle_tpu_torch.serving import ServingEngine
+
+    return ServingEngine(model, mesh=mesh, device="cpu",
+                         **dict(TP_ENGINE, **kw))
+
+
+def _serve_prompts(eng, prompts, max_tokens=8):
+    rids = [eng.submit(p, max_tokens=max_tokens) for p in prompts]
+    res = eng.run(max_ticks=500)
+    _drained(eng)
+    return [res[r] for r in rids]
+
+
+def serving_tp_cases(rank, world, cases, logit_prompt, attn, cow, chaos,
+                     fleet):
+    """The tensor-parallel engine over a 'model' axis of each case's tp
+    (greedy tokens with the compact and the kernel row packing, the
+    shard's full-forward logits, its per-rank pool bytes), the per-rank
+    attention over tp 2, the COW fork and prefix hit and the chaos spot
+    run at tp 2, and a fleet over 2-rank mesh slices with slice 0 killed
+    at tick 6."""
+    from paddle_tpu_torch.parallel import make_mesh
+    from paddle_tpu_torch.serving import (FaultPlan, FleetFaultPlan,
+                                          FleetRouter, ManualClock,
+                                          reference_logits)
+    from paddle_tpu_torch.serving.fleet import SliceProxy
+    from paddle_tpu_torch.serving.decode_attention import \
+        ragged_paged_attention_tp
+
+    meshes = {n: make_mesh((n,), ("model",)) for n in (1, 2, 4)}
+    out: Dict[str, object] = {}
+    for c in cases:
+        mesh, key = meshes[c["tp"]], c["key"]
+        if not mesh.member:
+            continue
+        model = _serving_model(c["params"], c["cfg"])
+        for use_kernel in (False, True):
+            eng = _tp_engine(model, mesh, use_kernel=use_kernel,
+                             **c.get("kw", {}))
+            out[f"{key}_k{int(use_kernel)}"] = _serve_prompts(
+                eng, c["prompts"])
+        hz = eng.healthz()
+        out[f"{key}_tp"], out[f"{key}_kv_bytes"] = hz["tp"], hz["kv_bytes"]
+        out[f"{key}_pages"] = eng.pool.num_usable
+        out[f"{key}_logits"] = reference_logits(eng.model, logit_prompt)
+        out[f"{key}_wq"] = tuple(eng.model.layers[0].wq.shape)
+        out[f"{key}_pool"] = tuple(eng._kv.k.shape)
+        out[f"{key}_comm"] = eng.tp_step_comm_bytes(100)
+    m2 = meshes[2]
+    if m2.member:
+        n = m2.axis_size("model")
+        hs = attn["q"].shape[1] // n
+        ks = attn["kp"].shape[2] // n
+        lo, klo = m2.coord("model") * hs, m2.coord("model") * ks
+        got = ragged_paged_attention_tp(
+            m2, "model", _t(attn["q"][:, lo:lo + hs]),
+            _t(attn["kp"][:, :, klo:klo + ks]),
+            _t(attn["vp"][:, :, klo:klo + ks]), _t(attn["table"]),
+            _t(attn["lens"]), _t(attn["row_seq"]), _t(attn["qpos"]),
+            use_kernel=True)
+        out["attn"] = got
+        # the COW fork and a prefix hit on the split pool
+        model = _serving_model(cow["params"], cow["cfg"])
+        eng = _tp_engine(model, m2)
+        toks = []
+        for p in cow["prompts"]:
+            rid = eng.submit(p, max_tokens=6)
+            toks.append(eng.run(max_ticks=400)[rid])
+        _drained(eng)
+        snap = eng.metrics.snapshot()
+        out["cow_tokens"] = toks
+        out["cow_forks"] = snap["cow_forks"]
+        out["cow_hit_rate"] = snap["prefix_hit_rate"]
+        # the chaos spot run: a transient decode error, page pressure, a
+        # poisoned slot on an int8 split pool
+        model = _serving_model(chaos["params"], chaos["cfg"])
+        faults = FaultPlan(decode_errors={3: 1}, page_pressure=(2, 8, 12))
+        eng = _tp_engine(model, m2, kv_dtype="int8", faults=faults)
+        rids = [eng.submit(p, max_tokens=8) for p in chaos["prompts"]]
+        eng.step()
+        faults.poison_nan(rids[2])
+        eng.run(max_ticks=800)
+        _drained(eng)
+        out["chaos_status"] = [str(eng.status(r)) for r in rids]
+        out["chaos_results"] = [eng.result(r) for r in rids]
+        out["chaos_retries"] = eng.metrics.retries
+    else:
+        # only the mesh's ranks build its engine
+        from paddle_tpu_torch.platform.enforce import EnforceError
+
+        try:
+            _tp_engine(_serving_model(cow["params"], cow["cfg"]), m2)
+        except EnforceError as e:
+            out["outside_error"] = str(e)
+    # a fleet whose replica is a 2-rank slice, on every rank
+    model = _serving_model(fleet["params"], fleet["cfg"])
+    plan = FleetFaultPlan(seed=0, clock=ManualClock(tick_s=0.01),
+                          kill_at={6: 0})
+
+    def mk(i, time_fn, mesh):
+        return _tp_engine(model, mesh, time_fn=time_fn, num_pages=32,
+                          max_pages_per_seq=8, buckets=(8, 16),
+                          prefill_chunk=None)
+
+    fl = FleetRouter.over_mesh_slices(mk, tp=2, heartbeat_s=0.05,
+                                      resubmit_budget=2, faults=plan)
+    streams: Dict[int, list] = {}
+    frids = [fl.submit(p, max_tokens=6,
+                       on_token=lambda t, i=i: streams.setdefault(
+                           i, []).append(t))
+             for i, p in enumerate(fleet["prompts"])]
+    fl.run(max_ticks=500)
+    fl.check_fleet_conservation()
+    out["fleet_n"] = len(fl.replicas)
+    out["fleet_tp"] = [r.engine.tp for r in fl.replicas]
+    out["fleet_proxy"] = [isinstance(r.engine, SliceProxy)
+                          for r in fl.replicas]
+    out["fleet_streams"] = [streams.get(i, []) for i in range(len(frids))]
+    out["fleet_status"] = [str(fl.status(f)) for f in frids]
+    out["fleet_results"] = [fl.result(f) for f in frids]
+    out["fleet_snapshot"] = fl.snapshot()
+    out["fleet_states"] = [str(r.state) for r in fl.replicas]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# row-sharded sparse tables
+# ---------------------------------------------------------------------------
+
+
+def sparse_cases(rank, world, lookup, batch, a2a, update, train, updater):
+    """``sharded_lookup`` (whole ids, and ids split over 'data'),
+    ``alltoall_lookup`` over a 4-rank 'model' axis, ``sharded_row_update``,
+    10 steps of sharded embedding regression and the meshed
+    ``SparseEmbeddingUpdater``, each rank returning its own rows."""
+    from paddle_tpu_torch.parallel import make_mesh
+    from paddle_tpu_torch.parallel import sparse as sp
+
+    m22 = make_mesh((2, 2), ("data", "model"))
+    m4 = make_mesh((4,), ("model",))
+    out: Dict[str, object] = {}
+    shard = sp.shard_table(m22, _t(lookup["table"]), "model")
+    out["lookup"] = sp.sharded_lookup(m22, shard, _t(lookup["ids"]),
+                                      axis="model")
+    d = m22.coord("data")
+    ids = batch["ids"].reshape(2, -1)[d]
+    out["batch"] = sp.sharded_lookup(
+        m22, sp.shard_table(m22, _t(batch["table"]), "model"), _t(ids),
+        axis="model")
+    k = a2a["ids"].shape[0] // 4
+    out["a2a"] = sp.alltoall_lookup(
+        m4, sp.shard_table(m4, _t(a2a["table"]), "model"),
+        _t(a2a["ids"][rank * k:(rank + 1) * k]), axis="model")
+    out["update"] = sp.sharded_row_update(
+        m22, sp.shard_table(m22, _t(update["table"]), "model"),
+        sp.SelectedRows(_t(update["ids"]), _t(update["rows"]),
+                        update["table"].shape[0]), 0.5, axis="model")
+    tab = sp.shard_table(m22, _t(train["table"]), "model")
+    for ids, tgt in train["steps"]:
+        rows = sp.sharded_lookup(m22, tab, _t(ids),
+                                 axis="model").requires_grad_(True)
+        d_rows, = torch.autograd.grad(torch.mean((rows - _t(tgt)) ** 2),
+                                      rows)
+        sp.sharded_row_update(
+            m22, tab, sp.SelectedRows(_t(ids), d_rows,
+                                      train["table"].shape[0]),
+            train["lr"], axis="model")
+    out["train"] = tab
+    upd = sp.SparseEmbeddingUpdater(mesh=m22, sparse_params=("emb",))
+    emb = sp.shard_table(m22, _t(updater["p"]), "model")
+    upd.apply({"emb": emb}, {"emb": _t(updater["g"])}, lr=0.1,
+              ids={"emb": _t(updater["ids"])})
+    out["updater"] = emb
+    w = _t(updater["p"]).clone()
+    upd.apply({"w": w}, {"w": _t(updater["g"])}, lr=0.1)
+    out["updater_dense"] = w
+    return out
+
+
+# ---------------------------------------------------------------------------
+# local SGD
+# ---------------------------------------------------------------------------
+
+
+def _quad_grad(params, feeds):
+    w = params["w"].detach().requires_grad_(True)
+    loss = torch.mean((feeds["x"] @ w - feeds["y"]) ** 2)
+    g, = torch.autograd.grad(loss, w)
+    return loss.detach(), {"w": g}
+
+
+def local_sgd_cases(rank, world, sync1, converge, discard):
+    """JAX's three LocalSGD cases over a 4-rank 'data' axis: sync_period
+    1 against plain SGD, sync_period 4 over 40 steps, and the lagged
+    gradient discard."""
+    from paddle_tpu_torch.parallel import LocalSGD, make_mesh
+
+    mesh = make_mesh((4,), ("data",))
+    out: Dict[str, object] = {}
+    ls = LocalSGD(mesh, sync_period=1, learning_rate=sync1["lr"])
+    params = ls.replicate({"w": _t(sync1["w0"])})
+    step = ls.make_step(_quad_grad)
+    for i, (x, y) in enumerate(sync1["steps"]):
+        params, _ = step(params, i, {"x": _t(x), "y": _t(y)})
+    out["sync1"] = ls.average(params)["w"]
+    ls = LocalSGD(mesh, sync_period=4, learning_rate=0.1)
+    params = ls.replicate({"w": _t(converge["w0"])})
+    step = ls.make_step(_quad_grad)
+    losses = []
+    for i, (x, y) in enumerate(converge["steps"]):
+        params, loss = step(params, i, {"x": _t(x), "y": _t(y)})
+        losses.append(float(loss))
+    out["converge_losses"] = losses
+    out["converge_w"] = params["w"]
+    for key, ratio, x in (("clean", 0.0, discard["x"]),
+                          ("poisoned", 0.0, discard["x_bad"]),
+                          ("guarded", 3.0, discard["x_bad"])):
+        ls = LocalSGD(mesh, sync_period=1, learning_rate=0.01,
+                      lagged_grad_discard_ratio=ratio)
+        params = ls.replicate({"w": torch.ones(2, 1)})
+        params, _ = ls.make_step(_quad_grad)(
+            params, 0, {"x": _t(x), "y": _t(discard["y"])})
+        out[f"discard_{key}"] = ls.average(params)["w"]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# batch statistics pooled over 'data', and async checkpoints on a mesh
+# ---------------------------------------------------------------------------
+
+
+def pooled_moe_cases(rank, world, x, router, w1, b1, w2, b2, dy, cases):
+    """``moe_ffn_reference(group=)`` over a 2-rank 'data' axis, each rank
+    on its rows of the global batch: its rows' output, the global aux
+    loss and drop rate, and the gradients of the global
+    sum(y * dy) + aux (each rank's part: its rows, aux / N)."""
+    from paddle_tpu_torch.parallel import make_mesh
+    from paddle_tpu_torch.parallel.moe import MoEParams, moe_ffn_reference
+
+    _f32()
+    mesh = make_mesh((world,), ("data",))
+    group = mesh.group("data")
+    n = x.shape[0] // world
+    rows = slice(rank * n, (rank + 1) * n)
+    out: Dict[str, np.ndarray] = {}
+    for c in cases:
+        xt = _t(x[rows], grad=True)
+        p = MoEParams(*(_t(a, grad=True) for a in (router, w1, b1, w2, b2)))
+        y, aux, st = moe_ffn_reference(xt, p, capacity_factor=c["cf"],
+                                       top_k=c["k"], return_stats=True,
+                                       group=group)
+        ((y * _t(dy[rows])).sum() + aux / world).backward()
+        key = c["key"]
+        out[f"{key}_y"] = y.detach()
+        out[f"{key}_aux"] = aux.detach()
+        out[f"{key}_drop"] = st["drop_rate"]
+        out[f"{key}_fraction"] = st["expert_fraction"]
+        out[f"{key}_dx"] = xt.grad
+        for name, t in zip(("router", "w1", "b1", "w2", "b2"), p):
+            out[f"{key}_d{name}"] = t.grad
+    return out
+
+
+def bn_graph(paddle):
+    """fc(8, relu) -> batch_norm -> fc(4) -> classification cost, named
+    so both packages key the weights alike."""
+    layer = paddle.layer
+    paddle.topology.reset_name_scope()
+    x = layer.data(name="x", type=paddle.data_type.dense_vector(8))
+    y = layer.data(name="y", type=paddle.data_type.integer_value(4))
+    h = layer.fc(input=x, size=8, act="relu", name="bn_fc")
+    h = layer.batch_norm(input=h, name="bn")
+    return layer.classification_cost(
+        input=layer.fc(input=h, size=4, name="bn_head"), label=y)
+
+
+def bn_train_case(rank, world, params_np, rows, steps):
+    """A training ``batch_norm`` under ``SGD(mesh=data_parallel_mesh())``
+    over 2 ranks, ``steps`` Sgd steps on one global batch: the costs,
+    the weights and the moving statistics (the global batch's)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import optimizer, trainer
+    from paddle_tpu_torch.convert import parameters_from_numpy
+    from paddle_tpu_torch.parallel import data_parallel_mesh
+
+    _f32()
+    cost = bn_graph(paddle)
+    params = parameters_from_numpy(params_np, "cpu")
+    sgd = trainer.SGD(cost=cost, parameters=params,
+                      update_equation=optimizer.Sgd(learning_rate=0.1),
+                      mesh=data_parallel_mesh(), device="cpu")
+    feeds = sgd._make_feeder({"x": 0, "y": 1}).feed(
+        [(np.asarray(a, np.float32), int(b)) for a, b in rows])
+    costs = [float(sgd.step(feeds)) for _ in range(steps)]
+    return {"costs": costs,
+            "params": {k: params.get(k) for k in params.names()},
+            "state": {s: v for s, v in sgd.model_state["bn"].items()}}
+
+
+def _slow_saves(ck_id: int, delay: float):
+    """A ``TrainFaultPlan`` whose save hook holds the writer ``delay``
+    seconds before it writes checkpoint ``ck_id``."""
+    import time
+
+    from paddle_tpu_torch.resilience.faults import TrainFaultPlan
+
+    class Slow(TrainFaultPlan):
+        def save_hook(self, ck):
+            base = TrainFaultPlan.save_hook(self, ck)
+
+            def hook(phase):
+                if ck == ck_id and phase == "params":
+                    time.sleep(delay)
+                base(phase)
+            return hook
+
+    return Slow()
+
+
+def async_ckpt_case(rank, world, params_np, batches, save_dir, delay):
+    """``SGD.train(async_save=True, save_period_steps=1)`` over a 2-rank
+    'data' mesh, the writer held ``delay`` s before the last save: the
+    newest checkpoint each rank sees right after ``train()`` returns, and
+    the cursor a ``resume=True`` trainer on each rank starts from."""
+    from paddle_tpu_torch import checkpoint as ckpt
+    from paddle_tpu_torch.parallel import data_parallel_mesh
+
+    _f32()
+    mesh = data_parallel_mesh()
+    data = _batches(batches)
+    last = len(data)                   # ids 0..n-1 per step, n at pass end
+    sgd, _ = _dp_sgd(params_np, mesh, "momentum")
+    sgd._faults = _slow_saves(last, delay)
+    sgd.train(lambda: iter(data), num_passes=1, save_dir=save_dir,
+              save_period_steps=1, async_save=True, keep=0)
+    seen = ckpt.latest_pass(save_dir)
+    loaded = ckpt.load_latest(save_dir, device="cpu")
+    sgd2, _ = _dp_sgd(params_np, mesh, "momentum")
+    sgd2.train(lambda: iter(data), num_passes=2, save_dir=save_dir,
+               save_period_steps=1, async_save=True, keep=0, resume=True)
+    return {"latest": seen, "newest_written": last,
+            "cursor": loaded[3]["cursor"],
+            "resumed_steps": sgd2._global_step,
+            "resumed_params": _whole(sgd2)[0]}
