@@ -348,9 +348,20 @@ checkout of the repository).  Phases, each fatal on failure:
     idle share and card ms by group; then one f32 step at batch 2 on the
     card against the CPU path, dropout masks made equal, cuDNN held to
     its deterministic algorithms (beside it, the same check's reading of
-    the card's step with the algorithm search on, and of a bf16 step).
+    the card's step with the algorithm search on, and of a bf16 step);
+39. fluid_mnist (``tools/fluid_workload.py``): the Paddle book's
+    recognize_digits MLP (784-128-64-10, Adam) and convnet (conv 20@5x5,
+    pool, conv 50@5x5, pool, fc 10; Momentum 0.9) built with
+    ``fluid.layers`` and run by ``fluid.Executor()`` on the card, batch
+    64 of the seeded synthetic digits, 20 steps: the first 3 costs equal
+    the port's CPU run from the same ``_init_value`` weights within
+    ``COST_RTOL``, costs finite and falling, ``verify_program`` clean;
+    ms a step (host clock), launches a step and peak memory;
+40. fluid_control: StaticRNN, cond and a reverse DynamicRNN at small
+    widths, 3 SGD steps card against CPU (costs, outputs, the input's
+    gradient).
 
-The datasets (31, 33) are their seeded synthetic fallbacks: their
+The datasets (31, 33, 39) are their seeded synthetic fallbacks: their
 downloads are refused (``v2_loop_workload.offline``), so no phase
 reaches the network.  Every line of output is one JSON object; the one before the last lists
 the kernels, the last is ``{"ok": true, "device": {...}}``.  The serve
@@ -375,7 +386,7 @@ the v2 loop's in ``paddle_tpu_torch/tools/v2_loop_workload.py``;
 the tenth slice's layer cases, SSD300 and VGG-16 in
 ``paddle_tpu_torch/tools/layer_cases.py``, ``detection_workload.py`` and
 ``vgg_workload.py``.
-The image phases, 18-22, 25, 27 and 32-38 run no hand-written kernel:
+The image phases, 18-22, 25, 27 and 32-40 run no hand-written kernel:
 no TPU kernel lies on those paths (the convs and batch norm are cuDNN's through
 PyTorch, the CTR and GAN products cuBLAS's).
 """
@@ -3771,6 +3782,15 @@ def v2_mnist(dev, card: str) -> dict:
     return res
 
 
+def fluid_phases(dev, card: str) -> None:
+    """fluid_mnist and fluid_control (``tools/fluid_workload.py``): one
+    line a model and a program, each fatal on its gates."""
+    from paddle_tpu_torch.tools import fluid_workload as fw
+
+    for res in fw.fluid_mnist(dev) + fw.fluid_control(dev):
+        emit(dict(res, nvidia_smi=card))
+
+
 # card against the CPU path, f32 with TF32 off, 3 steps from the same
 # weights on LeNet, each tensor's error in norm relative to its norm.
 # On the same gradients (the CPU optimizer applies the card's) the update's
@@ -4324,6 +4344,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     v2_mnist(dev, card)
     lap("v2_resnet50_mnist")
+    fluid_phases(dev, card)
+    lap("fluid")
     optimizers(dev, card)
     evaluators(dev, card)
     lap("optimizers_evaluators")

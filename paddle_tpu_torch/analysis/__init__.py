@@ -1,4 +1,5 @@
-"""paddle_tpu_torch.analysis — the runtime half of the JAX package's
-``analysis`` (the declared lifecycle machines and their transition
-recorder).  The static auditors (AST rules, the retrace, sharding and
-XLA audits) are not ported yet (ROADMAP A13)."""
+"""paddle_tpu_torch.analysis — the port of the JAX package's ``analysis``
+so far: the runtime half of the lifecycle machines (the declared
+machines and their transition recorder) and the fluid program verifier
+(``program_check`` with its ``diagnostics``).  The AST rules, the CLI and
+the retrace, sharding and XLA audits are not ported yet (ROADMAP A13c)."""

@@ -19,6 +19,10 @@ flat dict — ``emb`` [V, E], ``pos`` [P, E], per layer ``l{i}.wq``/``wk``/
 ``wv``/``wo``/``w1``/``w2`` in the x @ W layout, and ``out`` [E, V].  The
 port's ``DecoderLM`` keeps the same layout, so conversion is a copy per
 tensor.
+Fluid programs: a JAX ``fluid.Scope``'s values become a port
+``fluid.Scope`` with :func:`scope_from_numpy`, and
+:func:`scope_to_numpy` goes back (both packages name every variable the
+same when the same layer calls build the program).
 Weights cross between the packages as numpy: torch cannot reproduce a JAX
 PRNG stream.
 """
@@ -180,3 +184,26 @@ def opt_state_from_numpy(state, device: DeviceLike = None):
 def state_to_numpy(state):
     """A port model state (``{layer: {slot: tensor}}``) as host copies."""
     return None if state is None else map_tree(_leaf_to_numpy, state)
+
+
+def scope_from_numpy(values: Dict[str, object], device: DeviceLike = None):
+    """A JAX ``fluid.Scope``'s values (``scope.values``: numpy or JAX
+    arrays, here as numpy) as a port ``fluid.Scope`` on ``device``
+    (``cuda`` unless asked): each a tensor copy, float64 narrowed to
+    float32 as the JAX package computes with x64 off."""
+    from paddle_tpu_torch.fluid import Scope
+    from paddle_tpu_torch.fluid.executor import to_tensor
+
+    dev = resolve_device(device)
+    scope = Scope()
+    for name, v in values.items():
+        scope.set_var(name, to_tensor(np.array(v, copy=True), dev))
+    return scope
+
+
+def scope_to_numpy(scope) -> Dict[str, np.ndarray]:
+    """A port ``fluid.Scope``'s values as host numpy copies, the form a
+    JAX ``fluid.Scope`` takes into its ``values``."""
+    return {name: (v.detach().cpu().numpy().copy()
+                   if isinstance(v, torch.Tensor) else np.array(v))
+            for name, v in scope.values.items()}

@@ -1984,8 +1984,13 @@ def moe_ffn(input, num_experts: int = 0, expert_hidden: int = 0,
     drops and the balance loss are the batch's statistics: on a mesh
     whose ``data`` axis splits the batch the expert counts and routing
     sums are pooled over that axis (``moe_ffn_reference(group=)``), so
-    they are the global batch's.  A mesh that splits the batch over
-    ``data`` and the experts over their axis at once is refused."""
+    they are the global batch's.  On a mesh that splits the batch over
+    ``data`` and the experts over their axis at once, the rows are
+    all-gathered over ``data`` (``comm.gather_parts``: its backward
+    reduce-scatters, so each rank's part of the loss reaches every row
+    once), the expert-parallel FFN runs on the global token set as JAX's
+    does, and each rank keeps its own rows of the output."""
+    from paddle_tpu_torch.parallel import comm
     from paddle_tpu_torch.parallel import moe as pmoe
 
     inp = input
@@ -2029,16 +2034,28 @@ def moe_ffn(input, num_experts: int = 0, expert_hidden: int = 0,
         mesh = getattr(ctx, "mesh", None)
         group = _data_group(ctx)
         if mesh is not None and axis in mesh.axis_names:
-            enforce_that(group is None or mesh.shape[axis] == 1,
-                         f"moe_ffn over the {axis!r} axis takes the whole "
-                         "batch on every rank of it; this mesh also splits "
-                         f"the batch over 'data' ({dict(mesh.shape)}): "
-                         "give the experts a mesh without a split 'data' "
-                         "axis, or drop the expert axis to pool the dense "
-                         "dispatch over 'data'", context="moe_ffn")
-            y, aux = pmoe.moe_ffn(mesh, x, mp, axis=axis,
+            # JAX's x is the global token set: gather the data ranks'
+            # rows, route them all, keep this rank's
+            n_rows = x.shape[0]
+            xg = comm.gather_parts(x, 0, group)
+            inv = None
+            if group is not None and isinstance(v, SequenceBatch):
+                # JAX packs the global batch's valid slots first, then
+                # its padding: put the gathered slots in that order
+                valid = comm.all_gather_dim(
+                    v.valid_mask.to(torch.int32), 0, group)
+                order = torch.argsort(1 - valid, stable=True)
+                inv = torch.empty_like(order)
+                inv[order] = torch.arange(order.numel(), device=x.device)
+                xg = xg.index_select(0, order)
+            y, aux = pmoe.moe_ffn(mesh, xg, mp, axis=axis,
                                   capacity_factor=capacity_factor,
                                   top_k=top_k)
+            if inv is not None:
+                y = y.index_select(0, inv)
+            if group is not None:
+                me = comm.group_rank(group)
+                y = y[me * n_rows:(me + 1) * n_rows]
         else:
             y, aux = pmoe.moe_ffn_reference(
                 x, mp, capacity_factor=capacity_factor, top_k=top_k,

@@ -36,14 +36,20 @@ def _rows(mesh, axis: str, n_rows: int) -> slice:
 
 def shard_batch(mesh, value, axis: str = "data"):
     """This rank's rows of a global batch: a tensor's leading-dim chunk,
-    or a SequenceBatch's chunk of whole sequences (repacked)."""
+    or a SequenceBatch's chunk of whole sequences, repacked at 1/N of the
+    global capacity (or the most any rank's sequences fill), so the ranks'
+    slots together are the global batch's, padding slots included: a
+    layer that routes every slot (``moe_ffn``) sees JAX's slot count."""
     if isinstance(value, SequenceBatch):
         rows = _rows(mesh, axis, value.num_seqs)
         if rows.stop - rows.start == value.num_seqs:
             return value
         padded, _ = value.to_padded()
         lengths = value.lengths[rows]
-        sb = SequenceBatch.from_padded(padded[rows], lengths)
+        k = rows.stop - rows.start
+        fill = int(value.lengths.reshape(-1, k).sum(dim=1).max())
+        cap = max(value.capacity // mesh.axis_size(axis), fill)
+        sb = SequenceBatch.from_padded(padded[rows], lengths, capacity=cap)
         if value.max_len is not None:
             sb = SequenceBatch(sb.data, sb.segment_ids, sb.lengths,
                                value.max_len)

@@ -333,6 +333,16 @@ FLAGS.define("obs_dump_dir",
              os.path.join(tempfile.gettempdir(), "paddle_tpu_torch_obs"),
              "directory for flight-recorder postmortem dumps")
 
+# fluid: the static verifier's gate before a program's first run
+FLAGS.define("fluid_verify", "warn",
+             "static program verification before Executor.run first runs "
+             "a fluid Program: 'warn' (default) logs every diagnostic "
+             "the paddle_tpu_torch.analysis verifier finds, 'strict' "
+             "raises on ERROR diagnostics (shape/dtype conflicts, "
+             "def-before-use, dangling fetches, duplicate writers), "
+             "'off' disables.  Runs once per (program, feed-shape) key, "
+             "so steady state pays nothing.")
+
 # the v2 flags that no module reads (kept so configs that set them load)
 FLAGS.define("test_period", 0,
              "run the tester every N batches (0 = per pass)", parser=int)

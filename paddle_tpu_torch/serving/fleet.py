@@ -78,10 +78,18 @@ tracks there, the results of the completed ones, the tokens streamed,
 every rank then runs the fleet's stream callbacks over those tokens, so
 a callback runs after its replica's call on every rank.  So every rank's
 router and ``snapshot()`` are equal, and a kill fences and reaps a slice
-as one unit on every rank.  A fleet over several ranks needs an injected
-clock every rank shares (a fault plan's or ``time_fn``), and keeps to
-unified replicas without the autoscaler (the page-migration plane moves
-pages inside one process).
+as one unit on every rank.  The view also carries what the migration
+plane and the autoscaler read: the request digests, the migratable rids,
+the backlog probe, the pool and the metrics.  One clock serves every
+rank: rank 0 reads the fleet's clock at each tick (and at a submit or a
+cancel without ``now``) and broadcasts the reading on the plane, and
+every rank's router and engines read that value until the next one.  A
+page transfer between two slices (a chain handoff from a prefill slice
+to a decode slice, or a prefix seed) runs on their ranks: each source
+rank exports its own KV-head shard into host tensors and sends it over
+the plane to the destination rank at the same position of its slice,
+which imports it; the destination's first rank then broadcasts the
+outcome.
 """
 
 from __future__ import annotations
@@ -94,6 +102,7 @@ from enum import Enum
 from typing import (Callable, Deque, Dict, List, Optional, Sequence, Set,
                     Tuple)
 
+import torch
 import torch.distributed as dist
 
 from paddle_tpu_torch.analysis.concurrency.lifecycle import \
@@ -210,11 +219,13 @@ def _broadcast_view(engine, plane, rids=(), erid: Optional[int] = None,
     engine — the statuses of ``rids`` and ``erid``, the completed ones'
     results, the ``tokens`` streamed — and a :class:`SliceProxy` takes
     it as its state."""
-    group, src = plane
+    group, src = plane[0], plane[1]
     view = None
     if dist.get_rank() == src:
         ids = set(rids) | ({erid} if erid is not None else set())
         status = {e: engine.status(e) for e in ids}
+        sched = engine.scheduler
+        migratable = engine.migratable_rids()
         view = {"erid": erid, "status": status,
                 "results": {e: engine.result(e) for e, st in status.items()
                             if st is RequestStatus.COMPLETED},
@@ -222,12 +233,64 @@ def _broadcast_view(engine, plane, rids=(), erid: Optional[int] = None,
                 "load": engine.load(), "healthz": engine.healthz(),
                 "role": engine.role, "tp": engine.tp,
                 "kv_cfg": engine.kv_cfg, "max_slots": engine._max_slots,
-                "metrics": engine.metrics, "pool": engine.pool}
+                "metrics": engine.metrics, "pool": engine.pool,
+                "has_cache": engine.cache is not None,
+                "migratable": migratable,
+                "requests": {e: _RequestDigest(engine._requests[e])
+                             for e in ids | set(migratable)
+                             if e in engine._requests},
+                "backlog": (sched.prefill_backlog_tokens,
+                            sched.recompute_backlog())}
     box = [view]
     dist.broadcast_object_list(box, src=src, group=group)
     if isinstance(engine, SliceProxy):
         engine.apply(box[0])
     return box[0]
+
+
+class _RequestDigest:
+    """What the migration plane reads of an engine request, carried to
+    the proxies of its replica."""
+
+    __slots__ = ("status", "prefilling", "generated", "cache_len")
+
+    def __init__(self, req) -> None:
+        self.status = req.status
+        self.prefilling = req.prefilling
+        self.generated = list(req.generated)
+        self.cache_len = req.cache_len
+
+
+class _ProxyScheduler:
+    """The backlog probe and its recompute, as the slice reported them."""
+
+    def __init__(self, backlog: Tuple[int, int]) -> None:
+        self.prefill_backlog_tokens, self._recomputed = backlog
+
+    def recompute_backlog(self) -> int:
+        return self._recomputed
+
+
+class _PlaneClock:
+    """The fleet's clock on every rank of a fleet over mesh slices: rank
+    0 reads ``base`` at each :meth:`sync` (a collective on the plane) and
+    broadcasts it; every rank returns that reading until the next."""
+
+    def __init__(self, base: Callable[[], float], plane) -> None:
+        self._base = base
+        self._plane = plane
+        self._now = 0.0
+        self.sync()
+
+    def sync(self) -> float:
+        t = torch.tensor([self._base() if dist.get_rank() == 0 else 0.0],
+                         dtype=torch.float64)
+        dist.broadcast(t, src=0, group=self._plane)
+        self._now = float(t[0])
+        return self._now
+
+    def __call__(self) -> float:
+        return self._now
 
 
 class SliceProxy:
@@ -255,6 +318,11 @@ class SliceProxy:
         self.role, self.tp = view["role"], view["tp"]
         self.kv_cfg, self._max_slots = view["kv_cfg"], view["max_slots"]
         self.metrics, self.pool = view["metrics"], view["pool"]
+        self._requests = view["requests"]
+        self.scheduler = _ProxyScheduler(view["backlog"])
+
+    def migratable_rids(self) -> List[int]:
+        return list(self._view["migratable"])
 
     def submit(self, *args, **kwargs) -> None:
         return None
@@ -344,7 +412,7 @@ class FleetRouter:
                  migrate_budget: Optional[int] = None,
                  tenants: Optional[TenantRegistry] = None,
                  wfq: Optional[bool] = None,
-                 autoscale=None):
+                 autoscale=None, _plane=None):
         enforce_that(routing in ("affinity", "round_robin"),
                      f"unknown routing policy {routing!r}",
                      context="serving")
@@ -386,6 +454,8 @@ class FleetRouter:
             self._time = faults.clock
         else:
             self._time = time_fn or time.monotonic
+        if _plane is not None:
+            self._time = _PlaneClock(self._time, _plane)
         # obs: ONE tracer and ONE registry for the whole fleet (replica
         # engines get the tracer scoped to their index and the registry
         # labeled with it), so a chaos replay yields one timeline and
@@ -480,19 +550,6 @@ class FleetRouter:
         plane, planes = None, {}
         if slices is not None and dist.is_initialized() \
                 and dist.get_world_size() > 1:
-            faults = kwargs.get("faults")
-            enforce_that(
-                kwargs.get("time_fn") is not None or (
-                    faults is not None and faults.clock is not None),
-                "a fleet over mesh slices on several ranks runs one router "
-                "on every rank: give it an injected clock every rank "
-                "shares (faults=FleetFaultPlan(clock=ManualClock(...)) or "
-                "time_fn=)", context="serving")
-            enforce_that(not kwargs.get("roles") and not kwargs.get(
-                "autoscale"), "a fleet over mesh slices on several ranks "
-                "keeps to unified replicas without the autoscaler (the "
-                "page-migration plane moves pages inside one process)",
-                context="serving")
             # the outcome plane: every rank of the job, on the CPU
             plane = dist.new_group(list(range(dist.get_world_size())),
                                    backend="gloo")
@@ -501,13 +558,14 @@ class FleetRouter:
             mesh = slices[i] if slices is not None else None
             if plane is None:
                 return make_engine(i, time_fn, mesh)
-            planes[i] = (plane, int(mesh.devices.flat[0]))
+            ranks = tuple(int(r) for r in mesh.devices.flat)
+            planes[i] = (plane, ranks[0], ranks)
             engine = make_engine(i, time_fn, mesh) if mesh.member \
                 else SliceProxy()
             _broadcast_view(engine, planes[i])
             return engine
 
-        fleet = cls(mk, n, **kwargs)
+        fleet = cls(mk, n, _plane=plane, **kwargs)
         fleet._planes = planes    # filled on: a warm restart adds one
         return fleet
 
@@ -872,7 +930,7 @@ class FleetRouter:
         up front and ledgered as quota_deferred).  With WFQ on, the
         request buffers in the per-tenant virtual-time queue and is
         released to dispatch at its weighted share on the next tick."""
-        now = self._time() if now is None else now
+        now = self._now() if now is None else now
         tenant = str(tenant)
         freq = _FleetRequest(frid=next(_frid_counter),
                              prompt=[int(t) for t in prompt],
@@ -929,7 +987,7 @@ class FleetRouter:
         freq = self._requests[frid]
         if freq.finished:
             return False
-        now = self._time() if now is None else now
+        now = self._now() if now is None else now
         if self.wfq is not None and self.wfq.remove(freq) is not None:
             # cancelled while still buffered ahead of dispatch: it left
             # the WFQ without being admitted — ledger it as shed so the
@@ -948,6 +1006,12 @@ class FleetRouter:
     def has_work(self) -> bool:
         return bool(self._live)
 
+    def _now(self) -> float:
+        """A fresh reading of the fleet's clock (over mesh slices on
+        several ranks, rank 0's, broadcast)."""
+        clock = self._time
+        return clock.sync() if isinstance(clock, _PlaneClock) else clock()
+
     def step(self) -> bool:
         """One fleet tick: advance the shared clock, apply fleet faults
         (kills), sweep leases (partition -> expiry -> DEAD -> resubmit),
@@ -957,7 +1021,7 @@ class FleetRouter:
         tick = self._tick
         if self.faults is not None:
             self.faults.tick_begin(tick)
-        now = self._time()
+        now = self._now()
         if self.faults is not None:
             ready_idx = [r.idx for r in self.replicas
                          if r.state is ReplicaState.READY]
@@ -1109,6 +1173,61 @@ class FleetRouter:
             if freq.on_token is not None:
                 freq.on_token(tok)
 
+    def _on_token(self, rep: Replica, freq: _FleetRequest):
+        """The engine-side stream callback of ``freq`` on ``rep``: over
+        mesh slices on several ranks the tokens go to the replica's
+        outbox, and :meth:`_share` streams them on every rank."""
+        if rep.idx in self._planes:
+            return lambda tok, f=freq.frid: rep.outbox.append((f, tok))
+        return self._wrap_on_token(freq)
+
+    def _has_cache(self, rep: Replica) -> bool:
+        if isinstance(rep.engine, SliceProxy):
+            return bool(rep.engine._view["has_cache"])
+        return rep.engine.cache is not None
+
+    def _hit_len(self, rep: Replica, tokens: Sequence[int]) -> int:
+        """Tokens of ``tokens`` cached on ``rep``: every rank of its slice
+        looks them up (a lookup touches the cache's LRU order), and the
+        slice's first rank broadcasts its count."""
+        plane = self._planes.get(rep.idx)
+        hit = None
+        if plane is None or dist.get_rank() in plane[2]:
+            hit = rep.engine.cache.lookup(list(tokens))[1]
+        if plane is None:
+            return hit
+        box = [hit]
+        dist.broadcast_object_list(box, src=plane[1], group=plane[0])
+        return hit if hit is not None else box[0]
+
+    def _transfer(self, src: Replica, dest: Replica, export, apply):
+        """Move pages from ``src`` to ``dest``: ``apply(dest engine,
+        export(src engine))``.  Returns (what ``apply`` returned, the
+        exported blob or None where this process exported none).  Over
+        mesh slices on several ranks each source rank exports its own
+        KV-head shard, sends it over the plane to the destination rank
+        at the same position of its slice, and that rank applies it; the
+        destination's first rank broadcasts its result, which every rank
+        outside the destination slice returns."""
+        sp, dp = self._planes.get(src.idx), self._planes.get(dest.idx)
+        if sp is None:
+            blob = export(src.engine)
+            return apply(dest.engine, blob), blob
+        me, group = dist.get_rank(), sp[0]
+        blob = out = None
+        if me in sp[2]:
+            blob = export(src.engine)
+            dist.send_object_list([blob], dst=dp[2][sp[2].index(me)],
+                                  group=group)
+        if me in dp[2]:
+            box = [None]
+            dist.recv_object_list(box, src=sp[2][dp[2].index(me)],
+                                  group=group)
+            out = apply(dest.engine, box[0])
+        box = [out]
+        dist.broadcast_object_list(box, src=dp[1], group=group)
+        return (out if me in dp[2] else box[0]), blob
+
     def _share(self, rep: Replica, erid: Optional[int] = None):
         """After a call that changed replica ``rep``, in a fleet over
         mesh slices on several ranks: broadcast the outcome from the
@@ -1145,14 +1264,9 @@ class FleetRouter:
             if freq.deadline_at is not None:
                 remaining = freq.deadline_at - now   # may be <= 0: the
                 #                     engine times it out on its next tick
-            if rep.idx in self._planes:
-                # the stream runs on every rank from the broadcast
-                on_token = (lambda tok, f=freq.frid:
-                            rep.outbox.append((f, tok)))
-            else:
-                on_token = self._wrap_on_token(freq)
             erid = self._share(rep, rep.engine.submit(
-                freq.prompt, freq.max_tokens, on_token=on_token,
+                freq.prompt, freq.max_tokens,
+                on_token=self._on_token(rep, freq),
                 deadline_s=remaining, now=now, tenant=freq.tenant))
             if rep.engine.status(erid) is RequestStatus.REJECTED:
                 tried.add(idx)
@@ -1387,7 +1501,7 @@ class FleetRouter:
             return False, 0
         src = self.replicas[t.src]
         if t.kind == "seed":
-            if src.state is ReplicaState.DEAD or src.engine.cache is None:
+            if src.state is ReplicaState.DEAD or not self._has_cache(src):
                 return False, 0
             return True, max(1, t.pages)
         freq = self._requests.get(t.frid)
@@ -1419,7 +1533,8 @@ class FleetRouter:
         freq = self._requests[t.frid]
         with self.tracer.span("migrate", cat="fleet", frid=t.frid,
                               src=t.src, dest=t.dest, seq=t.seq):
-            blob = export_chain(src.engine, t.erid)
+            # the export is a pure read: a blob dropped in flight is
+            # never exported
             if self.faults is not None and \
                     self.faults.drop_migration(t.seq):
                 # blob lost in flight: the source copy is already
@@ -1432,16 +1547,17 @@ class FleetRouter:
                 src.rid_map.pop(t.erid, None)
                 if not src.engine.status(t.erid).terminal:
                     src.engine.cancel(t.erid, now=now)
+                    self._share(src, t.erid)
                 freq.replica = None
                 freq.erid = None
                 freq.attempt_tokens = 0
                 remaining = None
                 if freq.deadline_at is not None:
                     remaining = freq.deadline_at - now
-                erid2 = dest.engine.submit(
+                erid2 = self._share(dest, dest.engine.submit(
                     freq.prompt, freq.max_tokens,
-                    on_token=self._wrap_on_token(freq),
-                    deadline_s=remaining, now=now, tenant=freq.tenant)
+                    on_token=self._on_token(dest, freq),
+                    deadline_s=remaining, now=now, tenant=freq.tenant))
                 if dest.engine.status(erid2) is RequestStatus.REJECTED:
                     self._dispatch(freq, now)     # full re-route
                 else:
@@ -1456,16 +1572,26 @@ class FleetRouter:
                 self.tracer.instant("migrate_fallback", cat="fleet",
                                     frid=t.frid, seq=t.seq)
                 return "done"
+            on_token = self._on_token(dest, freq)
+
+            def splice(engine, blob):
+                # a shard's bytes times the slice's ranks: the whole
+                # chain's, as one process moves it
+                return (import_chain(engine, blob, on_token=on_token,
+                                     now=now), blob.num_pages,
+                        blob.nbytes * engine.tp, len(blob.generated))
+
+            (rid2, num_pages, nbytes, n_gen), blob = self._transfer(
+                src, dest, lambda engine: export_chain(engine, t.erid),
+                splice)
+            rid2 = self._share(dest, rid2)
+            if rid2 is None:
+                return "retry"
             # the CURRENT attempt has materialized len(generated) tokens
             # — NOT freq.emitted: a handoff of a mid-replay resubmit
             # (emitted > generated) would otherwise mis-index the
             # destination's next token and forward the wrong one
-            freq.attempt_tokens = len(blob.generated)
-            rid2 = import_chain(dest.engine, blob,
-                                on_token=self._wrap_on_token(freq),
-                                now=now)
-            if rid2 is None:
-                return "retry"
+            freq.attempt_tokens = n_gen
             self._mig_pending.pop(t.frid, None)
             # unbind BEFORE cancelling so _harvest never reads the
             # source's CANCELLED as this fleet rid's terminal status
@@ -1474,13 +1600,14 @@ class FleetRouter:
                 # the source's full prefix pages stay parked in its
                 # PrefixCache (RECLAIMABLE) — still exportable as seeds
                 src.engine.cancel(t.erid, now=now)
+                self._share(src, t.erid)
             freq.replica, freq.erid = t.dest, rid2
             record_transition("request_status", str(freq.status), "running",
                               registry=self.registry)
             freq.status = RequestStatus.RUNNING
             dest.rid_map[rid2] = t.frid
-            if src.engine.host_tier is not None and \
-                    src.engine.cache is not None:
+            if blob is not None and src.engine.host_tier is not None \
+                    and src.engine.cache is not None:
                 # the chain now lives on the destination: drop any host
                 # copies the source spilled for it, so a later warm
                 # restart of the source cannot re-adopt pages the
@@ -1493,21 +1620,33 @@ class FleetRouter:
                 self._record_owner(
                     prefix_chain_hashes(freq.prompt, self._page_size()),
                     t.dest)
-            self.metrics.on_migration_applied(blob.num_pages, blob.nbytes)
+            self.metrics.on_migration_applied(num_pages, nbytes)
             record_transition("migration_transfer", "started", "applied",
                               registry=self.registry)
             self.tracer.instant("migrate_apply", cat="fleet", frid=t.frid,
                                 src=t.src, dest=t.dest,
-                                pages=blob.num_pages, bytes=blob.nbytes)
+                                pages=num_pages, bytes=nbytes)
         return "done"
 
+    def _seed(self, src: Replica, dest: Replica,
+              tokens: Sequence[int]) -> Tuple[int, int]:
+        """Seed ``dest``'s cache with ``src``'s cached prefix of
+        ``tokens``: (blocks, bytes), (0, 0) when ``src`` holds none."""
+
+        def splice(engine, blob):
+            if blob is None:
+                return 0, 0           # the owner evicted it meanwhile
+            blocks, nbytes = import_prefix(engine, blob)
+            return blocks, nbytes * engine.tp
+
+        (blocks, nbytes), _ = self._transfer(
+            src, dest, lambda engine: export_prefix(engine, tokens), splice)
+        self._share(dest)
+        return blocks, nbytes
+
     def _apply_seed(self, t: _Transfer) -> None:
-        src = self.replicas[t.src]
-        dest = self.replicas[t.dest]
-        blob = export_prefix(src.engine, t.tokens)
-        if blob is None:
-            return                    # owner evicted it meanwhile
-        blocks, nbytes = import_prefix(dest.engine, blob)
+        blocks, nbytes = self._seed(self.replicas[t.src],
+                                    self.replicas[t.dest], t.tokens)
         if blocks:
             self.metrics.on_seed(blocks, nbytes)
             self.tracer.instant("seed_apply", cat="fleet", src=t.src,
@@ -1521,23 +1660,20 @@ class FleetRouter:
         if not (self._disagg and self.migrate_budget > 0):
             return
         dest = self.replicas[freq.replica]
-        if dest.engine.cache is None:
+        if not self._has_cache(dest):
             return
         page = self._page_size()
-        best, best_len = None, dest.engine.cache.lookup(freq.prompt)[1]
+        best, best_len = None, self._hit_len(dest, freq.prompt)
         for r in self.replicas:
             if r.idx == dest.idx or r.state is ReplicaState.DEAD or \
-                    r.engine.cache is None:
+                    not self._has_cache(r):
                 continue
-            hit_len = r.engine.cache.lookup(freq.prompt)[1]
+            hit_len = self._hit_len(r, freq.prompt)
             if hit_len > best_len:
                 best, best_len = r, hit_len
         if best is None or best_len < page:
             return                    # nobody holds more than the target
-        blob = export_prefix(best.engine, freq.prompt)
-        if blob is None:
-            return
-        blocks, nbytes = import_prefix(dest.engine, blob)
+        blocks, nbytes = self._seed(best, dest, freq.prompt)
         if blocks:
             self.metrics.on_seed(blocks, nbytes)
             self.metrics.on_migration_resubmit()

@@ -262,11 +262,11 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
         [REPO / "chip_smoke.py"]
     assert len(files) > 10
     # the sixth, eighth, ninth, tenth, eleventh, twelfth, thirteenth,
-    # fourteenth and fifteenth slices' modules (parallel/, reader/,
-    # dataset/, image.py, obs/, cli.py, utils.py, the fleet, analysis/,
-    # master/, checkpoint.py, resilience/, platform/virtual.py,
-    # parallel/local_sgd.py and tools/tp_workload.py among them) are
-    # walked too
+    # fourteenth, fifteenth and sixteenth slices' modules (parallel/,
+    # reader/, dataset/, image.py, obs/, cli.py, utils.py, the fleet,
+    # analysis/, master/, checkpoint.py, resilience/, platform/virtual.py,
+    # parallel/local_sgd.py, tools/tp_workload.py, fluid/, the program
+    # verifier and tools/fluid_workload.py among them) are walked too
     names = {str(f.relative_to(REPO)) for f in files}
     assert names >= {f"paddle_tpu_torch/{m}.py" for m in (
         "models/deepfm", "models/gan", "models/vae",
@@ -305,7 +305,11 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
         "parallel/zero", "parallel/moe", "parallel/pipeline",
         "parallel/ring", "platform/virtual", "platform/device",
         "tools/parallel_workload", "parallel/local_sgd",
-        "tools/tp_workload", "serving/engine", "serving/decode_attention")}
+        "tools/tp_workload", "serving/engine", "serving/decode_attention",
+        "fluid/__init__", "fluid/framework", "fluid/ops", "fluid/backward",
+        "fluid/executor", "fluid/layers", "fluid/optimizer", "fluid/io",
+        "analysis/program_check", "analysis/diagnostics",
+        "tools/fluid_workload")}
     bad = {str(f.relative_to(REPO)): n for f in files
            for n in _imports(f) if _forbidden(n)}
     assert bad == {}
@@ -365,7 +369,14 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             " paddle_tpu_torch.platform.virtual,"
             " paddle_tpu_torch.tools.parallel_workload,"
             " paddle_tpu_torch.parallel.local_sgd,"
-            " paddle_tpu_torch.tools.tp_workload, chip_smoke; "
+            " paddle_tpu_torch.tools.tp_workload,"
+            " paddle_tpu_torch.fluid, paddle_tpu_torch.fluid.framework,"
+            " paddle_tpu_torch.fluid.ops, paddle_tpu_torch.fluid.backward,"
+            " paddle_tpu_torch.fluid.executor, paddle_tpu_torch.fluid.layers,"
+            " paddle_tpu_torch.fluid.optimizer, paddle_tpu_torch.fluid.io,"
+            " paddle_tpu_torch.analysis.program_check,"
+            " paddle_tpu_torch.analysis.diagnostics,"
+            " paddle_tpu_torch.tools.fluid_workload, chip_smoke; "
             "print(sorted(m for m in sys.modules if m in ('jax', "
             "'paddle_tpu') or m.startswith(('jax.', 'paddle_tpu.'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

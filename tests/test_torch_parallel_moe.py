@@ -13,7 +13,8 @@
   drops included) and, where nothing drops, against the dense path;
 - the MoE LM trained 2 Adam steps through ``SGD(mesh=)`` over an expert
   axis of 2 (each rank holding its two experts) against JAX's
-  ``SGD(mesh=)`` on the same axis.
+  ``SGD(mesh=)`` on the same axis, and one step on a ``data`` 2 x
+  ``expert`` 2 mesh (C10) against JAX's on that mesh.
 
 f32 in both packages (``use_bf16`` off).  Tolerances: 1e-5 on outputs
 and gradients (the einsums sum in different orders); the trainers' costs
@@ -255,6 +256,8 @@ def jax_ep():
                 top_k=c["k"], return_stats=True)
         out["lm2"] = _jax_moe_lm(
             jmake_mesh((2,), ("expert",), jax.devices()[:2]), 2)
+        out["dx"] = _jax_moe_lm(
+            jmake_mesh((2, 2), ("data", "expert"), jax.devices()[:4]), 1)
     return out
 
 
@@ -301,3 +304,18 @@ def test_moe_lm_on_an_expert_mesh_matches_jax(ranks, jax_ep, n):
     assert res[f"e{n}_local_w1"][0] == 4 // n
     for k, v in jp.items():
         assert _rel(res[f"e{n}_params"][k], v) <= PARAM_RTOL, k
+
+
+def test_moe_lm_on_a_data_by_expert_mesh_matches_jax(ranks, jax_ep):
+    """C10: ``moe_ffn`` on a mesh that splits the batch over 'data' and
+    the experts over 'expert' (2 x 2 ranks) gathers the data ranks' rows
+    and routes the global token set, as JAX's GSPMD does: one Adam step's
+    cost (cross-entropy plus the two blocks' aux costs) and the whole
+    weights after it equal JAX's ``SGD(mesh=)`` on the same mesh, on
+    every rank (the router's and experts' gradients counted once)."""
+    jl, jp = jax_ep["dx"]
+    for res in (r["moe_lm_cases"] for r in ranks):
+        np.testing.assert_allclose(res["dx_losses"], jl, rtol=COST_RTOL)
+        assert res["dx_local_w1"][0] == 2
+        for k, v in jp.items():
+            assert _rel(res["dx_params"][k], v) <= PARAM_RTOL, k

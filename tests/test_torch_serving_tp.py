@@ -17,7 +17,11 @@ side on its virtual devices, the same numpy weights in both):
 - ``FleetRouter.over_mesh_slices`` on 4 ranks at tp 2 with slice 0
   killed at tick 6: every rank's router equal, conservation, no
   duplicate completion, results and snapshot equal to JAX's fleet on 4
-  devices.
+  devices;
+- C9: the same fleet with roles (prefill and decode slices on int8
+  pages: chains and prefix seeds sent between the slices' processes
+  shard by shard, a blob dropped, the decode slice killed) and with the
+  autoscaler (its idle slice drained), every rank equal to JAX's.
 """
 
 import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
@@ -112,6 +116,16 @@ def _fleet_prompts():
     return [system + rng.randint(2, 64, size=4).tolist() for _ in range(9)]
 
 
+def _c9_waves():
+    """Three waves, each sharing a 2-page system prompt: the first and
+    the third one prompt, the second another."""
+    rng = np.random.RandomState(9)
+    first, second = (rng.randint(2, 64, size=8).tolist() for _ in "ab")
+    return [[system + rng.randint(2, 64, size=4).tolist()
+             for _ in range(n)]
+            for system, n in ((first, 4), (second, 3), (first, 2))]
+
+
 CASES = [dict(key=f"mha{tp}", tp=tp, cfg=MHA, prompts=PROMPTS)
          for tp in (1, 2, 4)] + [
     dict(key="int8", tp=2, cfg=MHA, prompts=PROMPTS,
@@ -134,7 +148,7 @@ def launched():
         chaos=dict(cfg=GQA, params=params["gqa"],
                    prompts=_prompts(11, 6, 4, 24)),
         fleet=dict(cfg=FLEET_CFG, params=params["fleet"],
-                   prompts=_fleet_prompts())))])
+                   prompts=_fleet_prompts(), waves=_c9_waves())))])
 
 
 # ---------------------------------------------------------------------------
@@ -259,7 +273,29 @@ def jax_runs(launched):
                         results=[fl.result(f) for f in frids],
                         snapshot=fl.snapshot(),
                         states=[str(r.state) for r in fl.replicas])
+    # C9's drives, the same function the ranks run
+    from paddle_tpu.serving.control import AutoscalePolicy as JPolicy
+
+    def mk_c9(i, time_fn, mesh, kv_dtype, num_pages):
+        kw = {} if kv_dtype is None else {"kv_dtype": kv_dtype}
+        return JServingEngine(fmodel, fp, eos_id=EOS, page_size=4,
+                              num_pages=num_pages, max_pages_per_seq=8,
+                              max_slots=4, buckets=(8, 16),
+                              time_fn=time_fn, mesh=mesh, **kw)
+
+    out["c9"] = R.slice_fleet_scenarios(
+        _JSlices, JManualClock, JFleetFaultPlan, JPolicy, mk_c9,
+        {"waves": _c9_waves()})
     return out
+
+
+class _JSlices:
+    """JAX's ``FleetRouter`` over the first 4 virtual devices."""
+
+    @staticmethod
+    def over_mesh_slices(mk, **kw):
+        return JFleetRouter.over_mesh_slices(mk, devices=jax.devices()[:4],
+                                             **kw)
 
 
 @pytest.fixture(scope="module")
@@ -366,6 +402,36 @@ def test_fleet_over_mesh_slices_equals_jax(ranks, jax_runs):
     assert snap["fleet_duplicate_completions"] == 0
     assert snap["fleet_completed"] >= 8
     assert snap == want["snapshot"]
+
+
+@pytest.mark.parametrize("drive", ["disagg", "autoscale"])
+def test_fleet_roles_and_autoscaler_over_mesh_slices_equal_jax(
+        ranks, jax_runs, drive):
+    """C9: over 2 slices of 2 ranks, a disaggregated fleet (prefill and
+    decode slices, int8 pages: chains and prefix seeds move between the
+    slices' processes shard by shard, blob 1 dropped in flight, the
+    decode slice killed) and an autoscaled fleet that drains its idle
+    slice: every rank's streams, statuses, results, replica states and
+    snapshot equal JAX's ``over_mesh_slices`` on 4 devices."""
+    want = jax_runs["c9"][drive]
+    for res in ranks:
+        got = res["c9"][drive]
+        for k in ("streams", "status", "results", "states", "roles",
+                  "snapshot", "autoscale"):
+            assert got[k] == want[k], (drive, k)
+    snap = want["snapshot"]
+    assert snap["fleet_duplicate_completions"] == 0
+    assert set(want["status"]) == {"completed"}
+    for got, res in zip(want["streams"], want["results"]):
+        assert got == res
+    if drive == "disagg":
+        assert want["states"] == ["ready", "dead"]
+        assert snap["fleet_migrations_applied"] >= 1
+        assert snap["fleet_migration_fallbacks"] == 1
+        assert snap["fleet_cross_replica_seeds"] >= 1
+    else:
+        assert want["states"] == ["ready", "dead"]
+        assert want["autoscale"][1] == 1 and want["autoscale"][0] == 0
 
 
 def test_engine_refuses_a_rank_outside_its_mesh(ranks):

@@ -357,6 +357,13 @@ def moe_lm_cases(rank, world, params_np, samples, steps=2):
         out[f"e{n}_losses"] = [float(sgd.step(feeds)) for _ in range(steps)]
         out[f"e{n}_params"], _ = _whole(sgd)
         out[f"e{n}_local_w1"] = tuple(sgd.parameters["blk0_moe.w1"].shape)
+    # C10: a data x expert mesh, each data rank on its half of the batch
+    mesh = make_mesh((2, 2), ("data", "expert"))
+    sgd = _lm_sgd(params_np, mesh=mesh, moe_experts=4)
+    feeds = _lm_feeds(sgd, samples)
+    out["dx_losses"] = [float(sgd.step(feeds))]
+    out["dx_params"], _ = _whole(sgd)
+    out["dx_local_w1"] = tuple(sgd.parameters["blk0_moe.w1"].shape)
     return out
 
 
@@ -550,6 +557,71 @@ def _serve_prompts(eng, prompts, max_tokens=8):
     return [res[r] for r in rids]
 
 
+def slice_fleet_drive(FleetRouter, make_engine, prompts, waves,
+                      tail_ticks=0, **kw):
+    """One drive of a fleet over 2-way mesh slices, written once for
+    both packages (``FleetRouter``/``make_engine`` are the package's):
+    each wave of ``prompts`` is submitted after ``waves``' ticks, then
+    the fleet runs to its drain and ``tail_ticks`` idle ticks more;
+    returns the streams, statuses, results, states, snapshot and the
+    autoscaler's counters."""
+    fl = FleetRouter.over_mesh_slices(make_engine, tp=2, **kw)
+    streams: Dict[int, list] = {}
+    frids = []
+    for wave, ticks in zip(prompts, waves):
+        for _ in range(ticks):
+            fl.step()
+        if callable(wave):
+            wave = wave(prompts[0], streams)
+        frids += [fl.submit(p, max_tokens=6,
+                            on_token=lambda t, i=len(frids) + j:
+                            streams.setdefault(i, []).append(t))
+                  for j, p in enumerate(wave)]
+    fl.run(max_ticks=500)
+    for _ in range(tail_ticks):
+        fl.step()
+    fl.check_fleet_conservation()
+    auto = fl.autoscaler
+    return dict(
+        streams=[streams.get(i, []) for i in range(len(frids))],
+        status=[str(fl.status(f)) for f in frids],
+        results=[fl.result(f) for f in frids],
+        states=[str(r.state) for r in fl.replicas],
+        roles=[r.role for r in fl.replicas],
+        snapshot=fl.snapshot(),
+        autoscale=None if auto is None else (
+            auto.scale_ups, auto.scale_downs, auto.replica_ticks))
+
+
+KILL_TICK, WAVE_TICKS = 14, (0, 6, 6)
+
+
+def slice_fleet_scenarios(FleetRouter, ManualClock, FleetFaultPlan,
+                          AutoscalePolicy, make_engine, fleet):
+    """C9's two drives over 2 slices of 2: a disaggregated fleet (roles
+    prefill and decode, int8 pages, blob 1 dropped in flight, three
+    waves, the decode slice killed at ``KILL_TICK``) and an autoscaled
+    unified fleet that drains its idle second slice."""
+    plan = FleetFaultPlan(seed=0, clock=ManualClock(tick_s=0.01),
+                          kill_at={KILL_TICK: 1}, drop_migration_at={1})
+    # the prefill slice's small pool evicts the first wave's parked
+    # prefix under the second wave, so the third wave's prompts are
+    # seeded from the decode slice's cache
+    disagg = slice_fleet_drive(
+        FleetRouter, lambda i, t, m: make_engine(
+            i, t, m, "int8", 12 if i == 0 else 32),
+        fleet["waves"], WAVE_TICKS, faults=plan, heartbeat_s=0.05,
+        resubmit_budget=2, roles=("prefill", "decode"), migrate_budget=8)
+    auto = slice_fleet_drive(
+        FleetRouter, lambda i, t, m: make_engine(i, t, m, None, 32),
+        fleet["waves"][:1], (0,), tail_ticks=4,
+        faults=FleetFaultPlan(seed=0, clock=ManualClock(tick_s=0.01)),
+        heartbeat_s=0.05, autoscale=AutoscalePolicy(
+            min_replicas=1, max_replicas=2, queue_wait_hi_ms=1e9,
+            cooldown_ticks=1))
+    return {"disagg": disagg, "autoscale": auto}
+
+
 def serving_tp_cases(rank, world, cases, logit_prompt, attn, cow, chaos,
                      fleet):
     """The tensor-parallel engine over a 'model' axis of each case's tp
@@ -659,6 +731,18 @@ def serving_tp_cases(rank, world, cases, logit_prompt, attn, cow, chaos,
     out["fleet_results"] = [fl.result(f) for f in frids]
     out["fleet_snapshot"] = fl.snapshot()
     out["fleet_states"] = [str(r.state) for r in fl.replicas]
+    # C9: roles, page migration and the autoscaler over the slices
+    from paddle_tpu_torch.serving.control import AutoscalePolicy
+
+    def mk_c9(i, time_fn, mesh, kv_dtype, num_pages):
+        kw = {} if kv_dtype is None else {"kv_dtype": kv_dtype}
+        return _tp_engine(model, mesh, time_fn=time_fn, num_pages=num_pages,
+                          max_pages_per_seq=8, buckets=(8, 16),
+                          prefill_chunk=None, **kw)
+
+    out["c9"] = slice_fleet_scenarios(FleetRouter, ManualClock,
+                                      FleetFaultPlan, AutoscalePolicy,
+                                      mk_c9, fleet)
     return out
 
 
