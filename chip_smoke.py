@@ -359,7 +359,35 @@ checkout of the repository).  Phases, each fatal on failure:
     ms a step (host clock), launches a step and peak memory;
 40. fluid_control: StaticRNN, cond and a reverse DynamicRNN at small
     widths, 3 SGD steps card against CPU (costs, outputs, the input's
-    gradient).
+    gradient);
+41. export (``tools/export_workload.py``): ResNet-50 at bench.py's width
+    (224 px, 1000 classes, weights from seed 0) merged on the card with a
+    symbolic batch (``export.merge_model``), loaded and run at batches 1
+    and 8, run again through the port's C ABI (``native/capi.cpp``, an
+    embedded CPython) from a C client in a subprocess, and exported as a
+    ``.ptnm`` program at batch 1 that ``native/src/aot_runtime.cpp`` runs
+    on the host in a client process with no Python (LeNet at 28 px too,
+    batch 4): merged and C ABI outputs within ``MERGE_RTOL`` of the eager
+    card forward, the ``.ptnm``'s within ``AOT_RTOL`` of the f32 one;
+    the export's seconds, the artifact's bytes, the C ABI's load seconds,
+    infer ms of merged, eager and the C ABI, the ``.ptnm``'s bytes and the
+    C runtime's host ms;
+42. native: 512 seeded LeNet samples written to two recordio files by
+    the native writer, one training pass on the card through
+    ``native.recordio_reader(window=128, seed=3)`` -> ``SGD.train``: the
+    costs equal to the bit those of the same samples fed as a list in the
+    pool's order (cuDNN held to its deterministic algorithms), the
+    records read equal to the records written;
+43. analysis: ``python -m paddle_tpu_torch.analysis lint`` and
+    ``concurrency --rule guarded-by --rule state-table`` over the tree
+    (exit 0), then the kill-partition chaos drive (3 replicas, a kill and
+    a heartbeat partition) explored on the card at a budget of 8
+    schedules: no divergence, the ragged kernel's launches counted, and
+    the drive's engine call with the most real rows (1 layer, 2 heads of
+    head dim 4 over pool rows padded to 8, pages of 4 tokens, f32)
+    launched again and held against the plain version on the same
+    tensors at 1e-4, kernel and plain timed between CUDA events beside
+    the bound.
 
 The datasets (31, 33, 39) are their seeded synthetic fallbacks: their
 downloads are refused (``v2_loop_workload.offline``), so no phase
@@ -386,7 +414,8 @@ the v2 loop's in ``paddle_tpu_torch/tools/v2_loop_workload.py``;
 the tenth slice's layer cases, SSD300 and VGG-16 in
 ``paddle_tpu_torch/tools/layer_cases.py``, ``detection_workload.py`` and
 ``vgg_workload.py``.
-The image phases, 18-22, 25, 27 and 32-40 run no hand-written kernel:
+The image phases, 18-22, 25, 27, 32-42 and 43's static gates run no
+hand-written kernel:
 no TPU kernel lies on those paths (the convs and batch norm are cuDNN's through
 PyTorch, the CTR and GAN products cuBLAS's).
 """
@@ -3782,6 +3811,17 @@ def v2_mnist(dev, card: str) -> dict:
     return res
 
 
+def export_native_analysis(dev, card: str) -> dict:
+    """export, native and analysis (``tools/export_workload.py``): one
+    line each, each fatal on its gates; returns the analysis line (its
+    drive's ragged-kernel launches and kernel check)."""
+    from paddle_tpu_torch.tools import export_workload as ew
+
+    ew.export_phase(dev, card)
+    ew.native_phase(dev, card)
+    return ew.analysis_phase(dev, card)[0]
+
+
 def fluid_phases(dev, card: str) -> None:
     """fluid_mnist and fluid_control (``tools/fluid_workload.py``): one
     line a model and a program, each fatal on its gates."""
@@ -4346,6 +4386,9 @@ def main() -> int:
     lap("v2_resnet50_mnist")
     fluid_phases(dev, card)
     lap("fluid")
+    analysed = export_native_analysis(dev, card)
+    torch.cuda.empty_cache()
+    lap("export_native_analysis")
     optimizers(dev, card)
     evaluators(dev, card)
     lap("optimizers_evaluators")
@@ -4389,6 +4432,12 @@ def main() -> int:
         # imported into a second engine, held against the plain version
         "launches_fleet": {"serve_fleet": fleet_served["launches"],
                            "serve_disagg": disagg["launches"]},
+        # the schedule explorer's kill-partition drive on the card, and
+        # one of its engine calls held against the plain version
+        "launches_analysis": analysed["b4_launches"],
+        "analysis_kernel": {k: analysed["kernel_check"][k] for k in (
+            "q", "pages", "real_rows", "max_abs_err", "ms", "timer",
+            "plain_ms", "bound_ms", "bound_by")},
         # tensor-parallel serving: each rank's launches on its head
         # shard, and its call at one step held against the plain version
         # (the shard's bytes for the bound)

@@ -15,8 +15,11 @@ checkpoints every ``--saving_period`` passes and ``--start_pass``
 resumes from one (``paddle_tpu_torch.checkpoint``), and ``--job=test``
 evaluates a checkpoint from ``--save_dir`` or a tar from
 ``--init_model_tar``.  ``master`` serves the elastic-input master
-(``paddle_tpu_torch.master``).  ``merge_model`` needs the model exporter
-of the tail slice (A13) and raises, naming it."""
+(``paddle_tpu_torch.master``).  ``merge_model`` writes the config's
+``outputs`` (else the cost's first input) with the weights of
+``--model_dir``'s checkpoint or ``--model_tar`` as one merged inference
+file (``paddle_tpu_torch.export.merge_model``), traced on ``cuda`` unless
+``--device cpu``."""
 
 from __future__ import annotations
 
@@ -24,9 +27,6 @@ import argparse
 import runpy
 import sys
 from typing import Optional
-
-_A13 = "the tail slice (A13)"
-
 
 def _load_config(path: str) -> dict:
     import paddle_tpu_torch as paddle
@@ -46,13 +46,6 @@ def _load_errors():
 
     return (OSError, tarfile.ReadError, EnforceError, EOFError, KeyError,
             ValueError)
-
-
-def _not_ported(what: str, part: str):
-    from paddle_tpu_torch.platform.enforce import EnforceError
-
-    return EnforceError(f"{what} is not ported yet: it comes with {part}",
-                        context="cli")
 
 
 def cmd_train(args) -> int:
@@ -145,7 +138,31 @@ def cmd_dump_config(args) -> int:
 
 
 def cmd_merge_model(args) -> int:
-    raise _not_ported("merge_model (the model exporter)", _A13)
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import checkpoint as ckpt
+    from paddle_tpu_torch import export as pexport
+    from paddle_tpu_torch.platform.device import resolve_device
+
+    cfg = _load_config(args.config)
+    outputs = cfg.get("outputs") or cfg["cost"].inputs[0]
+    dev = resolve_device(args.device)
+    try:
+        if args.model_dir:
+            params, _, _, _ = ckpt.load_checkpoint(args.model_dir,
+                                                   device=dev)
+        elif args.model_tar:
+            with open(args.model_tar, "rb") as f:
+                params = paddle.Parameters.from_tar(f, device=dev)
+        else:
+            print("need --model_dir or --model_tar", file=sys.stderr)
+            return 2
+    except _load_errors() as e:
+        print(f"cannot load model from "
+              f"{args.model_dir or args.model_tar}: {e}", file=sys.stderr)
+        return 2
+    pexport.merge_model(outputs, params, args.output, device=dev)
+    print(f"wrote {args.output}")
+    return 0
 
 
 def cmd_master(args) -> int:
@@ -214,6 +231,9 @@ def main(argv: Optional[list] = None) -> int:
     m.add_argument("--model_dir", default=None)
     m.add_argument("--model_tar", default=None)
     m.add_argument("--output", required=True)
+    m.add_argument("--device", default=None,
+                   help="cuda (the default) or cpu: where the program is "
+                        "traced and runs")
     m.set_defaults(fn=cmd_merge_model)
 
     s = sub.add_parser("master", help="run the elastic-input master")

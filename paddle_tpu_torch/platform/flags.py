@@ -343,6 +343,18 @@ FLAGS.define("fluid_verify", "warn",
              "'off' disables.  Runs once per (program, feed-shape) key, "
              "so steady state pays nothing.")
 
+# analysis: the concurrency auditor's schedule explorer
+FLAGS.define("conc_audit_max_schedules", 64,
+             "per-drive schedule budget for the concurrency auditor's "
+             "schedule-permutation explorer (python -m "
+             "paddle_tpu_torch.analysis concurrency): each chaos drive "
+             "replays at most this many permuted intra-tick schedules "
+             "(single-tick deltas first, then depth-2 combinations) "
+             "against its canonical fingerprint. The default explores "
+             "past the >=50-interleavings-per-drive bar the audit "
+             "documents; raise it for deeper soak runs, lower it only "
+             "for quick smoke iterations.", parser=int)
+
 # the v2 flags that no module reads (kept so configs that set them load)
 FLAGS.define("test_period", 0,
              "run the tester every N batches (0 = per pass)", parser=int)

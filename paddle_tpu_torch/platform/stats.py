@@ -42,7 +42,8 @@ def _wait_for(value) -> None:
     a list, tuple or dict of them)."""
     if isinstance(value, torch.Tensor):
         if value.is_cuda:
-            torch.cuda.synchronize(value.device)
+            # the deliberate end-of-window sync of timer(block=...)
+            torch.cuda.synchronize(value.device)  # lint: allow(host-sync)
     elif isinstance(value, dict):
         for v in value.values():
             _wait_for(v)
@@ -54,7 +55,7 @@ def _wait_for(value) -> None:
 class StatSet:
     def __init__(self):
         self._lock = threading.Lock()
-        self._entries: Dict[str, StatEntry] = {}   # guarded by _lock
+        self._entries: Dict[str, StatEntry] = {}   # guarded_by(_lock)
 
     @contextlib.contextmanager
     def timer(self, name: str, block=None):

@@ -56,18 +56,28 @@ class AsyncCheckpointer:
         self.keep = int(keep)
         # no lock: with ONE writer in flight at a time, the join() in
         # wait()/drain() is the happens-before edge for everything the
-        # writer thread touches (_error, commits, write_s, last_path)
+        # writer thread touches (_error, commits, write_s, last_path);
+        # a concurrent scrape of the counters may read a stale value,
+        # never a torn one (they are plain ints/floats)
+        # guarded_by(serialized: depth-one writer; join happens-before)
         self._thread: Optional[threading.Thread] = None
+        # guarded_by(serialized: depth-one writer; join happens-before)
         self._error: Optional[BaseException] = None
         self._buffers = ckpt.HostBuffers()
         # counters (host-side bookkeeping, read by chip_smoke and tests)
-        self.saves = 0
+        self.saves = 0   # guarded_by(serialized: training thread only)
+        # guarded_by(serialized: writer thread, join() happens-before)
         self.commits = 0
-        self.stall_s = 0.0
+        self.stall_s = 0.0   # guarded_by(serialized: training thread only)
+        # guarded_by(serialized: training thread only)
         self.snapshot_s = 0.0
+        # guarded_by(serialized: training thread only)
         self.snapshots: List[float] = []   # seconds of each snapshot
+        # guarded_by(serialized: writer thread, join() happens-before)
         self.write_s = 0.0
+        # guarded_by(serialized: writer thread, join() happens-before)
         self.last_path: Optional[str] = None
+        # guarded_by(serialized: training thread only)
         self.last_bytes = 0
 
     # ---- durability barrier ----------------------------------------------
@@ -79,9 +89,9 @@ class AsyncCheckpointer:
         only past it."""
         t = self._thread
         if t is not None:
-            t0 = time.perf_counter()
+            t0 = time.perf_counter()     # lint: allow(wall-clock)
             t.join()
-            self.stall_s += time.perf_counter() - t0
+            self.stall_s += time.perf_counter() - t0  # lint: allow(wall-clock)
             self._thread = None
         err = self._error
         if err is not None:
@@ -127,12 +137,14 @@ class AsyncCheckpointer:
         for free."""
         self.wait()
         record_transition("checkpoint_commit", "idle", "snapshot")
-        t0 = time.perf_counter()
+        # the stall and write seconds are honest wall time: they measure
+        # the host's copy and the disk, which no injected clock models
+        t0 = time.perf_counter()         # lint: allow(wall-clock)
         host = ckpt.snapshot_checkpoint(parameters, opt_state=opt_state,
                                         model_state=model_state,
                                         shard_plan=shard_plan,
                                         buffers=self._buffers)
-        dt = time.perf_counter() - t0
+        dt = time.perf_counter() - t0    # lint: allow(wall-clock)
         self.snapshot_s += dt
         self.snapshots.append(dt)
         self.stall_s += dt
@@ -141,7 +153,7 @@ class AsyncCheckpointer:
         record_transition("checkpoint_commit", "snapshot", "write")
 
         def _write() -> None:
-            w0 = time.perf_counter()
+            w0 = time.perf_counter()     # lint: allow(wall-clock)
             try:
                 path = ckpt.write_checkpoint(root, pass_id, host,
                                              extra_meta=extra_meta,
@@ -163,7 +175,7 @@ class AsyncCheckpointer:
                 record_transition("checkpoint_commit", "failed", "idle")
                 self._error = e
             finally:
-                self.write_s += time.perf_counter() - w0
+                self.write_s += time.perf_counter() - w0  # lint: allow(wall-clock)
 
         t = threading.Thread(target=_write, name="ckpt-writer", daemon=True)
         self._thread = t

@@ -600,7 +600,8 @@ def _selfcheck(device: DeviceLike = None) -> int:
                 n = plan.storm_factor(tick, tenant) if tick % 2 == 0 else 0
                 for _ in range(n):
                     fleet.submit(
-                        system + rng.randint(2, 64, size=4).tolist(),
+                        # a numpy draw: no device value is read
+                        system + rng.randint(2, 64, size=4).tolist(),  # lint: allow(host-sync)
                         max_tokens=4, tenant=tenant)
         fleet.step()
         tick += 1

@@ -68,7 +68,8 @@ holds none (:meth:`FleetRouter.over_mesh_slices
 proxy of the replica there).
 
 Not ported yet (see ROADMAP.md): the compiled-path auditors' budgets
-(``xla_*``: A13).  Passing one of those raises, naming its slice.
+(``xla_*``), which come with the jaxpr auditors, the last slice of the
+analysis package.  Passing one of those raises, naming that slice.
 """
 
 from __future__ import annotations
@@ -418,7 +419,8 @@ def _parse_buckets(spec: str) -> Tuple[int, ...]:
     return tuple(sorted(int(t) for t in spec.split(",") if t.strip()))
 
 
-_A13 = "the tail slice (A13)"
+_JAXPR_AUDITORS = ("the jaxpr auditors (retrace, xla, sharding), the last "
+                   "slice of the analysis package")
 
 
 class ServingEngine:
@@ -477,9 +479,9 @@ class ServingEngine:
                  device: DeviceLike = None):
         refuse_unported(
             "ServingEngine", "serving",
-            xla_peak_bytes=(xla_peak_bytes, None, _A13),
-            xla_flops=(xla_flops, None, _A13),
-            xla_comm_bytes=(xla_comm_bytes, None, _A13))
+            xla_peak_bytes=(xla_peak_bytes, None, _JAXPR_AUDITORS),
+            xla_flops=(xla_flops, None, _JAXPR_AUDITORS),
+            xla_comm_bytes=(xla_comm_bytes, None, _JAXPR_AUDITORS))
         self.device = resolve_device(device)
         enforce_that(model.device.type == self.device.type,
                      f"model is on {model.device}, engine on {self.device}",

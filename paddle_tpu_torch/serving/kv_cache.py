@@ -331,7 +331,9 @@ def read_pages(kv: KVPages, page_ids: Sequence[int]):
     else:
         out = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                .copy_(t, non_blocking=True) for t in src]
-        torch.cuda.current_stream(kv.k.device).synchronize()
+        # the caller reads the pinned copies on the host next (checksums,
+        # blobs): one sync a read, outside any per-element loop
+        torch.cuda.current_stream(kv.k.device).synchronize()  # lint: allow(host-sync)
     if not kv.quantized:
         out += [None, None]
     return tuple(out)
@@ -774,11 +776,17 @@ class HostPageTier:
         self.tracer = tracer
         # single-threaded by design: the engine's tick loop is the only
         # writer (spill/pump/flush/swap-in), and a warm restart's adopt()
-        # runs before the successor engine starts ticking
+        # runs before the successor engine starts ticking — the tier
+        # needs no lock, just confinement to its owning engine
+        # guarded_by(serialized: engine tick loop owns the tier)
         self._index: "OrderedDict[int, _HostPage]" = OrderedDict()
+        # guarded_by(serialized: engine tick loop owns the tier)
         self._pending: Optional[_HostPage] = None
+        # guarded_by(serialized: engine tick loop owns the tier)
         self._seq = 0
+        # guarded_by(serialized: engine tick loop owns the tier)
         self.resident_bytes = 0
+        # guarded_by(serialized: engine tick loop owns the tier)
         self.resident_by_tenant: Dict[str, int] = {}
         # ledger counters (see the class docstring for the invariant)
         self.spills = 0            # pages ever staged (swap_outs gauge)
@@ -956,6 +964,10 @@ class HostPageTier:
         restored = 0
         # the predecessor's engine is stopped at handoff: its tier has no
         # other owner left
+        # reaching into the predecessor's confined state is the POINT
+        # of adopt(): the old engine is already stopped at handoff, so
+        # its tier has no concurrent owner left
+        # lint: allow(guarded-by)
         for key in list(other._index):
             rec = other._pop(key)
             other.handed_off += 1

@@ -147,7 +147,8 @@ def accept_tokens(rows: np.ndarray, drafts: Sequence[int],
         else:
             p = warp_probs(rows[i], sampling)
             if draft_probs is not None:
-                q = np.asarray(draft_probs[i], np.float64)
+                # draft_probs is the host array of one readback a step
+                q = np.asarray(draft_probs[i], np.float64)  # lint: allow(host-sync)
             else:
                 q = np.zeros(p.shape, np.float64)
                 q[d] = 1.0
@@ -354,7 +355,9 @@ class DraftProposer(Proposer):
         return raw
 
     def _dispatch(self, rows: int, tokens, pos, valid, table, att_lens):
-        t0 = time.perf_counter()
+        # honest wall time of the draft's step (its cost to the target),
+        # which no injected clock models
+        t0 = time.perf_counter()   # lint: allow(wall-clock)
         host = [tokens.reshape(-1), pos.reshape(-1),
                 valid.reshape(-1).astype(np.int32), att_lens,
                 table.reshape(-1)]
@@ -366,7 +369,7 @@ class DraftProposer(Proposer):
                                 tab.reshape(self.max_slots, -1), att)
         out = logits.float().cpu().numpy()
         self.steps += 1
-        self.step_time_s += time.perf_counter() - t0
+        self.step_time_s += time.perf_counter() - t0  # lint: allow(wall-clock)
         return out
 
     # ---- host-side state -------------------------------------------------

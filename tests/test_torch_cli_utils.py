@@ -254,8 +254,52 @@ def test_main_exit_codes(configs, tmp_path, capsys):
                       "--job", "test", "--save_dir",
                       str(tmp_path / "empty")]) == 2
     assert "cannot load checkpoint" in capsys.readouterr().err
-    with pytest.raises(EnforceError, match="A13"):
-        tcli.main(["merge_model", "--config", conf, "--output", "x"])
+    # merge_model: no weights named, an unreadable tar (exit 2), the
+    # trained tar (exit 0)
+    merged = str(tmp_path / "merged.ptm")
+    assert tcli.main(["merge_model", "--config", conf, "--output", merged,
+                      "--device", "cpu"]) == 2
+    assert "need --model_dir or --model_tar" in capsys.readouterr().err
+    assert tcli.main(["merge_model", "--config", conf, "--output", merged,
+                      "--model_tar", str(bad), "--device", "cpu"]) == 2
+    assert "cannot load model" in capsys.readouterr().err
+    assert tcli.main(["merge_model", "--config", conf, "--output", merged,
+                      "--model_tar", tar, "--device", "cpu"]) == 0
+    assert os.path.getsize(merged) > 0
+
+
+def test_merge_model_from_a_tar_matches_the_jax_cli(configs, tmp_path):
+    """``merge_model --model_tar`` in both packages over one tar (the JAX
+    package's seed-0 weights): the port's merged model infers what JAX's
+    does, to 1e-5 (both bf16-rounded products summed in f32)."""
+    from paddle_tpu import export as jexport
+    from paddle_tpu_torch import export as texport
+
+    jcfg = jpaddle.topology.Topology(
+        [runpy_config(configs["jax"])["cost"]])
+    tar = str(tmp_path / "model.tar")
+    with open(tar, "wb") as f:
+        jpaddle.Parameters.from_topology(jcfg, seed=0).to_tar(f)
+    jout, tout = str(tmp_path / "j.ptm"), str(tmp_path / "t.ptm")
+    assert jcli.main(["merge_model", "--config", configs["jax"],
+                      "--model_tar", tar, "--output", jout]) == 0
+    assert tcli.main(["merge_model", "--config", configs["port"],
+                      "--model_tar", tar, "--output", tout,
+                      "--device", "cpu"]) == 0
+    jm, tm = jexport.load_merged_model(jout), texport.load_merged_model(tout)
+    assert tm.output_names == jm.output_names == ["logits"]
+    for b in (4, 9):
+        x = np.random.RandomState(b).randn(b, 8).astype(np.float32)
+        np.testing.assert_allclose(tm.infer({"x": x})[0],
+                                   jm.infer({"x": x})[0], atol=1e-5,
+                                   rtol=0)
+
+
+def runpy_config(path):
+    import runpy
+
+    jpaddle.topology.reset_name_scope()
+    return runpy.run_path(path)
 
 
 def test_python_dash_m_version():

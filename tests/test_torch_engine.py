@@ -262,7 +262,8 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
         [REPO / "chip_smoke.py"]
     assert len(files) > 10
     # the sixth, eighth, ninth, tenth, eleventh, twelfth, thirteenth,
-    # fourteenth, fifteenth and sixteenth slices' modules (parallel/,
+    # fourteenth, fifteenth, sixteenth and seventeenth slices' modules
+    # (export.py, native/, the linter, the analysis CLI, parallel/,
     # reader/, dataset/, image.py, obs/, cli.py, utils.py, the fleet,
     # analysis/, master/, checkpoint.py, resilience/, platform/virtual.py,
     # parallel/local_sgd.py, tools/tp_workload.py, fluid/, the program
@@ -309,7 +310,10 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
         "fluid/__init__", "fluid/framework", "fluid/ops", "fluid/backward",
         "fluid/executor", "fluid/layers", "fluid/optimizer", "fluid/io",
         "analysis/program_check", "analysis/diagnostics",
-        "tools/fluid_workload")}
+        "tools/fluid_workload", "export", "native/__init__",
+        "analysis/lint", "analysis/cli", "analysis/__main__",
+        "analysis/concurrency/guards", "analysis/concurrency/schedules",
+        "tools/export_workload")}
     bad = {str(f.relative_to(REPO)): n for f in files
            for n in _imports(f) if _forbidden(n)}
     assert bad == {}
@@ -376,7 +380,12 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             " paddle_tpu_torch.fluid.optimizer, paddle_tpu_torch.fluid.io,"
             " paddle_tpu_torch.analysis.program_check,"
             " paddle_tpu_torch.analysis.diagnostics,"
-            " paddle_tpu_torch.tools.fluid_workload, chip_smoke; "
+            " paddle_tpu_torch.tools.fluid_workload,"
+            " paddle_tpu_torch.export, paddle_tpu_torch.native,"
+            " paddle_tpu_torch.analysis.lint, paddle_tpu_torch.analysis.cli,"
+            " paddle_tpu_torch.analysis.concurrency.guards,"
+            " paddle_tpu_torch.analysis.concurrency.schedules,"
+            " paddle_tpu_torch.tools.export_workload, chip_smoke; "
             "print(sorted(m for m in sys.modules if m in ('jax', "
             "'paddle_tpu') or m.startswith(('jax.', 'paddle_tpu.'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -252,7 +252,7 @@ def test_preemption_releases_draft_state(models):
 
 
 def test_engine_arguments_of_later_slices_raise(models):
-    """The compiled-path budgets (A13) still raise; ``mesh``/``tp_axis``
+    """The compiled-path budgets (the jaxpr auditors' slice) still raise; ``mesh``/``tp_axis``
     are ported (``tests/test_torch_serving_tp.py`` holds them against
     JAX): a mesh that is not a ``Mesh`` or lacks the axis raises, and
     ``tp_axis`` alone is JAX's default."""
@@ -262,7 +262,7 @@ def test_engine_arguments_of_later_slices_raise(models):
     for kw, part in ((dict(mesh=object()), "parallel.Mesh"),
                      (dict(mesh=make_mesh((1,), ("data",))),
                       "no 'model' axis"),
-                     (dict(xla_flops=1e9), "A13"),
+                     (dict(xla_flops=1e9), "jaxpr auditors"),
                      (dict(role="router"), "prefill/decode/unified")):
         with pytest.raises(EnforceError, match=part):
             _port(tm, **kw)
